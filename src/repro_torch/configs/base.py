@@ -45,15 +45,15 @@ class FedConfig:
     agg_block_n: int = 2048
     agg_stream_dtype: str = "float32"   # or "bfloat16"; accumulation is f32
     agg_memory_budget_mb: float = 512.0
-    comm_dtype: str = "float32"    # only the identity f32 wire is ported
+    comm_dtype: str = "float32"    # float32 | bfloat16 | int8
     quant_block: int = 128
     topk_frac: float = 1.0
     stochastic_rounding: bool = False
     error_feedback: bool = False
-    async_lag: int = 0
+    async_lag: int = 0             # not ported yet
     async_staleness: str = "poly"
     async_decay: float = 0.5
-    variance_reduction: str = "none"
+    variance_reduction: str = "none"   # "scaffold": not ported yet
     state_store_backend: str = "auto"
 
     def __post_init__(self):
@@ -108,10 +108,6 @@ class FedConfig:
             raise ValueError("variance_reduction='scaffold' requires lr > 0 "
                              "(control-variate deltas divide by K*lr)")
         unported = {
-            "comm_dtype": self.comm_dtype != "float32",
-            "topk_frac": self.topk_frac < 1.0,
-            "stochastic_rounding": self.stochastic_rounding,
-            "error_feedback": self.error_feedback,
             "async_lag": self.async_lag > 0,
             "variance_reduction": self.variance_reduction == "scaffold",
             "agg_engine": self.agg_engine == "tree",

@@ -1,12 +1,15 @@
 """Server aggregation — FedHeN Alg. 1 ln. 16-22, plus NoSide and Decouple.
 
-The port of ``repro.core.aggregate``'s flat streaming engine over the dense
-f32/bf16 stream (the production fold).  :class:`StreamState` carries one
-flat f32 accumulator of *unnormalized* masked sums (plus a second one for
+The port of ``repro.core.aggregate``'s flat streaming engine (the
+production fold) on every wire.  :class:`StreamState` carries one flat f32
+accumulator of *unnormalized* masked sums (plus a second one for
 decouple).  Each trained chunk arrives packed in one contiguous
-``(Z, n_flat)`` buffer and is folded with ONE ``masked_agg_acc_`` launch
-that updates the accumulator in place (two for decouple).  Normalization
-and unpacking happen once, at :func:`streaming_finalize`.
+``(Z, n_flat)`` buffer and is folded with ONE launch that updates the
+accumulator in place (two for decouple): ``masked_agg_acc_`` (K1) on the
+f32/bf16 stream, ``masked_agg_acc_deq_`` (K2) on the int8 wire.  Delta-mode
+uploads (wire v2) arrive as a :class:`SparseChunk` and fold through
+:func:`streaming_fold_deltas`.  Normalization and unpacking happen once, at
+:func:`streaming_finalize`.
 
 **Weight contract** (the reference's): ``valid`` is a per-client
 coefficient; a weight of 0 gates the client's values before the multiply
@@ -19,8 +22,10 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.core import flatten
-from repro_torch.kernels.masked_agg.ops import masked_agg_acc_
+from repro_torch.core import comm, flatten
+from repro_torch.kernels.masked_agg.ops import (masked_agg_acc_,
+                                                masked_agg_acc_deq_,
+                                                masked_scatter_acc_)
 from repro_torch.tree import Tree
 
 ALGORITHMS = ("fedhen", "noside", "decouple")
@@ -71,16 +76,82 @@ def streaming_init(layout: flatten.FlatLayout, algorithm: str,
 
 def streaming_fold(state: StreamState, xz: torch.Tensor,
                    flat_mask: torch.Tensor, is_simple: torch.Tensor,
-                   valid: torch.Tensor, algorithm: str) -> StreamState:
+                   valid: torch.Tensor, algorithm: str, *,
+                   wire: Optional[comm.WireSpec] = None) -> StreamState:
     """Fold one packed chunk ``xz`` (``(Z, n_flat)``, f32 or bf16) into the
-    sums: one in-place ``masked_agg_acc_`` launch, two for decouple (its
-    second accumulator uses ``w_out`` on both mask branches).
+    sums: one in-place launch, two for decouple (its second accumulator
+    uses ``w_out`` on both mask branches).
 
+    An int8 ``wire`` quantizes the (f32) chunk first, as the client-side
+    encode, and folds it with the dequantizing K2; otherwise K1 folds the
+    chunk in its own dtype (the trainer streams bf16 on a bf16 wire).
     ``is_simple`` (Z,) bool; ``valid`` (Z,) bool or f32 weights."""
     w_in, w_out = _chunk_weights(is_simple, valid, algorithm)
-    masked_agg_acc_(state.acc, xz, flat_mask, w_in, w_out)
+    if wire is not None and wire.is_quantized:
+        q, scales = comm.quantize(xz, wire.quant_block)
+        fold = lambda acc, w_m: masked_agg_acc_deq_(
+            acc, q, scales, flat_mask, w_m, w_out,
+            quant_block=wire.quant_block)
+    else:
+        fold = lambda acc, w_m: masked_agg_acc_(acc, xz, flat_mask, w_m,
+                                                w_out)
+    fold(state.acc, w_in)
     if state.acc_out is not None:
-        masked_agg_acc_(state.acc_out, xz, flat_mask, w_out, w_out)
+        fold(state.acc_out, w_out)
+    return StreamState(state.acc, state.acc_out,
+                       state.tot_in + w_in.sum(), state.tot_out + w_out.sum())
+
+
+class SparseChunk(NamedTuple):
+    """One chunk's delta-mode uploads (wire v2, ``core/comm.py``).
+
+    Each client's true upload is ``base + decode(row z)``, with ``base``
+    the ``(n_flat,)`` f32 decoded broadcast the chunk trained on.  With
+    top-k, ``values``/``indices`` are the compacted ``(Z, k)`` payloads
+    (``scales`` grouped over the compacted axis, int8 only); with
+    ``indices=None`` the payload is dense ``(Z, n_flat)`` (int8 with
+    ``scales``, or bf16/f32)."""
+    base: torch.Tensor
+    values: torch.Tensor
+    scales: Optional[torch.Tensor]
+    indices: Optional[torch.Tensor]
+
+
+def _fold_sparse(acc: torch.Tensor, sp: SparseChunk,
+                 flat_mask: torch.Tensor, w_in: torch.Tensor,
+                 w_out: torch.Tensor, quant_block: int) -> None:
+    """Fold one delta-mode chunk into ``acc`` in place:
+    ``sum_z w[z] (base + d[z])`` as ``(sum_z w[z]) base + sum_z w[z] d[z]``.
+
+    The base term is ONE Z=1 K1 launch at the summed weights (the sums stay
+    on the device; base is the finite broadcast, and an all-invalid chunk
+    sums to weight 0).  The delta term is K3 for top-k payloads, K2 for
+    dense int8 ones, K1 for dense bf16/f32 ones — each gating NaN and
+    padding clients by their weight."""
+    masked_agg_acc_(acc, sp.base[None], flat_mask, w_in.sum()[None],
+                    w_out.sum()[None])
+    if sp.indices is not None:
+        masked_scatter_acc_(acc, sp.values, sp.scales, sp.indices,
+                            flat_mask, w_in, w_out, quant_block=quant_block)
+    elif sp.scales is not None:
+        masked_agg_acc_deq_(acc, sp.values, sp.scales, flat_mask, w_in,
+                            w_out, quant_block=quant_block)
+    else:
+        masked_agg_acc_(acc, sp.values, flat_mask, w_in, w_out)
+
+
+def streaming_fold_deltas(state: StreamState, sp: SparseChunk,
+                          flat_mask: torch.Tensor, is_simple: torch.Tensor,
+                          valid: torch.Tensor, algorithm: str, *,
+                          quant_block: int) -> StreamState:
+    """:func:`streaming_fold` for a delta-mode chunk: one
+    :func:`_fold_sparse` into ``acc``, a second into ``acc_out`` for
+    decouple (at ``w_out`` on both branches)."""
+    w_in, w_out = _chunk_weights(is_simple, valid, algorithm)
+    _fold_sparse(state.acc, sp, flat_mask, w_in, w_out, quant_block)
+    if state.acc_out is not None:
+        _fold_sparse(state.acc_out, sp, flat_mask, w_out, w_out,
+                     quant_block)
     return StreamState(state.acc, state.acc_out,
                        state.tot_in + w_in.sum(), state.tot_out + w_out.sum())
 

@@ -1,7 +1,7 @@
 """Federated runtime: local client training, server state, the sync round.
 
 The port of ``repro.core.federated``'s synchronous engine on the flat fold
-and the f32 wire, for the paper's three algorithms over any adapter:
+and every wire format, for the paper's three algorithms over any adapter:
 
 * ``fedhen``   — Alg. 1 + Alg. 2 (side objective on complex devices)
 * ``noside``   — Alg. 4 (same server step, no side objective)
@@ -28,18 +28,30 @@ epoch, n) -> permutation of range(n)``.  :class:`SeededSchedule` (the
 default) seeds a ``torch.Generator`` per ``(seed, round, population, slot,
 epoch)``, which keeps a round independent of how its cohort is chunked;
 tests fill the provider with the reference's own permutations.
+
+**The wire** (``core/comm.py``).  Clients train on the decoded broadcast.
+Dense uploads stream through the fold in the wire's format (bf16 through
+K1, int8 through K2).  Under wire v2 (``WireSpec.uses_deltas``) each client
+uploads the encoded delta ``d = y - x`` against the broadcast it trained
+on, plus its error-feedback row when EF is on, top-k and/or stochastically
+rounded; the fold adds the broadcast once at the summed weights and each
+encoded delta at its own (K1 + K3 for top-k).  Stochastic-rounding bits
+come from a second provider, ``bits(round, population, slot, shape)``
+(:class:`SeededBits` by default), for the same reason as the schedule.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import FedConfig
-from repro_torch.core import aggregate, comm, flatten, masking, sampling
+from repro_torch.core import (aggregate, client_state, comm, flatten, masking,
+                              sampling, state_store)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.optim.sgd import sgd_update
 from repro_torch.tree import Tree, tree_flatten, tree_leaves, tree_map, \
@@ -47,8 +59,21 @@ from repro_torch.tree import Tree, tree_flatten, tree_leaves, tree_map, \
 
 Batch = Dict[str, torch.Tensor]
 Schedule = Callable[[int, str, int, int, int], Sequence[int]]
+# bits(round, population, slot, shape) -> int64 tensor of uint32 values
+BitsProvider = Callable[[int, str, int, Tuple[int, ...]], torch.Tensor]
 
 POPULATIONS = ("simple", "complex")
+
+# the reference's fold_in tag for a client's wire-encode key ("WIRE"); here
+# it separates the default bit stream from the minibatch order
+_WIRE_TAG = 0x57495245
+
+
+def _generator(*words: int) -> torch.Generator:
+    """A CPU ``torch.Generator`` seeded from a SeedSequence of ``words``."""
+    state = np.random.SeedSequence(list(words)).generate_state(2, np.uint32)
+    seed = ((int(state[0]) << 32) | int(state[1])) & ((1 << 63) - 1)
+    return torch.Generator().manual_seed(seed)
 
 
 class SeededSchedule:
@@ -61,12 +86,26 @@ class SeededSchedule:
 
     def __call__(self, round_index: int, population: str, slot: int,
                  epoch: int, n: int) -> torch.Tensor:
-        words = np.random.SeedSequence(
-            [self.seed & sampling._SEED_MASK, round_index,
-             POPULATIONS.index(population), slot, epoch]
-        ).generate_state(2, np.uint32)
-        seed = ((int(words[0]) << 32) | int(words[1])) & ((1 << 63) - 1)
-        return torch.randperm(n, generator=torch.Generator().manual_seed(seed))
+        g = _generator(self.seed & sampling._SEED_MASK, round_index,
+                       POPULATIONS.index(population), slot, epoch)
+        return torch.randperm(n, generator=g)
+
+
+class SeededBits:
+    """Default stochastic-rounding bit provider: uint32 values (in an
+    int64 CPU tensor of ``shape``) from a CPU ``torch.Generator`` seeded by
+    ``(seed, round, population, slot)`` — one upload per client per
+    round, the same bits on every device and chunking."""
+
+    def __init__(self, seed: int):
+        self.seed = int(seed)
+
+    def __call__(self, round_index: int, population: str, slot: int,
+                 shape: Tuple[int, ...]) -> torch.Tensor:
+        g = _generator(self.seed & sampling._SEED_MASK, round_index,
+                       POPULATIONS.index(population), slot, _WIRE_TAG)
+        return torch.randint(0, 2**32, tuple(shape), dtype=torch.int64,
+                             generator=g)
 
 
 # ---------------------------------------------------------------------------
@@ -139,23 +178,100 @@ def chunk_geometry(k: int, cohort_chunk: int) -> Tuple[int, int]:
     return chunk, -(-k // chunk)
 
 
+class WireUploadCtx(NamedTuple):
+    """One population's wire-v2 upload context (active iff
+    ``WireSpec.uses_deltas``).
+
+    ``spec``: the round's wire.  ``k_top``: the population's top-k payload
+    length, ``comm.topk_count`` of its TRUE element count (a simple
+    client's delta is zero outside M, so its budget is |M|).  ``ef_rows``:
+    the cohort's gathered ``(k, n_flat)`` error-feedback residuals, or
+    ``None`` without EF.  ``bits``: the stochastic-rounding provider."""
+    spec: comm.WireSpec
+    k_top: int
+    ef_rows: Optional[torch.Tensor]
+    bits: BitsProvider
+
+
+def _encode_upload(up: WireUploadCtx, d: torch.Tensor, bits):
+    """Encode one client's delta ``d`` (``(n_flat,)`` f32): a
+    :class:`comm.SparseWireBuffer` under top-k, else a
+    :class:`comm.WireBuffer`."""
+    if up.spec.is_sparse:
+        return comm.sparse_encode(up.spec, d, up.k_top, bits=bits)
+    return comm.encode(up.spec, d, bits=bits)
+
+
+def _residual(up: WireUploadCtx, d: torch.Tensor, buf) -> torch.Tensor:
+    """``d - decode(buf)``: what the encode dropped (the new EF row)."""
+    if up.spec.is_sparse:
+        dec = comm.sparse_decode_values(up.spec, buf)
+        return d.clone().index_add_(0, buf.indices.to(torch.int64), -dec)
+    return d - comm.decode(up.spec, buf)
+
+
+def _fold_deltas(state, xz, x_flat, up: WireUploadCtx, ef_rows, slots,
+                 valid, is_simple, flat_mask, fed: FedConfig,
+                 population: str, round_index: int):
+    """Encode one chunk's uploads as deltas and fold them.
+
+    ``xz`` (Z, n_flat) f32 holds the trained clients and is overwritten
+    with their deltas ``y - x`` (+ their EF rows); ``slots[z]`` is the
+    population slot of row ``z`` (``None`` for padding, which uploads an
+    encoded zero at weight 0).  Returns ``(state, new_ef_rows)`` — the
+    residuals ``(d + r) - decode(encode(d + r))`` of the real rows, a
+    client with ``valid`` 0 keeping its old row; ``None`` without EF."""
+    spec = up.spec
+    d = xz.sub_(x_flat[None])
+    if ef_rows is not None:
+        d.add_(ef_rows)
+    bufs = []
+    for z, slot in enumerate(slots):
+        if slot is None:
+            bufs.append(_encode_upload(up, torch.zeros_like(d[z]), None))
+            continue
+        bits = (functools.partial(up.bits, round_index, population, slot)
+                if spec.stochastic else None)
+        bufs.append(_encode_upload(up, d[z], bits))
+    stack = lambda xs: None if xs[0] is None else torch.stack(xs)
+    sp = aggregate.SparseChunk(
+        x_flat, stack([b.payload for b in bufs]),
+        stack([b.scales for b in bufs]),
+        stack([b.indices for b in bufs]) if spec.is_sparse else None)
+    state = aggregate.streaming_fold_deltas(
+        state, sp, flat_mask, is_simple, valid, fed.algorithm,
+        quant_block=spec.quant_block)
+    if ef_rows is None:
+        return state, None
+    new_rows = [torch.where(valid[z], _residual(up, d[z], bufs[z]),
+                            ef_rows[z])
+                for z, slot in enumerate(slots) if slot is not None]
+    return state, new_rows
+
+
 def stream_population(state: aggregate.StreamState, src: Tree, train_fn,
                       clients: List[Batch], *, population: str,
                       round_index: int, schedule: Schedule, fed: FedConfig,
                       layout: flatten.FlatLayout, flat_mask: torch.Tensor,
-                      buffer: torch.Tensor, chunk: int, n_chunks: int):
+                      buffer: torch.Tensor, chunk: int, n_chunks: int,
+                      wire: comm.WireSpec,
+                      upload: Optional[WireUploadCtx] = None):
     """Train one population chunk by chunk and fold each chunk into the
     running sums.
 
     ``clients`` are the population's ``k`` sampled datasets in slot order;
-    slot ``i`` trains from ``src`` on ``clients[i]`` with the schedule's
-    permutations for ``(round_index, population, i, epoch)``.  Each trained
-    client is packed into row ``z`` of ``buffer[:chunk]`` (zero-padded once
-    at allocation, in the fold's stream dtype); a client whose result is
-    not all finite gets validity 0 (when ``skip_nan_devices``).
+    slot ``i`` trains from ``src`` (the decoded broadcast) on
+    ``clients[i]`` with the schedule's permutations for ``(round_index,
+    population, i, epoch)``.  Each trained client is packed into row ``z``
+    of ``buffer[:chunk]`` (zero-padded once at allocation, in the fold's
+    stream dtype); a client whose result is not all finite gets validity 0
+    (when ``skip_nan_devices``).  Dense uploads fold in the ``wire``'s
+    format; with ``upload`` (wire v2) each chunk uploads encoded deltas
+    (:func:`_fold_deltas`).
 
-    Returns ``(state, mean_loss, n_valid)`` — 0-d tensors; the mean loss
-    is normalized by ``k``."""
+    Returns ``(state, mean_loss, n_valid, ef_rows)`` — 0-d tensors; the
+    mean loss is normalized by ``k``; ``ef_rows`` is the ``(k, n_flat)``
+    updated EF residuals (``None`` without EF)."""
     k = len(clients)
     device = buffer.device
     xz = buffer[:chunk]
@@ -163,12 +279,16 @@ def stream_population(state: aggregate.StreamState, src: Tree, train_fn,
                            dtype=torch.bool, device=device)
     loss_sum = torch.zeros((), device=device)
     valid_sum = torch.zeros((), device=device)
+    x_flat = flatten.pack(layout, src) if upload is not None else None
+    ef_in = upload.ef_rows if upload is not None else None
+    ef_out = [] if ef_in is not None else None
     for t in range(n_chunks):
-        valid = []
+        valid, slots = [], []
         for z in range(chunk):
             i = t * chunk + z
             if i >= k:       # padding slot: weight 0, never trained
                 valid.append(torch.zeros((), dtype=torch.bool, device=device))
+                slots.append(None)
                 continue
             data = clients[i]
             n = tree_leaves(data)[0].shape[0]
@@ -179,12 +299,27 @@ def stream_population(state: aggregate.StreamState, src: Tree, train_fn,
             valid.append(masking.tree_isfinite(trained)
                          if fed.skip_nan_devices
                          else torch.ones((), dtype=torch.bool, device=device))
+            slots.append(i)
             loss_sum = loss_sum + loss
         valid = torch.stack(valid)
-        state = aggregate.streaming_fold(state, xz, flat_mask, is_simple,
-                                         valid, fed.algorithm)
+        if upload is None:
+            state = aggregate.streaming_fold(state, xz, flat_mask, is_simple,
+                                             valid, fed.algorithm, wire=wire)
+        else:
+            ef_chunk = None
+            if ef_in is not None:   # padding rows carry a zero residual
+                ef_chunk = ef_in[t * chunk:(t + 1) * chunk]
+                if ef_chunk.shape[0] < chunk:
+                    ef_chunk = torch.cat([ef_chunk, ef_chunk.new_zeros(
+                        (chunk - ef_chunk.shape[0], ef_chunk.shape[1]))])
+            state, rows = _fold_deltas(state, xz, x_flat, upload, ef_chunk,
+                                       slots, valid, is_simple, flat_mask,
+                                       fed, population, round_index)
+            if ef_out is not None:
+                ef_out.extend(rows)
         valid_sum = valid_sum + valid.sum()
-    return state, loss_sum / k, valid_sum
+    ef_rows = torch.stack(ef_out) if ef_out is not None else None
+    return state, loss_sum / k, valid_sum, ef_rows
 
 
 # ---------------------------------------------------------------------------
@@ -207,13 +342,15 @@ class FederatedTrainer:
     ``device`` defaults to ``"cuda"`` and raises without a CUDA device;
     ``"cpu"`` runs every kernel's plain version.  ``generator`` draws the
     initial params (default: seeded with ``fed.seed``); ``schedule`` is the
-    minibatch-order provider (default :class:`SeededSchedule`).
+    minibatch-order provider (default :class:`SeededSchedule`); ``bits``
+    the stochastic-rounding provider (default :class:`SeededBits`).
     """
 
     def __init__(self, adapter, fed: FedConfig, client_data: List[Batch], *,
                  device: DeviceLike = "cuda",
                  generator: Optional[torch.Generator] = None,
-                 schedule: Optional[Schedule] = None):
+                 schedule: Optional[Schedule] = None,
+                 bits: Optional[BitsProvider] = None):
         fed.validate()
         self.adapter = adapter
         self.fed = fed
@@ -224,6 +361,7 @@ class FederatedTrainer:
             n_devices=fed.n_devices, n_simple=fed.n_simple,
             participation=fed.participation, seed=fed.seed,
             uniform=fed.sample_uniform)
+        self.client_state = client_state.ClientStateMatrix(fed.n_devices)
         if generator is None:
             generator = torch.Generator().manual_seed(fed.seed)
         self.server = ServerState(complex=adapter.init(generator, self.device))
@@ -241,9 +379,30 @@ class FederatedTrainer:
                                   topk_frac=fed.topk_frac,
                                   stochastic=fed.stochastic_rounding,
                                   error_feedback=fed.error_feedback)
-        self.stream_dtype = getattr(torch, fed.agg_stream_dtype)
+        # the stream buffer's dtype: deltas and the int8 encode need the
+        # f32 result; a bf16 wire streams bf16
+        if self.wire.uses_deltas or self.wire.is_quantized:
+            self.stream_dtype = torch.float32
+        elif not self.wire.is_identity:
+            self.stream_dtype = self.wire.payload_dtype
+        else:
+            self.stream_dtype = getattr(torch, fed.agg_stream_dtype)
         self.schedule = schedule if schedule is not None \
             else SeededSchedule(fed.seed)
+        self.bits = bits if bits is not None else SeededBits(fed.seed)
+        # wire-v2 error-feedback residuals: one packed row per client
+        self.ef_store: Optional[state_store.FlatStateStore] = None
+        if fed.error_feedback:
+            self.ef_store = state_store.FlatStateStore(
+                fed.n_devices, self.layout.n_flat,
+                backend=fed.state_store_backend, device=self.device)
+        # top-k payload lengths (a simple client's delta is zero outside M)
+        self.k_top_simple = self.k_top_complex = 0
+        if self.wire.uses_deltas:
+            self.k_top_simple = comm.topk_count(self.wire,
+                                                int(self.flat_mask.sum()))
+            self.k_top_complex = comm.topk_count(self.wire,
+                                                 self.layout.n_params)
         self.cohort_chunk = self._resolve_cohort_chunk()
         (self.bytes_down_per_round,
          self.bytes_up_per_round) = self._measured_comm_bytes()
@@ -265,10 +424,18 @@ class FederatedTrainer:
     def _resolve_cohort_chunk(self) -> int:
         fed = self.fed
         if fed.cohort_chunk == "auto":
+            # budget the stream as the wire ships it (the reference's rule)
+            wire, qb = self.wire, 0
+            if wire.is_quantized:
+                dtype, qb = torch.int8, wire.quant_block
+            elif not wire.is_identity:
+                dtype = wire.payload_dtype
+            else:
+                dtype = getattr(torch, fed.agg_stream_dtype)
             return flatten.auto_cohort_chunk(
                 self.layout, budget_bytes=fed.agg_memory_budget_mb * 2**20,
-                k=max(self.k_simple, self.k_complex),
-                stream_dtype=self.stream_dtype)
+                k=max(self.k_simple, self.k_complex), stream_dtype=dtype,
+                quant_block=qb)
         return int(fed.cohort_chunk)
 
     def _geometry(self) -> Tuple[Tuple[int, int], Tuple[int, int]]:
@@ -279,16 +446,21 @@ class FederatedTrainer:
 
     def _measured_comm_bytes(self) -> Tuple[float, float]:
         """(download, upload) bytes per round, measured from the wire
-        encoder's output for the true element counts: complex devices
-        exchange the whole model, simple devices only M.  Alignment padding
+        encoders' output for the true element counts: complex devices
+        exchange the whole model, simple devices only M; uploads under
+        top-k are the compacted index + value buffers.  Alignment padding
         is never billed."""
         n_m = int(self.flat_mask.sum())
-        self.per_complex_bytes = comm.wire_bytes(self.wire,
-                                                 self.layout.n_params)
+        n = self.layout.n_params
+        self.per_complex_bytes = comm.wire_bytes(self.wire, n)
         self.per_simple_bytes = comm.wire_bytes(self.wire, n_m)
-        one_way = float(self.k_simple * self.per_simple_bytes
-                        + self.k_complex * self.per_complex_bytes)
-        return one_way, one_way
+        self.per_complex_bytes_up = comm.wire_bytes_up(self.wire, n)
+        self.per_simple_bytes_up = comm.wire_bytes_up(self.wire, n_m)
+        down = float(self.k_simple * self.per_simple_bytes
+                     + self.k_complex * self.per_complex_bytes)
+        up = float(self.k_simple * self.per_simple_bytes_up
+                   + self.k_complex * self.per_complex_bytes_up)
+        return down, up
 
     def analytic_bytes_per_round(self) -> float:
         """Param counts x itemsize, down + up — the consistency oracle for
@@ -303,9 +475,36 @@ class FederatedTrainer:
 
     # -- the round -----------------------------------------------------------
 
+    def _upload(self, k_top: int, ids) -> Optional[WireUploadCtx]:
+        """One population's wire-v2 context (its EF rows gathered), or
+        ``None`` on a dense-upload wire."""
+        if not self.wire.uses_deltas:
+            return None
+        rows = self.ef_store.gather(ids) if self.ef_store is not None \
+            else None
+        return WireUploadCtx(self.wire, k_top, rows, self.bits)
+
+    def _apply_ef_update(self, plan: sampling.CohortPlan, rows_s,
+                         rows_c) -> None:
+        """Write one round's EF residuals back for REAL slots only (pad
+        slots wrap real clients' ids) and record each row's L2 norm in the
+        client-state matrix's ``ef_scale`` column."""
+        for ids, real, rows in ((plan.simple_ids, plan.simple_real, rows_s),
+                                (plan.complex_ids, plan.complex_real,
+                                 rows_c)):
+            real = np.asarray(real, bool)
+            if not real.any():
+                continue
+            ids = np.asarray(ids, np.int64)[real]
+            rows = rows[torch.from_numpy(real).to(rows.device)]
+            self.ef_store.scatter(ids, rows)
+            self.client_state.set_ef_scale(ids, torch.linalg.vector_norm(
+                rows.to(torch.float64), dim=1).cpu().numpy())
+
     def run_round(self) -> Dict[str, float]:
         fed = self.fed
         plan = self.sampler.plan(self.server.round)
+        # clients train on the DECODED broadcast
         bc_complex = comm.broadcast_roundtrip(self.wire, self.layout,
                                               self.server.complex)
         src_simple = (comm.broadcast_roundtrip(self.wire, self.layout,
@@ -316,17 +515,24 @@ class FederatedTrainer:
         (chunk_s, n_s), (chunk_c, n_c) = self._geometry()
         common = dict(round_index=self.server.round, schedule=self.schedule,
                       fed=fed, layout=self.layout, flat_mask=self.flat_mask,
-                      buffer=self._buffer)
-        state, loss_s, valid_s = stream_population(
+                      buffer=self._buffer, wire=self.wire)
+        state, loss_s, valid_s, ef_s = stream_population(
             state, src_simple, self.train_simple,
             [self.client_data[i] for i in plan.simple_ids],
-            population="simple", chunk=chunk_s, n_chunks=n_s, **common)
-        state, loss_c, valid_c = stream_population(
+            population="simple", chunk=chunk_s, n_chunks=n_s,
+            upload=self._upload(self.k_top_simple, plan.simple_ids),
+            **common)
+        state, loss_c, valid_c, ef_c = stream_population(
             state, bc_complex, self.train_complex,
             [self.client_data[i] for i in plan.complex_ids],
-            population="complex", chunk=chunk_c, n_chunks=n_c, **common)
+            population="complex", chunk=chunk_c, n_chunks=n_c,
+            upload=self._upload(self.k_top_complex, plan.complex_ids),
+            **common)
         new_complex, new_simple_host = aggregate.streaming_finalize(
             state, self.layout, self.flat_mask, fed.algorithm)
+        if self.ef_store is not None:
+            self._apply_ef_update(plan, ef_s, ef_c)
+        self.client_state.record_round(plan.real_ids(), plan.round_index)
         self.server = ServerState(complex=new_complex,
                                   simple_host=new_simple_host,
                                   round=self.server.round + 1)

@@ -71,9 +71,15 @@ class FlatLayout:
                       dtype_name(s.dtype)) for s in self.slots])
         return hashlib.sha1(desc.encode()).hexdigest()[:16]
 
-    def stream_bytes(self, dtype: torch.dtype = torch.float32) -> int:
-        """Bytes one packed client occupies at the given stream dtype."""
-        return self.n_flat * torch.empty((), dtype=dtype).element_size()
+    def stream_bytes(self, dtype: torch.dtype = torch.float32, *,
+                     quant_block: int = 0) -> int:
+        """Bytes one packed client occupies at the given stream dtype, with
+        the f32 scale sidecar (one scale per ``quant_block`` elements) of
+        an int8 wire."""
+        n = self.n_flat * torch.empty((), dtype=dtype).element_size()
+        if quant_block and dtype == torch.int8:
+            n += (self.n_flat // quant_block) * 4
+        return n
 
 
 def _round_up(n: int, m: int) -> int:
@@ -178,10 +184,13 @@ CLIENT_FOOTPRINT_MULTIPLIER = 6.0
 
 def auto_cohort_chunk(layout: FlatLayout, *, budget_bytes: float, k: int,
                       stream_dtype: torch.dtype = torch.float32,
+                      quant_block: int = 0,
                       multiplier: float = CLIENT_FOOTPRINT_MULTIPLIER) -> int:
     """Largest chunk whose per-client footprint x chunk fits the budget:
-    ``clamp(budget / per_client, 1, k)``."""
+    ``clamp(budget / per_client, 1, k)``.  An int8 wire's scale sidecar
+    (``quant_block``) is part of the stream copy."""
     per_client = (layout.stream_bytes(torch.float32) * (multiplier - 1.0)
-                  + layout.stream_bytes(stream_dtype))
+                  + layout.stream_bytes(stream_dtype,
+                                        quant_block=quant_block))
     chunk = int(budget_bytes // max(per_client, 1.0))
     return max(1, min(chunk, max(k, 1)))

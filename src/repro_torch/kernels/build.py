@@ -1,12 +1,13 @@
 """Build and load the port's hand-written CUDA kernel library.
 
-The library is one ``.cu`` file with a plain C interface, compiled by
-``nvcc`` for Hopper (``sm_90a``) into a shared library and loaded with
-``ctypes`` — no PyTorch headers, so a build takes seconds.  It is built at
-first use, from the sources in the checkout only, into ``_build/`` next to
-this file (listed in ``.gitignore``); the library is named by a hash of
-its source and flags, so an edited source is rebuilt and a stale build is
-never loaded.
+Every ``kernels/*/csrc/*.cu`` source has a plain C interface.  Each is
+compiled by its own ``nvcc`` process for Hopper (``sm_90a``), all started
+together, and the objects are linked by one more ``nvcc`` into ONE shared
+library loaded with ``ctypes`` — no PyTorch headers, so a build takes
+seconds.  It is built at first use, from the sources in the checkout only,
+into ``_build/`` next to this file (listed in ``.gitignore``); the library
+is named by a hash of every source and the flags, so an edited source is
+rebuilt and a stale build is never loaded.
 
 Nothing here runs at import: the CPU tests import every module, and the
 CPU has neither ``nvcc`` nor a card.
@@ -21,20 +22,26 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import NamedTuple
+from typing import List, NamedTuple
 
 _HERE = Path(__file__).resolve().parent
 BUILD_DIR = _HERE / "_build"
-SOURCE = _HERE / "masked_agg" / "csrc" / "masked_agg_acc.cu"
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                        "-Xptxas", "-v", "-c")
+LINK_FLAGS = ARCH + ("-shared",)
 
 
 class BuildResult(NamedTuple):
     path: Path
     seconds: float     # 0.0 when an earlier build of the same hash was found
     log: str           # nvcc's output (ptxas register/spill report)
+
+
+def sources() -> List[Path]:
+    """Every kernel source of the port, in a fixed order."""
+    return sorted(_HERE.glob("*/csrc/*.cu"))
 
 
 def _nvcc() -> str:
@@ -45,26 +52,50 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
+def _digest(srcs: List[Path]) -> str:
+    h = hashlib.sha1(repr((COMPILE_FLAGS, LINK_FLAGS)).encode())
+    for src in srcs:
+        h.update(str(src.relative_to(_HERE)).encode() + b"\0")
+        h.update(src.read_bytes() + b"\0")
+    return h.hexdigest()[:12]
+
+
 def build() -> BuildResult:
-    """Build the library unless a build of this source exists.  Raises
-    with nvcc's output if the build fails."""
-    digest = hashlib.sha1(SOURCE.read_bytes() + repr(NVCC_FLAGS).encode())
-    target = BUILD_DIR / f"libmasked_agg_{digest.hexdigest()[:12]}.so"
+    """Build the library unless a build of these sources exists.  Raises
+    with nvcc's output if any step fails."""
+    srcs = sources()
+    target = BUILD_DIR / f"libkernels_{_digest(srcs)}.so"
     if target.exists():
         return BuildResult(target, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"kernel build failed (nvcc exit "
-                           f"{proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, target)          # atomic: concurrent builds agree
-    return BuildResult(target, time.perf_counter() - t0, proc.stdout)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [Path(work) / f"{i}_{src.stem}.o" for i, src in
+                enumerate(srcs)]
+        procs = [subprocess.Popen([nvcc, *COMPILE_FLAGS, "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(srcs, objs)]
+        logs, failed = [], []
+        for src, proc in zip(srcs, procs):
+            out, _ = proc.communicate()
+            logs.append(f"== {src.name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(f"{src.name} (nvcc exit {proc.returncode})")
+        if failed:
+            raise RuntimeError("kernel build failed: " + ", ".join(failed)
+                               + "\n" + "\n".join(logs))
+        tmp = Path(work) / target.name
+        link = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp),
+                               *map(str, objs)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"kernel link failed (nvcc exit "
+                               f"{link.returncode}):\n{link.stdout}")
+        os.replace(tmp, target)          # atomic: concurrent builds agree
+    return BuildResult(target, time.perf_counter() - t0,
+                       "\n".join(logs) + link.stdout)
 
 
 def load() -> ctypes.CDLL:

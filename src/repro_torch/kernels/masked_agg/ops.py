@@ -1,25 +1,39 @@
-"""Wrapper of the masked cohort fold kernel (``csrc/masked_agg_acc.cu``).
+"""Wrappers of the masked fold kernels (``csrc/*.cu``).
 
-``masked_agg_acc_`` replaces the reference's
-``repro.kernels.masked_agg.kernel.masked_agg_acc_pallas``: it folds a
-``(Z, N)`` chunk into the f32 accumulator in place.  On CPU tensors it runs
-the plain version (``ref.masked_agg_acc_ref``); on CUDA tensors it launches
-the kernel or raises — there is no fallback.  ``masked_agg_acc_.launches``
-counts kernel launches (never plain-version calls), so a run can show that
-its folds went through the kernel.
+Each replaces one function of the reference's
+``repro.kernels.masked_agg.kernel`` and updates the f32 accumulator in
+place:
+
+* ``masked_agg_acc_`` (K1, ``masked_agg_acc_pallas``): a dense f32/bf16
+  ``(Z, N)`` chunk;
+* ``masked_agg_acc_deq_`` (K2, ``masked_agg_acc_deq_pallas``): an int8
+  ``(Z, N)`` payload with per-group f32 scales, dequantized in registers;
+* ``masked_scatter_acc_`` (K3, ``masked_scatter_acc_pallas``): top-k
+  ``(Z, k)`` payloads scattered at their int32 indices.
+
+On CPU tensors each runs its plain version (``ref.py``); on CUDA tensors it
+launches its kernel or raises — there is no fallback.  Each wrapper's
+``launches`` counts its kernel launches (never plain-version calls), so a
+run can show that its folds went through the kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.masked_agg.ref import masked_agg_acc_ref
+from repro_torch.kernels.masked_agg.ref import (masked_agg_acc_deq_ref,
+                                                masked_agg_acc_ref,
+                                                masked_scatter_acc_ref)
 
 _X_DTYPES = (torch.float32, torch.bfloat16)
+# value kinds of the scatter kernel's C interface
+_VALUE_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_MAX_SCATTER_ROWS = 6144     # the row bounds fill 48 KB of shared memory
 
 
 @functools.lru_cache(maxsize=None)
@@ -30,35 +44,63 @@ def _lib() -> ctypes.CDLL:
                                    ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                                    ptr]
     lib.masked_agg_acc.restype = ctypes.c_int
+    lib.masked_agg_acc_deq.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr,
+                                       ctypes.c_int64, ctypes.c_int64,
+                                       ctypes.c_int, ctypes.c_int, ptr]
+    lib.masked_agg_acc_deq.restype = ctypes.c_int
+    lib.masked_scatter_acc_launch.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ptr]
+    lib.masked_scatter_acc_launch.restype = ctypes.c_int
     lib.masked_agg_error_string.argtypes = [ctypes.c_int]
     lib.masked_agg_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(acc, x, mask, w_m, w_rest) -> None:
-    if acc.dtype != torch.float32:
-        raise ValueError(f"accumulator must be f32, got {acc.dtype}")
-    if acc.dim() != 1 or x.dim() != 2 or x.shape[1] != acc.shape[0]:
-        raise ValueError(f"need acc (N,) and x (Z, N), got {tuple(acc.shape)}"
-                         f" and {tuple(x.shape)}")
-    if x.dtype not in _X_DTYPES:
-        raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
+def _check_common(acc, mask, w_m, w_rest, z: int, *others) -> None:
+    """The checks every fold shares: acc (N,) f32, mask (N,) bool, weights
+    (Z,) f32, and every tensor contiguous on one cpu or cuda device."""
+    if acc.dtype != torch.float32 or acc.dim() != 1:
+        raise ValueError(f"accumulator must be f32 (N,), got {acc.dtype} "
+                         f"{tuple(acc.shape)}")
     if mask.dtype != torch.bool or tuple(mask.shape) != tuple(acc.shape):
         raise ValueError(f"mask must be bool (N,), got {mask.dtype} "
                          f"{tuple(mask.shape)}")
-    z = x.shape[0]
     for name, w in (("w_m", w_m), ("w_rest", w_rest)):
         if w.dtype != torch.float32 or tuple(w.shape) != (z,):
             raise ValueError(f"{name} must be f32 ({z},), got {w.dtype} "
                              f"{tuple(w.shape)}")
-    tensors = (acc, x, mask, w_m, w_rest)
+    tensors = (acc, mask, w_m, w_rest) + others
     if len({t.device for t in tensors}) != 1:
-        raise ValueError("acc, x, mask, w_m and w_rest must share a device, "
-                         f"got {[str(t.device) for t in tensors]}")
+        raise ValueError("all inputs must share a device, got "
+                         f"{[str(t.device) for t in tensors]}")
     if acc.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {acc.device}")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("acc, x, mask, w_m and w_rest must be contiguous")
+        raise ValueError("all inputs must be contiguous")
+
+
+def _check(acc, x, mask, w_m, w_rest) -> None:
+    if x.dim() != 2 or acc.dim() != 1 or x.shape[1] != acc.shape[0]:
+        raise ValueError(f"need acc (N,) and x (Z, N), got {tuple(acc.shape)}"
+                         f" and {tuple(x.shape)}")
+    if x.dtype not in _X_DTYPES:
+        raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
+    _check_common(acc, mask, w_m, w_rest, x.shape[0], x)
+
+
+def _log2_quant_block(quant_block: int) -> int:
+    if quant_block <= 0 or quant_block > 128 or \
+            quant_block & (quant_block - 1):
+        raise ValueError(f"quant_block must be a power of two in 1..128, "
+                         f"got {quant_block}")
+    return quant_block.bit_length() - 1
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err:
+        msg = _lib().masked_agg_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({err})")
 
 
 def masked_agg_acc_(acc: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
@@ -86,11 +128,126 @@ def masked_agg_acc_(acc: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
                                  w_rest.data_ptr(), z, n,
                                  int(x.dtype == torch.bfloat16), int(vec4),
                                  stream)
-    if err:
-        msg = lib.masked_agg_error_string(err).decode()
-        raise RuntimeError(f"masked_agg_acc launch failed: {msg} ({err})")
+    _raise_on(err, "masked_agg_acc")
     masked_agg_acc_.launches += 1
     return acc
 
 
 masked_agg_acc_.launches = 0
+
+
+def masked_agg_acc_deq_(acc: torch.Tensor, q: torch.Tensor,
+                        scales: torch.Tensor, mask: torch.Tensor,
+                        w_m: torch.Tensor, w_rest: torch.Tensor, *,
+                        quant_block: int) -> torch.Tensor:
+    """``acc[n] += sum_z gate(q[z, n] * scales[z, n // quant_block]) *
+    (mask[n] ? w_m[z] : w_rest[z])``, in place; returns ``acc``.
+
+    acc (N,) f32; q (Z, N) int8 with N a multiple of ``quant_block`` (a
+    power of two up to 128); scales (Z, N / quant_block) f32; mask (N,)
+    bool; w_m, w_rest (Z,) f32 — all contiguous, on one device.  A NaN
+    scale row at weight 0 is gated out.  Launches on the current stream
+    and does not synchronise."""
+    log2_qb = _log2_quant_block(quant_block)
+    if q.dtype != torch.int8 or q.dim() != 2 or acc.dim() != 1 \
+            or q.shape[1] != acc.shape[0]:
+        raise ValueError(f"need acc (N,) and int8 q (Z, N), got "
+                         f"{tuple(acc.shape)} and {q.dtype} "
+                         f"{tuple(q.shape)}")
+    z, n = q.shape
+    if n % quant_block:
+        raise ValueError(f"N={n} not a multiple of quant_block="
+                         f"{quant_block}")
+    if scales.dtype != torch.float32 or \
+            tuple(scales.shape) != (z, n // quant_block):
+        raise ValueError(f"scales must be f32 {(z, n // quant_block)}, got "
+                         f"{scales.dtype} {tuple(scales.shape)}")
+    _check_common(acc, mask, w_m, w_rest, z, q, scales)
+    if acc.device.type == "cpu":
+        return acc.copy_(masked_agg_acc_deq_ref(
+            acc, q, scales, mask, w_m, w_rest, quant_block=quant_block))
+    if z == 0 or n == 0:
+        return acc
+    lib = _lib()
+    vec16 = (n % 16 == 0 and acc.data_ptr() % 16 == 0
+             and q.data_ptr() % 16 == 0 and mask.data_ptr() % 16 == 0)
+    with torch.cuda.device(acc.device):
+        stream = torch.cuda.current_stream(acc.device).cuda_stream
+        err = lib.masked_agg_acc_deq(acc.data_ptr(), q.data_ptr(),
+                                     scales.data_ptr(), mask.data_ptr(),
+                                     w_m.data_ptr(), w_rest.data_ptr(), z, n,
+                                     log2_qb, int(vec16), stream)
+    _raise_on(err, "masked_agg_acc_deq")
+    masked_agg_acc_deq_.launches += 1
+    return acc
+
+
+masked_agg_acc_deq_.launches = 0
+
+
+def masked_scatter_acc_(acc: torch.Tensor, values: torch.Tensor,
+                        scales: Optional[torch.Tensor],
+                        indices: torch.Tensor, mask: torch.Tensor,
+                        w_m: torch.Tensor, w_rest: torch.Tensor, *,
+                        quant_block: int) -> torch.Tensor:
+    """Scatter-fold top-k payloads into ``acc`` in place; returns ``acc``.
+
+    Row by row in z order (rows whose two weights are both 0 are dropped):
+    ``acc[p] += gate(v * s) * w`` for each entry ``j`` of row ``z``, with
+    ``p = indices[z, j]``, ``v = values[z, j]``, ``s = scales[z, j //
+    quant_block]`` (1 without scales) and ``w = mask[p] ? w_m[z] :
+    w_rest[z]``.
+
+    acc (N,) f32; values (Z, k) int8, bf16 or f32; scales (Z, k /
+    quant_block) f32 or ``None``; indices (Z, k) int32; mask (N,) bool;
+    w_m, w_rest (Z,) f32 — all contiguous, on one device.  **Index
+    contract** (what ``comm.sparse_encode`` ships, and not checked here:
+    that would cost a host sync per fold): each row's indices are
+    distinct, sorted ascending and inside ``[0, N)``.  The kernel finds a
+    row's entries by binary search and drops any entry outside the span
+    it searched, so a broken contract gives a wrong sum, never a write out
+    of bounds.  Launches on the current stream and does not synchronise."""
+    log2_qb = _log2_quant_block(quant_block)
+    if values.dim() != 2 or values.dtype not in _VALUE_KINDS:
+        raise ValueError(f"values must be (Z, k) int8, bf16 or f32, got "
+                         f"{values.dtype} {tuple(values.shape)}")
+    z, k = values.shape
+    if k % quant_block:
+        raise ValueError(f"k={k} not a multiple of quant_block="
+                         f"{quant_block}")
+    if indices.dtype != torch.int32 or tuple(indices.shape) != (z, k):
+        raise ValueError(f"indices must be int32 {(z, k)}, got "
+                         f"{indices.dtype} {tuple(indices.shape)}")
+    extra = (values, indices)
+    if scales is not None:
+        if scales.dtype != torch.float32 or \
+                tuple(scales.shape) != (z, k // quant_block):
+            raise ValueError(f"scales must be f32 {(z, k // quant_block)}, "
+                             f"got {scales.dtype} {tuple(scales.shape)}")
+        extra += (scales,)
+    _check_common(acc, mask, w_m, w_rest, z, *extra)
+    n = acc.shape[0]
+    if n >= 2**31 or z > _MAX_SCATTER_ROWS:
+        raise ValueError(f"N={n} or Z={z} beyond the kernel's range "
+                         f"(N < 2**31, Z <= {_MAX_SCATTER_ROWS})")
+    if acc.device.type == "cpu":
+        return acc.copy_(masked_scatter_acc_ref(
+            acc, values, scales, indices, mask, w_m, w_rest,
+            quant_block=quant_block))
+    if z == 0 or k == 0 or n == 0:
+        return acc
+    lib = _lib()
+    with torch.cuda.device(acc.device):
+        stream = torch.cuda.current_stream(acc.device).cuda_stream
+        err = lib.masked_scatter_acc_launch(
+            acc.data_ptr(), values.data_ptr(),
+            None if scales is None else scales.data_ptr(),
+            indices.data_ptr(), mask.data_ptr(), w_m.data_ptr(),
+            w_rest.data_ptr(), z, k, n, log2_qb,
+            _VALUE_KINDS[values.dtype], stream)
+    _raise_on(err, "masked_scatter_acc")
+    masked_scatter_acc_.launches += 1
+    return acc
+
+
+masked_scatter_acc_.launches = 0

@@ -3,8 +3,10 @@
 Builds the smoke configuration of ``chip_smoke.py`` (full-width
 PreActResNet18-GN, 100 clients of 500 synthetic CIFAR images, 5 simple +
 5 complex per round, batch 50, one local epoch), runs one warm-up round,
-then traces one round of each algorithm with ``torch.profiler`` (device
-activity only, so the host is barely slowed) and prints per round: the
+then traces one round of each algorithm on the f32 wire and one fedhen
+round on the compressed wire (:data:`COMPRESSED`) with ``torch.profiler``
+(device activity only, so the host is barely slowed) and prints per
+round: the
 traced round's wall time, its device busy time (the sum of its kernel
 times) and idle share, both taken from that one round; the wall time of a
 further, untraced round beside them; the time by layer; and the kernels
@@ -29,10 +31,22 @@ from repro_torch.core.federated import FederatedTrainer
 from repro_torch.data.federated import iid_split
 from repro_torch.data.synthetic import synthetic_cifar
 
+# the compressed wire of BENCH_comm.json's int8+ef+topk point
+# (benchmarks/comm_savings.py): int8, top-k 1/14, stochastic rounding, EF
+COMPRESSED = dict(comm_dtype="int8", topk_frac=1 / 14,
+                  stochastic_rounding=True, error_feedback=True)
+RUNS = (("fedhen", {}), ("noside", {}), ("decouple", {}),
+        ("fedhen", COMPRESSED))
+
 # kernel-name fragments -> the layer they belong to (first match wins);
 # cuDNN's FFT convolutions run as fft / region_transform / complex-GEMM,
-# PyTorch's GroupNorm as moments / fused-params / gradient kernels
-LAYERS = (("masked_agg", "fold (K1)"),
+# PyTorch's GroupNorm as moments / fused-params / gradient kernels; the
+# wire's top-k is a radix sort plus gathers and scatters of indices
+LAYERS = (("masked_agg_acc_deq", "fold (K2)"),
+          ("masked_scatter_acc", "fold (K3)"),
+          ("masked_agg", "fold (K1)"),
+          ("RadixSort", "top-k sort"), ("radix", "top-k sort"),
+          ("index", "indexing"), ("Memcpy", "memcpy"),
           ("group_norm", "groupnorm"), ("GroupNorm", "groupnorm"),
           ("RowwiseMoments", "groupnorm"), ("FusedParams", "groupnorm"),
           ("ComputeInternalGradients", "groupnorm"),
@@ -83,7 +97,12 @@ def profile_round(trainer: FederatedTrainer) -> dict:
         by_layer[_layer(name)] += s
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1])
     other = [kv for kv in ranked if _layer(kv[0]) == "other"][:TOP]
-    return {"algorithm": trainer.fed.algorithm, "traced_wall_s": wall,
+    return {"algorithm": trainer.fed.algorithm,
+            "wire": trainer.fed.comm_dtype
+            + ("+topk+sr+ef" if trainer.wire.uses_deltas else ""),
+            "ef_backend": (trainer.ef_store.backend
+                           if trainer.ef_store is not None else None),
+            "traced_wall_s": wall,
             "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
             "untraced_wall_s": timed_round(trainer),
             "by_layer_s": dict(sorted(by_layer.items(),
@@ -94,15 +113,17 @@ def profile_round(trainer: FederatedTrainer) -> dict:
 def main():
     shards = iid_split(synthetic_cifar(50_000, 10, seed=0), 100, seed=1)
     rows = []
-    for algo in ("fedhen", "noside", "decouple"):
+    for algo, wire in RUNS:
         fed = FedConfig(n_devices=100, n_simple=50, participation=0.1,
                         local_epochs=1, batch_size=50, lr=0.1,
-                        algorithm=algo)
+                        algorithm=algo, **wire)
         trainer = FederatedTrainer(ResNetAdapter(10), fed, shards)
         timed_round(trainer)         # warm-up: cuDNN plans, allocator
         row = profile_round(trainer)
         rows.append(row)
-        print(f"{algo}: traced round {row['traced_wall_s']:.3f} s, device "
+        print(f"{algo} on the {row['wire']} wire (EF store: "
+              f"{row['ef_backend']}): traced round "
+              f"{row['traced_wall_s']:.3f} s, device "
               f"busy {row['device_busy_s']:.3f} s, idle share "
               f"{row['idle_share']:.3f}; untraced round "
               f"{row['untraced_wall_s']:.3f} s", flush=True)

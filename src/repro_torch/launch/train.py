@@ -5,10 +5,15 @@ CIFAR-shaped data, on the card by default.  Takes the flags of
 ``repro.launch.train`` that the port supports so far, plus ``--device``;
 argparse rejects every other flag.
 
-Example (on a machine with a CUDA card):
+Examples (on a machine with a CUDA card):
     PYTHONPATH=src python -m repro_torch.launch.train --model resnet \
         --algorithm fedhen --rounds 20 --clients 100 --participation 0.1 \
         --data-points 50000 --local-epochs 1 --eval-every 5
+    # the compressed wire: int8 + top-k 1/14 + stochastic rounding + EF
+    PYTHONPATH=src python -m repro_torch.launch.train --model resnet \
+        --rounds 20 --clients 100 --data-points 50000 --local-epochs 1 \
+        --comm-dtype int8 --topk-frac 0.0714 --stochastic-rounding \
+        --error-feedback
 """
 
 from __future__ import annotations
@@ -34,7 +39,12 @@ def build_trainer(args) -> tuple:
         seed=args.seed, cohort_chunk=args.cohort_chunk,
         agg_block_n=args.agg_block_n,
         agg_stream_dtype=args.agg_stream_dtype,
-        agg_memory_budget_mb=args.agg_memory_budget_mb)
+        agg_memory_budget_mb=args.agg_memory_budget_mb,
+        comm_dtype=args.comm_dtype, quant_block=args.quant_block,
+        topk_frac=args.topk_frac,
+        stochastic_rounding=args.stochastic_rounding,
+        error_feedback=args.error_feedback,
+        state_store_backend=args.state_store_backend)
     data = synthetic_cifar(args.data_points, 10, seed=args.seed)
     test_batch = synthetic_cifar(512, 10, seed=args.seed + 999)
     split = (fed_data.iid_split if fed.iid else
@@ -74,6 +84,33 @@ def build_parser() -> argparse.ArgumentParser:
                          "(accumulation is always f32)")
     ap.add_argument("--agg-memory-budget-mb", type=float, default=512.0,
                     help="memory budget targeted by --cohort-chunk auto")
+    ap.add_argument("--comm-dtype", default="float32",
+                    choices=("float32", "bfloat16", "int8"),
+                    help="wire format: clients train on the decoded "
+                         "broadcast and uploads are folded through it (int8 "
+                         "= symmetric per-group quantization with f32 "
+                         "scales, dequantized inside the fold)")
+    ap.add_argument("--quant-block", type=int, default=128,
+                    help="int8 wire scale-group size (elements per f32 "
+                         "scale; must divide 128)")
+    ap.add_argument("--topk-frac", type=float, default=1.0,
+                    help="upload only the top-k largest-|x| entries of each "
+                         "client's delta against its broadcast (k = frac * "
+                         "element count, rounded up to a multiple of 128); "
+                         "1.0 = dense uploads")
+    ap.add_argument("--stochastic-rounding", action="store_true",
+                    help="unbiased stochastic rounding of lossy upload "
+                         "encodes (int8/bf16), seeded per client per round; "
+                         "broadcasts stay round-to-nearest")
+    ap.add_argument("--error-feedback", action="store_true",
+                    help="keep each client's upload compression error in a "
+                         "flat state-store row and add it to its next "
+                         "upload; needs a lossy upload (bf16/int8 wire or "
+                         "--topk-frac < 1)")
+    ap.add_argument("--state-store-backend", default="auto",
+                    choices=("auto", "device", "host", "mmap"),
+                    help="where the (clients, n_flat) error-feedback rows "
+                         "live; 'auto' picks by footprint")
     ap.add_argument("--local-epochs", type=int, default=5)
     ap.add_argument("--lr", type=float, default=0.1)
     ap.add_argument("--batch-size", type=int, default=50)
@@ -96,8 +133,12 @@ def main(argv=None):
                           log=lambda line: print(line, flush=True))
     dt = time.time() - t0
     print(f"\n{args.algorithm}: {args.rounds} rounds in {dt:.1f}s "
-          f"({trainer.total_bytes / 1e6:.1f} MB communicated) on "
-          f"{trainer.device}")
+          f"({trainer.total_bytes / 1e6:.1f} MB communicated: "
+          f"{trainer.total_bytes_down / 1e6:.1f} down, "
+          f"{trainer.total_bytes_up / 1e6:.1f} up) on {trainer.device}")
+    if trainer.ef_store is not None:
+        print(f"error-feedback store: {trainer.ef_store.backend} backend, "
+              f"{trainer.ef_store.nbytes / 1e6:.1f} MB")
     if args.target_simple:
         r = rounds_to_target(history, "acc_simple", args.target_simple)
         print(f"rounds to simple acc {args.target_simple}: {r}")

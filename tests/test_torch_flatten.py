@@ -133,9 +133,14 @@ def test_auto_cohort_chunk_matches_reference():
     layout = flatten.build_layout(p, total_multiple=2048)
     ref_layout = ref_flatten.build_layout(pn, total_multiple=2048)
     for budget in (1e5, 1e6, 1e9):
-        for dt, rdt in ((torch.float32, jnp.float32),
-                        (torch.bfloat16, jnp.bfloat16)):
+        for dt, rdt, qb in ((torch.float32, jnp.float32, 0),
+                            (torch.bfloat16, jnp.bfloat16, 0),
+                            (torch.int8, jnp.int8, 32)):
             assert flatten.auto_cohort_chunk(
-                layout, budget_bytes=budget, k=7, stream_dtype=dt) == \
+                layout, budget_bytes=budget, k=7, stream_dtype=dt,
+                quant_block=qb) == \
                 ref_flatten.auto_cohort_chunk(
-                    ref_layout, budget_bytes=budget, k=7, stream_dtype=rdt)
+                    ref_layout, budget_bytes=budget, k=7, stream_dtype=rdt,
+                    quant_block=qb)
+            assert layout.stream_bytes(dt, quant_block=qb) == \
+                ref_layout.stream_bytes(rdt, quant_block=qb)

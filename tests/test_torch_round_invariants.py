@@ -78,6 +78,37 @@ def test_nan_client_is_excluded():
                for x in tree_leaves(t.server.complex))
 
 
+@pytest.mark.parametrize("wire", [
+    dict(comm_dtype="int8"),
+    dict(comm_dtype="bfloat16", stochastic_rounding=True,
+         error_feedback=True),
+    dict(comm_dtype="int8", topk_frac=1 / 14, stochastic_rounding=True,
+         error_feedback=True)])
+def test_nan_client_is_excluded_on_a_lossy_wire_and_keeps_its_ef_row(wire):
+    shards = make_shards()
+    shards[3] = dict(shards[3])
+    shards[3]["images"] = np.full_like(shards[3]["images"], np.nan)
+    t = _port(shards, **wire)
+    assert t.run_round()["n_valid"] == 3.0
+    assert all(bool(torch.isfinite(x).all())
+               for x in tree_leaves(t.server.complex))
+    if t.ef_store is not None:
+        rows = t.ef_store.gather(np.arange(4))
+        assert not rows[3].any()             # the NaN client's row stays 0
+        assert all(bool(rows[i].any()) for i in range(3))
+        assert t.client_state.column("ef_scale")[3] == 0.0
+
+
+def test_compressed_trainer_runs_on_cuda_unless_asked(monkeypatch):
+    fed = FedConfig(**dict(ROUND, comm_dtype="int8", topk_frac=1 / 14,
+                           stochastic_rounding=True, error_feedback=True))
+    assert FederatedTrainer(ResNetAdapter(10, NARROW), fed, make_shards(),
+                            device="cpu").device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FederatedTrainer(ResNetAdapter(10, NARROW), fed, make_shards())
+
+
 def test_trainer_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -88,10 +119,23 @@ def test_trainer_raises_without_cuda(monkeypatch):
 def test_train_cli_rejects_unported_flags_and_needs_a_device(monkeypatch):
     from repro_torch.launch import train
     with pytest.raises(SystemExit):
-        train.build_parser().parse_args(["--comm-dtype", "int8"])
+        train.build_parser().parse_args(["--async-lag", "2"])
     with pytest.raises(SystemExit):
         train.build_parser().parse_args(["--model", "lm"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--rounds", "0", "--clients", "4", "--data-points",
                     "8"])
+
+
+@pytest.mark.parametrize("wire", [dict(), dict(comm_dtype="bfloat16"),
+                                  dict(comm_dtype="int8", quant_block=32),
+                                  dict(comm_dtype="bfloat16", topk_frac=0.1),
+                                  dict(topk_frac=0.1,
+                                       agg_stream_dtype="bfloat16")])
+def test_auto_cohort_chunk_budgets_the_wire_as_the_reference(wire):
+    from test_torch_round import make_pair
+    kw = dict(ROUND, n_devices=8, n_simple=4, cohort_chunk="auto",
+              agg_memory_budget_mb=2.4e6 / 2**20, **wire)
+    port, ref = make_pair(make_shards(32, 8), **kw)
+    assert port.cohort_chunk == ref.cohort_chunk
