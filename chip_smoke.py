@@ -24,18 +24,30 @@ which raises on failure:
    K3 (top-k scatter fold) at k = 798,208 and 48,384 (the complex and
    simple populations' top-k 1/14), indices colliding across rows, for
    int8 payloads with scales and for bf16;
+   K4 (one-shot masked fold of the tree engine), bitwise, f32 and bf16
+   with a NaN row at weight 0 and a zero-weight row: each of the model's
+   59 leaves as a strided view of the (5, 11,175,936) chunk buffer with
+   the leaf's own mask, the whole buffer at a per-element random mask,
+   and a ragged N = 1,000,003; timed on the largest leaf and as the whole
+   59-launch tree fold;
 4. the main path: ``FederatedTrainer`` + ``ResNetAdapter`` (full-width
    PreActResNet18-GN) on ``synthetic_cifar``, the paper's federated
    setting cut to ``local_epochs=1`` and 512 test images: on the f32
    wire 2 rounds of fedhen, 1 of noside, 1 of decouple; on the int8 wire
    2 rounds of fedhen; on the compressed wire (int8, top-k 1/14,
    stochastic rounding, error feedback) 2 rounds of fedhen and 1 of
-   decouple — evaluating after each, with each kernel's launch count
-   checked against the folds and the measured bytes per round against
-   the wire's;
+   decouple; on the tree engine 2 rounds of fedhen and 1 of decouple;
+   SCAFFOLD 2 fedhen rounds on the flat engine and 1 on the tree engine
+   (its cv store's backend printed); 1 fedhen round with uniform cohort
+   sampling — evaluating after each, with each kernel's launch count
+   (counted from 0 for each run) checked against the folds and the
+   bytes billed each round against the wire's (for uniform sampling,
+   the plan's realised clients);
 5. one narrow fedhen round on the card against the same round on the CPU,
    on the f32 wire and on the compressed wire (one CPU-drawn bit provider
-   for both; the lossy-wire rules of ``repro_torch.parity``).
+   for both; the lossy-wire rules of ``repro_torch.parity``), and two
+   narrow fedhen rounds on the tree engine with SCAFFOLD (server params,
+   ``cv_global`` and the cv rows at rtol 1e-4, atol 1e-5).
 
 The second-to-last line is one JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``.
@@ -61,21 +73,36 @@ K_COMPLEX = 798_208          # topk_count at 1/14 of 11,173,461 params
 K_SIMPLE = 48_384            # ... and of |M| = 676,171
 TOL = 1e-5                   # x max|acc|: K1 contracts to FMA, the plain
                              # version rounds the product and the sum apart
-                             # (K2 and K3 round as the plain version does)
+                             # (K2, K3 and K4 round as the plain version
+                             # does, and are held bitwise)
 F32_PEAK = 67e12             # H100 SXM f32 (non-tensor-core) flop/s
 COMPRESSED = dict(comm_dtype="int8", topk_frac=1 / 14,
                   stochastic_rounding=True, error_feedback=True)
-# (wire, algorithm, rounds, config, launches per round of K1, K2, K3)
-RUNS = (("f32", "fedhen", 2, {}, (2, 0, 0)),
-        ("f32", "noside", 1, {}, (2, 0, 0)),
-        ("f32", "decouple", 1, {}, (4, 0, 0)),
-        ("int8", "fedhen", 2, dict(comm_dtype="int8"), (0, 2, 0)),
-        ("compressed", "fedhen", 2, COMPRESSED, (2, 0, 2)),
-        ("compressed", "decouple", 1, COMPRESSED, (4, 0, 4)))
+TREE = dict(agg_engine="tree")
+SCAFFOLD = dict(variance_reduction="scaffold")
 # bytes per round (down + up) at the smoke configuration, from the wire's
-# closed forms: 5 simple clients exchange |M|, 5 complex ones every param
-BYTES_PER_ROUND = {"f32": 473_985_280, "int8": 122_199_360,
-                   "compressed": 82_396_760}
+# closed forms: 5 simple clients exchange |M|, 5 complex ones every param;
+# SCAFFOLD adds the raw f32 cv exchange both ways, doubling the f32 wire
+F32_BYTES = 473_985_280
+PER_SIMPLE_F32 = 2 * 2_704_684       # down + up of |M| = 676,171 in f32
+PER_COMPLEX_F32 = 2 * 44_693_844     # ... of all 11,173,461 params
+# (label, algorithm, rounds, config, launches per round of K1, K2, K3, K4,
+#  bytes per round; None: the plan's realised clients decide)
+RUNS = (("f32", "fedhen", 2, {}, (2, 0, 0, 0), F32_BYTES),
+        ("f32", "noside", 1, {}, (2, 0, 0, 0), F32_BYTES),
+        ("f32", "decouple", 1, {}, (4, 0, 0, 0), F32_BYTES),
+        ("int8", "fedhen", 2, dict(comm_dtype="int8"), (0, 2, 0, 0),
+         122_199_360),
+        ("compressed", "fedhen", 2, COMPRESSED, (2, 0, 2, 0), 82_396_760),
+        ("compressed", "decouple", 1, COMPRESSED, (4, 0, 4, 0), 82_396_760),
+        ("tree f32", "fedhen", 2, TREE, (0, 0, 0, 118), F32_BYTES),
+        ("tree f32", "decouple", 1, TREE, (0, 0, 0, 118), F32_BYTES),
+        ("flat f32 scaffold", "fedhen", 2, SCAFFOLD, (4, 0, 0, 0),
+         2 * F32_BYTES),
+        ("tree f32 scaffold", "fedhen", 1, dict(TREE, **SCAFFOLD),
+         (2, 0, 0, 118), 2 * F32_BYTES),
+        ("flat f32 uniform", "fedhen", 1, dict(sample_uniform=True),
+         (2, 0, 0, 0), None))
 
 
 def memory_rate(name: str) -> tuple:
@@ -113,9 +140,9 @@ def fold_inputs(torch, n: int, dtype, seed: int):
     return acc, x, mask, w_m, w_rest
 
 
-def main_path_mask(torch):
-    """The flat index-set-M mask of full-width PreActResNet18-GN, as the
-    trainer builds it (n_flat = N_MAIN)."""
+def main_path_layout(torch):
+    """The flat layout of full-width PreActResNet18-GN and its index-set-M
+    mask on the card, as the trainer builds them (n_flat = N_MAIN)."""
     from repro_torch.core import flatten
     from repro_torch.core.adapters import ResNetAdapter
     adapter = ResNetAdapter(10)
@@ -123,7 +150,8 @@ def main_path_mask(torch):
     layout = flatten.build_layout(params, total_multiple=2048)
     if layout.n_flat != N_MAIN:
         raise RuntimeError(f"n_flat {layout.n_flat} != {N_MAIN}")
-    return flatten.pack_mask(layout, adapter.subnet_mask(params), "cuda")
+    return layout, flatten.pack_mask(layout, adapter.subnet_mask(params),
+                                     "cuda")
 
 
 def time_fold(torch, ops, ref, bw: float, mask, dtype, population: str,
@@ -186,7 +214,7 @@ def check_masked_agg(torch, ops, ref, bw: float) -> dict:
         ops.masked_agg_acc_(acc, x, mask, w_m, w_rest)
         worst = max(worst, _check(torch, "masked_agg_acc", label, acc, want,
                                   n))
-    mask = main_path_mask(torch)
+    mask = main_path_layout(torch)[1]
     timing = [time_fold(torch, ops, ref, bw, mask, dtype, population, z)
               for population, dtype, z in (
                   ("complex", torch.float32, Z),
@@ -337,14 +365,93 @@ def check_scatter(torch, ops, ref, bw: float, mask) -> dict:
     return {"max_abs_err": worst, "timing": timing}
 
 
+def check_tree_fold(torch, ops, ref, bw: float) -> dict:
+    """Phase 3, K4: bitwise against its plain version, f32 and bf16 at
+    Z = 5 with a NaN row at weight 0 and a zero-weight row: every one of
+    the model's 59 leaves as the tree engine hands it over (a strided view
+    of the (5, N_MAIN) chunk buffer, the leaf's own mask), the whole
+    buffer at a per-element random mask, and a ragged N.  Then the main
+    path's timings: the largest leaf, and the whole 59-launch fold."""
+    from repro_torch.core import flatten
+    from repro_torch.tree import tree_leaves, tree_map
+    layout, flat_mask = main_path_layout(torch)
+    leaf_masks = flatten.unpack(layout, flat_mask, cast=False)
+    worst, checked = 0.0, 0
+
+    def same(label, got, want):
+        nonlocal worst, checked
+        torch.cuda.synchronize()
+        if got.dtype != want.dtype or not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"masked_agg {label}: dtype or non-finite")
+        diff = float((got.float() - want.float()).abs().max()) \
+            if got.numel() else 0.0
+        worst, checked = max(worst, diff), checked + 1
+        if diff != 0.0:
+            raise RuntimeError(f"masked_agg {label}: max|diff| {diff} != 0")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        _, x, mask, w_m, w_rest = fold_inputs(torch, N_MAIN, dtype, seed=11)
+        stacked = flatten.unpack_stacked(layout, x)
+        for i, (leaf, m) in enumerate(zip(tree_leaves(stacked),
+                                          tree_leaves(leaf_masks))):
+            rows = leaf.reshape(Z, -1)
+            same(f"{name} leaf {i}", ops.masked_agg_(rows, m.reshape(-1),
+                                                     w_m, w_rest),
+                 ref.masked_agg_ref(rows, m.reshape(-1), w_m, w_rest))
+        same(f"{name} whole buffer, random mask",
+             ops.masked_agg_(x, mask, w_m, w_rest),
+             ref.masked_agg_ref(x, mask, w_m, w_rest))
+        _, x, mask, w_m, w_rest = fold_inputs(torch, N_RAGGED, dtype,
+                                              seed=12)
+        same(f"{name} ragged", ops.masked_agg_(x, mask, w_m, w_rest),
+             ref.masked_agg_ref(x, mask, w_m, w_rest))
+    print(f"  masked_agg: {checked} cases (59 leaves as strided views, the "
+          f"whole buffer, N={N_RAGGED:,}; f32 and bf16) bitwise equal to "
+          f"the plain version, max|diff| {worst}", flush=True)
+    # the main path's fold: f32 rows, complex clients (weight 1 both sides)
+    g = torch.Generator(device="cuda").manual_seed(13)
+    x = torch.randn((Z, N_MAIN), generator=g, device="cuda")
+    ones = torch.ones((Z,), device="cuda")
+    stacked = flatten.unpack_stacked(layout, x)
+    sizes = [s.size for s in layout.slots]
+    big = max(range(len(sizes)), key=sizes.__getitem__)
+    rows = tree_leaves(stacked)[big].reshape(Z, -1)
+    m = tree_leaves(leaf_masks)[big].reshape(-1)
+    n_big = sizes[big]
+    leaf = _timed(torch, "masked_agg", f"largest leaf f32 Z={Z} "
+                  f"N={n_big:,} (strided rows)",
+                  lambda: ops.masked_agg_(rows, m, ones, ones),
+                  lambda: ref.masked_agg_ref(rows, m, ones, ones),
+                  Z * 4 * n_big + n_big + 4 * n_big, 2 * Z * n_big, bw)
+    n_all = sum(sizes)
+    tree = _timed(torch, "masked_agg", f"tree fold, {len(sizes)} launches, "
+                  f"f32 Z={Z} N={n_all:,}",
+                  lambda: ops.masked_agg_tree(stacked, leaf_masks, ones,
+                                              ones),
+                  lambda: tree_map(lambda xl, ml: ref.masked_agg_ref(
+                      xl.reshape(Z, -1), ml.reshape(-1), ones, ones),
+                      stacked, leaf_masks),
+                  Z * 4 * n_all + n_all + 4 * n_all, 2 * Z * n_all, bw)
+    leaf["N"], tree["N"], tree["launches"] = n_big, n_all, len(sizes)
+    return {"max_abs_err": worst, "timing": [leaf, tree]}
+
+
 def _counts(ops) -> tuple:
     return (ops.masked_agg_acc_.launches, ops.masked_agg_acc_deq_.launches,
-            ops.masked_scatter_acc_.launches)
+            ops.masked_scatter_acc_.launches, ops.masked_agg_.launches)
+
+
+def _zero_counts(ops) -> None:
+    for fn in (ops.masked_agg_acc_, ops.masked_agg_acc_deq_,
+               ops.masked_scatter_acc_, ops.masked_agg_):
+        fn.launches = 0
 
 
 def main_path(torch, ops) -> dict:
     """Phase 4: the port's round at full width, through its entry points,
-    on every wire."""
+    on every wire, both engines, SCAFFOLD and uniform sampling.  Each
+    run's kernel launches are counted from 0 and checked per round."""
     from repro_torch.configs.base import FedConfig
     from repro_torch.core.adapters import ResNetAdapter
     from repro_torch.core.federated import FederatedTrainer
@@ -359,57 +466,66 @@ def main_path(torch, ops) -> dict:
     print(f"  data: 50,000 images over 100 clients in "
           f"{time.perf_counter() - t0:.1f} s (set-up)", flush=True)
     out = {"rounds": []}
-    ops.masked_agg_acc_.launches = 0
-    ops.masked_agg_acc_deq_.launches = 0
-    ops.masked_scatter_acc_.launches = 0
-    for wire, algo, rounds, cfg, per_round in RUNS:
+    total = (0, 0, 0, 0)
+    for label, algo, rounds, cfg, per_round, per_round_bytes in RUNS:
         fed = FedConfig(n_devices=100, n_simple=50, participation=0.1,
                         local_epochs=1, batch_size=50, lr=0.1,
                         algorithm=algo, **cfg)
         trainer = FederatedTrainer(ResNetAdapter(10), fed, shards,
                                    device="cuda")
-        ef = trainer.ef_store
-        before = _counts(ops)
+        stores = {name: f"{st.backend} {st.nbytes / 1e9:.2f} GB"
+                  for name, st in (("ef", trainer.ef_store),
+                                   ("cv", trainer.cv_store))
+                  if st is not None}
+        _zero_counts(ops)
         for _ in range(rounds):
+            plan = trainer.sampler.plan(trainer.server.round)
+            billed = trainer.total_bytes
             torch.cuda.synchronize()
             t = time.perf_counter()
             m = trainer.run_round()
             torch.cuda.synchronize()
             dt = time.perf_counter() - t
+            billed = trainer.total_bytes - billed
             ev = trainer.evaluate(test)
-            row = {"wire": wire, "algorithm": algo,
+            n_real = plan.n_real_simple + plan.n_real_complex
+            row = {"run": label, "algorithm": algo,
                    "round": trainer.server.round, "round_s": dt,
-                   "ef_backend": ef.backend if ef is not None else None,
+                   "stores": stores, "realised_clients": n_real,
+                   "bytes": billed,
                    **m, **{k: ev[k] for k in ("acc_simple", "acc_complex",
                                               "mbytes_down", "mbytes_up")}}
             print("  " + json.dumps(row), flush=True)
             if not (math.isfinite(m["loss_simple"])
                     and math.isfinite(m["loss_complex"])):
-                raise RuntimeError(f"{wire} {algo}: non-finite loss {m}")
-            if m["n_valid"] != trainer.k_simple + trainer.k_complex:
-                raise RuntimeError(f"{wire} {algo}: n_valid {m['n_valid']}")
+                raise RuntimeError(f"{label} {algo}: non-finite loss {m}")
+            if m["n_valid"] != n_real:
+                raise RuntimeError(f"{label} {algo}: n_valid {m['n_valid']}"
+                                   f", {n_real} clients realised")
+            want = per_round_bytes
+            if want is None:        # uniform: only realised clients pay
+                want = (plan.n_real_simple * PER_SIMPLE_F32
+                        + plan.n_real_complex * PER_COMPLEX_F32)
+            if billed != want:
+                raise RuntimeError(f"{label} {algo}: {billed} bytes billed, "
+                                   f"expected {want}")
             out["rounds"].append(row)
-        launched = tuple(a - b for a, b in zip(_counts(ops), before))
+        launched = _counts(ops)
         expected = tuple(rounds * n for n in per_round)
-        print(f"  {wire} {algo}: launches K1/K2/K3 {launched} over {rounds} "
-              f"round(s), expected {expected}; bytes per round "
+        print(f"  {label} {algo}: launches K1/K2/K3/K4 {launched} over "
+              f"{rounds} round(s), expected {expected}; bytes per round "
               f"{trainer.bytes_per_round:,.0f} (down "
               f"{trainer.bytes_down_per_round:,.0f}, up "
-              f"{trainer.bytes_up_per_round:,.0f}), expected "
-              f"{BYTES_PER_ROUND[wire]:,}; EF store "
-              f"{ef.backend + f' {ef.nbytes / 1e9:.2f} GB' if ef else None}",
+              f"{trainer.bytes_up_per_round:,.0f}); stores {stores}",
               flush=True)
         if launched != expected:
-            raise RuntimeError(f"{wire} {algo}: launches {launched}, "
+            raise RuntimeError(f"{label} {algo}: launches {launched}, "
                                f"expected {expected}")
-        if trainer.bytes_per_round != BYTES_PER_ROUND[wire]:
-            raise RuntimeError(f"{wire}: {trainer.bytes_per_round} bytes "
-                               f"per round, expected "
-                               f"{BYTES_PER_ROUND[wire]}")
+        total = tuple(a + b for a, b in zip(total, launched))
         del trainer
-    out["launches"] = _counts(ops)
+    out["launches"] = total
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    print(f"  main path launches K1/K2/K3 {out['launches']}; peak memory "
+    print(f"  main path launches K1/K2/K3/K4 {total}; peak memory "
           f"{out['peak_gib']:.2f} GiB", flush=True)
     return out
 
@@ -468,6 +584,34 @@ def card_vs_cpu(torch) -> None:
             if abs(results["card"][0][key] - results["cpu"][0][key]) > 1e-5:
                 raise RuntimeError(f"{wire}: card and CPU {key} disagree "
                                    f"beyond 1e-5")
+    # two tree-engine SCAFFOLD rounds: the second trains with c != 0
+    fed = FedConfig(n_devices=4, n_simple=2, participation=1.0,
+                    local_epochs=1, batch_size=4, algorithm="fedhen",
+                    agg_engine="tree", variance_reduction="scaffold")
+    runs = {}
+    for side, dev in (("card", "cuda"), ("cpu", "cpu")):
+        t = FederatedTrainer(ResNetAdapter(10, (8, 16, 16, 16)), fed,
+                             shards, device=dev)
+        metrics = [t.run_round() for _ in range(2)]
+        runs[side] = (metrics, flatten.pack(t.layout, t.server.complex).cpu(),
+                      t.cv_global.cpu(), t.cv_store.gather(range(4)).cpu())
+    worst = 0.0
+    for what, a, b in zip(("server params", "cv_global", "cv rows"),
+                          runs["card"][1:], runs["cpu"][1:]):
+        excess = float(((a - b).abs() - (1e-5 + 1e-4 * b.abs())).max())
+        worst = max(worst, float((a - b).abs().max()))
+        if excess > 0:
+            raise RuntimeError(f"tree SCAFFOLD {what}: card and CPU differ "
+                               f"beyond rtol 1e-4 / atol 1e-5")
+    for mc, mp in zip(*(runs[k][0] for k in ("card", "cpu"))):
+        for key in ("loss_simple", "loss_complex"):
+            if abs(mc[key] - mp[key]) > 1e-5:
+                raise RuntimeError(f"tree SCAFFOLD: card and CPU {key} "
+                                   f"disagree beyond 1e-5")
+    print(f"  two narrow tree-engine SCAFFOLD fedhen rounds, card vs CPU: "
+          f"server params, cv_global and cv rows within rtol 1e-4 / atol "
+          f"1e-5 (max abs {worst:.3e}); losses card {runs['card'][0]} cpu "
+          f"{runs['cpu'][0]}", flush=True)
 
 
 def main() -> int:
@@ -505,9 +649,10 @@ def main() -> int:
     # 3. the kernels against their plain versions
     print("[3] kernels vs plain PyTorch on the card", flush=True)
     k1 = check_masked_agg(torch, ops, ref, bw)
-    mask = main_path_mask(torch)
+    mask = main_path_layout(torch)[1]
     k2 = check_deq(torch, ops, ref, bw, mask)
     k3 = check_scatter(torch, ops, ref, bw, mask)
+    k4 = check_tree_fold(torch, ops, ref, bw)
     # 4. main path
     print("[4] main path: full-width PreActResNet18-GN rounds", flush=True)
     path = main_path(torch, ops)
@@ -524,9 +669,12 @@ def main() -> int:
               {"Z": Z, "N": N_MAIN, "quant_block": QB, "fold": "complex"}),
              ("masked_scatter_acc", "masked_scatter_acc.cu", 248,
               {"Z": Z, "N": N_MAIN, "k": K_COMPLEX, "values": "int8",
-               "fold": "complex"})),
-            (k1, k2, k3), path["launches"]):
-        head = result["timing"][0]            # the complex fold
+               "fold": "complex"}),
+             ("masked_agg", "masked_agg.cu", 69,
+              {"Z": Z, "N": k4["timing"][0]["N"], "x": "float32",
+               "fold": "largest leaf, strided rows"})),
+            (k1, k2, k3, k4), path["launches"]):
+        head = result["timing"][0]     # the complex fold / largest leaf
         kernels.append({
             "name": name, "route": "cuda", "source": src + source,
             "replaces": f"src/repro/kernels/masked_agg/kernel.py:{line}",

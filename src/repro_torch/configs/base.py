@@ -2,8 +2,9 @@
 
 The port's own copy of ``repro.configs.base.FedConfig``: the same fields,
 defaults and ``validate()`` rules.  Knobs this slice of the port does not
-implement yet are accepted as fields (so configs stay interchangeable) but
-rejected by ``validate()`` with ``NotImplementedError`` naming the knob.
+implement yet (``async_lag > 0``) are accepted as fields, so configs stay
+interchangeable, but rejected by ``validate()`` with
+``NotImplementedError`` naming the knob.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ class FedConfig:
     n_devices: int = 100           # total federated clients
     n_simple: int = 50             # first 50 simple, rest complex (paper)
     participation: float = 0.10    # 10% active per round
-    sample_uniform: bool = False   # not ported yet
+    sample_uniform: bool = False   # True: the paper's uniform cohort draw
     rounds: int = 1000             # T
     local_epochs: int = 5          # E
     lr: float = 0.1                # eta
@@ -39,7 +40,7 @@ class FedConfig:
     # clients per fold chunk (per population); 0 = whole population,
     # "auto" = derived from agg_memory_budget_mb
     cohort_chunk: Union[int, str] = 0
-    agg_engine: str = "flat"       # "tree": not ported yet
+    agg_engine: str = "flat"       # or "tree": one K4 launch per leaf
     # the reference's kernel tile width; here it only rounds the flat
     # layout's length, so n_flat matches the reference's
     agg_block_n: int = 2048
@@ -53,7 +54,7 @@ class FedConfig:
     async_lag: int = 0             # not ported yet
     async_staleness: str = "poly"
     async_decay: float = 0.5
-    variance_reduction: str = "none"   # "scaffold": not ported yet
+    variance_reduction: str = "none"   # or "scaffold" (option II)
     state_store_backend: str = "auto"
 
     def __post_init__(self):
@@ -62,7 +63,7 @@ class FedConfig:
     def validate(self) -> None:
         """Single entry point for every config-rejection rule: the
         reference's ``ValueError`` rules first, then ``NotImplementedError``
-        for each knob this slice does not port."""
+        for the one knob the port does not implement yet (async rounds)."""
         if self.algorithm not in ALGORITHMS:
             raise ValueError(f"unknown algorithm {self.algorithm!r} "
                              f"(expected one of {ALGORITHMS})")
@@ -107,14 +108,7 @@ class FedConfig:
         if self.variance_reduction == "scaffold" and self.lr <= 0:
             raise ValueError("variance_reduction='scaffold' requires lr > 0 "
                              "(control-variate deltas divide by K*lr)")
-        unported = {
-            "async_lag": self.async_lag > 0,
-            "variance_reduction": self.variance_reduction == "scaffold",
-            "agg_engine": self.agg_engine == "tree",
-            "sample_uniform": self.sample_uniform,
-        }
-        for knob, on in unported.items():
-            if on:
-                raise NotImplementedError(
-                    f"{knob}={getattr(self, knob)!r} is not ported to "
-                    f"repro_torch yet (the JAX package implements it)")
+        if self.async_lag > 0:
+            raise NotImplementedError(
+                f"async_lag={self.async_lag!r} is not ported to repro_torch "
+                f"yet (the JAX package implements it)")

@@ -1,15 +1,28 @@
 """Server aggregation — FedHeN Alg. 1 ln. 16-22, plus NoSide and Decouple.
 
-The port of ``repro.core.aggregate``'s flat streaming engine (the
-production fold) on every wire.  :class:`StreamState` carries one flat f32
-accumulator of *unnormalized* masked sums (plus a second one for
-decouple).  Each trained chunk arrives packed in one contiguous
-``(Z, n_flat)`` buffer and is folded with ONE launch that updates the
-accumulator in place (two for decouple): ``masked_agg_acc_`` (K1) on the
-f32/bf16 stream, ``masked_agg_acc_deq_`` (K2) on the int8 wire.  Delta-mode
-uploads (wire v2) arrive as a :class:`SparseChunk` and fold through
-:func:`streaming_fold_deltas`.  Normalization and unpacking happen once, at
-:func:`streaming_finalize`.
+The port of ``repro.core.aggregate``'s three entry points:
+
+* **One-shot** (``fedhen_server_update`` / ``decouple_server_update`` /
+  ``masked_cohort_mean``): a whole stacked cohort reduced at once, in
+  plain torch — the oracle both streaming engines are tested against.
+* **Flat streaming** (``streaming_*``, the production fold, every wire).
+  :class:`StreamState` carries one flat f32 accumulator of *unnormalized*
+  masked sums (plus a second one for decouple).  Each trained chunk
+  arrives packed in one contiguous ``(Z, n_flat)`` buffer and is folded
+  with ONE launch that updates the accumulator in place (two for
+  decouple): ``masked_agg_acc_`` (K1) on the f32/bf16 stream,
+  ``masked_agg_acc_deq_`` (K2) on the int8 wire.  Delta-mode uploads (wire
+  v2) arrive as a :class:`SparseChunk` and fold through
+  :func:`streaming_fold_deltas`.  Normalization and unpacking happen once,
+  at :func:`streaming_finalize`.
+* **Tree streaming** (``tree_streaming_*``, ``FedConfig.agg_engine =
+  "tree"``, the f32/bf16 wires): per-leaf f32 sums, one one-shot
+  ``masked_agg_`` (K4) launch per leaf per fold, each leaf a view of the
+  packed chunk buffer; decouple's second sum is plain torch
+  (:func:`_gated_wsum_leaf`), as in the reference.
+
+SCAFFOLD adds a flat ``cv_acc`` to either state: the control-variate
+deltas fold through one more K1 launch (:func:`_fold_cv`) on both engines.
 
 **Weight contract** (the reference's): ``valid`` is a per-client
 coefficient; a weight of 0 gates the client's values before the multiply
@@ -22,14 +35,75 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.core import comm, flatten
+from repro_torch.core import comm, flatten, masking
 from repro_torch.kernels.masked_agg.ops import (masked_agg_acc_,
                                                 masked_agg_acc_deq_,
+                                                masked_agg_tree,
                                                 masked_scatter_acc_)
-from repro_torch.tree import Tree
+from repro_torch.tree import Tree, tree_leaves, tree_map
 
 ALGORITHMS = ("fedhen", "noside", "decouple")
 
+
+# ---------------------------------------------------------------------------
+# One-shot server updates (the oracles)
+# ---------------------------------------------------------------------------
+
+def _gated_wsum_leaf(x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """f32 weighted sum of one stacked leaf ``(Z, ...)`` over the cohort
+    axis, gated before the multiply (a NaN device at weight 0 adds
+    nothing)."""
+    w = weights.reshape((-1,) + (1,) * (x.dim() - 1)).to(torch.float32)
+    xf = torch.where(w > 0, x.to(torch.float32), 0.0)
+    return torch.sum(xf * w, dim=0)
+
+
+def _wmean(stacked: Tree, weights: torch.Tensor) -> Tree:
+    """Weighted mean over the leading cohort axis; ``weights`` already
+    normalized."""
+    return tree_map(lambda x: _gated_wsum_leaf(x, weights).to(x.dtype),
+                    stacked)
+
+
+def _norm_weights(raw: torch.Tensor) -> torch.Tensor:
+    total = raw.sum()
+    return torch.where(total > 0, raw / torch.clamp(total, min=1e-12),
+                       torch.zeros_like(raw))
+
+
+def fedhen_server_update(cohort: Tree, is_simple: torch.Tensor,
+                         valid: torch.Tensor, mask: Tree) -> Tree:
+    """FedHeN / NoSide server step on a stacked cohort (leaves ``(Z,
+    ...)``): inside M the mean over every valid device (Alg. 1 ln. 18),
+    outside M the mean over valid complex devices (ln. 22)."""
+    valid_f = valid.to(torch.float32)
+    mean_all = _wmean(cohort, _norm_weights(valid_f))
+    mean_complex = _wmean(cohort, _norm_weights(valid_f * ~is_simple))
+    return masking.where_mask(mask, mean_all, mean_complex)
+
+
+def decouple_server_update(cohort: Tree, is_simple: torch.Tensor,
+                           valid: torch.Tensor, mask: Tree
+                           ) -> Tuple[Tree, Tree]:
+    """Decouple (Alg. 3): ``(simple host, new complex)`` — M from the
+    simple devices only, everything else (and the complex model) from the
+    complex devices only."""
+    valid_f = valid.to(torch.float32)
+    mean_simple = _wmean(cohort, _norm_weights(valid_f * is_simple))
+    mean_complex = _wmean(cohort, _norm_weights(valid_f * ~is_simple))
+    return masking.where_mask(mask, mean_simple, mean_complex), mean_complex
+
+
+def masked_cohort_mean(cohort: Tree, weights_m: torch.Tensor,
+                       weights_rest: torch.Tensor, mask: Tree) -> Tree:
+    """Different normalized cohort weights inside and outside M."""
+    return masking.where_mask(mask, _wmean(cohort, weights_m),
+                              _wmean(cohort, weights_rest))
+
+
+# ---------------------------------------------------------------------------
+# Shared streaming helpers
+# ---------------------------------------------------------------------------
 
 def _chunk_weights(is_simple: torch.Tensor, valid: torch.Tensor,
                    algorithm: str) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -58,29 +132,50 @@ class StreamState(NamedTuple):
     ``acc``: flat f32 sums — inside M ``sum_z w_in[z] x[z]``, outside M
     ``sum_z w_out[z] x[z]``.  ``acc_out`` (decouple only, else ``None``):
     the whole-vector ``w_out`` sums.  ``tot_in`` / ``tot_out``: the 0-d
-    weight totals finalize divides by.  All on the round's device; the
-    fold updates ``acc``/``acc_out`` in place."""
+    weight totals finalize divides by.  ``cv_acc`` (SCAFFOLD only, else
+    ``None``): the raw flat sum of the control-variate deltas, which the
+    round divides by ``n_devices`` itself.  All on the round's device; the
+    fold updates ``acc``/``acc_out``/``cv_acc`` in place."""
     acc: torch.Tensor
     acc_out: Optional[torch.Tensor]
     tot_in: torch.Tensor
     tot_out: torch.Tensor
+    cv_acc: Optional[torch.Tensor] = None
 
 
 def streaming_init(layout: flatten.FlatLayout, algorithm: str,
-                   device) -> StreamState:
-    """Zero accumulators for one round (``(n_flat,)`` f32 each)."""
+                   device, *, scaffold: bool = False) -> StreamState:
+    """Zero accumulators for one round (``(n_flat,)`` f32 each; a
+    ``cv_acc`` too with ``scaffold``)."""
     zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=device)
     acc_out = zeros(layout.n_flat) if algorithm == "decouple" else None
-    return StreamState(zeros(layout.n_flat), acc_out, zeros(), zeros())
+    cv_acc = zeros(layout.n_flat) if scaffold else None
+    return StreamState(zeros(layout.n_flat), acc_out, zeros(), zeros(),
+                       cv_acc)
+
+
+def _fold_cv(cv_acc: Optional[torch.Tensor], cv_chunk: torch.Tensor,
+             flat_mask: torch.Tensor, w_in: torch.Tensor,
+             w_out: torch.Tensor) -> None:
+    """Fold a ``(Z, n_flat)`` f32 chunk of control-variate deltas into
+    ``cv_acc`` in place: the params' own masked K1 launch and weights, so
+    a NaN client at weight 0 stays out.  Control variates are flat on
+    both engines, so the flat and the tree engine share this fold."""
+    if cv_acc is None:
+        raise ValueError("cv_chunk passed but the stream state has no cv "
+                         "accumulator (init it with scaffold=True)")
+    masked_agg_acc_(cv_acc, cv_chunk, flat_mask, w_in, w_out)
 
 
 def streaming_fold(state: StreamState, xz: torch.Tensor,
                    flat_mask: torch.Tensor, is_simple: torch.Tensor,
                    valid: torch.Tensor, algorithm: str, *,
-                   wire: Optional[comm.WireSpec] = None) -> StreamState:
+                   wire: Optional[comm.WireSpec] = None,
+                   cv_chunk: Optional[torch.Tensor] = None) -> StreamState:
     """Fold one packed chunk ``xz`` (``(Z, n_flat)``, f32 or bf16) into the
     sums: one in-place launch, two for decouple (its second accumulator
-    uses ``w_out`` on both mask branches).
+    uses ``w_out`` on both mask branches), one more for a SCAFFOLD
+    ``cv_chunk`` (:func:`_fold_cv`).
 
     An int8 ``wire`` quantizes the (f32) chunk first, as the client-side
     encode, and folds it with the dequantizing K2; otherwise K1 folds the
@@ -98,8 +193,10 @@ def streaming_fold(state: StreamState, xz: torch.Tensor,
     fold(state.acc, w_in)
     if state.acc_out is not None:
         fold(state.acc_out, w_out)
-    return StreamState(state.acc, state.acc_out,
-                       state.tot_in + w_in.sum(), state.tot_out + w_out.sum())
+    if cv_chunk is not None:
+        _fold_cv(state.cv_acc, cv_chunk, flat_mask, w_in, w_out)
+    return state._replace(tot_in=state.tot_in + w_in.sum(),
+                          tot_out=state.tot_out + w_out.sum())
 
 
 class SparseChunk(NamedTuple):
@@ -143,17 +240,22 @@ def _fold_sparse(acc: torch.Tensor, sp: SparseChunk,
 def streaming_fold_deltas(state: StreamState, sp: SparseChunk,
                           flat_mask: torch.Tensor, is_simple: torch.Tensor,
                           valid: torch.Tensor, algorithm: str, *,
-                          quant_block: int) -> StreamState:
+                          quant_block: int,
+                          cv_chunk: Optional[torch.Tensor] = None
+                          ) -> StreamState:
     """:func:`streaming_fold` for a delta-mode chunk: one
     :func:`_fold_sparse` into ``acc``, a second into ``acc_out`` for
-    decouple (at ``w_out`` on both branches)."""
+    decouple (at ``w_out`` on both branches), and a SCAFFOLD ``cv_chunk``
+    through :func:`_fold_cv`."""
     w_in, w_out = _chunk_weights(is_simple, valid, algorithm)
     _fold_sparse(state.acc, sp, flat_mask, w_in, w_out, quant_block)
     if state.acc_out is not None:
         _fold_sparse(state.acc_out, sp, flat_mask, w_out, w_out,
                      quant_block)
-    return StreamState(state.acc, state.acc_out,
-                       state.tot_in + w_in.sum(), state.tot_out + w_out.sum())
+    if cv_chunk is not None:
+        _fold_cv(state.cv_acc, cv_chunk, flat_mask, w_in, w_out)
+    return state._replace(tot_in=state.tot_in + w_in.sum(),
+                          tot_out=state.tot_out + w_out.sum())
 
 
 def streaming_finalize(state: StreamState, layout: flatten.FlatLayout,
@@ -170,4 +272,77 @@ def streaming_finalize(state: StreamState, layout: flatten.FlatLayout,
         layout, state.acc * torch.where(flat_mask, inv_in, inv_out))
     if algorithm == "decouple":
         return flatten.unpack(layout, state.acc_out * inv_out), combined
+    return combined, None
+
+
+# ---------------------------------------------------------------------------
+# Tree streaming (one K4 launch per leaf)
+# ---------------------------------------------------------------------------
+
+class TreeStreamState(NamedTuple):
+    """Per-leaf analogue of :class:`StreamState`: ``acc`` / ``acc_out`` are
+    f32 trees shaped like one complex model.  ``cv_acc`` stays flat: the
+    control variates are ``FlatLayout`` vectors on both engines."""
+    acc: Tree
+    acc_out: Optional[Tree]
+    tot_in: torch.Tensor
+    tot_out: torch.Tensor
+    cv_acc: Optional[torch.Tensor] = None
+
+
+def tree_streaming_init(params_like: Tree, algorithm: str,
+                        layout: flatten.FlatLayout, *,
+                        scaffold: bool = False) -> TreeStreamState:
+    """Zero f32 accumulators shaped like ``params_like`` (one unstacked
+    model, on the round's device); a flat ``(n_flat,)`` ``cv_acc`` of
+    ``layout`` too with ``scaffold``, as on the flat engine."""
+    if algorithm not in ALGORITHMS:
+        raise ValueError(algorithm)
+    zeros = lambda: tree_map(lambda x: torch.zeros(
+        x.shape, dtype=torch.float32, device=x.device), params_like)
+    device = tree_leaves(params_like)[0].device
+    scalar = lambda: torch.zeros((), dtype=torch.float32, device=device)
+    cv_acc = (torch.zeros((layout.n_flat,), dtype=torch.float32,
+                          device=device) if scaffold else None)
+    return TreeStreamState(zeros(),
+                           zeros() if algorithm == "decouple" else None,
+                           scalar(), scalar(), cv_acc)
+
+
+def tree_streaming_fold(state: TreeStreamState, chunk: Tree,
+                        leaf_masks: Tree, is_simple: torch.Tensor,
+                        valid: torch.Tensor, algorithm: str, *,
+                        flat_mask: Optional[torch.Tensor] = None,
+                        cv_chunk: Optional[torch.Tensor] = None
+                        ) -> TreeStreamState:
+    """Fold one stacked chunk (leaves ``(Z, *shape)`` in the stream dtype,
+    e.g. :func:`flatten.unpack_stacked` views of the chunk buffer) into
+    the per-leaf sums: one K4 launch per leaf on f32 rows (a bf16 stream
+    is widened first, as the reference feeds its kernel), added to
+    ``acc``; decouple adds the ``w_out`` sums to ``acc_out`` in plain
+    torch.  A SCAFFOLD ``cv_chunk`` folds through the flat
+    :func:`_fold_cv` at ``flat_mask``."""
+    w_in, w_out = _chunk_weights(is_simple, valid, algorithm)
+    chunk32 = tree_map(lambda x: x.to(torch.float32), chunk)
+    part = masked_agg_tree(chunk32, leaf_masks, w_in, w_out)
+    tree_map(lambda a, p: a.add_(p), state.acc, part)
+    if state.acc_out is not None:
+        tree_map(lambda a, x: a.add_(_gated_wsum_leaf(x, w_out)),
+                 state.acc_out, chunk32)
+    if cv_chunk is not None:
+        _fold_cv(state.cv_acc, cv_chunk, flat_mask, w_in, w_out)
+    return state._replace(tot_in=state.tot_in + w_in.sum(),
+                          tot_out=state.tot_out + w_out.sum())
+
+
+def tree_streaming_finalize(state: TreeStreamState, leaf_masks: Tree,
+                            algorithm: str) -> Tuple[Tree, Optional[Tree]]:
+    """Normalize the per-leaf sums: ``(new_complex, new_simple_host)`` as
+    :func:`streaming_finalize` returns them."""
+    inv_in, inv_out = _safe_inv(state.tot_in), _safe_inv(state.tot_out)
+    combined = masking.where_mask(
+        leaf_masks, tree_map(lambda a: a * inv_in, state.acc),
+        tree_map(lambda a: a * inv_out, state.acc))
+    if algorithm == "decouple":
+        return tree_map(lambda a: a * inv_out, state.acc_out), combined
     return combined, None

@@ -1,7 +1,9 @@
 """Federated runtime: local client training, server state, the sync round.
 
-The port of ``repro.core.federated``'s synchronous engine on the flat fold
-and every wire format, for the paper's three algorithms over any adapter:
+The port of ``repro.core.federated``'s synchronous engine on both fold
+engines (flat, and tree: one K4 launch per leaf), every wire format,
+SCAFFOLD and uniform cohort sampling, for the paper's three algorithms
+over any adapter:
 
 * ``fedhen``   — Alg. 1 + Alg. 2 (side objective on complex devices)
 * ``noside``   — Alg. 4 (same server step, no side objective)
@@ -19,7 +21,17 @@ preallocated ``(chunk, n_flat)`` buffer, so the fold stays ONE kernel
 launch per chunk (two for decouple).  A population the chunk does not
 divide is padded with weight-0 slots; those slots are not trained (their
 row is gated out by the weight), count neither in the loss mean nor in
-``n_valid``, and so cannot change the round.
+``n_valid``, and so cannot change the round.  Under uniform sampling
+(``FedConfig.sample_uniform``) the plan's unfilled slots are treated the
+same way, and the loss mean divides by the realised client count.
+
+**SCAFFOLD** (``variance_reduction="scaffold"``, option II).  Each client
+adds its correction ``c - c_i`` (zero outside M for simple clients) to
+every minibatch gradient before the clip; after training its delta
+``dc = (x - y) / (K lr) - c`` folds into the state's ``cv_acc`` through
+one more K1 launch, and its row ``c_i + dc`` goes back to the
+``FlatStateStore`` (a NaN client keeps its row; only real slots are
+written).  The server control variate moves by ``cv_acc / n_devices``.
 
 **Minibatch order.**  The reference draws each epoch's permutation from
 threefry keys that PyTorch cannot reproduce, so the client trainer takes
@@ -113,8 +125,10 @@ class SeededBits:
 # ---------------------------------------------------------------------------
 
 def make_client_trainer(loss_fn: Callable[[Tree, Batch], torch.Tensor],
-                        fed: FedConfig):
-    """Returns ``train(params, data, perms) -> (params', mean_loss)``.
+                        fed: FedConfig, *,
+                        cv_layout: Optional[flatten.FlatLayout] = None):
+    """Returns ``train(params, data, perms[, corr_flat]) -> (params',
+    mean_loss)``.
 
     ``data``: dict of tensors with leading dim N_i (the client's local
     dataset).  ``perms``: one permutation of ``range(N_i)`` per epoch; each
@@ -122,6 +136,14 @@ def make_client_trainer(loss_fn: Callable[[Tree, Batch], torch.Tensor],
     front of its permutation.  ``params`` is never modified; the returned
     tree is new (a leaf the loss never touches is returned as is).
     ``mean_loss`` is a 0-d tensor on the data's device.
+
+    ``cv_layout`` (SCAFFOLD): ``train`` then takes the client's packed
+    correction ``corr_flat = c - c_i`` (``(n_flat,)`` f32, already zeroed
+    outside the population's slice), unpacks it once and adds it to every
+    minibatch gradient before the clipped update.  A gradient PyTorch
+    leaves as ``None`` (a leaf the loss does not touch, where JAX returns
+    zeros) becomes the correction itself, so the clip counts it as the
+    reference's does (``sgd_update``'s ``extra``).
     """
 
     def full_loss(p, anchor, batch):
@@ -132,8 +154,13 @@ def make_client_trainer(loss_fn: Callable[[Tree, Batch], torch.Tensor],
             loss = loss + 0.5 * fed.prox_mu * sq
         return loss
 
-    def train(params: Tree, data: Batch, perms: Sequence) -> Tuple[Tree,
-                                                                   torch.Tensor]:
+    def train(params: Tree, data: Batch, perms: Sequence,
+              corr_flat: Optional[torch.Tensor] = None
+              ) -> Tuple[Tree, torch.Tensor]:
+        corr = None
+        if cv_layout is not None and corr_flat is not None:
+            corr = tree_leaves(flatten.unpack(cv_layout, corr_flat,
+                                              cast=False))
         n = tree_leaves(data)[0].shape[0]
         steps = max(n // fed.batch_size, 1)
         device = tree_leaves(data)[0].device
@@ -149,10 +176,17 @@ def make_client_trainer(loss_fn: Callable[[Tree, Batch], torch.Tensor],
                     leaf.requires_grad_(True)
                 loss = full_loss(p, params, batch)
                 grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+                extra = None
+                if corr is not None:
+                    extra = tree_unflatten(treedef, [
+                        c if g is None else None
+                        for g, c in zip(grads, corr)])
+                    grads = [None if g is None else g + c.to(g.dtype)
+                             for g, c in zip(grads, corr)]
                 with torch.no_grad():
                     p = sgd_update(tree_map(lambda x: x.detach(), p),
                                    tree_unflatten(treedef, grads), fed.lr,
-                                   fed.clip_norm)
+                                   fed.clip_norm, extra)
                 losses.append(loss.detach())
         return (tree_map(lambda x: x.detach(), p),
                 torch.stack(losses).mean())
@@ -162,9 +196,44 @@ def make_client_trainer(loss_fn: Callable[[Tree, Batch], torch.Tensor],
 
 def local_step_count(data: Batch, fed: FedConfig) -> int:
     """SGD steps one client runs on its dataset ``data``:
-    ``max(N_i // batch_size, 1) * local_epochs``."""
+    ``max(N_i // batch_size, 1) * local_epochs`` — the K of SCAFFOLD's
+    ``(x - y) / (K lr)``."""
     n = tree_leaves(data)[0].shape[0]
     return max(n // fed.batch_size, 1) * fed.local_epochs
+
+
+class ScaffoldCtx(NamedTuple):
+    """One population's SCAFFOLD context (``variance_reduction=
+    "scaffold"``).
+
+    ``rows``: the cohort's gathered ``(k, n_flat)`` control variates
+    ``c_i`` (a copy, updated in place to ``c_i + dc`` as clients train).
+    ``c_global``: the server's ``(n_flat,)`` ``c``.  ``pop_mask``: the flat
+    bool mask of the slice the population trains (M for simple clients,
+    whose correction and delta live on M alone); ``None`` = every element.
+    ``inv_k_lr``: ``1 / (K lr)`` of the population's step count."""
+    rows: torch.Tensor
+    c_global: torch.Tensor
+    pop_mask: Optional[torch.Tensor]
+    inv_k_lr: float
+
+
+def _mask_pop(sc: ScaffoldCtx, v: torch.Tensor) -> torch.Tensor:
+    """Zero an ``(n_flat,)`` cv vector outside the population's slice."""
+    return v if sc.pop_mask is None else torch.where(sc.pop_mask, v, 0.0)
+
+
+def _scaffold_delta(sc: ScaffoldCtx, x_flat: torch.Tensor,
+                    y_flat: torch.Tensor, out: torch.Tensor) -> None:
+    """``out = mask_pop((x - y) * inv_k_lr - c)`` for one client.
+
+    Inside its jitted round XLA fuses the multiply and the subtract into
+    one FMA; computing ``(x - y) * inv - c`` in f64 and rounding once to
+    f32 gives the same f32 result (the f32 product is exact in f64)."""
+    inv = float(np.float32(sc.inv_k_lr))
+    d = (x_flat - y_flat).to(torch.float64)
+    out.copy_(_mask_pop(sc, (d * inv - sc.c_global.to(torch.float64)
+                             ).to(torch.float32)))
 
 
 # ---------------------------------------------------------------------------
@@ -212,15 +281,17 @@ def _residual(up: WireUploadCtx, d: torch.Tensor, buf) -> torch.Tensor:
 
 def _fold_deltas(state, xz, x_flat, up: WireUploadCtx, ef_rows, slots,
                  valid, is_simple, flat_mask, fed: FedConfig,
-                 population: str, round_index: int):
-    """Encode one chunk's uploads as deltas and fold them.
+                 population: str, round_index: int, cv_chunk=None):
+    """Encode one chunk's uploads as deltas and fold them (and a SCAFFOLD
+    ``cv_chunk`` beside them).
 
     ``xz`` (Z, n_flat) f32 holds the trained clients and is overwritten
     with their deltas ``y - x`` (+ their EF rows); ``slots[z]`` is the
-    population slot of row ``z`` (``None`` for padding, which uploads an
-    encoded zero at weight 0).  Returns ``(state, new_ef_rows)`` — the
-    residuals ``(d + r) - decode(encode(d + r))`` of the real rows, a
-    client with ``valid`` 0 keeping its old row; ``None`` without EF."""
+    population slot of row ``z`` (``None`` for an untrained slot, which
+    uploads an encoded zero at weight 0).  Returns ``(state,
+    new_ef_rows)`` — one row per chunk row: the residual ``(d + r) -
+    decode(encode(d + r))`` of a trained client, its old row for a client
+    with ``valid`` 0 and for an untrained slot; ``None`` without EF."""
     spec = up.spec
     d = xz.sub_(x_flat[None])
     if ef_rows is not None:
@@ -240,22 +311,26 @@ def _fold_deltas(state, xz, x_flat, up: WireUploadCtx, ef_rows, slots,
         stack([b.indices for b in bufs]) if spec.is_sparse else None)
     state = aggregate.streaming_fold_deltas(
         state, sp, flat_mask, is_simple, valid, fed.algorithm,
-        quant_block=spec.quant_block)
+        quant_block=spec.quant_block, cv_chunk=cv_chunk)
     if ef_rows is None:
         return state, None
-    new_rows = [torch.where(valid[z], _residual(up, d[z], bufs[z]),
+    new_rows = [ef_rows[z] if slot is None else
+                torch.where(valid[z], _residual(up, d[z], bufs[z]),
                             ef_rows[z])
-                for z, slot in enumerate(slots) if slot is not None]
+                for z, slot in enumerate(slots)]
     return state, new_rows
 
 
-def stream_population(state: aggregate.StreamState, src: Tree, train_fn,
-                      clients: List[Batch], *, population: str,
-                      round_index: int, schedule: Schedule, fed: FedConfig,
-                      layout: flatten.FlatLayout, flat_mask: torch.Tensor,
-                      buffer: torch.Tensor, chunk: int, n_chunks: int,
-                      wire: comm.WireSpec,
-                      upload: Optional[WireUploadCtx] = None):
+def stream_population(state, src: Tree, train_fn, clients: List[Batch], *,
+                      population: str, round_index: int, schedule: Schedule,
+                      fed: FedConfig, layout: flatten.FlatLayout,
+                      flat_mask: torch.Tensor, buffer: torch.Tensor,
+                      chunk: int, n_chunks: int, wire: comm.WireSpec,
+                      upload: Optional[WireUploadCtx] = None,
+                      real: Optional[np.ndarray] = None,
+                      scaffold: Optional[ScaffoldCtx] = None,
+                      cv_buffer: Optional[torch.Tensor] = None,
+                      leaf_masks: Optional[Tree] = None):
     """Train one population chunk by chunk and fold each chunk into the
     running sums.
 
@@ -265,28 +340,40 @@ def stream_population(state: aggregate.StreamState, src: Tree, train_fn,
     population, i, epoch)``.  Each trained client is packed into row ``z``
     of ``buffer[:chunk]`` (zero-padded once at allocation, in the fold's
     stream dtype); a client whose result is not all finite gets validity 0
-    (when ``skip_nan_devices``).  Dense uploads fold in the ``wire``'s
-    format; with ``upload`` (wire v2) each chunk uploads encoded deltas
-    (:func:`_fold_deltas`).
+    (when ``skip_nan_devices``).  ``real`` (uniform sampling): the plan's
+    ``(k,)`` slot mask — an unfilled slot is not trained and folds at
+    weight 0, like chunk padding.
 
-    Returns ``(state, mean_loss, n_valid, ef_rows)`` — 0-d tensors; the
-    mean loss is normalized by ``k``; ``ef_rows`` is the ``(k, n_flat)``
-    updated EF residuals (``None`` without EF)."""
+    The fold: with ``leaf_masks`` (the tree engine) one K4 launch per leaf
+    (:func:`aggregate.tree_streaming_fold`); otherwise the flat fold, dense
+    uploads in the ``wire``'s format, or with ``upload`` (wire v2) encoded
+    deltas (:func:`_fold_deltas`).  With ``scaffold`` each client trains
+    with its correction, and its delta ``dc`` goes to row ``z`` of
+    ``cv_buffer`` and folds into the state's ``cv_acc``.
+
+    Returns ``(state, mean_loss, n_valid, cv_rows, ef_rows)`` — 0-d
+    tensors; the mean loss is normalized by the count of real slots;
+    ``cv_rows`` / ``ef_rows`` are the ``(k, n_flat)`` updated control
+    variates and EF residuals (``None`` when off; an untrained slot or a
+    NaN client keeps its old row)."""
     k = len(clients)
     device = buffer.device
     xz = buffer[:chunk]
+    cvz = cv_buffer[:chunk] if scaffold is not None else None
     is_simple = torch.full((chunk,), population == "simple",
                            dtype=torch.bool, device=device)
+    in_plan = np.ones((k,), bool) if real is None else np.asarray(real, bool)
     loss_sum = torch.zeros((), device=device)
     valid_sum = torch.zeros((), device=device)
-    x_flat = flatten.pack(layout, src) if upload is not None else None
+    x_flat = (flatten.pack(layout, src)
+              if upload is not None or scaffold is not None else None)
     ef_in = upload.ef_rows if upload is not None else None
     ef_out = [] if ef_in is not None else None
     for t in range(n_chunks):
         valid, slots = [], []
         for z in range(chunk):
             i = t * chunk + z
-            if i >= k:       # padding slot: weight 0, never trained
+            if i >= k or not in_plan[i]:   # weight 0, never trained
                 valid.append(torch.zeros((), dtype=torch.bool, device=device))
                 slots.append(None)
                 continue
@@ -294,17 +381,34 @@ def stream_population(state: aggregate.StreamState, src: Tree, train_fn,
             n = tree_leaves(data)[0].shape[0]
             perms = [schedule(round_index, population, i, e, n)
                      for e in range(fed.local_epochs)]
-            trained, loss = train_fn(src, data, perms)
+            if scaffold is None:
+                trained, loss = train_fn(src, data, perms)
+            else:
+                corr = _mask_pop(scaffold,
+                                 scaffold.c_global - scaffold.rows[i])
+                trained, loss = train_fn(src, data, perms, corr)
             flatten.pack_into(layout, trained, xz[z])
-            valid.append(masking.tree_isfinite(trained)
-                         if fed.skip_nan_devices
-                         else torch.ones((), dtype=torch.bool, device=device))
+            ok = (masking.tree_isfinite(trained) if fed.skip_nan_devices
+                  else torch.ones((), dtype=torch.bool, device=device))
+            if scaffold is not None:
+                y_flat = (xz[z] if xz.dtype == torch.float32
+                          else flatten.pack(layout, trained))
+                _scaffold_delta(scaffold, x_flat, y_flat, cvz[z])
+                # a NaN client keeps its previous row
+                scaffold.rows[i] += torch.where(ok, cvz[z], 0.0)
+            valid.append(ok)
             slots.append(i)
             loss_sum = loss_sum + loss
         valid = torch.stack(valid)
-        if upload is None:
+        if leaf_masks is not None:
+            state = aggregate.tree_streaming_fold(
+                state, flatten.unpack_stacked(layout, xz), leaf_masks,
+                is_simple, valid, fed.algorithm, flat_mask=flat_mask,
+                cv_chunk=cvz)
+        elif upload is None:
             state = aggregate.streaming_fold(state, xz, flat_mask, is_simple,
-                                             valid, fed.algorithm, wire=wire)
+                                             valid, fed.algorithm, wire=wire,
+                                             cv_chunk=cvz)
         else:
             ef_chunk = None
             if ef_in is not None:   # padding rows carry a zero residual
@@ -314,12 +418,15 @@ def stream_population(state: aggregate.StreamState, src: Tree, train_fn,
                         (chunk - ef_chunk.shape[0], ef_chunk.shape[1]))])
             state, rows = _fold_deltas(state, xz, x_flat, upload, ef_chunk,
                                        slots, valid, is_simple, flat_mask,
-                                       fed, population, round_index)
+                                       fed, population, round_index,
+                                       cv_chunk=cvz)
             if ef_out is not None:
                 ef_out.extend(rows)
         valid_sum = valid_sum + valid.sum()
-    ef_rows = torch.stack(ef_out) if ef_out is not None else None
-    return state, loss_sum / k, valid_sum, ef_rows
+    ef_rows = torch.stack(ef_out[:k]) if ef_out is not None else None
+    cv_rows = scaffold.rows if scaffold is not None else None
+    n_real = max(int(in_plan.sum()), 1)
+    return state, loss_sum / n_real, valid_sum, cv_rows, ef_rows
 
 
 # ---------------------------------------------------------------------------
@@ -390,6 +497,24 @@ class FederatedTrainer:
         self.schedule = schedule if schedule is not None \
             else SeededSchedule(fed.seed)
         self.bits = bits if bits is not None else SeededBits(fed.seed)
+        # SCAFFOLD: one control-variate row c_i per client and the
+        # server's c, all zero at start (round 1 then equals the plain
+        # protocol's bit for bit)
+        self.cv_store: Optional[state_store.FlatStateStore] = None
+        self.cv_global: Optional[torch.Tensor] = None
+        if fed.variance_reduction == "scaffold":
+            self.cv_store = state_store.FlatStateStore(
+                fed.n_devices, self.layout.n_flat,
+                backend=fed.state_store_backend, device=self.device)
+            self.cv_global = torch.zeros((self.layout.n_flat,),
+                                         dtype=torch.float32,
+                                         device=self.device)
+        # the tree engine's per-leaf masks: full-shape bool views of the
+        # flat mask (no copy), built once on the trainer's device
+        self.leaf_masks: Optional[Tree] = None
+        if fed.agg_engine == "tree":
+            self.leaf_masks = flatten.unpack(self.layout, self.flat_mask,
+                                             cast=False)
         # wire-v2 error-feedback residuals: one packed row per client
         self.ef_store: Optional[state_store.FlatStateStore] = None
         if fed.error_feedback:
@@ -411,15 +536,24 @@ class FederatedTrainer:
         self.total_bytes = 0.0
         self.total_bytes_down = 0.0
         self.total_bytes_up = 0.0
-        self.train_simple = make_client_trainer(adapter.loss_simple, fed)
+        cv_layout = self.layout if self.cv_store is not None else None
+        self.train_simple = make_client_trainer(adapter.loss_simple, fed,
+                                                cv_layout=cv_layout)
         self.train_complex = make_client_trainer(
             adapter.loss_side if fed.algorithm == "fedhen"
-            else adapter.loss_complex, fed)
+            else adapter.loss_complex, fed, cv_layout=cv_layout)
         (chunk_s, _), (chunk_c, _) = self._geometry()
         # the fold's stream buffer, zeroed once: rows are overwritten slot
         # by slot, alignment padding stays zero for the trainer's lifetime
-        self._buffer = torch.zeros((max(chunk_s, chunk_c), self.layout.n_flat),
+        rows = max(chunk_s, chunk_c)
+        self._buffer = torch.zeros((rows, self.layout.n_flat),
                                    dtype=self.stream_dtype, device=self.device)
+        # SCAFFOLD's chunk of control-variate deltas (f32, the cv fold's
+        # input); an untrained row's stale content is gated by weight 0
+        self._cv_buffer = (torch.zeros((rows, self.layout.n_flat),
+                                       dtype=torch.float32,
+                                       device=self.device)
+                           if self.cv_store is not None else None)
 
     def _resolve_cohort_chunk(self) -> int:
         fed = self.fed
@@ -449,18 +583,37 @@ class FederatedTrainer:
         encoders' output for the true element counts: complex devices
         exchange the whole model, simple devices only M; uploads under
         top-k are the compacted index + value buffers.  Alignment padding
-        is never billed."""
+        is never billed.  SCAFFOLD adds the control-variate exchange each
+        way (``c`` down, ``dc`` up), raw f32 of the client's trained
+        element count (``per_*_cv_bytes``)."""
         n_m = int(self.flat_mask.sum())
         n = self.layout.n_params
         self.per_complex_bytes = comm.wire_bytes(self.wire, n)
         self.per_simple_bytes = comm.wire_bytes(self.wire, n_m)
         self.per_complex_bytes_up = comm.wire_bytes_up(self.wire, n)
         self.per_simple_bytes_up = comm.wire_bytes_up(self.wire, n_m)
-        down = float(self.k_simple * self.per_simple_bytes
-                     + self.k_complex * self.per_complex_bytes)
-        up = float(self.k_simple * self.per_simple_bytes_up
-                   + self.k_complex * self.per_complex_bytes_up)
+        cv = self.cv_store is not None
+        self.per_simple_cv_bytes = 4.0 * n_m if cv else 0.0
+        self.per_complex_cv_bytes = 4.0 * n if cv else 0.0
+        return self._bill(self.k_simple, self.k_complex)
+
+    def _bill(self, n_simple: int, n_complex: int) -> Tuple[float, float]:
+        """(download, upload) bytes of ``n_simple`` + ``n_complex``
+        participating clients."""
+        down = float(
+            n_simple * (self.per_simple_bytes + self.per_simple_cv_bytes)
+            + n_complex * (self.per_complex_bytes
+                           + self.per_complex_cv_bytes))
+        up = float(
+            n_simple * (self.per_simple_bytes_up + self.per_simple_cv_bytes)
+            + n_complex * (self.per_complex_bytes_up
+                           + self.per_complex_cv_bytes))
         return down, up
+
+    def _round_bytes(self, plan: sampling.CohortPlan) -> Tuple[float, float]:
+        """(download, upload) bytes of one round under ``plan``: only the
+        realised clients (an unfilled uniform slot moves no bytes)."""
+        return self._bill(plan.n_real_simple, plan.n_real_complex)
 
     def analytic_bytes_per_round(self) -> float:
         """Param counts x itemsize, down + up — the consistency oracle for
@@ -484,11 +637,24 @@ class FederatedTrainer:
             else None
         return WireUploadCtx(self.wire, k_top, rows, self.bits)
 
-    def _apply_ef_update(self, plan: sampling.CohortPlan, rows_s,
-                         rows_c) -> None:
-        """Write one round's EF residuals back for REAL slots only (pad
-        slots wrap real clients' ids) and record each row's L2 norm in the
-        client-state matrix's ``ef_scale`` column."""
+    def _scaffold(self, ids, pop_mask: Optional[torch.Tensor],
+                  data: Batch) -> Optional[ScaffoldCtx]:
+        """One population's SCAFFOLD context (its cv rows gathered), or
+        ``None`` when SCAFFOLD is off."""
+        if self.cv_store is None:
+            return None
+        k_steps = local_step_count(data, self.fed)
+        return ScaffoldCtx(self.cv_store.gather(ids), self.cv_global,
+                           pop_mask, 1.0 / (k_steps * self.fed.lr))
+
+    @staticmethod
+    def _scatter_rows(store: state_store.FlatStateStore,
+                      plan: sampling.CohortPlan, rows_s, rows_c,
+                      set_scale: Callable) -> None:
+        """Write one round's updated store rows back for REAL slots only
+        (pad slots wrap real clients' ids: writing them would clobber the
+        row that client just wrote) and record each row's L2 norm through
+        ``set_scale`` (a client-state matrix column)."""
         for ids, real, rows in ((plan.simple_ids, plan.simple_real, rows_s),
                                 (plan.complex_ids, plan.complex_real,
                                  rows_c)):
@@ -497,8 +663,8 @@ class FederatedTrainer:
                 continue
             ids = np.asarray(ids, np.int64)[real]
             rows = rows[torch.from_numpy(real).to(rows.device)]
-            self.ef_store.scatter(ids, rows)
-            self.client_state.set_ef_scale(ids, torch.linalg.vector_norm(
+            store.scatter(ids, rows)
+            set_scale(ids, torch.linalg.vector_norm(
                 rows.to(torch.float64), dim=1).cpu().numpy())
 
     def run_round(self) -> Dict[str, float]:
@@ -510,35 +676,62 @@ class FederatedTrainer:
         src_simple = (comm.broadcast_roundtrip(self.wire, self.layout,
                                                self.server.simple_host)
                       if fed.algorithm == "decouple" else bc_complex)
-        state = aggregate.streaming_init(self.layout, fed.algorithm,
-                                         self.device)
+        scaffold = self.cv_store is not None
+        if self.leaf_masks is not None:
+            state = aggregate.tree_streaming_init(
+                self.server.complex, fed.algorithm, self.layout,
+                scaffold=scaffold)
+        else:
+            state = aggregate.streaming_init(self.layout, fed.algorithm,
+                                             self.device, scaffold=scaffold)
         (chunk_s, n_s), (chunk_c, n_c) = self._geometry()
         common = dict(round_index=self.server.round, schedule=self.schedule,
                       fed=fed, layout=self.layout, flat_mask=self.flat_mask,
-                      buffer=self._buffer, wire=self.wire)
-        state, loss_s, valid_s, ef_s = stream_population(
-            state, src_simple, self.train_simple,
-            [self.client_data[i] for i in plan.simple_ids],
+                      buffer=self._buffer, wire=self.wire,
+                      cv_buffer=self._cv_buffer, leaf_masks=self.leaf_masks)
+        data_s = [self.client_data[i] for i in plan.simple_ids]
+        data_c = [self.client_data[i] for i in plan.complex_ids]
+        state, loss_s, valid_s, cv_s, ef_s = stream_population(
+            state, src_simple, self.train_simple, data_s,
             population="simple", chunk=chunk_s, n_chunks=n_s,
             upload=self._upload(self.k_top_simple, plan.simple_ids),
-            **common)
-        state, loss_c, valid_c, ef_c = stream_population(
-            state, bc_complex, self.train_complex,
-            [self.client_data[i] for i in plan.complex_ids],
+            real=plan.simple_real,
+            scaffold=self._scaffold(plan.simple_ids, self.flat_mask,
+                                    data_s[0]), **common)
+        state, loss_c, valid_c, cv_c, ef_c = stream_population(
+            state, bc_complex, self.train_complex, data_c,
             population="complex", chunk=chunk_c, n_chunks=n_c,
             upload=self._upload(self.k_top_complex, plan.complex_ids),
+            real=plan.complex_real,
+            scaffold=self._scaffold(plan.complex_ids, None, data_c[0]),
             **common)
-        new_complex, new_simple_host = aggregate.streaming_finalize(
-            state, self.layout, self.flat_mask, fed.algorithm)
+        if self.leaf_masks is not None:
+            new_complex, new_simple_host = aggregate.tree_streaming_finalize(
+                state, self.leaf_masks, fed.algorithm)
+        else:
+            new_complex, new_simple_host = aggregate.streaming_finalize(
+                state, self.layout, self.flat_mask, fed.algorithm)
+        if self.cv_store is not None:
+            # c += cv_acc / N over ALL devices (non-participants add 0);
+            # the jitted reference multiplies by f32(1/N) and fuses the
+            # add into an FMA, which f64 reproduces in f32
+            inv_n = float(np.float32(1.0 / fed.n_devices))
+            self.cv_global = (state.cv_acc.to(torch.float64) * inv_n
+                              + self.cv_global.to(torch.float64)
+                              ).to(torch.float32)
+            self._scatter_rows(self.cv_store, plan, cv_s, cv_c,
+                               self.client_state.set_cv_scale)
         if self.ef_store is not None:
-            self._apply_ef_update(plan, ef_s, ef_c)
+            self._scatter_rows(self.ef_store, plan, ef_s, ef_c,
+                               self.client_state.set_ef_scale)
         self.client_state.record_round(plan.real_ids(), plan.round_index)
         self.server = ServerState(complex=new_complex,
                                   simple_host=new_simple_host,
                                   round=self.server.round + 1)
-        self.total_bytes_down += self.bytes_down_per_round
-        self.total_bytes_up += self.bytes_up_per_round
-        self.total_bytes += self.bytes_per_round
+        down, up = self._round_bytes(plan)
+        self.total_bytes_down += down
+        self.total_bytes_up += up
+        self.total_bytes += down + up
         return {"loss_simple": float(loss_s), "loss_complex": float(loss_c),
                 "n_valid": float(valid_s + valid_c)}
 

@@ -158,6 +158,16 @@ def unpack(layout: FlatLayout, flat: torch.Tensor, *,
     return tree_unflatten(layout.treedef, leaves)
 
 
+def unpack_stacked(layout: FlatLayout, xz: torch.Tensor) -> Tree:
+    """The stacked tree of a packed ``(Z, n_flat)`` buffer: leaf ``i`` is
+    the view ``xz[:, offset:offset + size]`` shaped ``(Z, *slot.shape)``
+    (rows ``n_flat`` elements apart; no copy, no cast)."""
+    z = xz.shape[0]
+    leaves = [xz[:, s.offset:s.offset + s.size].view((z,) + s.shape)
+              for s in layout.slots]
+    return tree_unflatten(layout.treedef, leaves)
+
+
 def pack_mask(layout: FlatLayout, mask_tree: Tree,
               device: Any = "cpu") -> torch.Tensor:
     """Lower the index-set-M mask tree (leaves: bools or bool tensors

@@ -3,7 +3,9 @@
 The port of the ResNet part of ``repro.core.masking``: a mask tree has the
 parameter tree's structure, and each leaf is a Python bool marking the
 whole leaf in or out of M (``flatten.pack_mask`` lowers it to one flat
-bitvector).
+bitvector).  The trainer keeps one more form, built once on its device:
+``flatten.unpack(layout, flat_mask, cast=False)``, a tree of full-shape
+bool views of that bitvector — the per-leaf masks of the tree engine.
 """
 
 from __future__ import annotations
@@ -27,3 +29,11 @@ def tree_isfinite(tree: Tree) -> torch.Tensor:
     flags = [torch.isfinite(x).all() for x in tree_leaves(tree)
              if x.is_floating_point()]
     return torch.stack(flags).all() if flags else torch.tensor(True)
+
+
+def where_mask(mask: Tree, a: Tree, b: Tree) -> Tree:
+    """Leafwise ``mask ? a : b`` (mask leaves: bools or bool tensors
+    broadcastable to their leaf)."""
+    return tree_map(lambda m, x, y: torch.where(
+        torch.as_tensor(m, dtype=torch.bool, device=x.device), x, y),
+        mask, a, b)

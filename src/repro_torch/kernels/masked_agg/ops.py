@@ -1,8 +1,16 @@
 """Wrappers of the masked fold kernels (``csrc/*.cu``).
 
 Each replaces one function of the reference's
-``repro.kernels.masked_agg.kernel`` and updates the f32 accumulator in
-place:
+``repro.kernels.masked_agg.kernel``.  The one-shot fold returns a new
+tensor:
+
+* ``masked_agg_`` (K4, ``masked_agg_pallas``): a dense f32/bf16 ``(Z, N)``
+  chunk whose rows may lie ``ld`` elements apart (a leaf's view of the
+  packed chunk buffer), summed into a new ``(N,)`` in ``x``'s dtype; the
+  tree engine calls it once per leaf through ``masked_agg_leaf`` /
+  ``masked_agg_tree``.
+
+The accumulating folds update the f32 accumulator in place:
 
 * ``masked_agg_acc_`` (K1, ``masked_agg_acc_pallas``): a dense f32/bf16
   ``(Z, N)`` chunk;
@@ -28,7 +36,9 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.masked_agg.ref import (masked_agg_acc_deq_ref,
                                                 masked_agg_acc_ref,
+                                                masked_agg_ref,
                                                 masked_scatter_acc_ref)
+from repro_torch.tree import Tree, tree_map
 
 _X_DTYPES = (torch.float32, torch.bfloat16)
 # value kinds of the scatter kernel's C interface
@@ -52,6 +62,10 @@ def _lib() -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_int32, ctypes.c_int32,
         ctypes.c_int64, ctypes.c_int, ctypes.c_int, ptr]
     lib.masked_scatter_acc_launch.restype = ctypes.c_int
+    lib.masked_agg.argtypes = [ptr, ptr, ptr, ptr, ptr, ctypes.c_int64,
+                               ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                               ctypes.c_int, ptr]
+    lib.masked_agg.restype = ctypes.c_int
     lib.masked_agg_error_string.argtypes = [ctypes.c_int]
     lib.masked_agg_error_string.restype = ctypes.c_char_p
     return lib
@@ -251,3 +265,82 @@ def masked_scatter_acc_(acc: torch.Tensor, values: torch.Tensor,
 
 
 masked_scatter_acc_.launches = 0
+
+
+def masked_agg_(x: torch.Tensor, mask: torch.Tensor, w_m: torch.Tensor,
+                w_rest: torch.Tensor) -> torch.Tensor:
+    """``out[n] = sum_z gate(x[z, n]) * (mask[n] ? w_m[z] : w_rest[z])``
+    summed in f32 and returned as a new (N,) tensor in ``x``'s dtype.
+
+    x (Z, N) f32 or bf16 with unit element stride; its rows may lie any
+    ``x.stride(0) >= N`` elements apart (a leaf's columns of the packed
+    chunk buffer).  mask (N,) bool; w_m, w_rest (Z,) f32 — contiguous, on
+    x's device.  Launches on the current stream and does not
+    synchronise."""
+    if x.dim() != 2 or x.dtype not in _X_DTYPES:
+        raise ValueError(f"x must be float32 or bfloat16 (Z, N), got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    z, n = x.shape
+    if (n > 1 and x.stride(1) != 1) or (z > 1 and x.stride(0) < n):
+        raise ValueError(f"x's rows must be dense and apart by >= N, got "
+                         f"strides {x.stride()} for {tuple(x.shape)}")
+    if mask.dtype != torch.bool or tuple(mask.shape) != (n,):
+        raise ValueError(f"mask must be bool ({n},), got {mask.dtype} "
+                         f"{tuple(mask.shape)}")
+    for name, w in (("w_m", w_m), ("w_rest", w_rest)):
+        if w.dtype != torch.float32 or tuple(w.shape) != (z,):
+            raise ValueError(f"{name} must be f32 ({z},), got {w.dtype} "
+                             f"{tuple(w.shape)}")
+    tensors = (x, mask, w_m, w_rest)
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("all inputs must share a device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    if not all(t.is_contiguous() for t in tensors[1:]):
+        raise ValueError("mask and weights must be contiguous")
+    if x.device.type == "cpu":
+        return masked_agg_ref(x, mask, w_m, w_rest)
+    out = torch.empty((n,), dtype=x.dtype, device=x.device)
+    if z == 0 or n == 0:
+        return out.zero_()
+    ld = x.stride(0) if z > 1 else n
+    esize = x.element_size()
+    vec4 = (n % 4 == 0 and ld % 4 == 0 and x.data_ptr() % (4 * esize) == 0
+            and out.data_ptr() % (4 * esize) == 0
+            and mask.data_ptr() % 4 == 0)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.masked_agg(out.data_ptr(), x.data_ptr(), mask.data_ptr(),
+                             w_m.data_ptr(), w_rest.data_ptr(), z, n, ld,
+                             int(x.dtype == torch.bfloat16), int(vec4),
+                             stream)
+    _raise_on(err, "masked_agg")
+    masked_agg_.launches += 1
+    return out
+
+
+masked_agg_.launches = 0
+
+
+def masked_agg_leaf(x: torch.Tensor, mask, w_m: torch.Tensor,
+                    w_rest: torch.Tensor) -> torch.Tensor:
+    """One stacked leaf: x (Z, *shape) and a mask broadcastable to
+    ``shape`` (a Python bool, or a bool tensor on x's device) -> the
+    leaf's masked sum, shaped ``shape``, in x's dtype (one K4 launch on
+    the card)."""
+    z, shape = x.shape[0], x.shape[1:]
+    mask_flat = torch.as_tensor(mask, dtype=torch.bool,
+                                device=x.device).expand(shape).reshape(-1)
+    return masked_agg_(x.reshape(z, -1), mask_flat.contiguous(), w_m,
+                       w_rest).reshape(shape)
+
+
+def masked_agg_tree(cohort: Tree, mask_tree: Tree, w_m: torch.Tensor,
+                    w_rest: torch.Tensor) -> Tree:
+    """:func:`masked_agg_leaf` over every leaf of a stacked cohort tree.
+    Weights are raw per-client coefficients: a weighted sum, not a
+    mean."""
+    return tree_map(lambda x, m: masked_agg_leaf(x, m, w_m, w_rest),
+                    cohort, mask_tree)

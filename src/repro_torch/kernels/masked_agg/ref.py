@@ -1,19 +1,35 @@
 """Plain PyTorch versions of the masked cohort folds (FedHeN Alg. 1).
 
-The ports of ``repro.kernels.masked_agg.ref``'s accumulating folds: the CPU
-path of each fold, and the versions the CUDA kernels are held against on
-the card.  Contract of the dense fold:
+The ports of ``repro.kernels.masked_agg.ref``'s folds: the CPU path of
+each fold, and the versions the CUDA kernels are held against on the card.
+Contract of the dense fold:
 
     out[n] = acc[n] + sum_z gate(x[z, n]) * w[z, n],
     w[z, n] = mask[n] ? w_m[z] : w_rest[z],   gate(v) = v if w > 0 else 0
 
-The gate is a select, never a multiply: a NaN client folded at weight 0
-must not poison the sum (NaN * 0 is NaN).
+(the one-shot :func:`masked_agg_ref` starts from 0 and stores ``out`` in
+``x.dtype``).  The gate is a select, never a multiply: a NaN client folded
+at weight 0 must not poison the sum (NaN * 0 is NaN).
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def masked_agg_ref(x: torch.Tensor, mask: torch.Tensor, w_m: torch.Tensor,
+                   w_rest: torch.Tensor) -> torch.Tensor:
+    """One-shot masked sum of x (Z, N) (f32 or bf16) -> (N,) in x.dtype.
+
+    f32 products and sums, one row at a time in z order from 0, each
+    product and each sum rounded on its own; the f32 result is rounded to
+    ``x.dtype`` once at the end."""
+    out = torch.zeros(x.shape[1:], dtype=torch.float32, device=x.device)
+    for z in range(x.shape[0]):
+        wz = torch.where(mask, w_m[z], w_rest[z]).to(torch.float32)
+        xz = torch.where(wz > 0, x[z].to(torch.float32), 0.0)
+        out = out + xz * wz
+    return out.to(x.dtype)
 
 
 def masked_agg_acc_ref(acc: torch.Tensor, x: torch.Tensor,

@@ -3,15 +3,18 @@
 Builds the smoke configuration of ``chip_smoke.py`` (full-width
 PreActResNet18-GN, 100 clients of 500 synthetic CIFAR images, 5 simple +
 5 complex per round, batch 50, one local epoch), runs one warm-up round,
-then traces one round of each algorithm on the f32 wire and one fedhen
-round on the compressed wire (:data:`COMPRESSED`) with ``torch.profiler``
+then traces one round of each algorithm on the f32 wire, one fedhen
+round on the compressed wire (:data:`COMPRESSED`), one on the tree engine
+and one with SCAFFOLD (whose cv store is an mmap file at this size) with
+``torch.profiler``
 (device activity only, so the host is barely slowed) and prints per
 round: the
 traced round's wall time, its device busy time (the sum of its kernel
 times) and idle share, both taken from that one round; the wall time of a
 further, untraced round beside them; the time by layer; and the kernels
-that take the most device time.  The last line is one JSON object with
-the same numbers.
+that take the most device time.  The first line is the card's name and
+power limit as ``nvidia-smi`` reports them; the last is one JSON object
+with the same numbers.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_round
 """
@@ -19,6 +22,7 @@ the same numbers.
 from __future__ import annotations
 
 import json
+import subprocess
 import time
 from collections import defaultdict
 
@@ -36,7 +40,8 @@ from repro_torch.data.synthetic import synthetic_cifar
 COMPRESSED = dict(comm_dtype="int8", topk_frac=1 / 14,
                   stochastic_rounding=True, error_feedback=True)
 RUNS = (("fedhen", {}), ("noside", {}), ("decouple", {}),
-        ("fedhen", COMPRESSED))
+        ("fedhen", COMPRESSED), ("fedhen", dict(agg_engine="tree")),
+        ("fedhen", dict(variance_reduction="scaffold")))
 
 # kernel-name fragments -> the layer they belong to (first match wins);
 # cuDNN's FFT convolutions run as fft / region_transform / complex-GEMM,
@@ -44,7 +49,8 @@ RUNS = (("fedhen", {}), ("noside", {}), ("decouple", {}),
 # wire's top-k is a radix sort plus gathers and scatters of indices
 LAYERS = (("masked_agg_acc_deq", "fold (K2)"),
           ("masked_scatter_acc", "fold (K3)"),
-          ("masked_agg", "fold (K1)"),
+          ("masked_agg_acc", "fold (K1)"),
+          ("masked_agg", "fold (K4)"),
           ("RadixSort", "top-k sort"), ("radix", "top-k sort"),
           ("index", "indexing"), ("Memcpy", "memcpy"),
           ("group_norm", "groupnorm"), ("GroupNorm", "groupnorm"),
@@ -100,8 +106,12 @@ def profile_round(trainer: FederatedTrainer) -> dict:
     return {"algorithm": trainer.fed.algorithm,
             "wire": trainer.fed.comm_dtype
             + ("+topk+sr+ef" if trainer.wire.uses_deltas else ""),
+            "engine": trainer.fed.agg_engine,
+            "variance_reduction": trainer.fed.variance_reduction,
             "ef_backend": (trainer.ef_store.backend
                            if trainer.ef_store is not None else None),
+            "cv_backend": (trainer.cv_store.backend
+                           if trainer.cv_store is not None else None),
             "traced_wall_s": wall,
             "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
             "untraced_wall_s": timed_round(trainer),
@@ -111,6 +121,11 @@ def profile_round(trainer: FederatedTrainer) -> dict:
 
 
 def main():
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(card, flush=True)
     shards = iid_split(synthetic_cifar(50_000, 10, seed=0), 100, seed=1)
     rows = []
     for algo, wire in RUNS:
@@ -121,8 +136,10 @@ def main():
         timed_round(trainer)         # warm-up: cuDNN plans, allocator
         row = profile_round(trainer)
         rows.append(row)
-        print(f"{algo} on the {row['wire']} wire (EF store: "
-              f"{row['ef_backend']}): traced round "
+        print(f"{algo} on the {row['wire']} wire, {row['engine']} engine, "
+              f"variance reduction {row['variance_reduction']} (EF store: "
+              f"{row['ef_backend']}, cv store: {row['cv_backend']}): "
+              f"traced round "
               f"{row['traced_wall_s']:.3f} s, device "
               f"busy {row['device_busy_s']:.3f} s, idle share "
               f"{row['idle_share']:.3f}; untraced round "
@@ -133,7 +150,7 @@ def main():
             print(f"    {s:.4f} s  {_layer(name):12s} {name[:100]}",
                   flush=True)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
-                      "rounds": rows}), flush=True)
+                      "card": card, "rounds": rows}), flush=True)
 
 
 if __name__ == "__main__":

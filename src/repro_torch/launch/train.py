@@ -14,6 +14,10 @@ Examples (on a machine with a CUDA card):
         --rounds 20 --clients 100 --data-points 50000 --local-epochs 1 \
         --comm-dtype int8 --topk-frac 0.0714 --stochastic-rounding \
         --error-feedback
+    # the tree engine (one K4 launch per leaf), SCAFFOLD, uniform sampling
+    PYTHONPATH=src python -m repro_torch.launch.train --model resnet \
+        --rounds 20 --clients 100 --data-points 50000 --local-epochs 1 \
+        --agg-engine tree --variance-reduction scaffold --sample-uniform
 """
 
 from __future__ import annotations
@@ -32,18 +36,20 @@ from repro_torch.data.synthetic import synthetic_cifar
 def build_trainer(args) -> tuple:
     fed = FedConfig(
         n_devices=args.clients, n_simple=args.clients // 2,
-        participation=args.participation, rounds=args.rounds,
+        participation=args.participation,
+        sample_uniform=args.sample_uniform, rounds=args.rounds,
         local_epochs=args.local_epochs, lr=args.lr,
         batch_size=args.batch_size, iid=not args.non_iid,
         dirichlet_alpha=args.alpha, algorithm=args.algorithm,
         seed=args.seed, cohort_chunk=args.cohort_chunk,
-        agg_block_n=args.agg_block_n,
+        agg_engine=args.agg_engine, agg_block_n=args.agg_block_n,
         agg_stream_dtype=args.agg_stream_dtype,
         agg_memory_budget_mb=args.agg_memory_budget_mb,
         comm_dtype=args.comm_dtype, quant_block=args.quant_block,
         topk_frac=args.topk_frac,
         stochastic_rounding=args.stochastic_rounding,
         error_feedback=args.error_feedback,
+        variance_reduction=args.variance_reduction,
         state_store_backend=args.state_store_backend)
     data = synthetic_cifar(args.data_points, 10, seed=args.seed)
     test_batch = synthetic_cifar(512, 10, seed=args.seed + 999)
@@ -72,10 +78,20 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--rounds", type=int, default=20)
     ap.add_argument("--clients", type=int, default=20)
     ap.add_argument("--participation", type=float, default=0.1)
+    ap.add_argument("--sample-uniform", action="store_true",
+                    help="the paper's uniform cohort sampling: one draw of "
+                         "ceil(participation*clients) over the whole "
+                         "population, routed into per-architecture slots "
+                         "(unfilled slots fold at weight 0); default is the "
+                         "stratified per-architecture approximation")
     ap.add_argument("--cohort-chunk", type=_chunk_arg, default=0,
                     help="fold the cohort in chunks of this many clients "
                          "(0 = whole population; 'auto' = derive from "
                          "--agg-memory-budget-mb)")
+    ap.add_argument("--agg-engine", choices=("flat", "tree"), default="flat",
+                    help="the fold: one masked-fold launch over the packed "
+                         "model (flat) or one one-shot launch per leaf "
+                         "(tree)")
     ap.add_argument("--agg-block-n", type=int, default=2048,
                     help="rounds the flat layout's length (multiple of 128)")
     ap.add_argument("--agg-stream-dtype", default="float32",
@@ -107,10 +123,17 @@ def build_parser() -> argparse.ArgumentParser:
                          "flat state-store row and add it to its next "
                          "upload; needs a lossy upload (bf16/int8 wire or "
                          "--topk-frac < 1)")
+    ap.add_argument("--variance-reduction", default="none",
+                    choices=("none", "scaffold"),
+                    help="'scaffold' keeps a control variate per client in "
+                         "a flat state store and corrects local gradients "
+                         "by c - c_i (option II); the cv exchange is billed "
+                         "raw f32 on top of the wire")
     ap.add_argument("--state-store-backend", default="auto",
                     choices=("auto", "device", "host", "mmap"),
-                    help="where the (clients, n_flat) error-feedback rows "
-                         "live; 'auto' picks by footprint")
+                    help="where the (clients, n_flat) error-feedback and "
+                         "control-variate rows live; 'auto' picks by "
+                         "footprint")
     ap.add_argument("--local-epochs", type=int, default=5)
     ap.add_argument("--lr", type=float, default=0.1)
     ap.add_argument("--batch-size", type=int, default=50)
@@ -136,9 +159,11 @@ def main(argv=None):
           f"({trainer.total_bytes / 1e6:.1f} MB communicated: "
           f"{trainer.total_bytes_down / 1e6:.1f} down, "
           f"{trainer.total_bytes_up / 1e6:.1f} up) on {trainer.device}")
-    if trainer.ef_store is not None:
-        print(f"error-feedback store: {trainer.ef_store.backend} backend, "
-              f"{trainer.ef_store.nbytes / 1e6:.1f} MB")
+    for name, store in (("error-feedback", trainer.ef_store),
+                        ("control-variate", trainer.cv_store)):
+        if store is not None:
+            print(f"{name} store: {store.backend} backend, "
+                  f"{store.nbytes / 1e6:.1f} MB")
     if args.target_simple:
         r = rounds_to_target(history, "acc_simple", args.target_simple)
         print(f"rounds to simple acc {args.target_simple}: {r}")

@@ -89,6 +89,14 @@ class UploadSteps:
             federated._encode_upload = inner
 
 
+def outside(a: torch.Tensor, b: torch.Tensor, *, rtol: float = 1e-4,
+            atol: float = 1e-5) -> torch.Tensor:
+    """Elementwise: ``a`` lies outside ``atol + rtol |b|`` of ``b`` (the
+    elements rule 1 counts, on the CPU in f32)."""
+    a, b = (t.detach().to("cpu", torch.float32) for t in (a, b))
+    return ~((a - b).abs() <= atol + rtol * b.abs())
+
+
 def lossy_compare(a: torch.Tensor, b: torch.Tensor, step: torch.Tensor, *,
                   rtol: float = 1e-4, atol: float = 1e-5) -> Dict[str, float]:
     """Compare two flat vectors under the lossy-wire rules: ``share`` is
@@ -99,7 +107,7 @@ def lossy_compare(a: torch.Tensor, b: torch.Tensor, step: torch.Tensor, *,
     a, b, step = (t.detach().to("cpu", torch.float32) for t in (a, b, step))
     diff = (a - b).abs()
     tol = atol + rtol * b.abs()
-    out = ~(diff <= tol)
+    out = outside(a, b, rtol=rtol, atol=atol)
     excess = (diff - tol)[out]
     ratio = excess / step[out]
     return {"share": float(out.float().mean()), "n_out": int(out.sum()),

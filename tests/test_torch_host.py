@@ -101,10 +101,7 @@ def test_fedconfig_rejects_what_the_reference_rejects(bad):
         FedConfig(**bad)
 
 
-@pytest.mark.parametrize("knob", [
-    dict(async_lag=2), dict(variance_reduction="scaffold"),
-    dict(agg_engine="tree"), dict(sample_uniform=True),
-])
+@pytest.mark.parametrize("knob", [dict(async_lag=2)])
 def test_fedconfig_unported_knobs_raise_naming_the_knob(knob):
     RefFedConfig(**knob)                     # valid in the reference
     with pytest.raises(NotImplementedError, match=next(iter(knob))):
@@ -119,6 +116,29 @@ def test_fedconfig_unported_knobs_raise_naming_the_knob(knob):
 def test_fedconfig_wire_knobs_build_as_in_the_reference(knob):
     mine, ref = FedConfig(**knob), RefFedConfig(**knob)
     assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+
+
+@pytest.mark.parametrize("knob", [
+    dict(variance_reduction="scaffold"), dict(agg_engine="tree"),
+    dict(sample_uniform=True),
+    dict(agg_engine="tree", variance_reduction="scaffold",
+         sample_uniform=True, comm_dtype="bfloat16"),
+])
+def test_fedconfig_round_knobs_build_as_in_the_reference(knob):
+    mine, ref = FedConfig(**knob), RefFedConfig(**knob)
+    assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+
+
+@pytest.mark.parametrize("bad", [
+    dict(agg_engine="tree", comm_dtype="int8"),
+    dict(agg_engine="tree", topk_frac=0.5),
+    dict(agg_engine="tree", comm_dtype="bfloat16", error_feedback=True),
+])
+def test_tree_engine_refuses_the_flat_only_wires_as_the_reference(bad):
+    with pytest.raises(ValueError):
+        RefFedConfig(**bad)
+    with pytest.raises(ValueError):
+        FedConfig(**bad)
 
 
 @pytest.mark.parametrize("n", [1, 676_171, 11_173_461])

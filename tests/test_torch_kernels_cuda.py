@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-K1 contracts its multiply-add to an FMA (tolerance 1e-6); K2 and K3 round
-each product and sum as their plain versions do, in the same order, so
-they are held bitwise.
+K1 contracts its multiply-add to an FMA (tolerance 1e-6); K2, K3 and K4
+round each product and sum as their plain versions do, in the same order,
+so they are held bitwise.
 
 Every test here needs a CUDA card (a hand-written kernel has no CPU mode):
 marked ``cuda``, each skips without one.  The file imports only torch and
@@ -19,7 +19,8 @@ torch.set_num_threads(1)   # the suite runs several worker processes
 
 from repro_torch.kernels.masked_agg import ops  # noqa: E402
 from repro_torch.kernels.masked_agg.ref import (  # noqa: E402
-    masked_agg_acc_deq_ref, masked_agg_acc_ref, masked_scatter_acc_ref)
+    masked_agg_acc_deq_ref, masked_agg_acc_ref, masked_agg_ref,
+    masked_scatter_acc_ref)
 
 
 @pytest.fixture
@@ -156,3 +157,53 @@ def test_masked_scatter_acc_matches_plain_version(cuda, dtype, z, n, k):
     assert ops.masked_scatter_acc_.launches == before + 1
     assert bool(torch.isfinite(acc_t).all())
     torch.testing.assert_close(acc_t, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("z,n,ld,offset", [
+    (5, 4096, 4096, 0), (5, 1, 1, 0), (4, 1001, 1001, 0),
+    (5, 2048 + 3, 2048 + 3, 0), (5, 4096, 8192, 0), (5, 4096, 4096, 1),
+    (5, 1000, 2050, 0)])
+def test_masked_agg_matches_plain_version(cuda, dtype, z, n, ld, offset):
+    # ld > n: a leaf's view of the packed chunk buffer; n % 4 != 0, ld %
+    # 4 != 0 and offset 1 (misaligned rows) take the scalar kernel
+    x, mask, w_m, w_rest = _inputs(z, n, seed=z * n + ld + offset)[1:]
+    buf = torch.zeros((z * ld + offset,), device=cuda,
+                      dtype=getattr(torch, dtype))
+    xt = buf[offset:].as_strided((z, n), (ld, 1))
+    xt.copy_(torch.from_numpy(x))
+    args = [torch.from_numpy(a).to(cuda) for a in (mask, w_m, w_rest)]
+    want = masked_agg_ref(xt, *args)
+    before = ops.masked_agg_.launches
+    got = ops.masked_agg_(xt, *args)
+    torch.cuda.synchronize()
+    assert ops.masked_agg_.launches == before + 1
+    assert got.dtype == xt.dtype and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_masked_agg_tree_folds_every_leaf_on_the_card(cuda):
+    from repro_torch.core import flatten, masking
+    from repro_torch.models import resnet
+    from repro_torch.tree import tree_leaves, tree_map
+    params = resnet.init_params(torch.Generator().manual_seed(0), 10,
+                                (8, 8, 8, 8))
+    layout = flatten.build_layout(params, total_multiple=2048)
+    flat_mask = flatten.pack_mask(layout, masking.resnet_subnet_mask(params),
+                                  cuda)
+    xz = torch.randn((3, layout.n_flat), device=cuda)
+    w_m = torch.tensor([1.0, 0.0, 0.5], device=cuda)
+    w_rest = torch.tensor([0.25, 2.0, 0.0], device=cuda)
+    leaf_masks = flatten.unpack(layout, flat_mask, cast=False)
+    before = ops.masked_agg_.launches
+    got = ops.masked_agg_tree(flatten.unpack_stacked(layout, xz), leaf_masks,
+                              w_m, w_rest)
+    torch.cuda.synchronize()
+    assert ops.masked_agg_.launches == before + layout.n_leaves
+    want = tree_map(lambda x, m: masked_agg_ref(
+        x.reshape(3, -1), m.reshape(-1), w_m, w_rest).reshape(x.shape[1:]),
+        flatten.unpack_stacked(layout, xz), leaf_masks)
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)

@@ -139,3 +139,19 @@ def test_auto_cohort_chunk_budgets_the_wire_as_the_reference(wire):
               agg_memory_budget_mb=2.4e6 / 2**20, **wire)
     port, ref = make_pair(make_shards(32, 8), **kw)
     assert port.cohort_chunk == ref.cohort_chunk
+
+
+def test_train_cli_runs_the_tree_engine_scaffold_and_uniform_sampling(
+        capsys):
+    from repro_torch.launch import train
+    args = ["--device", "cpu", "--rounds", "1", "--clients", "4",
+            "--participation", "0.5", "--data-points", "16",
+            "--batch-size", "4", "--local-epochs", "1", "--eval-every", "0",
+            "--agg-engine", "tree", "--variance-reduction", "scaffold",
+            "--sample-uniform"]
+    fed = train.build_trainer(train.build_parser().parse_args(args))[0].fed
+    assert (fed.agg_engine, fed.variance_reduction, fed.sample_uniform) == \
+        ("tree", "scaffold", True)
+    assert len(train.main(args)) == 1
+    # 4 rows of the full-width model, 178.8 MB: over the device threshold
+    assert "control-variate store: host backend" in capsys.readouterr().out

@@ -17,10 +17,14 @@ first round's difference).  Losses atol 1e-5, ``n_valid`` and the
 measured bytes exactly.
 
 Clients take one or two SGD steps a round.  With four steps at lr 0.1 the
-two packages' gradients at the same int8-decoded weights came apart by
-up to 1.5e-2 relative (stage-2 GroupNorm), a training sensitivity of this
-narrow model that no wire rule covers (ROADMAP, faults).
+two packages' trained clients can come apart by up to 1.5e-2 relative in
+a gradient: f32 rounding pushes a stage-2 ReLU input that lies within
+1e-7 of zero to the other side, and the reference's own jitted and eager
+programs disagree there by as much (``test_torch_int8_sensitivity.py``
+pins it down).  No wire rule covers a kink, so these rounds stay short.
 """
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -66,14 +70,53 @@ def _models(trainer):
     return [m for m in (server.complex, server.simple_host) if m is not None]
 
 
-def run_and_compare(port, ref, carry):
+def assert_held(a, b, step, moved=None):
+    """Hold ``a`` to ``b`` under the lossy-wire rules (at most
+    ``MAX_SHARE`` of the elements outside the float tolerance, every
+    element within it plus ``step``).  ``moved``: how far the reference
+    itself moves at each element when its clients train from the port's
+    inputs instead of its own (``ReferenceSpread`` in
+    ``test_torch_scaffold_wire.py``).  It is added to the step, and the
+    share of elements it alone puts outside the tolerance to the share
+    allowed.  Returns :func:`parity.lossy_compare`'s result."""
+    if moved is None:
+        res = parity.lossy_compare(a, b, step)
+        assert res["share"] <= MAX_SHARE and res["worst"] <= 1.0, res
+        return res
+    res = parity.lossy_compare(a, b, step + moved)
+    own = float(parity.outside(b + moved, b).float().mean())
+    assert res["share"] <= MAX_SHARE + own and res["worst"] <= 1.0, \
+        (res, own)
+    return res
+
+
+def assert_norms(scale, ref_scale, rows, ref_rows):
+    """Each row's norm (a client-state column) within rtol 1e-5 of the
+    reference's, plus the norm of the row's difference at the elements
+    rule 1 counts as outside the tolerance (``|(|a| - |b|)| <= |a - b|``):
+    a flip the rules allow in a row is allowed in its norm, and nothing
+    more."""
+    flipped = parity.outside(rows, ref_rows)
+    moved = torch.linalg.vector_norm(
+        torch.where(flipped, rows - ref_rows, 0.0).double(), dim=1).numpy()
+    assert (np.abs(scale - ref_scale)
+            <= 1e-5 * np.abs(ref_scale) + moved).all(), \
+        (scale, ref_scale, moved)
+
+
+def run_and_compare(port, ref, carry, *, ef_scale_flips=False, spread=None):
     """One round of each trainer, held to the lossy-wire rules; returns
     the new carry (the elementwise differences, added to the next
-    round's bound)."""
+    round's bound).  Each client's ``ef_scale`` (its EF row's norm) is
+    held at rtol 1e-5, or with ``ef_scale_flips`` by
+    :func:`assert_norms`, for rounds whose EF rows may flip.  ``spread``
+    (a ``ReferenceSpread``) watches the port's round and gives each
+    client's ``moved`` to :func:`assert_held`."""
     layout = port.layout
     starts = [_flat(layout, m) for m in _models(port)]
     uploads = parity.UploadSteps()
-    with uploads():
+    watch = spread.round() if spread is not None else contextlib.nullcontext()
+    with uploads(), watch:
         got = port.run_round()
     want = ref.run_round()
     for key in ("loss_simple", "loss_complex"):
@@ -85,24 +128,27 @@ def run_and_compare(port, ref, carry):
     ends = [_flat(layout, m) for m in _models(ref)]
     step = torch.stack([parity.round_step(port.wire, s, e, uploads)
                         for s, e in zip(starts, ends)]).amax(0)
+    moved = spread.moved if spread is not None else None
     new_carry = []
     for mine, theirs, c in zip(_models(port), ends, carry):
-        res = parity.lossy_compare(_flat(layout, mine), theirs, step + c)
-        assert res["share"] <= MAX_SHARE and res["worst"] <= 1.0, res
+        assert_held(_flat(layout, mine), theirs, step + c,
+                    None if moved is None else moved.amax(0))
         new_carry.append(c + (_flat(layout, mine) - theirs).abs())
     if port.ef_store is not None:
         ids = np.arange(port.fed.n_devices)
-        res = parity.lossy_compare(
-            port.ef_store.gather(ids),
-            torch.from_numpy(ref.ef_store.to_array().copy()),
-            (step + carry[0]).expand(len(ids), -1))
-        assert res["share"] <= MAX_SHARE and res["worst"] <= 1.0, res
+        rows = port.ef_store.gather(ids)
+        ref_rows = torch.from_numpy(ref.ef_store.to_array().copy())
+        assert_held(rows, ref_rows, (step + carry[0]).expand(len(ids), -1),
+                    moved)
         for col in ("participation", "last_round"):
             np.testing.assert_array_equal(port.client_state.column(col),
                                           ref.client_state.column(col))
-        np.testing.assert_allclose(port.client_state.column("ef_scale"),
-                                   ref.client_state.column("ef_scale"),
-                                   rtol=1e-5)
+        scale = port.client_state.column("ef_scale")
+        ref_scale = ref.client_state.column("ef_scale")
+        if ef_scale_flips:
+            assert_norms(scale, ref_scale, rows, ref_rows)
+        else:
+            np.testing.assert_allclose(scale, ref_scale, rtol=1e-5)
     return new_carry
 
 

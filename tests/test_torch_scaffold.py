@@ -1,0 +1,124 @@
+"""SCAFFOLD in the port, the counterparts of ``tests/test_scaffold.py``
+that need no reference round: round 1 bitwise equal to the plain protocol,
+flat against tree, a NaN device keeping its row, uniform pad slots never
+writing a row, and the cv exchange billed exactly as the reference
+trainer bills it.  Rounds against the reference's are in
+``test_torch_scaffold_rounds*.py`` and ``test_torch_scaffold_wire.py``.
+
+Setup as in ``test_torch_round.py`` (narrow PreActResNet18-GN, 16x16
+synthetic CIFAR).  Tolerances as the reference's own for the same
+comparisons: flat against tree 2e-5 on the server params, rtol 1e-4 /
+atol 1e-6 on ``cv_global`` and the rows.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # the suite runs several worker processes
+
+from repro_torch.tree import tree_leaves  # noqa: E402
+from test_torch_round import ROUND, make_pair, make_shards  # noqa: E402
+from test_torch_round_invariants import _port  # noqa: E402
+
+ALGOS = ["fedhen", "noside", "decouple"]
+
+
+def _models(t):
+    return [m for m in (t.server.complex, t.server.simple_host)
+            if m is not None]
+
+
+def _max_diff(a, b):
+    return max(float((x - y).abs().max()) for ma, mb in zip(_models(a),
+                                                            _models(b))
+               for x, y in zip(tree_leaves(ma), tree_leaves(mb)))
+
+
+@pytest.mark.parametrize("algorithm", ALGOS)
+def test_round1_bit_identical_to_none(algorithm):
+    plain = _port(make_shards(), algorithm=algorithm)
+    scaf = _port(make_shards(), algorithm=algorithm,
+                 variance_reduction="scaffold")
+    assert plain.run_round() == scaf.run_round()
+    assert _max_diff(plain, scaf) == 0.0
+    # ... and the control variates moved, so round 2 differs
+    assert float(scaf.cv_global.abs().max()) > 0.0
+    plain.run_round()
+    scaf.run_round()
+    assert _max_diff(plain, scaf) > 0.0
+
+
+@pytest.mark.parametrize("algorithm", ALGOS)
+def test_flat_vs_tree_engine_parity(algorithm):
+    kw = dict(algorithm=algorithm, variance_reduction="scaffold",
+              cohort_chunk=0)
+    flat = _port(make_shards(), **kw)
+    tree = _port(make_shards(), agg_engine="tree", **kw)
+    for _ in range(2):
+        flat.run_round()
+        tree.run_round()
+    assert _max_diff(flat, tree) <= 2e-5
+    ids = np.arange(4)
+    np.testing.assert_allclose(flat.cv_global.numpy(),
+                               tree.cv_global.numpy(), rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(flat.cv_store.gather(ids).numpy(),
+                               tree.cv_store.gather(ids).numpy(),
+                               rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("engine", ["flat", "tree"])
+def test_nan_device_keeps_previous_row_and_finite_c(engine):
+    shards = make_shards()
+    shards[1] = dict(shards[1])
+    shards[1]["images"] = shards[1]["images"].copy()
+    shards[1]["images"][0, 0, 0, 0] = np.nan          # a poisoned client
+    t = _port(shards, variance_reduction="scaffold", agg_engine=engine)
+    assert t.run_round()["n_valid"] == 3.0
+    rows = t.cv_store.gather(np.arange(4)).numpy()
+    assert np.isfinite(rows).all()
+    np.testing.assert_array_equal(rows[1], 0.0)       # kept its zero row
+    assert t.client_state.column("cv_scale")[1] == 0.0
+    assert np.isfinite(t.cv_global.numpy()).all()
+    for i in (0, 2, 3):
+        assert np.abs(rows[i]).max() > 0.0
+
+
+def test_uniform_pad_slots_never_clobber_rows():
+    t = _port(make_shards(64, 8), n_devices=8, n_simple=4,
+              participation=0.25, sample_uniform=True,
+              variance_reduction="scaffold")
+    for _ in range(20):      # find a round whose plan has pad slots
+        plan = t.sampler.plan(t.server.round)
+        if not plan.all_real:
+            break
+        t.run_round()
+    else:
+        pytest.fail("no uniform round with pad slots in 20 draws")
+    ids = np.arange(8)
+    before = t.cv_store.gather(ids).numpy().copy()
+    t.run_round()
+    after = t.cv_store.gather(ids).numpy()
+    real = set(int(i) for i in plan.real_ids())
+    changed = {i for i in range(8) if np.abs(after[i] - before[i]).max() > 0}
+    assert changed and changed <= real, (changed, real)
+
+
+@pytest.mark.parametrize("wire", [{}, dict(comm_dtype="int8"),
+                                  dict(comm_dtype="bfloat16",
+                                       topk_frac=0.1,
+                                       error_feedback=True)])
+def test_cv_exchange_billing_matches_reference(wire):
+    port, ref = make_pair(make_shards(), variance_reduction="scaffold",
+                          **ROUND, **wire)
+    plain = _port(make_shards(), **wire)
+    assert (port.bytes_down_per_round, port.bytes_up_per_round) == \
+        (ref.bytes_down_per_round, ref.bytes_up_per_round)
+    assert (port.per_simple_cv_bytes, port.per_complex_cv_bytes) == \
+        (ref.per_simple_cv_bytes, ref.per_complex_cv_bytes)
+    n_m = int(port.flat_mask.sum())
+    extra = port.k_simple * 4.0 * n_m + port.k_complex * 4.0 * \
+        port.layout.n_params
+    assert port.bytes_per_round - plain.bytes_per_round == 2.0 * extra
+    port.run_round()
+    assert port.total_bytes == port.bytes_per_round
