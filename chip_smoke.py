@@ -47,10 +47,31 @@ which raises on failure:
    on the f32 wire and on the compressed wire (one CPU-drawn bit provider
    for both; the lossy-wire rules of ``repro_torch.parity``), and two
    narrow fedhen rounds on the tree engine with SCAFFOLD (server params,
-   ``cv_global`` and the cv rows at rtol 1e-4, atol 1e-5).
+   ``cv_global`` and the cv rows at rtol 1e-4, atol 1e-5);
+6. the serving kernels against their plain versions on the card, then
+   timed (CUDA events) beside their bounds: K5 (flash attention) at
+   recurrentgemma-2b's prefill shape (4, 4096, 10 / 1, 256) bf16, window
+   2048, with ``F.scaled_dot_product_attention`` timed beside it (the
+   causal window as a boolean mask, the kv head expanded), at gemma2-2b's
+   (1, 8192, 8 / 4, 256) bf16 with softcap 50, window 4096 and global, and
+   on an f32 case, a ragged S and Dh 32; K6 (RG-LRU scan) bitwise at
+   (4, 4096, 2560) f32 and a ragged (3, 1000, 77);
+7. full-width serving through ``repro_torch.launch.serve.generate``, random
+   weights from seed 0: recurrentgemma-2b (batch 4, prompt 4096, 32 new
+   tokens, greedy) and gemma2-2b (batch 1, prompt 8192, 8 new tokens),
+   with prefill seconds, decode ms per step, new tokens per second, the
+   exit head's statistics and peak memory; each prefill must launch K5
+   once per attention layer and K6 once per RG-LRU layer ((8, 18) and
+   (26, 0)), and decode neither;
+8. narrow f32 serving (the reduced configs deepened to two periods, a
+   remainder and an exit before the last layer; prompt 64 against window
+   16) on the card against the CPU: prefill logits and 8 teacher-forced
+   decode steps (final and exit heads) at rtol 1e-4 / atol 1e-5; and on
+   the card, token-by-token decode against the prefill's logits at every
+   position, at the same tolerance.
 
-The second-to-last line is one JSON object ``{"kernels": [...]}``; the
-last is ``{"ok": true, "device": {...}}``.
+The second-to-last line is one JSON object ``{"kernels": [...]}`` (K1-K6);
+the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -76,6 +97,7 @@ TOL = 1e-5                   # x max|acc|: K1 contracts to FMA, the plain
                              # (K2, K3 and K4 round as the plain version
                              # does, and are held bitwise)
 F32_PEAK = 67e12             # H100 SXM f32 (non-tensor-core) flop/s
+BF16_PEAK = 989e12           # H100 SXM dense bf16 tensor-core flop/s
 COMPRESSED = dict(comm_dtype="int8", topk_frac=1 / 14,
                   stochastic_rounding=True, error_feedback=True)
 TREE = dict(agg_engine="tree")
@@ -614,6 +636,303 @@ def card_vs_cpu(torch) -> None:
           f"{runs['cpu'][0]}", flush=True)
 
 
+def _pairs(s: int, window: int) -> int:
+    """(query, key) pairs a causal window keeps: key j <= query i and,
+    when windowed, i - j < window."""
+    if not window or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def _close(torch, name: str, got, want, rtol: float, atol: float) -> float:
+    """Every element within atol + rtol * |want|; returns max |diff|."""
+    torch.cuda.synchronize()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise RuntimeError(f"{name}: {got.dtype} {tuple(got.shape)} against "
+                           f"{want.dtype} {tuple(want.shape)}")
+    if not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"{name}: non-finite output")
+    diff = (got.float() - want.float()).abs()
+    excess = float((diff - atol - rtol * want.float().abs()).max())
+    worst = float(diff.max())
+    print(f"  {name}: max|diff| {worst:.3e} (rtol {rtol:g}, atol {atol:g})",
+          flush=True)
+    if excess > 0:
+        raise RuntimeError(f"{name}: beyond rtol {rtol} / atol {atol} "
+                           f"(max|diff| {worst})")
+    return worst
+
+
+# (label, B, S, H, Kh, Dh, window, softcap, dtype, timed)
+FLASH_CASES = (
+    ("recurrentgemma-2b prefill", 4, 4096, 10, 1, 256, 2048, 0.0, "bfloat16",
+     True),
+    ("gemma2-2b local prefill", 1, 8192, 8, 4, 256, 4096, 50.0, "bfloat16",
+     True),
+    ("gemma2-2b global prefill", 1, 8192, 8, 4, 256, 0, 50.0, "bfloat16",
+     True),
+    ("f32", 2, 1024, 4, 2, 128, 256, 0.0, "float32", False),
+    ("ragged S f32", 2, 1000, 6, 2, 64, 0, 30.0, "float32", False),
+    ("Dh 32 bf16", 3, 513, 4, 1, 32, 40, 0.0, "bfloat16", False),
+)
+
+
+def check_flash(torch, bw: float) -> dict:
+    """Phase 6, K5: against its plain version (f32 at rtol = atol = 1e-5,
+    bf16 within one bf16 rounding: rtol = atol = 2**-7), then timed at the
+    path's shapes.  The bound counts the kept pairs' 4 * Dh flops at the
+    dense bf16 tensor rate and q, k, v and out once at the HBM rate."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    worst, timing = 0.0, []
+    for label, b, s, h, kh, dh, window, cap, dtype, timed in FLASH_CASES:
+        g = torch.Generator(device="cuda").manual_seed(s + h)
+        dt = getattr(torch, dtype)
+        q = (torch.randn((b, s, h, dh), generator=g, device="cuda") * 2
+             ).to(dt)
+        k = (torch.randn((b, s, kh, dh), generator=g, device="cuda") * 2
+             ).to(dt)
+        v = torch.randn((b, s, kh, dh), generator=g, device="cuda").to(dt)
+        tol = 1e-5 if dtype == "float32" else 2.0 ** -7
+        got = ops.flash_attention(q, k, v, window=window, softcap=cap)
+        want = ref.flash_attention_ref(q, k, v, window=window, softcap=cap)
+        worst = max(worst, _close(torch, f"flash_attention {label} "
+                                  f"{(b, s, h, kh, dh)} {dtype} window "
+                                  f"{window} softcap {cap:g}", got, want,
+                                  tol, tol))
+        del got, want
+        if not timed:
+            continue
+        pairs = _pairs(s, window)
+        flops = 4 * dh * pairs * b * h
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        ops_ms, bytes_ms = flops / BF16_PEAK * 1e3, nbytes / bw * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        ms = time_ms(torch, lambda: ops.flash_attention(
+            q, k, v, window=window, softcap=cap), iters=10, warmup=2)
+        plain_ms = time_ms(torch, lambda: ref.flash_attention_ref(
+            q, k, v, window=window, softcap=cap), iters=3, warmup=1)
+        row = {"case": label, "shape": {"B": b, "S": s, "H": h, "Kh": kh,
+                                        "Dh": dh, "window": window,
+                                        "softcap": cap, "dtype": dtype},
+               "ms": ms, "plain_ms": plain_ms, "pairs": pairs,
+               "flops": flops, "bytes_needed": nbytes, "bound_ms": bound_ms,
+               "bound_share": bound_ms / ms,
+               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+               "tflops": flops / ms / 1e9, "library_ms": None}
+        if not cap:
+            # the library call: SDPA on the same inputs, the causal window
+            # as a boolean mask, the kv head expanded to every query head
+            pos = torch.arange(s, device="cuda")
+            mask = pos[:, None] >= pos[None, :]
+            if window:
+                mask &= (pos[:, None] - pos[None, :]) < window
+            qt = q.transpose(1, 2)
+            kt = k.repeat_interleave(h // kh, dim=2).transpose(1, 2)
+            vt = v.repeat_interleave(h // kh, dim=2).transpose(1, 2)
+            def lib():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=mask)
+            row["library_ms"] = time_ms(torch, lib, iters=5, warmup=2)
+            row["library_max_abs_diff"] = float(
+                (lib().transpose(1, 2).float() - ops.flash_attention(
+                    q, k, v, window=window).float()).abs().max())
+        print(f"  flash_attention {label}: kernel {ms:.3f} ms "
+              f"({row['tflops']:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
+              f"bound {bound_ms:.4f} ms ({row['bound_by']}; {pairs:,} pairs "
+              f"x {b * h} heads), bound share {bound_ms / ms:.4f}"
+              + ("" if row["library_ms"] is None else
+                 f", SDPA {row['library_ms']:.3f} ms"), flush=True)
+        timing.append(row)
+        del q, k, v
+    return {"max_abs_err": worst, "timing": timing}
+
+
+def check_scan(torch, bw: float) -> dict:
+    """Phase 6, K6: bitwise against its plain version at the path's shape
+    and a ragged one, then timed.  Bound: a and b read once, y written
+    once (12 bytes an element in f32) at the HBM rate."""
+    from repro_torch.kernels.rglru_scan import ops, ref
+    timing = []
+    for b, s, d in ((4, 4096, 2560), (3, 1000, 77)):
+        g = torch.Generator(device="cuda").manual_seed(s + d)
+        a = torch.sigmoid(torch.randn((b, s, d), generator=g, device="cuda"))
+        bb = torch.randn((b, s, d), generator=g, device="cuda") * 0.2
+        got = ops.lru_scan(a, bb)
+        want = ref.lru_scan_ref(a, bb)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise RuntimeError(f"lru_scan {(b, s, d)}: not bitwise equal to "
+                               f"the plain version (max|diff| "
+                               f"{float((got - want).abs().max())})")
+        print(f"  lru_scan {(b, s, d)} f32: bitwise equal to the plain "
+              f"version", flush=True)
+        if (b, s, d) != (4, 4096, 2560):
+            continue
+        nbytes = 12 * b * s * d
+        bound_ms = nbytes / bw * 1e3
+        ms = time_ms(torch, lambda: ops.lru_scan(a, bb), iters=20, warmup=3)
+        plain_ms = time_ms(torch, lambda: ref.lru_scan_ref(a, bb), iters=2,
+                           warmup=1)
+        timing.append({"shape": {"B": b, "S": s, "D": d, "dtype": "float32"},
+                       "ms": ms, "plain_ms": plain_ms,
+                       "bytes_needed": nbytes, "bound_ms": bound_ms,
+                       "bound_share": bound_ms / ms, "bound_by": "bytes",
+                       "library_ms": None})
+        print(f"  lru_scan {(b, s, d)}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB needed), bound share "
+              f"{bound_ms / ms:.3f}; library call: none (no single PyTorch "
+              f"call computes a first-order linear recurrence)", flush=True)
+    return {"max_abs_err": 0.0, "timing": timing}
+
+
+# (arch, batch, prompt, new tokens, K5 and K6 launches of one prefill)
+SERVE_RUNS = (("recurrentgemma-2b", 4, 4096, 32, (8, 18)),
+              ("gemma2-2b", 1, 8192, 8, (26, 0)))
+
+
+def serving(torch) -> dict:
+    """Phase 7: full-width serving through ``serve.generate``.  Launch
+    counts are zeroed before each run, read when prefill is done and again
+    at the end."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.rglru_scan.ops import lru_scan
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import tree_leaves
+
+    out, total = {"runs": []}, (0, 0)
+
+    def counts():
+        return flash_attention.launches, lru_scan.launches
+    for arch, batch, prompt, gen, expected in SERVE_RUNS:
+        cfg = configs.get_config(arch)
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        params = tfm.init_params(torch.Generator("cuda").manual_seed(0), cfg)
+        n_params = sum(x.numel() for x in tree_leaves(params))
+        prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                                device="cuda",
+                                generator=torch.Generator("cuda")
+                                .manual_seed(1))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        marks = {}
+
+        def prefill_done():
+            torch.cuda.synchronize()
+            marks["t"], marks["counts"] = time.perf_counter(), counts()
+
+        flash_attention.launches = lru_scan.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens, stats = generate(params, cfg, prompts, gen,
+                                 on_prefill_done=prefill_done)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        launched = counts()
+        prefill_counts = marks["counts"]
+        decode_counts = tuple(a - b for a, b in zip(launched,
+                                                    prefill_counts))
+        if tuple(tokens.shape) != (batch, prompt + gen) or not bool(
+                ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+            raise RuntimeError(f"{arch}: tokens {tuple(tokens.shape)} out "
+                               f"of shape or vocabulary")
+        if not torch.equal(tokens[:, :prompt], prompts):
+            raise RuntimeError(f"{arch}: the prompt was not kept")
+        row = {"arch": arch, "params": n_params,
+               "param_count": cfg.param_count(), "batch": batch,
+               "prompt": prompt, "gen": gen, "init_s": init_s,
+               "prefill_s": marks["t"] - t0,
+               "decode_ms_per_step": (t1 - marks["t"]) / max(gen - 1, 1)
+               * 1e3,
+               "new_tokens_per_s": batch * gen / (t1 - t0),
+               "prefill_tokens_per_s": batch * prompt / (marks["t"] - t0),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "launches_prefill": prefill_counts,
+               "launches_decode": decode_counts, **stats}
+        print("  " + json.dumps(row), flush=True)
+        if prefill_counts != expected or decode_counts != (0, 0):
+            raise RuntimeError(f"{arch}: K5/K6 launches {prefill_counts} in "
+                               f"prefill (expected {expected}), "
+                               f"{decode_counts} in decode (expected 0)")
+        out["runs"].append(row)
+        total = tuple(a + b for a, b in zip(total, launched))
+        del params, prompts, tokens
+        torch.cuda.empty_cache()
+    out["launches"] = total
+    return out
+
+
+def _narrow_configs():
+    from repro_torch import configs
+    return (configs.get_reduced("recurrentgemma-2b").with_overrides(
+                n_layers=8, exit_layer=3),
+            configs.get_reduced("gemma2-2b").with_overrides(
+                n_layers=5, exit_layer=2))
+
+
+def serving_card_vs_cpu(torch) -> None:
+    """Phase 8: narrow f32 serving on the card (K5, K6) against the CPU
+    (their plain versions), and the card's decode against its prefill."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import tree_map
+    rtol, atol = 1e-4, 1e-5
+    prompt, steps, batch = 64, 8, 2
+    for cfg in _narrow_configs():
+        params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+        tokens = torch.randint(0, cfg.vocab_size, (batch, prompt + steps),
+                               generator=torch.Generator().manual_seed(1))
+        sides = {}
+        for dev in ("cuda", "cpu"):
+            p = tree_map(lambda x: x.to(dev), params)
+            toks = tokens.to(dev)
+            with torch.inference_mode():
+                logits, cache = tfm.prefill(p, cfg, toks[:, :prompt],
+                                            cache_len=prompt + steps)
+                outs = [logits]
+                for t in range(prompt, prompt + steps):
+                    lg, cache, ex = tfm.decode_step(
+                        p, cache, cfg, toks[:, t:t + 1], t,
+                        with_exit_head=True)
+                    outs += [lg, ex]
+            sides[dev] = [o.cpu() for o in outs]
+        worst = 0.0
+        for i, (c, h) in enumerate(zip(sides["cuda"], sides["cpu"])):
+            diff = (c - h).abs()
+            worst = max(worst, float(diff.max()))
+            if float((diff - atol - rtol * h.abs()).max()) > 0:
+                raise RuntimeError(f"{cfg.name} narrow: card and CPU differ "
+                                   f"beyond rtol {rtol} / atol {atol} in "
+                                   f"output {i} (prefill, then final/exit "
+                                   f"per step)")
+        print(f"  {cfg.name} narrow ({cfg.n_layers} layers, exit after "
+              f"{cfg.resolved_exit_layer}, window {cfg.window}, prompt "
+              f"{prompt}): prefill logits and {steps} teacher-forced decode "
+              f"steps (final and exit heads), card vs CPU max|diff| "
+              f"{worst:.3e}", flush=True)
+        # the card's decode, token by token from an empty cache, against
+        # the card's prefill of the whole sequence
+        p = tree_map(lambda x: x.cuda(), params)
+        toks = tokens.cuda()
+        n = prompt + steps
+        with torch.inference_mode():
+            full, _ = tfm.prefill(p, cfg, toks)
+            cache = tfm.init_cache(cfg, batch, n, device="cuda")
+            worst = 0.0
+            for t in range(n):
+                lg, cache = tfm.decode_step(p, cache, cfg, toks[:, t:t + 1], t)
+                diff = (lg[:, 0] - full[:, t]).abs()
+                worst = max(worst, float(diff.max()))
+                if float((diff - atol - rtol * full[:, t].abs()).max()) > 0:
+                    raise RuntimeError(f"{cfg.name} narrow: decode at "
+                                       f"position {t} differs from prefill")
+        print(f"  {cfg.name} narrow on the card: decode of {n} positions "
+              f"against prefill, max|diff| {worst:.3e}", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -659,6 +978,17 @@ def main() -> int:
     # 5. card vs CPU
     print("[5] card vs CPU", flush=True)
     card_vs_cpu(torch)
+    # 6. the serving kernels
+    print("[6] serving kernels vs plain PyTorch on the card", flush=True)
+    k5 = check_flash(torch, bw)
+    k6 = check_scan(torch, bw)
+    # 7. full-width serving
+    print("[7] full-width serving: recurrentgemma-2b and gemma2-2b",
+          flush=True)
+    serve_path = serving(torch)
+    # 8. narrow serving, card vs CPU, decode vs prefill
+    print("[8] narrow serving: card vs CPU, decode vs prefill", flush=True)
+    serving_card_vs_cpu(torch)
 
     src = "src/repro_torch/kernels/masked_agg/csrc/"
     kernels = []
@@ -683,6 +1013,25 @@ def main() -> int:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": None, "shape": shape,
             "bound_share": head["bound_share"], "folds": result["timing"]})
+    for (name, source, replaces), result, launches in zip(
+            (("flash_attention",
+              "src/repro_torch/kernels/flash_attention/csrc/"
+              "flash_attention.cu",
+              "src/repro/kernels/flash_attention/kernel.py:83"),
+             ("lru_scan", "src/repro_torch/kernels/rglru_scan/csrc/"
+              "lru_scan.cu", "src/repro/kernels/rglru_scan/kernel.py:52")),
+            (k5, k6), serve_path["launches"]):
+        head = result["timing"][0]     # the recurrentgemma-2b prefill shape
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": result["max_abs_err"], "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "shape": head["shape"], "bound_share": head["bound_share"],
+            "cases": result["timing"]})
+    kernels[-1]["library_note"] = ("no single PyTorch call computes a "
+                                   "first-order linear recurrence")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name_of_card,

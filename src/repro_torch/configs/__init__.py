@@ -1,0 +1,49 @@
+"""Architecture registry of the port.
+
+The port's counterpart of ``repro.configs.get_config`` / ``get_reduced``.
+Two architectures are ported so far (the serving slice): RecurrentGemma-2B
+and Gemma-2 2B.  Every other name the reference knows raises
+``NotImplementedError`` pointing at ROADMAP.md; an unknown name raises
+``KeyError``, as in the reference.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig
+
+# the reference's registry, in its order
+_MODULES = {
+    "recurrentgemma-2b": "recurrentgemma_2b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "starcoder2-15b": "starcoder2_15b",
+    "gemma2-2b": "gemma2_2b",
+    "xlstm-1.3b": "xlstm_1_3b",
+    "llava-next-34b": "llava_next_34b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "gemma3-4b": "gemma3_4b",
+    "musicgen-large": "musicgen_large",
+    "minitron-8b": "minitron_8b",
+}
+
+ARCH_NAMES = tuple(_MODULES)
+PORTED = ("recurrentgemma-2b", "gemma2-2b")
+
+
+def _module(name: str):
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
+    if name not in PORTED:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported to repro_torch yet (ported: "
+            f"{', '.join(PORTED)}); ROADMAP.md §1 orders the rest of the zoo")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).CONFIG
+
+
+def get_reduced(name: str) -> ModelConfig:
+    return _module(name).reduced()

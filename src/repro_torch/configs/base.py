@@ -1,7 +1,13 @@
-"""Federated experiment config (paper §3 + Appendix A).
+"""Configuration dataclasses: the model zoo's and the federated protocol's.
 
-The port's own copy of ``repro.configs.base.FedConfig``: the same fields,
-defaults and ``validate()`` rules.  Knobs this slice of the port does not
+The port's own copies of ``repro.configs.base``'s ``LayerSpec``,
+``MoEConfig``, ``StubFrontend``, ``ModelConfig`` and ``FedConfig``: the
+same fields, defaults, derived properties and ``validate()`` rules.  A
+model's stack is ``n_periods`` repetitions of its ``pattern`` plus
+``n_remainder`` tail layers; the FedHeN simple model is the depth prefix
+``blocks[:resolved_exit_layer]`` with its own exit head.  The dtype names
+map to torch dtypes through ``torch_param_dtype`` / ``torch_compute_dtype``
+(the reference's ``jnp_*``).  Knobs this slice of the port does not
 implement yet (``async_lag > 0``) are accepted as fields, so configs stay
 interchangeable, but rejected by ``validate()`` with
 ``NotImplementedError`` naming the knob.
@@ -9,12 +15,263 @@ interchangeable, but rejected by ``validate()`` with
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Union
+from typing import Optional, Tuple, Union
+
+import torch
 
 from repro_torch.core.aggregate import ALGORITHMS
 from repro_torch.core.comm import WireSpec
 
+# ---------------------------------------------------------------------------
+# Layer kinds
+# ---------------------------------------------------------------------------
+
+ATTN_GLOBAL = "attn"          # full causal attention
+ATTN_LOCAL = "local_attn"     # sliding-window causal attention
+RGLRU = "rglru"               # Griffin/RecurrentGemma real-gated LRU block
+MLSTM = "mlstm"               # xLSTM matrix-memory block
+SLSTM = "slstm"               # xLSTM scalar-memory block
+
+MIXER_KINDS = (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, MLSTM, SLSTM)
+
+MLP_DENSE = "dense"
+MLP_MOE = "moe"
+MLP_NONE = "none"             # block has no separate MLP (xLSTM style)
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config's dtype name."""
+    if name not in _DTYPES:
+        raise ValueError(f"unknown dtype {name!r} (expected one of "
+                         f"{sorted(_DTYPES)})")
+    return _DTYPES[name]
+
+
+@dataclass(frozen=True)
+class LayerSpec:
+    """One position in the repeating layer pattern."""
+
+    mixer: str = ATTN_GLOBAL
+    mlp: str = MLP_DENSE
+
+    def __post_init__(self):
+        if self.mixer not in MIXER_KINDS:
+            raise ValueError(f"unknown mixer kind {self.mixer!r}")
+        if self.mlp not in (MLP_DENSE, MLP_MOE, MLP_NONE):
+            raise ValueError(f"unknown mlp kind {self.mlp!r}")
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int            # routed experts
+    top_k: int
+    n_shared: int = 0         # always-on shared experts
+    d_expert: int = 0         # per-expert FFN hidden dim
+    capacity_factor: float = 1.25
+    router_z_loss: float = 1e-3
+    load_balance_loss: float = 1e-2
+    pad_to: int = 0           # pad the expert axis to this size (0 = off)
+
+
+@dataclass(frozen=True)
+class StubFrontend:
+    """Modality frontend stub: precomputed ``(batch, n_tokens, d_in)``
+    embeddings; the backbone owns only the projector."""
+
+    kind: str                 # "vision" | "audio_conditioning"
+    n_tokens: int
+    d_in: int
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """One architecture of the zoo.  See ``repro.configs.base.ModelConfig``
+    for each field's meaning."""
+
+    # -- identity ----------------------------------------------------------
+    name: str = "model"
+    arch_type: str = "dense"  # dense | moe | ssm | hybrid | vlm | audio
+    source: str = ""          # citation for the config numbers
+
+    # -- dimensions --------------------------------------------------------
+    n_layers: int = 2
+    d_model: int = 256
+    n_heads: int = 4
+    n_kv_heads: int = 4
+    head_dim: int = 0         # 0 -> d_model // n_heads
+    d_ff: int = 1024
+    vocab_size: int = 1024
+
+    # -- layer pattern -----------------------------------------------------
+    pattern: Tuple[LayerSpec, ...] = (LayerSpec(),)
+    window: int = 4096        # sliding window for local attention layers
+    rope_theta: float = 10000.0
+    attn_logit_softcap: float = 0.0   # gemma-2 style; 0 disables
+    final_logit_softcap: float = 0.0
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = True
+    use_qk_norm: bool = False
+    d_rnn: int = 0            # RG-LRU width (0 -> d_model)
+    lru_temporal_width: int = 4
+
+    # -- MoE / modality ----------------------------------------------------
+    moe: Optional[MoEConfig] = None
+    mlp_glu: bool = True      # gated (3-matrix) vs plain (2-matrix) MLP
+    n_codebooks: int = 1
+    frontend: Optional[StubFrontend] = None
+
+    # -- xLSTM -------------------------------------------------------------
+    mlstm_proj_factor: float = 2.0
+    slstm_ff_factor: float = 4.0 / 3.0
+    mlstm_chunk: int = 64
+
+    # -- FedHeN ------------------------------------------------------------
+    exit_layer: int = 0       # K: simple subnet = blocks[:K]; 0 -> n_layers//2
+
+    # -- numerics ----------------------------------------------------------
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+
+    # -- sharding hints (the reference's mesh; one card here) ----------------
+    attn_shard: str = "auto"
+    shard_experts_2d: bool = False
+
+    # -- long-context variant ------------------------------------------------
+    longctx_window: int = 8192
+
+    def __post_init__(self):
+        if self.n_heads % self.n_kv_heads != 0:
+            raise ValueError("n_heads must be divisible by n_kv_heads")
+
+    # Derived quantities -------------------------------------------------
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim else self.d_model // self.n_heads
+
+    @property
+    def resolved_d_rnn(self) -> int:
+        return self.d_rnn if self.d_rnn else self.d_model
+
+    @property
+    def period(self) -> int:
+        return len(self.pattern)
+
+    @property
+    def n_periods(self) -> int:
+        return self.n_layers // self.period
+
+    @property
+    def n_remainder(self) -> int:
+        return self.n_layers % self.period
+
+    @property
+    def resolved_exit_layer(self) -> int:
+        """FedHeN K, rounded down to a period boundary (>= one period)."""
+        k = self.exit_layer if self.exit_layer else self.n_layers // 2
+        k = (k // self.period) * self.period
+        return max(k, self.period)
+
+    @property
+    def exit_period(self) -> int:
+        return self.resolved_exit_layer // self.period
+
+    def layer_spec(self, idx: int) -> LayerSpec:
+        return self.pattern[idx % self.period]
+
+    def torch_param_dtype(self) -> torch.dtype:
+        return torch_dtype(self.param_dtype)
+
+    def torch_compute_dtype(self) -> torch.dtype:
+        return torch_dtype(self.compute_dtype)
+
+    # Parameter counting ---------------------------------------------------
+
+    def param_count(self) -> int:
+        """Analytical parameter count of the complex model."""
+        d, v = self.d_model, self.vocab_size
+        total = v * d * self.n_codebooks          # embeddings
+        if not self.tie_embeddings:
+            total += v * d * self.n_codebooks
+        if self.frontend is not None:
+            total += self.frontend.d_in * d       # projector
+        for i in range(self.n_layers):
+            total += self._layer_params(self.layer_spec(i))
+        total += d                                 # final norm
+        total += d                                 # exit norm (FedHeN head)
+        return total
+
+    def _layer_params(self, spec: LayerSpec) -> int:
+        d = self.d_model
+        hd = self.resolved_head_dim
+        n = 0
+        if spec.mixer in (ATTN_GLOBAL, ATTN_LOCAL):
+            n += d * self.n_heads * hd             # Wq
+            n += 2 * d * self.n_kv_heads * hd      # Wk, Wv
+            n += self.n_heads * hd * d             # Wo
+        elif spec.mixer == RGLRU:
+            dr = self.resolved_d_rnn
+            n += 2 * d * dr + dr * d               # in/gate/out proj
+            n += dr * self.lru_temporal_width      # temporal conv
+            n += 3 * dr                            # the reference's count; the
+            # block holds five (w_r, b_r, w_i, b_i, lam)
+        elif spec.mixer == MLSTM:
+            di = int(self.d_model * self.mlstm_proj_factor)
+            n += 2 * d * di                        # up + gate proj
+            n += 3 * di * (di // self.n_heads)     # block-diag q, k, v
+            n += di * 2 * self.n_heads             # i, f gate projections
+            n += di * d                            # down proj
+        elif spec.mixer == SLSTM:
+            nh, dh = self.n_heads, d // self.n_heads
+            n += 4 * d * d                         # i, f, z, o input projections
+            n += 4 * nh * dh * dh                  # recurrent (block-diag)
+            dff = int(d * self.slstm_ff_factor)
+            n += 2 * d * dff                       # post FFN
+        n += 2 * d                                 # pre norms (mixer + mlp)
+        mats = 3 if self.mlp_glu else 2            # (gate,) up, down
+        if spec.mlp == MLP_DENSE:
+            n += mats * d * self.d_ff
+        elif spec.mlp == MLP_MOE:
+            m = self.moe
+            de = m.d_expert or self.d_ff
+            n += d * m.n_experts                   # router
+            n += mats * d * de * (m.n_experts + m.n_shared)
+        return n
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k + shared experts only)."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        de = m.d_expert or self.d_ff
+        n_moe_layers = sum(1 for i in range(self.n_layers)
+                           if self.layer_spec(i).mlp == MLP_MOE)
+        mats = 3 if self.mlp_glu else 2
+        return self.param_count() - n_moe_layers * mats * self.d_model * de \
+            * (m.n_experts - m.top_k)
+
+    def simple_param_count(self) -> int:
+        """Analytical parameter count of the FedHeN simple subnet."""
+        d, v = self.d_model, self.vocab_size
+        total = v * d * self.n_codebooks
+        if self.frontend is not None:
+            total += self.frontend.d_in * d
+        for i in range(self.resolved_exit_layer):
+            total += self._layer_params(self.layer_spec(i))
+        total += d                                 # exit norm
+        return total
+
+    def with_overrides(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Federated experiment config (paper §3 + Appendix A)
+# ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
 class FedConfig:

@@ -1,0 +1,147 @@
+"""Serving: batched prefill + decode with the FedHeN early-exit head.
+
+The port of ``repro.launch.serve``.  The FedHeN side objective trains the
+exit head jointly with the full model, so at serving time one checkpoint
+yields two operating points: full-depth decode, and early-exit decode
+(the simple sub-network).  A confidence-based adaptive mode emits the exit
+head's token when its max probability clears a threshold, otherwise the
+full model's; on the batched path both heads are computed and the run
+reports how often the exit head agreed with the full model and how often
+it was confident.
+
+Prefill runs K5 (flash attention) in every attention layer and K6 (the
+RG-LRU scan) in every RG-LRU layer on the card; decode is plain PyTorch,
+as the reference's decode is plain jnp.  Runs on ``cuda`` unless
+``--device cpu``:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --arch recurrentgemma-2b --batch 2 --prompt-len 32 --gen 8
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch import configs
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as tfm
+
+
+def generate(params, cfg, prompts: torch.Tensor, gen: int, *,
+             adaptive_threshold: float = 0.0, temperature: float = 0.0,
+             generator: Optional[torch.Generator] = None,
+             on_prefill_done: Optional[Callable[[], None]] = None):
+    """prompts: (B, S) token ids.  Returns ``(tokens (B, S + gen), stats)``.
+
+    Greedy unless ``temperature > 0``, which samples ``argmax(logits / T +
+    Gumbel noise)`` (the reference's ``jax.random.categorical``) with noise
+    from ``generator`` (default: seeded 0); both heads share a step's
+    noise, as they share its key in the reference.  ``on_prefill_done`` is
+    called once the prompt is prefilled and the first token picked (a
+    caller's hook for timers and counters)."""
+    with torch.inference_mode():
+        b, s = prompts.shape[0], prompts.shape[1]
+        logits, cache = tfm.prefill(params, cfg, prompts, cache_len=s + gen)
+        last = logits[:, -1].clone()
+        del logits          # every position's logits: free them for decode
+        if generator is None and temperature > 0:
+            generator = torch.Generator(prompts.device).manual_seed(0)
+
+        def noise(lg):
+            if temperature <= 0:
+                return None
+            u = torch.rand(lg.shape, generator=generator, device=lg.device)
+            return -torch.log(-torch.log(u.clamp_min(
+                torch.finfo(torch.float32).tiny)))
+
+        def pick(lg, gumbel):
+            if gumbel is None:
+                return torch.argmax(lg, dim=-1)
+            return torch.argmax(lg.float() / temperature + gumbel, dim=-1)
+
+        tok = pick(last, noise(last))[:, None]
+        out = [prompts, tok]
+        if on_prefill_done is not None:
+            on_prefill_done()
+        exit_agree = exit_confident = 0
+        for i in range(gen - 1):
+            logits, cache, exit_logits = tfm.decode_step(
+                params, cache, cfg, tok, s + i, with_exit_head=True)
+            gumbel = noise(logits[:, -1])
+            full_tok = pick(logits[:, -1], gumbel)
+            exit_tok = pick(exit_logits[:, -1], gumbel)
+            if adaptive_threshold > 0:
+                probs = torch.softmax(exit_logits[:, -1].float(), dim=-1)
+                confident = probs.max(dim=-1).values >= adaptive_threshold
+                chosen = torch.where(confident, exit_tok, full_tok)
+                exit_confident += int(confident.sum())
+            else:
+                chosen = full_tok
+            exit_agree += int((exit_tok == full_tok).sum())
+            tok = chosen[:, None]
+            out.append(tok)
+        tokens = torch.cat(out, dim=1)
+    n = b * max(gen - 1, 1)
+    stats = {"exit_agreement": exit_agree / n,
+             "exit_confident_frac": exit_confident / max(b * (gen - 1), 1)}
+    return tokens, stats
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="gemma2-2b")
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--adaptive-threshold", type=float, default=0.0)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--checkpoint", default="")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    args = ap.parse_args(argv)
+    if args.checkpoint:
+        raise NotImplementedError("--checkpoint: restoring a checkpoint is "
+                                  "not ported to repro_torch yet "
+                                  "(ROADMAP.md §1)")
+    device = resolve_device(args.device)
+    cfg = (configs.get_reduced(args.arch) if args.reduced
+           else configs.get_config(args.arch))
+    params = tfm.init_params(torch.Generator(device).manual_seed(args.seed),
+                             cfg)
+    prompts = torch.randint(
+        0, cfg.vocab_size, (args.batch, args.prompt_len), device=device,
+        generator=torch.Generator(device).manual_seed(args.seed + 1))
+
+    t0 = time.perf_counter()
+    tokens, stats = generate(params, cfg, prompts, args.gen,
+                             adaptive_threshold=args.adaptive_threshold,
+                             temperature=args.temperature)
+    sample = tokens[0, :24].tolist()        # waits for the device
+    dt = time.perf_counter() - t0
+    n_new = args.batch * args.gen
+    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
+             else "CPU")
+    print(f"arch={cfg.name} batch={args.batch} prompt={args.prompt_len} "
+          f"gen={args.gen}")
+    print(f"generated {n_new} tokens in {dt:.2f}s "
+          f"({n_new / dt:.1f} tok/s on {where})")
+    print(f"exit-head agreement with full model: "
+          f"{stats['exit_agreement']:.2%}")
+    if args.adaptive_threshold > 0:
+        print(f"tokens the exit head was confident on: "
+              f"{stats['exit_confident_frac']:.2%} "
+              f"(these skip {cfg.n_layers - cfg.resolved_exit_layer} of "
+              f"{cfg.n_layers} layers)")
+    print("sample tokens:", sample)
+    return stats
+
+
+if __name__ == "__main__":
+    main()

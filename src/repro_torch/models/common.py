@@ -1,7 +1,13 @@
-"""Shared building blocks of the port's models: norm, loss, init helpers.
+"""Shared building blocks of the port's models: norms, embeddings, RoPE,
+softcap, losses and init helpers.
 
-Parameters are plain nested dicts of tensors, as in the reference;
-activations are NCHW (PyTorch's convention) inside the models.
+Parameters are plain nested dicts of tensors, as in the reference.  Every
+``init_*`` draws from an explicit ``torch.Generator`` and makes its
+tensors on that generator's device.  The ResNet's activations are NCHW
+(PyTorch's convention); the language models keep the reference's
+``(B, S, ...)`` layouts.  The reference's sharding ``Policy`` has no
+counterpart: the port runs on one card, where ``constrain`` is the
+identity.
 """
 
 from __future__ import annotations
@@ -13,15 +19,102 @@ import torch
 import torch.nn.functional as F
 
 
-def dense_init(generator: torch.Generator, shape, fan_in: Optional[int] = None
-               ) -> torch.Tensor:
+def dense_init(generator: torch.Generator, shape, fan_in: Optional[int] = None,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Truncated-normal (+-2 std) fan-in init, the reference's scheme (its
-    draws come from JAX keys, so the values differ)."""
+    draws come from JAX keys, so the values differ), drawn in f32 on the
+    generator's device and stored in ``dtype``."""
     if fan_in is None:
         fan_in = shape[0] if len(shape) > 1 else shape[-1]
-    out = torch.empty(shape, dtype=torch.float32)
+    out = torch.empty(shape, dtype=torch.float32, device=generator.device)
     torch.nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return out / math.sqrt(max(fan_in, 1))
+    return (out / math.sqrt(max(fan_in, 1))).to(dtype)
+
+
+def embed_init(generator: torch.Generator, shape,
+               dtype: torch.dtype) -> torch.Tensor:
+    """Normal(0, 0.02) in f32, stored in ``dtype``."""
+    out = torch.randn(shape, generator=generator, dtype=torch.float32,
+                      device=generator.device)
+    return (out * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm (gemma-style: the weight is a residual around 1)
+# ---------------------------------------------------------------------------
+
+def init_rmsnorm(d: int, dtype: torch.dtype, device=None) -> dict:
+    return {"scale": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def apply_rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6
+                  ) -> torch.Tensor:
+    """``x / rms(x) * (1 + scale)`` in f32, returned in ``x.dtype``."""
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    xf = xf * torch.rsqrt(var + eps)
+    return (xf * (1.0 + p["scale"].float())).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Softcap (gemma-2) and rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    if not cap:
+        return x
+    return torch.tanh(x / cap) * cap
+
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> torch.Tensor:
+    """``1 / theta ** (2i / head_dim)`` in f32, (head_dim // 2,)."""
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+    return 1.0 / (theta ** exponent)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Half-split rotation.  x: (B, S, N, Dh); positions: (B, S) or (S,)
+    ints.  Angles and the rotation in f32; returned in ``x.dtype``."""
+    dh = x.shape[-1]
+    freqs = rope_frequencies(dh, theta, x.device)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    angles = positions[..., None].float() * freqs           # (B, S, dh/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Token embedding / unembedding
+# ---------------------------------------------------------------------------
+
+def init_embedding(generator: torch.Generator, vocab: int, d_model: int,
+                   dtype: torch.dtype) -> dict:
+    return {"table": embed_init(generator, (vocab, d_model), dtype)}
+
+
+def apply_embedding(p: dict, tokens: torch.Tensor, *,
+                    scale: bool = True) -> torch.Tensor:
+    """Rows of the table, times ``sqrt(D)`` rounded to the table's dtype as
+    the reference rounds it (f32 first: in bf16 sqrt(2560) = 50.596...
+    becomes 50.5)."""
+    h = p["table"][tokens]
+    if scale:
+        d = p["table"].shape[-1]
+        h = h * torch.tensor(math.sqrt(d), dtype=torch.float32,
+                             device=h.device).to(h.dtype)
+    return h
+
+
+def apply_unembedding(p: dict, h: torch.Tensor) -> torch.Tensor:
+    """Logits against the (tied) table: ``h @ table.T`` in ``h.dtype``."""
+    return torch.matmul(h, p["table"].t())
 
 
 def init_groupnorm(channels: int) -> dict:

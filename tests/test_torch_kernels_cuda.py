@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-K1 contracts its multiply-add to an FMA (tolerance 1e-6); K2, K3 and K4
-round each product and sum as their plain versions do, in the same order,
-so they are held bitwise.
+K1 contracts its multiply-add to an FMA (tolerance 1e-6); K2, K3, K4 and
+K6 round each product and sum as their plain versions do, in the same
+order, so they are held bitwise.  K5 sums its scores and its PV product in
+another order than its plain version (cuBLAS): f32 at rtol = atol = 1e-5,
+bf16 outputs within one bf16 rounding (rtol = atol = 2**-7).
 
 Every test here needs a CUDA card (a hand-written kernel has no CPU mode):
 marked ``cuda``, each skips without one.  The file imports only torch and
@@ -17,10 +19,15 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)   # the suite runs several worker processes
 
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import \
+    flash_attention_ref  # noqa: E402
 from repro_torch.kernels.masked_agg import ops  # noqa: E402
 from repro_torch.kernels.masked_agg.ref import (  # noqa: E402
     masked_agg_acc_deq_ref, masked_agg_acc_ref, masked_agg_ref,
     masked_scatter_acc_ref)
+from repro_torch.kernels.rglru_scan import ops as scan_ops  # noqa: E402
+from repro_torch.kernels.rglru_scan.ref import lru_scan_ref  # noqa: E402
 
 
 @pytest.fixture
@@ -207,3 +214,98 @@ def test_masked_agg_tree_folds_every_leaf_on_the_card(cuda):
         flatten.unpack_stacked(layout, xz), leaf_masks)
     for a, b in zip(tree_leaves(got), tree_leaves(want)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _qkv(cuda, b, s, h, kh, dh, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q = torch.randn((b, s, h, dh), generator=g, device=cuda) * 2
+    k = torch.randn((b, s, kh, dh), generator=g, device=cuda) * 2
+    v = torch.randn((b, s, kh, dh), generator=g, device=cuda)
+    return q.to(dt), k.to(dt), v.to(dt)
+
+
+def _flash_close(got, want, dtype):
+    tol = 1e-5 if dtype == "float32" else 2.0 ** -7
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,kh,dh,window,cap,dtype", [
+    (4, 4096, 10, 1, 256, 2048, 0.0, "bfloat16"),  # recurrentgemma-2b
+    (1, 8192, 8, 4, 256, 4096, 50.0, "bfloat16"),  # gemma2-2b local
+    (1, 8192, 8, 4, 256, 0, 50.0, "bfloat16"),     # gemma2-2b global
+    (2, 1000, 4, 2, 128, 300, 0.0, "float32"),     # ragged S
+    (2, 777, 6, 3, 64, 0, 30.0, "float32"),
+    (3, 513, 5, 5, 32, 40, 0.0, "float32"),        # Dh 32, MHA
+    (1, 200, 70, 1, 64, 0, 0.0, "bfloat16"),       # G = 70 > 64 rows
+    (2, 64, 4, 2, 32, 1000, 0.0, "float32"),       # window >= S
+])
+def test_flash_attention_matches_plain_version(cuda, b, s, h, kh, dh, window,
+                                               cap, dtype):
+    q, k, v = _qkv(cuda, b, s, h, kh, dh, dtype, seed=s + h + dh)
+    before = flash_ops.flash_attention.launches
+    got = flash_ops.flash_attention(q, k, v, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert flash_ops.flash_attention.launches == before + 1
+    assert got.dtype == q.dtype and bool(torch.isfinite(got).all())
+    _flash_close(got, flash_attention_ref(q, k, v, window=window,
+                                          softcap=cap), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [1, 3, 70])
+def test_flash_attention_short_windows_mask_the_leading_keys(cuda, window):
+    """A window far shorter than the block's queries: most rows find the
+    leading keys of the block's first tile masked (all but one for the
+    last row at window 1), and the windows of the later queries start
+    tiles after the first; the f32 softmax state must not let those
+    masked keys in (the TPU kernel relies on a later real key to wipe
+    them)."""
+    for h, kh in ((1, 1), (10, 1), (8, 4)):
+        q, k, v = _qkv(cuda, 2, 300, h, kh, 64, "float32", seed=window + h)
+        got = flash_ops.flash_attention(q, k, v, window=window)
+        _flash_close(got, flash_attention_ref(q, k, v, window=window),
+                     "float32")
+        if window == 1:     # each query sees only itself: out = v
+            torch.testing.assert_close(
+                got, v.repeat_interleave(h // kh, dim=2), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_flash_attention_rejects_what_the_kernel_does_not_take(cuda):
+    q, k, v = _qkv(cuda, 1, 16, 2, 1, 32, "float32", seed=0)
+    with pytest.raises(ValueError, match="forward only"):
+        flash_ops.flash_attention(q.requires_grad_(), k, v)
+    q = q.detach()
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_ops.flash_attention(q[..., :16].contiguous(),
+                                  k[..., :16].contiguous(),
+                                  v[..., :16].contiguous())
+    strided = lambda t: t.transpose(1, 2).contiguous().transpose(1, 2)  # noqa: E731
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_ops.flash_attention(strided(q), strided(k), strided(v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,d,dtype", [(4, 4096, 2560, "float32"),
+                                         (3, 1000, 77, "float32"),
+                                         (2, 17, 130, "bfloat16")])
+def test_lru_scan_matches_plain_version_bitwise(cuda, b, s, d, dtype):
+    g = torch.Generator(device=cuda).manual_seed(s + d)
+    a = torch.sigmoid(torch.randn((b, s, d), generator=g, device=cuda))
+    bb = torch.randn((b, s, d), generator=g, device=cuda) * 0.2
+    a, bb = a.to(getattr(torch, dtype)), bb.to(getattr(torch, dtype))
+    before = scan_ops.lru_scan.launches
+    got = scan_ops.lru_scan(a, bb)
+    torch.cuda.synchronize()
+    assert scan_ops.lru_scan.launches == before + 1
+    assert got.dtype == a.dtype
+    assert torch.equal(got, lru_scan_ref(a, bb))
+
+
+@pytest.mark.cuda
+def test_lru_scan_rejects_grad(cuda):
+    a = torch.rand((1, 4, 8), device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="forward only"):
+        scan_ops.lru_scan(a, a.detach())
