@@ -8,19 +8,20 @@
 //                  * v[b, j, h / G]
 //
 // over the keys j with j <= i and, when window > 0, i - j < window.
-// q (B, S, H, Dh), k and v (B, S, Kh, Dh), all f32 or all bf16,
-// contiguous; G = H / Kh, so query head h reads kv head h / G (the
-// reference's (kh, g) split).  cap(x) = tanh(x / softcap) * softcap when
-// softcap > 0.  q, k and v are widened to f32; the online softmax (m, l,
-// acc) and the probabilities stay f32; out is acc / max(l, 1e-30) rounded
-// once to q's dtype.  Dh is 32, 64, 128 or 256.
+// q (B, S, H, Dh), k and v (B, S, Kh, Dh), f32, contiguous; G = H / Kh,
+// so query head h reads kv head h / G (the reference's (kh, g) split).
+// cap(x) = tanh(x / softcap) * softcap when softcap > 0.  The online
+// softmax (m, l, acc) and the probabilities stay f32; out is
+// acc / max(l, 1e-30).  Dh is 32, 64, 128 or 256.  bf16 inputs go to the
+// tensor-core kernel (flash_attention_wgmma.cu).
 //
 // Bound: operations.  Each kept (query, key) pair costs 4 * Dh flops (the
 // score and its share of P.V) against 4 * Dh bytes of q, k, v and out per
 // row, far above the card's balance point at the path's lengths
 // (thousands of keys per query).  This first version runs on the CUDA
 // cores in f32 (no tensor cores): f32 inputs must come out at f32
-// accuracy, which bf16 or TF32 products would not give.
+// accuracy, which bf16 or TF32 products would not give.  Its peak is the
+// card's f32 CUDA-core rate (67 TFLOP/s).
 //
 // Design.  One block of 256 threads per (batch, kv head, group of query
 // heads, block of BQ queries).  Its 64 rows are (head, query) pairs: all
@@ -29,8 +30,8 @@
 // 10 heads share each tile).  The block walks its keys in tiles of 64,
 // in increasing order, from max(0, first query - window + 1) to its last
 // query only: keys no row of the block can see are never loaded.  A
-// tile's K and V are widened to f32 in shared memory beside the block's
-// Q rows (rows padded by 4 floats against bank conflicts); each thread
+// tile's K and V sit in shared memory beside the block's Q rows (rows
+// padded by 4 floats against bank conflicts); each thread
 // owns 4 rows and computes a 4 x 4 register tile of scores, reduces each
 // row's max and sum over the 16 threads that share it with warp shuffles,
 // writes its probabilities to shared memory and accumulates a 4 x Dh/16
@@ -43,7 +44,6 @@
 // Plain C interface, loaded with ctypes.  The entry point returns the
 // cudaError_t of its launch; the wrapper raises on anything but success.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -56,25 +56,11 @@ constexpr int kBK = 64;     // keys per tile
 constexpr int kPad = 4;     // floats of padding per shared-memory row
 constexpr int kLdP = kBK + kPad;
 
-// 4 consecutive elements widened to f32 (16-byte f32 or 8-byte bf16 load).
+// 4 consecutive elements (one 16-byte load).
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const uint16_t* p) {
-  const uint2 t = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(t.x << 16),
-                     __uint_as_float(t.x & 0xffff0000u),
-                     __uint_as_float(t.y << 16),
-                     __uint_as_float(t.y & 0xffff0000u));
-}
-
-__device__ __forceinline__ uint16_t to_bf16(float v) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
-}
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(uint16_t* p, float v) {
-  *p = to_bf16(v);
-}
 
 __device__ __forceinline__ float max16(float v) {
 #pragma unroll
@@ -90,7 +76,7 @@ __device__ __forceinline__ float sum16(float v) {
 }
 
 // Copy `rows` rows of DH elements (row r at src + r * stride, rows at or
-// beyond `valid` read as 0) into shared memory as f32, row pitch DH + kPad.
+// beyond `valid` read as 0) into shared memory, row pitch DH + kPad.
 template <typename T, int DH>
 __device__ __forceinline__ void load_rows(float* dst, const T* src,
                                           int64_t stride, int rows,
@@ -141,7 +127,7 @@ flash_fwd(T* __restrict__ out, const T* __restrict__ q,
     live[i] = gl < g_blk && g0 + gl < g && qpos[i] < s_len;
   }
 
-  // Q rows of the block, widened; dead rows are 0
+  // Q rows of the block; dead rows are 0
   for (int idx = tid; idx < kRows * (DH / 4); idx += kThreads) {
     const int r = idx / (DH / 4), c = (idx % (DH / 4)) * 4;
     const int gl = r / bq, qp = q0 + r % bq;
@@ -322,14 +308,10 @@ cudaError_t dispatch(int dh, void* out, const void* q, const void* k,
 extern "C" int flash_attention_fwd(void* out, const void* q, const void* k,
                                    const void* v, int b, int s, int h,
                                    int kh, int dh, int window, float softcap,
-                                   float scale, int is_bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? dispatch<uint16_t>(dh, out, q, k, v, b, s, h, kh, window,
-                                   softcap, scale, st)
-              : dispatch<float>(dh, out, q, k, v, b, s, h, kh, window,
-                                softcap, scale, st);
-  return static_cast<int>(err);
+                                   float scale, void* stream) {
+  return static_cast<int>(dispatch<float>(dh, out, q, k, v, b, s, h, kh,
+                                          window, softcap, scale,
+                                          static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

@@ -1,20 +1,25 @@
-"""Wrapper of the flash attention kernel (``csrc/flash_attention.cu``, K5).
+"""Wrappers of the flash attention kernels (K5): ``csrc/flash_attention_wgmma.cu``
+for bf16, ``csrc/flash_attention.cu`` for f32.
 
 ``flash_attention`` replaces the reference's
 ``repro.kernels.flash_attention.kernel.flash_attention_pallas``, which its
 ``ops.flash_attention`` runs on a TPU in place of the model's chunked
 path (the same contract): causal, optionally sliding-window GQA attention
 with an optional tanh softcap, forward only.  On CPU tensors it runs the
-plain version (``ref.py``); on CUDA tensors it launches the kernel or
-raises — there is no fallback.  ``flash_attention.launches`` counts
-kernel launches (never plain-version calls), so a run can show that its
-prefill went through the kernel.
+plain version (``ref.py``).  On CUDA tensors it picks a kernel by dtype,
+explicitly: bf16 launches the tensor-core kernel (wgmma, planned by
+:func:`plan_wgmma`), f32 the CUDA-core kernel, which keeps f32 products;
+anything the kernels do not take raises — there is no fallback.
+``flash_attention.launches_tc`` and ``flash_attention.launches`` count the
+tensor-core and the CUDA-core kernel's launches (never plain-version
+calls), so a run can show which kernel its prefill went through.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -22,17 +27,63 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (32, 64, 128, 256)     # the kernel's instantiations
+HEAD_DIMS = (32, 64, 128, 256)     # the kernels' instantiations
+
+# the tensor-core kernel's tile (csrc/flash_attention_wgmma.cu): two
+# warpgroups of 64 (query, head) rows, keys in tiles of 64 through a ring
+# of 2 K/V stages
+TC_ROWS, TC_KEYS, TC_STAGES = 128, 64, 2
+
+
+class WgmmaPlan(NamedTuple):
+    """Launch of the tensor-core kernel for one call (see
+    ``csrc/flash_attention_wgmma.cu``)."""
+    g_blk: int          # query heads of one kv head a block takes
+    bq: int             # queries a block takes (g_blk * bq <= TC_ROWS rows)
+    n_qblocks: int
+    n_groups: int       # head groups per kv head (G > TC_ROWS only)
+    grid: int           # blocks: q-blocks x head groups x B x Kh
+    smem_bytes: int     # Q + the K/V ring, 128-byte swizzled, + 1 KiB align
+
+
+def plan_wgmma(b: int, s: int, h: int, kh: int, dh: int,
+               dtype: torch.dtype) -> WgmmaPlan:
+    """The tensor-core kernel's launch for q (b, s, h, dh) and k, v (b, s,
+    kh, dh): rows are (query, head) pairs of one kv head in query-major
+    order, all G = h / kh heads (at most TC_ROWS) times TC_ROWS // G
+    queries.  Raises on what the kernel does not take."""
+    if dtype != torch.bfloat16:
+        raise ValueError(f"the tensor-core kernel takes bfloat16, got "
+                         f"{dtype}")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"head_dim {dh} not supported by the kernel "
+                         f"(expected one of {HEAD_DIMS})")
+    if kh < 1 or h % kh or b < 1 or s < 1:
+        raise ValueError(f"no launch for B={b}, S={s}, H={h}, Kh={kh}")
+    g = h // kh
+    g_blk = min(g, TC_ROWS)
+    bq = TC_ROWS // g_blk
+    n_q, n_g = -(-s // bq), -(-g // g_blk)
+    grid = n_q * n_g * b * kh
+    if grid >= 2**31:
+        raise ValueError(f"{grid} blocks are beyond the kernel's grid")
+    dp = max(dh, 64)                 # Dh 32 is padded to 64 columns
+    smem = 2 * dp * (TC_ROWS + 2 * TC_STAGES * TC_KEYS) + 1024
+    return WgmmaPlan(g_blk, bq, n_q, n_g, grid, smem)
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.load()
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    f32 = ctypes.c_float
     lib.flash_attention_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
-                                        i32, i32, i32, ctypes.c_float,
-                                        ctypes.c_float, i32, ptr]
+                                        i32, i32, i32, f32, f32, ptr]
     lib.flash_attention_fwd.restype = ctypes.c_int
+    lib.flash_attention_wgmma_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32,
+                                              i32, i32, i32, i32, i32, i32,
+                                              f32, f32, i32, ptr]
+    lib.flash_attention_wgmma_fwd.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -71,8 +122,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with ``tanh(x / softcap) * softcap``.  Query head ``h`` reads kv head
     ``h // (H // Kh)``.
 
-    On CUDA: contiguous 16-byte aligned inputs, Dh in ``HEAD_DIMS``; the
-    kernel launches on the current stream and does not synchronise."""
+    On CUDA: contiguous 16-byte aligned inputs, Dh in ``HEAD_DIMS``; bf16
+    runs on the tensor cores (probabilities rounded to bf16 for the PV
+    product, as the model's ``_attend`` rounds them), f32 on the CUDA
+    cores; the kernel launches on the current stream and does not
+    synchronise."""
     _check(q, k, v, window, softcap)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, window=window, softcap=softcap)
@@ -85,24 +139,40 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("q, k and v must be contiguous")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must be 16-byte aligned")
-    if b * kh > 65535 or s >= 2**31:
-        raise ValueError(f"B * Kh = {b * kh} or S = {s} is beyond the "
-                         f"kernel's grid")
+    if s >= 2**31:
+        raise ValueError(f"S = {s} is beyond the kernels' indexing")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    if q.dtype == torch.bfloat16:
+        plan = plan_wgmma(b, s, h, kh, dh, q.dtype)
+    elif q.dtype == torch.float32:
+        plan = None
+        if b * kh > 65535:
+            raise ValueError(f"B * Kh = {b * kh} is beyond the kernel's "
+                             f"grid")
+    else:
+        raise ValueError(f"no kernel takes {q.dtype}")
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_fwd(
-            out.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), b, s,
-            h, kh, dh, window, softcap, dh ** -0.5,
-            int(q.dtype == torch.bfloat16), stream)
+        ptrs = (out.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr())
+        if plan is not None:
+            err = lib.flash_attention_wgmma_fwd(
+                *ptrs, b, s, h, kh, dh, plan.g_blk, plan.bq, window, softcap,
+                dh ** -0.5, plan.smem_bytes, stream)
+        else:
+            err = lib.flash_attention_fwd(*ptrs, b, s, h, kh, dh, window,
+                                          softcap, dh ** -0.5, stream)
     if err:
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention launch failed: {msg} ({err})")
-    flash_attention.launches += 1
+    if plan is not None:
+        flash_attention.launches_tc += 1
+    else:
+        flash_attention.launches += 1
     return out
 
 
-flash_attention.launches = 0
+flash_attention.launches = 0        # the CUDA-core kernel (f32)
+flash_attention.launches_tc = 0     # the tensor-core kernel (bf16)

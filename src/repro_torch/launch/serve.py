@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -30,40 +30,66 @@ from repro_torch import configs
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
 
+# noise(step, shape, dtype) -> standard Gumbel noise of ``shape`` in
+# ``dtype`` for one sampled pick: step 0 picks the first token after the
+# prefill, step i + 1 decode step i (the reference draws them from its
+# unsplit key, then from one split per step); both heads share a step's
+# noise, as they share its key in the reference
+NoiseProvider = Callable[[int, Tuple[int, ...], torch.dtype], torch.Tensor]
+
+
+class SeededGumbel:
+    """Default noise provider: ``-log(-log(u))`` of f32 uniforms drawn in
+    call order from one ``torch.Generator`` (the uniforms clamped to the
+    smallest normal f32), rounded to the logits' dtype."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+
+    def __call__(self, step: int, shape: Tuple[int, ...],
+                 dtype: torch.dtype) -> torch.Tensor:
+        u = torch.rand(shape, generator=self.generator,
+                       device=self.generator.device)
+        return -torch.log(-torch.log(u.clamp_min(
+            torch.finfo(torch.float32).tiny))).to(dtype)
+
 
 def generate(params, cfg, prompts: torch.Tensor, gen: int, *,
              adaptive_threshold: float = 0.0, temperature: float = 0.0,
-             generator: Optional[torch.Generator] = None,
+             noise: Optional[NoiseProvider] = None,
              on_prefill_done: Optional[Callable[[], None]] = None):
     """prompts: (B, S) token ids.  Returns ``(tokens (B, S + gen), stats)``.
 
     Greedy unless ``temperature > 0``, which samples ``argmax(logits / T +
-    Gumbel noise)`` (the reference's ``jax.random.categorical``) with noise
-    from ``generator`` (default: seeded 0); both heads share a step's
-    noise, as they share its key in the reference.  ``on_prefill_done`` is
-    called once the prompt is prefilled and the first token picked (a
-    caller's hook for timers and counters)."""
+    gumbel)`` in the logits' dtype, as the reference's
+    ``jax.random.categorical(key, logits / T)`` does, with the noise of
+    ``noise`` (default: :class:`SeededGumbel` on a generator seeded 0 on the
+    prompts' device).  ``on_prefill_done`` is called once the prompt is
+    prefilled and the first token picked (a caller's hook for timers and
+    counters)."""
     with torch.inference_mode():
         b, s = prompts.shape[0], prompts.shape[1]
         logits, cache = tfm.prefill(params, cfg, prompts, cache_len=s + gen)
         last = logits[:, -1].clone()
         del logits          # every position's logits: free them for decode
-        if generator is None and temperature > 0:
-            generator = torch.Generator(prompts.device).manual_seed(0)
+        if noise is None and temperature > 0:
+            noise = SeededGumbel(
+                torch.Generator(prompts.device).manual_seed(0))
 
-        def noise(lg):
+        def draw(step, lg):
             if temperature <= 0:
                 return None
-            u = torch.rand(lg.shape, generator=generator, device=lg.device)
-            return -torch.log(-torch.log(u.clamp_min(
-                torch.finfo(torch.float32).tiny)))
+            return noise(step, tuple(lg.shape), lg.dtype).to(lg.device)
 
         def pick(lg, gumbel):
             if gumbel is None:
                 return torch.argmax(lg, dim=-1)
-            return torch.argmax(lg.float() / temperature + gumbel, dim=-1)
+            # the temperature is weakly typed in the reference: rounded to
+            # the logits' dtype before the division
+            t = torch.tensor(temperature, dtype=lg.dtype, device=lg.device)
+            return torch.argmax(lg / t + gumbel, dim=-1)
 
-        tok = pick(last, noise(last))[:, None]
+        tok = pick(last, draw(0, last))[:, None]
         out = [prompts, tok]
         if on_prefill_done is not None:
             on_prefill_done()
@@ -71,7 +97,7 @@ def generate(params, cfg, prompts: torch.Tensor, gen: int, *,
         for i in range(gen - 1):
             logits, cache, exit_logits = tfm.decode_step(
                 params, cache, cfg, tok, s + i, with_exit_head=True)
-            gumbel = noise(logits[:, -1])
+            gumbel = draw(i + 1, logits[:, -1])
             full_tok = pick(logits[:, -1], gumbel)
             exit_tok = pick(exit_logits[:, -1], gumbel)
             if adaptive_threshold > 0:

@@ -1,0 +1,93 @@
+"""The Python that plans a launch of K5's tensor-core kernel, and the
+wrapper's choice of kernel, on the CPU (no card needed).
+
+``ops.plan_wgmma`` decides what ``csrc/flash_attention_wgmma.cu`` is given:
+rows per block (two warpgroups of 64), heads and queries per block, the
+grid and the shared memory (Q plus a two-stage K/V ring, 128-byte
+swizzled, plus 1 KiB for alignment), which must fit the 232,448 bytes a
+block may opt into on an H100.  The file imports only torch, so it also
+runs on a machine with the card and no JAX.
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.flash_attention import ops  # noqa: E402
+
+BF16 = torch.bfloat16
+SMEM_LIMIT = 232_448     # shared memory an H100 block may opt into
+
+
+@pytest.mark.parametrize("dh", ops.HEAD_DIMS)
+def test_plan_fits_shared_memory_at_every_head_dim(dh):
+    plan = ops.plan_wgmma(4, 4096, 10, 1, dh, BF16)
+    dp = max(dh, 64)
+    assert plan.smem_bytes == 2 * dp * (128 + 2 * 2 * 64) + 1024
+    assert plan.smem_bytes <= SMEM_LIMIT
+    if dh == 256:       # Q 64 KiB + 2 x (K 32 KiB + V 32 KiB) + 1 KiB
+        assert plan.smem_bytes == 192 * 1024 + 1024
+
+
+@pytest.mark.parametrize("h,kh,g_blk,bq,n_groups", [
+    (10, 1, 10, 12, 1),       # recurrentgemma's MQA: 120 of 128 rows
+    (8, 4, 2, 64, 1),         # gemma2's GQA: 128 rows
+    (6, 2, 3, 42, 1),         # G = 3: 126 rows
+    (4, 4, 1, 128, 1),        # MHA
+    (70, 1, 70, 1, 1),        # G = 70: one query a block
+    (130, 1, 128, 1, 2),      # G = 130: two head groups of one kv head
+])
+def test_plan_rows_are_query_major_pairs_of_one_kv_head(h, kh, g_blk, bq,
+                                                        n_groups):
+    b, s = 3, 1000
+    plan = ops.plan_wgmma(b, s, h, kh, 64, BF16)
+    assert (plan.g_blk, plan.bq, plan.n_groups) == (g_blk, bq, n_groups)
+    assert plan.g_blk * plan.bq <= ops.TC_ROWS
+    assert plan.n_qblocks == -(-s // bq)
+    assert plan.grid == plan.n_qblocks * n_groups * b * kh
+    assert plan.n_qblocks * plan.bq >= s > (plan.n_qblocks - 1) * plan.bq
+
+
+def test_plan_of_the_serving_shapes():
+    rg = ops.plan_wgmma(4, 4096, 10, 1, 256, BF16)
+    assert (rg.bq, rg.n_qblocks, rg.grid) == (12, 342, 1368)
+    g2 = ops.plan_wgmma(1, 8192, 8, 4, 256, BF16)
+    assert (g2.bq, g2.n_qblocks, g2.grid) == (64, 128, 512)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_plan_raises_on_a_dtype_the_kernel_does_not_take(dtype):
+    with pytest.raises(ValueError, match="bfloat16"):
+        ops.plan_wgmma(1, 64, 2, 1, 64, dtype)
+
+
+@pytest.mark.parametrize("dh", [16, 48, 96, 512])
+def test_plan_raises_on_an_unsupported_head_dim(dh):
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.plan_wgmma(1, 64, 2, 1, dh, BF16)
+
+
+def test_plan_raises_beyond_the_grid():
+    with pytest.raises(ValueError, match="grid"):
+        ops.plan_wgmma(2**24, 2**16, 1, 1, 64, BF16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_tensors_run_the_plain_version_and_count_no_launch(dtype):
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn((1, 20, 4, 32), generator=g).to(dtype)
+    k = torch.randn((1, 20, 2, 32), generator=g).to(dtype)
+    v = torch.randn((1, 20, 2, 32), generator=g).to(dtype)
+    fa = ops.flash_attention
+    before = (fa.launches, fa.launches_tc)
+    got = fa(q, k, v, window=5)
+    assert (fa.launches, fa.launches_tc) == before
+    torch.testing.assert_close(got, ops.flash_attention_ref(q, k, v,
+                                                            window=5),
+                               rtol=0, atol=0)
+
+
+def test_float16_raises_on_every_device():
+    q = torch.zeros((1, 4, 2, 32), dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        ops.flash_attention(q, q[:, :, :1], q[:, :, :1])

@@ -3,8 +3,10 @@
 K1 contracts its multiply-add to an FMA (tolerance 1e-6); K2, K3, K4 and
 K6 round each product and sum as their plain versions do, in the same
 order, so they are held bitwise.  K5 sums its scores and its PV product in
-another order than its plain version (cuBLAS): f32 at rtol = atol = 1e-5,
-bf16 outputs within one bf16 rounding (rtol = atol = 2**-7).
+another order than its plain version (cuBLAS): f32 (the CUDA-core kernel)
+at rtol = atol = 1e-5, bf16 (the tensor-core kernel, which also rounds the
+probabilities to bf16 for the PV product) within one bf16 rounding
+(rtol = atol = 2**-7).
 
 Every test here needs a CUDA card (a hand-written kernel has no CPU mode):
 marked ``cuda``, each skips without one.  The file imports only torch and
@@ -230,6 +232,20 @@ def _flash_close(got, want, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+def _flash_launch(q, k, v, **kw):
+    """One K5 call; asserts it launched the kernel of its dtype's route
+    once (bf16: tensor cores, f32: CUDA cores) and the other not at all."""
+    fa = flash_ops.flash_attention
+    before = (fa.launches_tc, fa.launches)
+    got = fa(q, k, v, **kw)
+    torch.cuda.synchronize()
+    tc = q.dtype == torch.bfloat16
+    assert (fa.launches_tc, fa.launches) == (before[0] + tc,
+                                             before[1] + (not tc))
+    assert got.dtype == q.dtype and bool(torch.isfinite(got).all())
+    return got
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,h,kh,dh,window,cap,dtype", [
     (4, 4096, 10, 1, 256, 2048, 0.0, "bfloat16"),  # recurrentgemma-2b
@@ -244,13 +260,31 @@ def _flash_close(got, want, dtype):
 def test_flash_attention_matches_plain_version(cuda, b, s, h, kh, dh, window,
                                                cap, dtype):
     q, k, v = _qkv(cuda, b, s, h, kh, dh, dtype, seed=s + h + dh)
-    before = flash_ops.flash_attention.launches
-    got = flash_ops.flash_attention(q, k, v, window=window, softcap=cap)
-    torch.cuda.synchronize()
-    assert flash_ops.flash_attention.launches == before + 1
-    assert got.dtype == q.dtype and bool(torch.isfinite(got).all())
+    got = _flash_launch(q, k, v, window=window, softcap=cap)
     _flash_close(got, flash_attention_ref(q, k, v, window=window,
                                           softcap=cap), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,kh,dh,window,cap", [
+    (2, 300, 6, 2, 64, 0, 0.0),        # G = 3: 42 queries, 126 of 128 rows
+    (2, 333, 10, 1, 128, 100, 0.0),    # G = 10: 12 queries, 120 rows
+    (1, 1000, 8, 4, 256, 0, 50.0),     # S not a multiple of the 64-key tile
+    (2, 517, 4, 2, 128, 200, 30.0),    # softcap with a window
+    (1, 70, 130, 1, 64, 0, 0.0),       # G = 130: two head groups of a kv head
+    (2, 190, 4, 1, 32, 0, 0.0),        # each Dh, MQA
+    (2, 190, 4, 1, 64, 50, 0.0),
+    (2, 190, 4, 1, 128, 0, 10.0),
+    (2, 190, 4, 1, 256, 77, 0.0),
+    (3, 1, 4, 2, 64, 0, 0.0),          # one query
+    (2, 64, 4, 2, 32, 1000, 0.0),      # window >= S
+])
+def test_flash_attention_tensor_core_tile_edges(cuda, b, s, h, kh, dh,
+                                                window, cap):
+    q, k, v = _qkv(cuda, b, s, h, kh, dh, "bfloat16", seed=s + h + dh)
+    got = _flash_launch(q, k, v, window=window, softcap=cap)
+    _flash_close(got, flash_attention_ref(q, k, v, window=window,
+                                          softcap=cap), "bfloat16")
 
 
 @pytest.mark.cuda
@@ -273,6 +307,22 @@ def test_flash_attention_short_windows_mask_the_leading_keys(cuda, window):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("window", [1, 3, 70])
+def test_flash_attention_short_windows_on_the_tensor_cores(cuda, window):
+    """The short-window cases in bf16, through the tensor-core kernel:
+    its per-tile mask and its -inf rule must keep the masked leading keys
+    out, and at window 1 (p = 1 exactly, l = 1) out is v bit for bit."""
+    for h, kh in ((1, 1), (10, 1), (8, 4)):
+        q, k, v = _qkv(cuda, 2, 300, h, kh, 64, "bfloat16", seed=window + h)
+        got = _flash_launch(q, k, v, window=window)
+        _flash_close(got, flash_attention_ref(q, k, v, window=window),
+                     "bfloat16")
+        if window == 1:
+            torch.testing.assert_close(
+                got, v.repeat_interleave(h // kh, dim=2), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
 def test_flash_attention_rejects_what_the_kernel_does_not_take(cuda):
     q, k, v = _qkv(cuda, 1, 16, 2, 1, 32, "float32", seed=0)
     with pytest.raises(ValueError, match="forward only"):
@@ -285,6 +335,11 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take(cuda):
     strided = lambda t: t.transpose(1, 2).contiguous().transpose(1, 2)  # noqa: E731
     with pytest.raises(ValueError, match="contiguous"):
         flash_ops.flash_attention(strided(q), strided(k), strided(v))
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        flash_ops.flash_attention(q.half(), k.half(), v.half())
+    qb, kb, vb = (t[..., :16].contiguous().bfloat16() for t in (q, k, v))
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_ops.flash_attention(qb, kb, vb)
 
 
 @pytest.mark.cuda

@@ -137,12 +137,51 @@ def test_sampled_generate_is_seeded_and_shares_noise_across_heads():
                                        dict(n_layers=5, exit_layer=2))
     prompts = torch.from_numpy(tokens[:, :S]).long()
     runs = [serve.generate(params, cfg, prompts, STEPS, temperature=0.8,
-                           generator=torch.Generator().manual_seed(5))
+                           noise=serve.SeededGumbel(
+                               torch.Generator().manual_seed(5)))
             for _ in range(2)]
     assert torch.equal(runs[0][0], runs[1][0])
     assert runs[0][1] == runs[1][1]
     greedy, _ = serve.generate(params, cfg, prompts, STEPS)
     assert not torch.equal(runs[0][0], greedy)
+
+
+def _reference_gumbel(rng, gen):
+    """A noise provider that draws what the reference's ``generate`` draws
+    inside ``jax.random.categorical``: Gumbel noise of the logits' shape
+    and dtype on the unsplit ``rng`` for the first token, then on the key
+    of one split per decode step."""
+    keys = [rng]
+    for _ in range(gen - 1):
+        rng, key = jax.random.split(rng)
+        keys.append(key)
+
+    def noise(step, shape, dtype):
+        jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+        g = jax.random.gumbel(keys[step], shape, jdt)
+        return torch.from_numpy(np.array(g.astype(jnp.float32))).to(dtype)
+    return noise
+
+
+@pytest.mark.parametrize("arch,overrides", [ARCHS[1], ARCHS[3]])
+def test_sampled_generate_matches_reference(arch, overrides):
+    """Temperature 0.8 with the reference's own noise: the same tokens and
+    the same exit statistics as the reference's ``generate``."""
+    ref_cfg, cfg, ref_params, params, tokens = _setup(arch, overrides,
+                                                      seed=1)
+    rng = jax.random.PRNGKey(3)
+    want_tok, want_stats = ref_serve.generate(
+        ref_params, ref_cfg, jnp.asarray(tokens[:, :S]), STEPS,
+        adaptive_threshold=0.004, temperature=0.8, rng=rng)
+    prompts = torch.from_numpy(tokens[:, :S]).long()
+    got_tok, got_stats = serve.generate(
+        params, cfg, prompts, STEPS, adaptive_threshold=0.004,
+        temperature=0.8, noise=_reference_gumbel(rng, STEPS))
+    np.testing.assert_array_equal(got_tok.numpy(), np.asarray(want_tok))
+    assert got_stats == want_stats
+    greedy, _ = serve.generate(params, cfg, prompts, STEPS,
+                               adaptive_threshold=0.004)
+    assert not torch.equal(got_tok, greedy)     # the noise decided tokens
 
 
 @pytest.mark.parametrize("arch", configs.PORTED)
