@@ -21,15 +21,20 @@ which raises on failure:
    zero-weight row, a ragged N and a misaligned accumulator;
    K2 (int8 fold, quant_block 128) with a NaN-scale row at weight 0, a
    ragged N (quant_block 1) and a misaligned accumulator;
-   K3 (top-k scatter fold) at k = 798,208 and 48,384 (the complex and
-   simple populations' top-k 1/14), indices colliding across rows, for
-   int8 payloads with scales and for bf16;
-   K4 (one-shot masked fold of the tree engine), bitwise, f32 and bf16
-   with a NaN row at weight 0 and a zero-weight row: each of the model's
-   59 leaves as a strided view of the (5, 11,175,936) chunk buffer with
-   the leaf's own mask, the whole buffer at a per-element random mask,
-   and a ragged N = 1,000,003; timed on the largest leaf and as the whole
-   59-launch tree fold;
+   K3 (top-k scatter fold, two launches: each row's run per span, then
+   the fold over the spans with entries) at k = 798,208 and 48,384 (the
+   complex and simple populations' top-k 1/14), indices colliding across
+   rows, for int8 payloads with scales and for bf16, and at Z = 1 with
+   k = 128, every index in one span, k = N / 2 and a misaligned
+   accumulator; timed against two bounds, 8 acc bytes an entry and the
+   32-byte sectors the indices touch (counted on the card);
+   K4 (the tree engine's masked fold over a table of leaves), bitwise,
+   f32 and bf16 with a NaN row at weight 0 and a zero-weight row: through
+   the one-shot entry, each of the model's 59 leaves as a strided view of
+   the (5, 11,175,936) chunk buffer with the leaf's own mask, the whole
+   buffer at a per-element random mask, and a ragged N = 1,000,003; the
+   engine's fold of all 59 leaves accumulated in one launch; timed as that
+   one launch and on the largest leaf;
 4. the main path: ``FederatedTrainer`` + ``ResNetAdapter`` (full-width
    PreActResNet18-GN) on ``synthetic_cifar``, the paper's federated
    setting cut to ``local_epochs=1`` and 512 test images: on the f32
@@ -86,6 +91,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -116,21 +122,22 @@ SCAFFOLD = dict(variance_reduction="scaffold")
 F32_BYTES = 473_985_280
 PER_SIMPLE_F32 = 2 * 2_704_684       # down + up of |M| = 676,171 in f32
 PER_COMPLEX_F32 = 2 * 44_693_844     # ... of all 11,173,461 params
-# (label, algorithm, rounds, config, launches per round of K1, K2, K3, K4,
-#  bytes per round; None: the plan's realised clients decide)
+# (label, algorithm, rounds, config, launches per round of K1, K2, K3 (two
+#  a fold: bounds, apply), K4 (one a tree fold), bytes per round; None:
+#  the plan's realised clients decide)
 RUNS = (("f32", "fedhen", 2, {}, (2, 0, 0, 0), F32_BYTES),
         ("f32", "noside", 1, {}, (2, 0, 0, 0), F32_BYTES),
         ("f32", "decouple", 1, {}, (4, 0, 0, 0), F32_BYTES),
         ("int8", "fedhen", 2, dict(comm_dtype="int8"), (0, 2, 0, 0),
          122_199_360),
-        ("compressed", "fedhen", 2, COMPRESSED, (2, 0, 2, 0), 82_396_760),
-        ("compressed", "decouple", 1, COMPRESSED, (4, 0, 4, 0), 82_396_760),
-        ("tree f32", "fedhen", 2, TREE, (0, 0, 0, 118), F32_BYTES),
-        ("tree f32", "decouple", 1, TREE, (0, 0, 0, 118), F32_BYTES),
+        ("compressed", "fedhen", 2, COMPRESSED, (2, 0, 4, 0), 82_396_760),
+        ("compressed", "decouple", 1, COMPRESSED, (4, 0, 8, 0), 82_396_760),
+        ("tree f32", "fedhen", 2, TREE, (0, 0, 0, 2), F32_BYTES),
+        ("tree f32", "decouple", 1, TREE, (0, 0, 0, 2), F32_BYTES),
         ("flat f32 scaffold", "fedhen", 2, SCAFFOLD, (4, 0, 0, 0),
          2 * F32_BYTES),
         ("tree f32 scaffold", "fedhen", 1, dict(TREE, **SCAFFOLD),
-         (2, 0, 0, 118), 2 * F32_BYTES),
+         (2, 0, 0, 2), 2 * F32_BYTES),
         ("flat f32 uniform", "fedhen", 1, dict(sample_uniform=True),
          (2, 0, 0, 0), None))
 
@@ -355,13 +362,63 @@ def _scatter_inputs(torch, k: int, dtype, seed: int, positions=None):
     return acc, values, scales, idx
 
 
+def _sector_bytes(torch, idx, k: int) -> int:
+    """What a top-k fold of the live rows ``idx`` (Z, k) moves at the
+    card's 32-byte sector: every sector of acc its positions touch, read
+    and written, every mask sector read once, and the payload (int8
+    values, int32 indices, one f32 scale per QB entries)."""
+    flat = idx.flatten().to(torch.int64)
+    acc_sectors = int(torch.unique(flat // 8).numel())
+    mask_sectors = int(torch.unique(flat // 32).numel())
+    z = idx.shape[0]
+    return 64 * acc_sectors + 32 * mask_sectors + z * k * 5 + \
+        4 * z * (k // QB)
+
+
+def _launch_breakdown(torch, fn, calls: int = 20) -> dict:
+    """Mean device time (us) of each kernel or memset that ``fn``
+    launches, from ``torch.profiler`` over ``calls`` calls after a
+    warm-up; empty when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_time_total > 0:
+            name = re.search(r"(\w+)(?:<[^(]*>)?\(", ev.key)
+            out[name.group(1) if name else ev.key] = \
+                ev.device_time_total / calls
+    return out
+
+
 def check_scatter(torch, ops, ref, bw: float, mask) -> dict:
     """Phase 3, K3: correctness at both populations' k, for int8 with
-    scales and bf16, then the main path's two top-k folds (int8 + scales;
-    the simple clients' entries all lie in M)."""
+    scales and bf16, at Z = 1 and k = QB, with every index in one span,
+    with rows dense enough to take several staging rounds, and on a
+    misaligned accumulator; then the main path's two top-k folds (int8 +
+    scales; the simple clients' entries all lie in M), each against two
+    bounds: 8 acc bytes an entry, and the 32-byte sectors its indices
+    touch."""
     worst = 0.0
     w_m = torch.tensor([1.0, 1.0, 0.0, 0.0, 0.5], device="cuda")
     w_rest = torch.tensor([0.0, 1.0, 0.0, 0.7, 0.25], device="cuda")
+
+    def check(label, acc0, values, scales, idx, wm, wr, offset=0):
+        nonlocal worst
+        want = ref.masked_scatter_acc_ref(acc0, values, scales, idx, mask,
+                                          wm, wr, quant_block=QB)
+        acc = torch.empty((N_MAIN + offset,), device="cuda")[offset:]
+        acc.copy_(acc0)
+        ops.masked_scatter_acc_(acc, values, scales, idx, mask, wm, wr,
+                                quant_block=QB)
+        worst = max(worst, _check(torch, "masked_scatter_acc", label, acc,
+                                  want, N_MAIN))
+
     for k in (K_COMPLEX, K_SIMPLE):
         for dtype in (torch.int8, torch.bfloat16):
             acc0, values, scales, idx = _scatter_inputs(torch, k, dtype,
@@ -370,15 +427,24 @@ def check_scatter(torch, ops, ref, bw: float, mask) -> dict:
                 scales[2] = float("nan")
             else:
                 values[2] = float("nan")
-            want = ref.masked_scatter_acc_ref(acc0, values, scales, idx,
-                                              mask, w_m, w_rest,
-                                              quant_block=QB)
-            acc = acc0.clone()
-            ops.masked_scatter_acc_(acc, values, scales, idx, mask, w_m,
-                                    w_rest, quant_block=QB)
-            label = f"k={k:,} {str(dtype).replace('torch.', '')}"
-            worst = max(worst, _check(torch, "masked_scatter_acc", label,
-                                      acc, want, N_MAIN))
+            check(f"k={k:,} {str(dtype).replace('torch.', '')}", acc0,
+                  values, scales, idx, w_m, w_rest)
+    acc0, values, scales, idx = _scatter_inputs(torch, QB, torch.int8, 5)
+    one = torch.ones((1,), device="cuda")
+    check("Z=1 k=128 int8", acc0, values[:1], scales[:1], idx[:1], one,
+          one * 0.5)
+    span = torch.arange(5_000_000, 5_000_000 + 1024, device="cuda")
+    acc0, values, scales, idx = _scatter_inputs(torch, 256, torch.int8, 6,
+                                                positions=span)
+    check("one span int8", acc0, values, scales, idx, w_m, w_rest)
+    acc0, values, scales, idx = _scatter_inputs(torch, N_MAIN // 2,
+                                                torch.bfloat16, 8)
+    check("k=N/2 bf16 (staging rounds)", acc0, values, scales, idx, w_m,
+          w_rest)
+    acc0, values, scales, idx = _scatter_inputs(torch, K_COMPLEX, torch.int8,
+                                                9)
+    check("misaligned acc int8", acc0, values, scales, idx, w_m, w_rest,
+          offset=1)
     ones = torch.ones((Z,), device="cuda")
     timing = []
     in_m = torch.nonzero(mask).flatten()
@@ -393,6 +459,22 @@ def check_scatter(torch, ops, ref, bw: float, mask) -> dict:
             f"k={k:,}", lambda: ops.masked_scatter_acc_(*args, quant_block=QB),
             lambda: ref.masked_scatter_acc_ref(*args, quant_block=QB),
             Z * k * (1 + 4 + 1 + 8) + 4 * Z * (k // QB), 3 * Z * k, bw)
+        # the card moves 32-byte sectors: the bound of what these indices
+        # touch (counted here, outside the timed calls)
+        sectors = _sector_bytes(torch, idx, k)
+        out["entry_bound_ms"] = out["bound_ms"]
+        out["entry_bound_share"] = out["bound_share"]
+        out["bytes_needed"] = sectors
+        out["bound_ms"] = max(sectors / bw * 1e3, out["bound_ms"])
+        out["bound_share"] = out["bound_ms"] / out["ms"]
+        print(f"    sector bound {out['bound_ms']:.4f} ms ({sectors / 1e6:.1f}"
+              f" MB of 32-byte sectors), share {out['bound_share']:.3f}; "
+              f"per-entry share {out['entry_bound_share']:.3f}", flush=True)
+        out["launch_us"] = _launch_breakdown(
+            torch, lambda: ops.masked_scatter_acc_(*args, quant_block=QB))
+        print("    device time by launch (us, mean of 20 calls): " +
+              ", ".join(f"{k} {v:.2f}" for k, v in out["launch_us"].items()),
+              flush=True)
         # context, not the function: one index_add_ of values already
         # dequantized and weighted
         flat_idx = idx.flatten().to(torch.int64)
@@ -408,15 +490,20 @@ def check_scatter(torch, ops, ref, bw: float, mask) -> dict:
 
 def check_tree_fold(torch, ops, ref, bw: float) -> dict:
     """Phase 3, K4: bitwise against its plain version, f32 and bf16 at
-    Z = 5 with a NaN row at weight 0 and a zero-weight row: every one of
-    the model's 59 leaves as the tree engine hands it over (a strided view
-    of the (5, N_MAIN) chunk buffer, the leaf's own mask), the whole
-    buffer at a per-element random mask, and a ragged N.  Then the main
-    path's timings: the largest leaf, and the whole 59-launch fold."""
+    Z = 5 with a NaN row at weight 0 and a zero-weight row.  The one-shot
+    entry: every one of the model's 59 leaves as a strided view of the
+    (5, N_MAIN) chunk buffer with the leaf's own mask, the whole buffer at
+    a per-element random mask, and a ragged N.  The tree engine's fold:
+    all 59 leaves accumulated in one launch, against ``acc +
+    masked_agg_ref(leaf)`` per leaf, on f32 rows and on bf16 rows widened
+    as the engine widens them.  Then the main path's timings: the fold as
+    the engine launches it, the largest leaf through the one-shot entry,
+    and the earlier design's 59 one-shot launches beside them."""
     from repro_torch.core import flatten
     from repro_torch.tree import tree_leaves, tree_map
     layout, flat_mask = main_path_layout(torch)
     leaf_masks = flatten.unpack(layout, flat_mask, cast=False)
+    plan = ops.fold_plan(layout, "cuda")
     worst, checked = 0.0, 0
 
     def same(label, got, want):
@@ -432,7 +519,8 @@ def check_tree_fold(torch, ops, ref, bw: float) -> dict:
 
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
-        _, x, mask, w_m, w_rest = fold_inputs(torch, N_MAIN, dtype, seed=11)
+        acc0, x, mask, w_m, w_rest = fold_inputs(torch, N_MAIN, dtype,
+                                                 seed=11)
         stacked = flatten.unpack_stacked(layout, x)
         for i, (leaf, m) in enumerate(zip(tree_leaves(stacked),
                                           tree_leaves(leaf_masks))):
@@ -443,17 +531,45 @@ def check_tree_fold(torch, ops, ref, bw: float) -> dict:
         same(f"{name} whole buffer, random mask",
              ops.masked_agg_(x, mask, w_m, w_rest),
              ref.masked_agg_ref(x, mask, w_m, w_rest))
+        x32 = x.to(torch.float32)
+        acc = acc0.clone()
+        before = ops.masked_agg_fold_.launches
+        ops.masked_agg_fold_(acc, x32, flat_mask, w_m, w_rest, plan)
+        if ops.masked_agg_fold_.launches != before + 1:
+            raise RuntimeError("masked_agg_fold_: not one launch")
+        same(f"{name} fold of 59 leaves, accumulated", acc,
+             ref.masked_agg_fold_ref(acc0, x32, flat_mask, w_m, w_rest,
+                                     plan.leaves))
         _, x, mask, w_m, w_rest = fold_inputs(torch, N_RAGGED, dtype,
                                               seed=12)
         same(f"{name} ragged", ops.masked_agg_(x, mask, w_m, w_rest),
              ref.masked_agg_ref(x, mask, w_m, w_rest))
     print(f"  masked_agg: {checked} cases (59 leaves as strided views, the "
-          f"whole buffer, N={N_RAGGED:,}; f32 and bf16) bitwise equal to "
-          f"the plain version, max|diff| {worst}", flush=True)
+          f"whole buffer, N={N_RAGGED:,}, the accumulated fold of all 59 "
+          f"leaves; f32 and bf16) bitwise equal to the plain version, "
+          f"max|diff| {worst}", flush=True)
     # the main path's fold: f32 rows, complex clients (weight 1 both sides)
     g = torch.Generator(device="cuda").manual_seed(13)
     x = torch.randn((Z, N_MAIN), generator=g, device="cuda")
+    acc = torch.randn((N_MAIN,), generator=g, device="cuda")
     ones = torch.ones((Z,), device="cuda")
+    n_all = layout.n_params
+    leaves = plan.leaves.cpu()     # the plain version reads it on the host
+    fold = _timed(torch, "masked_agg_fold", f"tree fold, one launch, "
+                  f"{layout.n_leaves} leaves accumulated, f32 Z={Z} "
+                  f"N={n_all:,}",
+                  lambda: ops.masked_agg_fold_(acc, x, flat_mask, ones, ones,
+                                               plan),
+                  lambda: ref.masked_agg_fold_ref(acc, x, flat_mask, ones,
+                                                  ones, leaves),
+                  Z * 4 * n_all + n_all + 8 * n_all, 2 * Z * n_all, bw)
+    # the one-shot function's bound (no accumulator read), which the
+    # earlier design's 59-launch fold was held to
+    fold["oneshot_bound_ms"] = (Z * 4 + 1 + 4) * n_all / bw * 1e3
+    fold["oneshot_bound_share"] = fold["oneshot_bound_ms"] / fold["ms"]
+    print(f"    against the one-shot fold's bound "
+          f"{fold['oneshot_bound_ms']:.4f} ms: share "
+          f"{fold['oneshot_bound_share']:.3f}", flush=True)
     stacked = flatten.unpack_stacked(layout, x)
     sizes = [s.size for s in layout.slots]
     big = max(range(len(sizes)), key=sizes.__getitem__)
@@ -465,27 +581,27 @@ def check_tree_fold(torch, ops, ref, bw: float) -> dict:
                   lambda: ops.masked_agg_(rows, m, ones, ones),
                   lambda: ref.masked_agg_ref(rows, m, ones, ones),
                   Z * 4 * n_big + n_big + 4 * n_big, 2 * Z * n_big, bw)
-    n_all = sum(sizes)
-    tree = _timed(torch, "masked_agg", f"tree fold, {len(sizes)} launches, "
-                  f"f32 Z={Z} N={n_all:,}",
-                  lambda: ops.masked_agg_tree(stacked, leaf_masks, ones,
-                                              ones),
-                  lambda: tree_map(lambda xl, ml: ref.masked_agg_ref(
-                      xl.reshape(Z, -1), ml.reshape(-1), ones, ones),
-                      stacked, leaf_masks),
-                  Z * 4 * n_all + n_all + 4 * n_all, 2 * Z * n_all, bw)
-    leaf["N"], tree["N"], tree["launches"] = n_big, n_all, len(sizes)
-    return {"max_abs_err": worst, "timing": [leaf, tree]}
+    per_leaf = time_ms(torch, lambda: ops.masked_agg_tree(
+        stacked, leaf_masks, ones, ones))
+    fold["per_leaf_launches_ms"] = per_leaf
+    print(f"    context: the earlier design's path, {len(sizes)} one-shot "
+          f"launches (masked_agg_tree, no accumulate) {per_leaf:.4f} ms",
+          flush=True)
+    fold["N"], leaf["N"], fold["launches"] = n_all, n_big, 1
+    return {"max_abs_err": worst, "timing": [fold, leaf]}
 
 
 def _counts(ops) -> tuple:
+    """Launches of K1, K2, K3 (its two passes) and K4 (both entries)."""
     return (ops.masked_agg_acc_.launches, ops.masked_agg_acc_deq_.launches,
-            ops.masked_scatter_acc_.launches, ops.masked_agg_.launches)
+            ops.masked_scatter_acc_.launches,
+            ops.masked_agg_.launches + ops.masked_agg_fold_.launches)
 
 
 def _zero_counts(ops) -> None:
     for fn in (ops.masked_agg_acc_, ops.masked_agg_acc_deq_,
-               ops.masked_scatter_acc_, ops.masked_agg_):
+               ops.masked_scatter_acc_, ops.masked_agg_,
+               ops.masked_agg_fold_):
         fn.launches = 0
 
 
@@ -1079,12 +1195,12 @@ def main() -> int:
               {"Z": Z, "N": N_MAIN, "quant_block": QB, "fold": "complex"}),
              ("masked_scatter_acc", "masked_scatter_acc.cu", 248,
               {"Z": Z, "N": N_MAIN, "k": K_COMPLEX, "values": "int8",
-               "fold": "complex"}),
+               "fold": "complex", "bound": "32-byte sectors touched"}),
              ("masked_agg", "masked_agg.cu", 69,
               {"Z": Z, "N": k4["timing"][0]["N"], "x": "float32",
-               "fold": "largest leaf, strided rows"})),
+               "fold": "tree fold, 59 leaves accumulated, one launch"})),
             (k1, k2, k3, k4), path["launches"]):
-        head = result["timing"][0]     # the complex fold / largest leaf
+        head = result["timing"][0]     # the complex fold / the tree fold
         kernels.append({
             "name": name, "route": "cuda", "source": src + source,
             "replaces": f"src/repro/kernels/masked_agg/kernel.py:{line}",

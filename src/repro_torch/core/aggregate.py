@@ -16,10 +16,12 @@ The port of ``repro.core.aggregate``'s three entry points:
   :func:`streaming_fold_deltas`.  Normalization and unpacking happen once,
   at :func:`streaming_finalize`.
 * **Tree streaming** (``tree_streaming_*``, ``FedConfig.agg_engine =
-  "tree"``, the f32/bf16 wires): per-leaf f32 sums, one one-shot
-  ``masked_agg_`` (K4) launch per leaf per fold, each leaf a view of the
-  packed chunk buffer; decouple's second sum is plain torch
-  (:func:`_gated_wsum_leaf`), as in the reference.
+  "tree"``, the f32/bf16 wires): per-leaf f32 sums, the leaves views of
+  one flat accumulator laid out like a packed row.  A fold is ONE
+  ``masked_agg_fold_`` (K4) launch that sums every leaf of the packed
+  chunk buffer and adds it to its accumulator in the same pass (the
+  reference adds each leaf's part after its kernel); decouple's second
+  sum is plain torch (:func:`_gated_wsum_leaf`), as in the reference.
 
 SCAFFOLD adds a flat ``cv_acc`` to either state: the control-variate
 deltas fold through one more K1 launch (:func:`_fold_cv`) on both engines.
@@ -36,9 +38,9 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core import comm, flatten, masking
-from repro_torch.kernels.masked_agg.ops import (masked_agg_acc_,
+from repro_torch.kernels.masked_agg.ops import (fold_plan, masked_agg_acc_,
                                                 masked_agg_acc_deq_,
-                                                masked_agg_tree,
+                                                masked_agg_fold_,
                                                 masked_scatter_acc_)
 from repro_torch.tree import Tree, tree_leaves, tree_map
 
@@ -276,13 +278,16 @@ def streaming_finalize(state: StreamState, layout: flatten.FlatLayout,
 
 
 # ---------------------------------------------------------------------------
-# Tree streaming (one K4 launch per leaf)
+# Tree streaming (one K4 launch per fold)
 # ---------------------------------------------------------------------------
 
 class TreeStreamState(NamedTuple):
     """Per-leaf analogue of :class:`StreamState`: ``acc`` / ``acc_out`` are
-    f32 trees shaped like one complex model.  ``cv_acc`` stays flat: the
-    control variates are ``FlatLayout`` vectors on both engines."""
+    f32 trees shaped like one complex model; ``acc``'s leaves are views of
+    ``acc_flat`` (``(n_flat,)`` f32, laid out like a packed row, padding
+    0), which the fold updates.  ``cv_acc`` stays flat: the control
+    variates are ``FlatLayout`` vectors on both engines."""
+    acc_flat: torch.Tensor
     acc: Tree
     acc_out: Optional[Tree]
     tot_in: torch.Tensor
@@ -294,41 +299,44 @@ def tree_streaming_init(params_like: Tree, algorithm: str,
                         layout: flatten.FlatLayout, *,
                         scaffold: bool = False) -> TreeStreamState:
     """Zero f32 accumulators shaped like ``params_like`` (one unstacked
-    model, on the round's device); a flat ``(n_flat,)`` ``cv_acc`` of
-    ``layout`` too with ``scaffold``, as on the flat engine."""
+    model, on the round's device; ``acc`` as views of one flat buffer of
+    ``layout``); a flat ``(n_flat,)`` ``cv_acc`` of ``layout`` too with
+    ``scaffold``, as on the flat engine."""
     if algorithm not in ALGORITHMS:
         raise ValueError(algorithm)
-    zeros = lambda: tree_map(lambda x: torch.zeros(
-        x.shape, dtype=torch.float32, device=x.device), params_like)
     device = tree_leaves(params_like)[0].device
+    flat = lambda: torch.zeros((layout.n_flat,), dtype=torch.float32,
+                               device=device)
+    acc_flat = flat()
+    acc_out = (tree_map(lambda x: torch.zeros(
+        x.shape, dtype=torch.float32, device=device), params_like)
+        if algorithm == "decouple" else None)
     scalar = lambda: torch.zeros((), dtype=torch.float32, device=device)
-    cv_acc = (torch.zeros((layout.n_flat,), dtype=torch.float32,
-                          device=device) if scaffold else None)
-    return TreeStreamState(zeros(),
-                           zeros() if algorithm == "decouple" else None,
-                           scalar(), scalar(), cv_acc)
+    return TreeStreamState(acc_flat,
+                           flatten.unpack(layout, acc_flat, cast=False),
+                           acc_out, scalar(), scalar(),
+                           flat() if scaffold else None)
 
 
-def tree_streaming_fold(state: TreeStreamState, chunk: Tree,
-                        leaf_masks: Tree, is_simple: torch.Tensor,
-                        valid: torch.Tensor, algorithm: str, *,
-                        flat_mask: Optional[torch.Tensor] = None,
+def tree_streaming_fold(state: TreeStreamState, xz: torch.Tensor,
+                        layout: flatten.FlatLayout, flat_mask: torch.Tensor,
+                        is_simple: torch.Tensor, valid: torch.Tensor,
+                        algorithm: str, *,
                         cv_chunk: Optional[torch.Tensor] = None
                         ) -> TreeStreamState:
-    """Fold one stacked chunk (leaves ``(Z, *shape)`` in the stream dtype,
-    e.g. :func:`flatten.unpack_stacked` views of the chunk buffer) into
-    the per-leaf sums: one K4 launch per leaf on f32 rows (a bf16 stream
-    is widened first, as the reference feeds its kernel), added to
-    ``acc``; decouple adds the ``w_out`` sums to ``acc_out`` in plain
-    torch.  A SCAFFOLD ``cv_chunk`` folds through the flat
-    :func:`_fold_cv` at ``flat_mask``."""
+    """Fold one packed chunk ``xz`` (``(Z, n_flat)`` in the stream dtype)
+    into the per-leaf sums: every leaf's masked sum at ``flat_mask`` added
+    to ``acc`` by one K4 launch on f32 rows (a bf16 stream is widened
+    first, as the reference feeds its kernel); decouple adds the
+    ``w_out`` sums of the leaves to ``acc_out`` in plain torch.  A
+    SCAFFOLD ``cv_chunk`` folds through the flat :func:`_fold_cv`."""
     w_in, w_out = _chunk_weights(is_simple, valid, algorithm)
-    chunk32 = tree_map(lambda x: x.to(torch.float32), chunk)
-    part = masked_agg_tree(chunk32, leaf_masks, w_in, w_out)
-    tree_map(lambda a, p: a.add_(p), state.acc, part)
+    x32 = xz.to(torch.float32)
+    masked_agg_fold_(state.acc_flat, x32, flat_mask, w_in, w_out,
+                     fold_plan(layout, xz.device))
     if state.acc_out is not None:
         tree_map(lambda a, x: a.add_(_gated_wsum_leaf(x, w_out)),
-                 state.acc_out, chunk32)
+                 state.acc_out, flatten.unpack_stacked(layout, x32))
     if cv_chunk is not None:
         _fold_cv(state.cv_acc, cv_chunk, flat_mask, w_in, w_out)
     return state._replace(tot_in=state.tot_in + w_in.sum(),

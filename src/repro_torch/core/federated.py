@@ -1,7 +1,7 @@
 """Federated runtime: local client training, server state, the sync round.
 
 The port of ``repro.core.federated``'s synchronous engine on both fold
-engines (flat, and tree: one K4 launch per leaf), every wire format,
+engines (flat, and tree: one K4 launch over every leaf), every wire format,
 SCAFFOLD and uniform cohort sampling, for the paper's three algorithms
 over any adapter:
 
@@ -344,12 +344,12 @@ def stream_population(state, src: Tree, train_fn, clients: List[Batch], *,
     ``(k,)`` slot mask — an unfilled slot is not trained and folds at
     weight 0, like chunk padding.
 
-    The fold: with ``leaf_masks`` (the tree engine) one K4 launch per leaf
-    (:func:`aggregate.tree_streaming_fold`); otherwise the flat fold, dense
-    uploads in the ``wire``'s format, or with ``upload`` (wire v2) encoded
-    deltas (:func:`_fold_deltas`).  With ``scaffold`` each client trains
-    with its correction, and its delta ``dc`` goes to row ``z`` of
-    ``cv_buffer`` and folds into the state's ``cv_acc``.
+    The fold: with ``leaf_masks`` (the tree engine) one K4 launch over
+    every leaf (:func:`aggregate.tree_streaming_fold`); otherwise the flat
+    fold, dense uploads in the ``wire``'s format, or with ``upload`` (wire
+    v2) encoded deltas (:func:`_fold_deltas`).  With ``scaffold`` each
+    client trains with its correction, and its delta ``dc`` goes to row
+    ``z`` of ``cv_buffer`` and folds into the state's ``cv_acc``.
 
     Returns ``(state, mean_loss, n_valid, cv_rows, ef_rows)`` — 0-d
     tensors; the mean loss is normalized by the count of real slots;
@@ -402,9 +402,8 @@ def stream_population(state, src: Tree, train_fn, clients: List[Batch], *,
         valid = torch.stack(valid)
         if leaf_masks is not None:
             state = aggregate.tree_streaming_fold(
-                state, flatten.unpack_stacked(layout, xz), leaf_masks,
-                is_simple, valid, fed.algorithm, flat_mask=flat_mask,
-                cv_chunk=cvz)
+                state, xz, layout, flat_mask, is_simple, valid,
+                fed.algorithm, cv_chunk=cvz)
         elif upload is None:
             state = aggregate.streaming_fold(state, xz, flat_mask, is_simple,
                                              valid, fed.algorithm, wire=wire,

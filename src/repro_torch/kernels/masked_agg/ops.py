@@ -1,23 +1,27 @@
 """Wrappers of the masked fold kernels (``csrc/*.cu``).
 
 Each replaces one function of the reference's
-``repro.kernels.masked_agg.kernel``.  The one-shot fold returns a new
-tensor:
+``repro.kernels.masked_agg.kernel``.  K4 (``masked_agg_pallas``) is one
+kernel over a table of leaves, with two entry points:
 
-* ``masked_agg_`` (K4, ``masked_agg_pallas``): a dense f32/bf16 ``(Z, N)``
-  chunk whose rows may lie ``ld`` elements apart (a leaf's view of the
-  packed chunk buffer), summed into a new ``(N,)`` in ``x``'s dtype; the
-  tree engine calls it once per leaf through ``masked_agg_leaf`` /
-  ``masked_agg_tree``.
+* ``masked_agg_fold_``: the tree engine's fold.  Every leaf of a packed
+  layout (a :class:`FoldPlan`, built once per layout and kept on the
+  device) is folded from the packed ``(Z, n_flat)`` chunk buffer into the
+  f32 accumulator in place, ``acc += masked sum``, in ONE launch;
+* ``masked_agg_``: the one-shot fold of one leaf, a dense f32/bf16
+  ``(Z, N)`` chunk whose rows may lie ``ld`` elements apart, summed into a
+  new ``(N,)`` in ``x``'s dtype (``masked_agg_leaf`` / ``masked_agg_tree``
+  call it once per leaf).
 
-The accumulating folds update the f32 accumulator in place:
+The other folds update the f32 accumulator in place:
 
 * ``masked_agg_acc_`` (K1, ``masked_agg_acc_pallas``): a dense f32/bf16
   ``(Z, N)`` chunk;
 * ``masked_agg_acc_deq_`` (K2, ``masked_agg_acc_deq_pallas``): an int8
   ``(Z, N)`` payload with per-group f32 scales, dequantized in registers;
 * ``masked_scatter_acc_`` (K3, ``masked_scatter_acc_pallas``): top-k
-  ``(Z, k)`` payloads scattered at their int32 indices.
+  ``(Z, k)`` payloads scattered at their int32 indices (two launches: the
+  rows' segment bounds per span, then the fold).
 
 On CPU tensors each runs its plain version (``ref.py``); on CUDA tensors it
 launches its kernel or raises — there is no fallback.  Each wrapper's
@@ -29,13 +33,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.masked_agg.ref import (masked_agg_acc_deq_ref,
                                                 masked_agg_acc_ref,
+                                                masked_agg_fold_ref,
                                                 masked_agg_ref,
                                                 masked_scatter_acc_ref)
 from repro_torch.tree import Tree, tree_map
@@ -43,7 +48,11 @@ from repro_torch.tree import Tree, tree_map
 _X_DTYPES = (torch.float32, torch.bfloat16)
 # value kinds of the scatter kernel's C interface
 _VALUE_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_MAX_SCATTER_ROWS = 6144     # the row bounds fill 48 KB of shared memory
+_MAX_SCATTER_ROWS = 6144     # a K3 block keeps 8 bytes of every row in
+                             # shared memory
+TILE = 512                   # elements of one K4 work item (kTile)
+SCATTER_STAGE = 2048         # entries a K3 block stages at once (kStage)
+SCATTER_SPAN = (1024, 4096)  # least and most acc positions of a K3 block
 
 
 @functools.lru_cache(maxsize=None)
@@ -59,13 +68,15 @@ def _lib() -> ctypes.CDLL:
                                        ctypes.c_int, ctypes.c_int, ptr]
     lib.masked_agg_acc_deq.restype = ctypes.c_int
     lib.masked_scatter_acc_launch.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_int32, ctypes.c_int32,
-        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ptr]
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_int, ptr]
     lib.masked_scatter_acc_launch.restype = ctypes.c_int
-    lib.masked_agg.argtypes = [ptr, ptr, ptr, ptr, ptr, ctypes.c_int64,
-                               ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-                               ctypes.c_int, ptr]
-    lib.masked_agg.restype = ctypes.c_int
+    i64 = ctypes.c_int64
+    lib.masked_agg_fold.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64,
+                                    i64, i64, i64, ctypes.c_int,
+                                    ctypes.c_int, i64, ptr]
+    lib.masked_agg_fold.restype = ctypes.c_int
     lib.masked_agg_error_string.argtypes = [ctypes.c_int]
     lib.masked_agg_error_string.restype = ctypes.c_char_p
     return lib
@@ -199,6 +210,16 @@ def masked_agg_acc_deq_(acc: torch.Tensor, q: torch.Tensor,
 masked_agg_acc_deq_.launches = 0
 
 
+def scatter_span(n: int, z: int, k: int) -> int:
+    """The acc positions one K3 block owns: the most, halved while the
+    entries a span expects (``z * k * span / n``) exceed what a block
+    stages at once, down to the least.  A power of two."""
+    span, least = SCATTER_SPAN[1], SCATTER_SPAN[0]
+    while span > least and z * k * span > SCATTER_STAGE * n:
+        span //= 2
+    return span
+
+
 def masked_scatter_acc_(acc: torch.Tensor, values: torch.Tensor,
                         scales: Optional[torch.Tensor],
                         indices: torch.Tensor, mask: torch.Tensor,
@@ -217,10 +238,13 @@ def masked_scatter_acc_(acc: torch.Tensor, values: torch.Tensor,
     w_m, w_rest (Z,) f32 — all contiguous, on one device.  **Index
     contract** (what ``comm.sparse_encode`` ships, and not checked here:
     that would cost a host sync per fold): each row's indices are
-    distinct, sorted ascending and inside ``[0, N)``.  The kernel finds a
-    row's entries by binary search and drops any entry outside the span
-    it searched, so a broken contract gives a wrong sum, never a write out
-    of bounds.  Launches on the current stream and does not synchronise."""
+    distinct, sorted ascending and inside ``[0, N)``.  The kernels find a
+    row's entries in each span of ``acc`` from the sorted order and drop
+    any entry outside the span, so a broken contract gives a wrong sum,
+    never an access out of bounds.  A memset and two launches (each row's
+    run in each span, then the fold over the spans that have entries) on
+    the current stream, with an int32 scratch of ``(2 Z + 2) N / span``;
+    does not synchronise."""
     log2_qb = _log2_quant_block(quant_block)
     if values.dim() != 2 or values.dtype not in _VALUE_KINDS:
         raise ValueError(f"values must be (Z, k) int8, bf16 or f32, got "
@@ -250,6 +274,9 @@ def masked_scatter_acc_(acc: torch.Tensor, values: torch.Tensor,
             quant_block=quant_block))
     if z == 0 or k == 0 or n == 0:
         return acc
+    span = scatter_span(n, z, k)
+    scratch = torch.empty(((2 * z + 2) * -(-n // span) + 1,),
+                          dtype=torch.int32, device=acc.device)
     lib = _lib()
     with torch.cuda.device(acc.device):
         stream = torch.cuda.current_stream(acc.device).cuda_stream
@@ -257,14 +284,113 @@ def masked_scatter_acc_(acc: torch.Tensor, values: torch.Tensor,
             acc.data_ptr(), values.data_ptr(),
             None if scales is None else scales.data_ptr(),
             indices.data_ptr(), mask.data_ptr(), w_m.data_ptr(),
-            w_rest.data_ptr(), z, k, n, log2_qb,
+            w_rest.data_ptr(), scratch.data_ptr(), z, k, n, span, log2_qb,
             _VALUE_KINDS[values.dtype], stream)
     _raise_on(err, "masked_scatter_acc")
-    masked_scatter_acc_.launches += 1
+    masked_scatter_acc_.launches += 2
     return acc
 
 
 masked_scatter_acc_.launches = 0
+
+
+class FoldPlan(NamedTuple):
+    """K4's work over one packed layout, on one device.
+
+    ``leaves`` (L, 3) int64 rows ``(x_off, size, out_off)``: where a leaf
+    starts in a row of the packed chunk buffer, its element count, and
+    where it starts in the accumulator and the mask (the layout's offset
+    both times: the accumulator is laid out like a packed row, and its
+    padding is never written).  ``items`` (n_items, 2) int32 rows ``(leaf,
+    tile)``: tile ``t`` covers the leaf's elements ``[t * TILE, (t + 1) *
+    TILE)``, cut at its end.  ``length``: the least row, accumulator and
+    mask length the tables address."""
+    leaves: torch.Tensor
+    items: torch.Tensor
+    length: int
+
+
+def fold_tables(slots) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The leaf table and the work list of :class:`FoldPlan` (on the CPU)
+    for layout slots (anything with ``offset`` and ``size``)."""
+    leaves = torch.tensor([[s.offset, s.size, s.offset] for s in slots],
+                          dtype=torch.int64).reshape(-1, 3)
+    tiles = (leaves[:, 1] + TILE - 1) // TILE
+    leaf = torch.repeat_interleave(torch.arange(len(slots)), tiles)
+    first = torch.repeat_interleave(torch.cumsum(tiles, 0) - tiles, tiles)
+    tile = torch.arange(int(tiles.sum())) - first
+    return leaves, torch.stack([leaf, tile], dim=1).to(torch.int32)
+
+
+_PLANS: Dict[Tuple[str, str], FoldPlan] = {}
+
+
+def fold_plan(layout, device) -> FoldPlan:
+    """The :class:`FoldPlan` of a ``FlatLayout`` on ``device``, built once
+    per layout signature and device and kept there, so a fold copies
+    nothing from the host and never synchronises."""
+    key = (layout.signature, str(torch.device(device)))
+    if key not in _PLANS:
+        leaves, items = fold_tables(layout.slots)
+        end = int((leaves[:, 0] + leaves[:, 1]).max()) if len(leaves) else 0
+        _PLANS[key] = FoldPlan(leaves.to(device), items.to(device), end)
+    return _PLANS[key]
+
+
+def _launch_fold(out, x, mask, w_m, w_rest, plan: Optional[FoldPlan],
+                 n: int, accumulate: bool) -> None:
+    z = x.shape[0]
+    ld = x.stride(0) if z > 1 else max(n, 1)
+    leaves = items = None
+    n_items = 0
+    if plan is not None:
+        leaves, items = plan.leaves.data_ptr(), plan.items.data_ptr()
+        n_items = plan.items.shape[0]
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.masked_agg_fold(out.data_ptr(), x.data_ptr(),
+                                  mask.data_ptr(), w_m.data_ptr(),
+                                  w_rest.data_ptr(), leaves, items, n_items,
+                                  n, z, ld, int(x.dtype == torch.bfloat16),
+                                  int(accumulate), TILE, stream)
+    _raise_on(err, "masked_agg_fold" if accumulate else "masked_agg")
+
+
+def masked_agg_fold_(acc: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
+                     w_m: torch.Tensor, w_rest: torch.Tensor,
+                     plan: FoldPlan) -> torch.Tensor:
+    """The tree engine's fold, in place; returns ``acc``.  For every leaf
+    ``(x_off, size, out_off)`` of ``plan``:
+
+        acc[o + n] += sum_z gate(x[z, x_off + n]) * w[z, o + n],
+        o = out_off, n < size, w[z, m] = mask[m] ? w_m[z] : w_rest[z]
+
+    the sum in f32 from 0, added once (bitwise ``acc[o:o + size].add_(
+    masked_agg_(x[:, x_off:x_off + size], ...))``).  acc (M,) f32 and mask
+    (M,) bool with M >= plan.length; x (Z, >= plan.length) f32 (the packed
+    chunk buffer); w_m, w_rest (Z,) f32; plan on the same device; all
+    contiguous.  One launch on the current stream, no synchronisation."""
+    if x.dtype != torch.float32 or x.dim() != 2 or \
+            x.shape[1] < plan.length:
+        raise ValueError(f"x must be f32 (Z, >= {plan.length}), got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if acc.dim() != 1 or acc.shape[0] < plan.length:
+        raise ValueError(f"accumulator must be (>= {plan.length},), got "
+                         f"{tuple(acc.shape)}")
+    _check_common(acc, mask, w_m, w_rest, x.shape[0], x, plan.leaves,
+                  plan.items)
+    if acc.device.type == "cpu":
+        return acc.copy_(masked_agg_fold_ref(acc, x, mask, w_m, w_rest,
+                                             plan.leaves))
+    if x.shape[0] == 0 or plan.items.shape[0] == 0:
+        return acc
+    _launch_fold(acc, x, mask, w_m, w_rest, plan, 0, accumulate=True)
+    masked_agg_fold_.launches += 1
+    return acc
+
+
+masked_agg_fold_.launches = 0
 
 
 def masked_agg_(x: torch.Tensor, mask: torch.Tensor, w_m: torch.Tensor,
@@ -275,8 +401,8 @@ def masked_agg_(x: torch.Tensor, mask: torch.Tensor, w_m: torch.Tensor,
     x (Z, N) f32 or bf16 with unit element stride; its rows may lie any
     ``x.stride(0) >= N`` elements apart (a leaf's columns of the packed
     chunk buffer).  mask (N,) bool; w_m, w_rest (Z,) f32 — contiguous, on
-    x's device.  Launches on the current stream and does not
-    synchronise."""
+    x's device.  K4's kernel with a table of this one leaf; launches on
+    the current stream and does not synchronise."""
     if x.dim() != 2 or x.dtype not in _X_DTYPES:
         raise ValueError(f"x must be float32 or bfloat16 (Z, N), got "
                          f"{x.dtype} {tuple(x.shape)}")
@@ -304,19 +430,7 @@ def masked_agg_(x: torch.Tensor, mask: torch.Tensor, w_m: torch.Tensor,
     out = torch.empty((n,), dtype=x.dtype, device=x.device)
     if z == 0 or n == 0:
         return out.zero_()
-    ld = x.stride(0) if z > 1 else n
-    esize = x.element_size()
-    vec4 = (n % 4 == 0 and ld % 4 == 0 and x.data_ptr() % (4 * esize) == 0
-            and out.data_ptr() % (4 * esize) == 0
-            and mask.data_ptr() % 4 == 0)
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.masked_agg(out.data_ptr(), x.data_ptr(), mask.data_ptr(),
-                             w_m.data_ptr(), w_rest.data_ptr(), z, n, ld,
-                             int(x.dtype == torch.bfloat16), int(vec4),
-                             stream)
-    _raise_on(err, "masked_agg")
+    _launch_fold(out, x, mask, w_m, w_rest, None, n, accumulate=False)
     masked_agg_.launches += 1
     return out
 

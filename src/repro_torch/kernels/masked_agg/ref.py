@@ -14,6 +14,8 @@ at weight 0 must not poison the sum (NaN * 0 is NaN).
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 
@@ -30,6 +32,24 @@ def masked_agg_ref(x: torch.Tensor, mask: torch.Tensor, w_m: torch.Tensor,
         xz = torch.where(wz > 0, x[z].to(torch.float32), 0.0)
         out = out + xz * wz
     return out.to(x.dtype)
+
+
+def masked_agg_fold_ref(acc: torch.Tensor, x: torch.Tensor,
+                        mask: torch.Tensor, w_m: torch.Tensor,
+                        w_rest: torch.Tensor,
+                        leaves: torch.Tensor) -> torch.Tensor:
+    """acc (M,) f32 plus, for every leaf row ``(x_off, size, out_off)`` of
+    ``leaves`` (L, 3), the one-shot masked sum of the leaf's columns of x
+    (Z, *) f32 at the mask's (M,) entries from ``out_off``, added to acc
+    there -> new (M,) f32 (elements no leaf covers are acc's).
+
+    The tree engine's fold: per leaf, ``acc + masked_agg_ref(leaf)``."""
+    out = acc.clone()
+    for x_off, size, out_off in leaves.tolist():
+        o = slice(out_off, out_off + size)
+        out[o] += masked_agg_ref(x[:, x_off:x_off + size], mask[o], w_m,
+                                 w_rest)
+    return out
 
 
 def masked_agg_acc_ref(acc: torch.Tensor, x: torch.Tensor,
@@ -101,3 +121,40 @@ def masked_scatter_acc_ref(acc: torch.Tensor, values: torch.Tensor,
         v = torch.where(w_at > 0, v, 0.0) * w_at
         out = out.index_add(0, idx, v)
     return out
+
+
+def scatter_bounds_ref(indices: torch.Tensor, w_m: torch.Tensor,
+                       w_rest: torch.Tensor, n: int, span: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The scatter fold's first pass: ``(start, end, live)``.
+
+    start, end (Z, n_spans) int32 with ``n_spans = ceil(n / span)``: row
+    z's entries in span s are ``[start[z, s], end[z, s])``, an empty run
+    ``[0, 0)`` where it has none, and everywhere for a row whose two
+    weights are both 0.  live: the spans where a live row has an entry,
+    ascending (the kernel lists them in no order).
+
+    Built as the kernel builds it, one entry at a time: an entry in span
+    ``here`` (an index below 0 counts in span 0, one at or past n in no
+    span) whose predecessor lies in another span writes the run's start,
+    one whose successor does the run's end."""
+    z, k = indices.shape
+    n_spans = -(-n // span)
+    p = indices.to(torch.int64)
+    here = torch.where(p < 0, 0, torch.where(p >= n, n_spans, p // span))
+    start = torch.zeros((z, n_spans), dtype=torch.int32)
+    end = torch.zeros((z, n_spans), dtype=torch.int32)
+    live = torch.zeros((n_spans,), dtype=torch.bool)
+    j = torch.arange(k, dtype=torch.int32)
+    for row in range(z):
+        if not (w_m[row] > 0 or w_rest[row] > 0) or k == 0:
+            continue
+        h = here[row]
+        prev = torch.cat([h.new_full((1,), -1), h[:-1]])
+        nxt = torch.cat([h[1:], h.new_full((1,), n_spans)])
+        opens = (h != prev) & (h < n_spans)
+        closes = (h != nxt) & (h < n_spans)
+        start[row, h[opens]] = j[opens]
+        end[row, h[closes]] = j[closes] + 1
+        live[h[opens]] = True
+    return start, end, torch.nonzero(live).flatten()

@@ -48,7 +48,7 @@ RUNS = (("fedhen", {}), ("noside", {}), ("decouple", {}),
 # PyTorch's GroupNorm as moments / fused-params / gradient kernels; the
 # wire's top-k is a radix sort plus gathers and scatters of indices
 LAYERS = (("masked_agg_acc_deq", "fold (K2)"),
-          ("masked_scatter_acc", "fold (K3)"),
+          ("scatter_bounds", "fold (K3)"), ("scatter_apply", "fold (K3)"),
           ("masked_agg_acc", "fold (K1)"),
           ("masked_agg", "fold (K4)"),
           ("RadixSort", "top-k sort"), ("radix", "top-k sort"),

@@ -14,7 +14,7 @@ Examples (on a machine with a CUDA card):
         --rounds 20 --clients 100 --data-points 50000 --local-epochs 1 \
         --comm-dtype int8 --topk-frac 0.0714 --stochastic-rounding \
         --error-feedback
-    # the tree engine (one K4 launch per leaf), SCAFFOLD, uniform sampling
+    # the tree engine (one K4 launch per fold), SCAFFOLD, uniform sampling
     PYTHONPATH=src python -m repro_torch.launch.train --model resnet \
         --rounds 20 --clients 100 --data-points 50000 --local-epochs 1 \
         --agg-engine tree --variance-reduction scaffold --sample-uniform
@@ -90,8 +90,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "--agg-memory-budget-mb)")
     ap.add_argument("--agg-engine", choices=("flat", "tree"), default="flat",
                     help="the fold: one masked-fold launch over the packed "
-                         "model (flat) or one one-shot launch per leaf "
-                         "(tree)")
+                         "model (flat) or one launch over a table of its "
+                         "leaves into per-leaf sums (tree)")
     ap.add_argument("--agg-block-n", type=int, default=2048,
                     help="rounds the flat layout's length (multiple of 128)")
     ap.add_argument("--agg-stream-dtype", default="float32",

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-K1 contracts its multiply-add to an FMA (tolerance 1e-6); K2, K3, K4 and
-K6 round each product and sum as their plain versions do, in the same
-order, so they are held bitwise.  K5 sums its scores and its PV product in
+K1 contracts its multiply-add to an FMA (tolerance 1e-6); K2, K3, K4 (its
+one-shot entry and the tree engine's one-launch fold) and K6 round each
+product and sum as their plain versions do, in the same order, so they are
+held bitwise.  K5 sums its scores and its PV product in
 another order than its plain version (cuBLAS): f32 (the CUDA-core kernel)
 at rtol = atol = 1e-5, bf16 (the tensor-core kernel, which also rounds the
 probabilities to bf16 for the PV product) within one bf16 rounding
@@ -26,8 +27,8 @@ from repro_torch.kernels.flash_attention.ref import \
     flash_attention_ref  # noqa: E402
 from repro_torch.kernels.masked_agg import ops  # noqa: E402
 from repro_torch.kernels.masked_agg.ref import (  # noqa: E402
-    masked_agg_acc_deq_ref, masked_agg_acc_ref, masked_agg_ref,
-    masked_scatter_acc_ref)
+    masked_agg_acc_deq_ref, masked_agg_acc_ref, masked_agg_fold_ref,
+    masked_agg_ref, masked_scatter_acc_ref)
 from repro_torch.kernels.rglru_scan import ops as scan_ops  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import lru_scan_ref  # noqa: E402
 
@@ -163,7 +164,7 @@ def test_masked_scatter_acc_matches_plain_version(cuda, dtype, z, n, k):
     before = ops.masked_scatter_acc_.launches
     assert ops.masked_scatter_acc_(acc_t, *args, quant_block=128) is acc_t
     torch.cuda.synchronize()
-    assert ops.masked_scatter_acc_.launches == before + 1
+    assert ops.masked_scatter_acc_.launches == before + 2   # bounds, apply
     assert bool(torch.isfinite(acc_t).all())
     torch.testing.assert_close(acc_t, want, rtol=0, atol=0)
 
@@ -176,7 +177,7 @@ def test_masked_scatter_acc_matches_plain_version(cuda, dtype, z, n, k):
     (5, 1000, 2050, 0)])
 def test_masked_agg_matches_plain_version(cuda, dtype, z, n, ld, offset):
     # ld > n: a leaf's view of the packed chunk buffer; n % 4 != 0, ld %
-    # 4 != 0 and offset 1 (misaligned rows) take the scalar kernel
+    # 4 != 0 and offset 1 (misaligned rows) take scalar loads
     x, mask, w_m, w_rest = _inputs(z, n, seed=z * n + ld + offset)[1:]
     buf = torch.zeros((z * ld + offset,), device=cuda,
                       dtype=getattr(torch, dtype))
@@ -216,6 +217,118 @@ def test_masked_agg_tree_folds_every_leaf_on_the_card(cuda):
         flatten.unpack_stacked(layout, xz), leaf_masks)
     for a, b in zip(tree_leaves(got), tree_leaves(want)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _scatter_case(case, dtype, seed, cuda):
+    """K3 at the main path's two populations and its edges, N = 400,000:
+    "complex" k = 1/14 of every position, "simple" every index inside M,
+    Z = 1 with k = quant_block, k = quant_block, every index in one span.
+    Row 1 is NaN at weight 0 on both branches (NaN scales for int8)."""
+    rng = np.random.default_rng(seed)
+    n, qb = 400_000, 128
+    mask = rng.random(n) < 0.06
+    z, k, pool = {"complex": (5, 28_672, np.arange(n)),
+                  "simple": (5, 1_792, np.nonzero(mask)[0]),
+                  "z1": (1, qb, np.arange(n)),
+                  "k_qb": (5, qb, np.arange(n)),
+                  "one_span": (5, 256, np.arange(199_000, 200_024))}[case]
+    idx = np.stack([np.sort(rng.choice(pool, size=k, replace=False))
+                    for _ in range(z)]).astype(np.int32)
+    values = torch.from_numpy(rng.normal(size=(z, k)).astype(np.float32))
+    scales = None
+    if dtype == "int8":
+        values = torch.from_numpy(rng.integers(-127, 128, size=(z, k),
+                                               dtype=np.int8))
+        scales = torch.from_numpy(rng.uniform(
+            0.0, 0.1, size=(z, k // qb)).astype(np.float32)).to(cuda)
+        if z > 1:
+            scales[1] = float("nan")
+    else:
+        values = values.to(torch.bfloat16)
+        if z > 1:
+            values[1] = float("nan")
+    w_m = rng.uniform(0.2, 1.5, size=z).astype(np.float32)
+    w_rest = rng.uniform(0.2, 1.5, size=z).astype(np.float32)
+    if z > 1:
+        w_m[1] = w_rest[1] = w_m[2] = 0.0
+    acc = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(cuda)
+    return acc, [values.to(cuda), scales] + [
+        torch.from_numpy(a).to(cuda) for a in (idx, mask, w_m, w_rest)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+@pytest.mark.parametrize("case", ["complex", "simple", "z1", "k_qb",
+                                  "one_span"])
+def test_masked_scatter_acc_cases_match_plain_version(cuda, dtype, case):
+    acc, args = _scatter_case(case, dtype, seed=len(case), cuda=cuda)
+    want = masked_scatter_acc_ref(acc.clone(), *args, quant_block=128)
+    before = ops.masked_scatter_acc_.launches
+    assert ops.masked_scatter_acc_(acc, *args, quant_block=128) is acc
+    torch.cuda.synchronize()
+    assert ops.masked_scatter_acc_.launches == before + 2
+    assert bool(torch.isfinite(acc).all())
+    torch.testing.assert_close(acc, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", ["float32", "bfloat16"])
+def test_masked_agg_fold_is_one_launch_over_every_leaf(cuda, stream):
+    # the tree engine's fold of full-width PreActResNet18-GN: all 59 leaves
+    # accumulated in one launch, bitwise against acc + the plain one-shot
+    # sum of each leaf (a bf16 stream widened first, as the engine does);
+    # then the one-shot entry on every leaf in the stream's dtype
+    from repro_torch.core import flatten
+    from repro_torch.core.adapters import ResNetAdapter
+    adapter = ResNetAdapter(10)
+    params = adapter.init(torch.Generator().manual_seed(0), "cpu")
+    layout = flatten.build_layout(params, total_multiple=2048)
+    flat_mask = flatten.pack_mask(layout, adapter.subnet_mask(params), cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    xz = torch.randn((5, layout.n_flat), generator=g, device=cuda).to(
+        getattr(torch, stream))
+    xz[1] = float("nan")
+    w_m = torch.tensor([1.0, 0.0, 0.0, 0.5, 1.0], device=cuda)
+    w_rest = torch.tensor([1.0, 0.0, 0.7, 0.0, 0.25], device=cuda)
+    acc = torch.randn((layout.n_flat,), generator=g, device=cuda)
+    plan = ops.fold_plan(layout, cuda)
+    x32 = xz.to(torch.float32)
+    want = masked_agg_fold_ref(acc, x32, flat_mask, w_m, w_rest,
+                               plan.leaves.cpu())
+    got = acc.clone()
+    before = ops.masked_agg_fold_.launches
+    assert ops.masked_agg_fold_(got, x32, flat_mask, w_m, w_rest, plan) is got
+    torch.cuda.synchronize()
+    assert ops.masked_agg_fold_.launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    before = ops.masked_agg_.launches
+    for s in layout.slots:
+        rows = xz[:, s.offset:s.offset + s.size]
+        m = flat_mask[s.offset:s.offset + s.size]
+        torch.testing.assert_close(ops.masked_agg_(rows, m, w_m, w_rest),
+                                   masked_agg_ref(rows, m, w_m, w_rest),
+                                   rtol=0, atol=0)
+    assert ops.masked_agg_.launches == before + layout.n_leaves
+
+
+@pytest.mark.cuda
+def test_refused_fold_launches_raise(cuda, monkeypatch):
+    acc, x, mask, w_m, w_rest = (torch.from_numpy(a).to(cuda) for a in
+                                 _inputs(4, 4096, seed=2))
+    before = (ops.masked_agg_.launches, ops.masked_scatter_acc_.launches)
+    monkeypatch.setattr(ops, "TILE", 256)      # not the kernel's item length
+    with pytest.raises(RuntimeError, match="masked_agg launch failed"):
+        ops.masked_agg_(x, mask, w_m, w_rest)
+    # a span below the kernel's least
+    monkeypatch.setattr(ops, "SCATTER_SPAN", (512, 512))
+    idx = torch.arange(0, 4096, 32, device=cuda,
+                       dtype=torch.int32).repeat(4, 1)
+    with pytest.raises(RuntimeError, match="masked_scatter_acc launch failed"):
+        ops.masked_scatter_acc_(acc, torch.ones((4, 128), device=cuda), None,
+                                idx, mask, w_m, w_rest, quant_block=128)
+    assert (ops.masked_agg_.launches,
+            ops.masked_scatter_acc_.launches) == before
 
 
 def _qkv(cuda, b, s, h, kh, dh, dtype, seed):

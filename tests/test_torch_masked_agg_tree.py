@@ -196,8 +196,8 @@ def _port_stream(stacked, is_simple, valid, algorithm, engine, stream,
                                   dtype=dtype)
         if engine == "tree":
             state = aggregate.tree_streaming_fold(
-                state, flatten.unpack_stacked(layout, xz), leaf_masks,
-                is_simple[sl], valid[sl], algorithm)
+                state, xz, layout, flat_mask, is_simple[sl], valid[sl],
+                algorithm)
         else:
             state = aggregate.streaming_fold(state, xz, flat_mask,
                                              is_simple[sl], valid[sl],

@@ -69,7 +69,7 @@ def test_tree_round_matches_the_flat_round(algorithm, chunk):
 
 
 def test_tree_round_launches_no_kernel_on_the_cpu():
-    before = (ops.masked_agg_.launches, ops.masked_agg_acc_.launches)
+    counters = (ops.masked_agg_, ops.masked_agg_fold_, ops.masked_agg_acc_)
+    before = [fn.launches for fn in counters]
     _port("tree", "fedhen", 0).run_round()
-    assert (ops.masked_agg_.launches, ops.masked_agg_acc_.launches) == \
-        before
+    assert [fn.launches for fn in counters] == before
