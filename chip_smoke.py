@@ -79,12 +79,29 @@ which raises on failure:
    decode steps (final and exit heads), in f32 (K5 on the CUDA cores) at
    rtol 1e-4 / atol 1e-5 and in bf16 (K5 on the tensor cores) within 5 %
    of max|logit|; and on the card, f32 token-by-token decode against the
-   prefill's logits at every position, at rtol 1e-4 / atol 1e-5.
+   prefill's logits at every position, at rtol 1e-4 / atol 1e-5;
+9. the LM round cell (``repro_torch.launch.lm_cell``):
+   ``FederatedTrainer(LMAdapter(cfg), ...)`` on
+   Gemma-2 2B at full width (bf16, n_flat 2,614,224,896 > 2**31), weights
+   from seed 0 drawn on the card, 8 clients (one simple, one complex a
+   round), batch 2 x 512 tokens, 2 SGD steps a client, ``synthetic_lm``
+   over the first 4,096 ids, the f32 wire: 2 fedhen and 1 noside round on
+   the flat engine and 1 fedhen round on the tree engine, each evaluated,
+   with wall time, losses, metrics, bytes billed against the wire's
+   closed form, peak memory, and K1's / K4's launches against the folds;
+   then K1 and K4 at the cell's fold (Z = 1, N = n_flat, the real mask;
+   for K4 the layout's leaf table and work list) bitwise against their
+   plain versions in pieces, each timed beside its byte bound;
+10. narrow LM rounds on the card against the CPU at rtol 1e-4 / atol 1e-5:
+   attn4 (the BENCH rows' config) fedhen and decouple on the flat engine
+   and fedhen on the tree engine, reduced recurrentgemma-2b fedhen.
 
 Kernel times are device times (``time_ms``: a CUDA graph of the timed
 calls between two events, so the host's launch rate does not enter).  The
 second-to-last line is one JSON object ``{"kernels": [...]}`` (K1-K4,
-both K5 kernels, K6); the last is ``{"ok": true, "device": {...}}``.
+both K5 kernels, K6; K1 and K4 with their launches on the LM path of
+phase 9 beside phase 4's, and their LM-shape times); the last is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1129,6 +1146,296 @@ def serving_card_vs_cpu(torch) -> dict:
     return launches
 
 
+# Phase 9: the full-width LM round cell (repro_torch.launch.lm_cell:
+# Gemma-2 2B, bf16, n_flat above 2**31, one simple and one complex client
+# a round, 2 SGD steps of 2 x 512 tokens each, the f32 wire).
+# (label, algorithm, rounds, config, launches per round of K1, K4)
+LM_RUNS = (("flat f32", "fedhen", 2, {}, (2, 0)),
+           ("flat f32", "noside", 1, {}, (2, 0)),
+           ("tree f32", "fedhen", 1, TREE, (0, 2)))
+LM_SLICE = 1 << 28           # elements of one plain-version slice
+
+
+def lm_cell(torch, ops, ref, bw: float) -> dict:
+    """Phase 9: federated training of Gemma-2 2B at full width through
+    ``FederatedTrainer(LMAdapter(cfg), ...)`` (``lm_cell.trainer``),
+    weights drawn on the card from seed 0: 2 fedhen and 1 noside round on
+    the flat engine, 1 fedhen round on the tree engine, each evaluated.
+    Per round: wall time, losses, eval metrics, bytes billed against the
+    f32 wire's closed form (4 bytes down and 4 up of |M| for the simple
+    client and of every param for the complex one) and peak memory; K1's
+    and K4's launches, counted from 0 for each run, against the folds.
+    Then, with the trainers freed, K1 and K4 at the cell's fold shape
+    (Z = 1, N = n_flat, the real mask and leaf table) against their plain
+    versions, bitwise, and timed (:func:`check_folds_lm`)."""
+    import gc
+    from repro_torch.launch import lm_cell as cell
+
+    t0 = time.perf_counter()
+    shards = cell.shards("cuda")
+    test = cell.test_batch()
+    print(f"  data: {len(shards) * cell.PER_CLIENT} sequences of "
+          f"{cell.SEQ} tokens over {len(shards)} clients in "
+          f"{time.perf_counter() - t0:.1f} s (set-up)", flush=True)
+    out = {"rounds": [], "runs": []}
+    total = (0, 0)
+    layout = mask = None
+    for label, algo, rounds, extra, per_round in LM_RUNS:
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        trainer = cell.trainer(shards, algo, **extra)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        layout = trainer.layout
+        n_m = int(trainer.flat_mask.sum())
+        want_bytes = 8 * (n_m + layout.n_params)
+        print(f"  {label} {algo}: n_flat {layout.n_flat:,} "
+              f"({layout.n_flat / 2**31:.3f} x 2**31), "
+              f"{layout.n_params:,} params in {layout.n_leaves} leaves, "
+              f"|M| {n_m:,}; trainer built in {init_s:.1f} s, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB held",
+              flush=True)
+        if trainer.bytes_per_round != want_bytes:
+            raise RuntimeError(f"LM {label} {algo}: the wire bills "
+                               f"{trainer.bytes_per_round} bytes a round, "
+                               f"the closed form {want_bytes}")
+        _zero_counts(ops)
+        for _ in range(rounds):
+            billed = trainer.total_bytes
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            m = trainer.run_round()
+            torch.cuda.synchronize()
+            round_s = time.perf_counter() - t
+            t = time.perf_counter()
+            ev = trainer.evaluate(test)
+            torch.cuda.synchronize()
+            eval_s = time.perf_counter() - t
+            billed = trainer.total_bytes - billed
+            row = {"run": label, "algorithm": algo,
+                   "round": trainer.server.round, "round_s": round_s,
+                   "eval_s": eval_s, "bytes": billed,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                   "train": m, "eval": ev}
+            print("  " + json.dumps(row), flush=True)
+            values = [m["loss_simple"], m["loss_complex"]] + [
+                ev[k] for k in ("loss_simple", "loss_complex", "acc_simple",
+                                "acc_complex")]
+            if not all(math.isfinite(v) for v in values):
+                raise RuntimeError(f"LM {label} {algo}: non-finite loss or "
+                                   f"metric {m} {ev}")
+            if m["n_valid"] != 2:
+                raise RuntimeError(f"LM {label} {algo}: n_valid "
+                                   f"{m['n_valid']}, 2 clients trained")
+            if billed != want_bytes:
+                raise RuntimeError(f"LM {label} {algo}: {billed} bytes "
+                                   f"billed, expected {want_bytes}")
+            out["rounds"].append(row)
+        c = _counts(ops)
+        launched = (c[0], c[3])
+        expected = tuple(rounds * k for k in per_round)
+        print(f"  {label} {algo}: launches K1/K4 {launched} over {rounds} "
+              f"round(s), expected {expected} (one a fold); peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        if launched != expected or c[1] or c[2]:
+            raise RuntimeError(f"LM {label} {algo}: launches K1/K2/K3/K4 "
+                               f"{c}, expected K1/K4 {expected}")
+        out["runs"].append({"run": label, "algorithm": algo,
+                            "init_s": init_s, "launches": launched,
+                            "peak_gib": torch.cuda.max_memory_allocated()
+                            / 2**30})
+        total = tuple(a + b for a, b in zip(total, launched))
+        mask = trainer.flat_mask
+        out.update(n_flat=layout.n_flat, n_params=layout.n_params, n_m=n_m)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    del shards
+    out["launches"] = total
+    out.update(check_folds_lm(torch, ops, ref, bw, layout, mask))
+    return out
+
+
+def _leaf_groups(leaves, span: int):
+    """Runs of consecutive rows of a leaf table (L, 3) whose elements span
+    at most ``span`` (a larger leaf makes a run of its own), each as
+    ``(lo, hi, rows)`` with the rows' offsets made relative to ``lo``."""
+    rows = leaves.tolist()
+    i = 0
+    while i < len(rows):
+        j, lo = i + 1, rows[i][0]
+        while j < len(rows) and rows[j][0] + rows[j][1] - lo <= span:
+            j += 1
+        hi = rows[j - 1][0] + rows[j - 1][1]
+        yield lo, hi, [[x - lo, n, o - lo] for x, n, o in rows[i:j]]
+        i = j
+
+
+def check_folds_lm(torch, ops, ref, bw: float, layout, mask) -> dict:
+    """K1 and K4 at the LM cell's fold: Z = 1, N = n_flat > 2**31, the
+    real mask (and for K4 the layout's leaf table, past offset 2**31 and
+    its int32 work list), as a complex client (weight 1 on both sides of
+    M) and a simple one (1 inside, 0 outside), on one random f32 row and
+    accumulator.  Each is held bitwise to its plain version, computed
+    piece by piece so that memory stays bounded (the folds are elementwise
+    in N, and at weight 1 the kernels' FMA rounds as the plain versions'
+    product and sum): K1 in slices of ``LM_SLICE``, K4 in runs of leaves
+    spanning at most as much (``masked_agg_fold_ref`` over the run).  Then
+    each is timed beside its byte bound and its plain version's pieced
+    time."""
+    n = mask.numel()
+    g = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn((1, n), generator=g, device="cuda")
+    acc0 = torch.randn((n,), generator=g, device="cuda")
+    n_m = int(mask.sum())
+    n_all = layout.n_params
+    plan = ops.fold_plan(layout, "cuda")
+    leaves = plan.leaves.cpu()
+    ones = torch.ones((1,), device="cuda")
+    out = {"k1": {"N": n, "Z": 1, "timing": []},
+           "k4": {"N": n, "Z": 1, "n_params": n_all,
+                  "leaves": layout.n_leaves,
+                  "work_items": plan.items.shape[0], "timing": []}}
+
+    def k1_pieces(acc, w_rest):
+        for a in range(0, n, LM_SLICE):
+            e = min(a + LM_SLICE, n)
+            yield f"slice [{a:,}, {e:,})", acc[a:e], \
+                lambda a=a, e=e: ref.masked_agg_acc_ref(
+                    acc0[a:e], x[:, a:e], mask[a:e], ones, w_rest)
+
+    def k4_pieces(acc, w_rest):
+        for lo, hi, rows in _leaf_groups(leaves, LM_SLICE):
+            yield f"leaves over [{lo:,}, {hi:,})", acc[lo:hi], \
+                lambda lo=lo, hi=hi, rows=rows: ref.masked_agg_fold_ref(
+                    acc0[lo:hi], x[:, lo:hi], mask[lo:hi], ones, w_rest,
+                    torch.tensor(rows, dtype=torch.int64))
+
+    kernels = (
+        ("k1", "masked_agg_acc", n,
+         lambda acc, w_rest: ops.masked_agg_acc_(acc, x, mask, ones, w_rest),
+         k1_pieces),
+        ("k4", "masked_agg_fold", n_all,
+         lambda acc, w_rest: ops.masked_agg_fold_(acc, x, mask, ones, w_rest,
+                                                  plan),
+         k4_pieces))
+    for key, name, n_touched, launch, pieces in kernels:
+        for population, w_rest in (("complex", ones), ("simple", ones * 0)):
+            acc = acc0.clone()
+            launch(acc, w_rest)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for what, got, plain in pieces(acc, w_rest):
+                want = plain()
+                if not torch.equal(got, want):
+                    diff = float((got - want).abs().max())
+                    raise RuntimeError(f"{name} at N={n:,}, {population}: "
+                                       f"{what} differs from the plain "
+                                       f"version by {diff:.3e}")
+                del want
+            end.record()
+            end.synchronize()
+            plain_ms = start.elapsed_time(end)
+            del acc
+            ms = time_ms(torch, lambda: launch(acc0, w_rest), iters=10)
+            # K1 reads and writes every element of the accumulator, K4 the
+            # leaves' elements only; x is read where the weight is not 0
+            rows_read = n_touched if population == "complex" else n_m
+            nbytes = 4 * rows_read + 8 * n_touched + n_touched
+            bytes_ms = nbytes / bw * 1e3
+            ops_ms = 2 * rows_read / F32_PEAK * 1e3
+            bound_ms = max(bytes_ms, ops_ms)
+            row = {"fold": population, "ms": ms, "plain_ms": plain_ms,
+                   "plain_note": "in pieces, with the bitwise check",
+                   "bytes_needed": nbytes, "bound_ms": bound_ms,
+                   "bound_share": bound_ms / ms,
+                   "bound_by": "bytes" if bytes_ms >= ops_ms
+                   else "operations", "max_abs_err": 0.0}
+            print(f"  {name} {population} fold f32 Z=1 N={n:,} (N / 2**31 "
+                  f"= {n / 2**31:.3f}"
+                  + (f"; {layout.n_leaves} leaves, "
+                     f"{out['k4']['work_items']:,} work items"
+                     if key == "k4" else "")
+                  + f"): bitwise equal to the plain version; kernel "
+                  f"{ms:.4f} ms, plain (pieced) {plain_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({nbytes / 1e9:.2f} GB needed), bound "
+                  f"share {bound_ms / ms:.3f}", flush=True)
+            out[key]["timing"].append(row)
+    del x, acc0
+    torch.cuda.empty_cache()
+    return out
+
+
+# Phase 10: the attention-only config of every committed BENCH row
+# (benchmarks/fed_common.py's BENCH_CFG), field for field
+def attn4_config():
+    from repro_torch.configs.base import LayerSpec, ModelConfig
+    return ModelConfig(n_layers=4, d_model=64, n_heads=4, n_kv_heads=2,
+                       d_ff=128, vocab_size=256,
+                       pattern=(LayerSpec("attn"),), exit_layer=2,
+                       compute_dtype="float32")
+
+
+def lm_card_vs_cpu(torch) -> None:
+    """Phase 10: narrow LM rounds on the card against the same rounds on
+    the CPU (weights drawn on the CPU from seed 0, the same schedule):
+    attn4 fedhen and decouple on the flat engine, fedhen on the tree
+    engine, reduced recurrentgemma-2b fedhen.  Server params (and
+    decouple's simple host) at rtol 1e-4 / atol 1e-5, losses and eval
+    metrics within 1e-5, n_valid and bytes equal."""
+    from repro_torch import configs
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.core import flatten
+    from repro_torch.core.adapters import LMAdapter
+    from repro_torch.core.federated import FederatedTrainer
+    from repro_torch.data.federated import iid_split
+    from repro_torch.data.synthetic import synthetic_lm
+
+    runs = (("attn4", attn4_config(), "fedhen", {}),
+            ("attn4", attn4_config(), "decouple", {}),
+            ("attn4 tree", attn4_config(), "fedhen", TREE),
+            ("recurrentgemma-2b reduced",
+             configs.get_reduced("recurrentgemma-2b"), "fedhen", {}))
+    for label, cfg, algo, extra in runs:
+        shards = [{"tokens": s["tokens"]} for s in iid_split(
+            synthetic_lm(32, 16, cfg.vocab_size, seed=0), 4, seed=1)]
+        test = {"tokens": synthetic_lm(8, 16, cfg.vocab_size,
+                                       seed=999)["tokens"]}
+        fed = FedConfig(n_devices=4, n_simple=2, participation=1.0,
+                        local_epochs=1, batch_size=4, cohort_chunk=1,
+                        algorithm=algo, **extra)
+        sides = {}
+        for side, dev in (("card", "cuda"), ("cpu", "cpu")):
+            t = FederatedTrainer(LMAdapter(cfg), fed, shards, device=dev,
+                                 generator=torch.Generator().manual_seed(0))
+            m = t.run_round()
+            m.update(t.evaluate(test))
+            models = [flatten.pack(t.layout, t.server.complex).cpu()]
+            if t.server.simple_host is not None:
+                models.append(flatten.pack(t.layout,
+                                           t.server.simple_host).cpu())
+            sides[side] = (m, models)
+        worst = 0.0
+        for a, b in zip(sides["card"][1], sides["cpu"][1]):
+            worst = max(worst, float((a - b).abs().max()))
+            if float(((a - b).abs() - (1e-5 + 1e-4 * b.abs())).max()) > 0:
+                raise RuntimeError(f"LM {label} {algo}: card and CPU server "
+                                   f"params differ beyond rtol 1e-4 / atol "
+                                   f"1e-5 (max abs {worst:.3e})")
+        mc, mp = sides["card"][0], sides["cpu"][0]
+        for key in mp:
+            exact = key in ("n_valid", "mbytes", "mbytes_down", "mbytes_up")
+            if abs(mc[key] - mp[key]) > (0.0 if exact else 1e-5):
+                raise RuntimeError(f"LM {label} {algo}: card {key} "
+                                   f"{mc[key]} against CPU {mp[key]}")
+        print(f"  narrow LM round {label} {algo}, card vs CPU: server "
+              f"params within rtol 1e-4 / atol 1e-5 (max abs {worst:.3e}); "
+              f"card {json.dumps(mc)}", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1185,6 +1492,14 @@ def main() -> int:
     # 8. narrow serving, card vs CPU, decode vs prefill
     print("[8] narrow serving: card vs CPU, decode vs prefill", flush=True)
     narrow = serving_card_vs_cpu(torch)
+    torch.cuda.empty_cache()
+    # 9. the full-width LM round cell
+    print("[9] LM round cell: Gemma-2 2B federated training at full width",
+          flush=True)
+    lm = lm_cell(torch, ops, ref, bw)
+    # 10. narrow LM rounds, card vs CPU
+    print("[10] narrow LM rounds: card vs CPU", flush=True)
+    lm_card_vs_cpu(torch)
 
     src = "src/repro_torch/kernels/masked_agg/csrc/"
     kernels = []
@@ -1209,6 +1524,17 @@ def main() -> int:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": None, "shape": shape,
             "bound_share": head["bound_share"], "folds": result["timing"]})
+    for i, key, fold in ((0, "k1", "complex"),
+                         (3, "k4", "tree fold, every leaf, one launch")):
+        head = lm[key]["timing"][0]     # the complex client's fold
+        kernels[i]["launches_lm"] = lm["launches"][0 if key == "k1" else 1]
+        kernels[i]["lm"] = {
+            "shape": {"Z": 1, "N": lm[key]["N"], "x": "float32",
+                      "fold": fold, "mask": "gemma2-2b index set M"},
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "bound_share": head["bound_share"], "max_abs_err": 0.0,
+            "folds": lm[key]["timing"]}
     k5_src = "src/repro_torch/kernels/flash_attention/csrc/"
     k5_replaces = "src/repro/kernels/flash_attention/kernel.py:83"
     for name, source, dtype, launches, path in (

@@ -1,15 +1,16 @@
 """Model adapters: bind an architecture to the FedHeN machinery.
 
-The port of ``repro.core.adapters.ResNetAdapter``.  An adapter exposes the
-paper's three client objectives over a *complex* parameter tree:
+The port of ``repro.core.adapters``.  An adapter exposes the paper's
+three client objectives over a *complex* parameter tree:
 
 * ``loss_complex`` — f_j(w_c)
 * ``loss_simple``  — f_i([w_c]_M): touches only M, so PyTorch returns no
-  gradient (``None``) outside M, which the optimizer reads as zero
+  gradient (``None``) for a leaf wholly outside M, which the optimizer
+  reads as zero (a period-stacked leaf gets a full-shape gradient, zero
+  past the exit)
 * ``loss_side``    — f_j(w_c) + f_j([w_c]_M), in ONE forward pass
 
 plus ``subnet_mask`` (index set M) and evaluation metrics for both heads.
-The LM adapter comes with the LM slice.
 """
 
 from __future__ import annotations
@@ -17,16 +18,33 @@ from __future__ import annotations
 from typing import Dict, Sequence
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core import masking
 from repro_torch.models import common, resnet
+from repro_torch.models import transformer as tfm
 from repro_torch.tree import Tree, tree_map
 
 Batch = Dict[str, torch.Tensor]
+# logits elements LMAdapter.evaluate builds at once (its rows are grouped)
+EVAL_LOGITS = 1 << 28
 
 
-def _ce(logits, labels):
-    return common.softmax_cross_entropy(logits, labels)
+def _resnet_ce(logits, labels):
+    """The ResNet's mean CE: PyTorch's fused ``F.cross_entropy`` in f32,
+    within f32 rounding of the reference's formula
+    (``common.softmax_cross_entropy``, which the LM uses).  The ResNet
+    keeps the fused form because four of its lossy-wire and SCAFFOLD
+    parity tests sit at the last ulp and fail under the reference's
+    formula (a compressed round's share 0.0033 against 0.001, a loss
+    1.9e-5 off at atol 1e-5, a cv row 1.2e-6 off at atol 1e-6, an int8
+    gradient), and under it one client of ``chip_smoke.py``'s narrow
+    compressed round trains on the card to deltas 2.1e-3 away from the
+    CPU's (ROADMAP section 3 item 5)."""
+    return F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
+                           labels.reshape(-1).long())
 
 
 def _acc(logits, labels):
@@ -54,18 +72,139 @@ class ResNetAdapter:
 
     def loss_complex(self, params: Tree, batch: Batch) -> torch.Tensor:
         _, final = resnet.forward(params, batch["images"])
-        return _ce(final, batch["labels"])
+        return _resnet_ce(final, batch["labels"])
 
     def loss_simple(self, params: Tree, batch: Batch) -> torch.Tensor:
         logits = resnet.forward_simple(params, batch["images"])
-        return _ce(logits, batch["labels"])
+        return _resnet_ce(logits, batch["labels"])
 
     def loss_side(self, params: Tree, batch: Batch) -> torch.Tensor:
         exit_logits, final = resnet.forward(params, batch["images"])
-        return _ce(final, batch["labels"]) + _ce(exit_logits, batch["labels"])
+        return (_resnet_ce(final, batch["labels"])
+                + _resnet_ce(exit_logits, batch["labels"]))
 
     @torch.no_grad()
     def evaluate(self, params: Tree, batch: Batch) -> Dict[str, torch.Tensor]:
         exit_logits, final = resnet.forward(params, batch["images"])
         return {"acc_complex": _acc(final, batch["labels"]),
                 "acc_simple": _acc(exit_logits, batch["labels"])}
+
+
+# ---------------------------------------------------------------------------
+# Decoder LM zoo
+# ---------------------------------------------------------------------------
+
+class LMAdapter:
+    """A ported ``ModelConfig`` of the zoo.  Batch: ``tokens`` (B, S+1);
+    the model reads ``tokens[:, :-1]`` and predicts ``tokens[:, 1:]``.
+
+    ``remat`` checkpoints each period of the stack (the reference's
+    ``jax.checkpoint`` of its scan body).  Multi-codebook tokens and VLM
+    ``extra_embeds`` raise ``NotImplementedError`` (ROADMAP.md §1, the
+    rest of the zoo)."""
+
+    def __init__(self, cfg: ModelConfig, remat: bool = False):
+        self.cfg = cfg
+        self.remat = remat
+
+    def init(self, generator: torch.Generator, device) -> Tree:
+        """Params drawn from ``generator`` on its own device, then moved
+        to ``device``: a CPU generator gives the same weights on every
+        device, a CUDA one draws a full-width model on the card."""
+        params = tfm.init_params(generator, self.cfg)
+        return tree_map(lambda x: x.to(device), params)
+
+    def subnet_mask(self, params: Tree) -> Tree:
+        return masking.transformer_subnet_mask(params, self.cfg)
+
+    # -- loss plumbing -----------------------------------------------------
+
+    def _inputs(self, batch: Batch):
+        if "extra_embeds" in batch:
+            raise NotImplementedError(
+                "extra_embeds (VLM frontends) are not ported to repro_torch "
+                "yet (ROADMAP.md §1)")
+        if self.cfg.n_codebooks > 1:
+            raise NotImplementedError(
+                "multi-codebook LMs are not ported to repro_torch yet "
+                "(ROADMAP.md §1)")
+        tokens = batch["tokens"]
+        return tokens[:, :-1], tokens[:, 1:]
+
+    def _head_loss(self, params: Tree, h: torch.Tensor,
+                   labels: torch.Tensor, head: str,
+                   chunk: int = 256) -> torch.Tensor:
+        """Mean CE between the ``head`` logits of ``h`` and ``labels``.
+
+        A sequence longer than ``2 * chunk`` that ``chunk`` divides is
+        summed chunk by chunk, in order, into an f32 scalar, each chunk
+        under ``torch.utils.checkpoint`` (its logits are recomputed in the
+        backward pass), so the (B, S, V) logits never exist at once: the
+        reference's remat'd scan.  Otherwise one piece."""
+        b, s = h.shape[0], h.shape[1]
+
+        def nll_sum(h_c, lab_c):
+            logits = tfm.logits_from_hidden(params, self.cfg, h_c, head)
+            return common.softmax_cross_entropy_sum(logits, lab_c)
+
+        n_tok = b * s
+        if s <= 2 * chunk or s % chunk:
+            return nll_sum(h, labels) / n_tok
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for c in range(s // chunk):
+            sl = slice(c * chunk, (c + 1) * chunk)
+            total = total + checkpoint(nll_sum, h[:, sl], labels[:, sl],
+                                       use_reentrant=False)
+        return total / n_tok
+
+    def loss_complex(self, params: Tree, batch: Batch) -> torch.Tensor:
+        inputs, labels = self._inputs(batch)
+        _, final_h, aux = tfm.forward(params, self.cfg, inputs,
+                                      remat=self.remat)
+        loss = self._head_loss(params, final_h, labels, "final")
+        return loss + aux["load_balance"] + aux["router_z"]
+
+    def loss_simple(self, params: Tree, batch: Batch) -> torch.Tensor:
+        inputs, labels = self._inputs(batch)
+        exit_h = tfm.forward_simple(params, self.cfg, inputs,
+                                    remat=self.remat)
+        return self._head_loss(params, exit_h, labels, "exit")
+
+    def loss_side(self, params: Tree, batch: Batch) -> torch.Tensor:
+        """f(w_c) + f([w_c]_M) — one forward pass, two heads."""
+        inputs, labels = self._inputs(batch)
+        exit_h, final_h, aux = tfm.forward(params, self.cfg, inputs,
+                                           remat=self.remat)
+        loss = (self._head_loss(params, final_h, labels, "final")
+                + self._head_loss(params, exit_h, labels, "exit"))
+        return loss + aux["load_balance"] + aux["router_z"]
+
+    @torch.no_grad()
+    def evaluate(self, params: Tree, batch: Batch) -> Dict[str, torch.Tensor]:
+        """Accuracy and mean CE of both heads, through the training
+        forward (not prefill), as the reference evaluates.  The batch's
+        rows go through in groups of at most :data:`EVAL_LOGITS` logits
+        (a test batch of 64 x 512 tokens would need 33 GB of f32 logits
+        at Gemma-2's vocabulary); the counts and NLL sums add up across
+        groups, so the means are the whole batch's."""
+        inputs, labels = self._inputs(batch)
+        b, s = labels.shape
+        rows = max(1, EVAL_LOGITS // (s * self.cfg.vocab_size))
+        hits = {"complex": 0.0, "simple": 0.0}
+        nll = {"complex": 0.0, "simple": 0.0}
+        for r in range(0, b, rows):
+            lab = labels[r:r + rows]
+            exit_h, final_h, _ = tfm.forward(params, self.cfg,
+                                             inputs[r:r + rows])
+            for name, head, h in (("complex", "final", final_h),
+                                  ("simple", "exit", exit_h)):
+                logits = tfm.logits_from_hidden(params, self.cfg, h, head)
+                hits[name] = hits[name] + (logits.argmax(-1) == lab.long()
+                                           ).sum().float()
+                nll[name] = nll[name] + common.softmax_cross_entropy_sum(
+                    logits, lab)
+        out = {}
+        for name in ("complex", "simple"):
+            out[f"acc_{name}"] = hits[name] / (b * s)
+            out[f"loss_{name}"] = nll[name] / (b * s)
+        return out

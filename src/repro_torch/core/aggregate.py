@@ -344,13 +344,20 @@ def tree_streaming_fold(state: TreeStreamState, xz: torch.Tensor,
 
 
 def tree_streaming_finalize(state: TreeStreamState, leaf_masks: Tree,
-                            algorithm: str) -> Tuple[Tree, Optional[Tree]]:
+                            algorithm: str, template: Optional[Tree] = None
+                            ) -> Tuple[Tree, Optional[Tree]]:
     """Normalize the per-leaf sums: ``(new_complex, new_simple_host)`` as
-    :func:`streaming_finalize` returns them."""
+    :func:`streaming_finalize` returns them, each leaf cast to its
+    ``template`` leaf's dtype (f32 sums without one).  Leaf by leaf, so
+    no f32 copy of the whole model is made beside the sums."""
     inv_in, inv_out = _safe_inv(state.tot_in), _safe_inv(state.tot_out)
-    combined = masking.where_mask(
-        leaf_masks, tree_map(lambda a: a * inv_in, state.acc),
-        tree_map(lambda a: a * inv_out, state.acc))
+    if template is None:
+        template = state.acc
+    combined = tree_map(lambda m, a, t: torch.where(
+        torch.as_tensor(m, dtype=torch.bool, device=a.device),
+        a * inv_in, a * inv_out).to(t.dtype), leaf_masks, state.acc,
+        template)
     if algorithm == "decouple":
-        return tree_map(lambda a: a * inv_out, state.acc_out), combined
+        return (tree_map(lambda a, t: (a * inv_out).to(t.dtype),
+                         state.acc_out, template), combined)
     return combined, None

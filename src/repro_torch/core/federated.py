@@ -617,12 +617,11 @@ class FederatedTrainer:
     def analytic_bytes_per_round(self) -> float:
         """Param counts x itemsize, down + up — the consistency oracle for
         the measured numbers."""
-        total = simple = 0
-        for m, x in zip(tree_leaves(self.mask),
-                        tree_leaves(self.server.complex)):
-            nbytes = x.numel() * x.element_size()
-            total += nbytes
-            simple += nbytes if m else 0
+        params = self.server.complex
+        total = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+        simple = sum(masking.leaf_mask_size(m, x) * x.element_size()
+                     for m, x in zip(tree_leaves(self.mask),
+                                     tree_leaves(params)))
         return 2.0 * (self.k_simple * simple + self.k_complex * total)
 
     # -- the round -----------------------------------------------------------
@@ -706,7 +705,7 @@ class FederatedTrainer:
             **common)
         if self.leaf_masks is not None:
             new_complex, new_simple_host = aggregate.tree_streaming_finalize(
-                state, self.leaf_masks, fed.algorithm)
+                state, self.leaf_masks, fed.algorithm, self.server.complex)
         else:
             new_complex, new_simple_host = aggregate.streaming_finalize(
                 state, self.layout, self.flat_mask, fed.algorithm)
@@ -753,6 +752,9 @@ class FederatedTrainer:
     def run(self, rounds: int, *, eval_every: int = 0,
             test_batch: Optional[Batch] = None,
             log: Optional[Callable[[str], None]] = None) -> List[Dict]:
+        """``rounds`` rounds, evaluated every ``eval_every`` on
+        ``test_batch``; ``log`` gets the reference CLI's ``[round N]`` line
+        after each evaluation.  Returns each round's metrics."""
         history = []
         for r in range(rounds):
             metrics = self.run_round()
@@ -763,8 +765,8 @@ class FederatedTrainer:
             metrics["round"] = self.server.round
             history.append(metrics)
             if log is not None and evaluated:
-                log(f"round {self.server.round}: " + ", ".join(
-                    f"{k}={v:.4f}" for k, v in metrics.items()
+                log(f"[round {self.server.round:4d}] " + "  ".join(
+                    f"{k}={v:.4f}" for k, v in sorted(metrics.items())
                     if k != "round"))
         return history
 

@@ -1,9 +1,11 @@
 """Index set M (FedHeN Assumption 2.1) as broadcastable mask trees.
 
-The port of the ResNet part of ``repro.core.masking``: a mask tree has the
-parameter tree's structure, and each leaf is a Python bool marking the
-whole leaf in or out of M (``flatten.pack_mask`` lowers it to one flat
-bitvector).  The trainer keeps one more form, built once on its device:
+The port of ``repro.core.masking``: a mask tree has the parameter tree's
+structure; a leaf is a Python bool marking the whole leaf in or out of M,
+or, for a decoder's period-stacked leaf (leading axis ``n_periods``), a
+bool tensor of shape ``(n_periods, 1, ...)`` true for the periods below
+``exit_period``.  ``flatten.pack_mask`` lowers either to one flat
+bitvector.  The trainer keeps one more form, built once on its device:
 ``flatten.unpack(layout, flat_mask, cast=False)``, a tree of full-shape
 bool views of that bitvector — the per-leaf masks of the tree engine.
 """
@@ -15,12 +17,87 @@ import torch
 from repro_torch.tree import Tree, tree_leaves, tree_map
 
 SIMPLE_KEYS = ("stem", "stage1", "stage2", "exit_head")
+# the decoder's subtrees inside M besides the prefix periods
+LM_SIMPLE_KEYS = ("embed", "frontend_proj", "exit_norm")
 
 
 def resnet_subnet_mask(params: Tree) -> Tree:
     """M for the ResNet: stem + stage1 + stage2 + exit head."""
     return {name: tree_map(lambda _, keep=name in SIMPLE_KEYS: keep, sub)
             for name, sub in params.items()}
+
+
+def _period_mask(x: torch.Tensor, kp: int) -> torch.Tensor:
+    m = torch.arange(x.shape[0], device=x.device) < kp
+    return m.reshape((x.shape[0],) + (1,) * (x.dim() - 1))
+
+
+def transformer_subnet_mask(params: Tree, cfg) -> Tree:
+    """M for the decoder zoo: embedding + frontend projector + the first
+    ``exit_period`` periods + the exit head's norm (the tied unembedding
+    is the embedding).  ``rem``, ``final_norm`` and an untied ``unembed``
+    are out."""
+    mask = {}
+    for name, sub in params.items():
+        if name == "periods":
+            mask[name] = tuple(
+                tree_map(lambda x: _period_mask(x, cfg.exit_period), s)
+                for s in sub)
+        else:
+            mask[name] = tree_map(
+                lambda _, keep=name in LM_SIMPLE_KEYS: keep, sub)
+    return mask
+
+
+def apply_mask(mask: Tree, tree: Tree) -> Tree:
+    """Zero the complement of M (isolates ``[w]_M``)."""
+    return tree_map(lambda m, x: torch.where(
+        torch.as_tensor(m, dtype=torch.bool, device=x.device), x,
+        torch.zeros((), dtype=x.dtype, device=x.device)), mask, tree)
+
+
+def leaf_mask_size(m, x: torch.Tensor) -> int:
+    """Number of elements of leaf ``x`` inside M under its mask leaf."""
+    if isinstance(m, torch.Tensor):
+        return int(m.expand(x.shape).sum())
+    return x.numel() if m else 0
+
+
+def mask_size(mask: Tree, params: Tree) -> int:
+    """Number of scalar parameters inside M."""
+    return sum(leaf_mask_size(m, x)
+               for m, x in zip(tree_leaves(mask), tree_leaves(params)))
+
+
+def extract_simple(params: Tree, cfg) -> Tree:
+    """The simple model's own (smaller) parameter tree, consumable by
+    ``transformer.forward_simple``: period stacks cut to ``exit_period``
+    (views), the complex-only subtrees dropped."""
+    kp = cfg.exit_period
+    out = {}
+    for name, sub in params.items():
+        if name == "periods":
+            out[name] = tuple(tree_map(lambda x: x[:kp], s) for s in sub)
+        elif name in LM_SIMPLE_KEYS:
+            out[name] = sub
+    return out
+
+
+def embed_simple(simple: Tree, complex_params: Tree,
+                 cfg) -> Tree:
+    """Write a simple tree back into the complex one (``[w_c]_M := w_s``);
+    returns a new tree, ``complex_params`` is not modified."""
+    kp = cfg.exit_period
+    out = dict(complex_params)
+    for name, sub in simple.items():
+        if name == "periods":
+            out[name] = tuple(
+                tree_map(lambda a, c: torch.cat([a.to(c.dtype), c[kp:]]),
+                         s_stk, c_stk)
+                for s_stk, c_stk in zip(sub, complex_params["periods"]))
+        else:
+            out[name] = sub
+    return out
 
 
 def tree_isfinite(tree: Tree) -> torch.Tensor:

@@ -1,10 +1,14 @@
 """Synthetic datasets (deterministic, offline-friendly).
 
-The port's own numpy copy of ``repro.data.synthetic.synthetic_cifar``; it
-must give identical arrays.  ``synthetic_lm`` comes with the LM slice.
+The port's own numpy copies of ``repro.data.synthetic.synthetic_cifar``
+and ``synthetic_lm``; they must give identical arrays.
 
 * ``synthetic_cifar`` — class-conditional images: each class has a smooth
   random prototype; samples are prototype + structured noise.
+* ``synthetic_lm`` — first-order Markov token streams over ``vocab`` ids.
+  Its transition table is ``(vocab, vocab)`` f32, so a full 256,000-id
+  vocabulary would need 262 GB: callers training a full-width model draw
+  the chain over a prefix of the ids (valid rows of the embedding).
 """
 
 from __future__ import annotations
@@ -26,3 +30,38 @@ def synthetic_cifar(n: int, n_classes: int, seed: int = 0,
     noise = rng.normal(scale=0.6, size=(n, image_size, image_size, 3))
     images = protos[labels] + noise.astype(np.float32)
     return {"images": images.astype(np.float32), "labels": labels}
+
+
+def synthetic_lm(n_seqs: int, seq_len: int, vocab: int,
+                 seed: int = 0, n_codebooks: int = 1,
+                 chain_seed: int = 1234) -> Dict[str, np.ndarray]:
+    """``seed`` controls the sampled streams; ``chain_seed`` controls the
+    transition structure — train/test splits must share the latter."""
+    rng = np.random.default_rng(chain_seed)
+    # peaked Markov chain: one dominant successor (p~0.75) + a runner-up,
+    # so argmax accuracy is learnable (optimum ~0.75)
+    probs = np.full((vocab, vocab), 0.1 / vocab, np.float32)
+    succ = rng.permutation(vocab)
+    succ2 = rng.permutation(vocab)
+    for v in range(vocab):
+        probs[v, succ[v]] += 0.75
+        probs[v, succ2[v]] += 0.15
+    probs /= probs.sum(1, keepdims=True)
+    cdf = np.cumsum(probs, axis=1)
+
+    def sample_stream(k):
+        r = np.random.default_rng(seed * 7919 + k)
+        out = np.empty(seq_len + 1, np.int32)
+        out[0] = r.integers(vocab)
+        u = r.random(seq_len)
+        for t in range(seq_len):
+            out[t + 1] = np.searchsorted(cdf[out[t]], u[t])
+        return out
+
+    tokens = np.stack([sample_stream(i) for i in range(n_seqs)])
+    if n_codebooks > 1:
+        shifted = [np.roll(tokens, c, axis=1) for c in range(n_codebooks)]
+        tokens = np.stack(shifted, axis=-1)
+    # labels for dirichlet splitting: dominant token bucket
+    labels = (tokens.reshape(n_seqs, -1)[:, 0] % 10).astype(np.int32)
+    return {"tokens": tokens, "labels": labels}

@@ -1,0 +1,50 @@
+"""The full-width LM round cell: federated training of Gemma-2 2B.
+
+Gemma-2 2B at full width (bf16, 2,614,224,384 params, n_flat above
+2**31), 8 clients (4 simple, 4 complex) at participation 0.25 (one of each
+a round), cohort_chunk 1, one local epoch of batch 2 over 4 sequences of
+512 tokens a client (2 SGD steps), lr 0.1, the f32 wire, weights drawn on
+the card from seed 0.  ``synthetic_lm``'s chain runs over the first 4,096
+token ids (its transition table is vocab x vocab f32), and the test batch
+is 4 sequences.  ``chip_smoke.py``'s phase 9 and ``profile_round.py``'s
+LM column both build the cell from here.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch import configs
+from repro_torch.configs.base import FedConfig
+from repro_torch.core.adapters import LMAdapter
+from repro_torch.core.federated import FederatedTrainer
+from repro_torch.data.federated import iid_split
+from repro_torch.data.synthetic import synthetic_lm
+
+ARCH = "gemma2-2b"
+FED = dict(n_devices=8, n_simple=4, participation=0.25, cohort_chunk=1,
+           local_epochs=1, batch_size=2, lr=0.1)
+SEQ, PER_CLIENT, DATA_VOCAB, TEST = 512, 4, 4096, 4
+
+
+def shards(device="cuda") -> list:
+    """Each client's token sequences, on ``device``."""
+    data = synthetic_lm(FED["n_devices"] * PER_CLIENT, SEQ, DATA_VOCAB,
+                        seed=0)
+    return [{"tokens": torch.as_tensor(s["tokens"]).to(device)}
+            for s in iid_split(data, FED["n_devices"], seed=1)]
+
+
+def test_batch() -> dict:
+    return {"tokens": synthetic_lm(TEST, SEQ, DATA_VOCAB,
+                                   seed=999)["tokens"]}
+
+
+def trainer(client_shards: list, algorithm: str = "fedhen",
+            device="cuda", **extra) -> FederatedTrainer:
+    """The cell's trainer for ``algorithm`` (``extra``: further
+    ``FedConfig`` fields, e.g. the tree engine)."""
+    return FederatedTrainer(
+        LMAdapter(configs.get_config(ARCH)),
+        FedConfig(algorithm=algorithm, **FED, **extra), client_shards,
+        device=device, generator=torch.Generator(device).manual_seed(0))

@@ -1,9 +1,13 @@
 """Federated training entry point of the port (FedHeN / NoSide / Decouple).
 
-Runs the paper's ResNet/CIFAR protocol end to end on synthetic
-CIFAR-shaped data, on the card by default.  Takes the flags of
+Runs the paper's protocol end to end, on the card by default: the
+ResNet/CIFAR setting on synthetic CIFAR-shaped data (``--model resnet``),
+or a ported decoder LM of the zoo on ``synthetic_lm`` token streams
+(``--model lm --arch NAME [--reduced]``).  Takes the flags of
 ``repro.launch.train`` that the port supports so far, plus ``--device``;
-argparse rejects every other flag.
+argparse rejects every other flag.  The LM data's Markov chain draws from
+the model's first :data:`DATA_VOCAB_CAP` token ids at most (its table is
+vocab x vocab f32: 262 GB at Gemma-2's 256,000).
 
 Examples (on a machine with a CUDA card):
     PYTHONPATH=src python -m repro_torch.launch.train --model resnet \
@@ -18,6 +22,16 @@ Examples (on a machine with a CUDA card):
     PYTHONPATH=src python -m repro_torch.launch.train --model resnet \
         --rounds 20 --clients 100 --data-points 50000 --local-epochs 1 \
         --agg-engine tree --variance-reduction scaffold --sample-uniform
+    # federated LM training at Gemma-2 2B's full width (bf16)
+    PYTHONPATH=src python -m repro_torch.launch.train --model lm \
+        --arch gemma2-2b --rounds 2 --clients 8 --participation 0.25 \
+        --cohort-chunk 1 --local-epochs 1 --batch-size 2 --data-points 32 \
+        --seq-len 512 --eval-every 1
+    # a reduced LM on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.train --model lm \
+        --arch gemma2-2b --reduced --device cpu --rounds 3 --clients 8 \
+        --participation 0.5 --local-epochs 1 --batch-size 4 \
+        --data-points 64 --seq-len 16 --eval-every 1
 """
 
 from __future__ import annotations
@@ -26,11 +40,16 @@ import argparse
 import json
 import time
 
+from repro_torch import configs
 from repro_torch.configs.base import FedConfig
-from repro_torch.core.adapters import ResNetAdapter
+from repro_torch.core.adapters import LMAdapter, ResNetAdapter
 from repro_torch.core.federated import FederatedTrainer, rounds_to_target
 from repro_torch.data import federated as fed_data
-from repro_torch.data.synthetic import synthetic_cifar
+from repro_torch.data.synthetic import synthetic_cifar, synthetic_lm
+
+# synthetic_lm's transition table is (vocab, vocab) f32: the LM data draws
+# from the first ids of the model's vocabulary, at most this many
+DATA_VOCAB_CAP = 4096
 
 
 def build_trainer(args) -> tuple:
@@ -51,14 +70,28 @@ def build_trainer(args) -> tuple:
         error_feedback=args.error_feedback,
         variance_reduction=args.variance_reduction,
         state_store_backend=args.state_store_backend)
-    data = synthetic_cifar(args.data_points, 10, seed=args.seed)
-    test_batch = synthetic_cifar(512, 10, seed=args.seed + 999)
+    if args.model == "resnet":
+        data = synthetic_cifar(args.data_points, 10, seed=args.seed)
+        test_batch = synthetic_cifar(512, 10, seed=args.seed + 999)
+        adapter = ResNetAdapter(10)
+    else:
+        cfg = (configs.get_reduced(args.arch) if args.reduced
+               else configs.get_config(args.arch))
+        vocab = min(cfg.vocab_size, DATA_VOCAB_CAP)
+        data = synthetic_lm(args.data_points, args.seq_len, vocab,
+                            seed=args.seed, n_codebooks=cfg.n_codebooks)
+        test = synthetic_lm(64, args.seq_len, vocab, seed=args.seed + 999,
+                            n_codebooks=cfg.n_codebooks)
+        test_batch = {"tokens": test["tokens"]}
+        adapter = LMAdapter(cfg)
     split = (fed_data.iid_split if fed.iid else
              lambda d, n, seed: fed_data.dirichlet_split(
                  d, n, fed.dirichlet_alpha, seed))
     shards = split(data, fed.n_devices, args.seed + 1)
-    trainer = FederatedTrainer(ResNetAdapter(10), fed, shards,
-                               device=args.device)
+    # LM shards keep only their tokens (labels only steer the split)
+    shards = [{k: v for k, v in s.items()
+               if k != "labels" or args.model == "resnet"} for s in shards]
+    trainer = FederatedTrainer(adapter, fed, shards, device=args.device)
     return trainer, test_batch
 
 
@@ -68,8 +101,12 @@ def _chunk_arg(v: str):
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=("resnet",), default="resnet",
-                    help="the LM zoo is not ported yet")
+    ap.add_argument("--model", choices=("resnet", "lm"), default="resnet")
+    ap.add_argument("--arch", default="gemma2-2b",
+                    help=f"the LM's architecture (ported: "
+                         f"{', '.join(configs.PORTED)})")
+    ap.add_argument("--reduced", action="store_true",
+                    help="use the reduced variant of --arch (CPU-friendly)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu' "
                          "(every kernel's plain PyTorch version)")
@@ -140,6 +177,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--non-iid", action="store_true")
     ap.add_argument("--alpha", type=float, default=0.3)
     ap.add_argument("--data-points", type=int, default=4000)
+    ap.add_argument("--seq-len", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--eval-every", type=int, default=5)
     ap.add_argument("--target-simple", type=float, default=0.0)
@@ -156,9 +194,9 @@ def main(argv=None):
                           log=lambda line: print(line, flush=True))
     dt = time.time() - t0
     print(f"\n{args.algorithm}: {args.rounds} rounds in {dt:.1f}s "
-          f"({trainer.total_bytes / 1e6:.1f} MB communicated: "
-          f"{trainer.total_bytes_down / 1e6:.1f} down, "
-          f"{trainer.total_bytes_up / 1e6:.1f} up) on {trainer.device}")
+          f"({trainer.total_bytes / 1e6:.1f} MB communicated)")
+    print(f"  {trainer.total_bytes_down / 1e6:.1f} MB down, "
+          f"{trainer.total_bytes_up / 1e6:.1f} MB up, on {trainer.device}")
     for name, store in (("error-feedback", trainer.ef_store),
                         ("control-variate", trainer.cv_store)):
         if store is not None:

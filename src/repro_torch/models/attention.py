@@ -1,13 +1,18 @@
 """GQA attention: global/sliding-window, RoPE, softcap, KV caches, decode.
 
-The port of ``repro.models.attention``.  Two regimes share the parameters:
+The port of ``repro.models.attention``.  Three regimes share the
+parameters, and the caller picks one:
 
+* ``train`` — :func:`apply_attention_train`, the reference's training
+  path: :func:`chunked_causal_attention`, plain PyTorch under autograd,
+  each query chunk of a long sequence under ``torch.utils.checkpoint``
+  as the reference's chunk bodies are under ``jax.checkpoint``.
 * ``prefill`` — :func:`apply_attention` hands q, k and v to
   ``kernels.flash_attention.ops.flash_attention``: K5 on the card, its
   plain version on the CPU.  That is the function the reference's
   ``ops.flash_attention`` gives its Pallas kernel on a TPU, with the same
-  contract as :func:`chunked_causal_attention` (kept here, plain and
-  differentiable, for the CPU and for a later training slice).
+  contract as :func:`chunked_causal_attention`; it has no backward and
+  raises on tensors that require grad.
 * ``decode`` — one query token against a KV cache (:func:`_attend`, plain
   PyTorch, as in the reference).  Local layers keep a ring-buffer cache of
   size ``window`` (RoPE is applied at write time, so ring rotation is
@@ -25,6 +30,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -83,6 +89,13 @@ def _merge_gqa(o):
 # Chunked causal attention (plain; the reference's train / prefill path)
 # ---------------------------------------------------------------------------
 
+def _attend_remat(q, k, v, mask, softcap_val: float):
+    """:func:`_attend` recomputed in the backward pass: only q, k, v and
+    the mask are kept, not the chunk's f32 scores and probabilities."""
+    return checkpoint(_attend, q, k, v, mask, softcap_val,
+                      use_reentrant=False)
+
+
 def chunked_causal_attention(q, k, v, *, window: int = 0,
                              softcap_val: float = 0.0,
                              q_chunk: int = 512) -> torch.Tensor:
@@ -90,7 +103,9 @@ def chunked_causal_attention(q, k, v, *, window: int = 0,
 
     q: (B, S, H, Dh); k, v: (B, S, Kh, Dh).  ``window`` == 0 means global
     causal.  A query at position i sees keys j with j <= i and, when
-    windowed, i - j < window."""
+    windowed, i - j < window.  A sequence longer than ``q_chunk`` runs
+    chunk by chunk, each chunk under ``torch.utils.checkpoint`` (the
+    reference's ``jax.checkpoint`` of its chunk bodies)."""
     b, s, h, dh = q.shape
     kh = k.shape[2]
     qg = _split_gqa(q, kh)
@@ -118,10 +133,10 @@ def chunked_causal_attention(q, k, v, *, window: int = 0,
             k_pos = start + torch.arange(span, device=dev)
             delta = q_pos[:, None] - k_pos[None, :]
             mask = (delta >= 0) & (delta < window) & (k_pos[None, :] >= pad)
-            outs.append(_attend(qg[:, start:start + q_chunk],
-                                kp[:, start:start + span],
-                                vp[:, start:start + span], mask[None],
-                                softcap_val))
+            outs.append(_attend_remat(qg[:, start:start + q_chunk],
+                               kp[:, start:start + span],
+                               vp[:, start:start + span], mask[None],
+                               softcap_val))
         return _merge_gqa(torch.cat(outs, dim=1))
 
     # Global causal: chunked queries against all keys.
@@ -131,8 +146,8 @@ def chunked_causal_attention(q, k, v, *, window: int = 0,
         mask = q_pos[:, None] >= k_pos[None, :]
         if window:
             mask &= (q_pos[:, None] - k_pos[None, :]) < window
-        outs.append(_attend(qg[:, c * q_chunk:(c + 1) * q_chunk], k, v,
-                            mask[None], softcap_val))
+        outs.append(_attend_remat(qg[:, c * q_chunk:(c + 1) * q_chunk], k, v,
+                           mask[None], softcap_val))
     return _merge_gqa(torch.cat(outs, dim=1))
 
 
@@ -151,6 +166,19 @@ def _project_qkv(p, h_in, cfg: ModelConfig, positions):
     q = common.apply_rope(q, positions, cfg.rope_theta)
     k = common.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def apply_attention_train(p: dict, h_in: torch.Tensor, cfg: ModelConfig, *,
+                          window: int = 0) -> torch.Tensor:
+    """Training path.  h_in: (B, S, D) -> (B, S, D), differentiable:
+    :func:`chunked_causal_attention` in plain PyTorch, as the reference
+    trains (it never reaches K5)."""
+    s = h_in.shape[1]
+    positions = torch.arange(s, dtype=torch.int32, device=h_in.device)
+    q, k, v = _project_qkv(p, h_in, cfg, positions)
+    out = chunked_causal_attention(q, k, v, window=window,
+                                   softcap_val=cfg.attn_logit_softcap)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(out.dtype))
 
 
 def apply_attention(p: dict, h_in: torch.Tensor, cfg: ModelConfig, *,

@@ -146,8 +146,34 @@ def apply_groupnorm(p: dict, x: torch.Tensor, groups: int = 8,
                         eps).to(x.dtype)
 
 
-def softmax_cross_entropy(logits: torch.Tensor,
-                          labels: torch.Tensor) -> torch.Tensor:
-    """Mean NLL of integer ``labels`` under ``logits`` (..., V), in f32."""
-    return F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
-                           labels.reshape(-1).long())
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-position NLL in f32, in the reference's formula: the max taken
+    without gradient, ``logits - max`` in the logits' dtype and only then
+    widened, the gold logit picked in the logits' dtype.  The reference
+    picks it as ``sum(logits * one_hot)``; every other term of that sum is
+    an exact zero, so ``gather`` gives the same value and gradient without
+    a ``(..., V)`` one-hot (0.5 GB a head at Gemma-2's vocab)."""
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    shifted = (logits - m).float()
+    logz = torch.log(torch.sum(torch.exp(shifted), dim=-1)) \
+        + m[..., 0].float()
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return logz - gold.float()
+
+
+def softmax_cross_entropy_sum(logits: torch.Tensor,
+                              labels: torch.Tensor) -> torch.Tensor:
+    """Sum (not mean) of the per-position NLL of integer ``labels`` under
+    ``logits`` (..., V), in f32."""
+    return torch.sum(_nll(logits, labels))
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Mean NLL over the (optionally ``mask``ed) positions, in f32."""
+    nll = _nll(logits, labels)
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)

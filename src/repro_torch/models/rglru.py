@@ -14,8 +14,10 @@ RG-LRU recurrence (diagonal, per channel):
 Prefill runs the recurrence through ``kernels.rglru_scan.ops.lru_scan``
 (K6 on the card, its sequential plain version on the CPU) — the function
 the reference's ``ops.lru_scan`` gives its Pallas kernel on a TPU in place
-of its associative scan.  Decode is the single-step recurrence carrying
-``(y, conv window)`` state, updated in place.
+of its associative scan.  K6 has no backward, so training
+(:func:`apply_rglru_train`) runs :func:`linear_scan`, plain PyTorch under
+autograd, with the reference's combine.  Decode is the single-step
+recurrence carrying ``(y, conv window)`` state, updated in place.
 """
 
 from __future__ import annotations
@@ -78,6 +80,23 @@ def lru_scan(p: dict, x: torch.Tensor,
     return ops.lru_scan(a, b).to(x.dtype)
 
 
+def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``y_t = a_t * y_{t-1} + b_t`` along axis 1 from ``y_0 = 0``,
+    differentiable: the reference's ``associative_scan`` combine
+    ``(a1, b1), (a2, b2) -> (a1 a2, a2 b1 + b2)`` in a log-depth doubling
+    scan.  ceil(log2 S) steps of whole-tensor ops keep autograd's graph
+    and the card's launches at 2 log2 S per layer, where the sequential
+    loop would take S of each; the sums group differently from XLA's
+    scan, so the two agree to f32 rounding, not bitwise."""
+    s = a.shape[1]
+    d = 1
+    while d < s:
+        b = torch.cat([b[:, :d], a[:, d:] * b[:, :-d] + b[:, d:]], dim=1)
+        a = torch.cat([a[:, :d], a[:, :-d] * a[:, d:]], dim=1)
+        d *= 2
+    return b
+
+
 def _causal_conv(p: dict, x: torch.Tensor,
                  window: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Depthwise causal conv, width tw.  window: (B, tw-1, Dr) history."""
@@ -113,6 +132,17 @@ def apply_rglru(p: dict, h_in: torch.Tensor, cfg: ModelConfig,
                                              ).clone()}
         return out, state
     return out
+
+
+def apply_rglru_train(p: dict, h_in: torch.Tensor,
+                      cfg: ModelConfig) -> torch.Tensor:
+    """Training path.  h_in: (B, S, D) -> (B, S, D), differentiable: the
+    recurrence through :func:`linear_scan`, never K6."""
+    x = torch.matmul(h_in, p["w_in"].to(h_in.dtype))
+    g = torch.matmul(h_in, p["w_gate"].to(h_in.dtype))
+    a, b = _gates(p, _causal_conv(p, x))
+    y = linear_scan(a, b).to(x.dtype)
+    return torch.matmul(y * gelu(g), p["w_out"].to(h_in.dtype))
 
 
 # ---------------------------------------------------------------------------

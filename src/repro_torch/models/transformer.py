@@ -1,12 +1,20 @@
-"""Decoder-stack assembly: prefill, decode and the FedHeN exit head.
+"""Decoder-stack assembly: training forward, prefill, decode and the
+FedHeN exit head.
 
-The port of ``repro.models.transformer``'s serving path.  The stack is
-``n_periods`` repetitions of the config's ``pattern`` (the reference's
-``lax.scan`` over stacked parameters becomes a Python loop over views
-``x[i]`` of the stacked leaves) plus ``n_remainder`` tail layers.  The
-FedHeN simple sub-network is the depth prefix ``blocks[:exit_layer]``; its
-activation after ``exit_period`` periods feeds the early-exit head (own
-norm, shared unembedding).
+The port of ``repro.models.transformer``.  The stack is ``n_periods``
+repetitions of the config's ``pattern`` (the reference's ``lax.scan`` over
+stacked parameters becomes a Python loop over the periods' blocks) plus
+``n_remainder`` tail layers.  The FedHeN simple sub-network is the depth
+prefix ``blocks[:exit_layer]``; its activation after ``exit_period``
+periods feeds the early-exit head (own norm, shared unembedding).
+
+Training (:func:`forward`, :func:`forward_simple`) runs every block
+through its differentiable plain path (``attention.apply_attention_train``,
+``rglru.apply_rglru_train``); prefill runs K5 and K6.  Under autograd a
+period's block comes from ONE ``torch.unbind`` per stacked leaf
+(:func:`_periods`): each ``x[i]`` would cost a full-size zero-filled
+``select_backward`` per period per leaf, where ``unbind``'s backward
+stacks the periods' gradients once.
 
 Parameter tree, the reference's (leaf order and shapes):
 
@@ -20,21 +28,21 @@ Parameter tree, the reference's (leaf order and shapes):
 Caches mirror the periods/rem structure; decode updates them in place.
 Ported mixers: attention (global and local) and RG-LRU, with the dense
 MLP.  xLSTM, MoE, multi-codebook embeddings and modality frontends raise
-``NotImplementedError`` (ROADMAP.md §1); so do ``forward`` /
-``forward_simple`` (the LM training slice).
+``NotImplementedError`` (ROADMAP.md §1).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, MLP_DENSE,
                                       MLP_NONE, RGLRU, LayerSpec,
                                       ModelConfig)
 from repro_torch.models import attention, common, mlp, rglru
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 Params = Dict[str, Any]
 
@@ -80,6 +88,18 @@ def _stack(trees):
     return tree_map(lambda *xs: torch.stack(xs), *trees)
 
 
+def _periods(params: Params) -> List[List[Params]]:
+    """Each period's blocks, in pattern order, from one ``torch.unbind``
+    per stacked leaf (see the module docstring)."""
+    by_pos = []
+    for stacked in params["periods"]:
+        leaves, treedef = tree_flatten(stacked)
+        cols = [torch.unbind(x, 0) for x in leaves]
+        by_pos.append([tree_unflatten(treedef, [c[i] for c in cols])
+                       for i in range(len(cols[0]) if cols else 0)])
+    return [list(blocks) for blocks in zip(*by_pos)]
+
+
 # ---------------------------------------------------------------------------
 # Block init / apply
 # ---------------------------------------------------------------------------
@@ -105,6 +125,26 @@ def _apply_mlp(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         x = common.apply_rmsnorm(p["mlp_norm"], h, cfg.norm_eps)
         h = h + mlp.apply_mlp(p["mlp"], x)
     return h
+
+
+def _zero_aux(device) -> Dict[str, torch.Tensor]:
+    return {"load_balance": torch.zeros((), device=device),
+            "router_z": torch.zeros((), device=device)}
+
+
+def apply_block(p: Params, spec: LayerSpec, h: torch.Tensor,
+                cfg: ModelConfig, *, window_override: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence training block, differentiable.  Returns ``(h,
+    aux)``; ``aux`` holds the MoE losses, zeros for the ported (dense)
+    layers."""
+    x = common.apply_rmsnorm(p["pre_norm"], h, cfg.norm_eps)
+    if _is_attention(spec):
+        m = attention.apply_attention_train(
+            p["mixer"], x, cfg, window=_window(spec, cfg, window_override))
+    else:
+        m = rglru.apply_rglru_train(p["mixer"], x, cfg)
+    return _apply_mlp(p, h + m, cfg), _zero_aux(h.device)
 
 
 def apply_block_prefill(p: Params, spec: LayerSpec, h: torch.Tensor,
@@ -203,12 +243,70 @@ def logits_from_hidden(params: Params, cfg: ModelConfig, h: torch.Tensor,
     return common.softcap(logits, cfg.final_logit_softcap)
 
 
-def forward(*args, **kwargs):
-    raise _unported("the training forward (LM training slice)")
+def _merge_aux(a, b):
+    return {k: a[k] + b[k] for k in a}
 
 
-def forward_simple(*args, **kwargs):
-    raise _unported("the simple-model training forward (LM training slice)")
+def _period(blocks, h, aux, cfg: ModelConfig,
+            window_override: Optional[int]):
+    """One period: the pattern's blocks in order."""
+    for p, spec in zip(blocks, cfg.pattern):
+        h, a = apply_block(p, spec, h, cfg, window_override=window_override)
+        aux = _merge_aux(aux, a)
+    return h, aux
+
+
+def _run_periods(periods: List[List[Params]], h, aux, cfg: ModelConfig, *,
+                 remat: bool, window_override: Optional[int] = None,
+                 exit_at: Optional[int] = None):
+    """Run the periods in order; each under ``torch.utils.checkpoint``
+    when ``remat`` (the reference's ``jax.checkpoint`` of its scan body).
+    Returns ``(h, aux, exit_h)``: ``exit_h`` is ``h`` after period
+    ``exit_at - 1`` — the reference's ``where(idx == kp - 1, h, exit_h)``
+    select, with the same gradient — or the embedding output when the
+    loop never reaches it."""
+    exit_h = h
+    for i, blocks in enumerate(periods):
+        if remat:
+            h, aux = checkpoint(_period, blocks, h, aux, cfg,
+                                window_override, use_reentrant=False)
+        else:
+            h, aux = _period(blocks, h, aux, cfg, window_override)
+        if exit_at is not None and i == exit_at - 1:
+            exit_h = h
+    return h, aux, exit_h
+
+
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            remat: bool = False, window_override: Optional[int] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+    """Training forward: returns ``(exit_hidden, final_hidden, aux)``.
+
+    ``exit_hidden`` is the activation after ``exit_period`` periods — the
+    FedHeN simple sub-network's output stream, captured in the same pass
+    (one forward, two heads)."""
+    h = embed_inputs(params, cfg, tokens)
+    h, aux, exit_h = _run_periods(
+        _periods(params), h, _zero_aux(h.device), cfg, remat=remat,
+        window_override=window_override, exit_at=cfg.exit_period)
+    for i, p_rem in enumerate(params["rem"]):
+        h, a = apply_block(p_rem, cfg.layer_spec(i), h, cfg,
+                           window_override=window_override)
+        aux = _merge_aux(aux, a)
+    return exit_h, h, aux
+
+
+def forward_simple(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                   *, remat: bool = False) -> torch.Tensor:
+    """Forward of the *simple* architecture only: the first
+    ``exit_period`` periods.  ``params`` may be the complex tree or an
+    extracted simple one (``masking.extract_simple``); only the prefix
+    stacks are touched, so a stacked leaf's gradient is full-shape with
+    zeros past the exit, and ``rem`` / ``final_norm`` get none."""
+    h = embed_inputs(params, cfg, tokens)
+    h, _, _ = _run_periods(_periods(params)[:cfg.exit_period], h,
+                           _zero_aux(h.device), cfg, remat=remat)
+    return h
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,

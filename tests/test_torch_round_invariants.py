@@ -64,7 +64,7 @@ def test_run_records_each_round_and_its_evaluation():
     assert "acc_simple" not in history[0]
     assert {k: history[1][k] for k in rounds[1]} == rounds[1]
     assert history[1]["acc_complex"] == again.evaluate(test)["acc_complex"]
-    assert len(lines) == 1 and lines[0].startswith("round 2: ")
+    assert len(lines) == 1 and lines[0].startswith("[round    2] ")
 
 
 def test_nan_client_is_excluded():
@@ -121,7 +121,11 @@ def test_train_cli_rejects_unported_flags_and_needs_a_device(monkeypatch):
     with pytest.raises(SystemExit):
         train.build_parser().parse_args(["--async-lag", "2"])
     with pytest.raises(SystemExit):
-        train.build_parser().parse_args(["--model", "lm"])
+        train.build_parser().parse_args(["--checkpoint", "ckpt.npz"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        train.build_trainer(train.build_parser().parse_args(
+            ["--model", "lm", "--arch", "xlstm-1.3b", "--reduced",
+             "--device", "cpu"]))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--rounds", "0", "--clients", "4", "--data-points",

@@ -262,8 +262,12 @@ def test_unported_features_raise():
                                                   mixer="mlstm"),))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tfm.init_params(torch.Generator(), cfg.with_overrides(**bad))
-    with pytest.raises(NotImplementedError):
-        tfm.forward()
+    # the training forward (ported since) refuses them too
+    params = tfm.init_params(torch.Generator(), cfg)
+    tokens = torch.zeros((1, 4), dtype=torch.long)
+    for fn in (tfm.forward, tfm.forward_simple):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            fn(params, cfg.with_overrides(n_codebooks=2), tokens)
 
 
 def test_serve_main_runs_on_the_cpu(capsys):
