@@ -94,13 +94,42 @@ which raises on failure:
    plain versions in pieces, each timed beside its byte bound;
 10. narrow LM rounds on the card against the CPU at rtol 1e-4 / atol 1e-5:
    attn4 (the BENCH rows' config) fedhen and decouple on the flat engine
-   and fedhen on the tree engine, reduced recurrentgemma-2b fedhen.
+   and fedhen on the tree engine, reduced recurrentgemma-2b fedhen;
+11. async rounds (``repro_torch.core.async_rounds``): at the ResNet round
+   cell, f32 fedhen through ``AsyncRoundEngine(lag=0)`` against the sync
+   trainer, 2 rounds each under deterministic cuDNN, bitwise in server
+   params, metrics, bytes and launches; then ``FedConfig(async_lag=L)``
+   runs: f32 at lag 3 for 3 rounds (3 versions; round 2 trains the simple
+   chunk on a model two rounds old), the int8 wire, the compressed wire
+   and the tree engine at lag 1 for 2 rounds, each round's wall,
+   schedule, weights and bytes (the closed form less the savings a
+   ``comm.VersionCache`` replay finds) printed and checked, K1-K4's
+   launches equal to sync rounds'; the LM round cell at lag 1 for 3
+   rounds (the simple chunk one round stale at weight 0.70710677), with
+   wall, losses, n_valid, bytes, peak memory and K1's launches; narrow
+   async rounds on the card against the CPU at rtol 1e-4 / atol 1e-5
+   (attn4 fedhen and decouple at lag 1 and 3, the narrow ResNet at lag 1);
+12. checkpoints (``repro_torch.checkpoint``): the LM cell's trainer after
+   phase 11's third round saved in tree format (5.23 GB, to a temporary
+   directory with 12 GB free, removed after) and restored into it, timed,
+   bitwise, then one more round from versions reset to the restored
+   model; the ResNet cell's f32 trainer in tree and flat format, bitwise,
+   timed; narrow resume on the card (attn4 async lag 1, the narrow ResNet
+   with SCAFFOLD and with int8 error feedback): 2 rounds, save, restore
+   into a new trainer, 2 rounds, against one trainer whose server was
+   replaced at round 2, bitwise or within rtol 1e-4 / atol 1e-5 with the
+   largest difference printed; phase 8's narrow configs (f32, bf16)
+   restored from ``save_tree`` by ``serve.load_params`` serve prefill
+   logits bitwise equal to the in-memory params', and ``serve.main
+   --checkpoint`` runs on both reduced archs (K5, K6 launched).
 
 Kernel times are device times (``time_ms``: a CUDA graph of the timed
 calls between two events, so the host's launch rate does not enter).  The
 second-to-last line is one JSON object ``{"kernels": [...]}`` (K1-K4,
 both K5 kernels, K6; K1 and K4 with their launches on the LM path of
-phase 9 beside phase 4's, and their LM-shape times); the last is
+phase 9 beside phase 4's, and their LM-shape times; K1-K4 with their
+launches on phase 11's async path, K5 and K6 with theirs on phase 12's
+serving from checkpoints); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -108,9 +137,12 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -622,16 +654,11 @@ def _zero_counts(ops) -> None:
         fn.launches = 0
 
 
-def main_path(torch, ops) -> dict:
-    """Phase 4: the port's round at full width, through its entry points,
-    on every wire, both engines, SCAFFOLD and uniform sampling.  Each
-    run's kernel launches are counted from 0 and checked per round."""
-    from repro_torch.configs.base import FedConfig
-    from repro_torch.core.adapters import ResNetAdapter
-    from repro_torch.core.federated import FederatedTrainer
+def resnet_cell_data(torch) -> tuple:
+    """The ResNet round cell's data: 50,000 synthetic CIFAR images over
+    100 clients (on the card) and 512 test images."""
     from repro_torch.data.federated import iid_split
     from repro_torch.data.synthetic import synthetic_cifar
-
     t0 = time.perf_counter()
     data = synthetic_cifar(50_000, 10, seed=0)
     test = synthetic_cifar(512, 10, seed=999)
@@ -639,6 +666,18 @@ def main_path(torch, ops) -> dict:
               for s in iid_split(data, 100, seed=1)]
     print(f"  data: 50,000 images over 100 clients in "
           f"{time.perf_counter() - t0:.1f} s (set-up)", flush=True)
+    return shards, test
+
+
+def main_path(torch, ops) -> dict:
+    """Phase 4: the port's round at full width, through its entry points,
+    on every wire, both engines, SCAFFOLD and uniform sampling.  Each
+    run's kernel launches are counted from 0 and checked per round."""
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.core.adapters import ResNetAdapter
+    from repro_torch.core.federated import FederatedTrainer
+
+    shards, test = resnet_cell_data(torch)
     out = {"rounds": []}
     total = (0, 0, 0, 0)
     for label, algo, rounds, cfg, per_round, per_round_bytes in RUNS:
@@ -1388,7 +1427,6 @@ def lm_card_vs_cpu(torch) -> None:
     metrics within 1e-5, n_valid and bytes equal."""
     from repro_torch import configs
     from repro_torch.configs.base import FedConfig
-    from repro_torch.core import flatten
     from repro_torch.core.adapters import LMAdapter
     from repro_torch.core.federated import FederatedTrainer
     from repro_torch.data.federated import iid_split
@@ -1407,33 +1445,517 @@ def lm_card_vs_cpu(torch) -> None:
         fed = FedConfig(n_devices=4, n_simple=2, participation=1.0,
                         local_epochs=1, batch_size=4, cohort_chunk=1,
                         algorithm=algo, **extra)
-        sides = {}
-        for side, dev in (("card", "cuda"), ("cpu", "cpu")):
-            t = FederatedTrainer(LMAdapter(cfg), fed, shards, device=dev,
-                                 generator=torch.Generator().manual_seed(0))
-            m = t.run_round()
-            m.update(t.evaluate(test))
-            models = [flatten.pack(t.layout, t.server.complex).cpu()]
-            if t.server.simple_host is not None:
-                models.append(flatten.pack(t.layout,
-                                           t.server.simple_host).cpu())
-            sides[side] = (m, models)
-        worst = 0.0
-        for a, b in zip(sides["card"][1], sides["cpu"][1]):
-            worst = max(worst, float((a - b).abs().max()))
-            if float(((a - b).abs() - (1e-5 + 1e-4 * b.abs())).max()) > 0:
-                raise RuntimeError(f"LM {label} {algo}: card and CPU server "
-                                   f"params differ beyond rtol 1e-4 / atol "
-                                   f"1e-5 (max abs {worst:.3e})")
-        mc, mp = sides["card"][0], sides["cpu"][0]
-        for key in mp:
-            exact = key in ("n_valid", "mbytes", "mbytes_down", "mbytes_up")
-            if abs(mc[key] - mp[key]) > (0.0 if exact else 1e-5):
-                raise RuntimeError(f"LM {label} {algo}: card {key} "
-                                   f"{mc[key]} against CPU {mp[key]}")
+        sides = _narrow_pair_runs(torch, lambda dev: FederatedTrainer(
+            LMAdapter(cfg), fed, shards, device=dev,
+            generator=torch.Generator().manual_seed(0)), 1, test)
+        worst = _hold(f"LM {label} {algo}", sides["card"], sides["cpu"])
         print(f"  narrow LM round {label} {algo}, card vs CPU: server "
               f"params within rtol 1e-4 / atol 1e-5 (max abs {worst:.3e}); "
-              f"card {json.dumps(mc)}", flush=True)
+              f"card {json.dumps(sides['card'][0][-1])}", flush=True)
+
+
+# Phase 11: async rounds.  (label, config, lag, rounds, launches per round of
+# K1, K2, K3, K4 -- a sync round's -- and closed-form bytes per round)
+ASYNC_RUNS = (("f32", {}, 3, 3, (2, 0, 0, 0), F32_BYTES),
+              ("int8", dict(comm_dtype="int8"), 1, 2, (0, 2, 0, 0),
+               122_199_360),
+              ("compressed", COMPRESSED, 1, 2, (2, 0, 4, 0), 82_396_760),
+              ("tree f32", TREE, 1, 2, (0, 0, 0, 2), F32_BYTES))
+RESNET_FED = dict(n_devices=100, n_simple=50, participation=0.1,
+                  local_epochs=1, batch_size=50, lr=0.1)
+NARROW_FED = dict(n_devices=4, n_simple=2, participation=1.0,
+                  local_epochs=1, batch_size=4, cohort_chunk=1)
+LM_WEIGHT_1 = 0.70710677     # f32 of (1 + 1) ** -0.5: a one-round-stale fold
+
+
+class _Deterministic:
+    """cuDNN's deterministic algorithms while active (the ResNet's
+    convolutions otherwise may pick nondeterministic ones); restores the
+    previous settings, so no other phase runs under them."""
+
+    def __init__(self, torch):
+        self.cudnn = torch.backends.cudnn
+
+    def __enter__(self):
+        self.saved = (self.cudnn.deterministic, self.cudnn.benchmark)
+        self.cudnn.deterministic, self.cudnn.benchmark = True, False
+
+    def __exit__(self, *exc):
+        self.cudnn.deterministic, self.cudnn.benchmark = self.saved
+
+
+def _flat_server(trainer):
+    """The trainer's server models, each packed, on the host."""
+    from repro_torch.core import flatten
+    return [flatten.pack(trainer.layout, m).cpu()
+            for m in (trainer.server.complex, trainer.server.simple_host)
+            if m is not None]
+
+
+def _replay_bill(trainer, plan, sched, r, cache) -> tuple:
+    """(bytes the version cache saves this round, its hits): each real
+    client billed through ``comm.VersionCache`` for the version its chunk
+    trains on, the dict oracle of the engine's billing."""
+    eng = trainer.async_engine
+    saved = hits = 0
+    for ids, real, s, chunk, nbytes in (
+            (plan.simple_ids, plan.simple_real, sched[0], eng.chunk_s,
+             trainer.per_simple_bytes),
+            (plan.complex_ids, plan.complex_real, sched[1], eng.chunk_c,
+             trainer.per_complex_bytes)):
+        for pos, (cid, ok) in enumerate(zip(ids, real)):
+            if ok and cache.bill(int(cid), r - int(s[pos // chunk]),
+                                 nbytes) == 0:
+                saved += nbytes
+                hits += 1
+    return saved, hits
+
+
+def _async_round(torch, trainer, cache, closed_bytes) -> dict:
+    """One timed async round, its schedule, weights and bytes checked
+    against the closed form less the cache hits."""
+    from repro_torch.core.async_rounds import staleness_weight
+    eng = trainer.async_engine
+    r = trainer.server.round
+    plan = trainer.sampler.plan(r)
+    sched = eng.schedule(r)
+    weights = [staleness_weight(s, scheme=trainer.fed.async_staleness,
+                                decay=trainer.fed.async_decay).tolist()
+               for s in sched]
+    saved, hits = _replay_bill(trainer, plan, sched, r, cache)
+    billed, hits0 = trainer.total_bytes, eng.cache_hits
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    m = trainer.run_round()
+    torch.cuda.synchronize()
+    row = {"round": trainer.server.round, "round_s": time.perf_counter() - t,
+           "staleness": [list(map(int, s)) for s in sched],
+           "weights": weights, "bytes": trainer.total_bytes - billed,
+           "bytes_closed_form": closed_bytes, "cache_hits":
+           eng.cache_hits - hits0, "bytes_saved": saved, **m}
+    if not (math.isfinite(m["loss_simple"])
+            and math.isfinite(m["loss_complex"])):
+        raise RuntimeError(f"async round {r}: non-finite loss {m}")
+    if row["bytes"] != closed_bytes - saved or row["cache_hits"] != hits:
+        raise RuntimeError(f"async round {r}: {row['bytes']} bytes billed "
+                           f"with {row['cache_hits']} cache hits, expected "
+                           f"{closed_bytes - saved} with {hits}")
+    return row
+
+
+def async_resnet(torch, ops) -> tuple:
+    """Phase 11(a): async rounds at the ResNet round cell.  First f32 flat
+    fedhen through ``AsyncRoundEngine(lag=0)`` against the sync trainer, 2
+    rounds each under deterministic cuDNN, bitwise in server params,
+    metrics, bytes and launches.  Then ``ASYNC_RUNS`` through
+    ``FedConfig(async_lag=L)``: each round's wall, schedule, weights and
+    bytes (the closed form less the version cache's savings), and K1-K4's
+    launches, counted from 0 a run, equal to a sync round's (staleness adds
+    no fold).  Returns (launches of K1-K4 over the runs, the f32 trainer
+    after its rounds, the shards)."""
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.core import comm
+    from repro_torch.core.adapters import ResNetAdapter
+    from repro_torch.core.async_rounds import AsyncRoundEngine
+    from repro_torch.core.federated import FederatedTrainer
+
+    shards, _ = resnet_cell_data(torch)
+    make = lambda **kw: FederatedTrainer(
+        ResNetAdapter(10), FedConfig(algorithm="fedhen", **RESNET_FED, **kw),
+        shards, device="cuda")
+    runs = {}
+    with _Deterministic(torch):
+        for side in ("sync", "async lag 0"):
+            tr = make()
+            runner = tr if side == "sync" else AsyncRoundEngine(tr, lag=0)
+            _zero_counts(ops)
+            t = time.perf_counter()
+            ms = [runner.run_round() for _ in range(2)]
+            torch.cuda.synchronize()
+            runs[side] = (ms, _flat_server(tr),
+                          (tr.total_bytes_down, tr.total_bytes_up),
+                          _counts(ops), time.perf_counter() - t)
+            del tr, runner
+    (ms_a, srv_a, b_a, c_a, s_a), (ms_b, srv_b, b_b, c_b, s_b) = \
+        runs["sync"], runs["async lag 0"]
+    diff = max(float((a - b).abs().max()) for a, b in zip(srv_a, srv_b))
+    print(f"  f32 fedhen, 2 rounds: sync {s_a:.2f} s, async lag 0 "
+          f"{s_b:.2f} s; server params max|diff| {diff:.3e}; metrics "
+          f"{ms_b}; bytes {b_b}; launches K1/K2/K3/K4 {c_b} (sync {c_a})",
+          flush=True)
+    if diff or ms_a != ms_b or b_a != b_b or c_a != c_b:
+        raise RuntimeError(f"async lag 0 is not the sync round: params "
+                           f"max|diff| {diff}, metrics {ms_a} / {ms_b}, "
+                           f"bytes {b_a} / {b_b}, launches {c_a} / {c_b}")
+    total, keep = (0, 0, 0, 0), None
+    for label, cfg, lag, rounds, per_round, closed in ASYNC_RUNS:
+        tr = make(async_lag=lag, **cfg)
+        eng = tr.async_engine
+        print(f"  {label} fedhen async lag {lag}: {eng.folds_per_round} "
+              f"folds a round, {eng.n_versions} versions", flush=True)
+        cache = comm.VersionCache()
+        _zero_counts(ops)
+        for _ in range(rounds):
+            row = _async_round(torch, tr, cache, closed)
+            print("  " + json.dumps({"run": label, "lag": lag, **row}),
+                  flush=True)
+        launched = _counts(ops)
+        expected = tuple(rounds * n for n in per_round)
+        print(f"  {label} async lag {lag}: launches K1/K2/K3/K4 {launched} "
+              f"over {rounds} rounds, expected {expected} (a sync round's)",
+              flush=True)
+        if launched != expected:
+            raise RuntimeError(f"{label} async: launches {launched}, "
+                               f"expected {expected}")
+        total = tuple(a + b for a, b in zip(total, launched))
+        if label == "f32":
+            keep = tr
+        del tr, eng
+    return total, keep, shards
+
+
+def async_lm(torch, ops) -> tuple:
+    """Phase 11(b): the LM round cell (``launch/lm_cell.py``, Gemma-2 2B at
+    full width, F = 2) at ``async_lag`` 1 for 3 rounds: from round 1 the
+    simple chunk trains on the previous round's model and folds at
+    0.70710677.  Wall, losses, n_valid, bytes (the closed form less the
+    cache hits), peak memory from a reset before the trainer is built, and
+    K1's launches (2 a round).  Returns (K1 launches, the trainer, its
+    rows)."""
+    from repro_torch.core import comm
+    from repro_torch.launch import lm_cell as cell
+
+    shards = cell.shards("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    tr = cell.trainer(shards, "fedhen", device="cuda", async_lag=1)
+    eng = tr.async_engine
+    closed = 8 * (int(tr.flat_mask.sum()) + tr.layout.n_params)
+    cache = comm.VersionCache()
+    rows = []
+    _zero_counts(ops)
+    for _ in range(3):
+        row = _async_round(torch, tr, cache, closed)
+        row["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        print("  " + json.dumps({"run": "LM fedhen async lag 1", **row}),
+              flush=True)
+        if row["n_valid"] != 2:
+            raise RuntimeError(f"LM async: n_valid {row['n_valid']}")
+        rows.append(row)
+    weight_1 = torch.tensor(LM_WEIGHT_1, dtype=torch.float32).item()
+    if rows[1]["weights"][0] != [weight_1] or \
+            rows[1]["staleness"] != [[1], [0]]:
+        raise RuntimeError(f"LM async round 1: schedule {rows[1]}")
+    c = _counts(ops)
+    print(f"  LM async lag 1: launches K1/K2/K3/K4 {c} over 3 rounds, "
+          f"expected (6, 0, 0, 0); {eng.n_versions} versions, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    if c != (6, 0, 0, 0):
+        raise RuntimeError(f"LM async: launches {c}")
+    return c[0], tr, rows
+
+
+def _narrow_pair_runs(torch, build, rounds: int, test=None) -> dict:
+    """``build(device)`` run ``rounds`` rounds on the card and on the CPU:
+    {side: (metrics per round, packed server models)}.  The last round's
+    metrics gain the evaluation on ``test`` where one is given, else the
+    total bytes as ``mbytes``."""
+    sides = {}
+    for side, dev in (("card", "cuda"), ("cpu", "cpu")):
+        t = build(dev)
+        ms = [t.run_round() for _ in range(rounds)]
+        ms[-1].update(t.evaluate(test) if test is not None
+                      else dict(mbytes=t.total_bytes))
+        sides[side] = (ms, _flat_server(t))
+    return sides
+
+
+def _hold(label: str, mine, theirs, rtol=1e-4, atol=1e-5) -> float:
+    """Two runs of one config, each (metrics per round, tensors): the
+    tensors within rtol/atol, the metrics within atol, n_valid and bytes
+    equal; returns the tensors' max |diff|."""
+    worst = 0.0
+    for a, b in zip(mine[1], theirs[1]):
+        a, b = a.cpu(), b.cpu()
+        worst = max(worst, float((a - b).abs().max()))
+        if float(((a - b).abs() - (atol + rtol * b.abs())).max()) > 0:
+            raise RuntimeError(f"{label}: server state differs beyond rtol "
+                               f"{rtol} / atol {atol} (max abs "
+                               f"{worst:.3e})")
+    for mc, mp in zip(mine[0], theirs[0]):
+        for key in mp:
+            exact = key in ("n_valid", "mbytes", "mbytes_down", "mbytes_up")
+            if abs(mc[key] - mp[key]) > (0.0 if exact else atol):
+                raise RuntimeError(f"{label}: {key} {mc[key]} against "
+                                   f"{mp[key]}")
+    return worst
+
+
+def async_card_vs_cpu(torch) -> None:
+    """Phase 11(c): narrow async rounds, 3 each, on the card against the
+    CPU at rtol 1e-4 / atol 1e-5: attn4 fedhen and decouple at lag 1 and
+    3 (F = 4), the ResNet narrow config of phase 5 at lag 1 (f32 wire)."""
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.core.adapters import LMAdapter, ResNetAdapter
+    from repro_torch.core.federated import FederatedTrainer
+    from repro_torch.data.federated import iid_split
+    from repro_torch.data.synthetic import synthetic_cifar, synthetic_lm
+
+    cfg = attn4_config()
+    lm_shards = [{"tokens": s["tokens"]} for s in iid_split(
+        synthetic_lm(32, 16, cfg.vocab_size, seed=0), 4, seed=1)]
+    img_shards = iid_split(synthetic_cifar(32, 10, seed=0, image_size=16),
+                           4, seed=1)
+    runs = [(f"attn4 {algo} lag {lag}", LMAdapter(cfg), lm_shards,
+             dict(algorithm=algo, async_lag=lag))
+            for algo in ("fedhen", "decouple") for lag in (1, 3)]
+    runs.append(("ResNet narrow fedhen lag 1", ResNetAdapter(
+        10, (8, 16, 16, 16)), img_shards,
+        dict(algorithm="fedhen", async_lag=1)))
+    for label, adapter, shards, kw in runs:
+        sides = _narrow_pair_runs(torch, lambda dev: FederatedTrainer(
+            adapter, FedConfig(**NARROW_FED, **kw), shards, device=dev,
+            generator=torch.Generator().manual_seed(0)), 3)
+        worst = _hold(label, sides["card"], sides["cpu"])
+        print(f"  narrow {label}, 3 rounds, card vs CPU: server params "
+              f"within rtol 1e-4 / atol 1e-5 (max abs {worst:.3e}); card "
+              f"{json.dumps(sides['card'][0][-1])}", flush=True)
+
+
+def _free_disk_check(path: str, need: float) -> float:
+    free = shutil.disk_usage(path).free
+    if free < need:
+        raise RuntimeError(f"{free / 1e9:.1f} GB free at {path}, the "
+                           f"checkpoint needs {need / 1e9:.0f} GB")
+    return free
+
+
+def _same_leaves(torch, a, b) -> bool:
+    from repro_torch.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def checkpoint_lm(torch, trainer) -> dict:
+    """Phase 12, LM cell: ``save_trainer`` (tree format) of the trainer
+    phase 11(b) left after its third round, to a fresh temporary
+    directory (12 GB free asked first), timed, with the file's size; then
+    ``restore_trainer`` into the same trainer, timed.  Every leaf must be
+    bitwise the pre-save server's, the round kept, and the async versions
+    reset to the restored model; one more round must run finitely."""
+    from repro_torch.checkpoint.checkpoint import (restore_trainer,
+                                                   save_trainer)
+    tmp = tempfile.mkdtemp(prefix="lm_ckpt_")
+    try:
+        free = _free_disk_check(tmp, 12e9)
+        path = os.path.join(tmp, "gemma2-2b.ckpt")
+        before = trainer.server
+        t = time.perf_counter()
+        save_trainer(path, trainer)
+        save_s = time.perf_counter() - t
+        size = os.path.getsize(path)
+        t = time.perf_counter()
+        restore_trainer(path, trainer)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        restored = trainer.server
+        if restored is before or restored.round != before.round or \
+                not _same_leaves(torch, restored.complex, before.complex):
+            raise RuntimeError("LM checkpoint: the restored server is not "
+                               "the saved one bitwise")
+        del before
+        eng = trainer.async_engine
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = trainer.run_round()
+        torch.cuda.synchronize()
+        round_s = time.perf_counter() - t
+        if eng.versions()[1] is not restored.complex or \
+                trainer.server.round != restored.round + 1 or not (
+                    math.isfinite(m["loss_simple"])
+                    and math.isfinite(m["loss_complex"])):
+            raise RuntimeError(f"LM checkpoint: the round after the restore "
+                               f"did not restart the versions from it: {m}")
+        out = {"bytes": size, "save_s": save_s, "restore_s": restore_s,
+               "free_gb": free / 1e9, "round_after_restore_s": round_s,
+               "round": trainer.server.round, **m}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("  LM checkpoint: " + json.dumps(out), flush=True)
+    return out
+
+
+def checkpoint_resnet(torch, trainer, shards) -> dict:
+    """Phase 12, ResNet cell: tree and flat (f32 wire) trainer checkpoints
+    of phase 11(a)'s f32 trainer restored into a fresh trainer, bitwise,
+    each save and restore timed."""
+    from repro_torch.checkpoint.checkpoint import (restore_trainer,
+                                                   save_trainer)
+    from repro_torch.core.adapters import ResNetAdapter
+    from repro_torch.core.federated import FederatedTrainer
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="resnet_ckpt_")
+    try:
+        for fmt in ("tree", "flat"):
+            path = os.path.join(tmp, f"resnet_{fmt}.ckpt")
+            t = time.perf_counter()
+            save_trainer(path, trainer, fmt=fmt)
+            save_s = time.perf_counter() - t
+            fresh = FederatedTrainer(ResNetAdapter(10), trainer.fed, shards,
+                                     device="cuda")
+            t = time.perf_counter()
+            restore_trainer(path, fresh, fmt=fmt)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t
+            ok = (_same_leaves(torch, fresh.server.complex,
+                               trainer.server.complex)
+                  and fresh.server.round == trainer.server.round
+                  and (fresh.client_state.array
+                       == trainer.client_state.array).all())
+            out[fmt] = {"bytes": os.path.getsize(path), "save_s": save_s,
+                        "restore_s": restore_s, "bitwise": bool(ok)}
+            print(f"  ResNet {fmt} checkpoint: {json.dumps(out[fmt])}",
+                  flush=True)
+            if not ok:
+                raise RuntimeError(f"ResNet {fmt} checkpoint: the restored "
+                                   f"trainer differs")
+            del fresh
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def resume_card(torch) -> dict:
+    """Phase 12, narrow resume on the card: 2 rounds, ``save_trainer``,
+    ``restore_trainer`` into a new trainer, 2 rounds, against one trainer
+    run 4 rounds whose server is replaced at round 2 (what the restore
+    does; an async run's versions restart there): attn4 async lag 1, and
+    the ResNet narrow config with SCAFFOLD (``__cv_store__``) and with
+    error feedback on the int8 wire (``__ef_store__``).  Bitwise, or held
+    at rtol 1e-4 / atol 1e-5 with the largest difference reported."""
+    import dataclasses
+    from repro_torch.checkpoint.checkpoint import (restore_trainer,
+                                                   save_trainer)
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.core.adapters import LMAdapter, ResNetAdapter
+    from repro_torch.core.federated import FederatedTrainer
+    from repro_torch.data.federated import iid_split
+    from repro_torch.data.synthetic import synthetic_cifar, synthetic_lm
+
+    cfg = attn4_config()
+    lm_shards = [{"tokens": s["tokens"]} for s in iid_split(
+        synthetic_lm(32, 16, cfg.vocab_size, seed=0), 4, seed=1)]
+    img_shards = iid_split(synthetic_cifar(32, 10, seed=0, image_size=16),
+                           4, seed=1)
+    runs = (("attn4 async lag 1", LMAdapter(cfg), lm_shards,
+             dict(async_lag=1)),
+            ("ResNet narrow SCAFFOLD", ResNetAdapter(10, (8, 16, 16, 16)),
+             img_shards, dict(variance_reduction="scaffold")),
+            ("ResNet narrow int8 EF", ResNetAdapter(10, (8, 16, 16, 16)),
+             img_shards, dict(comm_dtype="int8", error_feedback=True)))
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="resume_")
+    try:
+        for label, adapter, shards, kw in runs:
+            make = lambda: FederatedTrainer(
+                adapter, FedConfig(algorithm="fedhen", **NARROW_FED, **kw),
+                shards, device="cuda",
+                generator=torch.Generator().manual_seed(0))
+            whole = make()
+            ms_w = [whole.run_round() for _ in range(2)]
+            whole.server = dataclasses.replace(whole.server)
+            ms_w += [whole.run_round() for _ in range(2)]
+            part = make()
+            for _ in range(2):
+                part.run_round()
+            path = os.path.join(tmp, "narrow.ckpt")
+            save_trainer(path, part)
+            resumed = make()
+            restore_trainer(path, resumed)
+            ms_r = [resumed.run_round() for _ in range(2)]
+            pairs = list(zip(_flat_server(resumed),
+                             _flat_server(whole)))
+            for store in ("cv_store", "ef_store"):
+                if getattr(whole, store) is not None:
+                    pairs.append((getattr(resumed, store).gather(range(4)),
+                                  getattr(whole, store).gather(range(4))))
+            if whole.cv_global is not None:
+                pairs.append((resumed.cv_global, whole.cv_global))
+            worst = _hold(f"resume {label}",
+                          (ms_r, [a for a, _ in pairs]),
+                          (ms_w[2:], [b for _, b in pairs]))
+            bitwise = worst == 0.0 and ms_r == ms_w[2:]
+            out[label] = {"bitwise": bitwise, "max_abs_diff": worst}
+            print(f"  resume on the card, {label}: 2 + save + restore + 2 "
+                  f"rounds against 4: "
+                  + ("bitwise" if bitwise else f"max|diff| {worst:.3e}"),
+                  flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def serve_checkpoint(torch) -> tuple:
+    """Phase 12, serving from a checkpoint: phase 8's narrow configs (f32
+    and bf16) saved as bare params trees (``save_tree``) and restored by
+    ``serve.load_params`` (the ``--checkpoint`` path) over a fresh draw
+    from another seed: prefill logits (K5, K6) bitwise those of the
+    in-memory params; then ``serve.main --checkpoint`` on the reduced
+    gemma2-2b and recurrentgemma-2b.  Returns the launches of K5 (tensor
+    cores, CUDA cores) and K6 over the phase."""
+    from repro_torch import configs
+    from repro_torch.checkpoint.checkpoint import save_tree
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.rglru_scan.ops import lru_scan
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+
+    flash_attention.launches_tc = flash_attention.launches = 0
+    lru_scan.launches = 0
+    tmp = tempfile.mkdtemp(prefix="serve_ckpt_")
+    try:
+        for dtype in ("float32", "bfloat16"):
+            for cfg in _narrow_configs(dtype):
+                path = os.path.join(tmp, f"{cfg.name}_{dtype}.npz")
+                params = tfm.init_params(
+                    torch.Generator("cuda").manual_seed(0), cfg)
+                save_tree(path, params)
+                restored = serve.load_params(cfg, 5, "cuda", path)
+                toks = torch.randint(0, cfg.vocab_size, (2, 64),
+                                     device="cuda",
+                                     generator=torch.Generator("cuda")
+                                     .manual_seed(1))
+                with torch.inference_mode():
+                    want, _ = tfm.prefill(params, cfg, toks)
+                    got, _ = tfm.prefill(restored, cfg, toks)
+                same = torch.equal(got, want)
+                print(f"  {cfg.name} narrow {dtype} from a save_tree "
+                      f"checkpoint: prefill logits "
+                      + ("bitwise equal" if same else "DIFFER")
+                      + " to the in-memory params'", flush=True)
+                if not same:
+                    raise RuntimeError(f"{cfg.name} {dtype}: restored "
+                                       f"params serve other logits")
+        for arch in ("gemma2-2b", "recurrentgemma-2b"):
+            cfg = configs.get_reduced(arch)
+            path = os.path.join(tmp, f"{arch}_reduced.npz")
+            save_tree(path, tfm.init_params(
+                torch.Generator("cuda").manual_seed(11), cfg))
+            stats = serve.main(["--arch", arch, "--batch", "2",
+                                "--prompt-len", "32", "--gen", "4",
+                                "--checkpoint", path, "--device", "cuda"])
+            print(f"  serve.main --arch {arch} --checkpoint: {stats}",
+                  flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launched = (flash_attention.launches_tc, flash_attention.launches,
+                lru_scan.launches)
+    print(f"  serving from checkpoints: K5 launches (tensor cores, CUDA "
+          f"cores) {launched[:2]}, K6 {launched[2]}", flush=True)
+    if not all(launched):
+        raise RuntimeError(f"serving from checkpoints launched K5/K6 "
+                           f"{launched}: one never ran")
+    return launched
 
 
 def main() -> int:
@@ -1500,6 +2022,27 @@ def main() -> int:
     # 10. narrow LM rounds, card vs CPU
     print("[10] narrow LM rounds: card vs CPU", flush=True)
     lm_card_vs_cpu(torch)
+    torch.cuda.empty_cache()
+    # 11. async rounds
+    print("[11] async rounds: the ResNet and LM cells, narrow card vs CPU",
+          flush=True)
+    async_launches, resnet_tr, resnet_shards = async_resnet(torch, ops)
+    lm_k1, lm_tr, _ = async_lm(torch, ops)
+    async_launches = (async_launches[0] + lm_k1,) + async_launches[1:]
+    if not all(async_launches):
+        raise RuntimeError(f"async path launches K1/K2/K3/K4 "
+                           f"{async_launches}: a kernel never ran")
+    async_card_vs_cpu(torch)
+    # 12. checkpoints
+    print("[12] checkpoints: the LM and ResNet cells, narrow resume, "
+          "serving from a checkpoint", flush=True)
+    checkpoint_lm(torch, lm_tr)
+    del lm_tr
+    torch.cuda.empty_cache()
+    checkpoint_resnet(torch, resnet_tr, resnet_shards)
+    del resnet_tr, resnet_shards
+    resume_card(torch)
+    serve_launches = serve_checkpoint(torch)
 
     src = "src/repro_torch/kernels/masked_agg/csrc/"
     kernels = []
@@ -1524,6 +2067,9 @@ def main() -> int:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": None, "shape": shape,
             "bound_share": head["bound_share"], "folds": result["timing"]})
+    for kernel, launches in zip(kernels, async_launches):
+        kernel["launches_async"] = launches
+        kernel["launches_async_path"] = "phase 11: async rounds"
     for i, key, fold in ((0, "k1", "complex"),
                          (3, "k4", "tree fold, every leaf, one launch")):
         head = lm[key]["timing"][0]     # the complex client's fold
@@ -1554,6 +2100,8 @@ def main() -> int:
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "shape": head["shape"], "bound_share": head["bound_share"],
             "tflops": head["tflops"], "cases": rows})
+    kernels[-2]["launches_checkpoint"] = serve_launches[0]
+    kernels[-1]["launches_checkpoint"] = serve_launches[1]
     head = k6["timing"][0]
     kernels.append({
         "name": "lru_scan", "route": "cuda",
@@ -1567,6 +2115,10 @@ def main() -> int:
         "cases": k6["timing"]})
     kernels[-1]["library_note"] = ("no single PyTorch call computes a "
                                    "first-order linear recurrence")
+    kernels[-1]["launches_checkpoint"] = serve_launches[2]
+    for kernel in kernels[-3:]:
+        kernel["launches_checkpoint_path"] = ("phase 12: serving from "
+                                              "save_tree checkpoints")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name_of_card,

@@ -7,10 +7,8 @@ model's stack is ``n_periods`` repetitions of its ``pattern`` plus
 ``n_remainder`` tail layers; the FedHeN simple model is the depth prefix
 ``blocks[:resolved_exit_layer]`` with its own exit head.  The dtype names
 map to torch dtypes through ``torch_param_dtype`` / ``torch_compute_dtype``
-(the reference's ``jnp_*``).  Knobs this slice of the port does not
-implement yet (``async_lag > 0``) are accepted as fields, so configs stay
-interchangeable, but rejected by ``validate()`` with
-``NotImplementedError`` naming the knob.
+(the reference's ``jnp_*``).  ``validate()`` rejects what the
+reference's rejects, with the same ``ValueError`` rules.
 """
 
 from __future__ import annotations
@@ -308,7 +306,7 @@ class FedConfig:
     topk_frac: float = 1.0
     stochastic_rounding: bool = False
     error_feedback: bool = False
-    async_lag: int = 0             # not ported yet
+    async_lag: int = 0             # chunk folds of broadcast staleness
     async_staleness: str = "poly"
     async_decay: float = 0.5
     variance_reduction: str = "none"   # or "scaffold" (option II)
@@ -318,9 +316,8 @@ class FedConfig:
         self.validate()
 
     def validate(self) -> None:
-        """Single entry point for every config-rejection rule: the
-        reference's ``ValueError`` rules first, then ``NotImplementedError``
-        for the one knob the port does not implement yet (async rounds)."""
+        """Single entry point for every config-rejection rule (the
+        reference's ``ValueError`` rules)."""
         if self.algorithm not in ALGORITHMS:
             raise ValueError(f"unknown algorithm {self.algorithm!r} "
                              f"(expected one of {ALGORITHMS})")
@@ -365,7 +362,3 @@ class FedConfig:
         if self.variance_reduction == "scaffold" and self.lr <= 0:
             raise ValueError("variance_reduction='scaffold' requires lr > 0 "
                              "(control-variate deltas divide by K*lr)")
-        if self.async_lag > 0:
-            raise NotImplementedError(
-                f"async_lag={self.async_lag!r} is not ported to repro_torch "
-                f"yet (the JAX package implements it)")

@@ -1,7 +1,6 @@
 """Quantized flat-buffer communication over ``core.flatten.FlatLayout``.
 
-The port of ``repro.core.comm`` (all but ``VersionCache``, which waits for
-the async engine).  The packed ``(n_flat,)`` vector of a model is the unit
+The port of ``repro.core.comm``.  The packed ``(n_flat,)`` vector of a model is the unit
 of both directions of the protocol:
 
 * **broadcast** (server -> client): the server's flat vector is encoded to
@@ -42,7 +41,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Callable, NamedTuple, Optional, Sequence
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -343,6 +342,40 @@ def analytic_wire_bytes_up(spec: WireSpec, n_elements: int) -> int:
     if spec.is_quantized:
         n += (k // spec.quant_block) * 4
     return n
+
+
+class VersionCache:
+    """Version-tagged download accounting for the async broadcast, as a
+    per-client host dict: the reference semantics that the async engine's
+    vectorized billing (``ClientStateMatrix.bill_downloads`` over the
+    ``version_tag`` column) is held to.
+
+    * ``bill(client_id, tag, nbytes)`` — returns ``nbytes`` and records
+      the fetch if the client's cached tag differs, else returns 0;
+    * ``holds(client_id, tag)`` — query without billing.
+
+    Tags are opaque hashables (the engine uses the publishing round
+    index).  ``hits`` / ``misses`` count ``bill`` outcomes since
+    construction: a hit is a reused stale broadcast."""
+
+    def __init__(self):
+        self._held: Dict[Any, Any] = {}
+        self.hits = 0
+        self.misses = 0
+
+    def holds(self, client_id, tag) -> bool:
+        """True when ``client_id`` already fetched version ``tag``."""
+        return self._held.get(client_id) == tag
+
+    def bill(self, client_id, tag, nbytes: int) -> int:
+        """Bytes this client's download of version ``tag`` costs now:
+        ``nbytes`` on a cache miss (recorded), 0 on a hit."""
+        if self.holds(client_id, tag):
+            self.hits += 1
+            return 0
+        self.misses += 1
+        self._held[client_id] = tag
+        return int(nbytes)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,9 @@
 """Federated runtime: local client training, server state, the sync round.
 
-The port of ``repro.core.federated``'s synchronous engine on both fold
-engines (flat, and tree: one K4 launch over every leaf), every wire format,
-SCAFFOLD and uniform cohort sampling, for the paper's three algorithms
-over any adapter:
+The port of ``repro.core.federated``'s engine on both fold engines (flat,
+and tree: one K4 launch over every leaf), every wire format, SCAFFOLD,
+uniform cohort sampling and async rounds, for the paper's three
+algorithms over any adapter:
 
 * ``fedhen``   — Alg. 1 + Alg. 2 (side objective on complex devices)
 * ``noside``   — Alg. 4 (same server step, no side objective)
@@ -32,6 +32,12 @@ every minibatch gradient before the clip; after training its delta
 one more K1 launch, and its row ``c_i + dc`` goes back to the
 ``FlatStateStore`` (a NaN client keeps its row; only real slots are
 written).  The server control variate moves by ``cv_acc / n_devices``.
+
+**Async rounds** (``FedConfig.async_lag > 0``).  ``run_round`` delegates
+to ``core/async_rounds.AsyncRoundEngine``: chunk ``t`` trains on the
+server version published ``ceil((lag - t) / F)`` rounds ago and folds at
+the staleness weight ``1 / (1 + s)^a`` times its validity, through the
+same :func:`stream_population` and the same folds.
 
 **Minibatch order.**  The reference draws each epoch's permutation from
 threefry keys that PyTorch cannot reproduce, so the client trainer takes
@@ -280,15 +286,18 @@ def _residual(up: WireUploadCtx, d: torch.Tensor, buf) -> torch.Tensor:
 
 
 def _fold_deltas(state, xz, x_flat, up: WireUploadCtx, ef_rows, slots,
-                 valid, is_simple, flat_mask, fed: FedConfig,
+                 valid, weights, is_simple, flat_mask, fed: FedConfig,
                  population: str, round_index: int, cv_chunk=None):
     """Encode one chunk's uploads as deltas and fold them (and a SCAFFOLD
     ``cv_chunk`` beside them).
 
     ``xz`` (Z, n_flat) f32 holds the trained clients and is overwritten
-    with their deltas ``y - x`` (+ their EF rows); ``slots[z]`` is the
-    population slot of row ``z`` (``None`` for an untrained slot, which
-    uploads an encoded zero at weight 0).  Returns ``(state,
+    with their deltas ``y - x`` (+ their EF rows), ``x_flat`` being the
+    packed broadcast the chunk trained on; ``slots[z]`` is the population
+    slot of row ``z`` (``None`` for an untrained slot, which uploads an
+    encoded zero at weight 0).  ``valid`` (Z,) bool picks the EF rows;
+    ``weights`` (``valid`` itself, or its staleness-weighted f32) weighs
+    the fold.  Returns ``(state,
     new_ef_rows)`` — one row per chunk row: the residual ``(d + r) -
     decode(encode(d + r))`` of a trained client, its old row for a client
     with ``valid`` 0 and for an untrained slot; ``None`` without EF."""
@@ -310,7 +319,7 @@ def _fold_deltas(state, xz, x_flat, up: WireUploadCtx, ef_rows, slots,
         stack([b.scales for b in bufs]),
         stack([b.indices for b in bufs]) if spec.is_sparse else None)
     state = aggregate.streaming_fold_deltas(
-        state, sp, flat_mask, is_simple, valid, fed.algorithm,
+        state, sp, flat_mask, is_simple, weights, fed.algorithm,
         quant_block=spec.quant_block, cv_chunk=cv_chunk)
     if ef_rows is None:
         return state, None
@@ -321,7 +330,8 @@ def _fold_deltas(state, xz, x_flat, up: WireUploadCtx, ef_rows, slots,
     return state, new_rows
 
 
-def stream_population(state, src: Tree, train_fn, clients: List[Batch], *,
+def stream_population(state, get_src: Callable[[Optional[int]], Tree],
+                      train_fn, clients: List[Batch], *,
                       population: str, round_index: int, schedule: Schedule,
                       fed: FedConfig, layout: flatten.FlatLayout,
                       flat_mask: torch.Tensor, buffer: torch.Tensor,
@@ -330,14 +340,23 @@ def stream_population(state, src: Tree, train_fn, clients: List[Batch], *,
                       real: Optional[np.ndarray] = None,
                       scaffold: Optional[ScaffoldCtx] = None,
                       cv_buffer: Optional[torch.Tensor] = None,
-                      leaf_masks: Optional[Tree] = None):
+                      leaf_masks: Optional[Tree] = None,
+                      version_idx: Optional[Sequence[int]] = None,
+                      staleness_w: Optional[torch.Tensor] = None):
     """Train one population chunk by chunk and fold each chunk into the
-    running sums.
+    running sums: the ONE chunk stream of both engines (the synchronous
+    round and :class:`~repro_torch.core.async_rounds.AsyncRoundEngine`).
 
     ``clients`` are the population's ``k`` sampled datasets in slot order;
-    slot ``i`` trains from ``src`` (the decoded broadcast) on
-    ``clients[i]`` with the schedule's permutations for ``(round_index,
-    population, i, epoch)``.  Each trained client is packed into row ``z``
+    chunk ``t``'s slots train from ``get_src(idx)`` (a decoded broadcast)
+    on ``clients[i]`` with the schedule's permutations for ``(round_index,
+    population, i, epoch)``.  The async extras: ``version_idx`` (one int a
+    chunk, handed to ``get_src``) and ``staleness_w`` (``(n_chunks,)`` f32
+    on the buffer's device, multiplied into the chunk's validity as the
+    fold weight).  Without them ``idx`` is ``None`` and the fold weight is
+    the bool validity: the synchronous program.  The wire-v2 and SCAFFOLD
+    deltas are taken against the broadcast the chunk trained on, packed
+    once a version.  Each trained client is packed into row ``z``
     of ``buffer[:chunk]`` (zero-padded once at allocation, in the fold's
     stream dtype); a client whose result is not all finite gets validity 0
     (when ``skip_nan_devices``).  ``real`` (uniform sampling): the plan's
@@ -365,11 +384,15 @@ def stream_population(state, src: Tree, train_fn, clients: List[Batch], *,
     in_plan = np.ones((k,), bool) if real is None else np.asarray(real, bool)
     loss_sum = torch.zeros((), device=device)
     valid_sum = torch.zeros((), device=device)
-    x_flat = (flatten.pack(layout, src)
-              if upload is not None or scaffold is not None else None)
+    needs_x = upload is not None or scaffold is not None
+    x_flat = x_idx = None
     ef_in = upload.ef_rows if upload is not None else None
     ef_out = [] if ef_in is not None else None
     for t in range(n_chunks):
+        idx = None if version_idx is None else int(version_idx[t])
+        src = get_src(idx)
+        if needs_x and (x_flat is None or idx != x_idx):
+            x_flat, x_idx = flatten.pack(layout, src), idx
         valid, slots = [], []
         for z in range(chunk):
             i = t * chunk + z
@@ -400,14 +423,16 @@ def stream_population(state, src: Tree, train_fn, clients: List[Batch], *,
             slots.append(i)
             loss_sum = loss_sum + loss
         valid = torch.stack(valid)
+        weights = (valid if staleness_w is None
+                   else valid.to(torch.float32) * staleness_w[t])
         if leaf_masks is not None:
             state = aggregate.tree_streaming_fold(
-                state, xz, layout, flat_mask, is_simple, valid,
+                state, xz, layout, flat_mask, is_simple, weights,
                 fed.algorithm, cv_chunk=cvz)
         elif upload is None:
             state = aggregate.streaming_fold(state, xz, flat_mask, is_simple,
-                                             valid, fed.algorithm, wire=wire,
-                                             cv_chunk=cvz)
+                                             weights, fed.algorithm,
+                                             wire=wire, cv_chunk=cvz)
         else:
             ef_chunk = None
             if ef_in is not None:   # padding rows carry a zero residual
@@ -416,9 +441,9 @@ def stream_population(state, src: Tree, train_fn, clients: List[Batch], *,
                     ef_chunk = torch.cat([ef_chunk, ef_chunk.new_zeros(
                         (chunk - ef_chunk.shape[0], ef_chunk.shape[1]))])
             state, rows = _fold_deltas(state, xz, x_flat, upload, ef_chunk,
-                                       slots, valid, is_simple, flat_mask,
-                                       fed, population, round_index,
-                                       cv_chunk=cvz)
+                                       slots, valid, weights, is_simple,
+                                       flat_mask, fed, population,
+                                       round_index, cv_chunk=cvz)
             if ef_out is not None:
                 ef_out.extend(rows)
         valid_sum = valid_sum + valid.sum()
@@ -553,6 +578,12 @@ class FederatedTrainer:
                                        dtype=torch.float32,
                                        device=self.device)
                            if self.cv_store is not None else None)
+        # the bounded-lag async engine (core/async_rounds.py) owns the
+        # version stack and the staleness schedule; run_round delegates
+        self.async_engine = None
+        if fed.async_lag > 0:
+            from repro_torch.core import async_rounds   # imports this module
+            self.async_engine = async_rounds.AsyncRoundEngine(self)
 
     def _resolve_cohort_chunk(self) -> int:
         fed = self.fed
@@ -666,14 +697,35 @@ class FederatedTrainer:
                 rows.to(torch.float64), dim=1).cpu().numpy())
 
     def run_round(self) -> Dict[str, float]:
-        fed = self.fed
+        if self.async_engine is not None:
+            return self.async_engine.run_round()
         plan = self.sampler.plan(self.server.round)
         # clients train on the DECODED broadcast
         bc_complex = comm.broadcast_roundtrip(self.wire, self.layout,
                                               self.server.complex)
         src_simple = (comm.broadcast_roundtrip(self.wire, self.layout,
                                                self.server.simple_host)
-                      if fed.algorithm == "decouple" else bc_complex)
+                      if self.fed.algorithm == "decouple" else bc_complex)
+        metrics = self._train_and_fold(plan, lambda _: src_simple,
+                                       lambda _: bc_complex)
+        self._add_bytes(*self._round_bytes(plan))
+        return metrics
+
+    def _add_bytes(self, down: float, up: float) -> None:
+        self.total_bytes_down += down
+        self.total_bytes_up += up
+        self.total_bytes += down + up
+
+    def _train_and_fold(self, plan: sampling.CohortPlan, get_src_s,
+                        get_src_c, async_s=(None, None),
+                        async_c=(None, None)) -> Dict[str, float]:
+        """Train and fold one round's two populations, finalize, commit
+        the SCAFFOLD / EF rows and the client-state matrix, and publish
+        the new server state; byte billing is the caller's.  ``get_src_*``
+        are the populations' :func:`stream_population` sources;
+        ``async_*`` their ``(version_idx, staleness_w)`` (``None`` each:
+        the synchronous round)."""
+        fed = self.fed
         scaffold = self.cv_store is not None
         if self.leaf_masks is not None:
             state = aggregate.tree_streaming_init(
@@ -690,19 +742,20 @@ class FederatedTrainer:
         data_s = [self.client_data[i] for i in plan.simple_ids]
         data_c = [self.client_data[i] for i in plan.complex_ids]
         state, loss_s, valid_s, cv_s, ef_s = stream_population(
-            state, src_simple, self.train_simple, data_s,
+            state, get_src_s, self.train_simple, data_s,
             population="simple", chunk=chunk_s, n_chunks=n_s,
             upload=self._upload(self.k_top_simple, plan.simple_ids),
             real=plan.simple_real,
             scaffold=self._scaffold(plan.simple_ids, self.flat_mask,
-                                    data_s[0]), **common)
+                                    data_s[0]),
+            version_idx=async_s[0], staleness_w=async_s[1], **common)
         state, loss_c, valid_c, cv_c, ef_c = stream_population(
-            state, bc_complex, self.train_complex, data_c,
+            state, get_src_c, self.train_complex, data_c,
             population="complex", chunk=chunk_c, n_chunks=n_c,
             upload=self._upload(self.k_top_complex, plan.complex_ids),
             real=plan.complex_real,
             scaffold=self._scaffold(plan.complex_ids, None, data_c[0]),
-            **common)
+            version_idx=async_c[0], staleness_w=async_c[1], **common)
         if self.leaf_masks is not None:
             new_complex, new_simple_host = aggregate.tree_streaming_finalize(
                 state, self.leaf_masks, fed.algorithm, self.server.complex)
@@ -726,10 +779,6 @@ class FederatedTrainer:
         self.server = ServerState(complex=new_complex,
                                   simple_host=new_simple_host,
                                   round=self.server.round + 1)
-        down, up = self._round_bytes(plan)
-        self.total_bytes_down += down
-        self.total_bytes_up += up
-        self.total_bytes += down + up
         return {"loss_simple": float(loss_s), "loss_complex": float(loss_c),
                 "n_valid": float(valid_s + valid_c)}
 
@@ -751,23 +800,31 @@ class FederatedTrainer:
 
     def run(self, rounds: int, *, eval_every: int = 0,
             test_batch: Optional[Batch] = None,
-            log: Optional[Callable[[str], None]] = None) -> List[Dict]:
-        """``rounds`` rounds, evaluated every ``eval_every`` on
-        ``test_batch``; ``log`` gets the reference CLI's ``[round N]`` line
-        after each evaluation.  Returns each round's metrics."""
+            log: Optional[Callable[[str], None]] = None,
+            after_round: Optional[Callable[["FederatedTrainer"], None]]
+            = None) -> List[Dict]:
+        """``rounds`` rounds, evaluated after every round whose completed
+        count (``server.round``, which a resumed run carries on) is a
+        multiple of ``eval_every``, on ``test_batch``; ``log`` gets the
+        reference CLI's ``[round N]`` line after each evaluation, and
+        ``after_round(self)`` runs after each round (the CLI's checkpoint
+        save).  Returns each round's metrics."""
         history = []
-        for r in range(rounds):
+        for _ in range(rounds):
             metrics = self.run_round()
+            done = self.server.round
             evaluated = bool(eval_every and test_batch is not None
-                             and (r + 1) % eval_every == 0)
+                             and done % eval_every == 0)
             if evaluated:
                 metrics.update(self.evaluate(test_batch))
-            metrics["round"] = self.server.round
+            metrics["round"] = done
             history.append(metrics)
             if log is not None and evaluated:
-                log(f"[round {self.server.round:4d}] " + "  ".join(
+                log(f"[round {done:4d}] " + "  ".join(
                     f"{k}={v:.4f}" for k, v in sorted(metrics.items())
                     if k != "round"))
+            if after_round is not None:
+                after_round(self)
         return history
 
 

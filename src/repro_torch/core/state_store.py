@@ -7,7 +7,9 @@ seam as the reference's:
 * ``gather(ids)`` hands the round the O(cohort) ``(k, n_flat)`` block of
   sampled rows, as a tensor on the trainer's device;
 * the round returns updated rows, and ``scatter(ids, rows)`` writes them
-  back (real slots only: pad slots wrap real clients' ids).
+  back (real slots only: pad slots wrap real clients' ids);
+* ``to_array()`` / ``load(array)`` carry the whole store through a
+  checkpoint (``load`` checks the shape).
 
 **Backends** (``FedConfig.state_store_backend``), with the reference's
 ``auto`` thresholds:
@@ -18,7 +20,7 @@ seam as the reference's:
   the O(cohort) block to the device;
 * ``"mmap"``   — ``np.memmap`` over an unlinked temporary file (nothing to
   clean up: the file has no name and goes with its last handle); host
-  memory stays O(touched pages);
+  memory stays O(touched pages); ``close()`` drops it at once;
 * ``"auto"``   — ``device`` up to ``DEVICE_LIMIT_BYTES``, ``host`` up to
   ``HOST_LIMIT_BYTES``, else ``mmap``.
 """
@@ -72,6 +74,7 @@ class FlatStateStore:
         self.backend = resolve_backend(backend, self.nbytes)
         self.gathered_bytes = 0
         self.scattered_bytes = 0
+        self._file = None
         shape = (self.n_clients, self.n_flat)
         if self.backend == "device":
             self._rows = torch.zeros(shape, dtype=torch.float32,
@@ -113,3 +116,34 @@ class FlatStateStore:
                                    rows.to(self.device))
         else:
             self._rows[ids] = rows.cpu().numpy()
+
+    def to_array(self) -> np.ndarray:
+        """The whole store as a host array (the checkpoint payload)."""
+        if self.backend == "device":
+            return self._rows.cpu().numpy()
+        return np.asarray(self._rows)
+
+    def load(self, array) -> None:
+        """Restore every row from a checkpointed ``(n_clients, n_flat)``
+        payload; any other shape raises ``ValueError``."""
+        array = np.asarray(array, dtype=np.float32)
+        if array.shape != (self.n_clients, self.n_flat):
+            raise ValueError(
+                f"state-store shape mismatch: checkpoint {array.shape}, "
+                f"store {(self.n_clients, self.n_flat)}")
+        if self.backend == "device":
+            self._rows.copy_(torch.as_tensor(array))
+        else:
+            self._rows[...] = array
+
+    def close(self) -> None:
+        """Drop the mmap backend's file (no-op on the other backends)."""
+        if self._file is not None:
+            self._rows = np.zeros((0, self.n_flat), np.float32)
+            self._file.close()
+            self._file = None
+
+    def __del__(self):
+        # an __init__ that raised leaves no _file behind
+        if getattr(self, "_file", None) is not None:
+            self.close()

@@ -24,18 +24,24 @@ time is charged to the module that launched it (:data:`LM_RANGES`,
 round only); a backward kernel is charged to the range of the forward op
 its autograd node came from (matched by sequence number).
 
+``--async-lag L`` builds every trainer with ``FedConfig(async_lag=L)``:
+the traced round is then the second, in which the first ``L`` chunk
+folds train on the previous round's model (the async engine,
+``core/async_rounds.py``).
+
 The first line is the card's name and power limit as ``nvidia-smi``
 reports them; the last is one JSON object with the same numbers.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_round [--lm-only]
+    PYTHONPATH=src python -m repro_torch.launch.profile_round [--lm-only] \
+        [--async-lag L]
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import subprocess
-import sys
 import time
 from collections import defaultdict
 
@@ -146,6 +152,7 @@ def profile_round(trainer: FederatedTrainer) -> dict:
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1])
     other = [kv for kv in ranked if _layer(kv[0]) == "other"][:TOP]
     return {"algorithm": trainer.fed.algorithm,
+            "async_lag": trainer.fed.async_lag,
             "wire": trainer.fed.comm_dtype
             + ("+topk+sr+ef" if trainer.wire.uses_deltas else ""),
             "engine": trainer.fed.agg_engine,
@@ -279,6 +286,7 @@ def profile_lm_round(trainer: FederatedTrainer) -> dict:
     by_module["fold"] = by_module.get("fold", 0.0) + sum(
         sec for name, sec in kernels.items() if "masked_agg" in name)
     return {"algorithm": trainer.fed.algorithm, "model": lm_cell.ARCH,
+            "async_lag": trainer.fed.async_lag,
             "n_flat": trainer.layout.n_flat, "traced_wall_s": wall,
             "device_busy_s": busy, "idle_share": 1.0 - busy / wall,
             "traced_peak_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -294,19 +302,26 @@ def profile_lm_round(trainer: FederatedTrainer) -> dict:
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--lm-only", action="store_true",
+                    help="trace the LM column only")
+    ap.add_argument("--async-lag", type=int, default=0,
+                    help="build every trainer with this async lag")
+    args = ap.parse_args()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
     rows = []
-    if "--lm-only" not in sys.argv[1:]:
-        rows = resnet_columns()
-    trainer = lm_cell.trainer(lm_cell.shards())
+    if not args.lm_only:
+        rows = resnet_columns(args.async_lag)
+    trainer = lm_cell.trainer(lm_cell.shards(), async_lag=args.async_lag)
     timed_round(trainer)             # warm-up: cuBLAS plans, allocator
     row = profile_lm_round(trainer)
     del trainer
-    print(f"LM fedhen, gemma2-2b full width, n_flat {row['n_flat']:,}: "
+    print(f"LM fedhen async lag {args.async_lag}, gemma2-2b full width, "
+          f"n_flat {row['n_flat']:,}: "
           f"traced round {row['traced_wall_s']:.3f} s, device busy "
           f"{row['device_busy_s']:.3f} s, idle share "
           f"{row['idle_share']:.3f}; untraced round "
@@ -323,18 +338,19 @@ def main():
                       "card": card, "rounds": rows}), flush=True)
 
 
-def resnet_columns() -> list:
+def resnet_columns(async_lag: int = 0) -> list:
     shards = iid_split(synthetic_cifar(50_000, 10, seed=0), 100, seed=1)
     rows = []
     for algo, wire in RUNS:
         fed = FedConfig(n_devices=100, n_simple=50, participation=0.1,
                         local_epochs=1, batch_size=50, lr=0.1,
-                        algorithm=algo, **wire)
+                        algorithm=algo, async_lag=async_lag, **wire)
         trainer = FederatedTrainer(ResNetAdapter(10), fed, shards)
         timed_round(trainer)         # warm-up: cuDNN plans, allocator
         row = profile_round(trainer)
         rows.append(row)
-        print(f"{algo} on the {row['wire']} wire, {row['engine']} engine, "
+        print(f"{algo} async lag {async_lag} on the {row['wire']} wire, "
+              f"{row['engine']} engine, "
               f"variance reduction {row['variance_reduction']} (EF store: "
               f"{row['ef_backend']}, cv store: {row['cv_backend']}): "
               f"traced round "

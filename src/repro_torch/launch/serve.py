@@ -12,10 +12,13 @@ it was confident.
 Prefill runs K5 (flash attention) in every attention layer and K6 (the
 RG-LRU scan) in every RG-LRU layer on the card; decode is plain PyTorch,
 as the reference's decode is plain jnp.  Runs on ``cuda`` unless
-``--device cpu``:
+``--device cpu``.  ``--checkpoint PATH`` restores a bare params tree
+written by ``checkpoint.save_tree`` (by either package) into the freshly
+initialised params, as the reference does:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
-        --arch recurrentgemma-2b --batch 2 --prompt-len 32 --gen 8
+        --arch recurrentgemma-2b --batch 2 --prompt-len 32 --gen 8 \\
+        [--checkpoint params.npz]
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from repro_torch import configs
+from repro_torch.checkpoint.checkpoint import restore_tree
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
 
@@ -117,6 +121,17 @@ def generate(params, cfg, prompts: torch.Tensor, gen: int, *,
     return tokens, stats
 
 
+def load_params(cfg, seed: int, device, checkpoint: str = ""):
+    """The served params: drawn from ``seed`` on ``device``, then, with a
+    ``checkpoint``, restored from that bare params tree (a trainer
+    checkpoint's ``complex/...`` keys raise ``KeyError``, as in the
+    reference)."""
+    params = tfm.init_params(torch.Generator(device).manual_seed(seed), cfg)
+    if checkpoint:
+        params, _ = restore_tree(checkpoint, params)
+    return params
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="gemma2-2b")
@@ -132,15 +147,10 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
-    if args.checkpoint:
-        raise NotImplementedError("--checkpoint: restoring a checkpoint is "
-                                  "not ported to repro_torch yet "
-                                  "(ROADMAP.md §1)")
     device = resolve_device(args.device)
     cfg = (configs.get_reduced(args.arch) if args.reduced
            else configs.get_config(args.arch))
-    params = tfm.init_params(torch.Generator(device).manual_seed(args.seed),
-                             cfg)
+    params = load_params(cfg, args.seed, device, args.checkpoint)
     prompts = torch.randint(
         0, cfg.vocab_size, (args.batch, args.prompt_len), device=device,
         generator=torch.Generator(device).manual_seed(args.seed + 1))

@@ -4,10 +4,11 @@ Runs the paper's protocol end to end, on the card by default: the
 ResNet/CIFAR setting on synthetic CIFAR-shaped data (``--model resnet``),
 or a ported decoder LM of the zoo on ``synthetic_lm`` token streams
 (``--model lm --arch NAME [--reduced]``).  Takes the flags of
-``repro.launch.train`` that the port supports so far, plus ``--device``;
-argparse rejects every other flag.  The LM data's Markov chain draws from
-the model's first :data:`DATA_VOCAB_CAP` token ids at most (its table is
-vocab x vocab f32: 262 GB at Gemma-2's 256,000).
+``repro.launch.train`` that the port supports so far (all but the two
+telemetry flags), plus ``--device``; argparse rejects every other flag.
+The LM data's Markov chain draws from the model's first
+:data:`DATA_VOCAB_CAP` token ids at most (its table is vocab x vocab f32:
+262 GB at Gemma-2's 256,000).
 
 Examples (on a machine with a CUDA card):
     PYTHONPATH=src python -m repro_torch.launch.train --model resnet \
@@ -32,15 +33,25 @@ Examples (on a machine with a CUDA card):
         --arch gemma2-2b --reduced --device cpu --rounds 3 --clients 8 \
         --participation 0.5 --local-epochs 1 --batch-size 4 \
         --data-points 64 --seq-len 16 --eval-every 1
+    # async rounds (lag 2) saved every round, then resumed to round 5
+    PYTHONPATH=src python -m repro_torch.launch.train --model lm \
+        --arch gemma2-2b --reduced --device cpu --rounds 3 --clients 8 \
+        --participation 0.5 --local-epochs 1 --batch-size 4 \
+        --data-points 64 --seq-len 16 --eval-every 1 --async-lag 2 \
+        --checkpoint run.ckpt --checkpoint-every 1
+    PYTHONPATH=src python -m repro_torch.launch.train ... --rounds 5 \
+        --async-lag 2 --checkpoint run.ckpt --checkpoint-every 1 --resume
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 from repro_torch import configs
+from repro_torch.checkpoint.checkpoint import restore_trainer, save_trainer
 from repro_torch.configs.base import FedConfig
 from repro_torch.core.adapters import LMAdapter, ResNetAdapter
 from repro_torch.core.federated import FederatedTrainer, rounds_to_target
@@ -68,6 +79,8 @@ def build_trainer(args) -> tuple:
         topk_frac=args.topk_frac,
         stochastic_rounding=args.stochastic_rounding,
         error_feedback=args.error_feedback,
+        async_lag=args.async_lag, async_staleness=args.staleness,
+        async_decay=args.staleness_decay,
         variance_reduction=args.variance_reduction,
         state_store_backend=args.state_store_backend)
     if args.model == "resnet":
@@ -160,6 +173,18 @@ def build_parser() -> argparse.ArgumentParser:
                          "flat state-store row and add it to its next "
                          "upload; needs a lossy upload (bf16/int8 wire or "
                          "--topk-frac < 1)")
+    ap.add_argument("--async-lag", type=int, default=0,
+                    help="bounded broadcast staleness in chunk folds: "
+                         "chunk t of a round trains on the server model "
+                         "published at fold t - lag (the first lag chunks "
+                         "overlap the previous round's fold); 0 = "
+                         "synchronous")
+    ap.add_argument("--staleness", default="poly", choices=("poly", "none"),
+                    help="weighting of stale uploads: 'poly' = FedAsync "
+                         "1/(1+s)^a decay, 'none' = full weight")
+    ap.add_argument("--staleness-decay", type=float, default=0.5,
+                    help="exponent a of the polynomial staleness decay "
+                         "1/(1+s)^a")
     ap.add_argument("--variance-reduction", default="none",
                     choices=("none", "scaffold"),
                     help="'scaffold' keeps a control variate per client in "
@@ -180,6 +205,19 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seq-len", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--eval-every", type=int, default=5)
+    ap.add_argument("--checkpoint", default="",
+                    help="trainer checkpoint path (npz, written at exactly "
+                         "this path)")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="save the trainer every this many rounds")
+    ap.add_argument("--checkpoint-format", default="tree",
+                    choices=("tree", "flat"),
+                    help="'flat' saves ONE packed buffer per model through "
+                         "the wire encoder (int8 wires make it lossy, as "
+                         "the broadcast is)")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore --checkpoint (if it exists) and run the "
+                         "rounds from its round counter to --rounds")
     ap.add_argument("--target-simple", type=float, default=0.0)
     ap.add_argument("--history-out", default="")
     return ap
@@ -188,10 +226,31 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     trainer, test_batch = build_trainer(args)
+    say = lambda line: print(line, flush=True)
+    if args.async_lag:
+        eng = trainer.async_engine
+        steady = eng.schedule(10**9)
+        say(f"async rounds: lag={eng.lag} folds/round="
+            f"{eng.folds_per_round} versions={eng.n_versions} "
+            f"staleness/chunk={list(map(int, steady[0]))} + "
+            f"{list(map(int, steady[1]))} "
+            f"(weights {args.staleness}, a={args.staleness_decay})")
+    if args.resume and args.checkpoint and os.path.exists(args.checkpoint):
+        # the sampler is pure in (seed, round): restoring the round counter
+        # resumes the cohort sequence an uninterrupted run draws
+        restore_trainer(args.checkpoint, trainer,
+                        fmt=args.checkpoint_format)
+        say(f"resumed from round {trainer.server.round}")
+
+    def save(tr) -> None:
+        if args.checkpoint and args.checkpoint_every and \
+                tr.server.round % args.checkpoint_every == 0:
+            save_trainer(args.checkpoint, tr, fmt=args.checkpoint_format)
+
     t0 = time.time()
-    history = trainer.run(args.rounds, eval_every=args.eval_every,
-                          test_batch=test_batch,
-                          log=lambda line: print(line, flush=True))
+    history = trainer.run(max(args.rounds - trainer.server.round, 0),
+                          eval_every=args.eval_every, test_batch=test_batch,
+                          log=say, after_round=save)
     dt = time.time() - t0
     print(f"\n{args.algorithm}: {args.rounds} rounds in {dt:.1f}s "
           f"({trainer.total_bytes / 1e6:.1f} MB communicated)")

@@ -119,9 +119,9 @@ def test_trainer_raises_without_cuda(monkeypatch):
 def test_train_cli_rejects_unported_flags_and_needs_a_device(monkeypatch):
     from repro_torch.launch import train
     with pytest.raises(SystemExit):
-        train.build_parser().parse_args(["--async-lag", "2"])
+        train.build_parser().parse_args(["--telemetry"])
     with pytest.raises(SystemExit):
-        train.build_parser().parse_args(["--checkpoint", "ckpt.npz"])
+        train.build_parser().parse_args(["--telemetry-out", "run.jsonl"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train.build_trainer(train.build_parser().parse_args(
             ["--model", "lm", "--arch", "xlstm-1.3b", "--reduced",

@@ -284,5 +284,5 @@ def test_serve_main_defaults_to_the_card():
         pytest.skip("a card is present: the default device would run")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--gen", "2"])
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        serve.main(["--checkpoint", "x.npz", "--device", "cpu"])
+    with pytest.raises(FileNotFoundError):
+        serve.main(["--checkpoint", "missing.npz", "--device", "cpu"])
