@@ -121,7 +121,27 @@ which raises on failure:
    largest difference printed; phase 8's narrow configs (f32, bf16)
    restored from ``save_tree`` by ``serve.load_params`` serve prefill
    logits bitwise equal to the in-memory params', and ``serve.main
-   --checkpoint`` runs on both reduced archs (K5, K6 launched).
+   --checkpoint`` runs on both reduced archs (K5, K6 launched);
+13. telemetry (``repro_torch.obs``), telemetry off in phases 1-12: at the
+   ResNet round cell (f32 fedhen), (a) two runs of 2 rounds from the same
+   seed without ``cudnn.deterministic``, bitwise or not (printed); (b)
+   telemetry off against ``Telemetry([NullSink()])``, 2 rounds each,
+   bitwise in params, metrics and bytes with K1's 2 launches a round
+   (under deterministic cuDNN if (a) was not bitwise); (c) 2 rounds sync
+   and 2 async lag 1 on the tree engine (K4 2 a round) into JSONL run logs
+   (a temporary directory, removed after), each summarized by
+   ``repro_torch.obs.report`` and checked against its trainer (rounds,
+   byte total, one ``execute`` span a round, the kernel library's
+   ``compile`` span in round 0 only, the health counters and ledgers), its
+   report's rounds, comm and health sections printed; (d) the LM round
+   cell with telemetry, 16 fedhen rounds evaluated every 4: round walls,
+   peak, K1's 2 launches a round, the byte ledger against the closed form
+   33,107,097,600 a round; then the trained model served at phase 7's
+   gemma2-2b cell (batch 1, prompt 8192, 8 new tokens, greedy) from a
+   ``synthetic_lm`` prompt and a random one, at exit threshold 0 and 0.3,
+   with the exit head's agreement and confidence (a measurement, not a
+   gate); (e) alternate rounds of an off trainer and an on one (null sink,
+   then JSONL sink), 4 each, median walls printed.
 
 Kernel times are device times (``time_ms``: a CUDA graph of the timed
 calls between two events, so the host's launch rate does not enter).  The
@@ -129,12 +149,15 @@ second-to-last line is one JSON object ``{"kernels": [...]}`` (K1-K4,
 both K5 kernels, K6; K1 and K4 with their launches on the LM path of
 phase 9 beside phase 4's, and their LM-shape times; K1-K4 with their
 launches on phase 11's async path, K5 and K6 with theirs on phase 12's
-serving from checkpoints); the last is
+serving from checkpoints; K1-K4 with their launches on phase 13's
+telemetry path, the tensor-core K5 with its serving of the trained model
+there); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -1958,6 +1981,366 @@ def serve_checkpoint(torch) -> tuple:
     return launched
 
 
+# -- phase 13: telemetry ------------------------------------------------------
+
+LM_TEL_ROUNDS, LM_TEL_EVAL = 16, 4
+LM_ROUND_BYTES = 33_107_097_600      # the LM cell's f32 wire, down + up
+TEL_SERVE = (1, 8192, 8)             # phase 7's gemma2-2b cell: batch,
+                                     # prompt, new tokens
+EXIT_THRESHOLD = 0.3                 # the exit head's confidence threshold
+OVERHEAD_ROUNDS = 4
+
+
+def _resnet_trainer(shards, telemetry=None, **kw):
+    """The ResNet round cell's f32 fedhen trainer (phase 4's config)."""
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.core.adapters import ResNetAdapter
+    from repro_torch.core.federated import FederatedTrainer
+    return FederatedTrainer(
+        ResNetAdapter(10), FedConfig(algorithm="fedhen", **RESNET_FED, **kw),
+        shards, device="cuda", telemetry=telemetry)
+
+
+def _timed_rounds(torch, trainer, n: int) -> tuple:
+    """``n`` rounds, each timed between two synchronizes: (metrics,
+    walls)."""
+    ms, walls = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ms.append(trainer.run_round())
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    return ms, walls
+
+
+def _run_of(torch, ops, trainer, rounds: int, per_round: tuple) -> tuple:
+    """``rounds`` rounds of ``trainer`` with K1-K4's launches counted from
+    0 and checked against ``per_round``: ((metrics, packed server, bytes),
+    walls, launches)."""
+    _zero_counts(ops)
+    ms, walls = _timed_rounds(torch, trainer, rounds)
+    launched = _counts(ops)
+    want = tuple(rounds * n for n in per_round)
+    if launched != want:
+        raise RuntimeError(f"telemetry phase: launches K1/K2/K3/K4 "
+                           f"{launched}, expected {want}")
+    state = (ms, _flat_server(trainer),
+             (trainer.total_bytes_down, trainer.total_bytes_up))
+    return state, walls, launched
+
+
+def _same_run(a: tuple, b: tuple) -> tuple:
+    """(bitwise equal, params max|diff|) of two ``_run_of`` states."""
+    diff = max(float((x - y).abs().max()) for x, y in zip(a[1], b[1]))
+    return diff == 0.0 and a[0] == b[0] and a[2] == b[2], diff
+
+
+def _add(total: tuple, launched: tuple) -> tuple:
+    return tuple(x + y for x, y in zip(total, launched))
+
+
+def _median(xs) -> float:
+    xs = sorted(xs)
+    n = len(xs)
+    return xs[n // 2] if n % 2 else (xs[n // 2 - 1] + xs[n // 2]) / 2
+
+
+def _check_log(torch, trainer, events, rounds: int, per_round: tuple
+               ) -> dict:
+    """Phase 13(c)'s checks of one JSONL run log against its trainer:
+    ``summarize``'s round count and byte total, one ``execute`` span a
+    round, one ``compile`` span, in round 0, and the health counters and
+    ledgers against the trainer's state.  Returns the summary."""
+    from repro_torch.obs import report
+    s = report.summarize(events)
+    h = s["health"]
+    eng = trainer.async_engine
+    spans = lambda name: [e["round"] for e in events
+                          if e["kind"] == "span" and e["name"] == name]
+    want = {
+        "n_rounds": (s["rounds"]["n_rounds"], rounds),
+        "cum_total": (s["comm"]["cum_total"], trainer.total_bytes),
+        "execute rounds": (spans("execute"), list(range(rounds))),
+        # the kernel library's load, on the card only
+        "compile rounds": (spans("compile"),
+                           [0] if trainer.device.type == "cuda" else []),
+        "nan_excluded_devices": (h["nan_excluded_devices"], 0),
+        "padding_weight0_clients": (h["padding_weight0_clients"], 0),
+        "client_state_bytes": (h["client_state_bytes"],
+                               trainer.client_state.nbytes),
+        "participation_hist": (
+            h["participation_hist"],
+            trainer.client_state.participation_histogram()),
+        "version cache": ((h["version_cache_hit"], h["version_cache_miss"]),
+                          (eng.cache_hits, eng.cache_misses)
+                          if eng is not None else (0, 0)),
+    }
+    if eng is not None:
+        hist = {}
+        for r in range(rounds):
+            for v in list(eng.schedule(r)[0]) + list(eng.schedule(r)[1]):
+                hist[str(int(v))] = hist.get(str(int(v)), 0) + 1
+        want["staleness_hist"] = (h["staleness_hist"], hist)
+    bad = {k: v for k, v in want.items() if v[0] != v[1]}
+    if bad:
+        raise RuntimeError(f"telemetry run log disagrees with its trainer: "
+                           f"{bad}")
+    return s
+
+
+def _nondeterministic_op(torch, shards) -> dict:
+    """The first ATen op whose outputs differ between two runs of one
+    full-width complex client's first SGD step (forward and backward of
+    ``loss_side`` over its first 50 images) from the same params, cuDNN
+    as configured; ``None`` if the two op streams agree bitwise."""
+    from repro_torch.core.adapters import ResNetAdapter
+    from repro_torch.launch.probe_ce_fork import OpRecord, op_diff
+    from repro_torch.tree import tree_leaves, tree_map
+    adapter = ResNetAdapter(10)
+    params = adapter.init(torch.Generator().manual_seed(0), "cuda")
+    batch = {k: v[:50] for k, v in shards[-1].items()}
+    runs = []
+    for _ in range(2):
+        p = tree_map(lambda x: x.detach().clone().requires_grad_(True),
+                     params)
+        with OpRecord(keep_on="cuda") as rec:
+            loss = adapter.loss_side(p, batch)
+            torch.autograd.grad(loss, tree_leaves(p), allow_unused=True)
+        runs.append(rec.ops)
+    for k, ((name, a), (_, b)) in enumerate(zip(*runs)):
+        diffs = [op_diff(y.cpu(), x.cpu()) for x, y in zip(a, b)]
+        if any(d for d, _ in diffs):
+            return {"at": k, "of": len(runs[0]), "op": name,
+                    "max_abs": max(d for d, _ in diffs),
+                    "outside": sum(o for _, o in diffs),
+                    "shapes": [list(x.shape) for x in a]}
+    return None
+
+
+def telemetry_resnet(torch, ops) -> tuple:
+    """Phase 13 (a), (b), (c), (e) at the ResNet round cell (f32 fedhen,
+    phase 4's configuration).  Returns (K1-K4 launches over them, the
+    printed numbers)."""
+    from repro_torch.obs import report
+    from repro_torch.obs import telemetry as obslib
+
+    shards, _ = resnet_cell_data(torch)
+    out, total = {}, (0, 0, 0, 0)
+    # (a) determinism: the same seed twice, no deterministic setting
+    runs = []
+    for _ in range(2):
+        tr = _resnet_trainer(shards)
+        state, walls, launched = _run_of(torch, ops, tr, 2, (2, 0, 0, 0))
+        runs.append((state, walls))
+        total = _add(total, launched)
+        del tr
+    bitwise, diff = _same_run(runs[0][0], runs[1][0])
+    untraced = runs[0][1] + runs[1][1]
+    out["determinism"] = {"bitwise": bitwise, "params_max_abs": diff,
+                          "walls": untraced}
+    print(f"  (a) ResNet f32 fedhen, 2 rounds twice from seed 0, cuDNN "
+          f"as configured (deterministic={torch.backends.cudnn.deterministic}"
+          f", benchmark={torch.backends.cudnn.benchmark}): "
+          f"{'bitwise' if bitwise else 'NOT bitwise'}; params max|diff| "
+          f"{diff:.3e}; metrics {runs[0][0][0]} / {runs[1][0][0]}; walls "
+          f"{[round(w, 4) for w in untraced]}", flush=True)
+    if not bitwise:
+        out["determinism"]["first_op"] = first = _nondeterministic_op(
+            torch, shards)
+        print(f"  (a) one complex client's first step twice from the same "
+              f"params: first op whose outputs differ {json.dumps(first)}",
+              flush=True)
+    # (b) a null sink steers nothing (under deterministic cuDNN if (a)
+    # was not bitwise: otherwise the comparison could not be)
+    with (contextlib.nullcontext() if bitwise else _Deterministic(torch)):
+        off, null = (_resnet_trainer(shards, tel) for tel in (
+            None, obslib.Telemetry([obslib.NullSink()])))
+        (s_off, _, l_off), (s_null, _, l_null) = (
+            _run_of(torch, ops, tr, 2, (2, 0, 0, 0)) for tr in (off, null))
+    total = _add(_add(total, l_off), l_null)
+    same, diff = _same_run(s_off, s_null)
+    out["null_sink"] = {"bitwise": same, "params_max_abs": diff,
+                        "deterministic_cudnn": not bitwise}
+    cudnn = "cuDNN as configured" if bitwise else "under deterministic cuDNN"
+    print(f"  (b) telemetry off against Telemetry([NullSink()]), 2 rounds "
+          f"each, {cudnn}: {'bitwise' if same else 'NOT bitwise'} (params "
+          f"max|diff| "
+          f"{diff:.3e}; metrics {s_null[0]}; bytes {s_null[2]}; K1 "
+          f"launches {l_off[0]} / {l_null[0]})", flush=True)
+    if not same:
+        raise RuntimeError(f"a null sink changed the round: params "
+                           f"max|diff| {diff}, metrics {s_off[0]} / "
+                           f"{s_null[0]}, bytes {s_off[2]} / {s_null[2]}")
+    # (c) JSONL run logs, checked against their trainers
+    tmp = tempfile.mkdtemp(prefix="telemetry_")
+    try:
+        out["logs"] = {}
+        jsonl_tr = None
+        for label, kw, per_round in (
+                ("sync f32", {}, (2, 0, 0, 0)),
+                ("async lag 1 tree", dict(async_lag=1, agg_engine="tree"),
+                 (0, 0, 0, 2))):
+            path = os.path.join(tmp, label.replace(" ", "_") + ".jsonl")
+            tel = obslib.Telemetry([obslib.JsonlSink(path)])
+            tr = _resnet_trainer(shards, tel, **kw)
+            _, walls, launched = _run_of(torch, ops, tr, 2, per_round)
+            total = _add(total, launched)
+            tel.close()
+            events = obslib.read_jsonl(path)
+            s = _check_log(torch, tr, events, 2, per_round)
+            text = report.render(s)
+            keep = text[text.index("-- rounds --"):]
+            print(f"  (c) {label}: {len(events)} events, checks passed; "
+                  f"launches K1/K2/K3/K4 {launched}; execute median "
+                  f"{s['rounds']['execute_median_s']:.4f} s beside an "
+                  f"untraced round's {_median(untraced):.4f} s (a); "
+                  f"compile (kernel library load) "
+                  f"{s['rounds']['compile_s']:.4f} s; report:", flush=True)
+            for ln in keep.splitlines():
+                print("      " + ln, flush=True)
+            out["logs"][label] = {
+                "events": len(events), "walls": walls,
+                "execute_median_s": s["rounds"]["execute_median_s"],
+                "compile_s": s["rounds"]["compile_s"],
+                "phase_wall": s["rounds"]["phase_wall"], "comm": s["comm"]}
+            if label == "sync f32":
+                jsonl_tr = tr
+            else:
+                del tr
+        # (e) overhead: alternate rounds of the off trainer and an on one
+        out["overhead"] = {}
+        for label, on in (("null sink", null), ("jsonl sink", jsonl_tr)):
+            w_off, w_on = [], []
+            for _ in range(OVERHEAD_ROUNDS):
+                for tr, walls in ((off, w_off), (on, w_on)):
+                    _, w, launched = _run_of(torch, ops, tr, 1,
+                                             (2, 0, 0, 0))
+                    walls += w
+                    total = _add(total, launched)
+            out["overhead"][label] = {"off": w_off, "on": w_on}
+            print(f"  (e) {label}: median round wall off "
+                  f"{_median(w_off):.4f} s, on {_median(w_on):.4f} s "
+                  f"({(_median(w_on) / _median(w_off) - 1) * 100:+.2f} %); "
+                  f"off {[round(w, 4) for w in w_off]}, on "
+                  f"{[round(w, 4) for w in w_on]}", flush=True)
+        del off, null, jsonl_tr
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return total, out
+
+
+def telemetry_lm(torch, ops) -> tuple:
+    """Phase 13 (d): the LM round cell (Gemma-2 2B at full width) with
+    telemetry on, 16 fedhen rounds evaluated every 4, then its trained
+    server model served at phase 7's gemma2-2b cell.  Returns (K1
+    launches, tensor-core K5 launches, the printed numbers)."""
+    import gc
+
+    from repro_torch.data.synthetic import synthetic_lm
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch import lm_cell as cell
+    from repro_torch.launch.serve import generate
+    from repro_torch.obs import telemetry as obslib
+
+    # an async trainer and its engine refer to each other: only the
+    # cycle collector frees an earlier phase's LM trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  (d) {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+          f"before the LM trainer is built", flush=True)
+    shards = cell.shards("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    mem = obslib.MemorySink()
+    tr = cell.trainer(shards, "fedhen", device="cuda",
+                      telemetry=obslib.Telemetry([mem]))
+    _zero_counts(ops)
+    t0 = time.perf_counter()
+    tr.run(LM_TEL_ROUNDS, eval_every=LM_TEL_EVAL,
+           test_batch=cell.test_batch())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = _counts(ops)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rounds = [e["dur_s"] for e in mem.named("round")]
+    execs = [e["dur_s"] for e in mem.named("execute")]
+    ledgers = [e["values"] for e in mem.named("comm_bytes")]
+    evals = [(e["round"], e["values"]) for e in mem.named("eval")]
+    out = {"round_s": rounds, "execute_s": execs, "peak_gib": peak,
+           "wall_s": wall, "launches": launched,
+           "eval": [(r, {k: v[k] for k in ("loss_complex", "loss_simple",
+                                           "acc_complex", "acc_simple")})
+                    for r, v in evals]}
+    print(f"  (d) Gemma-2 2B, {LM_TEL_ROUNDS} fedhen rounds with telemetry "
+          f"in {wall:.2f} s: round walls {[round(x, 4) for x in rounds]}; "
+          f"execute {[round(x, 4) for x in execs]}; peak {peak:.2f} GiB; "
+          f"launches K1/K2/K3/K4 {launched}", flush=True)
+    for r, v in out["eval"]:
+        print(f"      eval after round {r}: {json.dumps(v)}", flush=True)
+    for e in mem.named("log"):
+        print("      " + e["message"], flush=True)
+    bad_bytes = [i for i, led in enumerate(ledgers)
+                 if led["down"] + led["up"] != LM_ROUND_BYTES]
+    if launched != (2 * LM_TEL_ROUNDS, 0, 0, 0) or bad_bytes or \
+            len(ledgers) != LM_TEL_ROUNDS or \
+            ledgers[-1]["cum_total"] != tr.total_bytes or \
+            len(evals) != LM_TEL_ROUNDS // LM_TEL_EVAL or not all(
+                math.isfinite(v["loss_complex"]) for _, v in evals):
+        raise RuntimeError(f"LM telemetry run: launches {launched}, rounds "
+                           f"off the byte closed form {bad_bytes}, "
+                           f"{len(ledgers)} byte ledgers, evals {evals}")
+    params, cfg = tr.server.complex, tr.adapter.cfg
+    del tr, shards, mem
+    gc.collect()
+    torch.cuda.empty_cache()
+    # serve the trained model at phase 7's gemma2-2b cell
+    batch, prompt, gen = TEL_SERVE
+    prompts = {
+        "synthetic_lm": torch.as_tensor(synthetic_lm(
+            batch, prompt, cell.DATA_VOCAB, seed=7)["tokens"][:, :prompt]
+        ).cuda(),
+        "random": torch.randint(0, cfg.vocab_size, (batch, prompt),
+                                device="cuda", generator=torch.Generator(
+                                    "cuda").manual_seed(1))}
+    out["serve"] = []
+    tc = 0
+    for name, toks in prompts.items():
+        for threshold in (0.0, EXIT_THRESHOLD):
+            flash_attention.launches_tc = 0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            tokens, stats = generate(params, cfg, toks, gen,
+                                     adaptive_threshold=threshold)
+            torch.cuda.synchronize()
+            row = {"prompt": name, "threshold": threshold,
+                   "s": time.perf_counter() - t,
+                   "k5_launches": flash_attention.launches_tc, **stats}
+            print("      serve " + json.dumps(row), flush=True)
+            if tuple(tokens.shape) != (batch, prompt + gen) or \
+                    row["k5_launches"] != SERVE_RUNS[1][4][0]:
+                raise RuntimeError(f"serving the trained model: {row}")
+            tc += row["k5_launches"]
+            out["serve"].append(row)
+    del params, prompts
+    torch.cuda.empty_cache()
+    return launched[0], tc, out
+
+
+def telemetry_phase(torch, ops) -> tuple:
+    """Phase 13: telemetry on the card.  Returns (K1-K4 launches over the
+    phase, tensor-core K5 launches, the printed numbers)."""
+    t = time.perf_counter()
+    total, out = telemetry_resnet(torch, ops)
+    lm_k1, k5, out["lm"] = telemetry_lm(torch, ops)
+    total = (total[0] + lm_k1,) + total[1:]
+    print(f"  telemetry phase launches K1/K2/K3/K4 {total}, K5 (tensor "
+          f"cores) {k5}, in {time.perf_counter() - t:.1f} s", flush=True)
+    if not (total[0] and total[3]):
+        raise RuntimeError(f"telemetry path launches K1/K2/K3/K4 {total}: "
+                           f"K1 or K4 never ran")
+    return total, k5, out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2043,6 +2426,11 @@ def main() -> int:
     del resnet_tr, resnet_shards
     resume_card(torch)
     serve_launches = serve_checkpoint(torch)
+    torch.cuda.empty_cache()
+    # 13. telemetry
+    print("[13] telemetry: determinism, null sink, run logs, Gemma-2 2B "
+          "trained and served, overhead", flush=True)
+    tel_launches, tel_k5, _ = telemetry_phase(torch, ops)
 
     src = "src/repro_torch/kernels/masked_agg/csrc/"
     kernels = []
@@ -2070,6 +2458,10 @@ def main() -> int:
     for kernel, launches in zip(kernels, async_launches):
         kernel["launches_async"] = launches
         kernel["launches_async_path"] = "phase 11: async rounds"
+    for kernel, launches in zip(kernels, tel_launches):
+        kernel["launches_telemetry"] = launches
+        kernel["launches_telemetry_path"] = ("phase 13: rounds with "
+                                             "telemetry")
     for i, key, fold in ((0, "k1", "complex"),
                          (3, "k4", "tree fold, every leaf, one launch")):
         head = lm[key]["timing"][0]     # the complex client's fold
@@ -2102,6 +2494,9 @@ def main() -> int:
             "tflops": head["tflops"], "cases": rows})
     kernels[-2]["launches_checkpoint"] = serve_launches[0]
     kernels[-1]["launches_checkpoint"] = serve_launches[1]
+    kernels[-2]["launches_telemetry"] = tel_k5
+    kernels[-2]["launches_telemetry_path"] = ("phase 13: serving the "
+                                              "trained Gemma-2 2B")
     head = k6["timing"][0]
     kernels.append({
         "name": "lru_scan", "route": "cuda",

@@ -26,6 +26,13 @@ The port of ``repro.core.aggregate``'s three entry points:
 SCAFFOLD adds a flat ``cv_acc`` to either state: the control-variate
 deltas fold through one more K1 launch (:func:`_fold_cv`) on both engines.
 
+:class:`EngineSpec` is the reference's one frozen description of a fold
+engine, built once per trainer from its ``FedConfig``;
+:func:`engine_attrs` turns it into the plain scalars of the telemetry
+``run_config`` ledger, the reference's strings included.  The reference's
+``make_engine`` (and the deprecated loose-kwarg shims) are not ported:
+the port's round calls the streaming functions directly.
+
 **Weight contract** (the reference's): ``valid`` is a per-client
 coefficient; a weight of 0 gates the client's values before the multiply
 (a NaN device at weight 0 can never poison the sums).
@@ -33,7 +40,8 @@ coefficient; a weight of 0 gates the client's values before the multiply
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+import dataclasses
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -45,6 +53,92 @@ from repro_torch.kernels.masked_agg.ops import (fold_plan, masked_agg_acc_,
 from repro_torch.tree import Tree, tree_leaves, tree_map
 
 ALGORITHMS = ("fedhen", "noside", "decouple")
+
+
+# ---------------------------------------------------------------------------
+# EngineSpec: the one object a fold engine is configured by
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class EngineSpec:
+    """Everything a fold engine is configured by, in one frozen value
+    (the reference's ``aggregate.EngineSpec``).  Built once with
+    :meth:`from_config`; values the config cannot know (the mask tree, the
+    layout, the flat mask) are attached with :meth:`bind`.  ``eq=False``:
+    the mask fields hold tensors, so only identity compares."""
+
+    engine: str = "flat"
+    algorithm: str = "fedhen"
+    mask: Tree = None
+    layout: Optional[flatten.FlatLayout] = None
+    flat_mask: Optional[torch.Tensor] = None
+    block_n: int = 2048
+    stream_dtype: Any = torch.float32
+    wire: Optional[comm.WireSpec] = None
+    variance_reduction: str = "none"
+
+    def __post_init__(self):
+        if self.engine not in ("flat", "tree"):
+            raise ValueError(f"unknown agg engine {self.engine!r}")
+        if self.algorithm not in ALGORITHMS:
+            raise ValueError(self.algorithm)
+        if (self.engine == "tree" and self.wire is not None
+                and self.wire.is_quantized):
+            raise ValueError("int8 wire requires the flat engine "
+                             "(dequantizing fold is a flat-buffer op)")
+        if (self.engine == "tree" and self.wire is not None
+                and self.wire.uses_deltas):
+            raise ValueError("compressed uploads (topk/stochastic/"
+                             "error-feedback wire) require the flat engine "
+                             "(the delta fold is a flat-buffer op)")
+
+    @classmethod
+    def from_config(cls, fed, *, mask: Tree = None,
+                    layout: Optional[flatten.FlatLayout] = None,
+                    flat_mask: Optional[torch.Tensor] = None,
+                    wire: Optional[comm.WireSpec] = None) -> "EngineSpec":
+        """Build the spec from a ``FedConfig`` (the knobs' one source)."""
+        return cls(engine=fed.agg_engine, algorithm=fed.algorithm,
+                   mask=mask, layout=layout, flat_mask=flat_mask,
+                   block_n=fed.agg_block_n,
+                   stream_dtype=getattr(torch, fed.agg_stream_dtype),
+                   wire=wire, variance_reduction=fed.variance_reduction)
+
+    def bind(self, **kw) -> "EngineSpec":
+        """A copy with further values attached (mask, layout,
+        flat_mask, ...)."""
+        return dataclasses.replace(self, **kw)
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    """A torch dtype as numpy and JAX spell it: ``"float32"``,
+    ``"bfloat16"``, ``"int8"`` (not ``"torch.float32"``)."""
+    return str(dtype).rpartition(".")[2]
+
+
+def engine_attrs(spec: EngineSpec) -> dict:
+    """Static description of a configured fold engine as plain scalars:
+    what the telemetry ``run_config`` ledger records about the fold path,
+    with the reference's keys and values (dtypes spelled as numpy and JAX
+    spell them)."""
+    attrs = {
+        "agg_engine": spec.engine,
+        "algorithm": spec.algorithm,
+        "agg_block_n": int(spec.block_n),
+        "agg_stream_dtype": _dtype_name(spec.stream_dtype),
+        "variance_reduction": spec.variance_reduction,
+    }
+    if spec.wire is not None:
+        attrs.update({
+            "wire_dtype": _dtype_name(spec.wire.payload_dtype),
+            "wire_quantized": bool(spec.wire.is_quantized),
+            "wire_quant_block": int(spec.wire.quant_block)
+            if spec.wire.is_quantized else 0,
+            "wire_topk_frac": float(spec.wire.topk_frac),
+            "wire_stochastic": bool(spec.wire.stochastic),
+            "wire_error_feedback": bool(spec.wire.error_feedback),
+        })
+    return attrs
 
 
 # ---------------------------------------------------------------------------

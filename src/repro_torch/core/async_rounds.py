@@ -31,7 +31,15 @@ chunks fold at exactly 1.0, which is why lag 0 is bitwise.
 The engine shares the synchronous machinery: the trainer's client
 trainers, folds and finalize, and the ONE chunk stream
 ``federated.stream_population`` with its async extras, through
-``FederatedTrainer._train_and_fold``.
+``FederatedTrainer._execute`` and ``_commit``.
+
+**Telemetry** rides the trainer's registry: a ``round`` span with
+``engine="async"`` and the lag, ``sample_gather``, ``execute`` (the
+versions' wire trips happen inside it, as the reference decodes its stack
+inside its jit), the phase spans with each chunk's staleness, then
+:meth:`AsyncRoundEngine._emit_async_health` (the ``staleness_hist``
+ledger, the version-cache hit / miss counters as per-round deltas) and
+the trainer's health counters and ledgers.
 """
 
 from __future__ import annotations
@@ -99,6 +107,7 @@ class AsyncRoundEngine:
         self._reset_versions()
         self.last_bytes_down = 0.0
         self.last_bytes_up = 0.0
+        self._dispatch = federated.RoundDispatch(trainer.obs, trainer.device)
 
     # -- versions ------------------------------------------------------------
 
@@ -106,8 +115,11 @@ class AsyncRoundEngine:
         """(Re)seed the versions from the trainer's CURRENT server: every
         stale slot becomes the current model (the history of a replaced
         server is unknown), and the clients' cached version tags are
-        wiped.  Called at construction and when ``trainer.server`` was
-        replaced from outside the engine (checkpoint restore)."""
+        wiped, and so are the cumulative cache tallies (telemetry emits
+        their per-round deltas, so where the last round left off is
+        remembered too).  Called at construction and when
+        ``trainer.server`` was replaced from outside the engine
+        (checkpoint restore)."""
         tr = self.trainer
         depth = self.n_versions - 1
         self._stale: List[Tree] = [tr.server.complex] * depth
@@ -115,6 +127,7 @@ class AsyncRoundEngine:
         tr.client_state.reset_version_tags()
         self.cache_hits = 0
         self.cache_misses = 0
+        self._seen_cache_counts = (0, 0)
         self._published_server = tr.server
 
     def versions(self) -> List[Tree]:
@@ -168,41 +181,71 @@ class AsyncRoundEngine:
 
     # -- the round -----------------------------------------------------------
 
+    def _emit_async_health(self, s_s, s_c) -> None:
+        """Async client health: the round's per-chunk staleness histogram
+        (``{staleness: chunk count}`` over the fold stream) and the
+        version-cache hit / miss deltas of the round (a hit is a stale
+        broadcast the client already held, which the billing credits)."""
+        obs = self.trainer.obs
+        hist: dict = {}
+        for s in list(s_s) + list(s_c):
+            hist[int(s)] = hist.get(int(s), 0) + 1
+        obs.ledger("staleness_hist",
+                   {str(k): v for k, v in sorted(hist.items())})
+        seen_h, seen_m = self._seen_cache_counts
+        obs.counter("version_cache_hit", self.cache_hits - seen_h)
+        obs.counter("version_cache_miss", self.cache_misses - seen_m)
+        self._seen_cache_counts = (self.cache_hits, self.cache_misses)
+
     def run_round(self) -> Dict[str, float]:
         """One async round: schedule the staleness, train and fold the
         chunk stream on the selected versions, publish the new model into
         the versions, and bill the bytes."""
         tr = self.trainer
-        if tr.server is not self._published_server:
-            # replaced from outside (checkpoint restore): the versions
-            # must follow it, or chunks would train on the discarded model
-            self._reset_versions()
-        start = tr.server
-        r = start.round
-        s_s, s_c = self.schedule(r)
-        weight = lambda s: staleness_weight(
-            s, scheme=tr.fed.async_staleness,
-            decay=tr.fed.async_decay).to(tr.device)
-        plan = tr.sampler.plan(r)
-        src_c = self._sources([start.complex] + self._stale)
-        src_s = (self._sources([start.simple_host] + self._stale_host)
-                 if tr.fed.algorithm == "decouple" else src_c)
-        metrics = tr._train_and_fold(plan, src_s, src_c,
-                                     (s_s, weight(s_s)), (s_c, weight(s_c)))
-        # publish: the round's starting model becomes one round stale
-        if self._stale:
-            self._stale = [start.complex] + self._stale[:-1]
-            self._stale_host = [start.simple_host] + self._stale_host[:-1]
-        self._published_server = tr.server
-        down = self._bill_download(plan, s_s, s_c, r)
-        # SCAFFOLD's cv exchange: c is republished every round (no version
-        # to cache), the c_i deltas ride the upload, both raw f32
-        down += float(plan.n_real_simple * tr.per_simple_cv_bytes
-                      + plan.n_real_complex * tr.per_complex_cv_bytes)
-        up = float(plan.n_real_simple * (tr.per_simple_bytes_up
-                                         + tr.per_simple_cv_bytes)
-                   + plan.n_real_complex * (tr.per_complex_bytes_up
-                                            + tr.per_complex_cv_bytes))
-        self.last_bytes_down, self.last_bytes_up = down, up
-        tr._add_bytes(down, up)
+        obs = tr.obs
+        obs.set_round(tr.server.round)
+        with obs.span("round", engine="async", lag=self.lag):
+            with obs.span("sample_gather"):
+                if tr.server is not self._published_server:
+                    # replaced from outside (checkpoint restore): the
+                    # versions must follow it, or chunks would train on
+                    # the discarded model
+                    self._reset_versions()
+                start = tr.server
+                r = start.round
+                s_s, s_c = self.schedule(r)
+                weight = lambda s: staleness_weight(
+                    s, scheme=tr.fed.async_staleness,
+                    decay=tr.fed.async_decay).to(tr.device)
+                w_s, w_c = weight(s_s), weight(s_c)
+                plan = tr.sampler.plan(r)
+                data = tr._gather(plan)
+            src_c = self._sources([start.complex] + self._stale)
+            src_s = (self._sources([start.simple_host] + self._stale_host)
+                     if tr.fed.algorithm == "decouple" else src_c)
+            metrics = tr._commit(plan, *self._dispatch(
+                tr._execute, plan, data, src_s, src_c, (s_s, w_s),
+                (s_c, w_c)))
+            # publish: the round's starting model becomes one round stale
+            if self._stale:
+                self._stale = [start.complex] + self._stale[:-1]
+                self._stale_host = [start.simple_host] + self._stale_host[:-1]
+            self._published_server = tr.server
+            down = self._bill_download(plan, s_s, s_c, r)
+            # SCAFFOLD's cv exchange: c is republished every round (no
+            # version to cache), the c_i deltas ride the upload, both raw
+            down += float(plan.n_real_simple * tr.per_simple_cv_bytes
+                          + plan.n_real_complex * tr.per_complex_cv_bytes)
+            up = float(plan.n_real_simple * (tr.per_simple_bytes_up
+                                             + tr.per_simple_cv_bytes)
+                       + plan.n_real_complex * (tr.per_complex_bytes_up
+                                                + tr.per_complex_cv_bytes))
+            self.last_bytes_down, self.last_bytes_up = down, up
+            tr._add_bytes(down, up)
+            if obs.enabled:
+                tr.emit_phases(down, (s_s, s_c))
+                self._emit_async_health(s_s, s_c)
+                tr._emit_round_health(
+                    metrics, down=down, up=up,
+                    k_real=plan.n_real_simple + plan.n_real_complex)
         return metrics

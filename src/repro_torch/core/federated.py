@@ -39,6 +39,21 @@ server version published ``ceil((lag - t) / F)`` rounds ago and folds at
 the staleness weight ``1 / (1 + s)^a`` times its validity, through the
 same :func:`stream_population` and the same folds.
 
+**Telemetry** (``repro_torch.obs``, the reference's event stream).  A
+trainer built with ``telemetry=`` emits a ``run_config`` ledger, and each
+round a ``round`` span (``engine="sync"``, or ``"async"`` with its lag)
+holding ``sample_gather``, ``execute`` (:class:`RoundDispatch`: on the
+card, the first round loads the kernel library under a ``compile`` span,
+and ``execute`` ends in ``torch.cuda.synchronize()``), the logical phase
+spans of :func:`emit_round_phases`, the client-health counters and the
+comm / client-state / store ledgers; ``run`` adds the ``eval`` ledger and
+the ``log`` line.  ``execute`` covers what the reference's one jitted
+round covers (broadcast through finalize); the store scatters, the
+client-state record and the server's publication follow it, as in the
+reference.  The reference's ``roofline`` ledger (a walk of the compiled
+HLO) has no counterpart yet.  Off (the default, :data:`obslib.NOOP`), no
+event is built and nothing is synchronized.
+
 **Minibatch order.**  The reference draws each epoch's permutation from
 threefry keys that PyTorch cannot reproduce, so the client trainer takes
 its index schedule from a provider: ``schedule(round, population, slot,
@@ -71,6 +86,8 @@ from repro_torch.configs.base import FedConfig
 from repro_torch.core import (aggregate, client_state, comm, flatten, masking,
                               sampling, state_store)
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import build
+from repro_torch.obs import telemetry as obslib
 from repro_torch.optim.sgd import sgd_update
 from repro_torch.tree import Tree, tree_flatten, tree_leaves, tree_map, \
     tree_unflatten
@@ -467,6 +484,72 @@ class ServerState:
     round: int = 0
 
 
+# ---------------------------------------------------------------------------
+# Telemetry plumbing (shared by the sync trainer and the async engine)
+# ---------------------------------------------------------------------------
+
+class RoundDispatch:
+    """Runs a round's execute step under telemetry spans (the reference's
+    ``RoundDispatch``).
+
+    With telemetry disabled this calls the step and nothing else.
+    Enabled, the first call on the card loads the kernel library
+    (``kernels.build.load``, which builds it with nvcc at first use in a
+    checkout) under a ``compile`` span, the counterpart of the reference's
+    AOT compile; the CPU has no kernels to load and emits no ``compile``.
+    Every call runs under an ``execute`` span that ends in
+    ``torch.cuda.synchronize()`` on the card, so it measures the round's
+    device work and not only the host's launches."""
+
+    def __init__(self, obs: obslib.Telemetry, device: torch.device):
+        self.obs = obs
+        self.device = device
+        self.loaded = False
+
+    def __call__(self, step, *args):
+        obs = self.obs
+        if not obs.enabled:
+            return step(*args)
+        if not self.loaded and self.device.type == "cuda":
+            with obs.span("compile"):
+                build.load()
+        self.loaded = True
+        with obs.span("execute"):
+            out = step(*args)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        return out
+
+
+def emit_round_phases(obs: obslib.Telemetry, *, populations,
+                      bytes_down: float, wire: str) -> None:
+    """Emit one round's logical phase spans:
+    ``broadcast -> train-chunk[t] -> fold -> finalize``.
+
+    These are *point* spans (``dur_s=None``): their wall time lives in
+    the enclosing ``execute`` span.  ``populations`` is a sequence of
+    ``(name, k, chunk, n_chunks, staleness)`` where ``staleness`` is
+    ``None`` for the synchronous engine or the per-chunk staleness
+    schedule (in rounds) for the async engine; chunk indices ``t`` run
+    over the round's fold stream (simple chunks first, then complex)."""
+    if not obs.enabled:
+        return
+    obs.point_span("broadcast", wire=wire, bytes_down=bytes_down)
+    t = 0
+    n_folds = 0
+    for name, k, chunk, n_chunks, staleness in populations:
+        for i in range(n_chunks):
+            attrs = {"population": name, "chunk_size": chunk,
+                     "clients": max(min(chunk, k - i * chunk), 0)}
+            if staleness is not None:
+                attrs["staleness"] = int(staleness[i])
+            obs.point_span(f"train-chunk[{t}]", **attrs)
+            t += 1
+        n_folds += n_chunks
+    obs.point_span("fold", n_folds=n_folds)
+    obs.point_span("finalize")
+
+
 class FederatedTrainer:
     """Drives T rounds of any of the three algorithms (paper protocol).
 
@@ -474,17 +557,21 @@ class FederatedTrainer:
     ``"cpu"`` runs every kernel's plain version.  ``generator`` draws the
     initial params (default: seeded with ``fed.seed``); ``schedule`` is the
     minibatch-order provider (default :class:`SeededSchedule`); ``bits``
-    the stochastic-rounding provider (default :class:`SeededBits`).
+    the stochastic-rounding provider (default :class:`SeededBits`);
+    ``telemetry`` the event registry (default: the disabled
+    :data:`obslib.NOOP`).
     """
 
     def __init__(self, adapter, fed: FedConfig, client_data: List[Batch], *,
                  device: DeviceLike = "cuda",
                  generator: Optional[torch.Generator] = None,
                  schedule: Optional[Schedule] = None,
-                 bits: Optional[BitsProvider] = None):
+                 bits: Optional[BitsProvider] = None,
+                 telemetry: Optional[obslib.Telemetry] = None):
         fed.validate()
         self.adapter = adapter
         self.fed = fed
+        self.obs = obslib.coalesce(telemetry)
         self.device = resolve_device(device)
         self.client_data = [{k: torch.as_tensor(v).to(self.device)
                              for k, v in d.items()} for d in client_data]
@@ -510,6 +597,8 @@ class FederatedTrainer:
                                   topk_frac=fed.topk_frac,
                                   stochastic=fed.stochastic_rounding,
                                   error_feedback=fed.error_feedback)
+        self.engine_spec = aggregate.EngineSpec.from_config(
+            fed, mask=self.mask, layout=self.layout, wire=self.wire)
         # the stream buffer's dtype: deltas and the int8 encode need the
         # f32 result; a bf16 wire streams bf16
         if self.wire.uses_deltas or self.wire.is_quantized:
@@ -578,29 +667,46 @@ class FederatedTrainer:
                                        dtype=torch.float32,
                                        device=self.device)
                            if self.cv_store is not None else None)
+        self._dispatch = RoundDispatch(self.obs, self.device)
         # the bounded-lag async engine (core/async_rounds.py) owns the
         # version stack and the staleness schedule; run_round delegates
         self.async_engine = None
         if fed.async_lag > 0:
             from repro_torch.core import async_rounds   # imports this module
             self.async_engine = async_rounds.AsyncRoundEngine(self)
+        if self.obs.enabled:
+            self._emit_run_config()
 
     def _resolve_cohort_chunk(self) -> int:
+        """``cohort_chunk="auto"`` -> the largest chunk whose per-client
+        footprint fits ``agg_memory_budget_mb`` (else the configured
+        int)."""
         fed = self.fed
         if fed.cohort_chunk == "auto":
-            # budget the stream as the wire ships it (the reference's rule)
-            wire, qb = self.wire, 0
-            if wire.is_quantized:
-                dtype, qb = torch.int8, wire.quant_block
-            elif not wire.is_identity:
-                dtype = wire.payload_dtype
-            else:
-                dtype = getattr(torch, fed.agg_stream_dtype)
+            dtype, qb = self._effective_stream()
             return flatten.auto_cohort_chunk(
                 self.layout, budget_bytes=fed.agg_memory_budget_mb * 2**20,
                 k=max(self.k_simple, self.k_complex), stream_dtype=dtype,
                 quant_block=qb)
         return int(fed.cohort_chunk)
+
+    def _effective_stream(self) -> Tuple[torch.dtype, int]:
+        """(dtype, quant_block) of the stream as the wire ships it (the
+        reference's rule, which ``cohort_chunk="auto"`` budgets): the wire
+        payload when a lossy wire is configured, else the streaming
+        dtype."""
+        if self.wire.is_quantized:
+            return torch.int8, self.wire.quant_block
+        if not self.wire.is_identity:
+            return self.wire.payload_dtype, 0
+        return getattr(torch, self.fed.agg_stream_dtype), 0
+
+    def stream_bytes_per_client(self) -> int:
+        """One client's packed stream footprint at the effective wire /
+        stream dtype (with the int8 scale sidecar): what
+        ``cohort_chunk="auto"`` budgets per client."""
+        dtype, qb = self._effective_stream()
+        return self.layout.stream_bytes(dtype, quant_block=qb)
 
     def _geometry(self) -> Tuple[Tuple[int, int], Tuple[int, int]]:
         return (chunk_geometry(self.k_simple, self.cohort_chunk),
@@ -655,6 +761,90 @@ class FederatedTrainer:
                                      tree_leaves(params)))
         return 2.0 * (self.k_simple * simple + self.k_complex * total)
 
+    # -- telemetry (repro_torch.obs) -----------------------------------------
+
+    def _emit_run_config(self) -> None:
+        """One ``run_config`` ledger at construction: the static facts a
+        run report leads with (cohort geometry, engine, wire, per-round
+        wire cost), with the reference's keys and values."""
+        fed = self.fed
+        (chunk_s, n_s), (chunk_c, n_c) = self._geometry()
+        values = {
+            "engine": "async" if self.async_engine is not None else "sync",
+            "n_devices": fed.n_devices, "n_simple": fed.n_simple,
+            "k_simple": self.k_simple, "k_complex": self.k_complex,
+            "participation": fed.participation,
+            "sample_uniform": fed.sample_uniform,
+            "client_state_bytes": self.client_state.nbytes,
+            "cohort_chunk": self.cohort_chunk,
+            "n_chunks_simple": n_s, "n_chunks_complex": n_c,
+            "comm_dtype": fed.comm_dtype,
+            "async_lag": fed.async_lag,
+            "n_params": self.layout.n_params,
+            "bytes_down_per_round": self.bytes_down_per_round,
+            "bytes_up_per_round": self.bytes_up_per_round,
+        }
+        if self.cv_store is not None:
+            values.update({
+                "state_store_backend": self.cv_store.backend,
+                "state_store_bytes": self.cv_store.nbytes,
+            })
+        if self.ef_store is not None:
+            values.update({
+                "ef_store_backend": self.ef_store.backend,
+                "ef_store_bytes": self.ef_store.nbytes,
+            })
+        values.update(aggregate.engine_attrs(self.engine_spec))
+        self.obs.ledger("run_config", values)
+
+    def _emit_round_health(self, metrics: Dict[str, float], *,
+                           down: float, up: float, k_real: int) -> None:
+        """Per-round client-health counters and the comm / client-state /
+        store ledgers: the NaN-excluded devices and the weight-0 slots
+        (chunk padding and unfilled uniform slots), and the trainer's own
+        byte accounting (cumulative totals included, so a run log
+        reconciles with ``total_bytes*``; the async engine passes its
+        version-aware ``down`` / ``up``).  ``k_real``: the realised
+        client count."""
+        (chunk_s, n_s), (chunk_c, n_c) = self._geometry()
+        k = self.k_simple + self.k_complex
+        obs = self.obs
+        obs.counter("nan_excluded_devices", k_real - int(metrics["n_valid"]))
+        obs.counter("padding_weight0_clients",
+                    (n_s * chunk_s - self.k_simple)
+                    + (n_c * chunk_c - self.k_complex)
+                    + (k - k_real))
+        obs.ledger("comm_bytes", {
+            "down": down, "up": up,
+            "cum_down": self.total_bytes_down,
+            "cum_up": self.total_bytes_up,
+            "cum_total": self.total_bytes,
+        })
+        obs.ledger("client_state", {
+            "state_bytes": self.client_state.nbytes,
+            "tracked_clients": self.client_state.tracked_clients(),
+        })
+        for name, store in (("state_store", self.cv_store),
+                            ("ef_store", self.ef_store)):
+            if store is not None:
+                obs.ledger(name, {
+                    "store_bytes": store.nbytes,
+                    "cum_gathered_bytes": store.gathered_bytes,
+                    "cum_scattered_bytes": store.scattered_bytes,
+                })
+        obs.ledger("participation_hist",
+                   self.client_state.participation_histogram())
+
+    def emit_phases(self, down: float, staleness=(None, None)) -> None:
+        """The round's logical phase spans (:func:`emit_round_phases`) at
+        this trainer's chunk geometry; ``staleness``: the async engine's
+        per-chunk schedule of each population."""
+        (chunk_s, n_s), (chunk_c, n_c) = self._geometry()
+        emit_round_phases(self.obs, populations=[
+            ("simple", self.k_simple, chunk_s, n_s, staleness[0]),
+            ("complex", self.k_complex, chunk_c, n_c, staleness[1])],
+            bytes_down=down, wire=self.fed.comm_dtype)
+
     # -- the round -----------------------------------------------------------
 
     def _upload(self, k_top: int, ids) -> Optional[WireUploadCtx]:
@@ -699,16 +889,21 @@ class FederatedTrainer:
     def run_round(self) -> Dict[str, float]:
         if self.async_engine is not None:
             return self.async_engine.run_round()
-        plan = self.sampler.plan(self.server.round)
-        # clients train on the DECODED broadcast
-        bc_complex = comm.broadcast_roundtrip(self.wire, self.layout,
-                                              self.server.complex)
-        src_simple = (comm.broadcast_roundtrip(self.wire, self.layout,
-                                               self.server.simple_host)
-                      if self.fed.algorithm == "decouple" else bc_complex)
-        metrics = self._train_and_fold(plan, lambda _: src_simple,
-                                       lambda _: bc_complex)
-        self._add_bytes(*self._round_bytes(plan))
+        obs = self.obs
+        obs.set_round(self.server.round)
+        with obs.span("round", engine="sync"):
+            with obs.span("sample_gather"):
+                plan = self.sampler.plan(self.server.round)
+                data = self._gather(plan)
+            metrics = self._commit(plan, *self._dispatch(
+                self._execute_sync, plan, data))
+            down, up = self._round_bytes(plan)
+            self._add_bytes(down, up)
+            if obs.enabled:
+                self.emit_phases(down)
+                self._emit_round_health(
+                    metrics, down=down, up=up,
+                    k_real=plan.n_real_simple + plan.n_real_complex)
         return metrics
 
     def _add_bytes(self, down: float, up: float) -> None:
@@ -716,15 +911,36 @@ class FederatedTrainer:
         self.total_bytes_up += up
         self.total_bytes += down + up
 
-    def _train_and_fold(self, plan: sampling.CohortPlan, get_src_s,
-                        get_src_c, async_s=(None, None),
-                        async_c=(None, None)) -> Dict[str, float]:
-        """Train and fold one round's two populations, finalize, commit
-        the SCAFFOLD / EF rows and the client-state matrix, and publish
-        the new server state; byte billing is the caller's.  ``get_src_*``
-        are the populations' :func:`stream_population` sources;
-        ``async_*`` their ``(version_idx, staleness_w)`` (``None`` each:
-        the synchronous round)."""
+    def _gather(self, plan: sampling.CohortPlan) -> Tuple[List[Batch],
+                                                          List[Batch]]:
+        """The plan's simple and complex clients' datasets, in slot
+        order."""
+        return ([self.client_data[i] for i in plan.simple_ids],
+                [self.client_data[i] for i in plan.complex_ids])
+
+    def _execute_sync(self, plan: sampling.CohortPlan, data):
+        """The synchronous round's execute step: the broadcast's wire trip
+        (clients train on the DECODED copy), then :meth:`_execute`."""
+        bc_complex = comm.broadcast_roundtrip(self.wire, self.layout,
+                                              self.server.complex)
+        src_simple = (comm.broadcast_roundtrip(self.wire, self.layout,
+                                               self.server.simple_host)
+                      if self.fed.algorithm == "decouple" else bc_complex)
+        return self._execute(plan, data, lambda _: src_simple,
+                             lambda _: bc_complex)
+
+    def _execute(self, plan: sampling.CohortPlan, data, get_src_s,
+                 get_src_c, async_s=(None, None), async_c=(None, None)):
+        """Train and fold one round's two populations and finalize: the
+        work of the reference's jitted round.  ``data``: the populations'
+        datasets (:meth:`_gather`); ``get_src_*``: their
+        :func:`stream_population` sources; ``async_*``: their
+        ``(version_idx, staleness_w)`` (``None`` each: the synchronous
+        round).  Returns ``(new_complex, new_simple_host, metrics, cv_out,
+        ef_out)`` for :meth:`_commit`: ``metrics`` as 0-d tensors in the
+        reference's key order, ``cv_out`` the new server control variate
+        and the cohort's updated cv rows (``None`` without SCAFFOLD),
+        ``ef_out`` the updated EF rows (``None`` without EF)."""
         fed = self.fed
         scaffold = self.cv_store is not None
         if self.leaf_masks is not None:
@@ -739,8 +955,7 @@ class FederatedTrainer:
                       fed=fed, layout=self.layout, flat_mask=self.flat_mask,
                       buffer=self._buffer, wire=self.wire,
                       cv_buffer=self._cv_buffer, leaf_masks=self.leaf_masks)
-        data_s = [self.client_data[i] for i in plan.simple_ids]
-        data_c = [self.client_data[i] for i in plan.complex_ids]
+        data_s, data_c = data
         state, loss_s, valid_s, cv_s, ef_s = stream_population(
             state, get_src_s, self.train_simple, data_s,
             population="simple", chunk=chunk_s, n_chunks=n_s,
@@ -762,25 +977,38 @@ class FederatedTrainer:
         else:
             new_complex, new_simple_host = aggregate.streaming_finalize(
                 state, self.layout, self.flat_mask, fed.algorithm)
-        if self.cv_store is not None:
+        cv_out = None
+        if scaffold:
             # c += cv_acc / N over ALL devices (non-participants add 0);
             # the jitted reference multiplies by f32(1/N) and fuses the
             # add into an FMA, which f64 reproduces in f32
             inv_n = float(np.float32(1.0 / fed.n_devices))
-            self.cv_global = (state.cv_acc.to(torch.float64) * inv_n
-                              + self.cv_global.to(torch.float64)
-                              ).to(torch.float32)
-            self._scatter_rows(self.cv_store, plan, cv_s, cv_c,
+            cv_out = ((state.cv_acc.to(torch.float64) * inv_n
+                       + self.cv_global.to(torch.float64)
+                       ).to(torch.float32), cv_s, cv_c)
+        ef_out = (ef_s, ef_c) if self.ef_store is not None else None
+        # the reference's jit returns its metrics with sorted keys
+        metrics = {"loss_complex": loss_c, "loss_simple": loss_s,
+                   "n_valid": valid_s + valid_c}
+        return new_complex, new_simple_host, metrics, cv_out, ef_out
+
+    def _commit(self, plan: sampling.CohortPlan, new_complex,
+                new_simple_host, metrics, cv_out, ef_out) -> Dict[str, float]:
+        """Commit one executed round: the SCAFFOLD and EF rows scattered
+        back, the client-state record, the new server state.  Returns the
+        metrics as floats; byte billing is the caller's."""
+        if cv_out is not None:
+            self.cv_global = cv_out[0]
+            self._scatter_rows(self.cv_store, plan, cv_out[1], cv_out[2],
                                self.client_state.set_cv_scale)
-        if self.ef_store is not None:
-            self._scatter_rows(self.ef_store, plan, ef_s, ef_c,
+        if ef_out is not None:
+            self._scatter_rows(self.ef_store, plan, ef_out[0], ef_out[1],
                                self.client_state.set_ef_scale)
         self.client_state.record_round(plan.real_ids(), plan.round_index)
         self.server = ServerState(complex=new_complex,
                                   simple_host=new_simple_host,
                                   round=self.server.round + 1)
-        return {"loss_simple": float(loss_s), "loss_complex": float(loss_c),
-                "n_valid": float(valid_s + valid_c)}
+        return {k: float(v) for k, v in metrics.items()}
 
     def evaluate(self, test_batch: Batch) -> Dict[str, float]:
         """Server-model metrics.  For decouple, the simple accuracy comes
@@ -800,39 +1028,44 @@ class FederatedTrainer:
 
     def run(self, rounds: int, *, eval_every: int = 0,
             test_batch: Optional[Batch] = None,
-            log: Optional[Callable[[str], None]] = None,
-            after_round: Optional[Callable[["FederatedTrainer"], None]]
-            = None) -> List[Dict]:
-        """``rounds`` rounds, evaluated after every round whose completed
-        count (``server.round``, which a resumed run carries on) is a
-        multiple of ``eval_every``, on ``test_batch``; ``log`` gets the
-        reference CLI's ``[round N]`` line after each evaluation, and
-        ``after_round(self)`` runs after each round (the CLI's checkpoint
-        save).  Returns each round's metrics."""
+            log: Optional[Callable[[str], None]] = None) -> List[Dict]:
+        """``rounds`` rounds, evaluated on ``test_batch`` after every round
+        whose completed count (``server.round``, which a resumed trainer
+        carries on) is a multiple of ``eval_every``.  At such a round the
+        reference's line ``round N: k=v, ...`` (the metrics in their dict
+        order) goes to ``log`` and, as a ``log`` event, to the telemetry,
+        after the ``eval`` ledger stamped with the completed count.
+        Returns each round's metrics."""
         history = []
+        obs = self.obs
         for _ in range(rounds):
             metrics = self.run_round()
             done = self.server.round
-            evaluated = bool(eval_every and test_batch is not None
-                             and done % eval_every == 0)
-            if evaluated:
-                metrics.update(self.evaluate(test_batch))
+            due = bool(eval_every) and done % eval_every == 0
+            if due and test_batch is not None:
+                ev = self.evaluate(test_batch)
+                metrics.update(ev)
+                obs.set_round(done)
+                obs.ledger("eval", ev)
             metrics["round"] = done
             history.append(metrics)
-            if log is not None and evaluated:
-                log(f"[round {done:4d}] " + "  ".join(
-                    f"{k}={v:.4f}" for k, v in sorted(metrics.items())
-                    if k != "round"))
-            if after_round is not None:
-                after_round(self)
+            if (log is not None or obs.enabled) and due:
+                line = f"round {done}: " + ", ".join(
+                    f"{k}={v:.4f}" for k, v in metrics.items()
+                    if k != "round")
+                obs.log(line)
+                if log is not None:
+                    log(line)
         return history
 
 
 def rounds_to_target(history: List[Dict], key: str, target: float) -> int:
     """Paper's evaluation metric: first round reaching the target.
     Accuracy-like metrics (name holds ``acc``) are reached at-or-above the
-    target, loss-like metrics at-or-below."""
-    maximize = "acc" in key
+    target, loss-like metrics at-or-below (``obs.report``'s rule, shared
+    with the run report)."""
+    from repro_torch.obs.report import higher_is_better
+    maximize = higher_is_better(key)
     for h in history:
         if key in h and (h[key] >= target if maximize
                          else h[key] <= target):

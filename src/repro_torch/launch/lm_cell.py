@@ -41,10 +41,12 @@ def test_batch() -> dict:
 
 
 def trainer(client_shards: list, algorithm: str = "fedhen",
-            device="cuda", **extra) -> FederatedTrainer:
+            device="cuda", telemetry=None, **extra) -> FederatedTrainer:
     """The cell's trainer for ``algorithm`` (``extra``: further
-    ``FedConfig`` fields, e.g. the tree engine)."""
+    ``FedConfig`` fields, e.g. the tree engine; ``telemetry``: the
+    trainer's event registry)."""
     return FederatedTrainer(
         LMAdapter(configs.get_config(ARCH)),
         FedConfig(algorithm=algorithm, **FED, **extra), client_shards,
-        device=device, generator=torch.Generator(device).manual_seed(0))
+        device=device, generator=torch.Generator(device).manual_seed(0),
+        telemetry=telemetry)

@@ -3,9 +3,11 @@
 Runs the paper's protocol end to end, on the card by default: the
 ResNet/CIFAR setting on synthetic CIFAR-shaped data (``--model resnet``),
 or a ported decoder LM of the zoo on ``synthetic_lm`` token streams
-(``--model lm --arch NAME [--reduced]``).  Takes the flags of
-``repro.launch.train`` that the port supports so far (all but the two
-telemetry flags), plus ``--device``; argparse rejects every other flag.
+(``--model lm --arch NAME [--reduced]``).  Takes every flag of
+``repro.launch.train``, plus ``--device``, and prints the reference
+CLI's lines: its prints route through a ``Telemetry`` with a stdout
+sink (and a JSONL sink with ``--telemetry-out``), and the trainer is
+instrumented only with ``--telemetry`` or ``--telemetry-out``.
 The LM data's Markov chain draws from the model's first
 :data:`DATA_VOCAB_CAP` token ids at most (its table is vocab x vocab f32:
 262 GB at Gemma-2's 256,000).
@@ -41,6 +43,11 @@ Examples (on a machine with a CUDA card):
         --checkpoint run.ckpt --checkpoint-every 1
     PYTHONPATH=src python -m repro_torch.launch.train ... --rounds 5 \
         --async-lag 2 --checkpoint run.ckpt --checkpoint-every 1 --resume
+    # telemetry: the run's event stream as JSONL, then its report
+    PYTHONPATH=src python -m repro_torch.launch.train --model resnet \
+        --rounds 4 --clients 100 --data-points 50000 --local-epochs 1 \
+        --eval-every 2 --telemetry-out run.jsonl
+    PYTHONPATH=src python -m repro_torch.obs.report run.jsonl
 """
 
 from __future__ import annotations
@@ -57,13 +64,14 @@ from repro_torch.core.adapters import LMAdapter, ResNetAdapter
 from repro_torch.core.federated import FederatedTrainer, rounds_to_target
 from repro_torch.data import federated as fed_data
 from repro_torch.data.synthetic import synthetic_cifar, synthetic_lm
+from repro_torch.obs import telemetry as obslib
 
 # synthetic_lm's transition table is (vocab, vocab) f32: the LM data draws
 # from the first ids of the model's vocabulary, at most this many
 DATA_VOCAB_CAP = 4096
 
 
-def build_trainer(args) -> tuple:
+def build_trainer(args, telemetry=None) -> tuple:
     fed = FedConfig(
         n_devices=args.clients, n_simple=args.clients // 2,
         participation=args.participation,
@@ -104,7 +112,8 @@ def build_trainer(args) -> tuple:
     # LM shards keep only their tokens (labels only steer the split)
     shards = [{k: v for k, v in s.items()
                if k != "labels" or args.model == "resnet"} for s in shards]
-    trainer = FederatedTrainer(adapter, fed, shards, device=args.device)
+    trainer = FederatedTrainer(adapter, fed, shards, device=args.device,
+                               telemetry=telemetry)
     return trainer, test_batch
 
 
@@ -220,13 +229,36 @@ def build_parser() -> argparse.ArgumentParser:
                          "rounds from its round counter to --rounds")
     ap.add_argument("--target-simple", type=float, default=0.0)
     ap.add_argument("--history-out", default="")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="instrument the run with the repro_torch.obs "
+                         "telemetry (round-phase spans, client-health "
+                         "counters, comm ledgers); off by default")
+    ap.add_argument("--telemetry-out", default="",
+                    help="write the telemetry event stream as JSONL to "
+                         "this path (implies --telemetry; render it with "
+                         "python -m repro_torch.obs.report or "
+                         "tools/obs_report.py)")
     return ap
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    trainer, test_batch = build_trainer(args)
-    say = lambda line: print(line, flush=True)
+    # the CLI's lines always route through a telemetry stdout sink (a
+    # log event prints verbatim); the TRAINER is instrumented only when
+    # asked, so the library default stays the disabled path
+    instrument = args.telemetry or bool(args.telemetry_out)
+    tel = obslib.Telemetry([obslib.StdoutSink()])
+    if args.telemetry_out:
+        tel.add_sink(obslib.JsonlSink(args.telemetry_out))
+    say = tel.log
+
+    trainer, test_batch = build_trainer(
+        args, telemetry=tel if instrument else None)
+    if args.cohort_chunk == "auto":
+        per_mb = trainer.stream_bytes_per_client() / 2**20
+        say(f"cohort_chunk=auto -> {trainer.cohort_chunk} "
+            f"(per-client packed {per_mb:.2f} MiB at wire/stream dtype, "
+            f"budget {args.agg_memory_budget_mb:.0f} MiB)")
     if args.async_lag:
         eng = trainer.async_engine
         steady = eng.schedule(10**9)
@@ -235,6 +267,12 @@ def main(argv=None):
             f"staleness/chunk={list(map(int, steady[0]))} + "
             f"{list(map(int, steady[1]))} "
             f"(weights {args.staleness}, a={args.staleness_decay})")
+    if args.comm_dtype != "float32" or trainer.wire.uses_deltas:
+        say(f"comm wire {args.comm_dtype}: "
+            f"{trainer.bytes_per_round / 1e6:.3f} MB/round measured "
+            f"(down {trainer.bytes_down_per_round / 1e6:.3f} + up "
+            f"{trainer.bytes_up_per_round / 1e6:.3f}; f32 analytic "
+            f"{trainer.analytic_bytes_per_round() / 1e6:.3f})")
     if args.resume and args.checkpoint and os.path.exists(args.checkpoint):
         # the sampler is pure in (seed, round): restoring the round counter
         # resumes the cohort sequence an uninterrupted run draws
@@ -242,18 +280,30 @@ def main(argv=None):
                         fmt=args.checkpoint_format)
         say(f"resumed from round {trainer.server.round}")
 
-    def save(tr) -> None:
-        if args.checkpoint and args.checkpoint_every and \
-                tr.server.round % args.checkpoint_every == 0:
-            save_trainer(args.checkpoint, tr, fmt=args.checkpoint_format)
-
     t0 = time.time()
-    history = trainer.run(max(args.rounds - trainer.server.round, 0),
-                          eval_every=args.eval_every, test_batch=test_batch,
-                          log=say, after_round=save)
+    history = []
+    for r in range(trainer.server.round, args.rounds):
+        m = trainer.run_round()
+        if args.eval_every and (r + 1) % args.eval_every == 0:
+            ev = trainer.evaluate(test_batch)
+            m.update(ev)
+            if instrument:
+                tel.set_round(r + 1)
+                tel.ledger("eval", ev)
+            say(f"[round {r + 1:4d}] " + "  ".join(
+                f"{k}={v:.4f}" for k, v in sorted(m.items())))
+        m["round"] = r + 1
+        history.append(m)
+        if args.checkpoint and args.checkpoint_every and \
+                (r + 1) % args.checkpoint_every == 0:
+            save_trainer(args.checkpoint, trainer,
+                         fmt=args.checkpoint_format)
+
     dt = time.time() - t0
-    print(f"\n{args.algorithm}: {args.rounds} rounds in {dt:.1f}s "
-          f"({trainer.total_bytes / 1e6:.1f} MB communicated)")
+    say(f"\n{args.algorithm}: {args.rounds} rounds in {dt:.1f}s "
+        f"({trainer.total_bytes / 1e6:.1f} MB communicated)")
+    # the port's own lines (printed, not logged): the split and the device,
+    # and the per-client stores' backends
     print(f"  {trainer.total_bytes_down / 1e6:.1f} MB down, "
           f"{trainer.total_bytes_up / 1e6:.1f} MB up, on {trainer.device}")
     for name, store in (("error-feedback", trainer.ef_store),
@@ -263,10 +313,14 @@ def main(argv=None):
                   f"{store.nbytes / 1e6:.1f} MB")
     if args.target_simple:
         r = rounds_to_target(history, "acc_simple", args.target_simple)
-        print(f"rounds to simple acc {args.target_simple}: {r}")
+        say(f"rounds to simple acc {args.target_simple}: {r}")
     if args.history_out:
         with open(args.history_out, "w") as f:
             json.dump(history, f, indent=1)
+    tel.close()
+    if args.telemetry_out:
+        print(f"telemetry run log: {args.telemetry_out} "
+              f"(render: python tools/obs_report.py {args.telemetry_out})")
     return history
 
 

@@ -13,6 +13,7 @@ reference test's bounds (bf16 within ``8e-3 max|x|``, int8 within
 
 import dataclasses
 import os
+import re
 
 import numpy as np
 import pytest
@@ -234,8 +235,11 @@ def test_train_cli_resume_matches_an_uninterrupted_run(tmp_path, capsys):
     tr.run(2, eval_every=1, test_batch=test, log=want.append)
     tr.server = dataclasses.replace(tr.server)
     tr.run(2, eval_every=1, test_batch=test, log=want.append)
-    strip = lambda ln: " ".join(f for f in ln.split()
-                                if not f.startswith("mbytes"))
-    got = [strip(ln) for ln in (first + out).splitlines()
+    # the CLI's "[round N] k=v  k=v" (sorted keys) and run()'s
+    # "round N: k=v, k=v" (dict order) hold the same values
+    fields = lambda ln: (int(re.search(r"round\s+(\d+)", ln).group(1)),
+                         {k: v for k, v in re.findall(r"(\w+)=([^\s,]+)", ln)
+                          if not k.startswith("mbytes")})
+    got = [fields(ln) for ln in (first + out).splitlines()
            if ln.startswith("[round")]
-    assert got == [strip(ln) for ln in want]
+    assert got == [fields(ln) for ln in want]

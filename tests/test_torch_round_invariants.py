@@ -64,7 +64,7 @@ def test_run_records_each_round_and_its_evaluation():
     assert "acc_simple" not in history[0]
     assert {k: history[1][k] for k in rounds[1]} == rounds[1]
     assert history[1]["acc_complex"] == again.evaluate(test)["acc_complex"]
-    assert len(lines) == 1 and lines[0].startswith("[round    2] ")
+    assert len(lines) == 1 and lines[0].startswith("round 2: loss_complex=")
 
 
 def test_nan_client_is_excluded():
@@ -118,10 +118,6 @@ def test_trainer_raises_without_cuda(monkeypatch):
 
 def test_train_cli_rejects_unported_flags_and_needs_a_device(monkeypatch):
     from repro_torch.launch import train
-    with pytest.raises(SystemExit):
-        train.build_parser().parse_args(["--telemetry"])
-    with pytest.raises(SystemExit):
-        train.build_parser().parse_args(["--telemetry-out", "run.jsonl"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train.build_trainer(train.build_parser().parse_args(
             ["--model", "lm", "--arch", "xlstm-1.3b", "--reduced",
@@ -130,6 +126,18 @@ def test_train_cli_rejects_unported_flags_and_needs_a_device(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--rounds", "0", "--clients", "4", "--data-points",
                     "8"])
+
+
+def test_train_parser_has_the_reference_flags():
+    """The port's CLI takes exactly the reference's 40 flags, plus
+    ``--device``."""
+    from repro.launch.train import build_parser as ref_parser
+    from repro_torch.launch import train
+    flags = lambda ap: {s for a in ap._actions for s in a.option_strings
+                        if s not in ("-h", "--help")}
+    ref = flags(ref_parser())
+    assert len(ref) == 40
+    assert flags(train.build_parser()) == ref | {"--device"}
 
 
 @pytest.mark.parametrize("wire", [dict(), dict(comm_dtype="bfloat16"),
