@@ -21,6 +21,15 @@ which raises on failure:
    zero-weight row, a ragged N and a misaligned accumulator;
    K2 (int8 fold, quant_block 128) with a NaN-scale row at weight 0, a
    ragged N (quant_block 1) and a misaligned accumulator;
+   K1 and K2 where rows are dead (f32 and bf16; int8 at quant_block 128
+   and 1; the vector and scalar kernels): a simple fold and an all-dead
+   launch at the model's mask and a random one, a NaN row at weight 0,
+   -0.0 in the accumulator, every element no live row touches bitwise
+   ``acc + 0.0``; K1's and K2's folds timed twice, on ``time_ms`` and
+   with the L2 flushed between calls (``time_ms_flushed``), each against
+   the bytes its weights need (acc read, the mask, the live rows, acc
+   written where a live row changes it) and against the bound that stores
+   every element;
    K3 (top-k scatter fold, two launches: each row's run per span, then
    the fold over the spans with entries) at k = 798,208 and 48,384 (the
    complex and simple populations' top-k 1/14), indices colliding across
@@ -158,6 +167,7 @@ there); the last is
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -247,6 +257,25 @@ def time_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
     return ms
 
 
+FLUSH_BYTES = 256 << 20      # over five times the H100's 50 MB L2
+
+
+def time_ms_flushed(torch, fn, iters: int = 30) -> float:
+    """:func:`time_ms` with the L2 flushed before every call: each call of
+    ``fn`` in the graph follows a ``zero_()`` of ``FLUSH_BYTES``, and the
+    graph of those writes alone, timed the same way, is subtracted.  The
+    plain timer replays back-to-back calls on the same buffers, so a fold
+    whose working set is near the L2's size reads part of it from there."""
+    flush = torch.empty((FLUSH_BYTES // 4,), device="cuda")
+
+    def flushed():
+        flush.zero_()
+        fn()
+    ms = time_ms(torch, flushed, iters) - time_ms(torch, flush.zero_, iters)
+    del flush
+    return ms
+
+
 def fold_inputs(torch, n: int, dtype, seed: int):
     """Z=5 rows: row 2 is NaN at weight 0 (both branches), row 3 has weight
     0 inside M only, the rest are ordinary clients."""
@@ -274,35 +303,82 @@ def main_path_layout(torch):
                                      "cuda")
 
 
+def fold_bytes(torch, mask, w_m, w_rest, row_bytes) -> int:
+    """The least bytes a dense accumulating fold (K1, K2) moves for these
+    weights: acc read (4N) and the mask (N); each row's payload where its
+    weight is live, ``row_bytes(live inside M, live outside M)``; and acc
+    written, 4 bytes for each element that a live row changes.  Counted
+    from the mask and the weights, never from the output."""
+    n, n_m = mask.numel(), int(mask.sum())
+    live_m, live_rest = (w_m > 0).tolist(), (w_rest > 0).tolist()
+    rows = sum(row_bytes(a, b) for a, b in zip(live_m, live_rest))
+    changed = n_m * any(live_m) + (n - n_m) * any(live_rest)
+    return 5 * n + rows + 4 * changed
+
+
+def _bound(nbytes: float, flops: float, bw: float) -> tuple:
+    """(bound ms, what bounds it) of ``nbytes`` moved and ``flops`` done."""
+    bytes_ms, ops_ms = nbytes / bw * 1e3, flops / F32_PEAK * 1e3
+    return max(bytes_ms, ops_ms), \
+        "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def _fold_row(torch, label: str, fn, plain_ms: float, nbytes: int,
+              all_bytes: int, flops: float, bw: float,
+              flushed: bool = True, iters: int = 30) -> dict:
+    """Time a K1 or K2 fold on both timers and hold it to the bound of
+    the bytes its weights need (``nbytes``, :func:`fold_bytes`) and to the
+    bound that stores every element (``all_bytes``: the live rows' bytes
+    and acc read and written everywhere, the count the kernels that
+    stored everywhere were held to), so the rows compare with theirs."""
+    ms = time_ms(torch, fn, iters=iters)
+    bound_ms, bound_by = _bound(nbytes, flops, bw)
+    all_ms = _bound(all_bytes, flops, bw)[0]
+    out = {"fold": label, "ms": ms, "plain_ms": plain_ms,
+           "bytes_needed": nbytes, "bound_ms": bound_ms,
+           "bound_share": bound_ms / ms, "bound_by": bound_by,
+           "store_all_bytes": all_bytes, "store_all_bound_ms": all_ms,
+           "store_all_bound_share": all_ms / ms}
+    text = (f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB needed), share "
+            f"{bound_ms / ms:.3f}; storing everywhere {all_ms:.4f} ms "
+            f"({all_bytes / 1e6:.1f} MB), share {all_ms / ms:.3f}")
+    if flushed:
+        out["flushed_ms"] = flushed_ms = time_ms_flushed(torch, fn, iters)
+        out["flushed_bound_share"] = bound_ms / flushed_ms
+        out["flushed_store_all_bound_share"] = all_ms / flushed_ms
+        text += (f"; L2 flushed {flushed_ms:.4f} ms, share "
+                 f"{bound_ms / flushed_ms:.3f} (storing everywhere "
+                 f"{all_ms / flushed_ms:.3f})")
+    print(f"  {label}: {text}", flush=True)
+    return out
+
+
 def time_fold(torch, ops, ref, bw: float, mask, dtype, population: str,
               z: int = Z) -> dict:
     """Time one main-path fold: ``z`` clients of one population at the
     real mask (z = 1: the base term of a delta fold).  A complex client
     weighs 1 on both sides of M, a simple client 1 inside M and 0 outside,
-    so the fold needs only the M part of its rows: the bound counts the
-    bytes these weights need."""
+    so the fold needs only the M part of its rows and changes only M's
+    elements: the bound counts the bytes these weights need."""
     g = torch.Generator(device="cuda").manual_seed(7)
     x = torch.randn((z, N_MAIN), generator=g, device="cuda").to(dtype)
     acc = torch.randn((N_MAIN,), generator=g, device="cuda")
     w_m = torch.full((z,), float(Z) if z == 1 else 1.0, device="cuda")
     w_rest = w_m if population == "complex" else torch.zeros_like(w_m)
-    ms = time_ms(torch, lambda: ops.masked_agg_acc_(acc, x, mask, w_m,
-                                                     w_rest))
+    n_m, size = int(mask.sum()), x.element_size()
+    rows_read = N_MAIN if population == "complex" else n_m
+    nbytes = fold_bytes(torch, mask, w_m, w_rest, lambda a, b: size * (
+        n_m * a + (N_MAIN - n_m) * b))
     plain_ms = time_ms(torch, lambda: ref.masked_agg_acc_ref(
         acc, x, mask, w_m, w_rest))
-    rows_read = N_MAIN if population == "complex" else int(mask.sum())
-    nbytes = z * rows_read * x.element_size() + 8 * N_MAIN + N_MAIN
-    bytes_ms, ops_ms = nbytes / bw * 1e3, 2 * z * rows_read / F32_PEAK * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    out = {"fold": population + (" base" if z == 1 else ""),
-           "x": str(dtype).replace("torch.", ""), "Z": z,
-           "ms": ms, "plain_ms": plain_ms, "bytes_needed": nbytes,
-           "bound_ms": bound_ms, "bound_share": bound_ms / ms,
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-    print(f"  masked_agg_acc {out['fold']} fold {out['x']} Z={z} "
-          f"N={N_MAIN:,}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB needed), bound "
-          f"share {bound_ms / ms:.3f}", flush=True)
+    out = _fold_row(
+        torch, f"masked_agg_acc {population}{' base' if z == 1 else ''} "
+        f"fold {str(dtype).replace('torch.', '')} Z={z} N={N_MAIN:,}",
+        lambda: ops.masked_agg_acc_(acc, x, mask, w_m, w_rest), plain_ms,
+        nbytes, z * rows_read * size + 9 * N_MAIN, 2 * z * rows_read, bw)
+    out.update(fold=population + (" base" if z == 1 else ""),
+               x=str(dtype).replace("torch.", ""), Z=z)
     return out
 
 
@@ -317,6 +393,80 @@ def _check(torch, name: str, label: str, got, want, n: int) -> float:
     if not diff <= bound:
         raise RuntimeError(f"{name} {label}: {diff} > {bound}")
     return diff
+
+
+def check_dead_rows(torch, ops, ref, mask, deq: bool) -> float:
+    """Phase 3, the dead-row paths of K1 (``deq`` False: f32 and bf16 rows)
+    or K2 (int8 at quant_block 128 and 1): a simple fold (``w_rest`` 0) and
+    an all-dead launch (both weights 0), at the model's mask and at a
+    random one, through the vector kernel, the scalar kernel (a
+    misaligned acc) and a ragged N.  Row 2 is NaN (K2: NaN scales) at
+    weight 0 everywhere, and acc holds -0.0 at every 7th element.  Each
+    case is held to its plain version at ``TOL``, and every element that
+    no live row touches bitwise to ``acc + 0.0``.  Returns the largest
+    difference."""
+    g = torch.Generator(device="cuda").manual_seed(17)
+    masks = (("model's M", mask),
+             ("random mask",
+              torch.rand((N_MAIN,), generator=g, device="cuda") < 0.3))
+    zero = torch.zeros((Z,), device="cuda")
+    weights = (("simple", torch.tensor([1.0, 1.0, 0.0, 0.5, 1.0],
+                                       device="cuda"), zero),
+               ("all dead", zero, zero))
+    name = "masked_agg_acc_deq" if deq else "masked_agg_acc"
+    kinds = ((("int8 qb 128", QB), ("int8 qb 1", 1)) if deq else
+             (("f32", torch.float32), ("bf16", torch.bfloat16)))
+    worst = 0.0
+    for kind, arg in kinds:
+        for path, n, offset in (("vector", N_MAIN, 0),
+                                ("scalar, misaligned acc", N_MAIN, 1),
+                                ("scalar, ragged N", N_RAGGED, 0)):
+            if deq and n % arg:
+                continue             # quant_block 128 does not divide it
+            acc0 = torch.randn((n,), generator=g, device="cuda")
+            acc0[::7] = -0.0
+            if deq:
+                payload = (torch.randint(-127, 128, (Z, n), generator=g,
+                                         device="cuda", dtype=torch.int8),
+                           torch.rand((Z, n // arg), generator=g,
+                                      device="cuda") * 0.01)
+                payload[1][2] = float("nan")
+                fold, plain = (functools.partial(
+                    f, quant_block=arg) for f in (ops.masked_agg_acc_deq_,
+                                                  ref.masked_agg_acc_deq_ref))
+            else:
+                payload = (torch.randn((Z, n), generator=g,
+                                       device="cuda").to(arg),)
+                payload[0][2] = float("nan")
+                fold, plain = ops.masked_agg_acc_, ref.masked_agg_acc_ref
+            dead_counts = []
+            for mask_name, full in masks:
+                m = full[:n].contiguous()
+                for w_name, w_m, w_rest in weights:
+                    label = f"{name} {kind} {path}, {mask_name}, {w_name}"
+                    want = plain(acc0, *payload, m, w_m, w_rest)
+                    acc = torch.empty((n + offset,), device="cuda")[offset:]
+                    acc.copy_(acc0)
+                    fold(acc, *payload, m, w_m, w_rest)
+                    torch.cuda.synchronize()
+                    diff = float((acc - want).abs().max())
+                    if not bool(torch.isfinite(acc).all()) or \
+                            not diff <= TOL * float(want.abs().max()):
+                        raise RuntimeError(f"{label}: max|diff| {diff} or "
+                                           f"non-finite")
+                    dead = ~((m & bool((w_m > 0).any()))
+                             | (~m & bool((w_rest > 0).any())))
+                    if not torch.equal(acc.view(torch.int32)[dead],
+                                       (acc0 + 0.0).view(torch.int32)[dead]):
+                        raise RuntimeError(f"{label}: an element no live row "
+                                           f"touches is not acc + 0.0")
+                    worst = max(worst, diff)
+                    dead_counts.append(int(dead.sum()))
+            print(f"  {name} dead rows {kind}, {path} N={n:,}: simple and "
+                  f"all-dead folds at the model's M and a random mask within"
+                  f" TOL; {dead_counts} elements with no live row bitwise "
+                  f"acc + 0.0", flush=True)
+    return worst
 
 
 def check_masked_agg(torch, ops, ref, bw: float) -> dict:
@@ -335,6 +485,7 @@ def check_masked_agg(torch, ops, ref, bw: float) -> dict:
         worst = max(worst, _check(torch, "masked_agg_acc", label, acc, want,
                                   n))
     mask = main_path_layout(torch)[1]
+    worst = max(worst, check_dead_rows(torch, ops, ref, mask, deq=False))
     timing = [time_fold(torch, ops, ref, bw, mask, dtype, population, z)
               for population, dtype, z in (
                   ("complex", torch.float32, Z),
@@ -364,12 +515,10 @@ def _deq_inputs(torch, n: int, quant_block: int, seed: int):
 def _timed(torch, name: str, label: str, fn, plain, nbytes: float,
            flops: float, bw: float) -> dict:
     ms, plain_ms = time_ms(torch, fn), time_ms(torch, plain)
-    bytes_ms, ops_ms = nbytes / bw * 1e3, flops / F32_PEAK * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
+    bound_ms, bound_by = _bound(nbytes, flops, bw)
     out = {"fold": label, "ms": ms, "plain_ms": plain_ms,
            "bytes_needed": nbytes, "bound_ms": bound_ms,
-           "bound_share": bound_ms / ms,
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+           "bound_share": bound_ms / ms, "bound_by": bound_by}
     print(f"  {name} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB needed), bound "
           f"share {bound_ms / ms:.3f}", flush=True)
@@ -394,21 +543,34 @@ def check_deq(torch, ops, ref, bw: float, mask) -> dict:
                                 quant_block=qb)
         worst = max(worst, _check(torch, "masked_agg_acc_deq", label, acc,
                                   want, n))
+    worst = max(worst, check_dead_rows(torch, ops, ref, mask, deq=True))
     acc, q, scales, _, _, _ = _deq_inputs(torch, N_MAIN, QB, seed=7)
     scales = scales.nan_to_num()
     ones = torch.ones((Z,), device="cuda")
     m_elems = int(mask.sum())
-    m_groups = int(mask.view(-1, QB).any(dim=1).sum())
+    groups = mask.view(-1, QB)
+    m_groups = int(groups.any(dim=1).sum())
+    rest_groups = int((~groups).any(dim=1).sum())
+
+    def row_bytes(live_m, live_rest):
+        if live_m and live_rest:
+            return N_MAIN + 4 * (N_MAIN // QB)
+        return live_m * (m_elems + 4 * m_groups) + live_rest * (
+            N_MAIN - m_elems + 4 * rest_groups)
     timing = []
-    for population, w_rest, rows, groups in (
+    for population, w_rest, rows, n_groups in (
             ("complex", ones, N_MAIN, N_MAIN // QB),
             ("simple", torch.zeros_like(ones), m_elems, m_groups)):
         args = (acc, q, scales, mask, ones, w_rest)
-        timing.append(_timed(
-            torch, "masked_agg_acc_deq", f"{population} fold int8 Z={Z}",
-            lambda: ops.masked_agg_acc_deq_(*args, quant_block=QB),
-            lambda: ref.masked_agg_acc_deq_ref(*args, quant_block=QB),
-            Z * rows + 4 * Z * groups + 9 * N_MAIN, 3 * Z * rows, bw))
+        plain_ms = time_ms(torch, lambda: ref.masked_agg_acc_deq_ref(
+            *args, quant_block=QB))
+        label = f"{population} fold int8 Z={Z}"
+        timing.append(_fold_row(
+            torch, f"masked_agg_acc_deq {label}",
+            lambda: ops.masked_agg_acc_deq_(*args, quant_block=QB), plain_ms,
+            fold_bytes(torch, mask, ones, w_rest, row_bytes),
+            Z * rows + 4 * Z * n_groups + 9 * N_MAIN, 3 * Z * rows, bw))
+        timing[-1]["fold"] = label
     return {"max_abs_err": worst, "timing": timing}
 
 
@@ -1402,29 +1564,39 @@ def check_folds_lm(torch, ops, ref, bw: float, layout, mask) -> dict:
             end.synchronize()
             plain_ms = start.elapsed_time(end)
             del acc
-            ms = time_ms(torch, lambda: launch(acc0, w_rest), iters=10)
-            # K1 reads and writes every element of the accumulator, K4 the
-            # leaves' elements only; x is read where the weight is not 0
+            # x is read where the weight is not 0; K4 reads and writes the
+            # leaves' elements only, K1 writes only the elements a live row
+            # changes
             rows_read = n_touched if population == "complex" else n_m
-            nbytes = 4 * rows_read + 8 * n_touched + n_touched
-            bytes_ms = nbytes / bw * 1e3
-            ops_ms = 2 * rows_read / F32_PEAK * 1e3
-            bound_ms = max(bytes_ms, ops_ms)
-            row = {"fold": population, "ms": ms, "plain_ms": plain_ms,
-                   "plain_note": "in pieces, with the bitwise check",
-                   "bytes_needed": nbytes, "bound_ms": bound_ms,
-                   "bound_share": bound_ms / ms,
-                   "bound_by": "bytes" if bytes_ms >= ops_ms
-                   else "operations", "max_abs_err": 0.0}
-            print(f"  {name} {population} fold f32 Z=1 N={n:,} (N / 2**31 "
-                  f"= {n / 2**31:.3f}"
-                  + (f"; {layout.n_leaves} leaves, "
-                     f"{out['k4']['work_items']:,} work items"
-                     if key == "k4" else "")
-                  + f"): bitwise equal to the plain version; kernel "
-                  f"{ms:.4f} ms, plain (pieced) {plain_ms:.4f} ms, bound "
-                  f"{bound_ms:.4f} ms ({nbytes / 1e9:.2f} GB needed), bound "
-                  f"share {bound_ms / ms:.3f}", flush=True)
+            flops = 2 * rows_read
+            title = (f"{name} {population} fold f32 Z=1 N={n:,} (N / 2**31 "
+                     f"= {n / 2**31:.3f}"
+                     + (f"; {layout.n_leaves} leaves, "
+                        f"{out['k4']['work_items']:,} work items"
+                        if key == "k4" else "")
+                     + "): bitwise equal to the plain version")
+            if key == "k1":
+                print(f"  {title}", flush=True)
+                row = _fold_row(
+                    torch, f"{name} {population} fold Z=1",
+                    lambda: launch(acc0, w_rest), plain_ms,
+                    fold_bytes(torch, mask, ones, w_rest,
+                               lambda a, b: 4 * (n_m * a + (n - n_m) * b)),
+                    4 * rows_read + 9 * n, flops, bw, iters=10)
+            else:
+                ms = time_ms(torch, lambda: launch(acc0, w_rest), iters=10)
+                nbytes = 4 * rows_read + 8 * n_touched + n_touched
+                bound_ms, bound_by = _bound(nbytes, flops, bw)
+                row = {"fold": population, "ms": ms, "bytes_needed": nbytes,
+                       "bound_ms": bound_ms, "bound_share": bound_ms / ms,
+                       "bound_by": bound_by}
+                print(f"  {title}; kernel {ms:.4f} ms, plain (pieced) "
+                      f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                      f"({nbytes / 1e9:.2f} GB needed), bound share "
+                      f"{bound_ms / ms:.3f}", flush=True)
+            row.update(fold=population, plain_ms=plain_ms,
+                       plain_note="in pieces, with the bitwise check",
+                       max_abs_err=0.0)
             out[key]["timing"].append(row)
     del x, acc0
     torch.cuda.empty_cache()

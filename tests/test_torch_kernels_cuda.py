@@ -16,6 +16,8 @@ numpy, so it runs on a machine with the card and no JAX:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 """
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -121,6 +123,86 @@ def test_masked_agg_acc_deq_matches_plain_version(cuda, z, n, quant_block,
     assert bool(torch.isfinite(acc_t).all())
     # products and sums rounded one by one in the plain version's order
     torch.testing.assert_close(acc_t, want, rtol=0, atol=0)
+
+
+@functools.lru_cache(maxsize=None)
+def _model_mask():
+    """The index-set-M mask of the narrow PreActResNet18-GN's flat layout
+    (widths 8, 16, 16, 16; 36,864 elements): M's long runs, as the simple
+    population's folds see them."""
+    from repro_torch.core import flatten
+    from repro_torch.core.adapters import ResNetAdapter
+    adapter = ResNetAdapter(10, (8, 16, 16, 16))
+    params = adapter.init(torch.Generator().manual_seed(0), "cpu")
+    layout = flatten.build_layout(params, total_multiple=2048)
+    return flatten.pack_mask(layout, adapter.subnet_mask(params), "cpu")
+
+
+# (payload, quant_block, path): the vector kernels, the scalar ones on a
+# misaligned acc, and on a ragged N (which quant_block 128 cannot divide)
+DEAD_ROW_CASES = [(kind, qb, path)
+                  for kind, qb in (("float32", 0), ("bfloat16", 0),
+                                   ("int8", 128), ("int8", 1))
+                  for path in ("vector", "misaligned", "ragged")
+                  if not (qb == 128 and path == "ragged")]
+
+
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+@pytest.mark.parametrize("kind,quant_block,path", DEAD_ROW_CASES)
+def test_dead_rows_fold_as_acc_plus_zero(request, device, kind, quant_block,
+                                         path):
+    """K1 (f32, bf16 rows) and K2 (int8 at quant_block 128 and 1) where
+    rows are dead: a simple fold (w_rest 0) and an all-dead launch, at the
+    model's M and at a random mask, row 2 NaN (K2: NaN scales) at weight
+    0, acc holding -0.0 at every 7th element.  Each is held to its plain
+    version (K1 at its FMA tolerance, K2 bitwise), and every element that
+    no live row touches bitwise to ``acc + 0.0``: the redesigned kernels
+    skip those elements' loads and stores.  On the CPU the wrappers run
+    the plain versions, which the same contract holds."""
+    if device == "cuda":
+        request.getfixturevalue("cuda")
+    z, rng = 5, np.random.default_rng(len(kind) * 10 + quant_block)
+    model = _model_mask()
+    n = model.numel() - (5 if path == "ragged" else 0)
+    acc0 = torch.from_numpy(rng.normal(size=n).astype(np.float32))
+    acc0[::7] = -0.0
+    if kind == "int8":
+        payload = [torch.from_numpy(rng.integers(-127, 128, size=(z, n),
+                                                 dtype=np.int8)),
+                   torch.from_numpy(rng.uniform(0.0, 0.1, size=(
+                       z, n // quant_block)).astype(np.float32))]
+        payload[1][2] = float("nan")
+        fold = functools.partial(ops.masked_agg_acc_deq_,
+                                 quant_block=quant_block)
+        plain = functools.partial(masked_agg_acc_deq_ref,
+                                  quant_block=quant_block)
+        tol = dict(rtol=0, atol=0)
+    else:
+        x = torch.from_numpy(rng.normal(size=(z, n)).astype(np.float32))
+        x[2] = float("nan")
+        payload = [x.to(getattr(torch, kind))]
+        fold, plain = ops.masked_agg_acc_, masked_agg_acc_ref
+        tol = dict(rtol=1e-6, atol=1e-6)    # K1's FMA against the plain
+    payload = [t.to(device) for t in payload]
+    masks = (model[:n], torch.from_numpy(rng.random(n) < 0.3))
+    zero = torch.zeros(z)
+    for mask in masks:
+        for w_m, w_rest in ((torch.tensor([1.0, 1.0, 0.0, 0.5, 1.0]), zero),
+                            (zero, zero)):
+            mask, w_m, w_rest = (t.to(device) for t in (mask, w_m, w_rest))
+            start = acc0.to(device)
+            want = plain(start, *payload, mask, w_m, w_rest)
+            offset = int(path == "misaligned")
+            acc = torch.zeros(n + offset, device=device)[offset:]
+            acc.copy_(start)
+            fold(acc, *payload, mask, w_m, w_rest)
+            torch.testing.assert_close(acc, want, **tol)
+            dead = ~((mask & bool((w_m > 0).any()))
+                     | (~mask & bool((w_rest > 0).any())))
+            assert int(dead.sum()) > 0
+            assert torch.equal(acc.view(torch.int32)[dead],
+                               (start + 0.0).view(torch.int32)[dead])
 
 
 def _scatter_inputs(z, n, k, dtype, quant_block, seed):

@@ -8,7 +8,9 @@ trainer bills it.  Rounds against the reference's are in
 Setup as in ``test_torch_round.py`` (narrow PreActResNet18-GN, 16x16
 synthetic CIFAR).  Tolerances as the reference's own for the same
 comparisons: flat against tree 2e-5 on the server params, rtol 1e-4 /
-atol 1e-6 on ``cv_global`` and the rows.
+atol 1e-6 on ``cv_global``, and on the rows rtol 1e-4 with the atol that
+round 0's one-rounding gap allows after the cv formula's division by
+K lr (derived in ``test_flat_vs_tree_engine_parity``).
 """
 
 import numpy as np
@@ -17,6 +19,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)   # the suite runs several worker processes
 
+from repro_torch.core.federated import local_step_count  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 from test_torch_round import ROUND, make_pair, make_shards  # noqa: E402
 from test_torch_round_invariants import _port  # noqa: E402
@@ -51,20 +54,41 @@ def test_round1_bit_identical_to_none(algorithm):
 
 @pytest.mark.parametrize("algorithm", ALGOS)
 def test_flat_vs_tree_engine_parity(algorithm):
+    """The engines fold a population in two associations: K1 streams each
+    row into the running sum, K4 sums the chunk's rows from 0 and adds the
+    sum once (the reference's two engines part the same way).  Round 0's
+    simple fold agrees bitwise; the complex fold, added to the simple sum
+    inside M, may differ by one rounding, so round 0's server params x may
+    differ by ``gap`` <= ulp(max|x|) (checked; decouple, whose populations
+    never share an element, is bitwise).  Round 1's cv rows are
+    ``dc = (x - y) / (K lr) - c``: x carries the gap and y = x - lr g one
+    more rounding at the same magnitude, so they may differ by
+    ``2 ulp(max|x|) / (K lr)`` (K lr = 0.1 here: tenfold), which replaces
+    the rows' atol of 1e-6 (measured: 1.19e-6 on fedhen and noside)."""
     kw = dict(algorithm=algorithm, variance_reduction="scaffold",
               cohort_chunk=0)
     flat = _port(make_shards(), **kw)
     tree = _port(make_shards(), agg_engine="tree", **kw)
-    for _ in range(2):
-        flat.run_round()
-        tree.run_round()
+    flat.run_round()
+    tree.run_round()
+    gap = _max_diff(flat, tree)
+    top = max(float(x.abs().max()) for m in _models(flat)
+              for x in tree_leaves(m))
+    ulp = float(np.spacing(np.float32(top)))
+    assert gap <= ulp
+    if algorithm == "decouple":
+        assert gap == 0.0
+    flat.run_round()
+    tree.run_round()
     assert _max_diff(flat, tree) <= 2e-5
+    k_lr = local_step_count(make_shards()[0], flat.fed) * flat.fed.lr
+    row_atol = 2 * ulp / k_lr if gap else 0.0
     ids = np.arange(4)
     np.testing.assert_allclose(flat.cv_global.numpy(),
                                tree.cv_global.numpy(), rtol=1e-4, atol=1e-6)
     np.testing.assert_allclose(flat.cv_store.gather(ids).numpy(),
                                tree.cv_store.gather(ids).numpy(),
-                               rtol=1e-4, atol=1e-6)
+                               rtol=1e-4 if gap else 0.0, atol=row_atol)
 
 
 @pytest.mark.parametrize("engine", ["flat", "tree"])
