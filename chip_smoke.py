@@ -64,16 +64,21 @@ which raises on failure:
    ``cv_global`` and the cv rows at rtol 1e-4, atol 1e-5);
 6. the serving kernels against their plain versions on the card, then
    timed beside their bounds: K5 has two kernels, chosen by dtype — bf16
-   on the tensor cores (wgmma), f32 on the CUDA cores — and each call is
-   checked to launch its dtype's kernel; bf16 at recurrentgemma-2b's
-   prefill shape (4, 4096, 10 / 1, 256), window 2048, with
-   ``F.scaled_dot_product_attention`` timed beside it (the causal window
-   as a boolean mask, the kv head expanded), and at gemma2-2b's
-   (1, 8192, 8 / 4, 256) with softcap 50, window 4096 and global; f32 at
-   the recurrentgemma-2b shape (SDPA beside it); untimed edge cases (a
-   ragged S, G = 3 and G = 130, Dh 32 and 128, softcap with a window); each
-   timed row with its TFLOP/s and bound share at its route's peak; K6
-   (RG-LRU scan) bitwise at (4, 4096, 2560) f32 and a ragged (3, 1000, 77);
+   on the tensor cores (wgmma), f32 on the CUDA cores (8 x 8 register
+   tiles) — and each call is checked to launch its dtype's kernel; bf16 at
+   recurrentgemma-2b's prefill shape (4, 4096, 10 / 1, 256), window 2048,
+   with ``F.scaled_dot_product_attention`` timed beside it (the causal
+   window as a boolean mask, the kv head expanded), at gemma2-2b's
+   (1, 8192, 8 / 4, 256) with softcap 50, window 4096 and global, and at
+   the dense configs' shapes (gemma3-4b (1, 8192, 8 / 4, 256) window 1024,
+   minitron-8b (1, 4096, 32 / 8, 128), starcoder2-15b (1, 4096, 48 / 4,
+   128), SDPA beside each); f32 at the recurrentgemma-2b shape (SDPA
+   beside it) and gemma2-2b's global layer; untimed edge cases (a ragged
+   S, G = 3 and G = 130, Dh 32, 128 and 256, softcap with a window, a
+   window under a key tile); each timed row with its TFLOP/s and bound
+   share at its route's peak (f32 rows also at split TF32's 165 TFLOP/s);
+   K6 (RG-LRU scan) bitwise at (4, 4096, 2560) f32 and a ragged (3, 1000,
+   77);
 7. full-width serving through ``repro_torch.launch.serve.generate``, random
    weights from seed 0: recurrentgemma-2b (batch 4, prompt 4096, 32 new
    tokens, greedy) and gemma2-2b (batch 1, prompt 8192, 8 new tokens),
@@ -87,8 +92,11 @@ which raises on failure:
    16) on the card against the CPU: prefill logits and 8 teacher-forced
    decode steps (final and exit heads), in f32 (K5 on the CUDA cores) at
    rtol 1e-4 / atol 1e-5 and in bf16 (K5 on the tensor cores) within 5 %
-   of max|logit|; and on the card, f32 token-by-token decode against the
-   prefill's logits at every position, at rtol 1e-4 / atol 1e-5;
+   of max|logit|, each config's card run launching its dtype's K5; the
+   reduced gemma3-4b (qk-norm, window 16), minitron-8b and starcoder2-15b
+   (the plain MLP) the same way in f32; and on the card, f32
+   token-by-token decode against the prefill's logits at every position,
+   at rtol 1e-4 / atol 1e-5;
 9. the LM round cell (``repro_torch.launch.lm_cell``):
    ``FederatedTrainer(LMAdapter(cfg), ...)`` on
    Gemma-2 2B at full width (bf16, n_flat 2,614,224,896 > 2**31), weights
@@ -103,7 +111,8 @@ which raises on failure:
    plain versions in pieces, each timed beside its byte bound;
 10. narrow LM rounds on the card against the CPU at rtol 1e-4 / atol 1e-5:
    attn4 (the BENCH rows' config) fedhen and decouple on the flat engine
-   and fedhen on the tree engine, reduced recurrentgemma-2b fedhen;
+   and fedhen on the tree engine, reduced recurrentgemma-2b, gemma3-4b,
+   minitron-8b and starcoder2-15b fedhen;
 11. async rounds (``repro_torch.core.async_rounds``): at the ResNet round
    cell, f32 fedhen through ``AsyncRoundEngine(lag=0)`` against the sync
    trainer, 2 rounds each under deterministic cuDNN, bitwise in server
@@ -150,7 +159,13 @@ which raises on failure:
    ``synthetic_lm`` prompt and a random one, at exit threshold 0 and 0.3,
    with the exit head's agreement and confidence (a measurement, not a
    gate); (e) alternate rounds of an off trainer and an on one (null sink,
-   then JSONL sink), 4 each, median walls printed.
+   then JSONL sink), 4 each, median walls printed;
+14. full-width serving of the dense configs through ``serve.generate``,
+   bf16, random weights from seed 0, greedy, batch 1: gemma3-4b (prompt
+   8192 past its 1024 window, 8 new tokens), minitron-8b and
+   starcoder2-15b (prompt 4096, 8 new tokens), as phase 7 prints them;
+   each prefill must launch the tensor-core K5 once per layer (34, 32,
+   40), the CUDA-core K5 never, and decode none.
 
 Kernel times are device times (``time_ms``: a CUDA graph of the timed
 calls between two events, so the host's launch rate does not enter).  The
@@ -160,7 +175,7 @@ phase 9 beside phase 4's, and their LM-shape times; K1-K4 with their
 launches on phase 11's async path, K5 and K6 with theirs on phase 12's
 serving from checkpoints; K1-K4 with their launches on phase 13's
 telemetry path, the tensor-core K5 with its serving of the trained model
-there); the last is
+there and its launches in phase 14's dense serving); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -168,6 +183,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import json
 import math
 import os
@@ -193,6 +209,9 @@ TOL = 1e-5                   # x max|acc|: K1 contracts to FMA, the plain
                              # (K2, K3 and K4 round as the plain version
                              # does, and are held bitwise)
 F32_PEAK = 67e12             # H100 SXM f32 (non-tensor-core) flop/s
+# f32 products in split TF32 on the tensor cores: each is three dense TF32
+# products (hi.hi + hi.lo + lo.hi) at 495 TFLOP/s, so 165 TFLOP/s of f32
+TF32_SPLIT_PEAK = 495e12 / 3
 BF16_PEAK = 989e12           # H100 SXM dense bf16 tensor-core flop/s
 COMPRESSED = dict(comm_dtype="int8", topk_frac=1 / 14,
                   stochastic_rounding=True, error_feedback=True)
@@ -1048,18 +1067,34 @@ FLASH_CASES = (
      True),
     ("gemma2-2b global prefill", 1, 8192, 8, 4, 256, 0, 50.0, "bfloat16",
      True),
+    ("gemma3-4b local prefill", 1, 8192, 8, 4, 256, 1024, 0.0, "bfloat16",
+     True),
+    ("minitron-8b prefill", 1, 4096, 32, 8, 128, 0, 0.0, "bfloat16", True),
+    ("starcoder2-15b prefill", 1, 4096, 48, 4, 128, 0, 0.0, "bfloat16",
+     True),
     ("recurrentgemma-2b shape in f32", 4, 4096, 10, 1, 256, 2048, 0.0,
      "float32", True),
+    ("gemma2-2b global in f32", 1, 8192, 8, 4, 256, 0, 50.0, "float32",
+     True),
     ("f32", 2, 1024, 4, 2, 128, 256, 0.0, "float32", False),
     ("ragged S f32", 2, 1000, 6, 2, 64, 0, 30.0, "float32", False),
+    ("G 3, ragged S f32", 2, 1000, 6, 2, 64, 0, 0.0, "float32", False),
+    ("G 130 f32", 1, 70, 130, 1, 256, 0, 0.0, "float32", False),
+    ("Dh 32 f32", 2, 190, 4, 1, 32, 0, 0.0, "float32", False),
+    ("window under a tile, softcap f32", 2, 700, 8, 4, 256, 9, 30.0,
+     "float32", False),
     ("Dh 32 bf16", 3, 513, 4, 1, 32, 40, 0.0, "bfloat16", False),
     ("G 3, ragged S bf16", 2, 1000, 6, 2, 64, 0, 0.0, "bfloat16", False),
     ("Dh 128, softcap and window bf16", 2, 777, 4, 2, 128, 200, 30.0,
      "bfloat16", False),
     ("G 130 bf16", 1, 70, 130, 1, 64, 0, 0.0, "bfloat16", False),
 )
-FLASH_ROUTES = {"bfloat16": ("tensor cores (wgmma)", BF16_PEAK),
-                "float32": ("CUDA cores", F32_PEAK)}
+# (route, peak the bound counts, peak of a second share): f32 stays on the
+# CUDA cores (67 TFLOP/s); split TF32 on the tensor cores (TF32_SPLIT_PEAK,
+# 495 / 3 = 165 TFLOP/s of f32 products) could not hold the f32 tolerance
+# (``launch/tune_flash.py``), and the second share is against that rate
+FLASH_ROUTES = {"bfloat16": ("tensor cores (wgmma)", BF16_PEAK, None),
+                "float32": ("CUDA cores", F32_PEAK, TF32_SPLIT_PEAK)}
 
 
 def check_flash(torch, bw: float) -> dict:
@@ -1069,7 +1104,8 @@ def check_flash(torch, bw: float) -> dict:
     dtype's kernel, then timed at the path's shapes beside SDPA.  The bound
     counts the kept pairs' 4 * Dh flops at the route's peak (dense bf16
     tensor cores, or f32 CUDA cores) and q, k, v and out once at the HBM
-    rate."""
+    rate; f32 rows also print their share of the bound at split TF32's
+    peak."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
     fa = ops.flash_attention
@@ -1084,7 +1120,7 @@ def check_flash(torch, bw: float) -> dict:
              ).to(dt)
         v = torch.randn((b, s, kh, dh), generator=g, device="cuda").to(dt)
         tol = 1e-5 if dtype == "float32" else 2.0 ** -7
-        route, peak = FLASH_ROUTES[dtype]
+        route, peak, peak2 = FLASH_ROUTES[dtype]
         before = (fa.launches_tc, fa.launches)
         got = fa(q, k, v, window=window, softcap=cap)
         tc = dtype == "bfloat16"
@@ -1116,6 +1152,11 @@ def check_flash(torch, bw: float) -> dict:
                "bound_ms": bound_ms, "bound_share": bound_ms / ms,
                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
                "tflops": flops / ms / 1e9, "library_ms": None}
+        if peak2 is not None:
+            row["bound_ms_at_tf32_split"] = max(flops / peak2 * 1e3,
+                                                bytes_ms)
+            row["bound_share_at_tf32_split"] = (
+                row["bound_ms_at_tf32_split"] / ms)
         if not cap:
             # the library call: SDPA on the same inputs, the causal window
             # as a boolean mask, the kv head expanded to every query head
@@ -1140,6 +1181,10 @@ def check_flash(torch, bw: float) -> dict:
               f"bound {bound_ms:.4f} ms ({row['bound_by']} at "
               f"{peak / 1e12:.0f} TFLOP/s; {pairs:,} pairs x {b * h} "
               f"heads), bound share {bound_ms / ms:.4f}"
+              + ("" if peak2 is None else
+                 f" (at {peak2 / 1e12:.0f} TFLOP/s: "
+                 f"{row['bound_ms_at_tf32_split']:.4f} ms, share "
+                 f"{row['bound_share_at_tf32_split']:.4f})")
               + ("" if row["library_ms"] is None else
                  f", SDPA {row['library_ms']:.4f} ms"), flush=True)
         timing.append(row)
@@ -1190,12 +1235,17 @@ def check_scan(torch, bw: float) -> dict:
 #  tensor cores, K5 on the CUDA cores, K6)
 SERVE_RUNS = (("recurrentgemma-2b", 4, 4096, 32, (8, 0, 18)),
               ("gemma2-2b", 1, 8192, 8, (26, 0, 0)))
+# phase 14, the dense configs: gemma3-4b's prompt runs past its 1024 window,
+# so its 29 local layers' ring caches wrap; every layer is attention
+DENSE_SERVE_RUNS = (("gemma3-4b", 1, 8192, 8, (34, 0, 0)),
+                    ("minitron-8b", 1, 4096, 8, (32, 0, 0)),
+                    ("starcoder2-15b", 1, 4096, 8, (40, 0, 0)))
 
 
-def serving(torch) -> dict:
-    """Phase 7: full-width serving through ``serve.generate``.  Launch
-    counts are zeroed before each run, read when prefill is done and again
-    at the end."""
+def serving(torch, runs=SERVE_RUNS) -> dict:
+    """Phases 7 and 14: full-width serving through ``serve.generate``.
+    Launch counts are zeroed before each run, read when prefill is done and
+    again at the end."""
     from repro_torch import configs
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.rglru_scan.ops import lru_scan
@@ -1208,7 +1258,7 @@ def serving(torch) -> dict:
     def counts():
         return (flash_attention.launches_tc, flash_attention.launches,
                 lru_scan.launches)
-    for arch, batch, prompt, gen, expected in SERVE_RUNS:
+    for arch, batch, prompt, gen, expected in runs:
         cfg = configs.get_config(arch)
         torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
@@ -1278,6 +1328,9 @@ def _narrow_configs(dtype: str):
                 n_layers=5, exit_layer=2, **dt))
 
 
+DENSE = ("gemma3-4b", "minitron-8b", "starcoder2-15b")
+
+
 def serving_card_vs_cpu(torch) -> dict:
     """Phase 8: narrow serving on the card (K5, K6) against the CPU (their
     plain versions): f32, where K5 runs on the CUDA cores, at rtol 1e-4 /
@@ -1285,8 +1338,12 @@ def serving_card_vs_cpu(torch) -> dict:
     and rounds its probabilities to bf16, within 5 % of the CPU prefill's
     max |logit| (the bound of the CPU test
     ``test_bf16_prefill_and_decode_match_reference``); then the card's f32
-    decode against its prefill.  Each dtype's card runs start from zeroed
-    counts; returns their K5 launches (tensor cores, CUDA cores)."""
+    decode against its prefill.  f32 also serves the reduced dense configs
+    as they are (gemma3-4b: its window 16 and qk-norm; minitron-8b;
+    starcoder2-15b: the plain MLP).  Each config's card run must launch
+    its dtype's K5; each dtype's card runs start from zeroed counts;
+    returns their K5 launches (tensor cores, CUDA cores)."""
+    from repro_torch import configs
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.models import transformer as tfm
     from repro_torch.tree import tree_map
@@ -1295,11 +1352,14 @@ def serving_card_vs_cpu(torch) -> dict:
     launches = {}
     for dtype in ("float32", "bfloat16"):
         flash_attention.launches_tc = flash_attention.launches = 0
-        for cfg in _narrow_configs(dtype):
+        dense = ([configs.get_reduced(a) for a in DENSE]
+                 if dtype == "float32" else [])
+        for cfg in list(_narrow_configs(dtype)) + dense:
             params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
             tokens = torch.randint(0, cfg.vocab_size, (batch, prompt + steps),
                                    generator=torch.Generator().manual_seed(1))
             sides = {}
+            before = (flash_attention.launches_tc, flash_attention.launches)
             for dev in ("cuda", "cpu"):
                 p = tree_map(lambda x: x.to(dev), params)
                 toks = tokens.to(dev)
@@ -1313,6 +1373,16 @@ def serving_card_vs_cpu(torch) -> dict:
                             with_exit_head=True)
                         outs += [lg, ex]
                 sides[dev] = [o.cpu().float() for o in outs]
+                if dev == "cuda":
+                    tc = dtype == "bfloat16"
+                    got = (flash_attention.launches_tc - before[0],
+                           flash_attention.launches - before[1])
+                    if (got[0] > 0) != tc or (got[1] > 0) == tc:
+                        raise RuntimeError(
+                            f"{cfg.name} narrow {dtype}: K5 launches "
+                            f"(tensor cores, CUDA cores) {got}, expected "
+                            f"only the {'tensor' if tc else 'CUDA'}-core "
+                            f"kernel")
             worst = 0.0
             top = float(sides["cpu"][0].abs().max())      # max |logit|
             rule = ("rtol 1e-4 / atol 1e-5" if dtype == "float32"
@@ -1329,7 +1399,9 @@ def serving_card_vs_cpu(torch) -> dict:
                         f"final/exit per step)")
             print(f"  {cfg.name} narrow {dtype} ({cfg.n_layers} layers, exit "
                   f"after {cfg.resolved_exit_layer}, window {cfg.window}, "
-                  f"prompt {prompt}): prefill logits and {steps} "
+                  f"qk-norm {cfg.use_qk_norm}, glu {cfg.mlp_glu}, K5 "
+                  f"launches {got}, prompt {prompt}): prefill logits and "
+                  f"{steps} "
                   f"teacher-forced decode steps (final and exit heads), card "
                   f"vs CPU max|diff| {worst:.3e} = {worst / top:.5f} of "
                   f"max|logit| ({rule})", flush=True)
@@ -1617,9 +1689,11 @@ def lm_card_vs_cpu(torch) -> None:
     """Phase 10: narrow LM rounds on the card against the same rounds on
     the CPU (weights drawn on the CPU from seed 0, the same schedule):
     attn4 fedhen and decouple on the flat engine, fedhen on the tree
-    engine, reduced recurrentgemma-2b fedhen.  Server params (and
-    decouple's simple host) at rtol 1e-4 / atol 1e-5, losses and eval
-    metrics within 1e-5, n_valid and bytes equal."""
+    engine, reduced recurrentgemma-2b, gemma3-4b, minitron-8b and
+    starcoder2-15b fedhen.  Server params (and decouple's simple host) at
+    rtol 1e-4 / atol 1e-5, losses and eval metrics within 1e-5, n_valid
+    and bytes equal.  (A round trains through the chunked attention of the
+    training forward, not K5: prefill alone runs K5.)"""
     from repro_torch import configs
     from repro_torch.configs.base import FedConfig
     from repro_torch.core.adapters import LMAdapter
@@ -1631,7 +1705,9 @@ def lm_card_vs_cpu(torch) -> None:
             ("attn4", attn4_config(), "decouple", {}),
             ("attn4 tree", attn4_config(), "fedhen", TREE),
             ("recurrentgemma-2b reduced",
-             configs.get_reduced("recurrentgemma-2b"), "fedhen", {}))
+             configs.get_reduced("recurrentgemma-2b"), "fedhen", {})) + tuple(
+                (f"{a} reduced", configs.get_reduced(a), "fedhen", {})
+                for a in DENSE)
     for label, cfg, algo, extra in runs:
         shards = [{"tokens": s["tokens"]} for s in iid_split(
             synthetic_lm(32, 16, cfg.vocab_size, seed=0), 4, seed=1)]
@@ -2603,6 +2679,12 @@ def main() -> int:
     print("[13] telemetry: determinism, null sink, run logs, Gemma-2 2B "
           "trained and served, overhead", flush=True)
     tel_launches, tel_k5, _ = telemetry_phase(torch, ops)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 14. full-width serving of the dense configs
+    print("[14] full-width serving: gemma3-4b, minitron-8b, starcoder2-15b",
+          flush=True)
+    dense_path = serving(torch, DENSE_SERVE_RUNS)
 
     src = "src/repro_torch/kernels/masked_agg/csrc/"
     kernels = []
@@ -2669,6 +2751,10 @@ def main() -> int:
     kernels[-2]["launches_telemetry"] = tel_k5
     kernels[-2]["launches_telemetry_path"] = ("phase 13: serving the "
                                               "trained Gemma-2 2B")
+    kernels[-2]["launches_dense"] = dense_path["launches"][0]
+    kernels[-2]["launches_dense_path"] = ("phase 14: full-width serving of "
+                                          "gemma3-4b, minitron-8b and "
+                                          "starcoder2-15b")
     head = k6["timing"][0]
     kernels.append({
         "name": "lru_scan", "route": "cuda",

@@ -1,8 +1,9 @@
 """Architecture registry of the port.
 
 The port's counterpart of ``repro.configs.get_config`` / ``get_reduced``.
-Two architectures are ported so far (the serving slice): RecurrentGemma-2B
-and Gemma-2 2B.  Every other name the reference knows raises
+Five architectures are ported so far: RecurrentGemma-2B and Gemma-2 2B
+(the serving slice), and the dense Gemma-3 4B, Minitron-8B and
+StarCoder2-15B.  Every other name the reference knows raises
 ``NotImplementedError`` pointing at ROADMAP.md; an unknown name raises
 ``KeyError``, as in the reference.
 """
@@ -28,7 +29,8 @@ _MODULES = {
 }
 
 ARCH_NAMES = tuple(_MODULES)
-PORTED = ("recurrentgemma-2b", "gemma2-2b")
+PORTED = ("recurrentgemma-2b", "gemma2-2b", "gemma3-4b", "minitron-8b",
+          "starcoder2-15b")
 
 
 def _module(name: str):

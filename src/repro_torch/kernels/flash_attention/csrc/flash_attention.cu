@@ -1,48 +1,69 @@
-// Causal, optionally sliding-window, GQA flash attention, forward only.
+// Causal, optionally sliding-window, GQA flash attention, forward only, for
+// f32 inputs, on the CUDA cores.
 //
 // Replaces the TPU kernel
 //   src/repro/kernels/flash_attention/kernel.py::flash_attention_pallas
-// (body _flash_kernel), and computes what it computes:
+// (body _flash_kernel) for f32 inputs, and computes what it computes:
 //
 //   out[b, i, h] = sum_j softmax_j(cap(q[b, i, h] . k[b, j, h / G] * Dh^-0.5))
 //                  * v[b, j, h / G]
 //
 // over the keys j with j <= i and, when window > 0, i - j < window.
-// q (B, S, H, Dh), k and v (B, S, Kh, Dh), f32, contiguous; G = H / Kh,
-// so query head h reads kv head h / G (the reference's (kh, g) split).
-// cap(x) = tanh(x / softcap) * softcap when softcap > 0.  The online
-// softmax (m, l, acc) and the probabilities stay f32; out is
-// acc / max(l, 1e-30).  Dh is 32, 64, 128 or 256.  bf16 inputs go to the
-// tensor-core kernel (flash_attention_wgmma.cu).
+// q (B, S, H, Dh), k and v (B, S, Kh, Dh), f32, contiguous, 16-byte
+// aligned; G = H / Kh, so query head h reads kv head h / G.  cap(x) =
+// tanh(x / softcap) * softcap when softcap > 0.  Scores, the online softmax
+// (m, l, acc) and the probabilities are f32, every product an f32 FMA in
+// increasing Dh (then key) order; out is acc / max(l, 1e-30).  Dh is 32,
+// 64, 128 or 256.  bf16 inputs go to flash_attention_wgmma.cu.
 //
-// Bound: operations.  Each kept (query, key) pair costs 4 * Dh flops (the
-// score and its share of P.V) against 4 * Dh bytes of q, k, v and out per
-// row, far above the card's balance point at the path's lengths
-// (thousands of keys per query).  This first version runs on the CUDA
-// cores in f32 (no tensor cores): f32 inputs must come out at f32
-// accuracy, which bf16 or TF32 products would not give.  Its peak is the
-// card's f32 CUDA-core rate (67 TFLOP/s).
+// Bound: operations.  Each kept (query, key) pair costs 4 * Dh flops (its
+// score and its share of P V), at the card's f32 CUDA-core rate (67
+// TFLOP/s).  Not the tensor cores: split TF32 (each product as hi.hi +
+// hi.lo + lo.hi, variants/flash_attention_tf32.cu) left 1.8e-5 against
+// the 1e-5 tolerance at recurrentgemma's shape, 1.7e-5 with every product
+// exact: the tensor cores sum 8 products at a time in their own order, and
+// at these logits any order but the plain version's moves the output by
+// about 1e-5 (launch/tune_flash.py).
 //
-// Design.  One block of 256 threads per (batch, kv head, group of query
-// heads, block of BQ queries).  Its 64 rows are (head, query) pairs: all
-// G query heads of the kv head (up to 64) times BQ = 64 / G queries, so
-// every K/V tile it loads serves the whole group (recurrentgemma's MQA:
-// 10 heads share each tile).  The block walks its keys in tiles of 64,
-// in increasing order, from max(0, first query - window + 1) to its last
-// query only: keys no row of the block can see are never loaded.  A
-// tile's K and V sit in shared memory beside the block's Q rows (rows
-// padded by 4 floats against bank conflicts); each thread
-// owns 4 rows and computes a 4 x 4 register tile of scores, reduces each
-// row's max and sum over the 16 threads that share it with warp shuffles,
-// writes its probabilities to shared memory and accumulates a 4 x Dh/16
-// tile of the output in registers.  Masked scores are -inf; a row whose
-// keys so far are all masked keeps m = -inf and takes p = 0 and alpha = 0,
-// so a fully masked tile (a window far behind the row's query) adds
-// nothing, whatever order the tiles come in (the TPU kernel instead lets a
-// later real key wipe such garbage: kernel.py:63-73).
+// Design.  An FMA whose operands both come from shared memory needs 8
+// bytes, and an SM reads 128 bytes a clock against 128 FMAs a clock, so a
+// thread must reuse what it reads: each computes an 8 x 8 register tile of
+// scores, 8 rows x 8 keys, from 8 + 8 values a Dh step (4 FMAs a value
+// read; the earlier 4 x 4 tiles did 2), and an 8 x Dh/KG tile of
+// the output from 8 probabilities (one broadcast read) and Dh/KG values
+// of V.
+// One block per (batch, kv head, group of query heads, block of queries):
+// its 64 rows are (query, head) pairs of one kv head in query-major order,
+// g_blk = min(G, 64) heads times bq = 64 / g_blk queries, so each K/V tile
+// serves the whole head group.  A row group of 8 rows belongs to KG
+// threads (a half-warp, at Dh 256 a warp), thread kg taking keys kg + KG j
+// of a tile of BK = 8 KG keys, so every shared-memory read is
+// conflict-free or a broadcast and a row's KG threads reduce its max and
+// sum by shuffles.  Q stays in shared memory; K and V stream through a
+// ring of two chunks filled by cp.async, the copy of chunk c + 1 in
+// flight while chunk c is used: a tile's K as Dh/32 chunks of (BK keys,
+// 32 dims), then its V as Dh/32 chunks of (BK / (Dh/32) keys, Dh dims).
+// The tile's probabilities go through shared memory (64 x BK) to the P V
+// product, whose output tile, 8 rows x Dh/KG columns, stays in registers.
+// Each score sums Dh in increasing order: so does the plain version's
+// cuBLAS product, and at these logits (recurrentgemma's shape in f32) any
+// other order (split TF32's, or two halves of Dh summed at the end) moved
+// the output by about 1e-5 on its own.  At Dh <= 128 a block is 128
+// threads (KG 16, 128-key tiles) in at most 105 KiB, two blocks an SM; at
+// Dh 256 it is 256 threads (KG 32, 256-key tiles) in 205 KiB, one block
+// and eight warps an SM.
+// The block walks only keys some row can see, from max(0, q0 - window + 1)
+// to its last query; the per-element causal/window test runs only on tiles
+// that cross the diagonal or the window's edge.  Masked scores are -inf; a
+// row whose keys so far are all masked keeps m = -inf and takes p = 0 and
+// alpha = 0, so a wholly masked tile adds nothing whatever order the tiles
+// come in (the TPU kernel instead lets a later real key wipe such garbage:
+// kernel.py:63-73).  Blocks are numbered so that the q-blocks with the
+// most keys start first.
 //
 // Plain C interface, loaded with ctypes.  The entry point returns the
 // cudaError_t of its launch; the wrapper raises on anything but success.
+// The wrapper's plan (ops.plan_f32) mirrors the launch below.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -50,257 +71,329 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 64;   // (head, query) rows per block
-constexpr int kBK = 64;     // keys per tile
-constexpr int kPad = 4;     // floats of padding per shared-memory row
-constexpr int kLdP = kBK + kPad;
+constexpr int kRows = 64;       // (query, head) rows per block
+constexpr int kDC = 32;         // Dh of one K chunk
+constexpr int kPad = 4;         // floats of padding per shared-memory row
+constexpr int kKld = kDC + kPad;
 
-// 4 consecutive elements (one 16-byte load).
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+template <int DH>
+struct Cfg {
+  // KG threads share a row group (8 rows), one per 8 keys of the tile
+  static constexpr int KG = DH == 256 ? 32 : 16;
+  static constexpr int THREADS = 8 * KG;          // 8 row groups
+  static constexpr int BK = 8 * KG;               // keys per tile
+  static constexpr int SLOT = BK * kKld;          // floats of a ring slot
+  static constexpr int QLD = DH + kPad;
+  static constexpr int PLD = BK + 16;             // P row pitch
+  static constexpr int VC = DH == 256 ? 32 : 4096 / DH;  // keys a V chunk
+  static constexpr int NK = DH / kDC;             // K chunks a tile
+  static constexpr int NV = BK / VC;              // V chunks a tile
+  static constexpr int VW = DH >= 64 ? 4 : 2;     // output vector width
+  static constexpr int NVW = DH / (KG * VW);      // output vectors a row
+  static constexpr int FLOATS = kRows * QLD + 2 * SLOT + kRows * PLD;
+  static constexpr int SMEM = 4 * FLOATS;
+  static_assert(VC * (DH + kPad) <= SLOT, "a V chunk fits a slot");
+  static_assert(NK == NV, "K and V chunks alternate per tile");
+  static_assert(BK * 8 == 8 * THREADS && VC * DH / 4 == 8 * THREADS,
+                "8 16-byte copies a thread a chunk");
+};
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
 }
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
 
-__device__ __forceinline__ float max16(float v) {
+// max and sum over the N lanes that share a row (N = 16 or 32)
+template <int N>
+__device__ __forceinline__ float row_max(float v) {
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
+  for (int off = N / 2; off > 0; off >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
 }
-__device__ __forceinline__ float sum16(float v) {
+template <int N>
+__device__ __forceinline__ float row_sum(float v) {
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
+  for (int off = N / 2; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
 
-// Copy `rows` rows of DH elements (row r at src + r * stride, rows at or
-// beyond `valid` read as 0) into shared memory, row pitch DH + kPad.
-template <typename T, int DH>
-__device__ __forceinline__ void load_rows(float* dst, const T* src,
-                                          int64_t stride, int rows,
-                                          int valid) {
-  constexpr int kVecs = DH / 4;
-  for (int idx = threadIdx.x; idx < rows * kVecs; idx += kThreads) {
-    const int r = idx / kVecs, c = (idx % kVecs) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < valid) v = load4(src + r * stride + c);
-    *reinterpret_cast<float4*>(dst + r * (DH + kPad) + c) = v;
-  }
+// element e (a constant once unrolled) of a float4
+__device__ __forceinline__ float lane4(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
 }
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_fwd(T* __restrict__ out, const T* __restrict__ q,
-          const T* __restrict__ k, const T* __restrict__ v, int s_len,
-          int n_heads, int n_kv, int g_blk, int bq, int window,
-          float softcap, float scale) {
-  constexpr int kLd = DH + kPad;
-  constexpr int kCpt = DH / 16;                 // output columns a thread
-  constexpr int kVw = kCpt >= 4 ? 4 : kCpt;     // ... in vectors of kVw
-  constexpr int kGroups = kCpt / kVw;
-  extern __shared__ float smem[];
-  float* qs = smem;                             // kRows x kLd
-  float* ks = qs + kRows * kLd;                 // kBK x kLd
-  float* vs = ks + kBK * kLd;                   // kBK x kLd
-  float* ps = vs + kBK * kLd;                   // kRows x kLdP
+template <int DH>
+__global__ void __launch_bounds__(Cfg<DH>::THREADS, DH == 256 ? 1 : 2)
+flash_fwd(float* __restrict__ out, const float* __restrict__ q,
+          const float* __restrict__ k, const float* __restrict__ v,
+          int s_len, int n_heads, int n_kv, int n_bk, int g_blk, int bq,
+          int n_qblk, int n_grp, int window, float softcap, float scale) {
+  using C = Cfg<DH>;
+  constexpr int NT = C::THREADS, KG = C::KG, BK = C::BK, SLOT = C::SLOT,
+                QLD = C::QLD, PLD = C::PLD, VC = C::VC, NK = C::NK,
+                VW = C::VW, NVW = C::NVW;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* qs = smem;                             // kRows x QLD
+  float* ring = qs + kRows * QLD;               // 2 x SLOT
+  float* ps = ring + 2 * SLOT;                  // kRows x PLD
+  const uint32_t ring_s =
+      static_cast<uint32_t>(__cvta_generic_to_shared(ring));
 
+  // block -> (q-block, head group, batch x kv head); most keys first
+  const int bid = blockIdx.x;
+  const int qblk = n_qblk - 1 - bid / (n_grp * n_bk);
+  const int grp = (bid / n_bk) % n_grp;
+  const int bk = bid % n_bk;
   const int g = n_heads / n_kv;
-  const int bk = blockIdx.z;                    // batch * n_kv + kv head
   const int b = bk / n_kv, kvh = bk % n_kv;
-  const int g0 = blockIdx.y * g_blk;
-  const int q0 = blockIdx.x * bq;
+  const int g0 = grp * g_blk;
+  const int q0 = qblk * bq;
   const int tid = threadIdx.x;
-  const int tr = tid >> 4, tc = tid & 15;       // rows 4tr..4tr+3
+  const int rg = tid / KG;      // rows 8 rg .. 8 rg + 7
+  const int kg = tid % KG;      // keys kg + KG j of a tile
   const int64_t tok = static_cast<int64_t>(n_heads) * DH;   // q/out stride
   const int64_t ktok = static_cast<int64_t>(n_kv) * DH;     // k/v stride
+  const float* kb = k + static_cast<int64_t>(b) * s_len * ktok +
+                    static_cast<int64_t>(kvh) * DH;
+  const float* vb = v + static_cast<int64_t>(b) * s_len * ktok +
+                    static_cast<int64_t>(kvh) * DH;
 
-  // this thread's 4 rows: (head, query position, valid)
-  int qpos[4], head[4];
-  bool live[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = tr * 4 + i, gl = r / bq;
-    qpos[i] = q0 + r % bq;
-    head[i] = kvh * g + g0 + gl;
-    live[i] = gl < g_blk && g0 + gl < g && qpos[i] < s_len;
-  }
-
-  // Q rows of the block; dead rows are 0
-  for (int idx = tid; idx < kRows * (DH / 4); idx += kThreads) {
-    const int r = idx / (DH / 4), c = (idx % (DH / 4)) * 4;
-    const int gl = r / bq, qp = q0 + r % bq;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (gl < g_blk && g0 + gl < g && qp < s_len)
-      val = load4(q + (static_cast<int64_t>(b) * s_len + qp) * tok +
-                  static_cast<int64_t>(kvh * g + g0 + gl) * DH + c);
-    *reinterpret_cast<float4*>(qs + r * kLd + c) = val;
-  }
-
-  float m[4], l[4], acc[4][kCpt];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kCpt; ++c) acc[i][c] = 0.f;
+  // Q rows of the block (dead rows are 0), with the first chunk
+  {
+    const uint32_t qs_s = static_cast<uint32_t>(__cvta_generic_to_shared(qs));
+    for (int idx = tid; idx < kRows * DH / 4; idx += NT) {
+      const int r = idx / (DH / 4), c4 = idx % (DH / 4);
+      const int qi = r / g_blk, gi = r % g_blk, qp = q0 + qi;
+      const bool ok = qi < bq && g0 + gi < g && qp < s_len;
+      const float* src =
+          ok ? q + (static_cast<int64_t>(b) * s_len + qp) * tok +
+                   static_cast<int64_t>(kvh * g + g0 + gi) * DH + 4 * c4
+             : q;
+      cp_async16(qs_s + 4 * (r * QLD + 4 * c4), src, ok);
+    }
   }
 
   const int q_last = min(q0 + bq, s_len) - 1;
   const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-  const T* kb = k + static_cast<int64_t>(b) * s_len * ktok +
-                static_cast<int64_t>(kvh) * DH;
-  const T* vb = v + static_cast<int64_t>(b) * s_len * ktok +
-                static_cast<int64_t>(kvh) * DH;
+  const int n_tiles = (q_last - k_begin) / BK + 1;
+  const int n_chunks = n_tiles * 2 * NK;
 
-  for (int k0 = k_begin; k0 <= q_last; k0 += kBK) {
-    const int n_valid = min(kBK, s_len - k0);
-    __syncthreads();            // the previous tile's readers are done
-    load_rows<T, DH>(ks, kb + static_cast<int64_t>(k0) * ktok, ktok, kBK,
-                     n_valid);
-    load_rows<T, DH>(vs, vb + static_cast<int64_t>(k0) * ktok, ktok, kBK,
-                     n_valid);
-    __syncthreads();
-
-    // scores: rows 4tr+i, keys k0 + tc + 16j
-    float sc[4][4];
+  // chunk ci into ring slot ci & 1: of tile ci / (2 NK), K chunk c < NK
+  // (BK keys x 32 dims from Dh 32 c), else V chunk c - NK (VC keys x Dh)
+  auto load_chunk = [&](int ci) {
+    const int t = ci / (2 * NK), c = ci % (2 * NK);
+    const int k0 = k_begin + t * BK;
+    const uint32_t dst = ring_s + 4 * SLOT * (ci & 1);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DH; d += 4) {
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(qs + (tr * 4 + i) * kLd + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(ks + (tc + 16 * j) * kLd + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float a = sc[i][j];
-          a = fmaf(qv[i].x, kv[j].x, a);
-          a = fmaf(qv[i].y, kv[j].y, a);
-          a = fmaf(qv[i].z, kv[j].z, a);
-          a = fmaf(qv[i].w, kv[j].w, a);
-          sc[i][j] = a;
-        }
+    for (int u = 0; u < 8; ++u) {
+      const int p = tid + NT * u;
+      if (c < NK) {
+        const int key = p >> 3, c4 = p & 7, kp = k0 + key;
+        const bool ok = kp < s_len;
+        cp_async16(dst + 4 * (key * kKld + 4 * c4),
+                   ok ? kb + kp * ktok + kDC * c + 4 * c4 : kb, ok);
+      } else {
+        const int key = p / (DH / 4), c4 = p % (DH / 4);
+        const int kp = k0 + (c - NK) * VC + key;
+        const bool ok = kp < s_len;
+        cp_async16(dst + 4 * (key * (DH + kPad) + 4 * c4),
+                   ok ? vb + kp * ktok + 4 * c4 : vb, ok);
+      }
     }
+    cp_async_commit();
+  };
 
-    // online softmax per row, over the 16 threads that share it
+  // this thread's 8 rows: (query position, liveness)
+  int qpos[8];
+  bool live[8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < 8; ++i) {
+    const int r = 8 * rg + i, qi = r / g_blk, gi = r % g_blk;
+    qpos[i] = q0 + qi;
+    live[i] = qi < bq && g0 + gi < g && qpos[i] < s_len;
+  }
+  const bool capped = softcap > 0.f;
+
+  // the output tile: 8 rows x columns VW kg + KG VW m + e
+  float m[8], l[8], o[8][NVW * VW];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int x = 0; x < NVW * VW; ++x) o[i][x] = 0.f;
+  }
+
+  load_chunk(0);
+  int ci = 0;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = k_begin + t * BK;
+
+    // S = Q K^T over the tile's K chunks, Dh in order
+    float s[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+    for (int c = 0; c < NK; ++c, ++ci) {
+      cp_async_wait_all();
+      __syncthreads();          // chunk ci is in; chunk ci - 1 is used up
+      if (ci + 1 < n_chunks) load_chunk(ci + 1);
+      const float* kc = ring + SLOT * (ci & 1);
+#pragma unroll 2
+      for (int dq = 0; dq < kDC / 4; ++dq) {
+        float4 qv[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          qv[i] = *reinterpret_cast<const float4*>(
+              qs + (8 * rg + i) * QLD + kDC * c + 4 * dq);
+        float4 kv[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          kv[j] = *reinterpret_cast<const float4*>(
+              kc + (kg + KG * j) * kKld + 4 * dq);
+        // one Dh step for all 64 scores before the next: the same order of
+        // each score's sum, and no FMA waiting on the one before it
+#pragma unroll
+        for (int c4 = 0; c4 < 4; ++c4)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+              s[i][j] = fmaf(lane4(qv[i], c4), lane4(kv[j], c4), s[i][j]);
+      }
+    }
+    // online softmax per row, over the KG lanes that share it
+    const bool need_mask =
+        k0 + BK - 1 > q0 || (window > 0 && k0 < q_last - window + 1);
+    float alpha[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tc + 16 * j;
-        float x = sc[i][j] * scale;
-        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-        const bool keep = live[i] && kp <= qpos[i] &&
-                          (window <= 0 || qpos[i] - kp < window);
-        sc[i][j] = keep ? x : -INFINITY;
-        mx = fmaxf(mx, sc[i][j]);
+      for (int j = 0; j < 8; ++j) {
+        float x = s[i][j] * scale;
+        if (capped) x = tanhf(x / softcap) * softcap;
+        if (need_mask) {
+          const int kp = k0 + kg + KG * j;
+          const bool keep = live[i] && kp <= qpos[i] &&
+                            (window <= 0 || qpos[i] - kp < window);
+          x = keep ? x : -INFINITY;
+        }
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
       }
-      const float m_new = fmaxf(m[i], max16(mx));
+      const float m_new = fmaxf(m[i], row_max<KG>(mx));
       const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float alpha = expf(m[i] - m_use);   // 0 while m[i] is -inf
+      alpha[i] = expf(m[i] - m_use);            // 0 while m[i] is -inf
       float psum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(sc[i][j] - m_use);  // 0 for a masked score
+      for (int j = 0; j < 8; ++j) {
+        const float p = expf(s[i][j] - m_use);  // 0 for a masked score
         psum += p;
-        ps[(tr * 4 + i) * kLdP + tc + 16 * j] = p;
+        ps[(8 * rg + i) * PLD + kg + KG * j] = p;
       }
-      l[i] = alpha * l[i] + sum16(psum);
+      l[i] = alpha[i] * l[i] + row_sum<KG>(psum);
       m[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < kCpt; ++c) acc[i][c] *= alpha;
+      for (int x = 0; x < NVW * VW; ++x) o[i][x] *= alpha[i];
     }
-    __syncthreads();            // the tile's probabilities are written
 
-    // acc += P V: rows 4tr+i, columns (grp * 16 + tc) * kVw + e
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float p[4];
+    // O += P V over the tile's V chunks
+    for (int c = 0; c < NK; ++c, ++ci) {
+      cp_async_wait_all();
+      __syncthreads();          // chunk ci (and the tile's P) is in
+      if (ci + 1 < n_chunks) load_chunk(ci + 1);
+      const float* vc = ring + SLOT * (ci & 1);
+      const int kv0 = c * VC;   // the chunk's first key in the tile
+#pragma unroll 2
+      for (int kq = 0; kq < VC / 4; ++kq) {
+        float4 pv4[8];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ps[(tr * 4 + i) * kLdP + kk];
+        for (int i = 0; i < 8; ++i)
+          pv4[i] = *reinterpret_cast<const float4*>(
+              ps + (8 * rg + i) * PLD + kv0 + 4 * kq);
 #pragma unroll
-      for (int grp = 0; grp < kGroups; ++grp) {
-        const float* vp = vs + kk * kLd + (grp * 16 + tc) * kVw;
-        float vv[kVw];
-        if constexpr (kVw == 4) {
-          const float4 t = *reinterpret_cast<const float4*>(vp);
-          vv[0] = t.x; vv[1] = t.y; vv[2] = t.z; vv[3] = t.w;
-        } else {
+        for (int kk = 0; kk < 4; ++kk) {
+          const float* vrow = vc + (4 * kq + kk) * (DH + kPad);
 #pragma unroll
-          for (int e = 0; e < kVw; ++e) vv[e] = vp[e];
+          for (int mm = 0; mm < NVW; ++mm) {
+            float vv[VW];
+            if constexpr (VW == 4) {
+              const float4 x = *reinterpret_cast<const float4*>(
+                  vrow + 4 * kg + 4 * KG * mm);
+              vv[0] = x.x; vv[1] = x.y; vv[2] = x.z; vv[3] = x.w;
+            } else {
+              const float2 x =
+                  *reinterpret_cast<const float2*>(vrow + 2 * kg);
+              vv[0] = x.x; vv[1] = x.y;
+            }
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+#pragma unroll
+              for (int e = 0; e < VW; ++e)
+                o[i][VW * mm + e] =
+                    fmaf(lane4(pv4[i], kk), vv[e], o[i][VW * mm + e]);
+          }
         }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int e = 0; e < kVw; ++e)
-            acc[i][grp * kVw + e] = fmaf(p[i], vv[e], acc[i][grp * kVw + e]);
       }
     }
   }
 
+  // out = O / max(l, 1e-30)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < 8; ++i) {
     if (!live[i]) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    T* o = out + (static_cast<int64_t>(b) * s_len + qpos[i]) * tok +
-           static_cast<int64_t>(head[i]) * DH;
+    const int r = 8 * rg + i;
+    float* orow = out + (static_cast<int64_t>(b) * s_len + qpos[i]) * tok +
+                  static_cast<int64_t>(kvh * g + g0 + r % g_blk) * DH;
 #pragma unroll
-    for (int grp = 0; grp < kGroups; ++grp)
-#pragma unroll
-      for (int e = 0; e < kVw; ++e)
-        store1(o + (grp * 16 + tc) * kVw + e, acc[i][grp * kVw + e] / den);
+    for (int mm = 0; mm < NVW; ++mm) {
+      const int col = VW * kg + KG * VW * mm;
+      if constexpr (VW == 4) {
+        *reinterpret_cast<float4*>(orow + col) = make_float4(
+            o[i][4 * mm] / den, o[i][4 * mm + 1] / den,
+            o[i][4 * mm + 2] / den, o[i][4 * mm + 3] / den);
+      } else {
+        *reinterpret_cast<float2*>(orow + col) =
+            make_float2(o[i][0] / den, o[i][1] / den);
+      }
+    }
   }
 }
 
-template <typename T, int DH>
+template <int DH>
 cudaError_t launch(void* out, const void* q, const void* k, const void* v,
                    int b, int s, int h, int kh, int window, float softcap,
                    float scale, cudaStream_t stream) {
-  constexpr int kLd = DH + kPad;
-  const size_t smem = sizeof(float) *
-      (static_cast<size_t>(kRows + 2 * kBK) * kLd + kRows * kLdP);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
+  constexpr int smem = Cfg<DH>::SMEM;
   const int g = h / kh;
   const int g_blk = g < kRows ? g : kRows;
   const int bq = kRows / g_blk;
-  const dim3 grid(static_cast<unsigned>((s + bq - 1) / bq),
-                  static_cast<unsigned>((g + g_blk - 1) / g_blk),
-                  static_cast<unsigned>(b * kh));
-  flash_fwd<T, DH><<<grid, kThreads, smem, stream>>>(
-      static_cast<T*>(out), static_cast<const T*>(q),
-      static_cast<const T*>(k), static_cast<const T*>(v), s, h, kh, g_blk,
-      bq, window, softcap, scale);
+  const int n_qblk = (s + bq - 1) / bq, n_grp = (g + g_blk - 1) / g_blk;
+  const long long blocks = static_cast<long long>(n_qblk) * n_grp * b * kh;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  flash_fwd<DH><<<static_cast<unsigned>(blocks), Cfg<DH>::THREADS, smem,
+                  stream>>>(
+      static_cast<float*>(out), static_cast<const float*>(q),
+      static_cast<const float*>(k), static_cast<const float*>(v), s, h, kh,
+      b * kh, g_blk, bq, n_qblk, n_grp, window, softcap, scale);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(int dh, void* out, const void* q, const void* k,
-                     const void* v, int b, int s, int h, int kh, int window,
-                     float softcap, float scale, cudaStream_t stream) {
-  switch (dh) {
-    case 32: return launch<T, 32>(out, q, k, v, b, s, h, kh, window,
-                                  softcap, scale, stream);
-    case 64: return launch<T, 64>(out, q, k, v, b, s, h, kh, window,
-                                  softcap, scale, stream);
-    case 128: return launch<T, 128>(out, q, k, v, b, s, h, kh, window,
-                                    softcap, scale, stream);
-    case 256: return launch<T, 256>(out, q, k, v, b, s, h, kh, window,
-                                    softcap, scale, stream);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
@@ -309,9 +402,32 @@ extern "C" int flash_attention_fwd(void* out, const void* q, const void* k,
                                    const void* v, int b, int s, int h,
                                    int kh, int dh, int window, float softcap,
                                    float scale, void* stream) {
-  return static_cast<int>(dispatch<float>(dh, out, q, k, v, b, s, h, kh,
-                                          window, softcap, scale,
-                                          static_cast<cudaStream_t>(stream)));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (dh) {
+    case 32: err = launch<32>(out, q, k, v, b, s, h, kh, window, softcap,
+                              scale, st); break;
+    case 64: err = launch<64>(out, q, k, v, b, s, h, kh, window, softcap,
+                              scale, st); break;
+    case 128: err = launch<128>(out, q, k, v, b, s, h, kh, window, softcap,
+                                scale, st); break;
+    case 256: err = launch<256>(out, q, k, v, b, s, h, kh, window, softcap,
+                                scale, st); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// the shared memory the launch above asks for at head dim dh (0: none),
+// so the wrapper's plan can be held to the kernel's
+extern "C" int flash_attention_f32_smem(int dh) {
+  switch (dh) {
+    case 32: return Cfg<32>::SMEM;
+    case 64: return Cfg<64>::SMEM;
+    case 128: return Cfg<128>::SMEM;
+    case 256: return Cfg<256>::SMEM;
+    default: return 0;
+  }
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

@@ -8,11 +8,12 @@ path (the same contract): causal, optionally sliding-window GQA attention
 with an optional tanh softcap, forward only.  On CPU tensors it runs the
 plain version (``ref.py``).  On CUDA tensors it picks a kernel by dtype,
 explicitly: bf16 launches the tensor-core kernel (wgmma, planned by
-:func:`plan_wgmma`), f32 the CUDA-core kernel, which keeps f32 products;
-anything the kernels do not take raises — there is no fallback.
-``flash_attention.launches_tc`` and ``flash_attention.launches`` count the
-tensor-core and the CUDA-core kernel's launches (never plain-version
-calls), so a run can show which kernel its prefill went through.
+:func:`plan_wgmma`), f32 the CUDA-core kernel (planned by
+:func:`plan_f32`), which keeps f32 products; anything the kernels do not
+take raises — there is no fallback.  ``flash_attention.launches_tc`` and
+``flash_attention.launches`` count the tensor-core and the CUDA-core
+kernel's launches (never plain-version calls), so a run can show which
+kernel its prefill went through.
 """
 
 from __future__ import annotations
@@ -72,6 +73,56 @@ def plan_wgmma(b: int, s: int, h: int, kh: int, dh: int,
     return WgmmaPlan(g_blk, bq, n_q, n_g, grid, smem)
 
 
+# the CUDA-core kernel's tile (csrc/flash_attention.cu): 8 rows x 8 keys of
+# scores a thread, 64 (query, head) rows a block, a row group's 8 rows
+# shared by 16 threads (32 at Dh 256), so keys in tiles of 128 (256); Q in
+# shared memory, K and V through a ring of two chunks of a tile's keys x 32
+# floats (+ 4 of padding), the tile's probabilities
+F32_ROWS = 64
+
+
+class F32Plan(NamedTuple):
+    """Launch of the CUDA-core kernel for one call (see
+    ``csrc/flash_attention.cu``, which computes the same plan)."""
+    g_blk: int          # query heads of one kv head a block takes
+    bq: int             # queries a block takes (g_blk * bq <= F32_ROWS)
+    n_qblocks: int
+    n_groups: int       # head groups per kv head (G > F32_ROWS only)
+    grid: int           # blocks: q-blocks x head groups x B x Kh
+    threads: int        # = keys a tile: 128, at Dh 256 256
+    smem_bytes: int     # Q, the K/V ring, P
+    blocks_per_sm: int  # 2 where Dh <= 128
+
+
+def plan_f32(b: int, s: int, h: int, kh: int, dh: int,
+             dtype: torch.dtype) -> F32Plan:
+    """The CUDA-core kernel's launch for q (b, s, h, dh) and k, v (b, s,
+    kh, dh): rows are (query, head) pairs of one kv head in query-major
+    order, all G = h / kh heads (at most F32_ROWS) times F32_ROWS // G
+    queries.  Raises on what the kernel does not take."""
+    if dtype != torch.float32:
+        raise ValueError(f"the CUDA-core kernel takes float32, got {dtype}")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"head_dim {dh} not supported by the kernel "
+                         f"(expected one of {HEAD_DIMS})")
+    if kh < 1 or h % kh or b < 1 or s < 1:
+        raise ValueError(f"no launch for B={b}, S={s}, H={h}, Kh={kh}")
+    g = h // kh
+    g_blk = min(g, F32_ROWS)
+    bq = F32_ROWS // g_blk
+    n_q, n_g = -(-s // bq), -(-g // g_blk)
+    grid = n_q * n_g * b * kh
+    if grid >= 2**31:
+        raise ValueError(f"{grid} blocks are beyond the kernel's grid")
+    big = dh == 256
+    keys = 256 if big else 128                  # = threads
+    q_tile = F32_ROWS * (dh + 4)
+    ring = 2 * keys * (32 + 4)
+    p_tile = F32_ROWS * (keys + 16)
+    return F32Plan(g_blk, bq, n_q, n_g, grid, keys,
+                   4 * (q_tile + ring + p_tile), 1 if big else 2)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.load()
@@ -84,6 +135,8 @@ def _lib() -> ctypes.CDLL:
                                               i32, i32, i32, i32, i32, i32,
                                               f32, f32, i32, ptr]
     lib.flash_attention_wgmma_fwd.restype = ctypes.c_int
+    lib.flash_attention_f32_smem.argtypes = [i32]
+    lib.flash_attention_f32_smem.restype = i32
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -144,20 +197,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    if q.dtype == torch.bfloat16:
-        plan = plan_wgmma(b, s, h, kh, dh, q.dtype)
-    elif q.dtype == torch.float32:
-        plan = None
-        if b * kh > 65535:
-            raise ValueError(f"B * Kh = {b * kh} is beyond the kernel's "
-                             f"grid")
-    else:
-        raise ValueError(f"no kernel takes {q.dtype}")
+    tc = q.dtype == torch.bfloat16
+    plan = (plan_wgmma if tc else plan_f32)(b, s, h, kh, dh, q.dtype)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         ptrs = (out.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr())
-        if plan is not None:
+        if tc:
             err = lib.flash_attention_wgmma_fwd(
                 *ptrs, b, s, h, kh, dh, plan.g_blk, plan.bq, window, softcap,
                 dh ** -0.5, plan.smem_bytes, stream)
@@ -167,7 +213,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if err:
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention launch failed: {msg} ({err})")
-    if plan is not None:
+    if tc:
         flash_attention.launches_tc += 1
     else:
         flash_attention.launches += 1

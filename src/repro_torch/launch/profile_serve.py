@@ -33,8 +33,8 @@ CELLS = (("recurrentgemma-2b", 4, 4096), ("gemma2-2b", 1, 8192))
 DECODE_STEPS = 8
 
 # kernel-name fragments -> the layer they belong to (first match wins);
-# "flash_fwd" takes both K5 kernels (flash_fwd_wgmma on the tensor cores,
-# flash_fwd on the CUDA cores); cuBLAS's Hopper GEMMs are named nvjet_* /
+# "flash_fwd" takes both K5 kernels (flash_fwd_wgmma for bf16,
+# flash_fwd_tf32 for f32); cuBLAS's Hopper GEMMs are named nvjet_* /
 # sm90_xmma_* / cutlass_*
 LAYERS = (("flash_fwd", "attention (K5)"), ("lru_scan", "RG-LRU scan (K6)"),
           ("nvjet", "matmul"), ("gemm", "matmul"), ("xmma", "matmul"),

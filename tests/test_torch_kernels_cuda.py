@@ -483,6 +483,37 @@ def test_flash_attention_tensor_core_tile_edges(cuda, b, s, h, kh, dh,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,kh,dh,window,cap", [
+    (2, 1000, 6, 2, 64, 0, 0.0),       # ragged S, G = 3: 21 queries, 63 rows
+    (2, 333, 10, 1, 256, 100, 0.0),    # G = 10: 6 queries, 60 rows; Dh 256
+    (1, 70, 130, 1, 64, 0, 0.0),       # G = 130: three head groups
+    (1, 70, 130, 1, 256, 0, 0.0),
+    (2, 190, 4, 1, 32, 0, 0.0),        # Dh 32: one K chunk a tile
+    (2, 517, 4, 2, 128, 200, 30.0),    # softcap with a window
+    (1, 1000, 8, 4, 256, 0, 50.0),     # S not a multiple of the 256-key tile
+    (2, 700, 2, 1, 64, 20, 0.0),       # window < a tile: whole tiles masked
+    (2, 700, 8, 4, 256, 9, 30.0),      # ... at Dh 256, with a softcap
+    (3, 1, 4, 2, 64, 0, 0.0),          # one query
+    (2, 64, 4, 2, 32, 1000, 0.0),      # window >= S
+])
+def test_flash_attention_f32_tile_edges(cuda, b, s, h, kh, dh, window, cap):
+    """The CUDA-core kernel at its tile edges (64 rows, 128-key tiles,
+    256 at Dh 256), at the f32 tolerance."""
+    q, k, v = _qkv(cuda, b, s, h, kh, dh, "float32", seed=s + h + dh)
+    got = _flash_launch(q, k, v, window=window, softcap=cap)
+    _flash_close(got, flash_attention_ref(q, k, v, window=window,
+                                          softcap=cap), "float32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", flash_ops.HEAD_DIMS)
+def test_flash_attention_f32_plan_is_the_kernels(cuda, dh):
+    """``plan_f32``'s shared memory is what the kernel's launch asks for."""
+    plan = flash_ops.plan_f32(1, 64, 2, 1, dh, torch.float32)
+    assert flash_ops._lib().flash_attention_f32_smem(dh) == plan.smem_bytes
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("window", [1, 3, 70])
 def test_flash_attention_short_windows_mask_the_leading_keys(cuda, window):
     """A window far shorter than the block's queries: most rows find the

@@ -48,7 +48,10 @@ def _attn_setup(arch, s, seed):
 @pytest.mark.parametrize("arch,window", [("gemma2-2b", 16),
                                          ("gemma2-2b", 0),
                                          ("recurrentgemma-2b", 16),
-                                         ("recurrentgemma-2b", 64)])
+                                         ("recurrentgemma-2b", 64),
+                                         # use_qk_norm (gemma3-4b)
+                                         ("gemma3-4b", 16),
+                                         ("gemma3-4b", 0)])
 @pytest.mark.parametrize("s", [40, 24])
 def test_attention_prefill_and_kv_cache(arch, window, s):
     ref_cfg, cfg, ref_p, p, h = _attn_setup(arch, s, seed=s + window)
@@ -73,7 +76,8 @@ def test_attention_prefill_and_kv_cache(arch, window, s):
 
 @pytest.mark.parametrize("arch,window", [("gemma2-2b", 16),
                                          ("gemma2-2b", 0),
-                                         ("recurrentgemma-2b", 16)])
+                                         ("recurrentgemma-2b", 16),
+                                         ("gemma3-4b", 16)])
 def test_attention_decode_steps_from_prefill_cache(arch, window):
     s, steps = 20, 6
     ref_cfg, cfg, ref_p, p, h = _attn_setup(arch, s + steps, seed=3)

@@ -48,6 +48,11 @@ ARCHS = [("recurrentgemma-2b", {}),
          ("gemma2-2b", dict(n_layers=5, exit_layer=2))]
 
 
+# the dense configs, reduced as they are: gemma3-4b (qk-norm, window 16
+# against the 40-token prompt), minitron-8b, starcoder2-15b (the plain MLP)
+DENSE = [("gemma3-4b", {}), ("minitron-8b", {}), ("starcoder2-15b", {})]
+
+
 def _configs(arch, overrides):
     return (ref_reduced(arch).with_overrides(**overrides),
             configs.get_reduced(arch).with_overrides(**overrides))
@@ -72,7 +77,7 @@ def _cache_leaves(cache):
     return [_f32(x) for x in tree_leaves(cache)]
 
 
-@pytest.mark.parametrize("arch,overrides", ARCHS)
+@pytest.mark.parametrize("arch,overrides", ARCHS + DENSE)
 def test_prefill_and_teacher_forced_decode_match_reference(arch, overrides):
     ref_cfg, cfg, ref_params, params, tokens = _setup(arch, overrides)
     assert cfg.n_layers == ref_cfg.n_layers
