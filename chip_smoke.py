@@ -72,11 +72,13 @@ which raises on failure:
    (1, 8192, 8 / 4, 256) with softcap 50, window 4096 and global, and at
    the dense configs' shapes (gemma3-4b (1, 8192, 8 / 4, 256) window 1024,
    minitron-8b (1, 4096, 32 / 8, 128), starcoder2-15b (1, 4096, 48 / 4,
-   128), SDPA beside each); f32 at the recurrentgemma-2b shape (SDPA
+   128), qwen2-moe-a2.7b (1, 4096, 16 / 16, 128) and kimi-k2 (1, 4096,
+   64 / 8, 112), SDPA beside each); f32 at the recurrentgemma-2b shape (SDPA
    beside it) and gemma2-2b's global layer; untimed edge cases (a ragged
    S, G = 3 and G = 130, Dh 32, 128 and 256, softcap with a window, a
-   window under a key tile); each timed row with its TFLOP/s and bound
-   share at its route's peak (f32 rows also at split TF32's 165 TFLOP/s);
+   window under a key tile, Dh 112 in both dtypes); each timed row with
+   its TFLOP/s and bound share at its route's peak (f32 rows also at
+   split TF32's 165 TFLOP/s);
    K6 (RG-LRU scan) bitwise at (4, 4096, 2560) f32 and a ragged (3, 1000,
    77);
 7. full-width serving through ``repro_torch.launch.serve.generate``, random
@@ -94,9 +96,16 @@ which raises on failure:
    rtol 1e-4 / atol 1e-5 and in bf16 (K5 on the tensor cores) within 5 %
    of max|logit|, each config's card run launching its dtype's K5; the
    reduced gemma3-4b (qk-norm, window 16), minitron-8b and starcoder2-15b
-   (the plain MLP) the same way in f32; and on the card, f32
-   token-by-token decode against the prefill's logits at every position,
-   at rtol 1e-4 / atol 1e-5;
+   (the plain MLP) the same way in f32; the reduced MoE configs
+   (qwen2-moe-a2.7b, and kimi-k2-1t-a32b at its published head dim 112,
+   so the CUDA-core K5 runs Dh 112 in a model) in both dtypes, every MoE
+   layer's routing held call by call (f32: the CPU's slot_idx equal to
+   the card's; bf16: the CPU's routing from the card's router logits
+   equal to the card's, and the tokens the CPU's own logits route
+   elsewhere counted with their margins; a difference prints the margins
+   and fails); and on the card, f32 token-by-token decode against the
+   prefill's logits at every position (MoE at capacity factor 64), at
+   rtol 1e-4 / atol 1e-5;
 9. the LM round cell (``repro_torch.launch.lm_cell``):
    ``FederatedTrainer(LMAdapter(cfg), ...)`` on
    Gemma-2 2B at full width (bf16, n_flat 2,614,224,896 > 2**31), weights
@@ -112,7 +121,8 @@ which raises on failure:
 10. narrow LM rounds on the card against the CPU at rtol 1e-4 / atol 1e-5:
    attn4 (the BENCH rows' config) fedhen and decouple on the flat engine
    and fedhen on the tree engine, reduced recurrentgemma-2b, gemma3-4b,
-   minitron-8b and starcoder2-15b fedhen;
+   minitron-8b, starcoder2-15b, qwen2-moe-a2.7b and kimi-k2-1t-a32b
+   fedhen;
 11. async rounds (``repro_torch.core.async_rounds``): at the ResNet round
    cell, f32 fedhen through ``AsyncRoundEngine(lag=0)`` against the sync
    trainer, 2 rounds each under deterministic cuDNN, bitwise in server
@@ -165,7 +175,14 @@ which raises on failure:
    8192 past its 1024 window, 8 new tokens), minitron-8b and
    starcoder2-15b (prompt 4096, 8 new tokens), as phase 7 prints them;
    each prefill must launch the tensor-core K5 once per layer (34, 32,
-   40), the CUDA-core K5 never, and decode none.
+   40), the CUDA-core K5 never, and decode none;
+15. full-width serving of the MoE configs the same way: qwen2-moe-a2.7b
+   at published widths and depth and kimi-k2-1t-a32b at published widths
+   cut to 1 of its 61 layers (prompt 4096, 8 new tokens), each prefill
+   launching the tensor-core K5 once a layer (24, 1; kimi at Dh 112),
+   the CUDA-core K5 never, decode none; with the share of (token, choice)
+   pairs prefill dropped at capacity and the tokens an expert (largest
+   and mean), a measurement.
 
 Kernel times are device times (``time_ms``: a CUDA graph of the timed
 calls between two events, so the host's launch rate does not enter).  The
@@ -175,7 +192,8 @@ phase 9 beside phase 4's, and their LM-shape times; K1-K4 with their
 launches on phase 11's async path, K5 and K6 with theirs on phase 12's
 serving from checkpoints; K1-K4 with their launches on phase 13's
 telemetry path, the tensor-core K5 with its serving of the trained model
-there and its launches in phase 14's dense serving); the last is
+there and its launches in phase 14's dense serving and phase 15's MoE
+serving); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1072,6 +1090,9 @@ FLASH_CASES = (
     ("minitron-8b prefill", 1, 4096, 32, 8, 128, 0, 0.0, "bfloat16", True),
     ("starcoder2-15b prefill", 1, 4096, 48, 4, 128, 0, 0.0, "bfloat16",
      True),
+    ("qwen2-moe-a2.7b prefill", 1, 4096, 16, 16, 128, 0, 0.0, "bfloat16",
+     True),
+    ("kimi-k2 prefill", 1, 4096, 64, 8, 112, 0, 0.0, "bfloat16", True),
     ("recurrentgemma-2b shape in f32", 4, 4096, 10, 1, 256, 2048, 0.0,
      "float32", True),
     ("gemma2-2b global in f32", 1, 8192, 8, 4, 256, 0, 50.0, "float32",
@@ -1088,6 +1109,8 @@ FLASH_CASES = (
     ("Dh 128, softcap and window bf16", 2, 777, 4, 2, 128, 200, 30.0,
      "bfloat16", False),
     ("G 130 bf16", 1, 70, 130, 1, 64, 0, 0.0, "bfloat16", False),
+    ("Dh 112 f32", 2, 1000, 8, 2, 112, 300, 30.0, "float32", False),
+    ("Dh 112 bf16", 3, 513, 8, 8, 112, 0, 0.0, "bfloat16", False),
 )
 # (route, peak the bound counts, peak of a second share): f32 stays on the
 # CUDA cores (67 TFLOP/s); split TF32 on the tensor cores (TF32_SPLIT_PEAK,
@@ -1240,12 +1263,40 @@ SERVE_RUNS = (("recurrentgemma-2b", 4, 4096, 32, (8, 0, 18)),
 DENSE_SERVE_RUNS = (("gemma3-4b", 1, 8192, 8, (34, 0, 0)),
                     ("minitron-8b", 1, 4096, 8, (32, 0, 0)),
                     ("starcoder2-15b", 1, 4096, 8, (40, 0, 0)))
+# phase 15, the MoE configs at published widths, with the config's
+# overrides last: qwen2-moe-a2.7b whole (28.0 GB of bf16 weights);
+# kimi-k2-1t-a32b cut from 61 layers to 1 (36.5 GB a layer: two would
+# leave no room on an 80 GB card)
+MOE_SERVE_RUNS = (("qwen2-moe-a2.7b", 1, 4096, 8, (24, 0, 0), {}),
+                  ("kimi-k2-1t-a32b", 1, 4096, 8, (1, 0, 0),
+                   {"n_layers": 1}))
+
+
+def _routing_stats(torch, calls) -> dict:
+    """Over MoE routing calls (``_routes``): the share of (token, choice)
+    pairs dropped at capacity, and the tokens an expert was chosen by in
+    one call (largest and mean over experts and calls), beside the
+    capacity."""
+    pairs = sum(c["experts"].numel() for c in calls)
+    dropped = sum(int((c["slot"] == c["slot_idx"][0].numel()).sum())
+                  for c in calls)
+    asked = [torch.bincount(c["experts"].flatten(),
+                            minlength=c["logits"].shape[-1]).float()
+             for c in calls]
+    return {"moe_calls": len(calls), "pairs": pairs, "dropped": dropped,
+            "dropped_share": dropped / max(pairs, 1),
+            "expert_tokens_max": max(float(a.max()) for a in asked),
+            "expert_tokens_mean": sum(float(a.mean()) for a in asked)
+            / len(asked),
+            "capacity": calls[0]["slot_idx"].shape[-1]}
 
 
 def serving(torch, runs=SERVE_RUNS) -> dict:
-    """Phases 7 and 14: full-width serving through ``serve.generate``.
+    """Phases 7, 14 and 15: full-width serving through ``serve.generate``.
     Launch counts are zeroed before each run, read when prefill is done and
-    again at the end."""
+    again at the end.  A run of an MoE config also prints its prefill's
+    routing: pairs dropped at capacity and tokens an expert (a
+    measurement, not a gate)."""
     from repro_torch import configs
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.rglru_scan.ops import lru_scan
@@ -1258,8 +1309,9 @@ def serving(torch, runs=SERVE_RUNS) -> dict:
     def counts():
         return (flash_attention.launches_tc, flash_attention.launches,
                 lru_scan.launches)
-    for arch, batch, prompt, gen, expected in runs:
-        cfg = configs.get_config(arch)
+    for arch, batch, prompt, gen, expected, *over in runs:
+        cfg = configs.get_config(arch).with_overrides(**(over[0] if over
+                                                         else {}))
         torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         params = tfm.init_params(torch.Generator("cuda").manual_seed(0), cfg)
@@ -1275,15 +1327,17 @@ def serving(torch, runs=SERVE_RUNS) -> dict:
         def prefill_done():
             torch.cuda.synchronize()
             marks["t"], marks["counts"] = time.perf_counter(), counts()
+            marks["routed"] = len(routed)
 
         flash_attention.launches_tc = flash_attention.launches = 0
         lru_scan.launches = 0
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        tokens, stats = generate(params, cfg, prompts, gen,
-                                 on_prefill_done=prefill_done)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
+        with _routes() as routed:
+            t0 = time.perf_counter()
+            tokens, stats = generate(params, cfg, prompts, gen,
+                                     on_prefill_done=prefill_done)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
         launched = counts()
         prefill_counts = marks["counts"]
         decode_counts = tuple(a - b for a, b in zip(launched,
@@ -1304,7 +1358,17 @@ def serving(torch, runs=SERVE_RUNS) -> dict:
                "prefill_tokens_per_s": batch * prompt / (marks["t"] - t0),
                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                "launches_prefill": prefill_counts,
-               "launches_decode": decode_counts, **stats}
+               "launches_decode": decode_counts, "layers": cfg.n_layers,
+               **stats}
+        if cfg.moe is not None:
+            if marks["routed"] != cfg.n_layers or len(routed) != \
+                    cfg.n_layers * gen:
+                raise RuntimeError(f"{arch}: {marks['routed']} MoE routing "
+                                   f"calls in prefill, {len(routed)} in all")
+            row["prefill_routing"] = _routing_stats(
+                torch, routed[:marks["routed"]])
+        elif routed:
+            raise RuntimeError(f"{arch}: a dense config routed")
         print("  " + json.dumps(row), flush=True)
         if prefill_counts != expected or decode_counts != (0, 0, 0):
             raise RuntimeError(f"{arch}: K5 (tensor cores, CUDA cores) and "
@@ -1313,7 +1377,7 @@ def serving(torch, runs=SERVE_RUNS) -> dict:
                                f"decode (expected none)")
         out["runs"].append(row)
         total = tuple(a + b for a, b in zip(total, launched))
-        del params, prompts, tokens
+        del params, prompts, tokens, routed
         torch.cuda.empty_cache()
     out["launches"] = total
     return out
@@ -1329,6 +1393,90 @@ def _narrow_configs(dtype: str):
 
 
 DENSE = ("gemma3-4b", "minitron-8b", "starcoder2-15b")
+MOE = ("qwen2-moe-a2.7b", "kimi-k2-1t-a32b")
+
+
+def _moe_configs(dtype: str):
+    """The reduced MoE configs of phases 8 and 10, kimi-k2 at its
+    published head dim 112 (K5 pads it to 128 columns)."""
+    from repro_torch import configs
+    dt = dict(param_dtype=dtype, compute_dtype=dtype)
+    return (configs.get_reduced("qwen2-moe-a2.7b").with_overrides(**dt),
+            configs.get_reduced("kimi-k2-1t-a32b").with_overrides(
+                head_dim=112, **dt))
+
+
+@contextlib.contextmanager
+def _routes(replay=None):
+    """Wrap ``mlp._route`` (every MoE layer's routing) for one run: yields
+    the list of its calls, each {logits, slot_idx, experts, slot, top_k},
+    kept where the run made them (no copy, no sync).  With ``replay`` (an
+    earlier run's calls) each call routes from that run's router logits
+    instead of its own, records that routing as ``replayed``, and still
+    records the routing its own logits give."""
+    from repro_torch.models import mlp
+    route, calls = mlp._route, []
+
+    def record(r, logits):
+        return {"logits": logits, "slot_idx": r.slot_idx,
+                "experts": r.token_expert, "slot": r.token_slot,
+                "top_k": r.token_expert.shape[-1]}
+
+    def wrapped(logits, moe, capacity, e_pad=0):
+        own = route(logits, moe, capacity, e_pad)
+        calls.append(record(own, logits))
+        if replay is None:
+            return own
+        theirs_logits = replay[len(calls) - 1]["logits"].to(logits.device)
+        theirs = route(theirs_logits, moe, capacity, e_pad)
+        calls[-1]["replayed"] = record(theirs, theirs_logits)
+        return theirs
+    mlp._route = wrapped
+    try:
+        yield calls
+    finally:
+        mlp._route = route
+
+
+def _margins(torch, rec, tokens) -> list:
+    """The gap between the k-th and (k+1)-th router probabilities of the
+    given tokens of one routing call (the near-tie a flip crosses)."""
+    probs = torch.sort(torch.softmax(rec["logits"].float().cpu(), dim=-1),
+                       dim=-1, descending=True).values
+    k = rec["top_k"]
+    gap = probs[..., k - 1] - probs[..., k]
+    return [float(gap[t]) for t in zip(*tokens)]
+
+
+def _hold_routes(torch, label: str, card: list, cpu: list,
+                 replayed: bool) -> list:
+    """Routing card against CPU, call by call: slot_idx equal (the CPU's
+    own, or with ``replayed`` the CPU's routing from the card's router
+    logits); a difference prints the margins of the tokens whose experts
+    differ and fails.  Returns, with ``replayed``, the margins of the
+    tokens the CPU's own logits route to other experts (a measurement)."""
+    if len(card) != len(cpu) or not card:
+        raise RuntimeError(f"{label}: {len(card)} routing calls on the card, "
+                           f"{len(cpu)} on the CPU")
+
+    def moved(a, b):          # tokens whose chosen experts differ
+        return torch.nonzero((torch.sort(a.cpu(), -1).values
+                              != torch.sort(b.cpu(), -1).values).any(-1),
+                             as_tuple=True)
+    flips = []
+    for i, (c, h) in enumerate(zip(card, cpu)):
+        mine = h["replayed"] if replayed else h
+        if not torch.equal(c["slot_idx"].cpu(), mine["slot_idx"].cpu()):
+            toks = moved(c["experts"], mine["experts"])
+            raise RuntimeError(
+                f"{label}: routing call {i} differs card against CPU"
+                f"{' from the same router logits' if replayed else ''}; "
+                f"margins of the tokens whose experts differ (card logits) "
+                f"{_margins(torch, c, toks)}, (CPU logits) "
+                f"{_margins(torch, h, toks)}")
+        if replayed:
+            flips += _margins(torch, h, moved(c["experts"], h["experts"]))
+    return flips
 
 
 def serving_card_vs_cpu(torch) -> dict:
@@ -1340,9 +1488,21 @@ def serving_card_vs_cpu(torch) -> dict:
     ``test_bf16_prefill_and_decode_match_reference``); then the card's f32
     decode against its prefill.  f32 also serves the reduced dense configs
     as they are (gemma3-4b: its window 16 and qk-norm; minitron-8b;
-    starcoder2-15b: the plain MLP).  Each config's card run must launch
-    its dtype's K5; each dtype's card runs start from zeroed counts;
-    returns their K5 launches (tensor cores, CUDA cores)."""
+    starcoder2-15b: the plain MLP).  Both dtypes serve the reduced MoE
+    configs (qwen2-moe-a2.7b; kimi-k2 at head dim 112, K5's padded Dh),
+    with every MoE layer's routing held call by call: in f32 the CPU's
+    slot_idx equal to the card's; in bf16, where a bf16 ulp of the
+    activations moves a router logit by about 1e-3 and can flip a
+    near-tie (``tests/test_torch_moe_configs.py``), the CPU routes from
+    the card's router logits and its slot_idx must equal the card's, and
+    the tokens its own logits would route elsewhere are counted with their
+    margins; a slot that differs prints the margins and fails.  The MoE
+    configs' decode-against-prefill check runs at capacity factor 64, as
+    ``test_moe_no_drop`` does (decode routes the batch as one group at
+    capacity 1 and drops pairs prefill keeps).  Each config's card run
+    must launch its dtype's K5; each dtype's card runs start from zeroed
+    counts; returns their K5 launches (tensor cores, CUDA cores)."""
+    import dataclasses
     from repro_torch import configs
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.models import transformer as tfm
@@ -1354,16 +1514,20 @@ def serving_card_vs_cpu(torch) -> dict:
         flash_attention.launches_tc = flash_attention.launches = 0
         dense = ([configs.get_reduced(a) for a in DENSE]
                  if dtype == "float32" else [])
-        for cfg in list(_narrow_configs(dtype)) + dense:
+        for cfg in (list(_narrow_configs(dtype)) + dense
+                    + list(_moe_configs(dtype))):
+            moe = cfg.moe is not None
             params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
             tokens = torch.randint(0, cfg.vocab_size, (batch, prompt + steps),
                                    generator=torch.Generator().manual_seed(1))
-            sides = {}
+            sides, routed = {}, {}
             before = (flash_attention.launches_tc, flash_attention.launches)
             for dev in ("cuda", "cpu"):
                 p = tree_map(lambda x: x.to(dev), params)
                 toks = tokens.to(dev)
-                with torch.inference_mode():
+                replay = (routed["cuda"] if dev == "cpu" and moe
+                          and dtype != "float32" else None)
+                with torch.inference_mode(), _routes(replay) as calls:
                     logits, cache = tfm.prefill(p, cfg, toks[:, :prompt],
                                                 cache_len=prompt + steps)
                     outs = [logits]
@@ -1373,6 +1537,7 @@ def serving_card_vs_cpu(torch) -> dict:
                             with_exit_head=True)
                         outs += [lg, ex]
                 sides[dev] = [o.cpu().float() for o in outs]
+                routed[dev] = calls
                 if dev == "cuda":
                     tc = dtype == "bfloat16"
                     got = (flash_attention.launches_tc - before[0],
@@ -1383,6 +1548,20 @@ def serving_card_vs_cpu(torch) -> dict:
                             f"(tensor cores, CUDA cores) {got}, expected "
                             f"only the {'tensor' if tc else 'CUDA'}-core "
                             f"kernel")
+            routing = ""
+            if moe:
+                replayed = dtype != "float32"
+                flips = _hold_routes(torch, f"{cfg.name} narrow {dtype}",
+                                     routed["cuda"], routed["cpu"],
+                                     replayed)
+                routing = (f"; routing of {len(routed['cuda'])} MoE calls "
+                           f"equal card vs CPU"
+                           + (" from the card's router logits; tokens the "
+                              f"CPU's own logits route elsewhere: "
+                              f"{len(flips)}, margins {flips}"
+                              if replayed else ""))
+            elif routed["cuda"] or routed["cpu"]:
+                raise RuntimeError(f"{cfg.name}: a dense config routed")
             worst = 0.0
             top = float(sides["cpu"][0].abs().max())      # max |logit|
             rule = ("rtol 1e-4 / atol 1e-5" if dtype == "float32"
@@ -1399,16 +1578,20 @@ def serving_card_vs_cpu(torch) -> dict:
                         f"final/exit per step)")
             print(f"  {cfg.name} narrow {dtype} ({cfg.n_layers} layers, exit "
                   f"after {cfg.resolved_exit_layer}, window {cfg.window}, "
-                  f"qk-norm {cfg.use_qk_norm}, glu {cfg.mlp_glu}, K5 "
+                  f"qk-norm {cfg.use_qk_norm}, glu {cfg.mlp_glu}, head dim "
+                  f"{cfg.resolved_head_dim}, K5 "
                   f"launches {got}, prompt {prompt}): prefill logits and "
                   f"{steps} "
                   f"teacher-forced decode steps (final and exit heads), card "
                   f"vs CPU max|diff| {worst:.3e} = {worst / top:.5f} of "
-                  f"max|logit| ({rule})", flush=True)
+                  f"max|logit| ({rule}){routing}", flush=True)
             if dtype != "float32":
                 continue
             # the card's decode, token by token from an empty cache, against
-            # the card's prefill of the whole sequence
+            # the card's prefill of the whole sequence (MoE: no drops)
+            if moe:
+                cfg = cfg.with_overrides(moe=dataclasses.replace(
+                    cfg.moe, capacity_factor=64.0))
             p = tree_map(lambda x: x.cuda(), params)
             toks = tokens.cuda()
             n = prompt + steps
@@ -1427,7 +1610,8 @@ def serving_card_vs_cpu(torch) -> dict:
                                            f"position {t} differs from "
                                            f"prefill")
             print(f"  {cfg.name} narrow on the card: decode of {n} positions "
-                  f"against prefill, max|diff| {worst:.3e}", flush=True)
+                  f"against prefill, max|diff| {worst:.3e}"
+                  + (" (capacity factor 64)" if moe else ""), flush=True)
         launches[dtype] = (flash_attention.launches_tc,
                            flash_attention.launches)
         tc = dtype == "bfloat16"
@@ -1689,11 +1873,13 @@ def lm_card_vs_cpu(torch) -> None:
     """Phase 10: narrow LM rounds on the card against the same rounds on
     the CPU (weights drawn on the CPU from seed 0, the same schedule):
     attn4 fedhen and decouple on the flat engine, fedhen on the tree
-    engine, reduced recurrentgemma-2b, gemma3-4b, minitron-8b and
-    starcoder2-15b fedhen.  Server params (and decouple's simple host) at
-    rtol 1e-4 / atol 1e-5, losses and eval metrics within 1e-5, n_valid
-    and bytes equal.  (A round trains through the chunked attention of the
-    training forward, not K5: prefill alone runs K5.)"""
+    engine, reduced recurrentgemma-2b, gemma3-4b, minitron-8b,
+    starcoder2-15b, qwen2-moe-a2.7b and kimi-k2-1t-a32b fedhen (the MoE
+    trees, router and experts, fold through K1).  Server params (and
+    decouple's simple host) at rtol 1e-4 / atol 1e-5, losses and eval
+    metrics within 1e-5, n_valid and bytes equal.  (A round trains
+    through the chunked attention of the training forward, not K5:
+    prefill alone runs K5.)"""
     from repro_torch import configs
     from repro_torch.configs.base import FedConfig
     from repro_torch.core.adapters import LMAdapter
@@ -1707,7 +1893,7 @@ def lm_card_vs_cpu(torch) -> None:
             ("recurrentgemma-2b reduced",
              configs.get_reduced("recurrentgemma-2b"), "fedhen", {})) + tuple(
                 (f"{a} reduced", configs.get_reduced(a), "fedhen", {})
-                for a in DENSE)
+                for a in DENSE + MOE)
     for label, cfg, algo, extra in runs:
         shards = [{"tokens": s["tokens"]} for s in iid_split(
             synthetic_lm(32, 16, cfg.vocab_size, seed=0), 4, seed=1)]
@@ -2685,6 +2871,11 @@ def main() -> int:
     print("[14] full-width serving: gemma3-4b, minitron-8b, starcoder2-15b",
           flush=True)
     dense_path = serving(torch, DENSE_SERVE_RUNS)
+    torch.cuda.empty_cache()
+    # 15. full-width serving of the MoE configs
+    print("[15] full-width serving: qwen2-moe-a2.7b, kimi-k2-1t-a32b at "
+          "published widths (depth 1)", flush=True)
+    moe_path = serving(torch, MOE_SERVE_RUNS)
 
     src = "src/repro_torch/kernels/masked_agg/csrc/"
     kernels = []
@@ -2755,6 +2946,10 @@ def main() -> int:
     kernels[-2]["launches_dense_path"] = ("phase 14: full-width serving of "
                                           "gemma3-4b, minitron-8b and "
                                           "starcoder2-15b")
+    kernels[-2]["launches_moe"] = moe_path["launches"][0]
+    kernels[-2]["launches_moe_path"] = ("phase 15: full-width serving of "
+                                        "qwen2-moe-a2.7b and kimi-k2 "
+                                        "(depth 1, Dh 112)")
     head = k6["timing"][0]
     kernels.append({
         "name": "lru_scan", "route": "cuda",

@@ -14,7 +14,11 @@
 // tanh(x / softcap) * softcap when softcap > 0.  Scores, the online softmax
 // (m, l, acc) and the probabilities are f32, every product an f32 FMA in
 // increasing Dh (then key) order; out is acc / max(l, 1e-30).  Dh is 32,
-// 64, 128 or 256.  bf16 inputs go to flash_attention_wgmma.cu.
+// 64, 112, 128 or 256.  Dh 112 runs as 128 in shared memory (DP below):
+// the padding columns of Q, K and V load as 0, so each score's in-order
+// chain of FMAs over Dh only adds exact zeros at its end, and the output's
+// padding columns are computed and not stored.  bf16 inputs go to
+// flash_attention_wgmma.cu.
 //
 // Bound: operations.  Each kept (query, key) pair costs 4 * Dh flops (its
 // score and its share of P V), at the card's f32 CUDA-core rate (67
@@ -78,24 +82,28 @@ constexpr int kKld = kDC + kPad;
 
 template <int DH>
 struct Cfg {
+  // head dim in shared memory: Dh rounded up to 32, 64, 128 or 256
+  static constexpr int DP = DH <= 32 ? 32 : DH <= 64 ? 64 : DH <= 128 ? 128
+                                                                     : 256;
   // KG threads share a row group (8 rows), one per 8 keys of the tile
-  static constexpr int KG = DH == 256 ? 32 : 16;
+  static constexpr int KG = DP == 256 ? 32 : 16;
   static constexpr int THREADS = 8 * KG;          // 8 row groups
   static constexpr int BK = 8 * KG;               // keys per tile
   static constexpr int SLOT = BK * kKld;          // floats of a ring slot
-  static constexpr int QLD = DH + kPad;
+  static constexpr int QLD = DP + kPad;
   static constexpr int PLD = BK + 16;             // P row pitch
-  static constexpr int VC = DH == 256 ? 32 : 4096 / DH;  // keys a V chunk
-  static constexpr int NK = DH / kDC;             // K chunks a tile
+  static constexpr int VC = DP == 256 ? 32 : 4096 / DP;  // keys a V chunk
+  static constexpr int NK = DP / kDC;             // K chunks a tile
   static constexpr int NV = BK / VC;              // V chunks a tile
-  static constexpr int VW = DH >= 64 ? 4 : 2;     // output vector width
-  static constexpr int NVW = DH / (KG * VW);      // output vectors a row
+  static constexpr int VW = DP >= 64 ? 4 : 2;     // output vector width
+  static constexpr int NVW = DP / (KG * VW);      // output vectors a row
   static constexpr int FLOATS = kRows * QLD + 2 * SLOT + kRows * PLD;
   static constexpr int SMEM = 4 * FLOATS;
-  static_assert(VC * (DH + kPad) <= SLOT, "a V chunk fits a slot");
+  static_assert(VC * (DP + kPad) <= SLOT, "a V chunk fits a slot");
   static_assert(NK == NV, "K and V chunks alternate per tile");
-  static_assert(BK * 8 == 8 * THREADS && VC * DH / 4 == 8 * THREADS,
+  static_assert(BK * 8 == 8 * THREADS && VC * DP / 4 == 8 * THREADS,
                 "8 16-byte copies a thread a chunk");
+  static_assert(DH % 4 == 0, "a row is whole 16-byte chunks");
 };
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
@@ -133,7 +141,8 @@ __device__ __forceinline__ float lane4(const float4& v, int e) {
 }
 
 template <int DH>
-__global__ void __launch_bounds__(Cfg<DH>::THREADS, DH == 256 ? 1 : 2)
+__global__ void __launch_bounds__(Cfg<DH>::THREADS, Cfg<DH>::DP == 256 ? 1
+                                                                      : 2)
 flash_fwd(float* __restrict__ out, const float* __restrict__ q,
           const float* __restrict__ k, const float* __restrict__ v,
           int s_len, int n_heads, int n_kv, int n_bk, int g_blk, int bq,
@@ -141,7 +150,7 @@ flash_fwd(float* __restrict__ out, const float* __restrict__ q,
   using C = Cfg<DH>;
   constexpr int NT = C::THREADS, KG = C::KG, BK = C::BK, SLOT = C::SLOT,
                 QLD = C::QLD, PLD = C::PLD, VC = C::VC, NK = C::NK,
-                VW = C::VW, NVW = C::NVW;
+                VW = C::VW, NVW = C::NVW, DP = C::DP;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* qs = smem;                             // kRows x QLD
@@ -169,13 +178,14 @@ flash_fwd(float* __restrict__ out, const float* __restrict__ q,
   const float* vb = v + static_cast<int64_t>(b) * s_len * ktok +
                     static_cast<int64_t>(kvh) * DH;
 
-  // Q rows of the block (dead rows are 0), with the first chunk
+  // Q rows of the block (dead rows and padding columns are 0), with the
+  // first chunk
   {
     const uint32_t qs_s = static_cast<uint32_t>(__cvta_generic_to_shared(qs));
-    for (int idx = tid; idx < kRows * DH / 4; idx += NT) {
-      const int r = idx / (DH / 4), c4 = idx % (DH / 4);
+    for (int idx = tid; idx < kRows * DP / 4; idx += NT) {
+      const int r = idx / (DP / 4), c4 = idx % (DP / 4);
       const int qi = r / g_blk, gi = r % g_blk, qp = q0 + qi;
-      const bool ok = qi < bq && g0 + gi < g && qp < s_len;
+      const bool ok = 4 * c4 < DH && qi < bq && g0 + gi < g && qp < s_len;
       const float* src =
           ok ? q + (static_cast<int64_t>(b) * s_len + qp) * tok +
                    static_cast<int64_t>(kvh * g + g0 + gi) * DH + 4 * c4
@@ -190,7 +200,8 @@ flash_fwd(float* __restrict__ out, const float* __restrict__ q,
   const int n_chunks = n_tiles * 2 * NK;
 
   // chunk ci into ring slot ci & 1: of tile ci / (2 NK), K chunk c < NK
-  // (BK keys x 32 dims from Dh 32 c), else V chunk c - NK (VC keys x Dh)
+  // (BK keys x 32 dims from Dh 32 c), else V chunk c - NK (VC keys x DP);
+  // columns at or past Dh read as 0
   auto load_chunk = [&](int ci) {
     const int t = ci / (2 * NK), c = ci % (2 * NK);
     const int k0 = k_begin + t * BK;
@@ -200,14 +211,14 @@ flash_fwd(float* __restrict__ out, const float* __restrict__ q,
       const int p = tid + NT * u;
       if (c < NK) {
         const int key = p >> 3, c4 = p & 7, kp = k0 + key;
-        const bool ok = kp < s_len;
+        const bool ok = kp < s_len && kDC * c + 4 * c4 < DH;
         cp_async16(dst + 4 * (key * kKld + 4 * c4),
                    ok ? kb + kp * ktok + kDC * c + 4 * c4 : kb, ok);
       } else {
-        const int key = p / (DH / 4), c4 = p % (DH / 4);
+        const int key = p / (DP / 4), c4 = p % (DP / 4);
         const int kp = k0 + (c - NK) * VC + key;
-        const bool ok = kp < s_len;
-        cp_async16(dst + 4 * (key * (DH + kPad) + 4 * c4),
+        const bool ok = kp < s_len && 4 * c4 < DH;
+        cp_async16(dst + 4 * (key * (DP + kPad) + 4 * c4),
                    ok ? vb + kp * ktok + 4 * c4 : vb, ok);
       }
     }
@@ -326,7 +337,7 @@ flash_fwd(float* __restrict__ out, const float* __restrict__ q,
               ps + (8 * rg + i) * PLD + kv0 + 4 * kq);
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
-          const float* vrow = vc + (4 * kq + kk) * (DH + kPad);
+          const float* vrow = vc + (4 * kq + kk) * (DP + kPad);
 #pragma unroll
           for (int mm = 0; mm < NVW; ++mm) {
             float vv[VW];
@@ -362,6 +373,7 @@ flash_fwd(float* __restrict__ out, const float* __restrict__ q,
 #pragma unroll
     for (int mm = 0; mm < NVW; ++mm) {
       const int col = VW * kg + KG * VW * mm;
+      if (col >= DH) continue;              // a padding column
       if constexpr (VW == 4) {
         *reinterpret_cast<float4*>(orow + col) = make_float4(
             o[i][4 * mm] / den, o[i][4 * mm + 1] / den,
@@ -409,6 +421,8 @@ extern "C" int flash_attention_fwd(void* out, const void* q, const void* k,
                               scale, st); break;
     case 64: err = launch<64>(out, q, k, v, b, s, h, kh, window, softcap,
                               scale, st); break;
+    case 112: err = launch<112>(out, q, k, v, b, s, h, kh, window, softcap,
+                                scale, st); break;
     case 128: err = launch<128>(out, q, k, v, b, s, h, kh, window, softcap,
                                 scale, st); break;
     case 256: err = launch<256>(out, q, k, v, b, s, h, kh, window, softcap,
@@ -424,6 +438,7 @@ extern "C" int flash_attention_f32_smem(int dh) {
   switch (dh) {
     case 32: return Cfg<32>::SMEM;
     case 64: return Cfg<64>::SMEM;
+    case 112: return Cfg<112>::SMEM;
     case 128: return Cfg<128>::SMEM;
     case 256: return Cfg<256>::SMEM;
     default: return 0;

@@ -15,8 +15,11 @@
 // probabilities enter the PV product rounded to bf16, as the model's
 // _attend rounds them (probs.astype(v.dtype)), and l sums those same
 // rounded values; out is acc / max(l, 1e-30) rounded once to bf16.  Dh is
-// 32, 64, 128 or 256 (32 runs padded to 64 in shared memory).  f32 inputs
-// go to the CUDA-core kernel (flash_attention.cu), which keeps f32 products.
+// 32, 64, 112, 128 or 256: shared memory holds Dh rounded up to whole
+// 64-column blocks (32 padded to 64, 112 to 128), the padding columns of Q,
+// K and V loaded as 0, so S = Q K^T sums exact zeros past Dh and P V's
+// padding columns are computed and not stored.  f32 inputs go to the
+// CUDA-core kernel (flash_attention.cu), which keeps f32 products.
 //
 // Bound: operations.  Each kept (query, key) pair costs 4 * Dh flops (its
 // score and its share of P.V), at 989 TFLOP/s dense bf16; the bytes (q, k,
@@ -67,7 +70,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int DH>
 struct Tile {
-  static constexpr int DP = DH < 64 ? 64 : DH;    // head dim in shared memory
+  // head dim in shared memory: whole 64-column (128-byte) blocks
+  static constexpr int DP = DH <= 64 ? 64 : (DH + 63) / 64 * 64;
   static constexpr int NB = DP / 64;              // 128-byte column blocks
   static constexpr int CPR = DP / 8;              // 16-byte chunks per row
   static constexpr int Q_BYTES = kRows * DP * 2;
@@ -195,7 +199,8 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // Start the cp.async copies of keys k0..k0+63 of K and V into one stage
-// (rows at or beyond s_len, and the padding columns of Dh 32, read as 0).
+// (rows at or beyond s_len, and the padding columns past Dh, read as 0; a
+// row of Dh 112 is 14 16-byte chunks, so every copy stays aligned).
 template <int DH>
 __device__ __forceinline__ void load_kv(uint32_t ks, uint32_t vs,
                                         const uint16_t* kb,
@@ -448,6 +453,8 @@ extern "C" int flash_attention_wgmma_fwd(void* out, const void* q,
                               softcap, scale, smem, st); break;
     case 64: err = launch<64>(out, q, k, v, b, s, h, kh, g_blk, bq, window,
                               softcap, scale, smem, st); break;
+    case 112: err = launch<112>(out, q, k, v, b, s, h, kh, g_blk, bq, window,
+                                softcap, scale, smem, st); break;
     case 128: err = launch<128>(out, q, k, v, b, s, h, kh, g_blk, bq, window,
                                 softcap, scale, smem, st); break;
     case 256: err = launch<256>(out, q, k, v, b, s, h, kh, g_blk, bq, window,

@@ -28,12 +28,28 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (32, 64, 128, 256)     # the kernels' instantiations
+# the kernels' instantiations: the TPU kernel takes any Dh; these are the
+# zoo's (kimi-k2's 112 runs padded to 128 columns in shared memory)
+HEAD_DIMS = (32, 64, 112, 128, 256)
 
 # the tensor-core kernel's tile (csrc/flash_attention_wgmma.cu): two
 # warpgroups of 64 (query, head) rows, keys in tiles of 64 through a ring
 # of 2 K/V stages
 TC_ROWS, TC_KEYS, TC_STAGES = 128, 64, 2
+
+
+def wgmma_width(dh: int) -> int:
+    """Columns a row of Q, K or V takes in the tensor-core kernel's shared
+    memory: Dh rounded up to whole 64-column blocks (32 -> 64, 112 ->
+    128), the padding loaded as 0."""
+    return 64 if dh <= 64 else -(-dh // 64) * 64
+
+
+def f32_width(dh: int) -> int:
+    """Columns a row of Q, K or V takes in the CUDA-core kernel's shared
+    memory: Dh rounded up to 32, 64, 128 or 256 (112 -> 128), the padding
+    loaded as 0."""
+    return next(w for w in (32, 64, 128, 256) if w >= dh)
 
 
 class WgmmaPlan(NamedTuple):
@@ -68,8 +84,7 @@ def plan_wgmma(b: int, s: int, h: int, kh: int, dh: int,
     grid = n_q * n_g * b * kh
     if grid >= 2**31:
         raise ValueError(f"{grid} blocks are beyond the kernel's grid")
-    dp = max(dh, 64)                 # Dh 32 is padded to 64 columns
-    smem = 2 * dp * (TC_ROWS + 2 * TC_STAGES * TC_KEYS) + 1024
+    smem = 2 * wgmma_width(dh) * (TC_ROWS + 2 * TC_STAGES * TC_KEYS) + 1024
     return WgmmaPlan(g_blk, bq, n_q, n_g, grid, smem)
 
 
@@ -114,9 +129,10 @@ def plan_f32(b: int, s: int, h: int, kh: int, dh: int,
     grid = n_q * n_g * b * kh
     if grid >= 2**31:
         raise ValueError(f"{grid} blocks are beyond the kernel's grid")
-    big = dh == 256
+    dp = f32_width(dh)
+    big = dp == 256
     keys = 256 if big else 128                  # = threads
-    q_tile = F32_ROWS * (dh + 4)
+    q_tile = F32_ROWS * (dp + 4)
     ring = 2 * keys * (32 + 4)
     p_tile = F32_ROWS * (keys + 16)
     return F32Plan(g_blk, bq, n_q, n_g, grid, keys,

@@ -1,22 +1,27 @@
 """Where full-width serving's time goes on the card.
 
 For each serving cell of ``chip_smoke.py`` (recurrentgemma-2b: batch 4,
-prompt 4096; gemma2-2b: batch 1, prompt 8192; random weights from seed 0)
-it runs one warm-up prefill and decode step, then traces one prefill and
-``DECODE_STEPS`` greedy decode steps (with the exit head, as
+prompt 4096; gemma2-2b: batch 1, prompt 8192; with ``--moe`` instead the
+MoE cells of its phase 15, qwen2-moe-a2.7b and kimi-k2-1t-a32b cut to one
+layer, batch 1, prompt 4096; random weights from seed 0) it traces the
+model's first prefill (which pays the caching allocator's growth and any
+first launches) and runs one decode step, then traces one steady prefill
+and ``DECODE_STEPS`` greedy decode steps (with the exit head, as
 ``serve.generate`` runs them) with ``torch.profiler`` (device activity
-only), and prints for each phase: the traced wall time, the device busy
-time (the sum of its kernel times) and idle share, both from the traced
-run; the wall time of the same work untraced; the time by layer (K5, K6,
-matmuls, ...); and the kernels that take the most device time.  The first
-line is the card's name and power limit as ``nvidia-smi`` reports them;
-the last is one JSON object with the same numbers.
+only), and prints for each phase (first prefill, prefill, decode): the
+traced wall time, the device busy time (the sum of its kernel times) and
+idle share; for the last two the wall time of the same work untraced;
+the time by layer (K5, K6, matmuls, ...); and the kernels that take the
+most device time.  The first line is the card's name and power limit as
+``nvidia-smi`` reports them; the last is one JSON object with the same
+numbers.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_serve
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve [--moe]
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import time
@@ -27,18 +32,26 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import configs
 from repro_torch.device import resolve_device
+from repro_torch.kernels import build
 from repro_torch.models import transformer as tfm
 
-CELLS = (("recurrentgemma-2b", 4, 4096), ("gemma2-2b", 1, 8192))
+# (arch, batch, prompt, config overrides)
+CELLS = (("recurrentgemma-2b", 4, 4096, {}), ("gemma2-2b", 1, 8192, {}))
+MOE_CELLS = (("qwen2-moe-a2.7b", 1, 4096, {}),
+             ("kimi-k2-1t-a32b", 1, 4096, {"n_layers": 1}))
 DECODE_STEPS = 8
 
 # kernel-name fragments -> the layer they belong to (first match wins);
 # "flash_fwd" takes both K5 kernels (flash_fwd_wgmma for bf16,
 # flash_fwd_tf32 for f32); cuBLAS's Hopper GEMMs are named nvjet_* /
-# sm90_xmma_* / cutlass_*
+# sm90_xmma_* / cutlass_*; an MoE layer's routing sorts, scans and
+# scatters
 LAYERS = (("flash_fwd", "attention (K5)"), ("lru_scan", "RG-LRU scan (K6)"),
           ("nvjet", "matmul"), ("gemm", "matmul"), ("xmma", "matmul"),
           ("cutlass", "matmul"), ("softmax", "softmax"),
+          ("Sort", "sort"), ("sort", "sort"), ("Scan", "scan"),
+          ("scan", "scan"),
+          ("scatter", "scatter"),
           ("Memcpy", "memcpy"), ("Memset", "memset"),
           ("CatArray", "copy"), ("copy", "copy"), ("index", "indexing"),
           ("reduce", "reduction"), ("elementwise", "elementwise"))
@@ -85,8 +98,8 @@ def _traced(fn) -> dict:
             "top_kernels_s": ranked[:TOP]}
 
 
-def profile_cell(arch: str, batch: int, prompt: int) -> dict:
-    cfg = configs.get_config(arch)
+def profile_cell(arch: str, batch: int, prompt: int, over: dict) -> dict:
+    cfg = configs.get_config(arch).with_overrides(**over)
     params = tfm.init_params(torch.Generator("cuda").manual_seed(0), cfg)
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
                             device="cuda",
@@ -111,7 +124,7 @@ def profile_cell(arch: str, batch: int, prompt: int) -> dict:
         return run
 
     with torch.inference_mode():
-        _timed(prefill)                                   # warm-up
+        first_prefill = _traced(prefill)      # the model's first call
         _timed(decode(prompt, 1))
         untraced_prefill = _timed(prefill)
         traced_prefill = _traced(prefill)
@@ -119,8 +132,10 @@ def profile_cell(arch: str, batch: int, prompt: int) -> dict:
         traced_decode = _traced(decode(prompt + DECODE_STEPS, DECODE_STEPS))
     traced_decode["traced_wall_ms_per_step"] = (
         traced_decode["traced_wall_s"] * 1e3 / DECODE_STEPS)
-    out = {"arch": arch, "batch": batch, "prompt": prompt,
+    out = {"arch": arch, "layers": cfg.n_layers, "batch": batch,
+           "prompt": prompt,
            "prefill": dict(traced_prefill, untraced_wall_s=untraced_prefill),
+           "first_prefill": first_prefill,
            "decode": dict(traced_decode, steps=DECODE_STEPS,
                           untraced_wall_ms_per_step=untraced_decode * 1e3
                           / DECODE_STEPS)}
@@ -129,25 +144,34 @@ def profile_cell(arch: str, batch: int, prompt: int) -> dict:
     return out
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--moe", action="store_true",
+                    help="profile the MoE serving cells")
+    args = ap.parse_args(argv)
     resolve_device("cuda")
+    build.load()            # the kernels' build is not the first prefill's
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
     rows = []
-    for arch, batch, prompt in CELLS:
-        row = profile_cell(arch, batch, prompt)
+    for arch, batch, prompt, over in (MOE_CELLS if args.moe else CELLS):
+        row = profile_cell(arch, batch, prompt, over)
         rows.append(row)
-        for phase in ("prefill", "decode"):
+        for phase in ("first_prefill", "prefill", "decode"):
             r = row[phase]
-            untraced = (f"{r['untraced_wall_s']:.4f} s" if phase == "prefill"
-                        else f"{r['untraced_wall_ms_per_step']:.2f} ms/step")
-            print(f"{arch} batch {batch} prompt {prompt} {phase}: traced "
+            untraced = ("" if phase == "first_prefill" else
+                        f"; untraced {r['untraced_wall_s']:.4f} s"
+                        if phase == "prefill" else
+                        f"; untraced {r['untraced_wall_ms_per_step']:.2f} "
+                        f"ms/step")
+            print(f"{arch} ({row['layers']} layers) batch {batch} prompt "
+                  f"{prompt} {phase}: traced "
                   f"{r['traced_wall_s']:.4f} s, device busy "
                   f"{r['device_busy_s']:.4f} s, idle share "
-                  f"{r['idle_share']:.3f}; untraced {untraced}", flush=True)
+                  f"{r['idle_share']:.3f}{untraced}", flush=True)
             for layer, s in r["by_layer_s"].items():
                 print(f"    {layer:18s} {s:.4f} s", flush=True)
             for name, s in r["top_kernels_s"]:

@@ -27,7 +27,12 @@ Parameter tree, the reference's (leaf order and shapes):
 
 Caches mirror the periods/rem structure; decode updates them in place.
 Ported mixers: attention (global and local) and RG-LRU, with the dense
-MLP.  xLSTM, MoE, multi-codebook embeddings and modality frontends raise
+MLP or Mixture-of-Experts (``mlp.apply_moe``).  Each block returns the MoE
+aux losses (zeros for a dense block); :func:`forward` sums them over the
+stack, the other paths drop them, as the reference's do.  An MoE block
+routes each sequence as its own group, except in decode, which routes the
+whole batch as one group (``x.reshape(1, B * S, D)``), as the reference
+does.  xLSTM, multi-codebook embeddings and modality frontends raise
 ``NotImplementedError`` (ROADMAP.md §1).
 """
 
@@ -39,7 +44,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, MLP_DENSE,
-                                      MLP_NONE, RGLRU, LayerSpec,
+                                      MLP_MOE, MLP_NONE, RGLRU, LayerSpec,
                                       ModelConfig)
 from repro_torch.models import attention, common, mlp, rglru
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
@@ -55,7 +60,7 @@ def _unported(what: str):
 def _check_spec(spec: LayerSpec) -> None:
     if spec.mixer not in (ATTN_GLOBAL, ATTN_LOCAL, RGLRU):
         raise _unported(f"the {spec.mixer} mixer")
-    if spec.mlp not in (MLP_DENSE, MLP_NONE):
+    if spec.mlp not in (MLP_DENSE, MLP_MOE, MLP_NONE):
         raise _unported(f"the {spec.mlp} MLP")
 
 
@@ -88,6 +93,25 @@ def _stack(trees):
     return tree_map(lambda *xs: torch.stack(xs), *trees)
 
 
+def _draw_stacked(make, n: int):
+    """``n`` trees from ``make()``, in order, stacked leaf by leaf.  Each
+    is copied into the stack as it is drawn, so the peak is the stack and
+    one block, not every block and their stack; one block is a view (a
+    kimi-k2 block at published widths is 36.5 GB)."""
+    first = make()
+    if n == 1:
+        return tree_map(lambda x: x.unsqueeze(0), first)
+    leaves, treedef = tree_flatten(first)
+    stacked = [x.new_empty((n,) + tuple(x.shape)) for x in leaves]
+    for out, x in zip(stacked, leaves):
+        out[0].copy_(x)
+    del first, leaves
+    for i in range(1, n):
+        for out, x in zip(stacked, tree_flatten(make())[0]):
+            out[i].copy_(x)
+    return tree_unflatten(treedef, stacked)
+
+
 def _periods(params: Params) -> List[List[Params]]:
     """Each period's blocks, in pattern order, from one ``torch.unbind``
     per stacked leaf (see the module docstring)."""
@@ -117,14 +141,10 @@ def init_block(generator: torch.Generator, spec: LayerSpec,
     if spec.mlp == MLP_DENSE:
         p["mlp_norm"] = common.init_rmsnorm(cfg.d_model, dt, dev)
         p["mlp"] = mlp.init_mlp(generator, cfg)
+    elif spec.mlp == MLP_MOE:
+        p["mlp_norm"] = common.init_rmsnorm(cfg.d_model, dt, dev)
+        p["mlp"] = mlp.init_moe(generator, cfg)
     return p
-
-
-def _apply_mlp(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    if "mlp" in p:
-        x = common.apply_rmsnorm(p["mlp_norm"], h, cfg.norm_eps)
-        h = h + mlp.apply_mlp(p["mlp"], x)
-    return h
 
 
 def _zero_aux(device) -> Dict[str, torch.Tensor]:
@@ -132,19 +152,37 @@ def _zero_aux(device) -> Dict[str, torch.Tensor]:
             "router_z": torch.zeros((), device=device)}
 
 
+def _apply_mlp(p: Params, spec: LayerSpec, h: torch.Tensor,
+               cfg: ModelConfig, *, one_group: bool = False):
+    """The block's MLP half: ``(h + mlp(norm(h)), aux)``.  An MoE block
+    routes each row of the batch as a group, or with ``one_group`` the
+    whole batch as one (decode)."""
+    aux = _zero_aux(h.device)
+    if "mlp" not in p:
+        return h, aux
+    x = common.apply_rmsnorm(p["mlp_norm"], h, cfg.norm_eps)
+    if spec.mlp == MLP_MOE:
+        b, s, d = x.shape
+        y, aux = mlp.apply_moe(p["mlp"], x.reshape(1, b * s, d)
+                               if one_group else x, cfg)
+        y = y.reshape(b, s, d)
+    else:
+        y = mlp.apply_mlp(p["mlp"], x)
+    return h + y, aux
+
+
 def apply_block(p: Params, spec: LayerSpec, h: torch.Tensor,
                 cfg: ModelConfig, *, window_override: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence training block, differentiable.  Returns ``(h,
-    aux)``; ``aux`` holds the MoE losses, zeros for the ported (dense)
-    layers."""
+    aux)``; ``aux`` holds the MoE losses, zeros for a dense block."""
     x = common.apply_rmsnorm(p["pre_norm"], h, cfg.norm_eps)
     if _is_attention(spec):
         m = attention.apply_attention_train(
             p["mixer"], x, cfg, window=_window(spec, cfg, window_override))
     else:
         m = rglru.apply_rglru_train(p["mixer"], x, cfg)
-    return _apply_mlp(p, h + m, cfg), _zero_aux(h.device)
+    return _apply_mlp(p, spec, h + m, cfg)
 
 
 def apply_block_prefill(p: Params, spec: LayerSpec, h: torch.Tensor,
@@ -152,7 +190,7 @@ def apply_block_prefill(p: Params, spec: LayerSpec, h: torch.Tensor,
                         window_override: Optional[int] = None,
                         cache_len: Optional[int] = None):
     """Full-sequence block that also builds its decode cache.
-    Returns ``(h, cache)``."""
+    Returns ``(h, cache, aux)``."""
     x = common.apply_rmsnorm(p["pre_norm"], h, cfg.norm_eps)
     if _is_attention(spec):
         window = _window(spec, cfg, window_override)
@@ -162,7 +200,8 @@ def apply_block_prefill(p: Params, spec: LayerSpec, h: torch.Tensor,
                                       cache_len=cache_len)
     else:
         m, cache = rglru.apply_rglru(p["mixer"], x, cfg, return_state=True)
-    return _apply_mlp(p, h + m, cfg), cache
+    h, aux = _apply_mlp(p, spec, h + m, cfg)
+    return h, cache, aux
 
 
 def init_block_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
@@ -181,7 +220,8 @@ def apply_block_decode(p: Params, spec: LayerSpec, h: torch.Tensor,
                        cache: Params, pos: int, cfg: ModelConfig, *,
                        window_override: Optional[int] = None):
     """One-token block; updates ``cache`` in place.  Returns
-    ``(h, cache)``."""
+    ``(h, cache, aux)``; an MoE block routes the whole batch as one
+    group."""
     x = common.apply_rmsnorm(p["pre_norm"], h, cfg.norm_eps)
     if _is_attention(spec):
         m, cache = attention.apply_attention_decode(
@@ -189,7 +229,8 @@ def apply_block_decode(p: Params, spec: LayerSpec, h: torch.Tensor,
             window=_window(spec, cfg, window_override))
     else:
         m, cache = rglru.apply_rglru_decode(p["mixer"], x, cache, cfg)
-    return _apply_mlp(p, h + m, cfg), cache
+    h, aux = _apply_mlp(p, spec, h + m, cfg, one_group=True)
+    return h, cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -206,10 +247,9 @@ def init_params(generator: torch.Generator, cfg: ModelConfig) -> Params:
         generator, cfg.vocab_size, cfg.d_model, dt)}
     periods = []
     for spec in cfg.pattern:
-        blocks = [init_block(generator, spec, cfg)
-                  for _ in range(cfg.n_periods)]
-        periods.append(_stack(blocks) if blocks else tree_map(
-            lambda x: x[None][:0], init_block(generator, spec, cfg)))
+        make = lambda spec=spec: init_block(generator, spec, cfg)  # noqa: E731
+        periods.append(_draw_stacked(make, cfg.n_periods) if cfg.n_periods
+                       else tree_map(lambda x: x[None][:0], make()))
     params["periods"] = tuple(periods)
     params["rem"] = tuple(init_block(generator, cfg.layer_spec(i), cfg)
                           for i in range(cfg.n_remainder))
@@ -320,7 +360,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     per_pos = [[] for _ in cfg.pattern]
     for i in range(cfg.n_periods):
         for pos, spec in enumerate(cfg.pattern):
-            h, c = apply_block_prefill(
+            h, c, _ = apply_block_prefill(
                 _index(params["periods"][pos], i), spec, h, cfg,
                 window_override=window_override, cache_len=cache_len)
             per_pos[pos].append(c)
@@ -332,7 +372,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                 window_override=window_override, device=tokens.device)))
     rem = []
     for i, p_rem in enumerate(params["rem"]):
-        h, c = apply_block_prefill(p_rem, cfg.layer_spec(i), h, cfg,
+        h, c, _ = apply_block_prefill(p_rem, cfg.layer_spec(i), h, cfg,
                                    window_override=window_override,
                                    cache_len=cache_len)
         rem.append(c)
@@ -368,14 +408,14 @@ def decode_step(params: Params, cache: Params, cfg: ModelConfig,
     exit_h = h
     for i in range(cfg.n_periods):
         for pos_i, spec in enumerate(cfg.pattern):
-            h, _ = apply_block_decode(
+            h, _, _ = apply_block_decode(
                 _index(params["periods"][pos_i], i), spec, h,
                 _index(cache["periods"][pos_i], i), pos, cfg,
                 window_override=window_override)
         if i == cfg.exit_period - 1:
             exit_h = h
     for i, p_rem in enumerate(params["rem"]):
-        h, _ = apply_block_decode(p_rem, cfg.layer_spec(i), h,
+        h, _, _ = apply_block_decode(p_rem, cfg.layer_spec(i), h,
                                   cache["rem"][i], pos, cfg,
                                   window_override=window_override)
     logits = logits_from_hidden(params, cfg, h, "final")

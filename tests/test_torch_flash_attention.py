@@ -6,8 +6,9 @@ The same seeded numpy q, k, v go through the reference's oracle
 (``chunked_causal_attention``) and the port's ``ops.flash_attention`` on
 CPU tensors (the plain version the CUDA kernel is held against on the
 card), over (S, H, Kh, Dh, window, softcap, dtype): GQA and MQA, ragged S,
-window >= S, and S = 1024 with window 16 and with window 0, so the
-reference's local and global chunked branches both run.
+window >= S, Dh 112 (kimi-k2's, which the kernels pad to 128), and S =
+1024 with window 16 and with window 0, so the reference's local and
+global chunked branches both run.
 
 Tolerances: f32 at rtol = atol = 1e-5 (summation order).  bf16 at
 rtol = atol = 2**-7 where both sides keep probabilities in f32 and round
@@ -51,6 +52,8 @@ CASES = [
     (128, 8, 4, 32, 32, 50.0, 64),      # gemma2-like softcap
     (1024, 4, 1, 32, 16, 0.0, 0),       # chunked local branch
     (1024, 2, 2, 32, 0, 50.0, 0),       # chunked global branch
+    (96, 8, 2, 112, 0, 0.0, 32),        # kimi-k2's Dh 112, GQA
+    (100, 4, 4, 112, 30, 50.0, 50),     # Dh 112, ragged S, window, softcap
 ]
 
 

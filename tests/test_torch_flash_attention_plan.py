@@ -23,12 +23,18 @@ from repro_torch.kernels.flash_attention import ops  # noqa: E402
 
 BF16 = torch.bfloat16
 SMEM_LIMIT = 232_448     # shared memory an H100 block may opt into
+# the columns a row of Q, K and V takes in each kernel's shared memory:
+# Dh padded with zero columns to whole 64-column blocks (tensor cores) or
+# to 32, 64, 128 or 256 (CUDA cores); kimi-k2's Dh 112 runs as 128
+TC_WIDTH = {32: 64, 64: 64, 112: 128, 128: 128, 256: 256}
+F32_WIDTH = {32: 32, 64: 64, 112: 128, 128: 128, 256: 256}
 
 
 @pytest.mark.parametrize("dh", ops.HEAD_DIMS)
 def test_plan_fits_shared_memory_at_every_head_dim(dh):
     plan = ops.plan_wgmma(4, 4096, 10, 1, dh, BF16)
-    dp = max(dh, 64)
+    dp = TC_WIDTH[dh]
+    assert ops.wgmma_width(dh) == dp
     assert plan.smem_bytes == 2 * dp * (128 + 2 * 2 * 64) + 1024
     assert plan.smem_bytes <= SMEM_LIMIT
     if dh == 256:       # Q 64 KiB + 2 x (K 32 KiB + V 32 KiB) + 1 KiB
@@ -61,6 +67,17 @@ def test_plan_of_the_serving_shapes():
     assert (g2.bq, g2.n_qblocks, g2.grid) == (64, 128, 512)
 
 
+def test_plan_of_the_moe_serving_shapes():
+    """qwen2-moe-a2.7b's prefill (MHA, 16 heads of 128: one head a row
+    group, 128 queries a block) and kimi-k2's (GQA 64 / 8 of 112, padded
+    to 128 columns: Q 32 KiB + 2 x (K 16 KiB + V 16 KiB) + 1 KiB)."""
+    qw = ops.plan_wgmma(1, 4096, 16, 16, 128, BF16)
+    assert (qw.g_blk, qw.bq, qw.n_qblocks, qw.grid) == (1, 128, 32, 512)
+    ki = ops.plan_wgmma(1, 4096, 64, 8, 112, BF16)
+    assert (ki.g_blk, ki.bq, ki.n_qblocks, ki.grid) == (8, 16, 256, 2048)
+    assert ki.smem_bytes == 96 * 1024 + 1024 == qw.smem_bytes
+
+
 F32 = torch.float32
 SM_SMEM = 233_472        # shared memory of an H100 SM (228 KiB)
 
@@ -70,8 +87,11 @@ def test_f32_plan_fits_shared_memory_at_every_head_dim(dh):
     plan = ops.plan_f32(4, 4096, 10, 1, dh, F32)
     keys = 256 if dh == 256 else 128
     assert plan.threads == keys
-    # Q (64 rows of Dh + 4), two ring chunks of keys x 36, P (64 x keys+16)
-    assert plan.smem_bytes == 4 * (64 * (dh + 4) + 2 * keys * 36
+    dp = F32_WIDTH[dh]
+    assert ops.f32_width(dh) == dp
+    # Q (64 rows of Dh + 4, Dh padded), two ring chunks of keys x 36, P
+    # (64 x keys + 16)
+    assert plan.smem_bytes == 4 * (64 * (dp + 4) + 2 * keys * 36
                                    + 64 * (keys + 16))
     assert plan.smem_bytes <= SMEM_LIMIT
     # each block also holds 1 KiB the card reserves
@@ -103,6 +123,17 @@ def test_f32_plan_of_the_timed_shapes():
     assert (rg.bq, rg.n_qblocks, rg.grid, rg.threads) == (6, 683, 2732, 256)
     g2 = ops.plan_f32(1, 8192, 8, 4, 256, F32)
     assert (g2.bq, g2.n_qblocks, g2.grid) == (32, 256, 1024)
+
+
+def test_f32_plan_of_head_dim_112():
+    """The untimed Dh 112 case of the smoke run (G = 4): 128 threads and
+    128-key tiles as at Dh 128, Q 64 x 132 floats, two blocks an SM."""
+    p = ops.plan_f32(2, 1000, 8, 2, 112, F32)
+    assert (p.g_blk, p.bq, p.n_qblocks, p.grid, p.threads) == (4, 16, 63,
+                                                               252, 128)
+    assert p.smem_bytes == 4 * (64 * 132 + 2 * 128 * 36 + 64 * 144) \
+        == ops.plan_f32(2, 1000, 8, 2, 128, F32).smem_bytes
+    assert p.blocks_per_sm == 2
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])

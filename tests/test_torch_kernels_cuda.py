@@ -451,6 +451,12 @@ def _flash_launch(q, k, v, **kw):
     (3, 513, 5, 5, 32, 40, 0.0, "float32"),        # Dh 32, MHA
     (1, 200, 70, 1, 64, 0, 0.0, "bfloat16"),       # G = 70 > 64 rows
     (2, 64, 4, 2, 32, 1000, 0.0, "float32"),       # window >= S
+    (1, 4096, 64, 8, 112, 0, 0.0, "bfloat16"),     # kimi-k2-1t-a32b
+    (1, 4096, 16, 16, 128, 0, 0.0, "bfloat16"),    # qwen2-moe-a2.7b (MHA)
+    (2, 1000, 8, 2, 112, 300, 30.0, "float32"),    # Dh 112 padded to 128
+    (3, 513, 8, 8, 112, 0, 0.0, "bfloat16"),
+    (2, 190, 4, 1, 112, 77, 0.0, "float32"),       # Dh 112, MQA
+    (2, 333, 10, 1, 112, 100, 50.0, "bfloat16"),
 ])
 def test_flash_attention_matches_plain_version(cuda, b, s, h, kh, dh, window,
                                                cap, dtype):

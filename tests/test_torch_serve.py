@@ -189,7 +189,10 @@ def test_sampled_generate_matches_reference(arch, overrides):
     assert not torch.equal(got_tok, greedy)     # the noise decided tokens
 
 
-@pytest.mark.parametrize("arch", configs.PORTED)
+# the MoE archs' bf16 case, where a near-tie's routing can flip on a
+# bf16 ulp of the activations, is in tests/test_torch_moe_configs.py
+@pytest.mark.parametrize("arch", [a for a in configs.PORTED
+                                  if configs.get_reduced(a).moe is None])
 def test_bf16_prefill_and_decode_match_reference(arch):
     overrides = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
     ref_cfg, cfg, ref_params, params, tokens = _setup(arch, overrides)
