@@ -79,16 +79,23 @@ which raises on failure:
    window under a key tile, Dh 112 in both dtypes); each timed row with
    its TFLOP/s and bound share at its route's peak (f32 rows also at
    split TF32's 165 TFLOP/s);
-   K6 (RG-LRU scan) bitwise at (4, 4096, 2560) f32 and a ragged (3, 1000,
-   77);
+   K6 (RG-LRU scan), both entries bitwise against their plain versions:
+   the scan at (4, 4096, 2560) f32 and bf16 and at shapes that cut a time
+   tile or a channel stripe (on TMA and on the producer's loads), timed
+   in f32 beside its byte bound; the gated entry (the recurrent layer's
+   gates computed in the kernel, then the scan) at (4, 4096, 2560) bf16
+   and f32 x, with and without y0, and ragged, also against the unfused
+   composition it replaces (``_gates``, K6, the cast), timed in bf16
+   beside its bound (bytes, and its gate math's FP32 and MUFU
+   instructions counted from the SASS) and beside that composition;
 7. full-width serving through ``repro_torch.launch.serve.generate``, random
    weights from seed 0: recurrentgemma-2b (batch 4, prompt 4096, 32 new
    tokens, greedy) and gemma2-2b (batch 1, prompt 8192, 8 new tokens),
    with prefill seconds, decode ms per step, new tokens per second, the
    exit head's statistics and peak memory; each bf16 prefill must launch
    the tensor-core K5 once per attention layer, the CUDA-core K5 never,
-   and K6 once per RG-LRU layer ((8, 0, 18) and (26, 0, 0)), and decode
-   none of them;
+   and K6 once per RG-LRU layer ((8, 0, 18) and (26, 0, 0)), all of K6's
+   through its gated entry, and decode none of them;
 8. narrow serving (the reduced configs deepened to two periods, a
    remainder and an exit before the last layer; prompt 64 against window
    16) on the card against the CPU: prefill logits and 8 teacher-forced
@@ -187,14 +194,13 @@ which raises on failure:
 Kernel times are device times (``time_ms``: a CUDA graph of the timed
 calls between two events, so the host's launch rate does not enter).  The
 second-to-last line is one JSON object ``{"kernels": [...]}`` (K1-K4,
-both K5 kernels, K6; K1 and K4 with their launches on the LM path of
-phase 9 beside phase 4's, and their LM-shape times; K1-K4 with their
-launches on phase 11's async path, K5 and K6 with theirs on phase 12's
-serving from checkpoints; K1-K4 with their launches on phase 13's
+both K5 kernels, K6's two entries; K1 and K4 with their launches on the
+LM path of phase 9 beside phase 4's, and their LM-shape times; K1-K4 with
+their launches on phase 11's async path, K5 and K6 with theirs on phase
+12's serving from checkpoints; K1-K4 with their launches on phase 13's
 telemetry path, the tensor-core K5 with its serving of the trained model
 there and its launches in phase 14's dense serving and phase 15's MoE
-serving); the last is
-``{"ok": true, "device": {...}}``.
+serving); the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1215,42 +1221,262 @@ def check_flash(torch, bw: float) -> dict:
     return {"max_abs_err": worst, "timing": timing}
 
 
+K6_PATH = (4, 4096, 2560)   # recurrentgemma-2b's prefill: batch 4, prompt
+                            # 4096, d_rnn 2560
+
+
+def gate_inputs(torch, b: int, s: int, d: int, dtype, seed: int,
+                with_y0: bool = False) -> tuple:
+    """x (B, S, D) in ``dtype`` and one RG-LRU layer's gate parameters:
+    lam drawn as ``init_rglru`` draws it, w_r, b_r, w_i, b_i normal (the
+    init's zeros would hold every gate at 0.5); y0 (B, D) f32 or None."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((b, s, d), generator=g, device="cuda").to(dtype)
+    p = {k: torch.randn((d,), generator=g, device="cuda")
+         for k in ("w_r", "b_r", "w_i", "b_i")}
+    u = 0.9 + (0.999 - 0.9) * torch.rand((d,), generator=g, device="cuda")
+    p["lam"] = torch.log(torch.expm1(-torch.log(u) / 8.0))
+    y0 = (torch.randn((b, d), generator=g, device="cuda") if with_y0
+          else None)
+    return x, p, y0
+
+
+def gates_composition(p: dict, x):
+    """What the gated entry replaces, unfused: ``rglru._gates`` (about
+    seventeen f32 passes), K6 on its a and b, the cast to x's dtype."""
+    from repro_torch.kernels.rglru_scan import ops
+    from repro_torch.models import rglru
+    a, b = rglru._gates(p, x)
+    return ops.lru_scan(a, b).to(x.dtype)
+
+
+def time_composition(torch) -> float:
+    """Device ms of one layer's unfused composition at the path's shape,
+    bf16 x (the gated entry's yardstick)."""
+    x, p, _ = gate_inputs(torch, *K6_PATH, torch.bfloat16, seed=5)
+    ms = time_ms(torch, lambda: gates_composition(p, x), iters=10,
+                 warmup=2)
+    print(f"  unfused gates + K6 + cast {K6_PATH} bf16 x: {ms:.4f} ms a "
+          f"layer, {18 * ms:.3f} ms a prefill of 18 RG-LRU layers",
+          flush=True)
+    return ms
+
+
+# K6's plain cases (B, S, D, dtype, timed): the path's shape (timed in
+# f32), then shapes that cut a time tile (S = 16 k + 1 and 64 k + 1: the
+# plain and the gated tiling's) and a channel stripe (D = 128 + 1,
+# 2 x 128 + 4, 32 + 1, 2 x 32 + 4), B x D under one stripe, S = 1, and rows
+# TMA cannot describe (D x size not a multiple of 16 bytes, or under one
+# box: the producer warp's loads); the gated cases (B, S, D, dtype, y0,
+# timed), timed in bf16, the model's dtype
+SCAN_CASES = ((4, 4096, 2560, "float32", True),
+              (4, 4096, 2560, "bfloat16", False),
+              (3, 1000, 77, "float32", False),
+              (2, 17, 130, "bfloat16", False),
+              (2, 129, 129, "float32", False),
+              (2, 129, 260, "float32", False),
+              (3, 65, 2560, "bfloat16", False),
+              (1, 300, 8, "float32", False),
+              (3, 1, 64, "float32", False))
+GATED_CASES = ((4, 4096, 2560, "bfloat16", False, True),
+               (4, 4096, 2560, "bfloat16", True, False),
+               (4, 4096, 2560, "float32", True, False),
+               (3, 1000, 77, "bfloat16", True, False),
+               (2, 129, 68, "float32", False, False),
+               (2, 129, 68, "bfloat16", True, False),
+               (3, 65, 33, "float32", True, False))
+# FP32 instructions a second (two flops an FMA) and MUFU operations a
+# second (16 a clock an SM) of an H100 SXM at its 1.98 GHz boost clock
+F32_ISSUE = F32_PEAK / 2
+MUFU_RATE = 16 * 132 * 1.98e9
+F32_CLASS = ("FADD", "FMUL", "FFMA", "FMNMX", "FSEL", "FSET", "FSETP",
+             "FCHK", "FRND", "FSWZADD")
+
+
+def _sass_ops(torch, gated: bool, bf16: bool) -> list:
+    """The opcodes of K6's main body (up to its last EXIT: the slow paths
+    of IEEE division and sqrt, called subroutines, come after it), in
+    order, from the built library's SASS (``cuobjdump -sass``)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    from repro_torch.kernels import build
+    sass = subprocess.run(
+        [str(Path(CUDA_HOME) / "bin" / "cuobjdump"), "-sass",
+         str(build.build().path)], capture_output=True, text=True,
+        check=True, timeout=120).stdout
+    tag = ("It" if bf16 else "If") + ("Lb1E" if gated else "Lb0E")
+    bodies = [f for f in sass.split("Function : ")[1:]
+              if "lru_scan_kernel" in f.split("\n", 1)[0]
+              and tag in f.split("\n", 1)[0]]
+    if len(bodies) != 1:
+        raise RuntimeError(f"K6 {tag}: {len(bodies)} functions in the SASS")
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                     r"([A-Z][A-Z0-9_]*)", bodies[0])
+    return ops[:max(i for i, op in enumerate(ops) if op == "EXIT") + 1]
+
+
+def gate_ops(torch) -> dict:
+    """FP32 and MUFU instructions an element of the gate math, from the
+    gated bf16 kernel's SASS.  A gate thread takes E elements a tile
+    (``ops.GATED``: 8), unrolled and straight-line, seven MUFU an element
+    (four EX2 for the expf, two RCP, one RSQ): the first run of 7 E MUFU
+    with no branch among them holds their math (the exact paths of
+    out-of-range operands come after a branch, the prologue's integer
+    division before one).  The FP32 instructions of the first element
+    before its first MUFU and of the last after its last are missed, so
+    the bound is a little low."""
+    from repro_torch.kernels.rglru_scan import ops as scan_ops
+    tl = scan_ops.GATED
+    elements = tl.tile * tl.stripe // (32 * tl.gate_warps)
+    ops = _sass_ops(torch, True, True)
+    at = [i for i, op in enumerate(ops) if op == "MUFU"]
+    n = 7 * elements
+    run = next((ops[at[k]:at[k + n - 1] + 1] for k in range(len(at) - n + 1)
+                if "BRA" not in ops[at[k]:at[k + n - 1] + 1]), None)
+    if run is None:
+        raise RuntimeError(f"no run of {n} MUFU without a branch in the "
+                           f"gated kernel's SASS ({len(at)} MUFU)")
+    f32 = sum(op in F32_CLASS for op in run)
+    print(f"  gate math from the SASS: {f32} FP32 and {n} MUFU instructions "
+          f"for {elements} elements, in a straight run of {len(run)} (the "
+          f"main body: {len(ops)}, {len(at)} MUFU)", flush=True)
+    return {"fp32_per_element": f32 / elements, "mufu_per_element": 7.0,
+            "sass_elements": elements}
+
+
+def _equal(torch, label: str, got, want) -> None:
+    torch.cuda.synchronize()
+    if got.dtype != want.dtype or not torch.equal(got, want):
+        diff = (got.float() - want.float()).abs().max()
+        raise RuntimeError(f"{label}: not bitwise equal to the plain "
+                           f"version (max|diff| {float(diff)})")
+    print(f"  {label}: bitwise equal to the plain version", flush=True)
+
+
 def check_scan(torch, bw: float) -> dict:
-    """Phase 6, K6: bitwise against its plain version at the path's shape
-    and a ragged one, then timed.  Bound: a and b read once, y written
-    once (12 bytes an element in f32) at the HBM rate."""
+    """Phase 6, K6's two entries, each against its plain version bitwise
+    (``lru_scan`` at ``SCAN_CASES``, ``lru_scan_gated`` at
+    ``GATED_CASES``), each call checked to launch its entry of K6 once,
+    then timed at the path's shape.  The plain entry's bound: a and b read
+    once, y written once (12 bytes an element in f32) at the HBM rate.
+    Beside it, as diagnostics and not the kernel's number: a PyTorch add
+    of the same a and b (the same bytes read and written), then the
+    kernel timed again on the same inputs (its first time, right after
+    phase 6's attention work, has read up to a fifth slower than later
+    ones).  The gated entry's: the larger of x read and y written (4 bytes an element in
+    bf16) at the HBM rate and its gate math's FP32 and MUFU instructions
+    (counted from the SASS) at the card's issue rates; its yardstick is
+    the unfused composition it replaces (``_gates``, K6, the cast)."""
     from repro_torch.kernels.rglru_scan import ops, ref
     timing = []
-    for b, s, d in ((4, 4096, 2560), (3, 1000, 77)):
+    def scan_inputs(b, s, d, dt):
         g = torch.Generator(device="cuda").manual_seed(s + d)
-        a = torch.sigmoid(torch.randn((b, s, d), generator=g, device="cuda"))
-        bb = torch.randn((b, s, d), generator=g, device="cuda") * 0.2
+        a = torch.sigmoid(torch.randn((b, s, d), generator=g, device="cuda")
+                          ).to(dt)
+        return a, (torch.randn((b, s, d), generator=g, device="cuda") * 0.2
+                   ).to(dt)
+
+    for b, s, d, dtype, timed in SCAN_CASES:
+        dt = getattr(torch, dtype)
+        a, bb = scan_inputs(b, s, d, dt)
+        plan = ops.scan_plan(b, s, d, dt)
+        before = (ops.lru_scan.launches, ops.lru_scan_gated.launches)
         got = ops.lru_scan(a, bb)
-        want = ref.lru_scan_ref(a, bb)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise RuntimeError(f"lru_scan {(b, s, d)}: not bitwise equal to "
-                               f"the plain version (max|diff| "
-                               f"{float((got - want).abs().max())})")
-        print(f"  lru_scan {(b, s, d)} f32: bitwise equal to the plain "
-              f"version", flush=True)
-        if (b, s, d) != (4, 4096, 2560):
+        if (ops.lru_scan.launches, ops.lru_scan_gated.launches) != (
+                before[0] + 1, before[1]):
+            raise RuntimeError(f"lru_scan {(b, s, d)}: K6's plain entry "
+                               f"not launched once")
+        _equal(torch, f"lru_scan {(b, s, d)} {dtype} "
+               f"[{'TMA' if plan.tma else 'loads'}, {plan.grid} blocks]",
+               got, ref.lru_scan_ref(a, bb))
+        if not timed:
             continue
-        nbytes = 12 * b * s * d
+        nbytes = 3 * a.numel() * a.element_size()
         bound_ms = nbytes / bw * 1e3
         ms = time_ms(torch, lambda: ops.lru_scan(a, bb), iters=20, warmup=3)
         plain_ms = time_ms(torch, lambda: ref.lru_scan_ref(a, bb), iters=2,
                            warmup=1)
-        timing.append({"shape": {"B": b, "S": s, "D": d, "dtype": "float32"},
+        stream_ms = time_ms(torch, lambda: torch.add(a, bb), iters=20,
+                            warmup=3)
+        later_ms = time_ms(torch, lambda: ops.lru_scan(a, bb), iters=20,
+                           warmup=3)
+        timing.append({"entry": "lru_scan",
+                       "shape": {"B": b, "S": s, "D": d, "dtype": dtype},
                        "ms": ms, "plain_ms": plain_ms,
                        "bytes_needed": nbytes, "bound_ms": bound_ms,
                        "bound_share": bound_ms / ms, "bound_by": "bytes",
-                       "library_ms": None})
-        print(f"  lru_scan {(b, s, d)}: kernel {ms:.4f} ms, plain "
+                       "library_ms": None, "plan": plan._asdict(),
+                       "stream_ms": stream_ms,
+                       "stream_note": "diagnostic, not the kernel's time: "
+                       "torch.add of the same a and b on the same "
+                       "allocations, the same bytes read and written",
+                       "later_ms": later_ms,
+                       "later_note": "diagnostic, not the kernel's time: "
+                       "the kernel timed again on the same inputs after "
+                       "the plain version and the add"})
+        print(f"  lru_scan {(b, s, d)} {dtype}: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
               f"({nbytes / 1e6:.1f} MB needed), bound share "
               f"{bound_ms / ms:.3f}; library call: none (no single PyTorch "
-              f"call computes a first-order linear recurrence)", flush=True)
+              f"call computes a first-order linear recurrence); diagnostic: "
+              f"torch.add of the same a and b {stream_ms:.4f} ms (share "
+              f"{bound_ms / stream_ms:.3f}), the kernel again "
+              f"{later_ms:.4f} ms (share {bound_ms / later_ms:.3f})",
+              flush=True)
+        del a, bb, got
+    counted = gate_ops(torch)
+    for b, s, d, dtype, with_y0, timed in GATED_CASES:
+        dt = getattr(torch, dtype)
+        x, p, y0 = gate_inputs(torch, b, s, d, dt, seed=s + d,
+                               with_y0=with_y0)
+        c = -8.0 * torch.logaddexp(p["lam"], torch.zeros_like(p["lam"]))
+        args = (x, p["w_r"], p["b_r"], p["w_i"], p["b_i"], c, y0)
+        plan = ops.scan_plan(b, s, d, dt, gated=True)
+        before = (ops.lru_scan.launches, ops.lru_scan_gated.launches)
+        got = ops.lru_scan_gated(*args)
+        if (ops.lru_scan.launches, ops.lru_scan_gated.launches) != (
+                before[0], before[1] + 1):
+            raise RuntimeError(f"lru_scan_gated {(b, s, d)}: K6's gated "
+                               f"entry not launched once")
+        _equal(torch, f"lru_scan_gated {(b, s, d)} {dtype} x"
+               f"{', y0' if with_y0 else ''} "
+               f"[{'TMA' if plan.tma else 'loads'}, {plan.grid} blocks]",
+               got, ref.lru_scan_gated_ref(*args))
+        if with_y0 is False and (b, s, d) == K6_PATH:
+            # the unfused composition from the same inputs, bitwise too
+            _equal(torch, f"lru_scan_gated {(b, s, d)} {dtype} x against "
+                   f"_gates + K6 + cast", got, gates_composition(p, x))
+        if not timed:
+            continue
+        n = x.numel()
+        nbytes = 2 * n * x.element_size() + 5 * d * 4
+        bytes_ms = nbytes / bw * 1e3
+        f32_ms = n * counted["fp32_per_element"] / F32_ISSUE * 1e3
+        mufu_ms = n * counted["mufu_per_element"] / MUFU_RATE * 1e3
+        bound_ms = max(bytes_ms, f32_ms, mufu_ms)
+        ms = time_ms(torch, lambda: ops.lru_scan_gated(*args), iters=20,
+                     warmup=3)
+        plain_ms = time_ms(torch, lambda: ref.lru_scan_gated_ref(*args),
+                           iters=2, warmup=1)
+        library_ms = time_ms(torch, lambda: gates_composition(p, x),
+                             iters=10, warmup=2)
+        timing.append({"entry": "lru_scan_gated",
+                       "shape": {"B": b, "S": s, "D": d, "dtype": dtype},
+                       "ms": ms, "plain_ms": plain_ms,
+                       "bytes_needed": nbytes, "bytes_ms": bytes_ms,
+                       "fp32_ms": f32_ms, "mufu_ms": mufu_ms,
+                       "bound_ms": bound_ms, "bound_share": bound_ms / ms,
+                       "bound_by": "bytes" if bytes_ms >= max(
+                           f32_ms, mufu_ms) else "operations",
+                       "library_ms": library_ms,
+                       "speedup_over_library": library_ms / ms,
+                       "plan": plan._asdict(), **counted})
+        print(f"  lru_scan_gated {(b, s, d)} {dtype} x: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms (bytes "
+              f"{bytes_ms:.4f}, FP32 issue {f32_ms:.4f}, MUFU "
+              f"{mufu_ms:.4f}), bound share {bound_ms / ms:.3f}; the "
+              f"unfused composition {library_ms:.4f} ms "
+              f"({library_ms / ms:.2f}x the kernel)", flush=True)
+        del x, p, y0, c, args, got
     return {"max_abs_err": 0.0, "timing": timing}
 
 
@@ -1299,16 +1525,16 @@ def serving(torch, runs=SERVE_RUNS) -> dict:
     measurement, not a gate)."""
     from repro_torch import configs
     from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.rglru_scan.ops import lru_scan
+    from repro_torch.kernels.rglru_scan.ops import lru_scan, lru_scan_gated
     from repro_torch.launch.serve import generate
     from repro_torch.models import transformer as tfm
     from repro_torch.tree import tree_leaves
 
-    out, total = {"runs": []}, (0, 0, 0)
+    out, total, gated = {"runs": []}, (0, 0, 0), 0
 
     def counts():
         return (flash_attention.launches_tc, flash_attention.launches,
-                lru_scan.launches)
+                lru_scan.launches + lru_scan_gated.launches)
     for arch, batch, prompt, gen, expected, *over in runs:
         cfg = configs.get_config(arch).with_overrides(**(over[0] if over
                                                          else {}))
@@ -1328,9 +1554,10 @@ def serving(torch, runs=SERVE_RUNS) -> dict:
             torch.cuda.synchronize()
             marks["t"], marks["counts"] = time.perf_counter(), counts()
             marks["routed"] = len(routed)
+            marks["gated"] = lru_scan_gated.launches
 
         flash_attention.launches_tc = flash_attention.launches = 0
-        lru_scan.launches = 0
+        lru_scan.launches = lru_scan_gated.launches = 0
         torch.cuda.synchronize()
         with _routes() as routed:
             t0 = time.perf_counter()
@@ -1358,6 +1585,7 @@ def serving(torch, runs=SERVE_RUNS) -> dict:
                "prefill_tokens_per_s": batch * prompt / (marks["t"] - t0),
                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                "launches_prefill": prefill_counts,
+               "launches_prefill_gated_k6": marks["gated"],
                "launches_decode": decode_counts, "layers": cfg.n_layers,
                **stats}
         if cfg.moe is not None:
@@ -1375,11 +1603,18 @@ def serving(torch, runs=SERVE_RUNS) -> dict:
                                f"K6 launches {prefill_counts} in prefill "
                                f"(expected {expected}), {decode_counts} in "
                                f"decode (expected none)")
+        if marks["gated"] != prefill_counts[2] or \
+                lru_scan_gated.launches != marks["gated"]:
+            raise RuntimeError(f"{arch}: {marks['gated']} of prefill's "
+                               f"{prefill_counts[2]} K6 launches through "
+                               f"the gated entry (expected all), "
+                               f"{lru_scan_gated.launches} in all")
         out["runs"].append(row)
         total = tuple(a + b for a, b in zip(total, launched))
+        gated += lru_scan_gated.launches
         del params, prompts, tokens, routed
         torch.cuda.empty_cache()
-    out["launches"] = total
+    out["launches"], out["launches_gated"] = total, gated
     return out
 
 
@@ -2363,12 +2598,12 @@ def serve_checkpoint(torch) -> tuple:
     from repro_torch import configs
     from repro_torch.checkpoint.checkpoint import save_tree
     from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.rglru_scan.ops import lru_scan
+    from repro_torch.kernels.rglru_scan.ops import lru_scan, lru_scan_gated
     from repro_torch.launch import serve
     from repro_torch.models import transformer as tfm
 
     flash_attention.launches_tc = flash_attention.launches = 0
-    lru_scan.launches = 0
+    lru_scan.launches = lru_scan_gated.launches = 0
     tmp = tempfile.mkdtemp(prefix="serve_ckpt_")
     try:
         for dtype in ("float32", "bfloat16"):
@@ -2406,12 +2641,15 @@ def serve_checkpoint(torch) -> tuple:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launched = (flash_attention.launches_tc, flash_attention.launches,
-                lru_scan.launches)
+                lru_scan_gated.launches)
     print(f"  serving from checkpoints: K5 launches (tensor cores, CUDA "
-          f"cores) {launched[:2]}, K6 {launched[2]}", flush=True)
-    if not all(launched):
+          f"cores) {launched[:2]}, K6 {launched[2]} (all through the gated "
+          f"entry; the plain entry {lru_scan.launches})", flush=True)
+    if not all(launched) or lru_scan.launches:
         raise RuntimeError(f"serving from checkpoints launched K5/K6 "
-                           f"{launched}: one never ran")
+                           f"{launched}, K6's plain entry "
+                           f"{lru_scan.launches}: one never ran, or the "
+                           f"model ran the plain entry")
     return launched
 
 
@@ -2950,21 +3188,33 @@ def main() -> int:
     kernels[-2]["launches_moe_path"] = ("phase 15: full-width serving of "
                                         "qwen2-moe-a2.7b and kimi-k2 "
                                         "(depth 1, Dh 112)")
-    head = k6["timing"][0]
+    # K6 as the model's paths launch it: through the gated entry only
+    # (phases 7 and 12 check it); the plain entry's own case beside it,
+    # which no path launches
+    gated = next(r for r in k6["timing"] if r["entry"] == "lru_scan_gated")
+    plain = next(r for r in k6["timing"] if r["entry"] == "lru_scan")
     kernels.append({
         "name": "lru_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/rglru_scan/csrc/lru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan/kernel.py:52",
-        "launches": serve_path["launches"][2],
-        "max_abs_err": k6["max_abs_err"], "ms": head["ms"],
-        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-        "shape": head["shape"], "bound_share": head["bound_share"],
-        "cases": k6["timing"]})
-    kernels[-1]["library_note"] = ("no single PyTorch call computes a "
-                                   "first-order linear recurrence")
-    kernels[-1]["launches_checkpoint"] = serve_launches[2]
-    for kernel in kernels[-3:]:
+        "entry": "lru_scan_gated", "launches": serve_path["launches_gated"],
+        "launches_path": "phase 7: full-width bf16 serving",
+        "max_abs_err": k6["max_abs_err"], "ms": gated["ms"],
+        "plain_ms": gated["plain_ms"], "bound_ms": gated["bound_ms"],
+        "bound_by": gated["bound_by"], "library_ms": gated["library_ms"],
+        "library_note": "the unfused composition the gated entry "
+        "replaces: rglru._gates (PyTorch ops), K6's plain entry, the cast "
+        "to bf16", "shape": gated["shape"],
+        "bound_share": gated["bound_share"],
+        "launches_checkpoint": serve_launches[2],
+        "launches_checkpoint_path": "phase 12: serving from save_tree "
+        "checkpoints",
+        "cases": [gated, dict(plain, launches=serve_path["launches"][2]
+                              - serve_path["launches_gated"],
+                              launches_note="ops.lru_scan(a, b): no model "
+                              "path launches it; the tests and phase 6's "
+                              "composition call it")]})
+    for kernel in kernels[-3:-1]:
         kernel["launches_checkpoint_path"] = ("phase 12: serving from "
                                               "save_tree checkpoints")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,12 +11,14 @@ RG-LRU recurrence (diagonal, per channel):
     log a_t = -c * softplus(lam) * r_t          c = 8
     y_t = a_t * y_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
-Prefill runs the recurrence through ``kernels.rglru_scan.ops.lru_scan``
-(K6 on the card, its sequential plain version on the CPU) — the function
-the reference's ``ops.lru_scan`` gives its Pallas kernel on a TPU in place
-of its associative scan.  K6 has no backward, so training
-(:func:`apply_rglru_train`) runs :func:`linear_scan`, plain PyTorch under
-autograd, with the reference's combine.  Decode is the single-step
+Prefill runs the gates and the recurrence through
+``kernels.rglru_scan.ops.lru_scan_gated`` (K6's gated entry on the card,
+the gates then the sequential scan on the CPU) — the function the
+reference's prefill gives its Pallas kernel on a TPU (``ops.lru_scan`` in
+place of its associative scan, with the gates fused in front by XLA).
+K6 has no backward, so training (:func:`apply_rglru_train`) runs
+:func:`_gates` and :func:`linear_scan`, plain PyTorch under autograd,
+with the reference's combine.  Decode is the single-step
 recurrence carrying ``(y, conv window)`` state, updated in place.
 """
 
@@ -71,13 +73,15 @@ def _gates(p: dict, x: torch.Tensor):
 
 def lru_scan(p: dict, x: torch.Tensor,
              y0: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The recurrence over (B, S, Dr), through ``ops.lru_scan`` (K6 on the
-    card); returned in ``x.dtype``."""
-    a, b = _gates(p, x)
-    if y0 is not None:
-        # fold the initial state into the first step: y_1 = a_1 y_0 + b_1
-        b[:, 0] = b[:, 0] + a[:, 0] * y0.float()
-    return ops.lru_scan(a, b).to(x.dtype)
+    """The recurrence over (B, S, Dr) with its gates, through
+    ``ops.lru_scan_gated`` (K6's gated entry on the card; on the CPU
+    :func:`_gates`' arithmetic, then the sequential scan); y0 is folded
+    into the first step, ``y_1 = a_1 y_0 + b_1``.  Returned in
+    ``x.dtype``."""
+    lam = p["lam"]
+    c = -_C * torch.logaddexp(lam, torch.zeros_like(lam))
+    return ops.lru_scan_gated(x, p["w_r"], p["b_r"], p["w_i"], p["b_i"], c,
+                              None if y0 is None else y0.float())
 
 
 def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

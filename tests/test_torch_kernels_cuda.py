@@ -1,9 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 K1 contracts its multiply-add to an FMA (tolerance 1e-6); K2, K3, K4 (its
-one-shot entry and the tree engine's one-launch fold) and K6 round each
-product and sum as their plain versions do, in the same order, so they are
-held bitwise.  K5 sums its scores and its PV product in
+one-shot entry and the tree engine's one-launch fold) and K6 (the scan,
+and its gated entry, whose gate math rounds each op as the plain
+version's PyTorch op on the card) round each product and sum as their
+plain versions do, in the same order, so they are held bitwise.  K5 sums
+its scores and its PV product in
 another order than its plain version (cuBLAS): f32 (the CUDA-core kernel)
 at rtol = atol = 1e-5, bf16 (the tensor-core kernel, which also rounds the
 probabilities to bf16 for the PV product) within one bf16 rounding
@@ -32,7 +34,8 @@ from repro_torch.kernels.masked_agg.ref import (  # noqa: E402
     masked_agg_acc_deq_ref, masked_agg_acc_ref, masked_agg_fold_ref,
     masked_agg_ref, masked_scatter_acc_ref)
 from repro_torch.kernels.rglru_scan import ops as scan_ops  # noqa: E402
-from repro_torch.kernels.rglru_scan.ref import lru_scan_ref  # noqa: E402
+from repro_torch.kernels.rglru_scan.ref import (  # noqa: E402
+    lru_scan_gated_ref, lru_scan_ref)
 
 
 @pytest.fixture
@@ -574,10 +577,19 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take(cuda):
         flash_ops.flash_attention(qb, kb, vb)
 
 
+# K6's shapes: the path's, ragged ones, and ones that cut a time tile
+# (S = 16 k + 1: the plain entry's tiling), a channel stripe (D = 128 + 1
+# on the producer's loads, 2 x 128 + 4 on TMA), B x D under one stripe,
+# S = 1
+SCAN_SHAPES = [(4, 4096, 2560, "float32"), (3, 1000, 77, "float32"),
+               (2, 17, 130, "bfloat16"), (2, 129, 129, "float32"),
+               (2, 129, 260, "float32"), (3, 65, 2560, "bfloat16"),
+               (1, 300, 8, "float32"), (3, 1, 64, "float32"),
+               (2, 4096, 2560, "bfloat16")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,d,dtype", [(4, 4096, 2560, "float32"),
-                                         (3, 1000, 77, "float32"),
-                                         (2, 17, 130, "bfloat16")])
+@pytest.mark.parametrize("b,s,d,dtype", SCAN_SHAPES)
 def test_lru_scan_matches_plain_version_bitwise(cuda, b, s, d, dtype):
     g = torch.Generator(device=cuda).manual_seed(s + d)
     a = torch.sigmoid(torch.randn((b, s, d), generator=g, device=cuda))
@@ -591,8 +603,77 @@ def test_lru_scan_matches_plain_version_bitwise(cuda, b, s, d, dtype):
     assert torch.equal(got, lru_scan_ref(a, bb))
 
 
+def _gated_inputs(cuda, b, s, d, dtype, with_y0, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((b, s, d), generator=g, device=cuda).to(
+        getattr(torch, dtype))
+    w_r, b_r, w_i, b_i = (torch.randn((d,), generator=g, device=cuda)
+                          for _ in range(4))
+    u = 0.9 + 0.099 * torch.rand((d,), generator=g, device=cuda)
+    lam = torch.log(torch.expm1(-torch.log(u) / 8.0))
+    c = -8.0 * torch.logaddexp(lam, torch.zeros_like(lam))
+    y0 = (torch.randn((b, d), generator=g, device=cuda) if with_y0
+          else None)
+    return x, w_r, b_r, w_i, b_i, c, y0
+
+
+# the gated entry's tiling: 32 channels by 64 steps
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,d,dtype", [
+    (4, 4096, 2560, "bfloat16"), (4, 4096, 2560, "float32"),
+    (3, 1000, 77, "bfloat16"), (3, 1000, 77, "float32"),
+    (2, 129, 68, "float32"), (2, 129, 68, "bfloat16"),
+    (3, 65, 33, "float32"), (1, 1, 8, "bfloat16")])
+@pytest.mark.parametrize("with_y0", [False, True])
+def test_lru_scan_gated_matches_plain_version_bitwise(cuda, b, s, d, dtype,
+                                                      with_y0):
+    """The gated entry rounds each op as the plain version's PyTorch op on
+    the card (sigmoid as 1 / (1 + exp(-z)), accurate expf, IEEE divide and
+    sqrt), so the two agree bitwise."""
+    args = _gated_inputs(cuda, b, s, d, dtype, with_y0, seed=s + d)
+    before = (scan_ops.lru_scan.launches, scan_ops.lru_scan_gated.launches)
+    got = scan_ops.lru_scan_gated(*args)
+    torch.cuda.synchronize()
+    assert (scan_ops.lru_scan.launches,
+            scan_ops.lru_scan_gated.launches) == (before[0], before[1] + 1)
+    assert got.dtype == args[0].dtype
+    assert torch.equal(got, lru_scan_gated_ref(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lru_scan_gated_out_of_range_operands_bitwise(cuda, dtype):
+    """x up to a few hundred: sigmoid's 1 + exp(-z) reaches 2**126 and
+    inf, past the inline reciprocal's range, so those elements take the
+    exact path (``__frcp_rn``), still bitwise."""
+    args = list(_gated_inputs(cuda, 2, 129, 64, dtype, True, seed=3))
+    args[0] = (args[0].float() * 60).to(args[0].dtype)
+    z = args[1] * args[0].float() + args[2]
+    assert bool((z < -87.4).any()) and bool((z < -89).any())
+    got = scan_ops.lru_scan_gated(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, lru_scan_gated_ref(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lru_scan_plan_is_the_kernels(cuda, gated, dtype):
+    """The host's tilings are the built kernel's, and its plan gives the
+    shared bytes the kernel's layout takes."""
+    dt = getattr(torch, dtype)
+    tiling, smem = scan_ops.kernel_layout(gated, dt)
+    assert tiling == (scan_ops.GATED if gated else scan_ops.PLAIN)
+    assert scan_ops.scan_plan(4, 4096, 2560, dt, gated=gated).smem_bytes \
+        == smem
+
+
 @pytest.mark.cuda
 def test_lru_scan_rejects_grad(cuda):
     a = torch.rand((1, 4, 8), device=cuda, requires_grad=True)
     with pytest.raises(ValueError, match="forward only"):
         scan_ops.lru_scan(a, a.detach())
+    args = list(_gated_inputs(cuda, 1, 4, 8, "float32", False, seed=0))
+    args[1].requires_grad_()
+    with pytest.raises(ValueError, match="forward only"):
+        scan_ops.lru_scan_gated(*args)

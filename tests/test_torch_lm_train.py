@@ -215,6 +215,7 @@ def test_training_path_never_reaches_the_prefill_kernels(monkeypatch):
     monkeypatch.setattr(fa_ops, "flash_attention", boom)
     monkeypatch.setattr(attention, "flash_attention", boom)
     monkeypatch.setattr(scan_ops, "lru_scan", boom)
+    monkeypatch.setattr(scan_ops, "lru_scan_gated", boom)
     port_grads(LMAdapter(cfg).loss_side, p, batch)
     LMAdapter(cfg).evaluate(p, batch)
     monkeypatch.undo()
