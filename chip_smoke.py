@@ -189,7 +189,30 @@ which raises on failure:
    launching the tensor-core K5 once a layer (24, 1; kimi at Dh 112),
    the CUDA-core K5 never, decode none; with the share of (token, choice)
    pairs prefill dropped at capacity and the tokens an expert (largest
-   and mean), a measurement.
+   and mean), a measurement;
+16. xlstm-1.3b at full width (bf16, random weights from seed 0, 42 mLSTM
+   and 6 sLSTM layers; no kernel of its own): (a) served whole through
+   ``serve.generate`` (batch 1, prompt 4096 = four mLSTM chunks of 1024,
+   8 new tokens, greedy) with prefill seconds (first, then steady, and
+   the sLSTM layers' share of a prefill on a synchronised clock), decode
+   ms per step, new tokens per second, peak memory and the exit head's
+   statistics; its prefill must launch no K5 and no K6; (b) one fedhen
+   flat round on the LM cell's settings (``lm_cell``: 8 clients at 0.25,
+   batch 2, 4 sequences a client, ``synthetic_lm`` over 4,096 ids, the
+   f32 wire) on sequences of 1024 inputs, then a second round traced for
+   the device's busy time and idle share, each with wall, losses, eval,
+   bytes against the closed form and peak, K1 launched once a fold; one
+   sLSTM layer's forward and backward at the round's shape, timed; K1 at
+   the cell's fold (N = n_flat = 1,883,654,144) bitwise against its plain
+   version and timed beside its byte bound.
+
+Phase 8 also serves reduced xlstm-1.3b in f32 on the card against the CPU
+(prefill and 8 teacher-forced decode steps): the sLSTM cell output before
+``_slstm_out``'s bf16 cast, and the caches, at rtol 1e-4 / atol 1e-5; the
+logits, downstream of that cast, within 5 % of max|logit|; no K5 or K6.
+Phase 10 also runs its round: updates within bf16 rounding and losses at
+rtol 1e-4 with the cast, and with the sLSTM FFN kept in f32 on both sides
+server params at rtol 1e-4 / atol 1e-5.
 
 Kernel times are device times (``time_ms``: a CUDA graph of the timed
 calls between two events, so the host's launch rate does not enter).  The
@@ -200,7 +223,8 @@ their launches on phase 11's async path, K5 and K6 with theirs on phase
 12's serving from checkpoints; K1-K4 with their launches on phase 13's
 telemetry path, the tensor-core K5 with its serving of the trained model
 there and its launches in phase 14's dense serving and phase 15's MoE
-serving); the last is ``{"ok": true, "device": {...}}``.
+serving; K1 with its launches on phase 16's xLSTM rounds and its time at
+xLSTM's fold); the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1517,12 +1541,13 @@ def _routing_stats(torch, calls) -> dict:
             "capacity": calls[0]["slot_idx"].shape[-1]}
 
 
-def serving(torch, runs=SERVE_RUNS) -> dict:
-    """Phases 7, 14 and 15: full-width serving through ``serve.generate``.
-    Launch counts are zeroed before each run, read when prefill is done and
-    again at the end.  A run of an MoE config also prints its prefill's
-    routing: pairs dropped at capacity and tokens an expert (a
-    measurement, not a gate)."""
+def serving(torch, runs=SERVE_RUNS, steady: bool = False) -> dict:
+    """Phases 7, 14, 15 and 16: full-width serving through
+    ``serve.generate``.  Launch counts are zeroed before each run, read
+    when prefill is done and again at the end.  A run of an MoE config
+    also prints its prefill's routing: pairs dropped at capacity and
+    tokens an expert (a measurement, not a gate).  ``steady`` adds each
+    run's steady prefill (``_steady_prefill``)."""
     from repro_torch import configs
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.rglru_scan.ops import lru_scan, lru_scan_gated
@@ -1597,6 +1622,8 @@ def serving(torch, runs=SERVE_RUNS) -> dict:
                 torch, routed[:marks["routed"]])
         elif routed:
             raise RuntimeError(f"{arch}: a dense config routed")
+        if steady:
+            row.update(_steady_prefill(torch, params, cfg, prompts, counts))
         print("  " + json.dumps(row), flush=True)
         if prefill_counts != expected or decode_counts != (0, 0, 0):
             raise RuntimeError(f"{arch}: K5 (tensor cores, CUDA cores) and "
@@ -1987,7 +2014,8 @@ def _leaf_groups(leaves, span: int):
         i = j
 
 
-def check_folds_lm(torch, ops, ref, bw: float, layout, mask) -> dict:
+def check_folds_lm(torch, ops, ref, bw: float, layout, mask,
+                   keys=("k1", "k4")) -> dict:
     """K1 and K4 at the LM cell's fold: Z = 1, N = n_flat > 2**31, the
     real mask (and for K4 the layout's leaf table, past offset 2**31 and
     its int32 work list), as a complex client (weight 1 on both sides of
@@ -1998,7 +2026,7 @@ def check_folds_lm(torch, ops, ref, bw: float, layout, mask) -> dict:
     product and sum): K1 in slices of ``LM_SLICE``, K4 in runs of leaves
     spanning at most as much (``masked_agg_fold_ref`` over the run).  Then
     each is timed beside its byte bound and its plain version's pieced
-    time."""
+    time.  ``keys`` picks the kernels ("k1", "k4")."""
     n = mask.numel()
     g = torch.Generator(device="cuda").manual_seed(21)
     x = torch.randn((1, n), generator=g, device="cuda")
@@ -2036,6 +2064,9 @@ def check_folds_lm(torch, ops, ref, bw: float, layout, mask) -> dict:
                                                   plan),
          k4_pieces))
     for key, name, n_touched, launch, pieces in kernels:
+        if key not in keys:
+            del out[key]
+            continue
         for population, w_rest in (("complex", ones), ("simple", ones * 0)):
             acc = acc0.clone()
             launch(acc, w_rest)
@@ -3013,6 +3044,421 @@ def telemetry_phase(torch, ops) -> tuple:
     return total, k5, out
 
 
+# Phases 8, 10 and 16: xLSTM (models/xlstm.py).  It has no kernel of its
+# own: its prefill must launch neither K5 nor K6, and its round folds
+# through K1.
+XLSTM = "xlstm-1.3b"
+# (arch, batch, prompt, new tokens, launches of one prefill: K5 on the
+#  tensor cores, K5 on the CUDA cores, K6); the prompt is four of the
+#  published mlstm_chunk (1024)
+XLSTM_SERVE_RUNS = (("xlstm-1.3b", 1, 4096, 8, (0, 0, 0)),)
+
+
+@contextlib.contextmanager
+def _slstm_hs():
+    """Record the f32 cell output each ``xlstm._slstm_out`` call gets,
+    before its bf16 cast (on the CPU, as a copy)."""
+    from repro_torch.models import xlstm
+    seen, out = [], xlstm._slstm_out
+
+    def rec(p, hs, cfg):
+        seen.append(hs.detach().float().cpu())
+        return out(p, hs, cfg)
+    xlstm._slstm_out = rec
+    try:
+        yield seen
+    finally:
+        xlstm._slstm_out = out
+
+
+@contextlib.contextmanager
+def _f32_slstm_out():
+    """``xlstm._slstm_out`` without its bf16 cast: the norm and the FFN in
+    the cell output's own dtype (f32 in the reduced config), so that a
+    card-vs-CPU comparison of a round sees the f32 arithmetic alone."""
+    from repro_torch.models import common, xlstm
+    from repro_torch.models.mlp import gelu
+    out = xlstm._slstm_out
+
+    def f32_out(p, hs, cfg):
+        b, s, nh, dh = hs.shape
+        h = common.apply_rmsnorm(p["norm"], hs, cfg.norm_eps).reshape(
+            b, s, nh * dh)
+        g = h @ p["ff_gate"].to(h.dtype)
+        return gelu(g) @ p["ff_down"].to(h.dtype)
+    xlstm._slstm_out = f32_out
+    try:
+        yield
+    finally:
+        xlstm._slstm_out = out
+
+
+def xlstm_serving_card_vs_cpu(torch) -> tuple:
+    """Phase 8's xLSTM rows: reduced xlstm-1.3b in f32 (one mLSTM and one
+    sLSTM layer, chunk 8), prefill of 64 tokens and 8 teacher-forced
+    decode steps (final and exit heads) on the card against the CPU.  Two
+    rules, each for its tensors: the sLSTM cell output before
+    ``_slstm_out``'s bf16 cast (every call: the prefill's and each
+    step's), and the decode caches, at rtol 1e-4 / atol 1e-5; the logits,
+    downstream of that cast (a one-ulp f32 difference can flip a bf16
+    rounding), within 5 % of max|logit| (the bf16 serving rule).  The
+    card's prefill and decode launch neither K5 nor K6.  Then the card's
+    decode, token by token from an empty cache, against its own prefill
+    at the reference test's 6e-3.  Returns (max|diff| of the cell outputs,
+    of the logits)."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.rglru_scan.ops import lru_scan, lru_scan_gated
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import tree_leaves, tree_map
+    rtol, atol = 1e-4, 1e-5
+    prompt, steps, batch = 64, 8, 2
+    cfg = configs.get_reduced(XLSTM)
+    params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt + steps),
+                           generator=torch.Generator().manual_seed(1))
+    sides = {}
+
+    def launches():
+        return (flash_attention.launches_tc + flash_attention.launches,
+                lru_scan.launches + lru_scan_gated.launches)
+    for dev in ("cuda", "cpu"):
+        p = tree_map(lambda x: x.to(dev), params)
+        toks = tokens.to(dev)
+        before = launches()
+        with torch.inference_mode(), _slstm_hs() as hs:
+            logits, cache = tfm.prefill(p, cfg, toks[:, :prompt],
+                                        cache_len=prompt + steps)
+            outs = [logits]
+            for t in range(prompt, prompt + steps):
+                lg, cache, ex = tfm.decode_step(p, cache, cfg,
+                                                toks[:, t:t + 1], t,
+                                                with_exit_head=True)
+                outs += [lg, ex]
+        sides[dev] = ([o.cpu().float() for o in outs], list(hs),
+                      [x.cpu().float() for x in tree_leaves(cache)])
+        if launches() != before:
+            raise RuntimeError(f"{XLSTM} narrow on {dev}: K5/K6 launched")
+    worst_hs = worst_cache = worst_lg = 0.0
+    for c, h in zip(sides["cuda"][1] + sides["cuda"][2],
+                    sides["cpu"][1] + sides["cpu"][2]):
+        diff = (c - h).abs()
+        worst_hs = max(worst_hs, float(diff.max()))
+        if float((diff - atol - rtol * h.abs()).max()) > 0:
+            raise RuntimeError(f"{XLSTM} narrow f32: the sLSTM cell output "
+                               f"or a cache differs card vs CPU beyond rtol "
+                               f"1e-4 / atol 1e-5 ({float(diff.max()):.3e})")
+    top = float(sides["cpu"][0][0].abs().max())
+    for i, (c, h) in enumerate(zip(sides["cuda"][0], sides["cpu"][0])):
+        worst_lg = max(worst_lg, float((c - h).abs().max()))
+        if worst_lg > 0.05 * top:
+            raise RuntimeError(f"{XLSTM} narrow f32: logits {i} differ card "
+                               f"vs CPU by {worst_lg:.3e}, beyond 5 % of "
+                               f"max|logit| {top:.3f}")
+    calls = len(sides["cuda"][1])
+    print(f"  {XLSTM} narrow f32 ({cfg.n_layers} layers, chunk "
+          f"{cfg.mlstm_chunk}, prompt {prompt}, {steps} teacher-forced "
+          f"decode steps): sLSTM cell output before the bf16 cast "
+          f"({calls} calls) and the caches card vs CPU "
+          f"max|diff| {worst_hs:.3e} (rtol 1e-4 / atol 1e-5); logits "
+          f"max|diff| {worst_lg:.3e} = {worst_lg / top:.5f} of max|logit| "
+          f"(5 % rule); no K5 or K6 launched", flush=True)
+    # the card's decode from an empty cache against its own prefill
+    p = tree_map(lambda x: x.cuda(), params)
+    toks = tokens.cuda()
+    n = prompt + steps
+    with torch.inference_mode():
+        full, _ = tfm.prefill(p, cfg, toks)
+        cache = tfm.init_cache(cfg, batch, n, device="cuda")
+        worst = 0.0
+        for t in range(n):
+            lg, cache = tfm.decode_step(p, cache, cfg, toks[:, t:t + 1], t)
+            worst = max(worst, float((lg[:, 0] - full[:, t]).abs().max()))
+    if worst > 6e-3:
+        raise RuntimeError(f"{XLSTM} narrow on the card: decode differs "
+                           f"from prefill by {worst:.3e} (> 6e-3)")
+    print(f"  {XLSTM} narrow on the card: decode of {n} positions against "
+          f"prefill, max|diff| {worst:.3e} (6e-3)", flush=True)
+    return worst_hs, worst_lg
+
+
+def xlstm_round_card_vs_cpu(torch) -> None:
+    """Phase 10's xLSTM rows: one narrow fedhen round of reduced
+    xlstm-1.3b on the card against the CPU (phase 10's settings).  With
+    ``_slstm_out``'s bf16 cast in place on both sides, where a one-ulp f32
+    difference can flip a bf16 rounding of the cell output and the sLSTM
+    FFN trains in bf16: losses and eval losses at rtol 1e-4 and each
+    parameter's update (after - before) within bf16 rounding (2^-7 of its
+    leaf's largest).  With the FFN kept in f32 (``_f32_slstm_out``) on
+    both sides: server params at rtol 1e-4 / atol 1e-5, losses within
+    1e-5 (``_hold``)."""
+    from repro_torch import configs
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.core.adapters import LMAdapter
+    from repro_torch.core.federated import FederatedTrainer
+    from repro_torch.data.federated import iid_split
+    from repro_torch.data.synthetic import synthetic_lm
+    cfg = configs.get_reduced(XLSTM)
+    shards = [{"tokens": s["tokens"]} for s in iid_split(
+        synthetic_lm(32, 16, cfg.vocab_size, seed=0), 4, seed=1)]
+    test = {"tokens": synthetic_lm(8, 16, cfg.vocab_size,
+                                   seed=999)["tokens"]}
+    fed = FedConfig(n_devices=4, n_simple=2, participation=1.0,
+                    local_epochs=1, batch_size=4, cohort_chunk=1,
+                    algorithm="fedhen")
+
+    def build(dev):
+        return FederatedTrainer(LMAdapter(cfg), fed, shards, device=dev,
+                                generator=torch.Generator().manual_seed(0))
+    start = _flat_server(build("cpu"))
+    sides = _narrow_pair_runs(torch, build, 1, test)
+    worst = 0.0
+    for a, b, x0 in zip(sides["card"][1], sides["cpu"][1], start):
+        du, dv = a.cpu() - x0, b.cpu() - x0
+        worst = max(worst, float((du - dv).abs().max()))
+        limit = 2.0 ** -7 * float(dv.abs().max())
+        if float(((du - dv).abs() - limit - 2.0 ** -7 * dv.abs()).max()) > 0:
+            raise RuntimeError(f"{XLSTM} narrow round: the updates differ "
+                               f"card vs CPU beyond bf16 rounding")
+    mc, mp = sides["card"][0][-1], sides["cpu"][0][-1]
+    for key in ("loss_simple", "loss_complex"):
+        if abs(mc[key] - mp[key]) > 1e-4 * abs(mp[key]):
+            raise RuntimeError(f"{XLSTM} narrow round: {key} {mc[key]} "
+                               f"against {mp[key]}")
+    print(f"  narrow LM round {XLSTM} reduced fedhen, card vs CPU (bf16 "
+          f"cast in place): updates within bf16 rounding (max abs "
+          f"{worst:.3e}), losses within rtol 1e-4; card "
+          f"{json.dumps(mc)}", flush=True)
+    with _f32_slstm_out():
+        sides = _narrow_pair_runs(torch, build, 1, test)
+    worst = _hold(f"LM {XLSTM} fedhen (f32 FFN)", sides["card"],
+                  sides["cpu"])
+    print(f"  narrow LM round {XLSTM} reduced fedhen, sLSTM FFN in f32, card "
+          f"vs CPU: server params within rtol 1e-4 / atol 1e-5 (max abs "
+          f"{worst:.3e})", flush=True)
+
+
+@contextlib.contextmanager
+def _slstm_seconds(torch):
+    """Seconds spent in ``xlstm.apply_slstm`` calls (training and prefill
+    forward), on a host clock synchronised with the card at each call's
+    ends: a list of per-call seconds."""
+    from repro_torch.models import xlstm
+    seen, fn = [], xlstm.apply_slstm
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        seen.append(time.perf_counter() - t)
+        return out
+    xlstm.apply_slstm = timed
+    try:
+        yield seen
+    finally:
+        xlstm.apply_slstm = fn
+
+
+def xlstm_serve(torch) -> dict:
+    """Phase 16(a): xlstm-1.3b whole in bf16 through ``serve.generate``
+    (``serving``: batch 1, prompt 4096, 8 new tokens, greedy; its prefill
+    launches no K5 and no K6), then the steady prefill: the same prompt
+    prefilled again, timed, and once more with each sLSTM layer timed on a
+    synchronised clock for the sLSTM step loop's share."""
+    out = serving(torch, XLSTM_SERVE_RUNS, steady=True)
+    row = out["runs"][0]
+    print(f"  {XLSTM} served: prefill first {row['prefill_s']:.4f} s, "
+          f"steady {row['steady_prefill_s']:.4f} s (sLSTM layers "
+          f"{row['steady_slstm_s']:.4f} s = "
+          f"{row['steady_slstm_share']:.3f} of a synchronised prefill of "
+          f"{row['steady_synced_prefill_s']:.4f} s); decode "
+          f"{row['decode_ms_per_step']:.2f} ms/step; "
+          f"{row['new_tokens_per_s']:.2f} new tokens/s; peak "
+          f"{row['peak_gib']:.2f} GiB", flush=True)
+    return out
+
+
+def _steady_prefill(torch, params, cfg, prompts, counts) -> dict:
+    """Two more prefills of ``prompts``: one timed (the steady prefill),
+    one with the sLSTM layers timed; neither may launch a kernel the
+    first did not."""
+    from repro_torch.models import transformer as tfm
+    before = counts()
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, _ = tfm.prefill(params, cfg, prompts)
+        torch.cuda.synchronize()
+        steady = time.perf_counter() - t
+        del logits
+        with _slstm_seconds(torch) as seen:
+            t = time.perf_counter()
+            logits, _ = tfm.prefill(params, cfg, prompts)
+            torch.cuda.synchronize()
+            synced = time.perf_counter() - t
+        del logits
+    if counts() != before:
+        raise RuntimeError(f"{cfg.name}: the steady prefill launched "
+                           f"{counts()} against {before}")
+    return {"steady_prefill_s": steady, "steady_synced_prefill_s": synced,
+            "steady_slstm_s": sum(seen), "steady_slstm_calls": len(seen),
+            "steady_slstm_share": sum(seen) / synced}
+
+
+def _slstm_layer_cost(torch, cfg, batch: int, seq: int) -> dict:
+    """One sLSTM layer of ``cfg`` (its own weights from seed 3) at the
+    round's shape: forward with autograd, then backward, each timed on a
+    synchronised clock (the second of two calls)."""
+    from repro_torch.models import xlstm
+    p = xlstm.init_slstm(torch.Generator("cuda").manual_seed(3), cfg)
+    for x in p.values():
+        if isinstance(x, torch.Tensor):
+            x.requires_grad_(True)
+    p["norm"]["scale"].requires_grad_(True)
+    h = torch.randn((batch, seq, cfg.d_model), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(4)
+                    ).to(cfg.torch_compute_dtype()).requires_grad_(True)
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        y = xlstm.apply_slstm(p, h, cfg)
+        torch.cuda.synchronize()
+        fwd = time.perf_counter() - t
+        t = time.perf_counter()
+        y.float().square().sum().backward()
+        torch.cuda.synchronize()
+        bwd = time.perf_counter() - t
+    del p, h, y
+    torch.cuda.empty_cache()
+    return {"forward_s": fwd, "backward_s": bwd}
+
+
+def xlstm_round(torch, ops, ref, bw: float) -> dict:
+    """Phase 16(b): one fedhen flat round of xlstm-1.3b at full width on
+    the LM cell's settings (``lm_cell``: 8 clients at 0.25, 4 sequences a
+    client at batch 2, ``synthetic_lm`` over 4,096 ids, the f32 wire), on
+    sequences of 1024 model inputs (the published mlstm_chunk); then a
+    second round under ``torch.profiler`` (device activity only) for the
+    device's busy time and idle share.  Per round: wall, losses, eval,
+    bytes against the closed form, peak; K1's launches (2 a round, one a
+    fold) counted from 0.  Then one sLSTM layer's forward and backward at
+    the round's shape, timed, for the step loop's share of the round; and
+    K1 at the cell's fold (N = n_flat, the real mask) bitwise against its
+    plain version and timed beside its byte bound (``check_folds_lm``)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import lm_cell as cell
+    seq = cell.XLSTM_SEQ
+    t0 = time.perf_counter()
+    shards = cell.shards("cuda", seq=seq)
+    test = cell.test_batch(seq=seq)
+    print(f"  data: {len(shards) * cell.PER_CLIENT} sequences of {seq} "
+          f"inputs over {len(shards)} clients in "
+          f"{time.perf_counter() - t0:.1f} s (set-up)", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    trainer = cell.trainer(shards, "fedhen", arch=XLSTM)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    layout = trainer.layout
+    n_m = int(trainer.flat_mask.sum())
+    want_bytes = 8 * (n_m + layout.n_params)
+    cfg = trainer.adapter.cfg
+    print(f"  {XLSTM} fedhen: n_flat {layout.n_flat:,} "
+          f"({layout.n_flat / 2**31:.3f} x 2**31), {layout.n_params:,} "
+          f"params in {layout.n_leaves} leaves, |M| {n_m:,}, exit after "
+          f"layer {cfg.resolved_exit_layer}; trainer built in {init_s:.1f} "
+          f"s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB held",
+          flush=True)
+    out = {"rounds": [], "n_flat": layout.n_flat,
+           "n_params": layout.n_params, "n_m": n_m, "seq": seq,
+           "init_s": init_s}
+    _zero_counts(ops)
+    for traced in (False, True):
+        billed = trainer.total_bytes
+        torch.cuda.synchronize()
+        busy = None
+        if traced:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                m = trainer.run_round()
+                torch.cuda.synchronize()
+                round_s = time.perf_counter() - t
+            # the raw device records: building the profiler's op tree
+            # (prof.events()) over the sLSTM loops' ~10^6 launches takes
+            # minutes
+            busy = sum(e.duration_ns()
+                       for e in prof.profiler.kineto_results.events()
+                       if e.device_type() == torch.autograd.DeviceType.CUDA
+                       ) / 1e9
+            del prof
+        else:
+            t = time.perf_counter()
+            m = trainer.run_round()
+            torch.cuda.synchronize()
+            round_s = time.perf_counter() - t
+        t = time.perf_counter()
+        ev = trainer.evaluate(test)
+        torch.cuda.synchronize()
+        row = {"round": trainer.server.round, "traced": traced,
+               "round_s": round_s, "eval_s": time.perf_counter() - t,
+               "bytes": trainer.total_bytes - billed,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "train": m, "eval": ev}
+        if busy is not None:
+            row.update(device_busy_s=busy, idle_share=1.0 - busy / round_s)
+        print("  " + json.dumps(row), flush=True)
+        values = [m["loss_simple"], m["loss_complex"]] + [
+            ev[k] for k in ("loss_simple", "loss_complex")]
+        if not all(math.isfinite(v) for v in values) or m["n_valid"] != 2:
+            raise RuntimeError(f"{XLSTM} round: {m} {ev}")
+        if row["bytes"] != want_bytes:
+            raise RuntimeError(f"{XLSTM} round: {row['bytes']} bytes billed, "
+                               f"expected {want_bytes}")
+        out["rounds"].append(row)
+    c = _counts(ops)
+    out["launches"] = c[0]
+    if c != (4, 0, 0, 0):
+        raise RuntimeError(f"{XLSTM} rounds: launches K1/K2/K3/K4 {c}, "
+                           f"expected K1 twice a round")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  {XLSTM} rounds: K1 launches {c[0]} over 2 rounds (one a "
+          f"fold); peak {out['peak_gib']:.2f} GiB", flush=True)
+    mask = trainer.flat_mask
+    del trainer, shards
+    gc.collect()
+    torch.cuda.empty_cache()
+    cost = _slstm_layer_cost(torch, cfg, cell.FED["batch_size"], seq)
+    # a round: 2 SGD steps of the complex client (every sLSTM layer) and
+    # of the simple one (the sLSTM layers before the exit)
+    n_slstm = sum(1 for i in range(cfg.n_layers)
+                  if cfg.layer_spec(i).mixer == "slstm")
+    n_simple = sum(1 for i in range(cfg.resolved_exit_layer)
+                   if cfg.layer_spec(i).mixer == "slstm")
+    calls = 2 * (n_slstm + n_simple)
+    est = calls * (cost["forward_s"] + cost["backward_s"])
+    out["slstm"] = dict(cost, calls_a_round=calls, round_s_estimate=est,
+                        share_of_round=est / out["rounds"][0]["round_s"])
+    print(f"  one sLSTM layer at (2, {seq}): forward {cost['forward_s']:.3f}"
+          f" s, backward {cost['backward_s']:.3f} s; {calls} calls a round "
+          f"(training only) = {est:.2f} s, "
+          f"{out['slstm']['share_of_round']:.3f} of round 1's wall",
+          flush=True)
+    out.update(check_folds_lm(torch, ops, ref, bw, layout, mask,
+                              keys=("k1",)))
+    return out
+
+
+def xlstm_phase(torch, ops, ref, bw: float) -> dict:
+    """Phase 16: xLSTM at full width (bf16, random weights)."""
+    t = time.perf_counter()
+    out = {"serve": xlstm_serve(torch)}
+    torch.cuda.empty_cache()
+    out["round"] = xlstm_round(torch, ops, ref, bw)
+    print(f"  phase 16 in {time.perf_counter() - t:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3069,6 +3515,7 @@ def main() -> int:
     # 8. narrow serving, card vs CPU, decode vs prefill
     print("[8] narrow serving: card vs CPU, decode vs prefill", flush=True)
     narrow = serving_card_vs_cpu(torch)
+    xlstm_serving_card_vs_cpu(torch)
     torch.cuda.empty_cache()
     # 9. the full-width LM round cell
     print("[9] LM round cell: Gemma-2 2B federated training at full width",
@@ -3077,6 +3524,7 @@ def main() -> int:
     # 10. narrow LM rounds, card vs CPU
     print("[10] narrow LM rounds: card vs CPU", flush=True)
     lm_card_vs_cpu(torch)
+    xlstm_round_card_vs_cpu(torch)
     torch.cuda.empty_cache()
     # 11. async rounds
     print("[11] async rounds: the ResNet and LM cells, narrow card vs CPU",
@@ -3114,6 +3562,13 @@ def main() -> int:
     print("[15] full-width serving: qwen2-moe-a2.7b, kimi-k2-1t-a32b at "
           "published widths (depth 1)", flush=True)
     moe_path = serving(torch, MOE_SERVE_RUNS)
+    del moe_path["runs"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 16. xLSTM at full width
+    print("[16] xlstm-1.3b at full width: served whole, one fedhen round",
+          flush=True)
+    xl = xlstm_phase(torch, ops, ref, bw)
 
     src = "src/repro_torch/kernels/masked_agg/csrc/"
     kernels = []
@@ -3156,6 +3611,17 @@ def main() -> int:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "bound_share": head["bound_share"], "max_abs_err": 0.0,
             "folds": lm[key]["timing"]}
+    head = xl["round"]["k1"]["timing"][0]     # the complex client's fold
+    kernels[0]["launches_xlstm"] = xl["round"]["launches"]
+    kernels[0]["launches_xlstm_path"] = ("phase 16: two fedhen rounds of "
+                                         "xlstm-1.3b at full width")
+    kernels[0]["xlstm"] = {
+        "shape": {"Z": 1, "N": xl["round"]["k1"]["N"], "x": "float32",
+                  "fold": "complex", "mask": "xlstm-1.3b index set M"},
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "bound_share": head["bound_share"], "max_abs_err": 0.0,
+        "folds": xl["round"]["k1"]["timing"]}
     k5_src = "src/repro_torch/kernels/flash_attention/csrc/"
     k5_replaces = "src/repro/kernels/flash_attention/kernel.py:83"
     for name, source, dtype, launches, path in (

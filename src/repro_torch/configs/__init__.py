@@ -1,10 +1,11 @@
 """Architecture registry of the port.
 
 The port's counterpart of ``repro.configs.get_config`` / ``get_reduced``.
-Seven architectures are ported so far: RecurrentGemma-2B and Gemma-2 2B
+Eight architectures are ported so far: RecurrentGemma-2B and Gemma-2 2B
 (the serving slice), the dense Gemma-3 4B, Minitron-8B and StarCoder2-15B,
-and the Mixture-of-Experts Qwen1.5-MoE-A2.7B and Kimi K2.  Every other
-name the reference knows (xLSTM, the VLM and audio configs) raises
+the Mixture-of-Experts Qwen1.5-MoE-A2.7B and Kimi K2, and xLSTM-1.3B
+(mLSTM and sLSTM blocks).  Every other name the reference knows (the VLM
+and audio configs) raises
 ``NotImplementedError`` pointing at ROADMAP.md; an unknown name raises
 ``KeyError``, as in the reference.
 """
@@ -31,7 +32,8 @@ _MODULES = {
 
 ARCH_NAMES = tuple(_MODULES)
 PORTED = ("recurrentgemma-2b", "gemma2-2b", "gemma3-4b", "minitron-8b",
-          "starcoder2-15b", "qwen2-moe-a2.7b", "kimi-k2-1t-a32b")
+          "starcoder2-15b", "qwen2-moe-a2.7b", "kimi-k2-1t-a32b",
+          "xlstm-1.3b")
 
 
 def _module(name: str):

@@ -8,6 +8,12 @@ the card from seed 0.  ``synthetic_lm``'s chain runs over the first 4,096
 token ids (its transition table is vocab x vocab f32), and the test batch
 is 4 sequences.  ``chip_smoke.py``'s phase 9 and ``profile_round.py``'s
 LM column both build the cell from here.
+
+The arch and the sequence length are parameters: xlstm-1.3b's round
+(``chip_smoke.py`` phase 16) runs the same settings on sequences of
+:data:`XLSTM_SEQ` = 1024 model inputs, the published ``mlstm_chunk``,
+which must divide them.  A sequence of ``seq`` inputs is ``seq + 1``
+tokens (``synthetic_lm``'s rows; the labels are the inputs shifted).
 """
 
 from __future__ import annotations
@@ -25,28 +31,31 @@ ARCH = "gemma2-2b"
 FED = dict(n_devices=8, n_simple=4, participation=0.25, cohort_chunk=1,
            local_epochs=1, batch_size=2, lr=0.1)
 SEQ, PER_CLIENT, DATA_VOCAB, TEST = 512, 4, 4096, 4
+XLSTM_SEQ = 1024
 
 
-def shards(device="cuda") -> list:
-    """Each client's token sequences, on ``device``."""
-    data = synthetic_lm(FED["n_devices"] * PER_CLIENT, SEQ, DATA_VOCAB,
-                        seed=0)
+def shards(device="cuda", seq=None) -> list:
+    """Each client's token sequences (``seq`` model inputs each, the
+    module's :data:`SEQ` by default), on ``device``."""
+    data = synthetic_lm(FED["n_devices"] * PER_CLIENT, seq or SEQ,
+                        DATA_VOCAB, seed=0)
     return [{"tokens": torch.as_tensor(s["tokens"]).to(device)}
             for s in iid_split(data, FED["n_devices"], seed=1)]
 
 
-def test_batch() -> dict:
-    return {"tokens": synthetic_lm(TEST, SEQ, DATA_VOCAB,
+def test_batch(seq=None) -> dict:
+    return {"tokens": synthetic_lm(TEST, seq or SEQ, DATA_VOCAB,
                                    seed=999)["tokens"]}
 
 
 def trainer(client_shards: list, algorithm: str = "fedhen",
-            device="cuda", telemetry=None, **extra) -> FederatedTrainer:
-    """The cell's trainer for ``algorithm`` (``extra``: further
-    ``FedConfig`` fields, e.g. the tree engine; ``telemetry``: the
-    trainer's event registry)."""
+            device="cuda", telemetry=None, arch=None,
+            **extra) -> FederatedTrainer:
+    """The cell's trainer for ``algorithm`` on ``arch`` (the module's
+    :data:`ARCH` by default) (``extra``: further ``FedConfig`` fields,
+    e.g. the tree engine; ``telemetry``: the trainer's event registry)."""
     return FederatedTrainer(
-        LMAdapter(configs.get_config(ARCH)),
+        LMAdapter(configs.get_config(arch or ARCH)),
         FedConfig(algorithm=algorithm, **FED, **extra), client_shards,
         device=device, generator=torch.Generator(device).manual_seed(0),
         telemetry=telemetry)

@@ -3,7 +3,9 @@
 For each serving cell of ``chip_smoke.py`` (recurrentgemma-2b: batch 4,
 prompt 4096; gemma2-2b: batch 1, prompt 8192; with ``--moe`` instead the
 MoE cells of its phase 15, qwen2-moe-a2.7b and kimi-k2-1t-a32b cut to one
-layer, batch 1, prompt 4096; random weights from seed 0) it traces the
+layer, batch 1, prompt 4096; with ``--arch NAME`` the cells of that arch
+alone, xlstm-1.3b's (batch 1, prompt 4096, phase 16) among them; random
+weights from seed 0) it traces the
 model's first prefill (which pays the caching allocator's growth and any
 first launches) and runs one decode step, then traces one steady prefill
 and ``DECODE_STEPS`` greedy decode steps (with the exit head, as
@@ -17,6 +19,7 @@ most device time.  The first line is the card's name and power limit as
 numbers.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve [--moe]
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch xlstm-1.3b
 """
 
 from __future__ import annotations
@@ -39,15 +42,18 @@ from repro_torch.models import transformer as tfm
 CELLS = (("recurrentgemma-2b", 4, 4096, {}), ("gemma2-2b", 1, 8192, {}))
 MOE_CELLS = (("qwen2-moe-a2.7b", 1, 4096, {}),
              ("kimi-k2-1t-a32b", 1, 4096, {"n_layers": 1}))
+XLSTM_CELLS = (("xlstm-1.3b", 1, 4096, {}),)
 DECODE_STEPS = 8
 
 # kernel-name fragments -> the layer they belong to (first match wins);
 # "flash_fwd" takes both K5 kernels (flash_fwd_wgmma for bf16,
 # flash_fwd_tf32 for f32); cuBLAS's Hopper GEMMs are named nvjet_* /
-# sm90_xmma_* / cutlass_*; an MoE layer's routing sorts, scans and
+# sm90_xmma_* / cutlass_*, its matrix-vector products gemv* (the sLSTM's
+# recurrent product a step); an MoE layer's routing sorts, scans and
 # scatters
 LAYERS = (("flash_fwd", "attention (K5)"), ("lru_scan", "RG-LRU scan (K6)"),
-          ("nvjet", "matmul"), ("gemm", "matmul"), ("xmma", "matmul"),
+          ("nvjet", "matmul"), ("gemm", "matmul"), ("gemv", "matmul"),
+          ("xmma", "matmul"),
           ("cutlass", "matmul"), ("softmax", "softmax"),
           ("Sort", "sort"), ("sort", "sort"), ("Scan", "scan"),
           ("scan", "scan"),
@@ -80,10 +86,12 @@ def _traced(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
+    # the raw device records: building the profiler's op tree
+    # (prof.events()) over an xLSTM prefill's ~10^6 launches takes minutes
     kernels = defaultdict(float)
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[evt.name] += evt.device_time_total / 1e6   # us -> s
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() == torch.autograd.DeviceType.CUDA:
+            kernels[evt.name()] += evt.duration_ns() / 1e9   # ns -> s
     busy = sum(kernels.values())
     if busy <= 0.0:
         raise RuntimeError("the profiler recorded no device time")
@@ -148,7 +156,15 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--moe", action="store_true",
                     help="profile the MoE serving cells")
+    ap.add_argument("--arch", default=None,
+                    help="profile only this arch's cells (of all lists)")
     args = ap.parse_args(argv)
+    cells = MOE_CELLS if args.moe else CELLS
+    if args.arch is not None:
+        cells = [c for c in CELLS + MOE_CELLS + XLSTM_CELLS
+                 if c[0] == args.arch]
+        if not cells:
+            raise SystemExit(f"no serving cell of {args.arch!r}")
     resolve_device("cuda")
     build.load()            # the kernels' build is not the first prefill's
     card = subprocess.run(
@@ -157,7 +173,7 @@ def main(argv=None):
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
     rows = []
-    for arch, batch, prompt, over in (MOE_CELLS if args.moe else CELLS):
+    for arch, batch, prompt, over in cells:
         row = profile_cell(arch, batch, prompt, over)
         rows.append(row)
         for phase in ("first_prefill", "prefill", "decode"):

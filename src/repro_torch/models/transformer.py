@@ -10,7 +10,8 @@ periods feeds the early-exit head (own norm, shared unembedding).
 
 Training (:func:`forward`, :func:`forward_simple`) runs every block
 through its differentiable plain path (``attention.apply_attention_train``,
-``rglru.apply_rglru_train``); prefill runs K5 and K6.  Under autograd a
+``rglru.apply_rglru_train``, the xLSTM blocks' own forms); prefill runs K5
+and K6 (the xLSTM blocks have no kernel).  Under autograd a
 period's block comes from ONE ``torch.unbind`` per stacked leaf
 (:func:`_periods`): each ``x[i]`` would cost a full-size zero-filled
 ``select_backward`` per period per leaf, where ``unbind``'s backward
@@ -26,13 +27,14 @@ Parameter tree, the reference's (leaf order and shapes):
      "unembed": {"w": (D, V)}?}                     # untied configs only
 
 Caches mirror the periods/rem structure; decode updates them in place.
-Ported mixers: attention (global and local) and RG-LRU, with the dense
-MLP or Mixture-of-Experts (``mlp.apply_moe``).  Each block returns the MoE
+Ported mixers: attention (global and local), RG-LRU and the xLSTM blocks
+(mLSTM and sLSTM, ``models/xlstm.py``), with the dense MLP,
+Mixture-of-Experts (``mlp.apply_moe``) or none.  Each block returns the MoE
 aux losses (zeros for a dense block); :func:`forward` sums them over the
 stack, the other paths drop them, as the reference's do.  An MoE block
 routes each sequence as its own group, except in decode, which routes the
 whole batch as one group (``x.reshape(1, B * S, D)``), as the reference
-does.  xLSTM, multi-codebook embeddings and modality frontends raise
+does.  Multi-codebook embeddings and modality frontends raise
 ``NotImplementedError`` (ROADMAP.md §1).
 """
 
@@ -44,9 +46,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, MLP_DENSE,
-                                      MLP_MOE, MLP_NONE, RGLRU, LayerSpec,
-                                      ModelConfig)
-from repro_torch.models import attention, common, mlp, rglru
+                                      MLP_MOE, MLP_NONE, MLSTM, RGLRU, SLSTM,
+                                      LayerSpec, ModelConfig)
+from repro_torch.models import attention, common, mlp, rglru, xlstm
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 Params = Dict[str, Any]
@@ -58,7 +60,7 @@ def _unported(what: str):
 
 
 def _check_spec(spec: LayerSpec) -> None:
-    if spec.mixer not in (ATTN_GLOBAL, ATTN_LOCAL, RGLRU):
+    if spec.mixer not in (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, MLSTM, SLSTM):
         raise _unported(f"the {spec.mixer} mixer")
     if spec.mlp not in (MLP_DENSE, MLP_MOE, MLP_NONE):
         raise _unported(f"the {spec.mlp} MLP")
@@ -136,8 +138,12 @@ def init_block(generator: torch.Generator, spec: LayerSpec,
     p: Params = {"pre_norm": common.init_rmsnorm(cfg.d_model, dt, dev)}
     if _is_attention(spec):
         p["mixer"] = attention.init_attention(generator, cfg)
-    else:
+    elif spec.mixer == RGLRU:
         p["mixer"] = rglru.init_rglru(generator, cfg)
+    elif spec.mixer == MLSTM:
+        p["mixer"] = xlstm.init_mlstm(generator, cfg)
+    else:
+        p["mixer"] = xlstm.init_slstm(generator, cfg)
     if spec.mlp == MLP_DENSE:
         p["mlp_norm"] = common.init_rmsnorm(cfg.d_model, dt, dev)
         p["mlp"] = mlp.init_mlp(generator, cfg)
@@ -180,8 +186,12 @@ def apply_block(p: Params, spec: LayerSpec, h: torch.Tensor,
     if _is_attention(spec):
         m = attention.apply_attention_train(
             p["mixer"], x, cfg, window=_window(spec, cfg, window_override))
-    else:
+    elif spec.mixer == RGLRU:
         m = rglru.apply_rglru_train(p["mixer"], x, cfg)
+    elif spec.mixer == MLSTM:
+        m = xlstm.apply_mlstm(p["mixer"], x, cfg)
+    else:
+        m = xlstm.apply_slstm(p["mixer"], x, cfg)
     return _apply_mlp(p, spec, h + m, cfg)
 
 
@@ -198,8 +208,12 @@ def apply_block_prefill(p: Params, spec: LayerSpec, h: torch.Tensor,
                                             return_kv=True)
         cache = attention.kv_to_cache(k, v, cfg, window=window,
                                       cache_len=cache_len)
-    else:
+    elif spec.mixer == RGLRU:
         m, cache = rglru.apply_rglru(p["mixer"], x, cfg, return_state=True)
+    elif spec.mixer == MLSTM:
+        m, cache = xlstm.apply_mlstm(p["mixer"], x, cfg, return_state=True)
+    else:
+        m, cache = xlstm.apply_slstm(p["mixer"], x, cfg, return_state=True)
     h, aux = _apply_mlp(p, spec, h + m, cfg)
     return h, cache, aux
 
@@ -213,6 +227,10 @@ def init_block_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
             device=device)
     if spec.mixer == RGLRU:
         return rglru.init_rglru_cache(cfg, batch, device=device)
+    if spec.mixer == MLSTM:
+        return xlstm.init_mlstm_cache(cfg, batch, device=device)
+    if spec.mixer == SLSTM:
+        return xlstm.init_slstm_cache(cfg, batch, device=device)
     raise _unported(f"the {spec.mixer} mixer")
 
 
@@ -227,8 +245,12 @@ def apply_block_decode(p: Params, spec: LayerSpec, h: torch.Tensor,
         m, cache = attention.apply_attention_decode(
             p["mixer"], x, cache, pos, cfg,
             window=_window(spec, cfg, window_override))
-    else:
+    elif spec.mixer == RGLRU:
         m, cache = rglru.apply_rglru_decode(p["mixer"], x, cache, cfg)
+    elif spec.mixer == MLSTM:
+        m, cache = xlstm.apply_mlstm_decode(p["mixer"], x, cache, cfg)
+    else:
+        m, cache = xlstm.apply_slstm_decode(p["mixer"], x, cache, cfg)
     h, aux = _apply_mlp(p, spec, h + m, cfg, one_group=True)
     return h, cache, aux
 

@@ -120,7 +120,7 @@ def test_train_cli_rejects_unported_flags_and_needs_a_device(monkeypatch):
     from repro_torch.launch import train
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train.build_trainer(train.build_parser().parse_args(
-            ["--model", "lm", "--arch", "xlstm-1.3b", "--reduced",
+            ["--model", "lm", "--arch", "musicgen-large", "--reduced",
              "--device", "cpu"]))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -18,7 +18,6 @@ then rounds its own activations to bf16, so the two drift by a few bf16
 ulps per layer.
 """
 
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +32,7 @@ from repro.launch import serve as ref_serve  # noqa: E402
 from repro.models import transformer as ref_tfm  # noqa: E402
 
 from repro_torch import configs, interop  # noqa: E402
+from repro_torch.configs.base import StubFrontend  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
@@ -266,8 +266,8 @@ def test_init_params_matches_reference_tree():
 def test_unported_features_raise():
     cfg = configs.get_reduced("gemma2-2b")
     for bad in (dict(n_codebooks=2),
-                dict(pattern=(dataclasses.replace(cfg.pattern[0],
-                                                  mixer="mlstm"),))):
+                dict(frontend=StubFrontend(kind="vision", n_tokens=8,
+                                           d_in=48))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tfm.init_params(torch.Generator(), cfg.with_overrides(**bad))
     # the training forward (ported since) refuses them too
