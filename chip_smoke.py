@@ -72,13 +72,15 @@ which raises on failure:
    (1, 8192, 8 / 4, 256) with softcap 50, window 4096 and global, and at
    the dense configs' shapes (gemma3-4b (1, 8192, 8 / 4, 256) window 1024,
    minitron-8b (1, 4096, 32 / 8, 128), starcoder2-15b (1, 4096, 48 / 4,
-   128), qwen2-moe-a2.7b (1, 4096, 16 / 16, 128) and kimi-k2 (1, 4096,
-   64 / 8, 112), SDPA beside each); f32 at the recurrentgemma-2b shape (SDPA
-   beside it) and gemma2-2b's global layer; untimed edge cases (a ragged
-   S, G = 3 and G = 130, Dh 32, 128 and 256, softcap with a window, a
-   window under a key tile, Dh 112 in both dtypes); each timed row with
-   its TFLOP/s and bound share at its route's peak (f32 rows also at
-   split TF32's 165 TFLOP/s);
+   128), qwen2-moe-a2.7b (1, 4096, 16 / 16, 128), kimi-k2 (1, 4096,
+   64 / 8, 112), llava-next-34b (1, 4096, 56 / 8, 128) and musicgen-large
+   (4, 1536, 32 / 32, 64), SDPA beside each); f32 at the recurrentgemma-2b
+   shape (SDPA beside it) and gemma2-2b's global layer; untimed edge cases
+   (a ragged S, G = 3 and G = 130, Dh 32, 128 and 256, softcap with a
+   window, a window under a key tile, Dh 112 in both dtypes,
+   musicgen-large's 30 s of frames (4, 1500, 32 / 32, 64), a ragged S);
+   each timed row with its TFLOP/s and bound share at its route's peak
+   (f32 rows also at split TF32's 165 TFLOP/s);
    K6 (RG-LRU scan), both entries bitwise against their plain versions:
    the scan at (4, 4096, 2560) f32 and bf16 and at shapes that cut a time
    tile or a channel stripe (on TMA and on the producer's loads), timed
@@ -204,7 +206,32 @@ which raises on failure:
    bytes against the closed form and peak, K1 launched once a fold; one
    sLSTM layer's forward and backward at the round's shape, timed; K1 at
    the cell's fold (N = n_flat = 1,883,654,144) bitwise against its plain
-   version and timed beside its byte bound.
+   version and timed beside its byte bound;
+17. llava-next-34b and musicgen-large at full width (bf16, random weights
+   from seed 0, no cut): (a) llava-next-34b whole (33.9 G parameters,
+   63.2 GiB) through ``serve.generate`` text-only, as ``serve.main``
+   serves it (batch 1, prompt 4096, 8 new tokens, greedy), first and
+   steady prefill, then on the same params one prefill of 2880
+   ``synthetic_frontend_embeds`` patch rows and 1216 text tokens (4096
+   positions, a cache of 4104), first and steady, and 7 greedy decode
+   steps from position 4096; every prefill launching the tensor-core K5
+   once a layer (60), decode none; (b) musicgen-large whole through
+   ``serve.generate`` at batch 4 on a prompt of 1536 frames x 4 codebooks
+   (MusicGen's 30 s at 50 Hz, rounded up to the prefill's 512-position
+   chunks), 32 new frames, with the exit head's agreement over every
+   codebook; 48 K5 launches a prefill; (c) one fedhen flat round of
+   musicgen-large at full width on the LM cell's settings on sequences of
+   512 frames x 4 codebooks, then one traced (busy, idle share), with
+   wall, losses, eval, bytes against the closed form and peak, K1 once a
+   fold; K1 at the cell's fold (N = n_flat = 2,434,994,176 > 2**31)
+   bitwise against its plain version and timed beside its byte bound;
+   (d) narrow, card against CPU: reduced musicgen-large (with its
+   conditioning rows) and reduced llava-next-34b (text-only, and with its
+   patch rows through prefill) served in f32 at rtol 1e-4 / atol 1e-5 and
+   in bf16 within 5 % of max|logit|, each card run launching its dtype's
+   K5 once a layer a prefill, and in f32 the card's prefill and decode
+   against its prefill of the whole sequence; one narrow fedhen round of
+   each (llava's shards carrying their patch rows) at phase 10's rules.
 
 Phase 8 also serves reduced xlstm-1.3b in f32 on the card against the CPU
 (prefill and 8 teacher-forced decode steps): the sLSTM cell output before
@@ -224,7 +251,10 @@ their launches on phase 11's async path, K5 and K6 with theirs on phase
 telemetry path, the tensor-core K5 with its serving of the trained model
 there and its launches in phase 14's dense serving and phase 15's MoE
 serving; K1 with its launches on phase 16's xLSTM rounds and its time at
-xLSTM's fold); the last is ``{"ok": true, "device": {...}}``.
+xLSTM's fold; K1 with its launches on phase 17's musicgen-large rounds and
+its time at that fold, the tensor-core K5 with its launches serving
+llava-next-34b and musicgen-large, both K5 kernels with their launches in
+phase 17's narrow serving); the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1123,6 +1153,10 @@ FLASH_CASES = (
     ("qwen2-moe-a2.7b prefill", 1, 4096, 16, 16, 128, 0, 0.0, "bfloat16",
      True),
     ("kimi-k2 prefill", 1, 4096, 64, 8, 112, 0, 0.0, "bfloat16", True),
+    ("llava-next-34b prefill", 1, 4096, 56, 8, 128, 0, 0.0, "bfloat16",
+     True),
+    ("musicgen-large prefill", 4, 1536, 32, 32, 64, 0, 0.0, "bfloat16",
+     True),
     ("recurrentgemma-2b shape in f32", 4, 4096, 10, 1, 256, 2048, 0.0,
      "float32", True),
     ("gemma2-2b global in f32", 1, 8192, 8, 4, 256, 0, 50.0, "float32",
@@ -1141,6 +1175,8 @@ FLASH_CASES = (
     ("G 130 bf16", 1, 70, 130, 1, 64, 0, 0.0, "bfloat16", False),
     ("Dh 112 f32", 2, 1000, 8, 2, 112, 300, 30.0, "float32", False),
     ("Dh 112 bf16", 3, 513, 8, 8, 112, 0, 0.0, "bfloat16", False),
+    ("musicgen-large, 30 s ragged bf16", 4, 1500, 32, 32, 64, 0, 0.0,
+     "bfloat16", False),
 )
 # (route, peak the bound counts, peak of a second share): f32 stays on the
 # CUDA cores (67 TFLOP/s); split TF32 on the tensor cores (TF32_SPLIT_PEAK,
@@ -1542,9 +1578,10 @@ def _routing_stats(torch, calls) -> dict:
 
 
 def serving(torch, runs=SERVE_RUNS, steady: bool = False) -> dict:
-    """Phases 7, 14, 15 and 16: full-width serving through
+    """Phases 7, 14, 15, 16 and 17: full-width serving through
     ``serve.generate``.  Launch counts are zeroed before each run, read
-    when prefill is done and again at the end.  A run of an MoE config
+    when prefill is done and again at the end.  A multi-codebook config
+    serves (batch, prompt, n_codebooks) prompts.  A run of an MoE config
     also prints its prefill's routing: pairs dropped at capacity and
     tokens an expert (a measurement, not a gate).  ``steady`` adds each
     run's steady prefill (``_steady_prefill``)."""
@@ -1567,8 +1604,9 @@ def serving(torch, runs=SERVE_RUNS, steady: bool = False) -> dict:
         t = time.perf_counter()
         params = tfm.init_params(torch.Generator("cuda").manual_seed(0), cfg)
         n_params = sum(x.numel() for x in tree_leaves(params))
-        prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
-                                device="cuda",
+        codebooks = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+        prompts = torch.randint(0, cfg.vocab_size,
+                                (batch, prompt) + codebooks, device="cuda",
                                 generator=torch.Generator("cuda")
                                 .manual_seed(1))
         torch.cuda.synchronize()
@@ -1594,8 +1632,8 @@ def serving(torch, runs=SERVE_RUNS, steady: bool = False) -> dict:
         prefill_counts = marks["counts"]
         decode_counts = tuple(a - b for a, b in zip(launched,
                                                     prefill_counts))
-        if tuple(tokens.shape) != (batch, prompt + gen) or not bool(
-                ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        if tuple(tokens.shape) != (batch, prompt + gen) + codebooks or \
+                not bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
             raise RuntimeError(f"{arch}: tokens {tuple(tokens.shape)} out "
                                f"of shape or vocabulary")
         if not torch.equal(tokens[:, :prompt], prompts):
@@ -1623,7 +1661,8 @@ def serving(torch, runs=SERVE_RUNS, steady: bool = False) -> dict:
         elif routed:
             raise RuntimeError(f"{arch}: a dense config routed")
         if steady:
-            row.update(_steady_prefill(torch, params, cfg, prompts, counts))
+            row.update(_steady_prefill(torch, params, cfg, prompts, counts,
+                                       prefill_counts))
         print("  " + json.dumps(row), flush=True)
         if prefill_counts != expected or decode_counts != (0, 0, 0):
             raise RuntimeError(f"{arch}: K5 (tensor cores, CUDA cores) and "
@@ -3279,10 +3318,11 @@ def xlstm_serve(torch) -> dict:
     return out
 
 
-def _steady_prefill(torch, params, cfg, prompts, counts) -> dict:
+def _steady_prefill(torch, params, cfg, prompts, counts,
+                    per_prefill: tuple) -> dict:
     """Two more prefills of ``prompts``: one timed (the steady prefill),
-    one with the sLSTM layers timed; neither may launch a kernel the
-    first did not."""
+    one with the sLSTM layers timed; each must launch what the first did
+    (``per_prefill``)."""
     from repro_torch.models import transformer as tfm
     before = counts()
     with torch.inference_mode():
@@ -3298,9 +3338,10 @@ def _steady_prefill(torch, params, cfg, prompts, counts) -> dict:
             torch.cuda.synchronize()
             synced = time.perf_counter() - t
         del logits
-    if counts() != before:
-        raise RuntimeError(f"{cfg.name}: the steady prefill launched "
-                           f"{counts()} against {before}")
+    launched = tuple(a - b for a, b in zip(counts(), before))
+    if launched != tuple(2 * k for k in per_prefill):
+        raise RuntimeError(f"{cfg.name}: two steady prefills launched "
+                           f"{launched}, the first {per_prefill}")
     return {"steady_prefill_s": steady, "steady_synced_prefill_s": synced,
             "steady_slstm_s": sum(seen), "steady_slstm_calls": len(seen),
             "steady_slstm_share": sum(seen) / synced}
@@ -3334,37 +3375,36 @@ def _slstm_layer_cost(torch, cfg, batch: int, seq: int) -> dict:
     return {"forward_s": fwd, "backward_s": bwd}
 
 
-def xlstm_round(torch, ops, ref, bw: float) -> dict:
-    """Phase 16(b): one fedhen flat round of xlstm-1.3b at full width on
-    the LM cell's settings (``lm_cell``: 8 clients at 0.25, 4 sequences a
-    client at batch 2, ``synthetic_lm`` over 4,096 ids, the f32 wire), on
-    sequences of 1024 model inputs (the published mlstm_chunk); then a
-    second round under ``torch.profiler`` (device activity only) for the
-    device's busy time and idle share.  Per round: wall, losses, eval,
-    bytes against the closed form, peak; K1's launches (2 a round, one a
-    fold) counted from 0.  Then one sLSTM layer's forward and backward at
-    the round's shape, timed, for the step loop's share of the round; and
-    K1 at the cell's fold (N = n_flat, the real mask) bitwise against its
-    plain version and timed beside its byte bound (``check_folds_lm``)."""
+def full_width_rounds(torch, ops, arch: str, seq: int) -> tuple:
+    """Phases 16(b) and 17(c): one fedhen flat round of ``arch`` at full
+    width on the LM cell's settings (``lm_cell``: 8 clients at 0.25, 4
+    sequences a client at batch 2, ``synthetic_lm`` over the first 4,096
+    ids at most and over the arch's codebooks, the f32 wire) on sequences
+    of ``seq`` model inputs; then a second round under ``torch.profiler``
+    (device activity only) for the device's busy time and idle share.
+    Per round: wall, losses, eval, bytes against the closed form, peak;
+    K1's launches (2 a round, one a fold) counted from 0.  Returns (the
+    rounds' record, the layout, the flat mask, the config), the trainer
+    freed."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import lm_cell as cell
-    seq = cell.XLSTM_SEQ
     t0 = time.perf_counter()
-    shards = cell.shards("cuda", seq=seq)
-    test = cell.test_batch(seq=seq)
+    shards = cell.shards("cuda", seq=seq, arch=arch)
+    test = cell.test_batch(seq=seq, arch=arch)
+    nc = 1 if test["tokens"].ndim == 2 else test["tokens"].shape[2]
     print(f"  data: {len(shards) * cell.PER_CLIENT} sequences of {seq} "
-          f"inputs over {len(shards)} clients in "
+          f"inputs x {nc} codebook(s) over {len(shards)} clients in "
           f"{time.perf_counter() - t0:.1f} s (set-up)", flush=True)
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    trainer = cell.trainer(shards, "fedhen", arch=XLSTM)
+    trainer = cell.trainer(shards, "fedhen", arch=arch)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t
     layout = trainer.layout
     n_m = int(trainer.flat_mask.sum())
     want_bytes = 8 * (n_m + layout.n_params)
     cfg = trainer.adapter.cfg
-    print(f"  {XLSTM} fedhen: n_flat {layout.n_flat:,} "
+    print(f"  {arch} fedhen: n_flat {layout.n_flat:,} "
           f"({layout.n_flat / 2**31:.3f} x 2**31), {layout.n_params:,} "
           f"params in {layout.n_leaves} leaves, |M| {n_m:,}, exit after "
           f"layer {cfg.resolved_exit_layer}; trainer built in {init_s:.1f} "
@@ -3411,23 +3451,36 @@ def xlstm_round(torch, ops, ref, bw: float) -> dict:
         values = [m["loss_simple"], m["loss_complex"]] + [
             ev[k] for k in ("loss_simple", "loss_complex")]
         if not all(math.isfinite(v) for v in values) or m["n_valid"] != 2:
-            raise RuntimeError(f"{XLSTM} round: {m} {ev}")
+            raise RuntimeError(f"{arch} round: {m} {ev}")
         if row["bytes"] != want_bytes:
-            raise RuntimeError(f"{XLSTM} round: {row['bytes']} bytes billed, "
+            raise RuntimeError(f"{arch} round: {row['bytes']} bytes billed, "
                                f"expected {want_bytes}")
         out["rounds"].append(row)
     c = _counts(ops)
     out["launches"] = c[0]
     if c != (4, 0, 0, 0):
-        raise RuntimeError(f"{XLSTM} rounds: launches K1/K2/K3/K4 {c}, "
+        raise RuntimeError(f"{arch} rounds: launches K1/K2/K3/K4 {c}, "
                            f"expected K1 twice a round")
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    print(f"  {XLSTM} rounds: K1 launches {c[0]} over 2 rounds (one a "
+    print(f"  {arch} rounds: K1 launches {c[0]} over 2 rounds (one a "
           f"fold); peak {out['peak_gib']:.2f} GiB", flush=True)
     mask = trainer.flat_mask
     del trainer, shards
     gc.collect()
     torch.cuda.empty_cache()
+    return out, layout, mask, cfg
+
+
+def xlstm_round(torch, ops, ref, bw: float) -> dict:
+    """Phase 16(b): xlstm-1.3b's rounds (``full_width_rounds``) on
+    sequences of 1024 model inputs (the published mlstm_chunk).  Then one
+    sLSTM layer's forward and backward at the round's shape, timed, for
+    the step loop's share of the round; and K1 at the cell's fold (N =
+    n_flat, the real mask) bitwise against its plain version and timed
+    beside its byte bound (``check_folds_lm``)."""
+    from repro_torch.launch import lm_cell as cell
+    seq = cell.XLSTM_SEQ
+    out, layout, mask, cfg = full_width_rounds(torch, ops, XLSTM, seq)
     cost = _slstm_layer_cost(torch, cfg, cell.FED["batch_size"], seq)
     # a round: 2 SGD steps of the complex client (every sLSTM layer) and
     # of the simple one (the sLSTM layers before the exit)
@@ -3456,6 +3509,310 @@ def xlstm_phase(torch, ops, ref, bw: float) -> dict:
     torch.cuda.empty_cache()
     out["round"] = xlstm_round(torch, ops, ref, bw)
     print(f"  phase 16 in {time.perf_counter() - t:.1f} s", flush=True)
+    return out
+
+
+# -- phase 17: llava-next-34b and musicgen-large -----------------------------
+
+LLAVA, MUSICGEN = "llava-next-34b", "musicgen-large"
+# (arch, batch, prompt, new tokens, launches of one prefill: K5 on the
+#  tensor cores, K5 on the CUDA cores, K6): llava-next-34b whole (63.2 GiB
+#  of bf16 weights), text-only, as serve.main serves it; musicgen-large at
+#  batch 4 on 1536 frames of its 4 codebooks (30.72 s of EnCodec frames at
+#  50 Hz: MusicGen's 30 s rounded up to the prefill's 512-position chunks,
+#  which a prompt longer than one chunk must fill, as in the reference)
+LLAVA_SERVE_RUNS = ((LLAVA, 1, 4096, 8, (60, 0, 0)),)
+MUSICGEN_SERVE_RUNS = ((MUSICGEN, 4, 1536, 32, (48, 0, 0)),)
+LLAVA_TEXT = 1216            # text tokens after the 2880 patch rows: 4096
+LLAVA_STEPS = 7              # decode steps after the frontend's prefill
+MUSICGEN_SEQ = 512           # frames a training sequence (x 4 codebooks)
+
+
+def llava_frontend(torch) -> dict:
+    """Phase 17(a)'s second run: llava-next-34b whole (weights from seed
+    0, as phase 17(a)'s first run draws them), one prefill of the config's
+    2880 ``synthetic_frontend_embeds`` patch rows and :data:`LLAVA_TEXT`
+    text tokens (4096 positions, a cache of 4104), timed twice (first,
+    steady), each launching the tensor-core K5 once a layer and nothing
+    else; then :data:`LLAVA_STEPS` greedy decode steps from position 4096,
+    launching no kernel.  Logits finite and of their shapes."""
+    from repro_torch import configs
+    from repro_torch.data.synthetic import synthetic_frontend_embeds
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.rglru_scan.ops import lru_scan, lru_scan_gated
+    from repro_torch.models import transformer as tfm
+
+    def counts():
+        return (flash_attention.launches_tc, flash_attention.launches,
+                lru_scan.launches + lru_scan_gated.launches)
+    cfg = configs.get_config(LLAVA)
+    torch.cuda.reset_peak_memory_stats()
+    params = tfm.init_params(torch.Generator("cuda").manual_seed(0), cfg)
+    f = cfg.frontend
+    flash_attention.launches_tc = flash_attention.launches = 0
+    lru_scan.launches = lru_scan_gated.launches = 0
+    extra = torch.from_numpy(synthetic_frontend_embeds(
+        1, f.n_tokens, f.d_in, seed=2)).cuda()
+    text = torch.randint(0, cfg.vocab_size, (1, LLAVA_TEXT), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(3))
+    n = f.n_tokens + LLAVA_TEXT
+    out = {"frontend_rows": f.n_tokens, "frontend_text": LLAVA_TEXT,
+           "frontend_cache_len": n + LLAVA_STEPS + 1}
+    with torch.inference_mode():
+        for label in ("first", "steady"):
+            before = counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, cache = tfm.prefill(params, cfg, text,
+                                        extra_embeds=extra,
+                                        cache_len=n + LLAVA_STEPS + 1)
+            torch.cuda.synchronize()
+            out[f"frontend_prefill_{label}_s"] = time.perf_counter() - t
+            launched = tuple(a - b for a, b in zip(counts(), before))
+            if tuple(logits.shape) != (1, n, cfg.vocab_size) or not bool(
+                    torch.isfinite(logits).all()):
+                raise RuntimeError(f"{LLAVA} frontend prefill: logits "
+                                   f"{tuple(logits.shape)}, or not finite")
+            if launched != (cfg.n_layers, 0, 0):
+                raise RuntimeError(f"{LLAVA} frontend prefill: launches "
+                                   f"{launched}, expected "
+                                   f"({cfg.n_layers}, 0, 0)")
+            tok = logits[:, -1].argmax(-1)[:, None]
+            del logits
+            if label == "first":
+                del cache
+        out["frontend_prefill_launches"] = launched
+        before = counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(LLAVA_STEPS):
+            logits, cache = tfm.decode_step(params, cache, cfg, tok, n + i)
+            tok = logits[:, -1].argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        out["frontend_decode_ms_per_step"] = (
+            (time.perf_counter() - t) / LLAVA_STEPS * 1e3)
+        if counts() != before or not bool(torch.isfinite(logits).all()):
+            raise RuntimeError(f"{LLAVA} decode after the frontend: "
+                               f"launches {counts()} against {before}, or "
+                               f"logits not finite")
+        del cache, logits, params
+    out["frontend_launches"] = counts()
+    out["frontend_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print("  " + json.dumps(out), flush=True)
+    return out
+
+
+def _served(arch: str, row: dict) -> None:
+    print(f"  {arch} served (batch {row['batch']}, prompt {row['prompt']}, "
+          f"{row['gen']} new): prefill first {row['prefill_s']:.4f} s, "
+          f"steady {row['steady_prefill_s']:.4f} s; decode "
+          f"{row['decode_ms_per_step']:.2f} ms/step; peak "
+          f"{row['peak_gib']:.2f} GiB; K5 launches (tensor cores, CUDA "
+          f"cores, K6) {tuple(row['launches_prefill'])} a prefill; exit "
+          f"agreement {row['exit_agreement']:.4f}", flush=True)
+
+
+def zoo_serve(torch) -> dict:
+    """Phase 17(a) and (b): llava-next-34b whole through
+    ``serve.generate`` (batch 1, prompt 4096, 8 new tokens, text-only) and
+    its steady prefill, then the frontend's prefill and decode
+    (``llava_frontend``); musicgen-large whole (batch 4, 1500 x 4
+    prompt, 32 new frames), its steady prefill and the exit head's
+    agreement over every codebook.  Each prefill launches the tensor-core
+    K5 once a layer (60, 48) and decode none."""
+    llava = serving(torch, LLAVA_SERVE_RUNS, steady=True)
+    _served(LLAVA, llava["runs"][0])
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = llava["frontend"] = llava_frontend(torch)
+    print(f"  {LLAVA} with {row['frontend_rows']} patch rows and "
+          f"{row['frontend_text']} text tokens: prefill first "
+          f"{row['frontend_prefill_first_s']:.4f} s, steady "
+          f"{row['frontend_prefill_steady_s']:.4f} s, launches "
+          f"{tuple(row['frontend_prefill_launches'])}; decode "
+          f"{row['frontend_decode_ms_per_step']:.2f} ms/step from position "
+          f"{row['frontend_rows'] + row['frontend_text']}; peak "
+          f"{row['frontend_peak_gib']:.2f} GiB", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    musicgen = serving(torch, MUSICGEN_SERVE_RUNS, steady=True)
+    _served(MUSICGEN, musicgen["runs"][0])
+    torch.cuda.empty_cache()
+    return {"llava": llava, "musicgen": musicgen}
+
+
+def musicgen_round(torch, ops, ref, bw: float) -> dict:
+    """Phase 17(c): musicgen-large's rounds (``full_width_rounds``) on
+    sequences of :data:`MUSICGEN_SEQ` frames of its 4 codebooks; then K1
+    at the cell's fold (N = n_flat, above 2**31, the real mask) bitwise
+    against its plain version and timed beside its byte bound
+    (``check_folds_lm``)."""
+    out, layout, mask, _ = full_width_rounds(torch, ops, MUSICGEN,
+                                             MUSICGEN_SEQ)
+    out.update(check_folds_lm(torch, ops, ref, bw, layout, mask,
+                              keys=("k1",)))
+    return out
+
+
+def zoo_serving_card_vs_cpu(torch) -> dict:
+    """Phase 17(d), serving: reduced musicgen-large (2 codebooks, its 4
+    conditioning rows) and reduced llava-next-34b (text-only, and with its
+    8 patch rows), prefill of 64 tokens and 8 teacher-forced decode steps
+    (final and exit heads) on the card against the CPU: f32 (K5 on the
+    CUDA cores) at rtol 1e-4 / atol 1e-5, bf16 (K5 on the tensor cores)
+    within 5 % of the CPU prefill's max|logit| (phase 8's rules); in f32
+    also the card's prefill and decode against the card's prefill of the
+    whole sequence, at rtol 1e-4 / atol 1e-5.  Returns each dtype's K5
+    launches (tensor cores, CUDA cores) on the card."""
+    from repro_torch import configs
+    from repro_torch.data.synthetic import synthetic_frontend_embeds
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import tree_map
+    rtol, atol = 1e-4, 1e-5
+    prompt, steps, batch = 64, 8, 2
+    launches = {}
+    for dtype in ("float32", "bfloat16"):
+        flash_attention.launches_tc = flash_attention.launches = 0
+        tc = dtype == "bfloat16"
+        for arch, patches in ((MUSICGEN, True), (LLAVA, False),
+                              (LLAVA, True)):
+            cfg = configs.get_reduced(arch).with_overrides(
+                param_dtype=dtype, compute_dtype=dtype)
+            params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+            nc = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+            tokens = torch.randint(0, cfg.vocab_size,
+                                   (batch, prompt + steps) + nc,
+                                   generator=torch.Generator().manual_seed(1))
+            f = cfg.frontend
+            extra = (torch.from_numpy(synthetic_frontend_embeds(
+                batch, f.n_tokens, f.d_in, seed=2)) if patches else None)
+            n = f.n_tokens if patches else 0
+            sides = {}
+            for dev in ("cuda", "cpu"):
+                p = tree_map(lambda x: x.to(dev), params)
+                toks = tokens.to(dev)
+                ex = None if extra is None else extra.to(dev)
+                before = (flash_attention.launches_tc,
+                          flash_attention.launches)
+                with torch.inference_mode():
+                    logits, cache = tfm.prefill(
+                        p, cfg, toks[:, :prompt], extra_embeds=ex,
+                        cache_len=n + prompt + steps)
+                    outs = [logits]
+                    for t in range(prompt, prompt + steps):
+                        lg, cache, ex_lg = tfm.decode_step(
+                            p, cache, cfg, toks[:, t:t + 1], n + t,
+                            with_exit_head=True)
+                        outs += [lg, ex_lg]
+                    if dev == "cuda" and not tc:
+                        full, _ = tfm.prefill(p, cfg, toks, extra_embeds=ex)
+                sides[dev] = [o.cpu().float() for o in outs]
+                if dev == "cuda":
+                    got = (flash_attention.launches_tc - before[0],
+                           flash_attention.launches - before[1])
+                    if got != ((cfg.n_layers, 0) if tc
+                               else (0, 2 * cfg.n_layers)):
+                        raise RuntimeError(
+                            f"{cfg.name} narrow {dtype}: K5 launches "
+                            f"(tensor cores, CUDA cores) {got}, expected "
+                            f"one of its dtype's a layer a prefill")
+            worst = 0.0
+            top = float(sides["cpu"][0].abs().max())
+            rule = "rtol 1e-4 / atol 1e-5" if not tc else "5 % of max|logit|"
+            for i, (c, h) in enumerate(zip(sides["cuda"], sides["cpu"])):
+                diff = (c - h).abs()
+                worst = max(worst, float(diff.max()))
+                limit = 0.05 * top if tc else atol + rtol * h.abs()
+                if float((diff - limit).max()) > 0:
+                    raise RuntimeError(
+                        f"{cfg.name} narrow {dtype}: card and CPU differ "
+                        f"beyond {rule} in output {i} (prefill, then "
+                        f"final/exit per step)")
+            line = (f"  {cfg.name} narrow {dtype} ({cfg.n_layers} layers, "
+                    f"{cfg.n_codebooks} codebook(s), {n} frontend rows, "
+                    f"prompt {prompt}, K5 launches {got}): prefill logits "
+                    f"and {steps} teacher-forced decode steps (final and "
+                    f"exit heads), card vs CPU max|diff| {worst:.3e} = "
+                    f"{worst / top:.5f} of max|logit| ({rule})")
+            if not tc:
+                # the card's prefill and decode against its prefill of the
+                # whole sequence
+                full = full.cpu().float()
+                mine = [sides["cuda"][0]] + sides["cuda"][1::2]
+                theirs = [full[:, :n + prompt]] + [
+                    full[:, n + t:n + t + 1]
+                    for t in range(prompt, prompt + steps)]
+                dev_worst = 0.0
+                for c, h in zip(mine, theirs):
+                    diff = (c - h).abs()
+                    dev_worst = max(dev_worst, float(diff.max()))
+                    if float((diff - atol - rtol * h.abs()).max()) > 0:
+                        raise RuntimeError(f"{cfg.name} narrow: decode "
+                                           f"differs from prefill on the "
+                                           f"card")
+                line += (f"; on the card, decode against the prefill of "
+                         f"all {n + prompt + steps} positions max|diff| "
+                         f"{dev_worst:.3e}")
+            print(line, flush=True)
+        launches[dtype] = (flash_attention.launches_tc,
+                           flash_attention.launches)
+    return launches
+
+
+def zoo_round_card_vs_cpu(torch) -> None:
+    """Phase 17(d), training: one narrow fedhen round of reduced
+    musicgen-large (``synthetic_lm`` over its 2 codebooks) and of reduced
+    llava-next-34b (each sequence with its 8 ``synthetic_frontend_embeds``
+    patch rows, which both trainers slice with the tokens) on the card
+    against the CPU, phase 10's settings and rules (server params at rtol
+    1e-4 / atol 1e-5, losses and eval metrics within 1e-5)."""
+    from repro_torch import configs
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.core.adapters import LMAdapter
+    from repro_torch.core.federated import FederatedTrainer
+    from repro_torch.data.federated import iid_split
+    from repro_torch.data.synthetic import (synthetic_frontend_embeds,
+                                            synthetic_lm)
+    fed = FedConfig(n_devices=4, n_simple=2, participation=1.0,
+                    local_epochs=1, batch_size=4, cohort_chunk=1,
+                    algorithm="fedhen")
+    for arch, patches in ((MUSICGEN, False), (LLAVA, True)):
+        cfg = configs.get_reduced(arch)
+        f = cfg.frontend
+
+        def data(n, seed):
+            d = synthetic_lm(n, 16, cfg.vocab_size, seed=seed,
+                             n_codebooks=cfg.n_codebooks)
+            del d["labels"]
+            if patches:
+                d["extra_embeds"] = synthetic_frontend_embeds(
+                    n, f.n_tokens, f.d_in, seed=seed)
+            return d
+        shards = iid_split(data(32, 0), 4, seed=1)
+        test = data(8, 999)
+        sides = _narrow_pair_runs(torch, lambda dev: FederatedTrainer(
+            LMAdapter(cfg), fed, shards, device=dev,
+            generator=torch.Generator().manual_seed(0)), 1, test)
+        worst = _hold(f"LM {arch} fedhen", sides["card"], sides["cpu"])
+        print(f"  narrow LM round {arch} reduced fedhen ({sorted(shards[0])}"
+              f"), card vs CPU: server params within rtol 1e-4 / atol 1e-5 "
+              f"(max abs {worst:.3e}); card "
+              f"{json.dumps(sides['card'][0][-1])}", flush=True)
+
+
+def zoo_phase(torch, ops, ref, bw: float) -> dict:
+    """Phase 17: llava-next-34b and musicgen-large at full width (bf16,
+    random weights), then their narrow card-vs-CPU checks."""
+    t = time.perf_counter()
+    out = {"serve": zoo_serve(torch)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["round"] = musicgen_round(torch, ops, ref, bw)
+    out["narrow"] = zoo_serving_card_vs_cpu(torch)
+    zoo_round_card_vs_cpu(torch)
+    torch.cuda.empty_cache()
+    print(f"  phase 17 in {time.perf_counter() - t:.1f} s", flush=True)
     return out
 
 
@@ -3569,6 +3926,12 @@ def main() -> int:
     print("[16] xlstm-1.3b at full width: served whole, one fedhen round",
           flush=True)
     xl = xlstm_phase(torch, ops, ref, bw)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 17. llava-next-34b and musicgen-large
+    print("[17] llava-next-34b and musicgen-large at full width: served "
+          "whole, musicgen-large trained; narrow card vs CPU", flush=True)
+    zoo = zoo_phase(torch, ops, ref, bw)
 
     src = "src/repro_torch/kernels/masked_agg/csrc/"
     kernels = []
@@ -3622,6 +3985,17 @@ def main() -> int:
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "bound_share": head["bound_share"], "max_abs_err": 0.0,
         "folds": xl["round"]["k1"]["timing"]}
+    head = zoo["round"]["k1"]["timing"][0]    # the complex client's fold
+    kernels[0]["launches_musicgen"] = zoo["round"]["launches"]
+    kernels[0]["launches_musicgen_path"] = ("phase 17: two fedhen rounds of "
+                                            "musicgen-large at full width")
+    kernels[0]["musicgen"] = {
+        "shape": {"Z": 1, "N": zoo["round"]["k1"]["N"], "x": "float32",
+                  "fold": "complex", "mask": "musicgen-large index set M"},
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "bound_share": head["bound_share"], "max_abs_err": 0.0,
+        "folds": zoo["round"]["k1"]["timing"]}
     k5_src = "src/repro_torch/kernels/flash_attention/csrc/"
     k5_replaces = "src/repro/kernels/flash_attention/kernel.py:83"
     for name, source, dtype, launches, path in (
@@ -3654,6 +4028,24 @@ def main() -> int:
     kernels[-2]["launches_moe_path"] = ("phase 15: full-width serving of "
                                         "qwen2-moe-a2.7b and kimi-k2 "
                                         "(depth 1, Dh 112)")
+    kernels[-2]["launches_llava"] = zoo["serve"]["llava"]["launches"][0]
+    kernels[-2]["launches_llava_path"] = ("phase 17: llava-next-34b served "
+                                          "whole, text-only generate")
+    kernels[-2]["launches_llava_frontend"] = (
+        zoo["serve"]["llava"]["frontend"]["frontend_launches"][0])
+    kernels[-2]["launches_llava_frontend_path"] = (
+        "phase 17: llava-next-34b's two prefills with 2880 patch rows, then "
+        "7 decode steps")
+    kernels[-2]["launches_musicgen"] = (
+        zoo["serve"]["musicgen"]["launches"][0])
+    kernels[-2]["launches_musicgen_path"] = ("phase 17: musicgen-large "
+                                             "served whole")
+    for kernel, launches in zip(kernels[-2:], (
+            zoo["narrow"]["bfloat16"][0], zoo["narrow"]["float32"][1])):
+        kernel["launches_zoo_narrow"] = launches
+        kernel["launches_zoo_narrow_path"] = (
+            "phase 17: reduced llava-next-34b and musicgen-large served on "
+            "the card against the CPU")
     # K6 as the model's paths launch it: through the gated entry only
     # (phases 7 and 12 check it); the plain entry's own case beside it,
     # which no path launches

@@ -1,12 +1,11 @@
 """Architecture registry of the port.
 
 The port's counterpart of ``repro.configs.get_config`` / ``get_reduced``.
-Eight architectures are ported so far: RecurrentGemma-2B and Gemma-2 2B
-(the serving slice), the dense Gemma-3 4B, Minitron-8B and StarCoder2-15B,
-the Mixture-of-Experts Qwen1.5-MoE-A2.7B and Kimi K2, and xLSTM-1.3B
-(mLSTM and sLSTM blocks).  Every other name the reference knows (the VLM
-and audio configs) raises
-``NotImplementedError`` pointing at ROADMAP.md; an unknown name raises
+The zoo is complete: every architecture the reference knows is ported
+(RecurrentGemma-2B, Gemma-2 2B, the dense Gemma-3 4B, Minitron-8B and
+StarCoder2-15B, the Mixture-of-Experts Qwen1.5-MoE-A2.7B and Kimi K2,
+xLSTM-1.3B, the VLM LLaVA-NeXT 34B and the four-codebook MusicGen-Large),
+so :data:`PORTED` is :data:`ARCH_NAMES`.  An unknown name raises
 ``KeyError``, as in the reference.
 """
 
@@ -31,18 +30,12 @@ _MODULES = {
 }
 
 ARCH_NAMES = tuple(_MODULES)
-PORTED = ("recurrentgemma-2b", "gemma2-2b", "gemma3-4b", "minitron-8b",
-          "starcoder2-15b", "qwen2-moe-a2.7b", "kimi-k2-1t-a32b",
-          "xlstm-1.3b")
+PORTED = ARCH_NAMES
 
 
 def _module(name: str):
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
-    if name not in PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported to repro_torch yet (ported: "
-            f"{', '.join(PORTED)}); ROADMAP.md §1 orders the rest of the zoo")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
 
 

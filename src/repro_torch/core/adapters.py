@@ -15,7 +15,7 @@ plus ``subnet_mask`` (index set M) and evaluation metrics for both heads.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -95,13 +95,16 @@ class ResNetAdapter:
 # ---------------------------------------------------------------------------
 
 class LMAdapter:
-    """A ported ``ModelConfig`` of the zoo.  Batch: ``tokens`` (B, S+1);
-    the model reads ``tokens[:, :-1]`` and predicts ``tokens[:, 1:]``.
+    """A ``ModelConfig`` of the zoo.  Batch: ``tokens`` (B, S+1), or (B,
+    S+1, n_codebooks) for a multi-codebook config; the model reads
+    ``tokens[:, :-1]`` and predicts ``tokens[:, 1:]``.  An optional
+    ``extra_embeds`` (B, N, d_in) feeds a config's frontend: its N
+    positions are prepended, and the losses and metrics count the token
+    positions only.  With codebooks a loss averages the codebooks' CE, and
+    the metrics read codebook 0, as the reference's do.
 
     ``remat`` checkpoints each period of the stack (the reference's
-    ``jax.checkpoint`` of its scan body).  Multi-codebook tokens and VLM
-    ``extra_embeds`` raise ``NotImplementedError`` (ROADMAP.md §1, the
-    rest of the zoo)."""
+    ``jax.checkpoint`` of its scan body)."""
 
     def __init__(self, cfg: ModelConfig, remat: bool = False):
         self.cfg = cfg
@@ -120,32 +123,37 @@ class LMAdapter:
     # -- loss plumbing -----------------------------------------------------
 
     def _inputs(self, batch: Batch):
-        if "extra_embeds" in batch:
-            raise NotImplementedError(
-                "extra_embeds (VLM frontends) are not ported to repro_torch "
-                "yet (ROADMAP.md §1)")
-        if self.cfg.n_codebooks > 1:
-            raise NotImplementedError(
-                "multi-codebook LMs are not ported to repro_torch yet "
-                "(ROADMAP.md §1)")
         tokens = batch["tokens"]
-        return tokens[:, :-1], tokens[:, 1:]
+        return tokens[:, :-1], tokens[:, 1:], batch.get("extra_embeds")
 
     def _head_loss(self, params: Tree, h: torch.Tensor,
-                   labels: torch.Tensor, head: str,
-                   chunk: int = 256) -> torch.Tensor:
-        """Mean CE between the ``head`` logits of ``h`` and ``labels``.
+                   labels: torch.Tensor, head: str, chunk: int = 256,
+                   extra: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Mean CE between the ``head`` logits of ``h`` and ``labels``,
+        over the token positions (the first ``extra.shape[1]`` positions
+        of ``h`` are the frontend's); with codebooks, each chunk's sum is
+        the codebooks' CE sums added in order and divided by their count.
 
         A sequence longer than ``2 * chunk`` that ``chunk`` divides is
         summed chunk by chunk, in order, into an f32 scalar, each chunk
         under ``torch.utils.checkpoint`` (its logits are recomputed in the
         backward pass), so the (B, S, V) logits never exist at once: the
         reference's remat'd scan.  Otherwise one piece."""
+        if extra is not None:
+            h = h[:, extra.shape[1]:]
         b, s = h.shape[0], h.shape[1]
+        nc = self.cfg.n_codebooks
 
         def nll_sum(h_c, lab_c):
             logits = tfm.logits_from_hidden(params, self.cfg, h_c, head)
-            return common.softmax_cross_entropy_sum(logits, lab_c)
+            if nc == 1:
+                return common.softmax_cross_entropy_sum(logits, lab_c)
+            total = common.softmax_cross_entropy_sum(logits[..., 0, :],
+                                                     lab_c[..., 0])
+            for c in range(1, nc):
+                total = total + common.softmax_cross_entropy_sum(
+                    logits[..., c, :], lab_c[..., c])
+            return total / nc
 
         n_tok = b * s
         if s <= 2 * chunk or s % chunk:
@@ -158,25 +166,28 @@ class LMAdapter:
         return total / n_tok
 
     def loss_complex(self, params: Tree, batch: Batch) -> torch.Tensor:
-        inputs, labels = self._inputs(batch)
+        inputs, labels, extra = self._inputs(batch)
         _, final_h, aux = tfm.forward(params, self.cfg, inputs,
-                                      remat=self.remat)
-        loss = self._head_loss(params, final_h, labels, "final")
+                                      extra_embeds=extra, remat=self.remat)
+        loss = self._head_loss(params, final_h, labels, "final", extra=extra)
         return loss + aux["load_balance"] + aux["router_z"]
 
     def loss_simple(self, params: Tree, batch: Batch) -> torch.Tensor:
-        inputs, labels = self._inputs(batch)
+        inputs, labels, extra = self._inputs(batch)
         exit_h = tfm.forward_simple(params, self.cfg, inputs,
-                                    remat=self.remat)
-        return self._head_loss(params, exit_h, labels, "exit")
+                                    extra_embeds=extra, remat=self.remat)
+        return self._head_loss(params, exit_h, labels, "exit", extra=extra)
 
     def loss_side(self, params: Tree, batch: Batch) -> torch.Tensor:
         """f(w_c) + f([w_c]_M) — one forward pass, two heads."""
-        inputs, labels = self._inputs(batch)
+        inputs, labels, extra = self._inputs(batch)
         exit_h, final_h, aux = tfm.forward(params, self.cfg, inputs,
+                                           extra_embeds=extra,
                                            remat=self.remat)
-        loss = (self._head_loss(params, final_h, labels, "final")
-                + self._head_loss(params, exit_h, labels, "exit"))
+        loss = (self._head_loss(params, final_h, labels, "final",
+                                extra=extra)
+                + self._head_loss(params, exit_h, labels, "exit",
+                                  extra=extra))
         return loss + aux["load_balance"] + aux["router_z"]
 
     @torch.no_grad()
@@ -186,19 +197,28 @@ class LMAdapter:
         rows go through in groups of at most :data:`EVAL_LOGITS` logits
         (a test batch of 64 x 512 tokens would need 33 GB of f32 logits
         at Gemma-2's vocabulary); the counts and NLL sums add up across
-        groups, so the means are the whole batch's."""
-        inputs, labels = self._inputs(batch)
-        b, s = labels.shape
-        rows = max(1, EVAL_LOGITS // (s * self.cfg.vocab_size))
+        groups, so the means are the whole batch's.  The metrics count the
+        token positions, and with codebooks codebook 0 only."""
+        inputs, labels, extra = self._inputs(batch)
+        b, s = labels.shape[0], labels.shape[1]
+        n_extra = 0 if extra is None else extra.shape[1]
+        nc = self.cfg.n_codebooks
+        rows = max(1, EVAL_LOGITS // (s * nc * self.cfg.vocab_size))
+        if nc > 1:
+            labels = labels[..., 0]
         hits = {"complex": 0.0, "simple": 0.0}
         nll = {"complex": 0.0, "simple": 0.0}
         for r in range(0, b, rows):
             lab = labels[r:r + rows]
-            exit_h, final_h, _ = tfm.forward(params, self.cfg,
-                                             inputs[r:r + rows])
+            exit_h, final_h, _ = tfm.forward(
+                params, self.cfg, inputs[r:r + rows],
+                extra_embeds=None if extra is None else extra[r:r + rows])
             for name, head, h in (("complex", "final", final_h),
                                   ("simple", "exit", exit_h)):
-                logits = tfm.logits_from_hidden(params, self.cfg, h, head)
+                logits = tfm.logits_from_hidden(params, self.cfg,
+                                                h[:, n_extra:], head)
+                if nc > 1:
+                    logits = logits[..., 0, :]
                 hits[name] = hits[name] + (logits.argmax(-1) == lab.long()
                                            ).sum().float()
                 nll[name] = nll[name] + common.softmax_cross_entropy_sum(

@@ -1,7 +1,8 @@
 """Synthetic datasets (deterministic, offline-friendly).
 
-The port's own numpy copies of ``repro.data.synthetic.synthetic_cifar``
-and ``synthetic_lm``; they must give identical arrays.
+The port's own numpy copies of ``repro.data.synthetic.synthetic_cifar``,
+``synthetic_lm`` and ``synthetic_frontend_embeds``; they must give
+identical arrays.
 
 * ``synthetic_cifar`` — class-conditional images: each class has a smooth
   random prototype; samples are prototype + structured noise.
@@ -9,6 +10,8 @@ and ``synthetic_lm``; they must give identical arrays.
   Its transition table is ``(vocab, vocab)`` f32, so a full 256,000-id
   vocabulary would need 262 GB: callers training a full-width model draw
   the chain over a prefix of the ids (valid rows of the embedding).
+* ``synthetic_frontend_embeds`` — stand-ins for the stubbed modality
+  frontends (VLM patch embeddings, audio conditioning).
 """
 
 from __future__ import annotations
@@ -65,3 +68,10 @@ def synthetic_lm(n_seqs: int, seq_len: int, vocab: int,
     # labels for dirichlet splitting: dominant token bucket
     labels = (tokens.reshape(n_seqs, -1)[:, 0] % 10).astype(np.int32)
     return {"tokens": tokens, "labels": labels}
+
+
+def synthetic_frontend_embeds(n: int, n_tokens: int, d_in: int,
+                              seed: int = 0) -> np.ndarray:
+    """(n, n_tokens, d_in) f32 draws of N(0, 0.5^2)."""
+    rng = np.random.default_rng(seed)
+    return rng.normal(scale=0.5, size=(n, n_tokens, d_in)).astype(np.float32)

@@ -12,8 +12,11 @@ LM column both build the cell from here.
 The arch and the sequence length are parameters: xlstm-1.3b's round
 (``chip_smoke.py`` phase 16) runs the same settings on sequences of
 :data:`XLSTM_SEQ` = 1024 model inputs, the published ``mlstm_chunk``,
-which must divide them.  A sequence of ``seq`` inputs is ``seq + 1``
-tokens (``synthetic_lm``'s rows; the labels are the inputs shifted).
+which must divide them; musicgen-large's (phase 17) on sequences of
+:data:`SEQ` frames of its 4 codebooks.  A sequence of ``seq`` inputs is
+``seq + 1`` tokens (``synthetic_lm``'s rows; the labels are the inputs
+shifted).  The data take the arch's codebooks and draw from its first
+``min(DATA_VOCAB, vocab_size)`` ids (musicgen-large has 2,048 a codebook).
 """
 
 from __future__ import annotations
@@ -34,18 +37,23 @@ SEQ, PER_CLIENT, DATA_VOCAB, TEST = 512, 4, 4096, 4
 XLSTM_SEQ = 1024
 
 
-def shards(device="cuda", seq=None) -> list:
+def _data(n: int, seq, seed: int, arch) -> dict:
+    cfg = configs.get_config(arch or ARCH)
+    return synthetic_lm(n, seq or SEQ, min(DATA_VOCAB, cfg.vocab_size),
+                        seed=seed, n_codebooks=cfg.n_codebooks)
+
+
+def shards(device="cuda", seq=None, arch=None) -> list:
     """Each client's token sequences (``seq`` model inputs each, the
-    module's :data:`SEQ` by default), on ``device``."""
-    data = synthetic_lm(FED["n_devices"] * PER_CLIENT, seq or SEQ,
-                        DATA_VOCAB, seed=0)
+    module's :data:`SEQ` by default) for ``arch`` (:data:`ARCH` by
+    default), on ``device``."""
+    data = _data(FED["n_devices"] * PER_CLIENT, seq, 0, arch)
     return [{"tokens": torch.as_tensor(s["tokens"]).to(device)}
             for s in iid_split(data, FED["n_devices"], seed=1)]
 
 
-def test_batch(seq=None) -> dict:
-    return {"tokens": synthetic_lm(TEST, seq or SEQ, DATA_VOCAB,
-                                   seed=999)["tokens"]}
+def test_batch(seq=None, arch=None) -> dict:
+    return {"tokens": _data(TEST, seq, 999, arch)["tokens"]}
 
 
 def trainer(client_shards: list, algorithm: str = "fedhen",

@@ -11,8 +11,11 @@ it was confident.
 
 Prefill runs K5 (flash attention) in every attention layer and K6 (the
 RG-LRU scan) in every RG-LRU layer on the card; decode is plain PyTorch,
-as the reference's decode is plain jnp.  Runs on ``cuda`` unless
-``--device cpu``.  ``--checkpoint PATH`` restores a bare params tree
+as the reference's decode is plain jnp.  A multi-codebook config
+(musicgen-large) serves ``(B, S, n_codebooks)`` prompts and picks one
+token per codebook a step; ``main`` serves a frontend config (the VLM
+llava-next-34b) text-only, as the reference's does.  Runs on ``cuda``
+unless ``--device cpu``.  ``--checkpoint PATH`` restores a bare params tree
 written by ``checkpoint.save_tree`` (by either package) into the freshly
 initialised params, as the reference does:
 
@@ -62,7 +65,9 @@ def generate(params, cfg, prompts: torch.Tensor, gen: int, *,
              adaptive_threshold: float = 0.0, temperature: float = 0.0,
              noise: Optional[NoiseProvider] = None,
              on_prefill_done: Optional[Callable[[], None]] = None):
-    """prompts: (B, S) token ids.  Returns ``(tokens (B, S + gen), stats)``.
+    """prompts: (B, S) token ids, or (B, S, n_codebooks).  Returns
+    ``(tokens (B, S + gen[, n_codebooks]), stats)``; the exit head's
+    agreement counts every codebook's token.
 
     Greedy unless ``temperature > 0``, which samples ``argmax(logits / T +
     gumbel)`` in the logits' dtype, as the reference's
@@ -70,7 +75,18 @@ def generate(params, cfg, prompts: torch.Tensor, gen: int, *,
     ``noise`` (default: :class:`SeededGumbel` on a generator seeded 0 on the
     prompts' device).  ``on_prefill_done`` is called once the prompt is
     prefilled and the first token picked (a caller's hook for timers and
-    counters)."""
+    counters).
+
+    The adaptive mode (``adaptive_threshold > 0``) is refused for a
+    multi-codebook config: the reference's broadcasts the confident mask
+    of (B, n_codebooks) tokens to (B, n_codebooks, n_codebooks), and its
+    next decode step fails on those tokens."""
+    if adaptive_threshold > 0 and cfg.n_codebooks > 1:
+        raise ValueError(
+            f"adaptive_threshold > 0 with {cfg.n_codebooks} codebooks: the "
+            f"reference's adaptive mode broadcasts the confident mask across "
+            f"the codebook axis and fails in its next decode step, so it has "
+            f"no multi-codebook behaviour to port")
     with torch.inference_mode():
         b, s = prompts.shape[0], prompts.shape[1]
         logits, cache = tfm.prefill(params, cfg, prompts, cache_len=s + gen)
@@ -115,7 +131,7 @@ def generate(params, cfg, prompts: torch.Tensor, gen: int, *,
             tok = chosen[:, None]
             out.append(tok)
         tokens = torch.cat(out, dim=1)
-    n = b * max(gen - 1, 1)
+    n = b * max(gen - 1, 1) * cfg.n_codebooks
     stats = {"exit_agreement": exit_agree / n,
              "exit_confident_frac": exit_confident / max(b * (gen - 1), 1)}
     return tokens, stats
@@ -151,8 +167,10 @@ def main(argv=None):
     cfg = (configs.get_reduced(args.arch) if args.reduced
            else configs.get_config(args.arch))
     params = load_params(cfg, args.seed, device, args.checkpoint)
+    shape = (args.batch, args.prompt_len) + (
+        (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ())
     prompts = torch.randint(
-        0, cfg.vocab_size, (args.batch, args.prompt_len), device=device,
+        0, cfg.vocab_size, shape, device=device,
         generator=torch.Generator(device).manual_seed(args.seed + 1))
 
     t0 = time.perf_counter()

@@ -2,12 +2,15 @@
 
 Runs the paper's protocol end to end, on the card by default: the
 ResNet/CIFAR setting on synthetic CIFAR-shaped data (``--model resnet``),
-or a ported decoder LM of the zoo on ``synthetic_lm`` token streams
-(``--model lm --arch NAME [--reduced]``).  Takes every flag of
-``repro.launch.train``, plus ``--device``, and prints the reference
-CLI's lines: its prints route through a ``Telemetry`` with a stdout
-sink (and a JSONL sink with ``--telemetry-out``), and the trainer is
-instrumented only with ``--telemetry`` or ``--telemetry-out``.
+or a decoder LM of the zoo on ``synthetic_lm`` token streams
+(``--model lm --arch NAME [--reduced]``; a multi-codebook arch such as
+musicgen-large trains on one stream per codebook, and a frontend arch such
+as llava-next-34b on text alone, as the reference's CLI runs them).
+Takes every flag of ``repro.launch.train``, plus ``--device``, and
+prints the reference CLI's lines: its prints route through a
+``Telemetry`` with a stdout sink (and a JSONL sink with
+``--telemetry-out``), and the trainer is instrumented only with
+``--telemetry`` or ``--telemetry-out``.
 The LM data's Markov chain draws from the model's first
 :data:`DATA_VOCAB_CAP` token ids at most (its table is vocab x vocab f32:
 262 GB at Gemma-2's 256,000).
@@ -125,8 +128,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", choices=("resnet", "lm"), default="resnet")
     ap.add_argument("--arch", default="gemma2-2b",
-                    help=f"the LM's architecture (ported: "
-                         f"{', '.join(configs.PORTED)})")
+                    help=f"the LM's architecture (one of "
+                         f"{', '.join(configs.ARCH_NAMES)})")
     ap.add_argument("--reduced", action="store_true",
                     help="use the reduced variant of --arch (CPU-friendly)")
     ap.add_argument("--device", default="cuda",

@@ -19,7 +19,8 @@ stacks the periods' gradients once.
 
 Parameter tree, the reference's (leaf order and shapes):
 
-    {"embed":   {"table": (V, D)},
+    {"embed":   {"table": (V, D)} | {"tables": (n_codebooks, V, D)},
+     "frontend_proj": {"w": (d_in, D)}?,            # VLM / audio projector
      "periods": (p0, p1, ... p_{period-1})          # leaves (n_periods, ...)
      "rem":     (layer trees ...),                  # unrolled tail
      "exit_norm":  rmsnorm,                         # FedHeN early-exit head
@@ -34,45 +35,33 @@ aux losses (zeros for a dense block); :func:`forward` sums them over the
 stack, the other paths drop them, as the reference's do.  An MoE block
 routes each sequence as its own group, except in decode, which routes the
 whole batch as one group (``x.reshape(1, B * S, D)``), as the reference
-does.  Multi-codebook embeddings and modality frontends raise
-``NotImplementedError`` (ROADMAP.md §1).
+does.
+
+A multi-codebook config (musicgen-large) takes ``(B, S, n_codebooks)``
+tokens: the codebooks' embeddings are summed and the logits are
+``(B, S, n_codebooks, V)``, one head per codebook over the tied tables.
+A config with a frontend (the VLM and audio stubs) takes ``extra_embeds``
+``(B, N, d_in)`` in :func:`forward`, :func:`forward_simple` and
+:func:`prefill`: projected by ``frontend_proj`` and prepended to the
+sequence, so the hidden states and logits cover ``N + S`` positions.
+Decode takes no frontend, as the reference's does.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, MLP_DENSE,
-                                      MLP_MOE, MLP_NONE, MLSTM, RGLRU, SLSTM,
+                                      MLP_MOE, MLSTM, RGLRU, SLSTM,
                                       LayerSpec, ModelConfig)
 from repro_torch.models import attention, common, mlp, rglru, xlstm
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 Params = Dict[str, Any]
-
-
-def _unported(what: str):
-    return NotImplementedError(f"{what} is not ported to repro_torch yet "
-                               f"(ROADMAP.md §1)")
-
-
-def _check_spec(spec: LayerSpec) -> None:
-    if spec.mixer not in (ATTN_GLOBAL, ATTN_LOCAL, RGLRU, MLSTM, SLSTM):
-        raise _unported(f"the {spec.mixer} mixer")
-    if spec.mlp not in (MLP_DENSE, MLP_MOE, MLP_NONE):
-        raise _unported(f"the {spec.mlp} MLP")
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.n_codebooks > 1:
-        raise _unported("multi-codebook embedding")
-    if cfg.frontend is not None:
-        raise _unported("the modality frontend")
-    for spec in cfg.pattern:
-        _check_spec(spec)
 
 
 def _window(spec: LayerSpec, cfg: ModelConfig,
@@ -132,7 +121,6 @@ def _periods(params: Params) -> List[List[Params]]:
 
 def init_block(generator: torch.Generator, spec: LayerSpec,
                cfg: ModelConfig) -> Params:
-    _check_spec(spec)
     dt = cfg.torch_param_dtype()
     dev = generator.device
     p: Params = {"pre_norm": common.init_rmsnorm(cfg.d_model, dt, dev)}
@@ -231,7 +219,7 @@ def init_block_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
         return xlstm.init_mlstm_cache(cfg, batch, device=device)
     if spec.mixer == SLSTM:
         return xlstm.init_slstm_cache(cfg, batch, device=device)
-    raise _unported(f"the {spec.mixer} mixer")
+    raise ValueError(spec.mixer)
 
 
 def apply_block_decode(p: Params, spec: LayerSpec, h: torch.Tensor,
@@ -261,12 +249,21 @@ def apply_block_decode(p: Params, spec: LayerSpec, h: torch.Tensor,
 
 def init_params(generator: torch.Generator, cfg: ModelConfig) -> Params:
     """Random weights drawn from ``generator``, on its device (a CUDA
-    generator initialises a full-width model on the card)."""
-    _check_ported(cfg)
+    generator initialises a full-width model on the card).  A
+    multi-codebook embedding's tables are stacked as drawn."""
     dt = cfg.torch_param_dtype()
     dev = generator.device
-    params: Params = {"embed": common.init_embedding(
-        generator, cfg.vocab_size, cfg.d_model, dt)}
+    if cfg.n_codebooks > 1:
+        params: Params = {"embed": {"tables": _draw_stacked(
+            lambda: common.embed_init(generator, (cfg.vocab_size,
+                                                  cfg.d_model), dt),
+            cfg.n_codebooks)}}
+    else:
+        params = {"embed": common.init_embedding(
+            generator, cfg.vocab_size, cfg.d_model, dt)}
+    if cfg.frontend is not None:
+        params["frontend_proj"] = {"w": common.dense_init(
+            generator, (cfg.frontend.d_in, cfg.d_model), dtype=dt)}
     periods = []
     for spec in cfg.pattern:
         make = lambda spec=spec: init_block(generator, spec, cfg)  # noqa: E731
@@ -283,21 +280,47 @@ def init_params(generator: torch.Generator, cfg: ModelConfig) -> Params:
     return params
 
 
-def embed_inputs(params: Params, cfg: ModelConfig,
-                 tokens: torch.Tensor) -> torch.Tensor:
-    """tokens: (B, S) -> (B, S, D) in the compute dtype."""
-    _check_ported(cfg)
-    h = common.apply_embedding(params["embed"], tokens)
-    return h.to(cfg.torch_compute_dtype())
+def embed_inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                 extra_embeds: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """tokens: (B, S) or (B, S, n_codebooks) -> (B, [N +] S, D) in the
+    compute dtype.
+
+    Codebooks: the tables' rows summed in the tables' dtype, codebook 0
+    first, one rounding an add (the reference's ``sum(parts)``), times
+    ``sqrt(d_model)`` rounded to that dtype.  ``extra_embeds`` (B, N,
+    d_in): projected by ``frontend_proj`` in the compute dtype and
+    prepended along the sequence."""
+    cd = cfg.torch_compute_dtype()
+    if cfg.n_codebooks > 1:
+        tables = torch.unbind(params["embed"]["tables"], 0)
+        h = tables[0][tokens[..., 0]]
+        for c in range(1, cfg.n_codebooks):
+            h = h + tables[c][tokens[..., c]]
+        h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32,
+                             device=h.device).to(h.dtype)
+    else:
+        h = common.apply_embedding(params["embed"], tokens)
+    h = h.to(cd)
+    if extra_embeds is not None:
+        proj = torch.matmul(extra_embeds.to(cd),
+                            params["frontend_proj"]["w"].to(cd))
+        h = torch.cat([proj, h], dim=1)
+    return h
 
 
 def logits_from_hidden(params: Params, cfg: ModelConfig, h: torch.Tensor,
                        head: str) -> torch.Tensor:
     """head: 'final' or 'exit' (FedHeN early-exit head, shared
-    unembedding)."""
+    unembedding).  (B, S, V), or (B, S, n_codebooks, V) with codebooks."""
     norm = params["final_norm"] if head == "final" else params["exit_norm"]
     h = common.apply_rmsnorm(norm, h, cfg.norm_eps)
-    if cfg.tie_embeddings:
+    if cfg.n_codebooks > 1:
+        tables = params["embed"]["tables"].to(h.dtype)      # (NC, V, D)
+        nc, v, d = tables.shape
+        logits = torch.matmul(h, tables.reshape(nc * v, d).t()).unflatten(
+            -1, (nc, v))
+    elif cfg.tie_embeddings:
         logits = common.apply_unembedding(
             {"table": params["embed"]["table"].to(h.dtype)}, h)
     else:
@@ -340,6 +363,7 @@ def _run_periods(periods: List[List[Params]], h, aux, cfg: ModelConfig, *,
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            extra_embeds: Optional[torch.Tensor] = None,
             remat: bool = False, window_override: Optional[int] = None
             ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """Training forward: returns ``(exit_hidden, final_hidden, aux)``.
@@ -347,7 +371,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     ``exit_hidden`` is the activation after ``exit_period`` periods — the
     FedHeN simple sub-network's output stream, captured in the same pass
     (one forward, two heads)."""
-    h = embed_inputs(params, cfg, tokens)
+    h = embed_inputs(params, cfg, tokens, extra_embeds)
     h, aux, exit_h = _run_periods(
         _periods(params), h, _zero_aux(h.device), cfg, remat=remat,
         window_override=window_override, exit_at=cfg.exit_period)
@@ -359,26 +383,28 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 
 def forward_simple(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                   *, remat: bool = False) -> torch.Tensor:
+                   *, extra_embeds: Optional[torch.Tensor] = None,
+                   remat: bool = False) -> torch.Tensor:
     """Forward of the *simple* architecture only: the first
     ``exit_period`` periods.  ``params`` may be the complex tree or an
     extracted simple one (``masking.extract_simple``); only the prefix
     stacks are touched, so a stacked leaf's gradient is full-shape with
     zeros past the exit, and ``rem`` / ``final_norm`` get none."""
-    h = embed_inputs(params, cfg, tokens)
+    h = embed_inputs(params, cfg, tokens, extra_embeds)
     h, _, _ = _run_periods(_periods(params)[:cfg.exit_period], h,
                            _zero_aux(h.device), cfg, remat=remat)
     return h
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            extra_embeds: Optional[torch.Tensor] = None,
             window_override: Optional[int] = None,
             cache_len: Optional[int] = None):
     """Parallel prefill: returns ``(logits, cache)`` — every position's
     logits, as the reference returns them, and the decode cache.
-    ``cache_len`` sizes the dense caches (>= prompt length) to leave room
-    for decoded tokens."""
-    h = embed_inputs(params, cfg, tokens)
+    ``cache_len`` sizes the dense caches (>= prompt length, frontend
+    positions included) to leave room for decoded tokens."""
+    h = embed_inputs(params, cfg, tokens, extra_embeds)
     per_pos = [[] for _ in cfg.pattern]
     for i in range(cfg.n_periods):
         for pos, spec in enumerate(cfg.pattern):
@@ -390,7 +416,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     for spec, caches in zip(cfg.pattern, per_pos):
         periods.append(_stack(caches) if caches else tree_map(
             lambda x: x[None][:0], init_block_cache(
-                spec, cfg, tokens.shape[0], cache_len or tokens.shape[1],
+                spec, cfg, tokens.shape[0], cache_len or h.shape[1],
                 window_override=window_override, device=tokens.device)))
     rem = []
     for i, p_rem in enumerate(params["rem"]):
@@ -421,7 +447,8 @@ def decode_step(params: Params, cache: Params, cfg: ModelConfig,
                 tokens: torch.Tensor, pos: int, *,
                 window_override: Optional[int] = None,
                 with_exit_head: bool = False):
-    """One decode step.  tokens: (B, 1); pos: the position being decoded.
+    """One decode step.  tokens: (B, 1) or (B, 1, n_codebooks); pos: the
+    position being decoded (frontend positions included).
 
     Updates ``cache`` in place and returns ``(logits, cache[,
     exit_logits])``; the exit head reads the activation after

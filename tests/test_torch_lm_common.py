@@ -47,9 +47,11 @@ def test_config_copies_match_reference(arch, reduced):
     ref_d, port_d = as_dict(ref), as_dict(port)
     ref_d["pattern"] = [dataclasses.astuple(s) for s in ref.pattern]
     port_d["pattern"] = [dataclasses.astuple(s) for s in port.pattern]
-    # the two packages' MoEConfig are different classes: compare fields
-    ref_d["moe"] = ref.moe and dataclasses.asdict(ref.moe)
-    port_d["moe"] = port.moe and dataclasses.asdict(port.moe)
+    # the two packages' MoEConfig and StubFrontend are different classes:
+    # compare fields
+    for key in ("moe", "frontend"):
+        ref_d[key] = ref_d[key] and dataclasses.asdict(ref_d[key])
+        port_d[key] = port_d[key] and dataclasses.asdict(port_d[key])
     assert ref_d == port_d
     for prop in ("resolved_head_dim", "resolved_d_rnn", "period",
                  "n_periods", "n_remainder", "resolved_exit_layer",
@@ -67,13 +69,17 @@ def test_full_width_param_counts():
     assert configs.get_config("gemma2-2b").param_count() == 2_614_224_384
 
 
-def test_unported_arch_raises_and_unknown_is_keyerror():
+def test_every_arch_is_ported_and_unknown_is_keyerror():
+    """The zoo is complete: every name the reference knows resolves, to
+    its full and its reduced config; an unknown name is a ``KeyError``, as
+    in the reference."""
+    assert configs.PORTED == configs.ARCH_NAMES == ref_configs.ARCH_NAMES
     for name in configs.ARCH_NAMES:
-        if name not in configs.PORTED:
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                configs.get_config(name)
-    with pytest.raises(KeyError):
-        configs.get_config("no-such-arch")
+        assert configs.get_config(name).name == name
+        assert configs.get_reduced(name).name == name
+    for get in (configs.get_config, configs.get_reduced):
+        with pytest.raises(KeyError):
+            get("no-such-arch")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -116,12 +116,21 @@ def test_trainer_raises_without_cuda(monkeypatch):
                          make_shards())
 
 
-def test_train_cli_rejects_unported_flags_and_needs_a_device(monkeypatch):
+def test_train_cli_builds_a_musicgen_trainer_and_needs_a_device(
+        monkeypatch):
+    """``--arch musicgen-large --reduced --device cpu`` builds a trainer
+    on codebook streams (one per codebook, as the reference's CLI draws
+    them) whose round runs; without a card the CLI raises."""
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.build_trainer(train.build_parser().parse_args(
-            ["--model", "lm", "--arch", "musicgen-large", "--reduced",
-             "--device", "cpu"]))
+    trainer, test = train.build_trainer(train.build_parser().parse_args(
+        ["--model", "lm", "--arch", "musicgen-large", "--reduced",
+         "--device", "cpu", "--clients", "4", "--participation", "0.5",
+         "--data-points", "16", "--seq-len", "8", "--batch-size", "4",
+         "--local-epochs", "1"]))
+    nc = trainer.adapter.cfg.n_codebooks
+    assert nc == 2 and tuple(test["tokens"].shape) == (64, 9, nc)
+    m = trainer.run_round()
+    assert m["n_valid"] == 2 and np.isfinite(m["loss_complex"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--rounds", "0", "--clients", "4", "--data-points",

@@ -62,8 +62,9 @@ def _setup(arch, overrides, seed=0):
     ref_cfg, cfg = _configs(arch, overrides)
     ref_params = ref_tfm.init_params(jax.random.PRNGKey(seed), ref_cfg)
     params = interop.from_reference(jax.tree.map(np.asarray, ref_params))
+    codebooks = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
     tokens = np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, size=(B, S + STEPS)).astype(np.int32)
+        0, cfg.vocab_size, size=(B, S + STEPS) + codebooks).astype(np.int32)
     return ref_cfg, cfg, ref_params, params, tokens
 
 
@@ -263,19 +264,47 @@ def test_init_params_matches_reference_tree():
         assert sum(x.numel() for x in got) == sum(x.size for x in want)
 
 
-def test_unported_features_raise():
-    cfg = configs.get_reduced("gemma2-2b")
-    for bad in (dict(n_codebooks=2),
-                dict(frontend=StubFrontend(kind="vision", n_tokens=8,
-                                           d_in=48))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tfm.init_params(torch.Generator(), cfg.with_overrides(**bad))
-    # the training forward (ported since) refuses them too
-    params = tfm.init_params(torch.Generator(), cfg)
-    tokens = torch.zeros((1, 4), dtype=torch.long)
-    for fn in (tfm.forward, tfm.forward_simple):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(params, cfg.with_overrides(n_codebooks=2), tokens)
+def test_codebook_and_frontend_configs_initialise_and_match_reference():
+    """Codebooks and a frontend on reduced gemma2-2b (local and global
+    layers, softcaps): the port's own init gives the reference's leaf
+    shapes, and on the reference's weights ``forward`` and
+    ``forward_simple`` match the reference's at rtol 1e-4 / atol 1e-5."""
+    from repro.configs.base import StubFrontend as RefStubFrontend
+    ref_cfg, cfg = _configs("gemma2-2b", {})
+    for over, ref_over, nc in (
+            (dict(n_codebooks=2), dict(n_codebooks=2), 2),
+            (dict(frontend=StubFrontend(kind="vision", n_tokens=8,
+                                        d_in=48)),
+             dict(frontend=RefStubFrontend(kind="vision", n_tokens=8,
+                                           d_in=48)), 1)):
+        c, rc = cfg.with_overrides(**over), ref_cfg.with_overrides(**ref_over)
+        want = jax.tree.leaves(ref_tfm.init_params(jax.random.PRNGKey(0), rc))
+        mine = tree_leaves(tfm.init_params(torch.Generator().manual_seed(0),
+                                           c))
+        assert [tuple(x.shape) for x in mine] == [x.shape for x in want]
+        ref_params = ref_tfm.init_params(jax.random.PRNGKey(1), rc)
+        params = interop.from_reference(jax.tree.map(np.asarray, ref_params))
+        rng = np.random.default_rng(2)
+        tokens = rng.integers(0, c.vocab_size, size=(2, 12) + (
+            (nc,) if nc > 1 else ())).astype(np.int32)
+        extra = (rng.normal(size=(2, 8, 48)).astype(np.float32)
+                 if c.frontend is not None else None)
+        kw = ({} if extra is None else dict(extra_embeds=extra))
+        w_exit, w_final, _ = ref_tfm.forward(
+            ref_params, rc, jnp.asarray(tokens),
+            **{k: jnp.asarray(v) for k, v in kw.items()})
+        g_exit, g_final, _ = tfm.forward(
+            params, c, torch.from_numpy(tokens),
+            **{k: torch.from_numpy(v) for k, v in kw.items()})
+        np.testing.assert_allclose(_f32(g_final), _f32(w_final), **TOL)
+        np.testing.assert_allclose(_f32(g_exit), _f32(w_exit), **TOL)
+        np.testing.assert_allclose(
+            _f32(tfm.forward_simple(
+                params, c, torch.from_numpy(tokens),
+                **{k: torch.from_numpy(v) for k, v in kw.items()})),
+            _f32(ref_tfm.forward_simple(
+                ref_params, rc, jnp.asarray(tokens),
+                **{k: jnp.asarray(v) for k, v in kw.items()})), **TOL)
 
 
 def test_serve_main_runs_on_the_cpu(capsys):
