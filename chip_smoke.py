@@ -231,7 +231,28 @@ which raises on failure:
    in bf16 within 5 % of max|logit|, each card run launching its dtype's
    K5 once a layer a prefill, and in f32 the card's prefill and decode
    against its prefill of the whole sequence; one narrow fedhen round of
-   each (llava's shards carrying their patch rows) at phase 10's rules.
+   each (llava's shards carrying their patch rows) at phase 10's rules;
+18. the launch-side step functions (``repro_torch.launch.steps``): (a)
+   ``make_fed_round_step`` on Gemma-2 2B at full width (bf16, weights from
+   seed 0 drawn on the card, one model ``expand``-ed to a cohort of 4: 2
+   simple, 2 complex), ``cohort_chunk`` 1, batch 2, 2 local steps, the LM
+   cell's sequences of 512 tokens, the flat mask passed in: once on the
+   f32 wire (K1 4 times), once on the int8 wire (K2 4 times), each with
+   its synchronised wall, peak and loss, the int8 round held to the f32
+   one by ``tests/test_fedround.py``'s rule (loss at rtol 1e-5, every
+   leaf within max|f32 leaf| / 100); K2 (new at this N) and K1 at the
+   fold's shape (Z = 1, N = 2,614,224,896 > 2**31) bitwise against their
+   plain versions and timed beside their byte bounds; (b) the narrow
+   cases of ``tests/test_torch_steps*.py`` (flat f32 at chunk 1, 2 and 4,
+   int8, the tree engine through K4, decouple, staleness, a pad slot, a
+   NaN client, B < local_steps) on the card against the port's CPU result
+   at rtol 1e-4 / atol 1e-5 (int8 under ``repro_torch.parity``'s rules);
+   (c) ``aggregate.make_engine`` on the card, an EngineSpec against the
+   deprecated loose form, bitwise; (d) gemma3-4b trained at full width in
+   the LM cell's settings (two fedhen rounds, the second traced), its
+   peak printed, K1 at its fold (n_flat above 2**31) bitwise and timed;
+   (e) ``examples/quickstart_torch.py``'s three algorithms, 36 rounds
+   each, and its rounds-to-target table (not gated).
 
 Phase 8 also serves reduced xlstm-1.3b in f32 on the card against the CPU
 (prefill and 8 teacher-forced decode steps): the sLSTM cell output before
@@ -254,7 +275,11 @@ serving; K1 with its launches on phase 16's xLSTM rounds and its time at
 xLSTM's fold; K1 with its launches on phase 17's musicgen-large rounds and
 its time at that fold, the tensor-core K5 with its launches serving
 llava-next-34b and musicgen-large, both K5 kernels with their launches in
-phase 17's narrow serving); the last is ``{"ok": true, "device": {...}}``.
+phase 17's narrow serving; K1 and K2 with their launches on phase 18's
+full-width step rounds, K1, K2 and K4 with theirs on its narrow steps, K2
+with its time at that fold, K1 with its launches on gemma3-4b's rounds
+and the quickstart and its time at gemma3-4b's fold); the last is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -400,13 +425,20 @@ def main_path_layout(torch):
                                      "cuda")
 
 
+def count_true(mask) -> int:
+    """Elements set in a bool vector, summed a slice at a time: ``sum``
+    widens bool to int64, 29 GiB at once for gemma3-4b's mask."""
+    return sum(int(mask[a:a + LM_SLICE].sum())
+               for a in range(0, mask.numel(), LM_SLICE))
+
+
 def fold_bytes(torch, mask, w_m, w_rest, row_bytes) -> int:
     """The least bytes a dense accumulating fold (K1, K2) moves for these
     weights: acc read (4N) and the mask (N); each row's payload where its
     weight is live, ``row_bytes(live inside M, live outside M)``; and acc
     written, 4 bytes for each element that a live row changes.  Counted
     from the mask and the weights, never from the output."""
-    n, n_m = mask.numel(), int(mask.sum())
+    n, n_m = mask.numel(), count_true(mask)
     live_m, live_rest = (w_m > 0).tolist(), (w_rest > 0).tolist()
     rows = sum(row_bytes(a, b) for a, b in zip(live_m, live_rest))
     changed = n_m * any(live_m) + (n - n_m) * any(live_rest)
@@ -2070,7 +2102,7 @@ def check_folds_lm(torch, ops, ref, bw: float, layout, mask,
     g = torch.Generator(device="cuda").manual_seed(21)
     x = torch.randn((1, n), generator=g, device="cuda")
     acc0 = torch.randn((n,), generator=g, device="cuda")
-    n_m = int(mask.sum())
+    n_m = count_true(mask)
     n_all = layout.n_params
     plan = ops.fold_plan(layout, "cuda")
     leaves = plan.leaves.cpu()
@@ -3816,6 +3848,416 @@ def zoo_phase(torch, ops, ref, bw: float) -> dict:
     return out
 
 
+# -- phase 18: the launch-side step functions ---------------------------------
+
+STEP_ARCH, GEMMA3 = "gemma2-2b", "gemma3-4b"
+# the full-width step round: K clients (the first half simple), batch B,
+# local steps L, cohort_chunk 1 (one fold a client)
+STEP_K, STEP_B, STEP_L = 4, 2, 2
+STEP_SIMPLE = (True, True, False, False)
+# tests/test_fedround.py's tiny config, for the narrow step cases
+STEP_TINY = dict(n_layers=2, d_model=32, n_heads=2, n_kv_heads=2, d_ff=64,
+                 vocab_size=64, exit_layer=1, compute_dtype="float32")
+
+
+def _step_tokens(torch):
+    """(K, B, L, S+1) tokens from the LM cell's data (``synthetic_lm``
+    over 4,096 ids): client k's 4 sequences of 513 tokens as its (B, L)
+    block."""
+    from repro_torch.launch import lm_cell as cell
+    return torch.stack([s["tokens"].reshape(STEP_B, STEP_L, -1)
+                        for s in cell.shards("cuda")[:STEP_K]])
+
+
+def check_deq_lm(torch, ops, ref, bw: float, mask) -> dict:
+    """K2 at the step round's int8 fold: Z = 1, N = n_flat > 2**31, the
+    real mask, quant_block 128, as a complex client (weight 1 on both
+    sides of M) and a simple one (1 inside, 0 outside), bitwise against
+    its plain version in slices of ``LM_SLICE`` (whole scale groups),
+    then timed beside the bytes its weights need."""
+    n = mask.numel()
+    g = torch.Generator(device="cuda").manual_seed(23)
+    q = torch.randint(-127, 128, (1, n), generator=g, device="cuda",
+                      dtype=torch.int8)
+    scales = torch.rand((1, n // QB), generator=g, device="cuda") * 0.01
+    acc0 = torch.randn((n,), generator=g, device="cuda")
+    ones = torch.ones((1,), device="cuda")
+    n_m = count_true(mask)
+    groups = mask.view(-1, QB)
+    m_groups = int(groups.any(dim=1).sum())
+    rest_groups = int((~groups).any(dim=1).sum())
+    del groups
+
+    def row_bytes(live_m, live_rest):
+        if live_m and live_rest:
+            return n + 4 * (n // QB)
+        return live_m * (n_m + 4 * m_groups) + live_rest * (
+            n - n_m + 4 * rest_groups)
+    timing = []
+    for population, w_rest, rows, n_groups in (
+            ("complex", ones, n, n // QB),
+            ("simple", ones * 0, n_m, m_groups)):
+        acc = acc0.clone()
+        ops.masked_agg_acc_deq_(acc, q, scales, mask, ones, w_rest,
+                                quant_block=QB)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for a in range(0, n, LM_SLICE):
+            e = min(a + LM_SLICE, n)
+            want = ref.masked_agg_acc_deq_ref(
+                acc0[a:e], q[:, a:e], scales[:, a // QB:e // QB], mask[a:e],
+                ones, w_rest, quant_block=QB)
+            if not torch.equal(acc[a:e], want):
+                diff = float((acc[a:e] - want).abs().max())
+                raise RuntimeError(f"masked_agg_acc_deq at N={n:,}, "
+                                   f"{population}: slice [{a:,}, {e:,}) "
+                                   f"differs from the plain version by "
+                                   f"{diff:.3e}")
+            del want
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        del acc
+        print(f"  masked_agg_acc_deq {population} fold int8 Z=1 N={n:,} "
+              f"(N / 2**31 = {n / 2**31:.3f}): bitwise equal to the plain "
+              f"version", flush=True)
+        row = _fold_row(
+            torch, f"masked_agg_acc_deq {population} fold Z=1",
+            lambda: ops.masked_agg_acc_deq_(acc0, q, scales, mask, ones,
+                                            w_rest, quant_block=QB),
+            plain_ms, fold_bytes(torch, mask, ones, w_rest, row_bytes),
+            rows + 4 * n_groups + 9 * n, 3 * rows, bw, iters=10)
+        row.update(fold=population, plain_ms=plain_ms,
+                   plain_note="in pieces, with the bitwise check",
+                   max_abs_err=0.0)
+        timing.append(row)
+    del q, scales, acc0
+    torch.cuda.empty_cache()
+    return {"N": n, "Z": 1, "timing": timing}
+
+
+def step_round(torch, ops, ref, bw: float) -> dict:
+    """Phase 18(a): ``launch.steps.make_fed_round_step`` on Gemma-2 2B at
+    full width (bf16, weights drawn on the card from seed 0), one model
+    ``expand``-ed to a cohort of 4 (2 simple, 2 complex), ``cohort_chunk``
+    1, batch 2, 2 local steps, sequences of 512 tokens from the LM cell's
+    data, the flat mask precomputed and passed in: once on the f32 wire
+    (K1 4 times) and once on the int8 wire (K2 4 times), each with its
+    synchronised wall, peak and loss.  The int8 round is held to the f32
+    one by ``tests/test_fedround.py``'s rule (loss at rtol 1e-5, every
+    leaf within ``max|f32 leaf| / 100``).  Then K2 at this fold's shape
+    (N = n_flat > 2**31) and K1 at it (phase 9's shape and mask), each
+    bitwise against its plain version and timed beside its byte bound
+    (:func:`check_deq_lm`, :func:`check_folds_lm`)."""
+    from repro_torch import configs
+    from repro_torch.core import aggregate, comm, flatten, masking
+    from repro_torch.core.adapters import LMAdapter
+    from repro_torch.launch import steps
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = configs.get_config(STEP_ARCH)
+    t = time.perf_counter()
+    params = LMAdapter(cfg).init(torch.Generator("cuda").manual_seed(0),
+                                 "cuda")
+    data = _step_tokens(torch)
+    is_simple = torch.tensor(STEP_SIMPLE, device="cuda")
+    layout = flatten.layout_of(params, total_multiple=2048)
+    flat_mask = flatten.pack_mask(
+        layout, masking.transformer_subnet_mask(params, cfg), "cuda")
+    torch.cuda.synchronize()
+    print(f"  {STEP_ARCH}: {layout.n_params:,} params, n_flat "
+          f"{layout.n_flat:,} ({layout.n_flat / 2**31:.3f} x 2**31), |M| "
+          f"{int(flat_mask.sum()):,}; cohort of {STEP_K} (expand), tokens "
+          f"{tuple(data.shape)}; set-up {time.perf_counter() - t:.1f} s",
+          flush=True)
+    cohort = tree_map(lambda x: x[None].expand((STEP_K,) + x.shape), params)
+    out = {"n_flat": layout.n_flat, "runs": []}
+    results = {}
+    for wire, expected in (("float32", (STEP_K, 0, 0, 0)),
+                           ("int8", (0, STEP_K, 0, 0))):
+        step = steps.make_fed_round_step(
+            cfg, local_steps=STEP_L, cohort_chunk=1,
+            engine=aggregate.EngineSpec(wire=comm.WireSpec(wire, QB)))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2**30
+        _zero_counts(ops)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        new_c, loss = step(cohort, data, is_simple, flat_mask)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launched = _counts(ops)
+        row = {"wire": wire, "round_s": wall, "loss": float(loss),
+               "held_gib": held,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "launches": launched}
+        print("  " + json.dumps(row), flush=True)
+        if launched != expected:
+            raise RuntimeError(f"step round ({wire}): launches K1/K2/K3/K4 "
+                               f"{launched}, expected {expected}")
+        if not math.isfinite(row["loss"]) or not bool(
+                masking.tree_isfinite(new_c)):
+            raise RuntimeError(f"step round ({wire}): non-finite result")
+        results[wire] = new_c, loss
+        out["runs"].append(row)
+        del new_c, loss
+    (f_c, f_loss), (q_c, q_loss) = results["float32"], results["int8"]
+    if abs(float(q_loss) - float(f_loss)) > 1e-5 * abs(float(f_loss)):
+        raise RuntimeError(f"step round: int8 loss {float(q_loss)} against "
+                           f"f32 {float(f_loss)} (rtol 1e-5)")
+    worst = 0.0
+    for q, f in zip(tree_leaves(q_c), tree_leaves(f_c)):
+        amax = float(f.abs().max().float()) + 1e-12
+        d = float((q.float() - f.float()).abs().max())
+        worst = max(worst, d / amax)
+        if d > amax / 100.0:
+            raise RuntimeError(f"step round: an int8 leaf {tuple(q.shape)} "
+                               f"is {d:.3e} from the f32 one, above "
+                               f"max|f32 leaf| / 100 = {amax / 100:.3e}")
+    out["int8_vs_f32"] = {"loss_rel": abs(float(q_loss) - float(f_loss))
+                          / abs(float(f_loss)), "worst_leaf_ratio": worst}
+    print(f"  int8 against f32: loss {float(q_loss):.6f} / "
+          f"{float(f_loss):.6f}, worst leaf max|diff| / max|f32 leaf| "
+          f"{worst:.3e} (rule: 1e-2)", flush=True)
+    out["launches"] = tuple(a + b for a, b in zip(
+        out["runs"][0]["launches"], out["runs"][1]["launches"]))
+    del results, f_c, q_c, cohort, params, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["k2"] = check_deq_lm(torch, ops, ref, bw, flat_mask)
+    out["k1"] = check_folds_lm(torch, ops, ref, bw, layout, flat_mask,
+                               keys=("k1",))["k1"]
+    del flat_mask
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tiny_step_cases(np):
+    """The narrow cases of ``tests/test_torch_steps*.py``: (label, step
+    kwargs, tokens, cohort tree on the CPU or None (the model expanded),
+    extra round_step args, launches of K1, K2, K4 on the card)."""
+    from repro_torch.core import aggregate, comm
+    rng = np.random.default_rng(1)
+    data = rng.integers(0, 64, size=(4, 2, 2, 17)).astype(np.int32)
+    clamp = np.random.default_rng(5).integers(
+        0, 64, size=(4, 1, 3, 17)).astype(np.int32)
+    f32, chunk2 = dict(local_steps=2), dict(local_steps=2, cohort_chunk=2)
+    return (
+        ("flat f32 chunk 1", dict(f32, cohort_chunk=1), data, (), (4, 0, 0)),
+        ("flat f32 chunk 2", chunk2, data, (), (2, 0, 0)),
+        ("flat f32 chunk 4", dict(f32, cohort_chunk=4), data, (), (1, 0, 0)),
+        ("int8 chunk 2", dict(chunk2, engine=aggregate.EngineSpec(
+            wire=comm.WireSpec("int8", QB))), data, (), (0, 2, 0)),
+        ("tree", dict(chunk2, engine=aggregate.EngineSpec(engine="tree")),
+         data, (), (0, 0, 2)),
+        ("decouple", dict(chunk2, engine=aggregate.EngineSpec(
+            algorithm="decouple", block_n=512)), data, (), (4, 0, 0)),
+        ("staleness [2, 0, 2, 0]", chunk2, data,
+         (None, np.array([2, 0, 2, 0], np.int32)), (2, 0, 0)),
+        ("pad slot", chunk2, data,
+         (None, None, np.array([True, False, True, True])), (2, 0, 0)),
+        ("NaN client", dict(chunk2, nan_client=2), data, (), (2, 0, 0)),
+        ("B < local_steps", dict(local_steps=3, cohort_chunk=2), clamp, (),
+         (2, 0, 0)))
+
+
+def steps_card_vs_cpu(torch, ops) -> dict:
+    """Phase 18(b): the narrow step cases (:func:`_tiny_step_cases`) on
+    the card against the port's CPU result, params and loss at rtol 1e-4
+    / atol 1e-5, the int8 case under ``repro_torch.parity``'s rules (at
+    most 1e-3 of the elements outside the tolerance, each within it plus
+    the uploads' int8 step); K1, K2 and K4 counted from 0 over the card's
+    runs (the tree case's K4 is the tree engine's)."""
+    import numpy as np
+    from repro_torch import parity
+    from repro_torch.configs.base import LayerSpec, ModelConfig
+    from repro_torch.core import comm, flatten
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = ModelConfig(pattern=(LayerSpec("attn"),), **STEP_TINY)
+    base = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+    layout = flatten.build_layout(base, total_multiple=2048)
+    simple = torch.tensor(STEP_SIMPLE)
+    expected = [0, 0, 0]
+    _zero_counts(ops)
+    for label, kw, data, args, launches in _tiny_step_cases(np):
+        kw = dict(kw)
+        nan_client = kw.pop("nan_client", None)
+        sides = {}
+        for dev in ("cuda", "cpu"):
+            if nan_client is None:
+                params = tree_map(lambda x: x.to(dev), base)
+                cohort = tree_map(lambda x: x[None].expand(
+                    (data.shape[0],) + x.shape), params)
+            else:
+                cohort = tree_map(lambda x: x[None].repeat(
+                    (data.shape[0],) + (1,) * x.dim()).to(dev), base)
+                cohort["final_norm"]["scale"][nan_client] = float("nan")
+            extra = [None if a is None else torch.as_tensor(a).to(dev)
+                     for a in args]
+            step = steps.make_fed_round_step(cfg, **kw)
+            sides[dev] = step(cohort, torch.as_tensor(data).to(dev),
+                              simple.to(dev), *extra)
+        (c_card, l_card), (c_cpu, l_cpu) = sides["cuda"], sides["cpu"]
+        l_card, l_cpu = float(l_card), float(l_cpu)
+        if nan_client is not None:
+            ok_loss = math.isnan(l_card) and math.isnan(l_cpu)
+        else:
+            ok_loss = abs(l_card - l_cpu) <= 1e-5 + 1e-4 * abs(l_cpu)
+        if not ok_loss:
+            raise RuntimeError(f"step {label}: loss {l_card} on the card, "
+                               f"{l_cpu} on the CPU")
+        a = flatten.pack(layout, tree_map(lambda x: x.cpu(), c_card))
+        b = flatten.pack(layout, c_cpu)
+        if label.startswith("int8"):
+            spec = comm.WireSpec("int8", QB)
+            bound = torch.maximum(parity.wire_step(
+                spec, flatten.pack(layout, base)), parity.wire_step(spec, b))
+            res = parity.lossy_compare(a, b, bound)
+            if res["share"] > 1e-3 or res["worst"] > 1.0:
+                raise RuntimeError(f"step {label}: card vs CPU {res}")
+            worst = res["max_abs"]
+        else:
+            worst = float((a - b).abs().max())
+            if bool(((a - b).abs() > 1e-5 + 1e-4 * b.abs()).any()):
+                raise RuntimeError(f"step {label}: card vs CPU max abs "
+                                   f"{worst:.3e} beyond rtol 1e-4 / atol "
+                                   f"1e-5")
+        if not all(bool(torch.isfinite(x).all())
+                   for x in tree_leaves(c_card)):
+            raise RuntimeError(f"step {label}: non-finite params")
+        expected = [e + n for e, n in zip(expected, launches)]
+        print(f"  narrow step {label}: card vs CPU max abs {worst:.3e}, "
+              f"loss {l_card:.6f} / {l_cpu:.6f}", flush=True)
+    c = _counts(ops)
+    launched = (c[0], c[1], c[3])
+    print(f"  narrow steps: launches K1/K2/K4 {launched}, expected "
+          f"{tuple(expected)}", flush=True)
+    if launched != tuple(expected) or c[2]:
+        raise RuntimeError(f"narrow steps: launches K1/K2/K3/K4 {c}, "
+                           f"expected K1/K2/K4 {tuple(expected)}")
+    return {"launches": launched}
+
+
+def engine_spec_vs_legacy(torch) -> None:
+    """Phase 18(c): ``aggregate.make_engine`` on the card, an EngineSpec
+    against the deprecated loose form of the same engine, bitwise: a
+    numpy-seeded cohort of 6 (one NaN client at weight 0, f32 weights)
+    folded in chunks of 2 on the flat engine (f32, bf16 and int8 wires)
+    and the tree engine (f32, bf16 wire), for fedhen and decouple."""
+    import warnings
+    import numpy as np
+    from repro_torch.core import aggregate, comm, flatten
+    from repro_torch.tree import tree_leaves, tree_map
+
+    rng = np.random.default_rng(0)
+    z = 6
+    cohort = {"a": rng.normal(size=(z, 4, 3)), "b": rng.normal(size=(z, 300)),
+              "c": {"w": rng.normal(size=(z, 3, 130)),
+                    "v": rng.normal(size=(z, 7))},
+              "periods": rng.normal(size=(z, 2, 5, 3))}
+    cohort = tree_map(lambda x: torch.tensor(x, dtype=torch.float32,
+                                             device="cuda"), cohort)
+    for leaf in tree_leaves(cohort):
+        leaf[3] = float("nan")
+    mask = {"a": True, "b": False, "c": {"w": True, "v": False},
+            "periods": torch.tensor([True, False],
+                                    device="cuda").reshape(2, 1, 1)}
+    simple = torch.tensor([True, False, True, False, False, True],
+                          device="cuda")
+    valid = torch.tensor([1.0, 0.5, 1.0, 0.0, 0.25, 1.0], device="cuda")
+    template = tree_map(lambda x: x[0], cohort)
+    layout = flatten.layout_of(template, total_multiple=512)
+    flat_mask = flatten.pack_mask(layout, mask, "cuda")
+
+    def run(engine):
+        init, fold, finalize = engine
+        state = init(template)
+        for lo in range(0, z, 2):
+            state = fold(state, tree_map(lambda x: x[lo:lo + 2], cohort),
+                         simple[lo:lo + 2], valid[lo:lo + 2])
+        return tree_leaves([m for m in finalize(state, template=template)
+                            if m is not None])
+
+    for kind, wire in (("flat", None), ("flat", "bfloat16"),
+                       ("flat", "int8"), ("tree", None),
+                       ("tree", "bfloat16")):
+        for algorithm in ("fedhen", "decouple"):
+            kw = dict(algorithm=algorithm, mask=mask, layout=layout,
+                      flat_mask=flat_mask, block_n=512,
+                      wire=wire and comm.WireSpec(wire, QB))
+            spec = run(aggregate.make_engine(aggregate.EngineSpec(
+                engine=kind, **kw)))
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", DeprecationWarning)
+                legacy = run(aggregate.make_engine(kind, **kw))
+            if not all(torch.equal(a, b) for a, b in zip(spec, legacy)) \
+                    or not all(bool(torch.isfinite(a).all()) for a in spec):
+                raise RuntimeError(f"make_engine {kind} {wire} {algorithm}: "
+                                   f"the spec and legacy paths differ")
+    print("  make_engine on the card: EngineSpec = loose form bitwise on "
+          "flat f32 / bf16 / int8 and tree f32 / bf16, fedhen and "
+          "decouple", flush=True)
+
+
+def gemma3_round(torch, ops, ref, bw: float) -> dict:
+    """Phase 18(d): gemma3-4b trained at full width in the LM cell's
+    settings (``full_width_rounds``: one fedhen round, then one traced),
+    its peak printed; then K1 at its fold (N = n_flat, above 2**31, the
+    real mask) bitwise against its plain version and timed beside its
+    byte bound (``check_folds_lm``)."""
+    from repro_torch.launch import lm_cell as cell
+    out, layout, mask, _ = full_width_rounds(torch, ops, GEMMA3, cell.SEQ)
+    out.update(check_folds_lm(torch, ops, ref, bw, layout, mask,
+                              keys=("k1",)))
+    del mask
+    torch.cuda.empty_cache()
+    return out
+
+
+def quickstart_card(torch, ops) -> dict:
+    """Phase 18(e): ``examples/quickstart_torch.py``'s three algorithms on
+    the card (36 rounds each, evaluated every 2), its rounds-to-target
+    table printed (a measurement, not a gate); K1 counted."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "quickstart_torch", ROOT / "examples" / "quickstart_torch.py")
+    quickstart = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(quickstart)
+    _zero_counts(ops)
+    t = time.perf_counter()
+    results = quickstart.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = _counts(ops)
+    print(f"  quickstart: 3 x {quickstart.ROUNDS} rounds in {wall:.1f} s; "
+          f"launches K1/K2/K3/K4 {launches}", flush=True)
+    if not launches[0] or any(launches[1:]):
+        raise RuntimeError(f"quickstart: launches K1/K2/K3/K4 {launches}")
+    return {"results": results, "wall_s": wall, "launches": launches[0]}
+
+
+def steps_phase(torch, ops, ref, bw: float) -> dict:
+    """Phase 18: the launch-side step functions, gemma3-4b's training at
+    full width and the quickstart example on the card."""
+    t = time.perf_counter()
+    out = {"round": step_round(torch, ops, ref, bw)}
+    out["narrow"] = steps_card_vs_cpu(torch, ops)
+    engine_spec_vs_legacy(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["gemma3"] = gemma3_round(torch, ops, ref, bw)
+    out["quickstart"] = quickstart_card(torch, ops)
+    print(f"  phase 18 in {time.perf_counter() - t:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3932,6 +4374,13 @@ def main() -> int:
     print("[17] llava-next-34b and musicgen-large at full width: served "
           "whole, musicgen-large trained; narrow card vs CPU", flush=True)
     zoo = zoo_phase(torch, ops, ref, bw)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 18. the launch-side step functions, gemma3-4b trained, the quickstart
+    print("[18] launch-side steps: Gemma-2 2B step rounds at full width, "
+          "narrow steps card vs CPU, make_engine, gemma3-4b trained at full "
+          "width, the quickstart", flush=True)
+    st = steps_phase(torch, ops, ref, bw)
 
     src = "src/repro_torch/kernels/masked_agg/csrc/"
     kernels = []
@@ -3996,6 +4445,41 @@ def main() -> int:
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "bound_share": head["bound_share"], "max_abs_err": 0.0,
         "folds": zoo["round"]["k1"]["timing"]}
+    # phase 18: (a) the full-width step rounds (K1 on the f32 wire, K2 on
+    # the int8 wire), (b) the narrow step cases' card runs, (d) gemma3-4b's
+    # rounds, (e) the quickstart
+    for i, j in ((0, 0), (1, 1), (3, 2)):     # K1, K2, K4
+        kernels[i]["launches_steps_narrow"] = st["narrow"]["launches"][j]
+        kernels[i]["launches_steps_narrow_path"] = (
+            "phase 18(b): the narrow make_fed_round_step cases on the card")
+    for i in (0, 1):
+        kernels[i]["launches_steps"] = st["round"]["launches"][i]
+        kernels[i]["launches_steps_path"] = (
+            "phase 18(a): make_fed_round_step on Gemma-2 2B at full width, "
+            "f32 and int8 wires")
+    head = st["round"]["k2"]["timing"][0]     # the complex client's fold
+    kernels[1]["steps"] = {
+        "shape": {"Z": 1, "N": st["round"]["k2"]["N"], "q": "int8",
+                  "quant_block": QB, "fold": "complex",
+                  "mask": "gemma2-2b index set M"},
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "bound_share": head["bound_share"], "max_abs_err": 0.0,
+        "folds": st["round"]["k2"]["timing"]}
+    head = st["gemma3"]["k1"]["timing"][0]    # the complex client's fold
+    kernels[0]["launches_gemma3"] = st["gemma3"]["launches"]
+    kernels[0]["launches_gemma3_path"] = ("phase 18(d): two fedhen rounds "
+                                          "of gemma3-4b at full width")
+    kernels[0]["gemma3"] = {
+        "shape": {"Z": 1, "N": st["gemma3"]["k1"]["N"], "x": "float32",
+                  "fold": "complex", "mask": "gemma3-4b index set M"},
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "bound_share": head["bound_share"], "max_abs_err": 0.0,
+        "folds": st["gemma3"]["k1"]["timing"]}
+    kernels[0]["launches_quickstart"] = st["quickstart"]["launches"]
+    kernels[0]["launches_quickstart_path"] = (
+        "phase 18(e): examples/quickstart_torch.py, 3 x 36 rounds")
     k5_src = "src/repro_torch/kernels/flash_attention/csrc/"
     k5_replaces = "src/repro/kernels/flash_attention/kernel.py:83"
     for name, source, dtype, launches, path in (

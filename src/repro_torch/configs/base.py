@@ -8,7 +8,8 @@ model's stack is ``n_periods`` repetitions of its ``pattern`` plus
 ``blocks[:resolved_exit_layer]`` with its own exit head.  The dtype names
 map to torch dtypes through ``torch_param_dtype`` / ``torch_compute_dtype``
 (the reference's ``jnp_*``).  ``validate()`` rejects what the
-reference's rejects, with the same ``ValueError`` rules.
+reference's rejects, with the same ``ValueError`` rules.  ``InputShape``
+and ``INPUT_SHAPES`` are the reference's four assigned input shapes.
 """
 
 from __future__ import annotations
@@ -265,6 +266,27 @@ class ModelConfig:
 
     def with_overrides(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (the reference's assigned four)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                 # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = InputShape("train_4k", 4_096, 256, "train")
+PREFILL_32K = InputShape("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = InputShape("decode_32k", 32_768, 128, "decode")
+LONG_500K = InputShape("long_500k", 524_288, 1, "decode")
+
+INPUT_SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K,
+                                    LONG_500K)}
 
 
 # ---------------------------------------------------------------------------

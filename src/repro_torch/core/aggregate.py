@@ -29,9 +29,13 @@ deltas fold through one more K1 launch (:func:`_fold_cv`) on both engines.
 :class:`EngineSpec` is the reference's one frozen description of a fold
 engine, built once per trainer from its ``FedConfig``;
 :func:`engine_attrs` turns it into the plain scalars of the telemetry
-``run_config`` ledger, the reference's strings included.  The reference's
-``make_engine`` (and the deprecated loose-kwarg shims) are not ported:
-the port's round calls the streaming functions directly.
+``run_config`` ledger, the reference's strings included.
+:func:`make_engine` binds a spec to the reference's ``(init, fold,
+finalize)`` triple over stacked parameter trees, on top of the
+layout-first streaming functions above (the launch-side round step of
+``launch/steps.py`` folds through it; the trainer calls the streaming
+functions directly).  Both also take the reference's deprecated loose
+keyword form, which warns and builds the same spec.
 
 **Weight contract** (the reference's): ``valid`` is a per-client
 coefficient; a weight of 0 gates the client's values before the multiply
@@ -41,7 +45,8 @@ coefficient; a weight of 0 gates the client's values before the multiply
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple, Optional, Tuple
+import warnings
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -116,11 +121,31 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).rpartition(".")[2]
 
 
-def engine_attrs(spec: EngineSpec) -> dict:
+def _legacy_spec(where: str, **kw) -> EngineSpec:
+    """The spec a deprecated loose-kwarg call builds, with the reference's
+    warning naming the call site."""
+    warnings.warn(f"{where} with loose engine kwargs is deprecated; "
+                  f"pass an EngineSpec", DeprecationWarning, stacklevel=3)
+    return EngineSpec(**kw)
+
+
+def engine_attrs(engine, *, algorithm: Optional[str] = None,
+                 block_n: Optional[int] = None,
+                 stream_dtype: torch.dtype = torch.float32,
+                 wire: Optional[comm.WireSpec] = None) -> dict:
     """Static description of a configured fold engine as plain scalars:
     what the telemetry ``run_config`` ledger records about the fold path,
     with the reference's keys and values (dtypes spelled as numpy and JAX
-    spell them)."""
+    spell them).  Takes an :class:`EngineSpec`, or the deprecated loose
+    form (an engine name and keyword arguments)."""
+    if isinstance(engine, EngineSpec):
+        spec = engine
+    else:
+        spec = _legacy_spec(
+            "engine_attrs(engine, algorithm=..., block_n=...)",
+            engine=engine, algorithm=algorithm,
+            block_n=2048 if block_n is None else block_n)
+        spec = spec.bind(stream_dtype=stream_dtype, wire=wire)
     attrs = {
         "agg_engine": spec.engine,
         "algorithm": spec.algorithm,
@@ -354,6 +379,23 @@ def streaming_fold_deltas(state: StreamState, sp: SparseChunk,
                           tot_out=state.tot_out + w_out.sum())
 
 
+_FINALIZE_SLICE = 1 << 28
+
+
+def _normalized(acc: torch.Tensor, flat_mask: torch.Tensor,
+                inv_in: torch.Tensor, inv_out: torch.Tensor) -> torch.Tensor:
+    """``acc * where(flat_mask, inv_in, inv_out)`` as a new vector, the
+    factors built a slice at a time: at gemma3-4b's width a whole-vector
+    factor is one more 14.5 GiB beside the result, enough to run its
+    training round out of memory.  Each element is the same product."""
+    out = torch.empty_like(acc)
+    for a in range(0, acc.numel(), _FINALIZE_SLICE):
+        e = a + _FINALIZE_SLICE
+        torch.mul(acc[a:e], torch.where(flat_mask[a:e], inv_in, inv_out),
+                  out=out[a:e])
+    return out
+
+
 def streaming_finalize(state: StreamState, layout: flatten.FlatLayout,
                        flat_mask: torch.Tensor, algorithm: str
                        ) -> Tuple[Tree, Optional[Tree]]:
@@ -364,8 +406,8 @@ def streaming_finalize(state: StreamState, layout: flatten.FlatLayout,
     whose simple host is the combined vector.  A group with zero total
     weight yields zeros."""
     inv_in, inv_out = _safe_inv(state.tot_in), _safe_inv(state.tot_out)
-    combined = flatten.unpack(
-        layout, state.acc * torch.where(flat_mask, inv_in, inv_out))
+    combined = flatten.unpack(layout, _normalized(state.acc, flat_mask,
+                                                  inv_in, inv_out))
     if algorithm == "decouple":
         return flatten.unpack(layout, state.acc_out * inv_out), combined
     return combined, None
@@ -455,3 +497,126 @@ def tree_streaming_finalize(state: TreeStreamState, leaf_masks: Tree,
         return (tree_map(lambda a, t: (a * inv_out).to(t.dtype),
                          state.acc_out, template), combined)
     return combined, None
+
+
+# ---------------------------------------------------------------------------
+# make_engine: the (init, fold, finalize) triple over stacked trees
+# ---------------------------------------------------------------------------
+
+def make_engine(engine, *, algorithm: Optional[str] = None, mask: Tree = None,
+                layout: Optional[flatten.FlatLayout] = None,
+                flat_mask: Optional[torch.Tensor] = None,
+                block_n: int = 2048, stream_dtype: torch.dtype = torch.float32,
+                wire: Optional[comm.WireSpec] = None
+                ) -> Tuple[Callable, Callable, Callable]:
+    """The reference's ``(init, fold, finalize)`` triple for a fold engine:
+
+    * ``init(params_like) -> state`` (one unstacked model; only shapes,
+      dtypes and the device are read);
+    * ``fold(state, chunk, is_simple, valid[, cv_chunk=...]) -> state``,
+      ``chunk`` a stacked tree (leaves ``(Z, ...)``), ``valid`` bool or f32
+      weights;
+    * ``finalize(state, template=...) -> (new_complex, simple_host)``,
+      ``simple_host`` ``None`` except for decouple, each leaf cast to
+      ``template``'s dtype.
+
+    ``engine`` is an :class:`EngineSpec`; the deprecated loose form (an
+    engine name and keyword arguments) warns and builds the same spec.
+    The spec's ``layout`` and ``flat_mask`` may be unbound: the layout is
+    then :func:`flatten.layout_of` the tree at hand (``block_n`` as its
+    ``total_multiple``), and the flat mask is packed from ``mask`` once per
+    layout and device.
+
+    The flat engine packs each chunk (:func:`flatten.pack_stacked`) and
+    folds it through :func:`streaming_fold`: K1 in the stream dtype (a
+    bf16 wire's payload dtype on a bf16 wire), or on an int8 wire packed
+    to f32, quantized per ``quant_block`` and folded by K2; decouple's
+    second accumulator at ``w_out`` on both branches.  The tree engine
+    folds through :func:`tree_streaming_fold` (K4); a tree spec with a
+    non-identity wire streams at the wire's payload dtype."""
+    if isinstance(engine, EngineSpec):
+        spec = engine
+    else:
+        spec = _legacy_spec(
+            "make_engine(engine, algorithm=..., mask=...)", engine=engine,
+            algorithm=algorithm, mask=mask, layout=layout,
+            flat_mask=flat_mask, block_n=block_n, stream_dtype=stream_dtype,
+            wire=wire)
+    if spec.engine == "tree" and spec.wire is not None \
+            and not spec.wire.is_identity:
+        spec = spec.bind(stream_dtype=spec.wire.payload_dtype)
+    scaffold = spec.variance_reduction == "scaffold"
+    packed_masks = {}
+
+    def layout_for(tree: Tree, stacked: bool = False) -> flatten.FlatLayout:
+        if spec.layout is not None:
+            return spec.layout
+        return flatten.layout_of(tree, total_multiple=spec.block_n,
+                                 stacked=stacked)
+
+    def mask_for(lay: flatten.FlatLayout, device) -> torch.Tensor:
+        if spec.flat_mask is not None:
+            return spec.flat_mask
+        key = (lay.signature, str(device))
+        if key not in packed_masks:
+            packed_masks[key] = flatten.pack_mask(lay, spec.mask, device)
+        return packed_masks[key]
+
+    def device_of(tree: Tree):
+        return tree_leaves(tree)[0].device
+
+    if spec.engine == "flat":
+        wire = spec.wire
+        if wire is not None and wire.is_quantized:
+            pack_dtype = torch.float32     # the client-side encode's input
+        elif wire is not None and not wire.is_identity:
+            pack_dtype = wire.payload_dtype
+        else:
+            pack_dtype = spec.stream_dtype
+
+        def init(params_like: Tree) -> StreamState:
+            return streaming_init(layout_for(params_like), spec.algorithm,
+                                  device_of(params_like), scaffold=scaffold)
+
+        def fold(state: StreamState, chunk: Tree, is_simple, valid, *,
+                 cv_chunk: Optional[torch.Tensor] = None) -> StreamState:
+            lay = layout_for(chunk, stacked=True)
+            xz = flatten.pack_stacked(lay, chunk, dtype=pack_dtype)
+            return streaming_fold(state, xz, mask_for(lay, xz.device),
+                                  is_simple, valid, spec.algorithm,
+                                  wire=wire, cv_chunk=cv_chunk)
+
+        def finalize(state: StreamState, template: Tree = None
+                     ) -> Tuple[Tree, Optional[Tree]]:
+            if spec.layout is None and template is None:
+                raise ValueError("finalize needs template= (or a spec with "
+                                 "a layout) to unpack the flat sums")
+            lay = layout_for(template)
+            out = streaming_finalize(state, lay,
+                                     mask_for(lay, state.acc.device),
+                                     spec.algorithm)
+            if template is None:
+                return out
+            cast = lambda tree: None if tree is None else tree_map(
+                lambda a, t: a.to(t.dtype), tree, template)
+            return cast(out[0]), cast(out[1])
+    else:
+        def init(params_like: Tree) -> TreeStreamState:
+            return tree_streaming_init(params_like, spec.algorithm,
+                                       layout_for(params_like),
+                                       scaffold=scaffold)
+
+        def fold(state: TreeStreamState, chunk: Tree, is_simple, valid, *,
+                 cv_chunk: Optional[torch.Tensor] = None) -> TreeStreamState:
+            lay = layout_for(chunk, stacked=True)
+            xz = flatten.pack_stacked(lay, chunk, dtype=spec.stream_dtype)
+            return tree_streaming_fold(state, xz, lay,
+                                       mask_for(lay, xz.device), is_simple,
+                                       valid, spec.algorithm,
+                                       cv_chunk=cv_chunk)
+
+        def finalize(state: TreeStreamState, template: Tree = None
+                     ) -> Tuple[Tree, Optional[Tree]]:
+            return tree_streaming_finalize(state, spec.mask, spec.algorithm,
+                                           template)
+    return init, fold, finalize

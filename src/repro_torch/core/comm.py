@@ -193,12 +193,15 @@ def quantize(x: torch.Tensor, quant_block: int, *,
     g = x.to(torch.float32).reshape(x.shape[:-1] + (-1, quant_block))
     scales = torch.amax(torch.abs(g), dim=-1) * _INV_QMAX
     v = g / scales[..., None].clamp_min(1e-30)
+    del g
+    # in place on v: one f32 temporary of x's size (a packed LM client is
+    # 10 GB), the values those of round / where / clamp out of place
     if bits is None:
-        q = torch.round(v)
+        v.round_()
     else:
-        q = stochastic_round_int(v, bits(tuple(v.shape)).to(v.device))
-    q = torch.where(scales[..., None] > 0, q, 0.0)
-    q = torch.clamp(q, -_QMAX, _QMAX).to(torch.int8)
+        v = stochastic_round_int(v, bits(tuple(v.shape)).to(v.device))
+    v.masked_fill_(~(scales[..., None] > 0), 0.0)
+    q = v.clamp_(-_QMAX, _QMAX).to(torch.int8)
     return q.reshape(x.shape), scales
 
 

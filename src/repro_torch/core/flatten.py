@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Any, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
@@ -110,6 +110,45 @@ def build_layout(tree: Tree, *, align: int = LANES,
     n_flat = max(n_flat, max(total_multiple, align, 1))
     return FlatLayout(treedef=treedef, slots=tuple(slots), n_flat=n_flat,
                       align=align, total_multiple=total_multiple)
+
+
+def _structure_key(treedef: Tree) -> Any:
+    """A hashable form of a treedef: two trees with the same key have the
+    same leaf order and nesting (dict key order does not matter)."""
+    if isinstance(treedef, dict):
+        return ("dict", tuple((k, _structure_key(treedef[k]))
+                              for k in sorted(treedef)))
+    if isinstance(treedef, (list, tuple)):
+        return (type(treedef).__name__,
+                tuple(_structure_key(v) for v in treedef))
+    return None
+
+
+_LAYOUT_CACHE: Dict[Any, FlatLayout] = {}
+
+
+def layout_of(tree: Tree, *, align: int = LANES, total_multiple: int = 0,
+              stacked: bool = False) -> FlatLayout:
+    """Cached :func:`build_layout`, keyed on the tree's structure, every
+    leaf's shape and dtype, ``align`` and ``total_multiple``: the same
+    signature returns the same :class:`FlatLayout` object.
+
+    ``stacked=True`` strips the leading cohort axis of every leaf first (a
+    layout for one client from a stacked chunk); the stripped leaves are
+    ``meta`` tensors, so nothing is allocated."""
+    leaves, treedef = tree_flatten(tree)
+    sig = [(tuple(int(d) for d in x.shape[1 if stacked else 0:]), x.dtype)
+           for x in leaves]
+    key = (_structure_key(treedef), tuple(sig), align, total_multiple)
+    hit = _LAYOUT_CACHE.get(key)
+    if hit is None:
+        if stacked:
+            tree = tree_unflatten(treedef, [
+                torch.empty(shape, dtype=dtype, device="meta")
+                for shape, dtype in sig])
+        hit = build_layout(tree, align=align, total_multiple=total_multiple)
+        _LAYOUT_CACHE[key] = hit
+    return hit
 
 
 # ---------------------------------------------------------------------------

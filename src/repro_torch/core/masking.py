@@ -14,17 +14,17 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models import resnet
 from repro_torch.tree import Tree, tree_leaves, tree_map
 
-SIMPLE_KEYS = ("stem", "stage1", "stage2", "exit_head")
 # the decoder's subtrees inside M besides the prefix periods
 LM_SIMPLE_KEYS = ("embed", "frontend_proj", "exit_norm")
 
 
 def resnet_subnet_mask(params: Tree) -> Tree:
-    """M for the ResNet: stem + stage1 + stage2 + exit head."""
-    return {name: tree_map(lambda _, keep=name in SIMPLE_KEYS: keep, sub)
-            for name, sub in params.items()}
+    """M for the ResNet: stem + stage1 + stage2 + exit head
+    (:func:`repro_torch.models.resnet.subnet_mask`)."""
+    return resnet.subnet_mask(params)
 
 
 def _period_mask(x: torch.Tensor, kp: int) -> torch.Tensor:

@@ -1,0 +1,283 @@
+"""Launch-side step functions: the port of ``repro.launch.steps``.
+
+* ``make_train_step`` — one complex-device step: the side objective (final
+  CE + early-exit CE) or the plain objective, one clipped SGD step.
+* ``make_fed_round_step`` — one complete FedHeN round over a stacked
+  cohort, streamed in ``cohort_chunk``-sized chunks through an
+  :func:`repro_torch.core.aggregate.make_engine` fold.
+* ``make_prefill_step`` — logits and decode cache for a prompt batch.
+* ``make_serve_step`` — one token against a cache (decode shapes).
+* ``step_for_shape`` — the step an ``InputShape`` exercises.
+
+The reference's factories also take a sharding ``policy``.  The port has no
+sharding policy yet (``launch/mesh.py`` and ``launch/sharding.py`` are not
+ported), so these take none until the sharding slice adds that argument.
+A step runs on the device of the tensors it is given.
+
+Where the reference ``vmap``s a chunk's clients and ``scan``s the chunks,
+the round step loops over both in Python, training one client at a time;
+the fold is one engine call a chunk, as in the reference.  Three of the
+reference's behaviours are kept on purpose:
+
+* **The batch a local step sees.**  The reference hands each client its
+  data transposed to ``(local_steps, B, S+1)`` and trains step ``i`` on
+  ``data[:, i]``: the ``local_steps`` rows at batch index ``i`` of the
+  client's ``(B, local_steps, S+1)`` block.  JAX clamps a static index out
+  of range, so with ``B < local_steps`` step ``i >= B`` reuses row
+  ``B - 1``; the port indexes ``min(i, B - 1)``.
+* **The loss it reports** is ``loss_side`` of each client's last local
+  step, simple clients included, although a simple client takes the
+  gradient of ``loss_simple``; the port evaluates that side loss without a
+  backward pass through it.
+* **The cohort is never written.**  It may be an ``expand``-ed view in
+  which every client aliases one model (the counterpart of the reference
+  tests' ``broadcast_to``); each client is cloned before its SGD.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.core import aggregate, async_rounds, comm, flatten, masking
+from repro_torch.core.adapters import LMAdapter
+from repro_torch.models import transformer as tfm
+from repro_torch.obs import telemetry as obslib
+from repro_torch.optim.sgd import sgd_update
+from repro_torch.tree import Tree, tree_flatten, tree_map, tree_unflatten
+
+Batch = Dict[str, torch.Tensor]
+
+
+def _value_and_grad(loss_fn, params: Tree, batch: Batch):
+    """``(loss, grads)`` of ``loss_fn`` at ``params``; a leaf the loss does
+    not touch gets a ``None`` gradient, which SGD reads as zero."""
+    leaves, treedef = tree_flatten(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    loss = loss_fn(params, batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    for leaf in leaves:
+        leaf.requires_grad_(False)
+    return loss.detach(), tree_unflatten(treedef, list(grads))
+
+
+def _sgd(params: Tree, grads: Tree, lr: float, clip_norm: float) -> Tree:
+    with torch.no_grad():
+        return sgd_update(params, grads, lr, clip_norm)
+
+
+def make_train_step(cfg: ModelConfig, *, lr: float = 0.1,
+                    clip_norm: float = 10.0, side_objective: bool = True,
+                    remat: bool = True):
+    """``train_step(params, batch) -> (new_params, {"loss": loss})``; the
+    input params are not modified (they are detached first)."""
+    adapter = LMAdapter(cfg, remat=remat)
+    loss_fn = adapter.loss_side if side_objective else adapter.loss_complex
+
+    def train_step(params: Tree, batch: Batch):
+        p = tree_map(lambda x: x.detach(), params)
+        loss, grads = _value_and_grad(loss_fn, p, batch)
+        return _sgd(p, grads, lr, clip_norm), {"loss": loss}
+
+    return train_step
+
+
+def make_fed_round_step(cfg: ModelConfig, *, local_steps: int,
+                        lr: float = 0.1, clip_norm: float = 10.0,
+                        cohort_chunk: int = 0,
+                        engine: Optional[aggregate.EngineSpec] = None,
+                        staleness_scheme: str = "poly",
+                        staleness_decay: float = 0.5,
+                        telemetry: Optional[obslib.Telemetry] = None,
+                        agg_engine: Optional[str] = None,
+                        agg_block_n: Optional[int] = None,
+                        comm_dtype: Optional[str] = None,
+                        quant_block: Optional[int] = None):
+    """One FedHeN round over a stacked cohort, streamed in chunks.
+
+    Returns ``round_step(cohort, data, is_simple, flat_mask=None,
+    staleness=None, real=None) -> (new_complex, loss)``: ``cohort`` stacked
+    client params (leaves ``(K, ...)``), ``data`` ``(K, B, local_steps,
+    S+1)`` tokens, ``is_simple`` ``(K,)`` bool.  ``cohort_chunk`` must
+    divide K (0 = one chunk).  Each chunk's clients train (side objective
+    for complex clients, the subnet objective for simple ones), and the
+    chunk folds at weights ``valid * staleness_weight(staleness) * real``,
+    ``valid`` each client's finiteness (a NaN client folds at weight 0).
+
+    ``engine`` is an :class:`~repro_torch.core.aggregate.EngineSpec`
+    without ``mask`` / ``layout`` / ``flat_mask``: those are bound per call
+    from the cohort's template.  ``None`` means the flat engine on the f32
+    wire (``WireSpec("float32", 128)``), and a spec without a wire gets
+    that wire.  The legacy kwargs ``agg_engine`` / ``agg_block_n`` /
+    ``comm_dtype`` / ``quant_block`` warn and build the same spec; passing
+    both forms raises ``ValueError``.
+
+    ``flat_mask``: the precomputed flat bitvector (``flatten.pack_mask``
+    over ``flatten.layout_of`` of one client at ``block_n``); ``None``
+    packs it per call.  ``staleness``:
+    ``(K,)`` broadcast staleness in rounds (the async engine's seam);
+    ``None`` and all zeros are the synchronous fold.  ``real``: ``(K,)``
+    bool, ``False`` for a super-cohort pad slot, which folds at weight 0
+    and is left out of the loss mean (whose denominator is then
+    ``max(sum(real), 1)``).
+
+    ``telemetry`` records one ``round_step_build`` ledger with the step's
+    static configuration and :func:`aggregate.engine_attrs` of its spec.
+    """
+    adapter = LMAdapter(cfg, remat=True)
+    legacy = {"agg_engine": agg_engine, "agg_block_n": agg_block_n,
+              "comm_dtype": comm_dtype, "quant_block": quant_block}
+    if any(v is not None for v in legacy.values()):
+        if engine is not None:
+            raise ValueError(
+                "pass either engine= (an EngineSpec) or the legacy "
+                f"agg kwargs, not both (got both engine and "
+                f"{[k for k, v in legacy.items() if v is not None]})")
+        warnings.warn(
+            "make_fed_round_step(agg_engine=..., comm_dtype=...) loose "
+            "kwargs are deprecated; pass engine=EngineSpec(...)",
+            DeprecationWarning, stacklevel=2)
+        engine = aggregate.EngineSpec(
+            engine=agg_engine or "flat", algorithm="fedhen",
+            block_n=2048 if agg_block_n is None else agg_block_n,
+            wire=comm.WireSpec(comm_dtype or "float32",
+                               128 if quant_block is None else quant_block))
+    spec = engine if engine is not None else aggregate.EngineSpec(
+        algorithm="fedhen", wire=comm.WireSpec("float32", 128))
+    if spec.wire is None:
+        spec = spec.bind(wire=comm.WireSpec("float32", 128))
+    obs = obslib.coalesce(telemetry)
+    if obs.enabled:
+        values = {"local_steps": int(local_steps), "lr": lr,
+                  "clip_norm": clip_norm,
+                  "cohort_chunk": int(cohort_chunk),
+                  "staleness_scheme": staleness_scheme,
+                  "staleness_decay": staleness_decay}
+        values.update(aggregate.engine_attrs(spec))
+        obs.ledger("round_step_build", values)
+
+    def client_train(client: Tree, data: torch.Tensor, is_simple: bool):
+        """One client's ``local_steps`` SGD steps on its ``(B,
+        local_steps, S+1)`` block; returns ``(params, loss_side of the
+        last step)``."""
+        p = tree_map(lambda x: x.detach().clone(), client)
+        b = data.shape[0]
+        loss = None
+        for i in range(local_steps):
+            batch = {"tokens": data[min(i, b - 1)]}
+            if is_simple:
+                _, grads = _value_and_grad(adapter.loss_simple, p, batch)
+                with torch.no_grad():
+                    loss = adapter.loss_side(p, batch)
+            else:
+                loss, grads = _value_and_grad(adapter.loss_side, p, batch)
+            p = _sgd(p, grads, lr, clip_norm)
+        return p, loss
+
+    def round_step(cohort: Tree, data: torch.Tensor, is_simple: torch.Tensor,
+                   flat_mask: Optional[torch.Tensor] = None,
+                   staleness=None, real: Optional[torch.Tensor] = None):
+        k = data.shape[0]
+        chunk = k if cohort_chunk <= 0 else cohort_chunk
+        if k % chunk:
+            raise ValueError(
+                f"cohort_chunk={chunk} does not divide cohort size {k}")
+        template = tree_map(lambda x: x[0], cohort)
+        device = data.device
+        mask = masking.transformer_subnet_mask(template, cfg)
+        # both engines fold against the flat mask (K1/K2, or K4's)
+        layout = flatten.layout_of(template, total_multiple=spec.block_n)
+        if flat_mask is None:
+            flat_mask = flatten.pack_mask(layout, mask, device)
+        agg_init, agg_fold, agg_finalize = aggregate.make_engine(
+            spec.bind(mask=mask, layout=layout, flat_mask=flat_mask))
+
+        if staleness is None:
+            st_w = torch.ones((k,), dtype=torch.float32)
+        else:
+            st_w = async_rounds.staleness_weight(
+                torch.as_tensor(staleness).cpu(), scheme=staleness_scheme,
+                decay=staleness_decay)
+        st_w = st_w.to(device)
+        if real is not None:
+            real_f = real.to(device=device, dtype=torch.float32)
+            st_w = st_w * real_f
+            denom = torch.clamp(real_f.sum(), min=1.0)
+        else:
+            denom = torch.tensor(float(k), dtype=torch.float32,
+                                 device=device)
+        is_simple = is_simple.to(device)
+        simple_host = is_simple.tolist()
+
+        state = agg_init(template)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=device)
+        for start in range(0, k, chunk):
+            trained = [client_train(tree_map(lambda x: x[z], cohort),
+                                    data[z], simple_host[z])
+                       for z in range(start, start + chunk)]
+            valid = torch.stack([masking.tree_isfinite(p)
+                                 for p, _ in trained])
+            losses = torch.stack([loss.to(torch.float32)
+                                  for _, loss in trained])
+            # a chunk of one is a view of its client, not a copy (a
+            # full-width LM client is 5 GB)
+            stacked = tree_map(
+                lambda *xs: xs[0][None] if len(xs) == 1
+                else torch.stack(xs), *[p for p, _ in trained])
+            del trained
+            sl = slice(start, start + chunk)
+            state = agg_fold(state, stacked, is_simple[sl],
+                             valid.to(torch.float32) * st_w[sl])
+            del stacked
+            if real is not None:
+                losses = torch.where(real_f[sl] > 0, losses, 0.0)
+            loss_sum = loss_sum + losses.sum()
+        new_complex, _ = agg_finalize(state, template=template)
+        return new_complex, loss_sum / denom
+
+    return round_step
+
+
+def make_prefill_step(cfg: ModelConfig, *,
+                      window_override: Optional[int] = None,
+                      cache_len: Optional[int] = None):
+    """``prefill_step(params, batch) -> (logits, cache)``; ``batch`` holds
+    ``tokens`` and optionally a frontend's ``extra_embeds``."""
+    def prefill_step(params: Tree, batch: Batch):
+        with torch.no_grad():
+            return tfm.prefill(params, cfg, batch["tokens"],
+                               extra_embeds=batch.get("extra_embeds"),
+                               window_override=window_override,
+                               cache_len=cache_len)
+
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig, *,
+                    window_override: Optional[int] = None,
+                    with_exit_head: bool = False):
+    """``serve_step(params, cache, batch, pos) -> (logits, cache[,
+    exit_logits])`` for one token; the port's decode updates ``cache`` in
+    place and returns it."""
+    def serve_step(params: Tree, cache: Tree, batch: Batch, pos: int):
+        with torch.no_grad():
+            return tfm.decode_step(params, cache, cfg, batch["tokens"], pos,
+                                   window_override=window_override,
+                                   with_exit_head=with_exit_head)
+
+    return serve_step
+
+
+def step_for_shape(cfg: ModelConfig, shape: InputShape, *,
+                   window_override: Optional[int] = None,
+                   side_objective: bool = True):
+    """The step function a given input shape exercises."""
+    if shape.kind == "train":
+        return make_train_step(cfg, side_objective=side_objective)
+    if shape.kind == "prefill":
+        return make_prefill_step(cfg, window_override=window_override)
+    return make_serve_step(cfg, window_override=window_override)

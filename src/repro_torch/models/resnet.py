@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import common
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 Params = Dict[str, Any]
 
@@ -170,6 +170,14 @@ def forward_simple(params: Params, images: torch.Tensor) -> torch.Tensor:
     """Simple-architecture forward: stem, stages 1-2, exit head."""
     h = _run_stages(params, _nchw(images), SIMPLE_STAGES)
     return apply_mixpool_head(params["exit_head"], h)
+
+
+def subnet_mask(params: Params) -> Params:
+    """FedHeN index set M: stem + stage1 + stage2 + exit head are ``True``
+    (every leaf), everything else ``False``."""
+    keep = ("stem", "stage1", "stage2", "exit_head")
+    return {name: tree_map(lambda _, k=name in keep: k, sub)
+            for name, sub in params.items()}
 
 
 def param_count(params: Params) -> int:
