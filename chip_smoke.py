@@ -252,7 +252,28 @@ which raises on failure:
    the LM cell's settings (two fedhen rounds, the second traced), its
    peak printed, K1 at its fold (n_flat above 2**31) bitwise and timed;
    (e) ``examples/quickstart_torch.py``'s three algorithms, 36 rounds
-   each, and its rounds-to-target table (not gated).
+   each, and its rounds-to-target table (not gated);
+19. the scale-out layer (``repro_torch.launch.mesh`` / ``sharding``, one
+   default process group, NCCL for the card and gloo for the CPU, world
+   size 1, destroyed at the end of the phase): (a)
+   ``make_fed_round_step(cfg, MeshPolicy(make_device_mesh(1, 1, "cuda"),
+   cfg), ...)`` at phase 18(a)'s settings on the f32 wire (K1 4 times)
+   and the int8 wire (K2 4 times), each round's new model and loss
+   bitwise phase 18(a)'s unsharded round, one all-reduce a round of the
+   engine state and the loss sum (4 n_flat + 12 bytes), its device time
+   (CUDA events around it), the wall and the peak; (b) the narrow sharded
+   step on the flat and tree engines, the card's mesh against the CPU's
+   at rtol 1e-4 / atol 1e-5 (K1 2, K4 2); (c)
+   ``attention.chunk2d_attention`` in bf16 (q_chunk 512, k_chunk 2048) at
+   llava-next-34b's shape (1, 4096, 56 / 8, 128) and gemma2-2b's windowed
+   layer (1, 8192, 8 / 4, 256, window 4096, softcap 50), each within 5 %
+   of max|out| of the tensor-core K5 on the same inputs, each element
+   within 2**-4 of its magnitude plus 2**-8 and each (row, head) within
+   2**-6 of its L2 norm, both timed; (d) one round of the LM cell with
+   telemetry on: its ``roofline`` ledger (flops > 0; the walk's kernel
+   counters exactly the round's two K1 folds, calls, flops and bytes, and
+   hbm_bytes at least those bytes), the new model bitwise the
+   telemetry-off round's, the walk's added wall.
 
 Phase 8 also serves reduced xlstm-1.3b in f32 on the card against the CPU
 (prefill and 8 teacher-forced decode steps): the sLSTM cell output before
@@ -278,7 +299,10 @@ llava-next-34b and musicgen-large, both K5 kernels with their launches in
 phase 17's narrow serving; K1 and K2 with their launches on phase 18's
 full-width step rounds, K1, K2 and K4 with theirs on its narrow steps, K2
 with its time at that fold, K1 with its launches on gemma3-4b's rounds
-and the quickstart and its time at gemma3-4b's fold); the last is
+and the quickstart and its time at gemma3-4b's fold; K1 and K2 with their
+launches on phase 19's sharded step rounds, K1 and K4 with theirs on its
+narrow sharded steps, K1 with its launches on its telemetry-on round);
+the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1141,14 +1165,6 @@ def card_vs_cpu(torch) -> None:
           f"{runs['cpu'][0]}", flush=True)
 
 
-def _pairs(s: int, window: int) -> int:
-    """(query, key) pairs a causal window keeps: key j <= query i and,
-    when windowed, i - j < window."""
-    if not window or window >= s:
-        return s * (s + 1) // 2
-    return window * (window + 1) // 2 + (s - window) * window
-
-
 def _close(torch, name: str, got, want, rtol: float, atol: float) -> float:
     """Every element within atol + rtol * |want|; returns max |diff|."""
     torch.cuda.synchronize()
@@ -1256,7 +1272,7 @@ def check_flash(torch, bw: float) -> dict:
         del got, want
         if not timed:
             continue
-        pairs = _pairs(s, window)
+        pairs = ops.causal_pairs(s, window)
         flops = 4 * dh * pairs * b * h
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         ops_ms, bytes_ms = flops / peak * 1e3, nbytes / bw * 1e3
@@ -3973,7 +3989,7 @@ def step_round(torch, ops, ref, bw: float) -> dict:
           f"{tuple(data.shape)}; set-up {time.perf_counter() - t:.1f} s",
           flush=True)
     cohort = tree_map(lambda x: x[None].expand((STEP_K,) + x.shape), params)
-    out = {"n_flat": layout.n_flat, "runs": []}
+    out = {"n_flat": layout.n_flat, "runs": [], "results": {}}
     results = {}
     for wire, expected in (("float32", (STEP_K, 0, 0, 0)),
                            ("int8", (0, STEP_K, 0, 0))):
@@ -4003,6 +4019,9 @@ def step_round(torch, ops, ref, bw: float) -> dict:
                 masking.tree_isfinite(new_c)):
             raise RuntimeError(f"step round ({wire}): non-finite result")
         results[wire] = new_c, loss
+        # kept on the host: phase 19(a) holds the sharded round to these
+        out["results"][wire] = (tree_map(lambda x: x.cpu(), new_c),
+                                loss.cpu())
         out["runs"].append(row)
         del new_c, loss
     (f_c, f_loss), (q_c, q_loss) = results["float32"], results["int8"]
@@ -4258,6 +4277,331 @@ def steps_phase(torch, ops, ref, bw: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 19. the cohort-sharded round, chunk2d attention, the roofline ledger
+# ---------------------------------------------------------------------------
+
+# one default group for both devices: NCCL for the card's mesh, gloo for
+# the CPU's (phase 19(b) holds the one against the other)
+SHARD_BACKEND = "cuda:nccl,cpu:gloo"
+# phase 6's llava-next-34b shape and gemma2-2b's windowed layer, bf16
+CHUNK2D_CASES = (("llava-next-34b", 1, 4096, 56, 8, 128, 0, 0.0),
+                 ("gemma2-2b window", 1, 8192, 8, 4, 256, 4096, 50.0))
+CHUNK2D_Q, CHUNK2D_K = 512, 2048
+
+
+def _timed_allreduce(torch, aggregate, calls: list):
+    """``aggregate.allreduce_state`` wrapped to record each call's bytes
+    and CUDA events around it (the round step calls it through the
+    module)."""
+    inner = aggregate.allreduce_state
+
+    def timed(state, group, *extra):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        inner(state, group, *extra)
+        end.record()
+        calls.append((aggregate.allreduce_bytes(state, *extra), start, end))
+        return state
+    return inner, timed
+
+
+def _unsharded_rounds(torch, cfg, cohort, data, is_simple, flat_mask):
+    """Phase 18(a)'s two rounds again (for phase 19 run alone): the
+    unsharded step on the f32 and int8 wires, results on the host."""
+    from repro_torch.core import aggregate, comm
+    from repro_torch.launch import steps
+    from repro_torch.tree import tree_map
+    out = {}
+    for wire in ("float32", "int8"):
+        step = steps.make_fed_round_step(
+            cfg, local_steps=STEP_L, cohort_chunk=1,
+            engine=aggregate.EngineSpec(wire=comm.WireSpec(wire, QB)))
+        new_c, loss = step(cohort, data, is_simple, flat_mask)
+        out[wire] = (tree_map(lambda x: x.cpu(), new_c), loss.cpu())
+        del new_c, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def sharded_round(torch, ops, unsharded=None) -> dict:
+    """Phase 19(a): ``make_fed_round_step(cfg, MeshPolicy(...))`` over a
+    live (1, 1) ``DeviceMesh`` on the card (NCCL, world size 1) at phase
+    18(a)'s settings (Gemma-2 2B at full width, K = 4 expanded, 2 simple,
+    chunk 1, batch 2, 2 local steps, S 512), on the f32 wire (K1 4 times)
+    and the int8 wire (K2 4 times): new model and loss bitwise phase
+    18(a)'s unsharded round (``unsharded``; computed here when phase 19
+    runs alone), one all-reduce a round of the engine state and the loss
+    sum (4 n_flat + 12 bytes), its bytes and device time printed beside
+    the wall and the peak."""
+    from repro_torch import configs
+    from repro_torch.core import aggregate, comm, flatten, masking
+    from repro_torch.core.adapters import LMAdapter
+    from repro_torch.launch import sharding, steps
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = configs.get_config(STEP_ARCH)
+    params = LMAdapter(cfg).init(torch.Generator("cuda").manual_seed(0),
+                                 "cuda")
+    data = _step_tokens(torch)
+    is_simple = torch.tensor(STEP_SIMPLE, device="cuda")
+    layout = flatten.layout_of(params, total_multiple=2048)
+    flat_mask = flatten.pack_mask(
+        layout, masking.transformer_subnet_mask(params, cfg), "cuda")
+    cohort = tree_map(lambda x: x[None].expand((STEP_K,) + x.shape), params)
+    if unsharded is None:
+        unsharded = _unsharded_rounds(torch, cfg, cohort, data, is_simple,
+                                      flat_mask)
+    policy = sharding.MeshPolicy(make_device_mesh(1, 1, "cuda"), cfg)
+    want_bytes = 4 * layout.n_flat + 3 * 4
+    out = {"n_flat": layout.n_flat, "runs": []}
+    calls = []
+    inner, timed = _timed_allreduce(torch, aggregate, calls)
+    aggregate.allreduce_state = timed
+    for wire, expected in (("float32", (STEP_K, 0, 0, 0)),
+                           ("int8", (0, STEP_K, 0, 0))):
+        step = steps.make_fed_round_step(
+            cfg, policy, local_steps=STEP_L, cohort_chunk=1,
+            engine=aggregate.EngineSpec(wire=comm.WireSpec(wire, QB)))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        calls.clear()
+        _zero_counts(ops)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        new_c, loss = step(cohort, data, is_simple, flat_mask)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launched = _counts(ops)
+        want_c, want_loss = unsharded[wire]
+        same = torch.equal(loss.cpu(), want_loss) and all(
+            torch.equal(a.cpu(), b) for a, b in zip(tree_leaves(new_c),
+                                                    tree_leaves(want_c)))
+        row = {"wire": wire, "round_s": wall, "loss": float(loss),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "launches": launched, "allreduce_calls": len(calls),
+               "allreduce_bytes": [c[0] for c in calls],
+               "allreduce_ms": [c[1].elapsed_time(c[2]) for c in calls],
+               "bitwise_unsharded": same}
+        print("  (a) sharded step round " + json.dumps(row), flush=True)
+        if launched != expected or len(calls) != 1 or \
+                calls[0][0] != want_bytes or not same:
+            raise RuntimeError(
+                f"sharded step round ({wire}): launches {launched} "
+                f"(expected {expected}), all-reduces {len(calls)} of "
+                f"{[c[0] for c in calls]} bytes (expected 1 of "
+                f"{want_bytes}), bitwise the unsharded round: {same}")
+        out["runs"].append(row)
+        del new_c, loss
+    aggregate.allreduce_state = inner
+    out["launches"] = tuple(a + b for a, b in zip(
+        out["runs"][0]["launches"], out["runs"][1]["launches"]))
+    del cohort, params, data, flat_mask, unsharded
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_card_vs_cpu(torch, ops) -> dict:
+    """Phase 19(b): the sharded step, narrow (``STEP_TINY``, K = 4, chunk
+    2, 2 local steps), on the flat (f32) and tree engines, on the card's
+    (1, 1) mesh (NCCL) against the CPU's (gloo), params and loss at rtol
+    1e-4 / atol 1e-5; K1 and K4 counted on the card's runs."""
+    import numpy as np
+    from repro_torch.configs.base import LayerSpec, ModelConfig
+    from repro_torch.core import aggregate, flatten
+    from repro_torch.launch import sharding, steps
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import tree_map
+
+    cfg = ModelConfig(pattern=(LayerSpec("attn"),), **STEP_TINY)
+    base = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+    layout = flatten.build_layout(base, total_multiple=2048)
+    data = np.random.default_rng(1).integers(
+        0, 64, size=(4, 2, 2, 17)).astype(np.int32)
+    policies = {dev: sharding.MeshPolicy(make_device_mesh(1, 1, dev), cfg)
+                for dev in ("cuda", "cpu")}
+    _zero_counts(ops)
+    for label, engine, launches in (
+            ("flat", None, (2, 0, 0, 0)),
+            ("tree", aggregate.EngineSpec(engine="tree"), (0, 0, 0, 2))):
+        sides = {}
+        for dev, policy in policies.items():
+            params = tree_map(lambda x: x.to(dev), base)
+            cohort = tree_map(lambda x: x[None].expand((4,) + x.shape),
+                              params)
+            step = steps.make_fed_round_step(cfg, policy, local_steps=2,
+                                             cohort_chunk=2, engine=engine)
+            before = _counts(ops)
+            sides[dev] = step(cohort, torch.as_tensor(data).to(dev),
+                              torch.tensor(STEP_SIMPLE, device=dev))
+            if dev == "cuda":
+                got = tuple(a - b for a, b in zip(_counts(ops), before))
+                if got != launches:
+                    raise RuntimeError(f"narrow sharded step {label}: "
+                                       f"launches {got}, expected "
+                                       f"{launches}")
+        (c_card, l_card), (c_cpu, l_cpu) = sides["cuda"], sides["cpu"]
+        a = flatten.pack(layout, tree_map(lambda x: x.cpu(), c_card))
+        b = flatten.pack(layout, c_cpu)
+        worst = float((a - b).abs().max())
+        if bool(((a - b).abs() > 1e-5 + 1e-4 * b.abs()).any()) or \
+                abs(float(l_card) - float(l_cpu)) > \
+                1e-5 + 1e-4 * abs(float(l_cpu)):
+            raise RuntimeError(f"narrow sharded step {label}: card vs CPU "
+                               f"max abs {worst:.3e}, loss {float(l_card)} "
+                               f"/ {float(l_cpu)}")
+        print(f"  (b) narrow sharded step {label}: card (NCCL) vs CPU "
+              f"(gloo) max abs {worst:.3e}, loss {float(l_card):.6f} / "
+              f"{float(l_cpu):.6f}", flush=True)
+    launched = _counts(ops)
+    return {"launches": launched}
+
+
+def chunk2d_card(torch) -> dict:
+    """Phase 19(c): ``attention.chunk2d_attention`` on the card in bf16
+    (q_chunk 512, k_chunk 2048) at llava-next-34b's shape and gemma2-2b's
+    windowed layer, held to K5 (the tensor-core kernel) on the same inputs
+    within 5 % of max|out|, each element within 2**-4 of its magnitude
+    plus 2**-8 and each (row, head) within 2**-6 of its L2 norm, both
+    timed (``time_ms``).  K5 is the yardstick
+    here, and its launches are not counted to any path."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models.attention import chunk2d_attention
+
+    out = []
+    for label, b, s, h, kh, dh, window, cap in CHUNK2D_CASES:
+        g = torch.Generator("cuda").manual_seed(s + h)
+        q = torch.randn((b, s, h, dh), generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+        k = torch.randn((b, s, kh, dh), generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+        v = torch.randn((b, s, kh, dh), generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+
+        def c2d():
+            return chunk2d_attention(q, k, v, window=window, softcap_val=cap,
+                                     q_chunk=CHUNK2D_Q, k_chunk=CHUNK2D_K)
+
+        def k5():
+            return fa_ops.flash_attention(q, k, v, window=window,
+                                          softcap=cap)
+        got, want = c2d().float(), k5().float()
+        amax = float(want.abs().max())
+        diff = float((got - want).abs().max())
+        # beside the serving rule, two that a masking error fails: each
+        # element within 2**-4 of its magnitude (8 bf16 ulps) plus 2**-8,
+        # and each (row, head) within 2**-6 of its norm (L2)
+        elem = float(((got - want).abs() / (
+            2 ** -4 * torch.maximum(got.abs(), want.abs()) + 2 ** -8)).max())
+        rows = float(((got - want).norm(dim=-1)
+                      / want.norm(dim=-1).clamp_min(1e-30)).max() / 2 ** -6)
+        ms = time_ms(torch, c2d, iters=3, warmup=1)
+        k5_ms = time_ms(torch, k5, iters=10, warmup=2)
+        row = {"case": label, "shape": {"B": b, "S": s, "H": h, "Kh": kh,
+                                        "Dh": dh, "window": window,
+                                        "softcap": cap},
+               "max_abs_diff": diff, "max_abs_out": amax,
+               "elem_over_bound": elem, "row_over_bound": rows,
+               "chunk2d_ms": ms, "k5_ms": k5_ms}
+        print("  (c) chunk2d " + json.dumps(row), flush=True)
+        if not diff <= 0.05 * amax:
+            raise RuntimeError(f"chunk2d {label}: max|diff| {diff} beyond "
+                               f"5 % of max|out| {amax}")
+        if not (elem <= 1 and rows <= 1):
+            raise RuntimeError(f"chunk2d {label}: element {elem} or row "
+                               f"{rows} times its bound")
+        out.append(row)
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+    return {"cases": out}
+
+
+def roofline_card(torch, ops) -> dict:
+    """Phase 19(d): one round of the LM cell (phase 13's settings) with
+    telemetry on, its ``roofline`` ledger printed: flops > 0; the walk's
+    kernel counters hold the round's two K1 folds (Z = 1, N = n_flat)
+    with the flops and bytes of that function, and hbm_bytes includes
+    them; collective bytes; the new model bitwise that of the same round
+    with telemetry off; the walk's added wall (round 0 on against off)."""
+    from repro_torch.launch import lm_cell as cell
+    from repro_torch.obs import telemetry as obslib
+    from repro_torch.tree import tree_leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    shards = cell.shards("cuda")
+    off = cell.trainer(shards, "fedhen", device="cuda")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    off.run_round()
+    torch.cuda.synchronize()
+    off_s = time.perf_counter() - t
+    want = [x.cpu() for x in tree_leaves(off.server.complex)]
+    del off
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem = obslib.MemorySink()
+    on = cell.trainer(shards, "fedhen", device="cuda",
+                      telemetry=obslib.Telemetry([mem]))
+    _zero_counts(ops)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    on.run_round()
+    torch.cuda.synchronize()
+    on_s = time.perf_counter() - t
+    launched = _counts(ops)
+    same = all(torch.equal(a.cpu(), b) for a, b in
+               zip(tree_leaves(on.server.complex), want))
+    roof = mem.named("roofline")
+    values = roof[0]["values"] if len(roof) == 1 else {}
+    kernels = (on._dispatch.counters or {}).get("kernels")
+    # K1 at Z = 1: acc read and written (f32), one row of the stream
+    # dtype, the bool mask, two f32 weights; 2 N flops a call
+    n = on.layout.n_flat
+    elt = torch.empty((), dtype=on.engine_spec.stream_dtype).element_size()
+    k1 = {"calls": 2, "flops": 2 * 2 * n, "bytes": 2 * ((9 + elt) * n + 8)}
+    row = {"roofline": values, "kernels": kernels, "k1_expected": k1,
+           "round_s_on": on_s, "round_s_off": off_s,
+           "walk_added_s": on_s - off_s, "launches": launched,
+           "bitwise_off": same}
+    print("  (d) roofline ledger " + json.dumps(row), flush=True)
+    if len(roof) != 1 or roof[0]["round"] != 0 or \
+            list(values) != ["flops", "hbm_bytes", "collective_bytes"] or \
+            not values["flops"] > 0 or kernels != {"masked_agg_acc": k1} or \
+            values["hbm_bytes"] < k1["bytes"] or \
+            values["flops"] < k1["flops"] or \
+            launched != (2, 0, 0, 0) or not same:
+        raise RuntimeError(f"roofline ledger on the card: {row}")
+    del on, shards, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def sharded_phase(torch, ops, unsharded=None) -> dict:
+    """Phase 19: the cohort-sharded step round over a live mesh (NCCL and
+    gloo, world size 1), chunk2d attention on the card, the roofline
+    ledger on the card.  The process group is destroyed at the end."""
+    import torch.distributed as dist
+    t = time.perf_counter()
+    dist.init_process_group(SHARD_BACKEND, rank=0, world_size=1,
+                            store=dist.HashStore(),
+                            device_id=torch.device("cuda", 0))
+    out = {"round": sharded_round(torch, ops, unsharded)}
+    out["narrow"] = sharded_card_vs_cpu(torch, ops)
+    dist.destroy_process_group()
+    out["chunk2d"] = chunk2d_card(torch)
+    out["roofline"] = roofline_card(torch, ops)
+    print(f"  phase 19 in {time.perf_counter() - t:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4381,6 +4725,15 @@ def main() -> int:
           "narrow steps card vs CPU, make_engine, gemma3-4b trained at full "
           "width, the quickstart", flush=True)
     st = steps_phase(torch, ops, ref, bw)
+    unsharded = st["round"].pop("results")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 19. the cohort-sharded round, chunk2d attention, the roofline ledger
+    print("[19] cohort-sharded step rounds over torch.distributed (NCCL and "
+          "gloo, world size 1), chunk2d attention, the roofline ledger",
+          flush=True)
+    sh = sharded_phase(torch, ops, unsharded)
+    del unsharded
 
     src = "src/repro_torch/kernels/masked_agg/csrc/"
     kernels = []
@@ -4480,6 +4833,22 @@ def main() -> int:
     kernels[0]["launches_quickstart"] = st["quickstart"]["launches"]
     kernels[0]["launches_quickstart_path"] = (
         "phase 18(e): examples/quickstart_torch.py, 3 x 36 rounds")
+    # phase 19: (a) the sharded full-width step rounds, (b) the narrow
+    # sharded steps' card runs, (d) the telemetry-on LM round
+    for i in (0, 1):
+        kernels[i]["launches_sharded"] = sh["round"]["launches"][i]
+        kernels[i]["launches_sharded_path"] = (
+            "phase 19(a): make_fed_round_step under a MeshPolicy over a live "
+            "(1, 1) DeviceMesh (NCCL), Gemma-2 2B at full width, f32 and "
+            "int8 wires")
+    for i in (0, 3):
+        kernels[i]["launches_sharded_narrow"] = sh["narrow"]["launches"][i]
+        kernels[i]["launches_sharded_narrow_path"] = (
+            "phase 19(b): the narrow sharded steps (flat, tree) on the card")
+    kernels[0]["launches_roofline"] = sh["roofline"]["launches"][0]
+    kernels[0]["launches_roofline_path"] = (
+        "phase 19(d): one LM-cell round with telemetry on (the roofline "
+        "walk)")
     k5_src = "src/repro_torch/kernels/flash_attention/csrc/"
     k5_replaces = "src/repro/kernels/flash_attention/kernel.py:83"
     for name, source, dtype, launches, path in (

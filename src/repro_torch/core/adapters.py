@@ -24,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import masking
 from repro_torch.models import common, resnet
+from repro_torch.models.common import NO_POLICY, Policy
 from repro_torch.models import transformer as tfm
 from repro_torch.tree import Tree, tree_map
 
@@ -104,10 +105,14 @@ class LMAdapter:
     the metrics read codebook 0, as the reference's do.
 
     ``remat`` checkpoints each period of the stack (the reference's
-    ``jax.checkpoint`` of its scan body)."""
+    ``jax.checkpoint`` of its scan body).  ``policy`` is the reference's
+    sharding policy, handed to every forward and head; under a ``dp2d``
+    policy the CE is computed in one piece, as the reference's is."""
 
-    def __init__(self, cfg: ModelConfig, remat: bool = False):
+    def __init__(self, cfg: ModelConfig, policy: Policy = NO_POLICY,
+                 remat: bool = False):
         self.cfg = cfg
+        self.policy = policy
         self.remat = remat
 
     def init(self, generator: torch.Generator, device) -> Tree:
@@ -143,9 +148,12 @@ class LMAdapter:
             h = h[:, extra.shape[1]:]
         b, s = h.shape[0], h.shape[1]
         nc = self.cfg.n_codebooks
+        if getattr(self.policy, "dp2d", False):
+            chunk = s     # the reference's one-piece CE under dp2d
 
         def nll_sum(h_c, lab_c):
-            logits = tfm.logits_from_hidden(params, self.cfg, h_c, head)
+            logits = tfm.logits_from_hidden(params, self.cfg, h_c, head,
+                                            self.policy)
             if nc == 1:
                 return common.softmax_cross_entropy_sum(logits, lab_c)
             total = common.softmax_cross_entropy_sum(logits[..., 0, :],
@@ -168,14 +176,16 @@ class LMAdapter:
     def loss_complex(self, params: Tree, batch: Batch) -> torch.Tensor:
         inputs, labels, extra = self._inputs(batch)
         _, final_h, aux = tfm.forward(params, self.cfg, inputs,
-                                      extra_embeds=extra, remat=self.remat)
+                                      extra_embeds=extra, policy=self.policy,
+                                      remat=self.remat)
         loss = self._head_loss(params, final_h, labels, "final", extra=extra)
         return loss + aux["load_balance"] + aux["router_z"]
 
     def loss_simple(self, params: Tree, batch: Batch) -> torch.Tensor:
         inputs, labels, extra = self._inputs(batch)
         exit_h = tfm.forward_simple(params, self.cfg, inputs,
-                                    extra_embeds=extra, remat=self.remat)
+                                    extra_embeds=extra, policy=self.policy,
+                                    remat=self.remat)
         return self._head_loss(params, exit_h, labels, "exit", extra=extra)
 
     def loss_side(self, params: Tree, batch: Batch) -> torch.Tensor:
@@ -183,6 +193,7 @@ class LMAdapter:
         inputs, labels, extra = self._inputs(batch)
         exit_h, final_h, aux = tfm.forward(params, self.cfg, inputs,
                                            extra_embeds=extra,
+                                           policy=self.policy,
                                            remat=self.remat)
         loss = (self._head_loss(params, final_h, labels, "final",
                                 extra=extra)
@@ -212,11 +223,13 @@ class LMAdapter:
             lab = labels[r:r + rows]
             exit_h, final_h, _ = tfm.forward(
                 params, self.cfg, inputs[r:r + rows],
-                extra_embeds=None if extra is None else extra[r:r + rows])
+                extra_embeds=None if extra is None else extra[r:r + rows],
+                policy=self.policy)
             for name, head, h in (("complex", "final", final_h),
                                   ("simple", "exit", exit_h)):
                 logits = tfm.logits_from_hidden(params, self.cfg,
-                                                h[:, n_extra:], head)
+                                                h[:, n_extra:], head,
+                                                self.policy)
                 if nc > 1:
                     logits = logits[..., 0, :]
                 hits[name] = hits[name] + (logits.argmax(-1) == lab.long()

@@ -26,6 +26,11 @@ The port of ``repro.core.aggregate``'s three entry points:
 SCAFFOLD adds a flat ``cv_acc`` to either state: the control-variate
 deltas fold through one more K1 launch (:func:`_fold_cv`) on both engines.
 
+:func:`allreduce_state` sums either state across the ranks of a process
+group, in place, in one coalesced ``all_reduce(SUM)``: the cohort-sharded
+round step (``launch/steps.py``) folds each rank's clients into its own
+state and then sums the states, which is the round's all-reduce.
+
 :class:`EngineSpec` is the reference's one frozen description of a fold
 engine, built once per trainer from its ``FedConfig``;
 :func:`engine_attrs` turns it into the plain scalars of the telemetry
@@ -497,6 +502,44 @@ def tree_streaming_finalize(state: TreeStreamState, leaf_masks: Tree,
         return (tree_map(lambda a, t: (a * inv_out).to(t.dtype),
                          state.acc_out, template), combined)
     return combined, None
+
+
+# ---------------------------------------------------------------------------
+# Summing engine states across ranks (the cohort-sharded round)
+# ---------------------------------------------------------------------------
+
+def state_tensors(state) -> list:
+    """Every tensor of a :class:`StreamState` or :class:`TreeStreamState`
+    that a fold adds into: the accumulator(s) (a tree state's ``acc`` is
+    views of ``acc_flat``; its decouple ``acc_out`` leaves each count),
+    the weight totals and SCAFFOLD's ``cv_acc``."""
+    if isinstance(state, TreeStreamState):
+        accs = [state.acc_flat] + ([] if state.acc_out is None
+                                   else tree_leaves(state.acc_out))
+    else:
+        accs = [state.acc] + ([] if state.acc_out is None
+                              else [state.acc_out])
+    return accs + [state.tot_in, state.tot_out] + (
+        [] if state.cv_acc is None else [state.cv_acc])
+
+
+def allreduce_bytes(state, *extra: torch.Tensor) -> int:
+    """Bytes :func:`allreduce_state` sums for ``state`` and ``extra``."""
+    return sum(t.numel() * t.element_size()
+               for t in state_tensors(state) + list(extra))
+
+
+def allreduce_state(state, group, *extra: torch.Tensor):
+    """Sum :func:`state_tensors` of ``state`` and the ``extra`` tensors
+    (the round's loss sum) across ``group``'s ranks, in place, as one
+    coalesced ``all_reduce(SUM)``; returns ``state``.  On one rank the
+    sum is the identity, bit for bit."""
+    import torch.distributed as dist
+    tensors = state_tensors(state) + list(extra)
+    with dist._coalescing_manager(group=group):
+        for t in tensors:
+            dist.all_reduce(t, group=group)
+    return state
 
 
 # ---------------------------------------------------------------------------

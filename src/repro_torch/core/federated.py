@@ -50,9 +50,11 @@ comm / client-state / store ledgers; ``run`` adds the ``eval`` ledger and
 the ``log`` line.  ``execute`` covers what the reference's one jitted
 round covers (broadcast through finalize); the store scatters, the
 client-state record and the server's publication follow it, as in the
-reference.  The reference's ``roofline`` ledger (a walk of the compiled
-HLO) has no counterpart yet.  Off (the default, :data:`obslib.NOOP`), no
-event is built and nothing is synchronized.
+reference.  The first round runs under the roofline walk
+(``roofline/torch_walk.py``, the counterpart of the reference's walk of its
+compiled HLO) and emits one ``roofline`` ledger (``flops``, ``hbm_bytes``,
+``collective_bytes``) before its ``execute`` span ends.  Off (the default,
+:data:`obslib.NOOP`), no event is built and nothing is synchronized.
 
 **Minibatch order.**  The reference draws each epoch's permutation from
 threefry keys that PyTorch cannot reproduce, so the client trainer takes
@@ -499,12 +501,29 @@ class RoundDispatch:
     AOT compile; the CPU has no kernels to load and emits no ``compile``.
     Every call runs under an ``execute`` span that ends in
     ``torch.cuda.synchronize()`` on the card, so it measures the round's
-    device work and not only the host's launches."""
+    device work and not only the host's launches.  The first call runs
+    the step under the roofline walk and emits the ``roofline`` ledger
+    (the reference's ``_emit_roofline``, in its key order; its
+    ``xla_flops``, XLA's own cost analysis, has no counterpart); the
+    walk's full counters stay in ``counters``.  The walk
+    only observes: the round's results are bitwise those of a round
+    without it."""
 
     def __init__(self, obs: obslib.Telemetry, device: torch.device):
         self.obs = obs
         self.device = device
         self.loaded = False
+        self.walked = False
+        self.counters = None    # the walk's counters, once it has run
+
+    def _walk(self, step, *args):
+        from repro_torch.roofline import torch_walk
+        out, counters = torch_walk.walk(step, *args)
+        self.counters = counters
+        self.obs.ledger("roofline", {
+            "flops": counters["flops"], "hbm_bytes": counters["hbm_bytes"],
+            "collective_bytes": counters["total_collective_bytes"]})
+        return out
 
     def __call__(self, step, *args):
         obs = self.obs
@@ -515,7 +534,11 @@ class RoundDispatch:
                 build.load()
         self.loaded = True
         with obs.span("execute"):
-            out = step(*args)
+            if self.walked:
+                out = step(*args)
+            else:
+                self.walked = True
+                out = self._walk(step, *args)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         return out

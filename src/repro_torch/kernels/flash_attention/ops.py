@@ -10,7 +10,11 @@ plain version (``ref.py``).  On CUDA tensors it picks a kernel by dtype,
 explicitly: bf16 launches the tensor-core kernel (wgmma, planned by
 :func:`plan_wgmma`), f32 the CUDA-core kernel (planned by
 :func:`plan_f32`), which keeps f32 products; anything the kernels do not
-take raises — there is no fallback.  ``flash_attention.launches_tc`` and
+take raises — there is no fallback.  On ``meta`` tensors (the dry-runs) it
+returns the output's shape and dtype and computes nothing, and on every
+device it reports its work to an active roofline walk
+(``kernels/work.py``): 4 Dh flops a kept (query, key) pair and head, the
+bytes of q, k, v and the output.  ``flash_attention.launches_tc`` and
 ``flash_attention.launches`` count the tensor-core and the CUDA-core
 kernel's launches (never plain-version calls), so a run can show which
 kernel its prefill went through.
@@ -24,7 +28,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, work
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -173,7 +177,7 @@ def _check(q, k, v, window: int, softcap: float) -> None:
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if len({q.device, k.device, v.device}) != 1:
         raise ValueError("q, k and v must share a device")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
     if q.requires_grad or k.requires_grad or v.requires_grad:
         raise ValueError("flash_attention is forward only, as the TPU "
@@ -181,6 +185,14 @@ def _check(q, k, v, window: int, softcap: float) -> None:
     if window < 0 or softcap < 0:
         raise ValueError(f"window and softcap must be >= 0, got {window}, "
                          f"{softcap}")
+
+
+def causal_pairs(s: int, window: int) -> int:
+    """(query, key) pairs a causal window keeps: key j <= query i and,
+    when windowed, i - j < window."""
+    if not window or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -197,6 +209,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     cores; the kernel launches on the current stream and does not
     synchronise."""
     _check(q, k, v, window, softcap)
+    b, s, h, dh = q.shape
+    with work.kernel("flash_attention", 4 * dh * causal_pairs(s, window)
+                     * b * h, 2 * work.nbytes(q) + work.nbytes(k, v)):
+        return _flash_attention(q, k, v, window, softcap)
+
+
+def _flash_attention(q, k, v, window: int, softcap: float) -> torch.Tensor:
+    if q.device.type == "meta":
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, window=window, softcap=softcap)
     b, s, h, dh = q.shape
@@ -210,11 +231,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("q, k and v must be 16-byte aligned")
     if s >= 2**31:
         raise ValueError(f"S = {s} is beyond the kernels' indexing")
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
+    if q.numel() == 0:
+        return torch.empty_like(q)
     tc = q.dtype == torch.bfloat16
     plan = (plan_wgmma if tc else plan_f32)(b, s, h, kh, dh, q.dtype)
+    out = torch.empty_like(q)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -24,9 +24,14 @@ The other folds update the f32 accumulator in place:
   rows' segment bounds per span, then the fold).
 
 On CPU tensors each runs its plain version (``ref.py``); on CUDA tensors it
-launches its kernel or raises — there is no fallback.  Each wrapper's
-``launches`` counts its kernel launches (never plain-version calls), so a
-run can show that its folds went through the kernels.
+launches its kernel or raises — there is no fallback.  On ``meta`` tensors
+(the dry-runs) it returns its result's shape and dtype and computes
+nothing: a ``meta`` tensor has no values for any implementation to fold.
+Each wrapper's ``launches`` counts its kernel launches (never
+plain-version calls), so a run can show that its folds went through the
+kernels; and each reports its work, whatever the device, to an active
+roofline walk (``kernels/work.py``): the flops of its gated
+multiply-adds and the bytes of its operands and results.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, work
 from repro_torch.kernels.masked_agg.ref import (masked_agg_acc_deq_ref,
                                                 masked_agg_acc_ref,
                                                 masked_agg_fold_ref,
@@ -53,6 +58,7 @@ _MAX_SCATTER_ROWS = 6144     # a K3 block keeps 8 bytes of every row in
 TILE = 512                   # elements of one K4 work item (kTile)
 SCATTER_STAGE = 2048         # entries a K3 block stages at once (kStage)
 SCATTER_SPAN = (1024, 4096)  # least and most acc positions of a K3 block
+_DEVICES = ("cpu", "cuda", "meta")
 
 
 @functools.lru_cache(maxsize=None)
@@ -99,7 +105,7 @@ def _check_common(acc, mask, w_m, w_rest, z: int, *others) -> None:
     if len({t.device for t in tensors}) != 1:
         raise ValueError("all inputs must share a device, got "
                          f"{[str(t.device) for t in tensors]}")
-    if acc.device.type not in ("cpu", "cuda"):
+    if acc.device.type not in _DEVICES:
         raise ValueError(f"unsupported device {acc.device}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("all inputs must be contiguous")
@@ -138,6 +144,18 @@ def masked_agg_acc_(acc: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
     current stream of ``acc``'s device and does not synchronise."""
     _check(acc, x, mask, w_m, w_rest)
     z, n = x.shape
+    with work.kernel("masked_agg_acc", 2 * z * n,
+                     2 * work.nbytes(acc) + work.nbytes(x, mask, w_m, w_rest)):
+        return _masked_agg_acc(acc, x, mask, w_m, w_rest)
+
+
+masked_agg_acc_.launches = 0
+
+
+def _masked_agg_acc(acc, x, mask, w_m, w_rest):
+    z, n = x.shape
+    if acc.device.type == "meta":
+        return acc
     if acc.device.type == "cpu":
         return acc.copy_(masked_agg_acc_ref(acc, x, mask, w_m, w_rest))
     if z == 0 or n == 0:
@@ -156,9 +174,6 @@ def masked_agg_acc_(acc: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
     _raise_on(err, "masked_agg_acc")
     masked_agg_acc_.launches += 1
     return acc
-
-
-masked_agg_acc_.launches = 0
 
 
 def masked_agg_acc_deq_(acc: torch.Tensor, q: torch.Tensor,
@@ -188,6 +203,21 @@ def masked_agg_acc_deq_(acc: torch.Tensor, q: torch.Tensor,
         raise ValueError(f"scales must be f32 {(z, n // quant_block)}, got "
                          f"{scales.dtype} {tuple(scales.shape)}")
     _check_common(acc, mask, w_m, w_rest, z, q, scales)
+    with work.kernel("masked_agg_acc_deq", 3 * z * n,
+                     2 * work.nbytes(acc)
+                     + work.nbytes(q, scales, mask, w_m, w_rest)):
+        return _masked_agg_acc_deq(acc, q, scales, mask, w_m, w_rest,
+                                   quant_block, log2_qb)
+
+
+masked_agg_acc_deq_.launches = 0
+
+
+def _masked_agg_acc_deq(acc, q, scales, mask, w_m, w_rest, quant_block,
+                        log2_qb):
+    z, n = q.shape
+    if acc.device.type == "meta":
+        return acc
     if acc.device.type == "cpu":
         return acc.copy_(masked_agg_acc_deq_ref(
             acc, q, scales, mask, w_m, w_rest, quant_block=quant_block))
@@ -205,9 +235,6 @@ def masked_agg_acc_deq_(acc: torch.Tensor, q: torch.Tensor,
     _raise_on(err, "masked_agg_acc_deq")
     masked_agg_acc_deq_.launches += 1
     return acc
-
-
-masked_agg_acc_deq_.launches = 0
 
 
 def scatter_span(n: int, z: int, k: int) -> int:
@@ -268,6 +295,23 @@ def masked_scatter_acc_(acc: torch.Tensor, values: torch.Tensor,
     if n >= 2**31 or z > _MAX_SCATTER_ROWS:
         raise ValueError(f"N={n} or Z={z} beyond the kernel's range "
                          f"(N < 2**31, Z <= {_MAX_SCATTER_ROWS})")
+    # each entry reads and writes its acc element and reads its mask bit
+    with work.kernel("masked_scatter_acc", (2 if scales is None else 3)
+                     * z * k, z * k * (8 + mask.element_size())
+                     + work.nbytes(values, indices, scales, w_m, w_rest)):
+        return _masked_scatter_acc(acc, values, scales, indices, mask, w_m,
+                                   w_rest, quant_block, log2_qb)
+
+
+masked_scatter_acc_.launches = 0
+
+
+def _masked_scatter_acc(acc, values, scales, indices, mask, w_m, w_rest,
+                        quant_block, log2_qb):
+    z, k = values.shape
+    n = acc.shape[0]
+    if acc.device.type == "meta":
+        return acc
     if acc.device.type == "cpu":
         return acc.copy_(masked_scatter_acc_ref(
             acc, values, scales, indices, mask, w_m, w_rest,
@@ -291,9 +335,6 @@ def masked_scatter_acc_(acc: torch.Tensor, values: torch.Tensor,
     return acc
 
 
-masked_scatter_acc_.launches = 0
-
-
 class FoldPlan(NamedTuple):
     """K4's work over one packed layout, on one device.
 
@@ -304,10 +345,12 @@ class FoldPlan(NamedTuple):
     padding is never written).  ``items`` (n_items, 2) int32 rows ``(leaf,
     tile)``: tile ``t`` covers the leaf's elements ``[t * TILE, (t + 1) *
     TILE)``, cut at its end.  ``length``: the least row, accumulator and
-    mask length the tables address."""
+    mask length the tables address.  ``elements``: the leaves' sizes
+    summed (the elements one row folds)."""
     leaves: torch.Tensor
     items: torch.Tensor
     length: int
+    elements: int
 
 
 def fold_tables(slots) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -333,7 +376,8 @@ def fold_plan(layout, device) -> FoldPlan:
     if key not in _PLANS:
         leaves, items = fold_tables(layout.slots)
         end = int((leaves[:, 0] + leaves[:, 1]).max()) if len(leaves) else 0
-        _PLANS[key] = FoldPlan(leaves.to(device), items.to(device), end)
+        _PLANS[key] = FoldPlan(leaves.to(device), items.to(device), end,
+                               int(leaves[:, 1].sum()))
     return _PLANS[key]
 
 
@@ -380,6 +424,19 @@ def masked_agg_fold_(acc: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
                          f"{tuple(acc.shape)}")
     _check_common(acc, mask, w_m, w_rest, x.shape[0], x, plan.leaves,
                   plan.items)
+    z, e = x.shape[0], plan.elements
+    with work.kernel("masked_agg_fold", 2 * z * e, e * (
+            z * x.element_size() + 2 * acc.element_size()
+            + mask.element_size()) + work.nbytes(w_m, w_rest)):
+        return _masked_agg_fold(acc, x, mask, w_m, w_rest, plan)
+
+
+masked_agg_fold_.launches = 0
+
+
+def _masked_agg_fold(acc, x, mask, w_m, w_rest, plan):
+    if acc.device.type == "meta":
+        return acc
     if acc.device.type == "cpu":
         return acc.copy_(masked_agg_fold_ref(acc, x, mask, w_m, w_rest,
                                              plan.leaves))
@@ -388,9 +445,6 @@ def masked_agg_fold_(acc: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
     _launch_fold(acc, x, mask, w_m, w_rest, plan, 0, accumulate=True)
     masked_agg_fold_.launches += 1
     return acc
-
-
-masked_agg_fold_.launches = 0
 
 
 def masked_agg_(x: torch.Tensor, mask: torch.Tensor, w_m: torch.Tensor,
@@ -421,21 +475,30 @@ def masked_agg_(x: torch.Tensor, mask: torch.Tensor, w_m: torch.Tensor,
     if len({t.device for t in tensors}) != 1:
         raise ValueError("all inputs must share a device, got "
                          f"{[str(t.device) for t in tensors]}")
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in _DEVICES:
         raise ValueError(f"unsupported device {x.device}")
     if not all(t.is_contiguous() for t in tensors[1:]):
         raise ValueError("mask and weights must be contiguous")
+    with work.kernel("masked_agg", 2 * z * n, z * n * x.element_size()
+                     + n * x.element_size() + work.nbytes(mask, w_m, w_rest)):
+        return _masked_agg(x, mask, w_m, w_rest)
+
+
+masked_agg_.launches = 0
+
+
+def _masked_agg(x, mask, w_m, w_rest):
+    z, n = x.shape
     if x.device.type == "cpu":
         return masked_agg_ref(x, mask, w_m, w_rest)
     out = torch.empty((n,), dtype=x.dtype, device=x.device)
+    if x.device.type == "meta":
+        return out
     if z == 0 or n == 0:
         return out.zero_()
     _launch_fold(out, x, mask, w_m, w_rest, None, n, accumulate=False)
     masked_agg_.launches += 1
     return out
-
-
-masked_agg_.launches = 0
 
 
 def masked_agg_leaf(x: torch.Tensor, mask, w_m: torch.Tensor,

@@ -10,7 +10,13 @@ the scan, in one launch, which is what the reference's prefill gives the
 TPU kernel (``repro.models.rglru.lru_scan``, whose gates XLA fuses into
 one pass).  On CPU tensors both run their plain versions (``ref.py``); on
 CUDA tensors they launch the kernel, planned by :func:`scan_plan`, or
-raise — there is no fallback.  ``lru_scan.launches`` and
+raise — there is no fallback.  On ``meta`` tensors (the dry-runs) they
+return the output's shape and dtype and compute nothing.  Each reports its
+work, whatever the device, to an active roofline walk
+(``kernels/work.py``): the bytes of its operands and result, and 2 flops
+an element for the recurrence's multiply-add (the gated entry 6: the two
+gates' affine maps too; its transcendentals are not counted as flops).
+``lru_scan.launches`` and
 ``lru_scan_gated.launches`` count each entry's launches of K6 (never
 plain-version calls).  The model's prefill runs K6 through the gated entry
 only; the plain one is the TPU kernel's own contract, which the tests and
@@ -25,7 +31,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, work
 from repro_torch.kernels.rglru_scan.ref import (lru_scan_gated_ref,
                                                 lru_scan_ref)
 
@@ -134,7 +140,7 @@ def lru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.dtype not in _DTYPES or b.dtype != a.dtype:
         raise ValueError(f"a and b must both be float32 or both bfloat16, "
                          f"got {a.dtype} and {b.dtype}")
-    if a.device != b.device or a.device.type not in ("cpu", "cuda"):
+    if a.device != b.device or a.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"a and b must share a cpu or cuda device, got "
                          f"{a.device} and {b.device}")
     if a.requires_grad or b.requires_grad:
@@ -142,6 +148,16 @@ def lru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                          "inputs must not require grad")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("a and b must be contiguous")
+    with work.kernel("lru_scan", 2 * a.numel(), 3 * work.nbytes(a)):
+        return _lru_scan(a, b)
+
+
+lru_scan.launches = 0
+
+
+def _lru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if a.device.type == "meta":
+        return torch.empty_like(a)
     if a.device.type == "cpu":
         return lru_scan_ref(a, b)
     bsz, s, d = a.shape
@@ -159,9 +175,6 @@ def lru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _raise_on(lib, err, "lru_scan")
     lru_scan.launches += 1
     return y
-
-
-lru_scan.launches = 0
 
 
 def lru_scan_gated(x: torch.Tensor, w_r: torch.Tensor, b_r: torch.Tensor,
@@ -186,7 +199,7 @@ def lru_scan_gated(x: torch.Tensor, w_r: torch.Tensor, b_r: torch.Tensor,
                          f"{tuple(y0.shape)} {y0.dtype}")
     ts = (x, *vecs) + (() if y0 is None else (y0,))
     if any(t.device != x.device for t in ts) or x.device.type not in (
-            "cpu", "cuda"):
+            "cpu", "cuda", "meta"):
         raise ValueError(f"x, the gate vectors and y0 must share a cpu or "
                          f"cuda device, got {[str(t.device) for t in ts]}")
     if any(t.requires_grad for t in ts):
@@ -194,6 +207,19 @@ def lru_scan_gated(x: torch.Tensor, w_r: torch.Tensor, b_r: torch.Tensor,
                          "is: inputs must not require grad")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("x, the gate vectors and y0 must be contiguous")
+    with work.kernel("lru_scan_gated", 6 * x.numel(),
+                     2 * work.nbytes(x) + work.nbytes(*vecs, y0)):
+        return _lru_scan_gated(x, w_r, b_r, w_i, b_i, c, y0)
+
+
+lru_scan_gated.launches = 0
+
+
+def _lru_scan_gated(x, w_r, b_r, w_i, b_i, c, y0) -> torch.Tensor:
+    vecs = (w_r, b_r, w_i, b_i, c)
+    bsz, s, d = x.shape
+    if x.device.type == "meta":
+        return torch.empty_like(x)
     if x.device.type == "cpu":
         return lru_scan_gated_ref(x, w_r, b_r, w_i, b_i, c, y0)
     y = torch.empty_like(x)
@@ -211,9 +237,6 @@ def lru_scan_gated(x: torch.Tensor, w_r: torch.Tensor, b_r: torch.Tensor,
     _raise_on(lib, err, "lru_scan_gated")
     lru_scan_gated.launches += 1
     return y
-
-
-lru_scan_gated.launches = 0
 
 
 def kernel_layout(gated: bool, dtype: torch.dtype, lib=None) -> tuple:

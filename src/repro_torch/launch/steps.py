@@ -9,10 +9,23 @@
 * ``make_serve_step`` — one token against a cache (decode shapes).
 * ``step_for_shape`` — the step an ``InputShape`` exercises.
 
-The reference's factories also take a sharding ``policy``.  The port has no
-sharding policy yet (``launch/mesh.py`` and ``launch/sharding.py`` are not
-ported), so these take none until the sharding slice adds that argument.
-A step runs on the device of the tensors it is given.
+Each factory takes the reference's sharding ``policy`` (default
+``NO_POLICY``: today's step, call for call) and hands it to the adapter or
+the model.  A step runs on the device of the tensors it is given.
+
+**The cohort-sharded round.**  Given a ``sharding.MeshPolicy`` over a live
+``DeviceMesh`` (``mesh.make_device_mesh``), ``make_fed_round_step`` splits
+each chunk's client axis over the data ranks as DTensor's ``Shard(0)``
+splits it (contiguous; uneven, or empty, where the chunk does not divide):
+each rank reads its clients' rows of the cohort, ``data``, ``is_simple``,
+``staleness`` and ``real``, trains them and folds them into its own engine
+state.  After the last chunk one ``all_reduce(SUM)`` over the data group
+(``aggregate.allreduce_state``) sums the states and the loss sum, and every
+rank finalizes the same new model.  This is the reference's communication
+pattern: its ``cohort`` rule shards the chunk over data, and the fold's
+reduction of that axis is the round's all-reduce.  On one rank it is
+bitwise the unsharded step (the same launches fold the same rows in the
+same order, and a one-rank sum is the identity).
 
 Where the reference ``vmap``s a chunk's clients and ``scan``s the chunks,
 the round step loops over both in Python, training one client at a time;
@@ -44,7 +57,9 @@ import torch
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.core import aggregate, async_rounds, comm, flatten, masking
 from repro_torch.core.adapters import LMAdapter
+from repro_torch.launch import sharding
 from repro_torch.models import transformer as tfm
+from repro_torch.models.common import NO_POLICY, Policy
 from repro_torch.obs import telemetry as obslib
 from repro_torch.optim.sgd import sgd_update
 from repro_torch.tree import Tree, tree_flatten, tree_map, tree_unflatten
@@ -70,12 +85,12 @@ def _sgd(params: Tree, grads: Tree, lr: float, clip_norm: float) -> Tree:
         return sgd_update(params, grads, lr, clip_norm)
 
 
-def make_train_step(cfg: ModelConfig, *, lr: float = 0.1,
-                    clip_norm: float = 10.0, side_objective: bool = True,
-                    remat: bool = True):
+def make_train_step(cfg: ModelConfig, policy: Policy = NO_POLICY, *,
+                    lr: float = 0.1, clip_norm: float = 10.0,
+                    side_objective: bool = True, remat: bool = True):
     """``train_step(params, batch) -> (new_params, {"loss": loss})``; the
     input params are not modified (they are detached first)."""
-    adapter = LMAdapter(cfg, remat=remat)
+    adapter = LMAdapter(cfg, policy=policy, remat=remat)
     loss_fn = adapter.loss_side if side_objective else adapter.loss_complex
 
     def train_step(params: Tree, batch: Batch):
@@ -86,8 +101,9 @@ def make_train_step(cfg: ModelConfig, *, lr: float = 0.1,
     return train_step
 
 
-def make_fed_round_step(cfg: ModelConfig, *, local_steps: int,
-                        lr: float = 0.1, clip_norm: float = 10.0,
+def make_fed_round_step(cfg: ModelConfig, policy: Policy = NO_POLICY, *,
+                        local_steps: int, lr: float = 0.1,
+                        clip_norm: float = 10.0,
                         cohort_chunk: int = 0,
                         engine: Optional[aggregate.EngineSpec] = None,
                         staleness_scheme: str = "poly",
@@ -127,8 +143,13 @@ def make_fed_round_step(cfg: ModelConfig, *, local_steps: int,
 
     ``telemetry`` records one ``round_step_build`` ledger with the step's
     static configuration and :func:`aggregate.engine_attrs` of its spec.
+
+    ``policy``: a ``MeshPolicy`` over a live mesh shards each chunk's
+    clients over its data ranks and all-reduces the fold (module
+    docstring); any other policy runs the whole cohort here.
     """
-    adapter = LMAdapter(cfg, remat=True)
+    adapter = LMAdapter(cfg, policy=policy, remat=True)
+    sharded = getattr(policy, "device_mesh", None) is not None
     legacy = {"agg_engine": agg_engine, "agg_block_n": agg_block_n,
               "comm_dtype": comm_dtype, "quant_block": quant_block}
     if any(v is not None for v in legacy.values()):
@@ -210,15 +231,30 @@ def make_fed_round_step(cfg: ModelConfig, *, local_steps: int,
         else:
             denom = torch.tensor(float(k), dtype=torch.float32,
                                  device=device)
+        # host reads of the flags come from the tensor as given: a dry-run
+        # passes them on the CPU beside meta tensors
+        flags = is_simple
         is_simple = is_simple.to(device)
-        simple_host = is_simple.tolist()
+        # the rows of each chunk this rank trains: all of them, or its
+        # Shard(0) share of the chunk's client axis
+        rows = [(start, start + chunk) for start in range(0, k, chunk)]
+        if sharded:
+            index, parts = policy.data_coordinate()
+            rows = [tuple(start + r for r in sharding.shard_rows(
+                chunk, index, parts)) for start, _ in rows]
+            mine = [z for lo, hi in rows for z in range(lo, hi)]
+            simple_host = dict(zip(mine, flags[mine].tolist()))
+        else:
+            simple_host = flags.tolist()
 
         state = agg_init(template)
         loss_sum = torch.zeros((), dtype=torch.float32, device=device)
-        for start in range(0, k, chunk):
+        for lo, hi in rows:
+            if hi == lo:
+                continue
             trained = [client_train(tree_map(lambda x: x[z], cohort),
                                     data[z], simple_host[z])
-                       for z in range(start, start + chunk)]
+                       for z in range(lo, hi)]
             valid = torch.stack([masking.tree_isfinite(p)
                                  for p, _ in trained])
             losses = torch.stack([loss.to(torch.float32)
@@ -229,20 +265,22 @@ def make_fed_round_step(cfg: ModelConfig, *, local_steps: int,
                 lambda *xs: xs[0][None] if len(xs) == 1
                 else torch.stack(xs), *[p for p, _ in trained])
             del trained
-            sl = slice(start, start + chunk)
+            sl = slice(lo, hi)
             state = agg_fold(state, stacked, is_simple[sl],
                              valid.to(torch.float32) * st_w[sl])
             del stacked
             if real is not None:
                 losses = torch.where(real_f[sl] > 0, losses, 0.0)
             loss_sum = loss_sum + losses.sum()
+        if sharded:
+            aggregate.allreduce_state(state, policy.data_group(), loss_sum)
         new_complex, _ = agg_finalize(state, template=template)
         return new_complex, loss_sum / denom
 
     return round_step
 
 
-def make_prefill_step(cfg: ModelConfig, *,
+def make_prefill_step(cfg: ModelConfig, policy: Policy = NO_POLICY, *,
                       window_override: Optional[int] = None,
                       cache_len: Optional[int] = None):
     """``prefill_step(params, batch) -> (logits, cache)``; ``batch`` holds
@@ -251,13 +289,14 @@ def make_prefill_step(cfg: ModelConfig, *,
         with torch.no_grad():
             return tfm.prefill(params, cfg, batch["tokens"],
                                extra_embeds=batch.get("extra_embeds"),
+                               policy=policy,
                                window_override=window_override,
                                cache_len=cache_len)
 
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig, *,
+def make_serve_step(cfg: ModelConfig, policy: Policy = NO_POLICY, *,
                     window_override: Optional[int] = None,
                     with_exit_head: bool = False):
     """``serve_step(params, cache, batch, pos) -> (logits, cache[,
@@ -266,18 +305,21 @@ def make_serve_step(cfg: ModelConfig, *,
     def serve_step(params: Tree, cache: Tree, batch: Batch, pos: int):
         with torch.no_grad():
             return tfm.decode_step(params, cache, cfg, batch["tokens"], pos,
+                                   policy=policy,
                                    window_override=window_override,
                                    with_exit_head=with_exit_head)
 
     return serve_step
 
 
-def step_for_shape(cfg: ModelConfig, shape: InputShape, *,
+def step_for_shape(cfg: ModelConfig, shape: InputShape,
+                   policy: Policy = NO_POLICY, *,
                    window_override: Optional[int] = None,
                    side_objective: bool = True):
     """The step function a given input shape exercises."""
     if shape.kind == "train":
-        return make_train_step(cfg, side_objective=side_objective)
+        return make_train_step(cfg, policy, side_objective=side_objective)
     if shape.kind == "prefill":
-        return make_prefill_step(cfg, window_override=window_override)
-    return make_serve_step(cfg, window_override=window_override)
+        return make_prefill_step(cfg, policy,
+                                 window_override=window_override)
+    return make_serve_step(cfg, policy, window_override=window_override)

@@ -19,9 +19,14 @@ parameters, and the caller picks one:
   harmless); global layers keep the full cache.  The port updates the
   cache in place (the reference returns a new one).
 
-The reference's ``chunk2d_attention`` is mesh-only and is not ported yet
-(ROADMAP.md §1).  Shapes: hidden (B, S, D); q (B, S, H, Dh); k/v
-(B, S, Kh, Dh).
+Both full-sequence paths take the reference's sharding ``policy``.  Under
+a ``seq2d`` policy (``launch/sharding.MeshPolicy``) training runs
+:func:`chunk2d_attention` instead, plain PyTorch as the reference computes
+it in XLA ops: the reference's sequence-parallel form, whose query chunks
+its policy shards over ``model``.  Prefill walks it only on ``meta``
+tensors (the dry-runs); with values it keeps K5, since no live sequence
+split exists yet (``ROADMAP.md`` §1, the model-axis item).  Shapes: hidden (B, S, D); q (B, S, H,
+Dh); k/v (B, S, Kh, Dh).
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import common
+from repro_torch.models.common import NO_POLICY, Policy
 
 NEG_INF = -2.0 ** 30  # large-but-finite: keeps fully-masked rows NaN-free
 
@@ -151,6 +157,61 @@ def chunked_causal_attention(q, k, v, *, window: int = 0,
     return _merge_gqa(torch.cat(outs, dim=1))
 
 
+def chunk2d_attention(q, k, v, *, window: int = 0, softcap_val: float = 0.0,
+                      q_chunk: int = 512, k_chunk: int = 2048,
+                      policy: Policy = NO_POLICY) -> torch.Tensor:
+    """Sequence-parallel flash attention in plain PyTorch (the reference's
+    XLA-level form).
+
+    q is reshaped to (B, NC, Lq, Kh, G, Dh), its chunk axis named
+    ``seq_chunks`` for the policy; k and v are consumed whole.  An
+    online-softmax loop over k-blocks of ``k_chunk`` keys bounds the live
+    score tile: scores in f32, the running max and sum in f32, ``p`` cast
+    to v's dtype before the PV product, which accumulates in f32.  When
+    ``q_chunk`` or ``k_chunk`` does not divide S it falls back to
+    :func:`chunked_causal_attention`, as the reference does."""
+    b, s, h, dh = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    if s % q_chunk or s % k_chunk:
+        return chunked_causal_attention(q, k, v, window=window,
+                                        softcap_val=softcap_val,
+                                        q_chunk=min(q_chunk, s))
+    nc = s // q_chunk
+    dev = q.device
+    qc = q.reshape(b, nc, q_chunk, kh, g, dh)
+    qc = policy.constrain(qc, ("batch", "seq_chunks", None, None, None,
+                               None)).float()
+    scale = dh ** -0.5
+    q_pos = (torch.arange(nc, device=dev)[:, None] * q_chunk
+             + torch.arange(q_chunk, device=dev)[None, :])      # (NC, Lq)
+    shape5 = (b, nc, q_chunk, kh, g)
+    m = torch.full(shape5, NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros(shape5, dtype=torch.float32, device=dev)
+    acc = torch.zeros(shape5 + (dh,), dtype=torch.float32, device=dev)
+    for kc in range(s // k_chunk):
+        kb = k[:, kc * k_chunk:(kc + 1) * k_chunk]
+        vb = v[:, kc * k_chunk:(kc + 1) * k_chunk]
+        logits = torch.einsum("bnqkgd,bskd->bnqkgs", qc, kb.float()) * scale
+        logits = common.softcap(logits, softcap_val)
+        k_pos = kc * k_chunk + torch.arange(k_chunk, device=dev)
+        delta = q_pos[..., None] - k_pos[None, None, :]
+        mask = delta >= 0
+        if window:
+            mask &= delta < window
+        logits = torch.where(mask[None, :, :, None, None, :], logits,
+                             NEG_INF)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        p = torch.exp(logits - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bnqkgs,bskd->bnqkgd", p.to(vb.dtype).float(), vb.float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return _merge_gqa(out.to(q.dtype).reshape(b, s, kh, g, dh))
+
+
 # ---------------------------------------------------------------------------
 # Full layer application
 # ---------------------------------------------------------------------------
@@ -168,24 +229,60 @@ def _project_qkv(p, h_in, cfg: ModelConfig, positions):
     return q, k, v
 
 
+def _seq2d(q, k, v, cfg: ModelConfig, window: int, q_chunk: int,
+           policy: Policy):
+    """The reference's ``seq2d`` branch: q, k and v constrained
+    sequence-sharded, then k and v batch-sharded only, then
+    :func:`chunk2d_attention`."""
+    q = policy.constrain(q, ("batch", "seq", None, None))
+    k = policy.constrain(k, ("batch", "seq", None, None))
+    v = policy.constrain(v, ("batch", "seq", None, None))
+    k = policy.constrain(k, ("batch", None, None, None))
+    v = policy.constrain(v, ("batch", None, None, None))
+    return chunk2d_attention(q, k, v, window=window,
+                             softcap_val=cfg.attn_logit_softcap,
+                             q_chunk=q_chunk, policy=policy)
+
+
+def _heads(q, k, v, policy: Policy):
+    return (policy.constrain(q, ("batch", "seq", "heads", "head_dim")),
+            policy.constrain(k, ("batch", "seq", "kv_heads", "head_dim")),
+            policy.constrain(v, ("batch", "seq", "kv_heads", "head_dim")))
+
+
 def apply_attention_train(p: dict, h_in: torch.Tensor, cfg: ModelConfig, *,
-                          window: int = 0) -> torch.Tensor:
+                          window: int = 0, policy: Policy = NO_POLICY,
+                          q_chunk: int = 512) -> torch.Tensor:
     """Training path.  h_in: (B, S, D) -> (B, S, D), differentiable:
     :func:`chunked_causal_attention` in plain PyTorch, as the reference
-    trains (it never reaches K5)."""
+    trains (it never reaches K5), or :func:`chunk2d_attention` under a
+    ``seq2d`` policy."""
     s = h_in.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=h_in.device)
+    h_in = policy.constrain(h_in, ("batch", "seq", None))
     q, k, v = _project_qkv(p, h_in, cfg, positions)
-    out = chunked_causal_attention(q, k, v, window=window,
-                                   softcap_val=cfg.attn_logit_softcap)
+    if getattr(policy, "seq2d", False):
+        out = _seq2d(q, k, v, cfg, window, q_chunk, policy)
+    else:
+        q, k, v = _heads(q, k, v, policy)
+        out = chunked_causal_attention(q, k, v, window=window,
+                                       softcap_val=cfg.attn_logit_softcap,
+                                       q_chunk=q_chunk)
+    out = policy.constrain(out, ("batch", "seq", "heads", None))
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(out.dtype))
 
 
 def apply_attention(p: dict, h_in: torch.Tensor, cfg: ModelConfig, *,
-                    window: int = 0, positions: Optional[torch.Tensor] = None,
+                    window: int = 0, policy: Policy = NO_POLICY,
+                    positions: Optional[torch.Tensor] = None,
                     q_chunk: int = 512, return_kv: bool = False):
     """Prefill path.  h_in: (B, S, D) -> (B, S, D), attention through
-    ``flash_attention`` (K5 on the card).
+    ``flash_attention`` (K5 on the card).  Under a ``seq2d`` policy on
+    ``meta`` tensors (the dry-runs) it walks :func:`chunk2d_attention`,
+    the program the reference lowers.  On tensors with values a ``seq2d``
+    policy's constrains are the identity only where the sequence split is
+    over axes of size 1 (and raise where it is not, ``MeshPolicy``), so the
+    function is K5's and K5 computes it.
 
     ``return_kv=True`` also returns the (RoPE'd) K/V tensors so the caller
     can build a decode cache.  Like the reference's chunked path, a
@@ -195,9 +292,18 @@ def apply_attention(p: dict, h_in: torch.Tensor, cfg: ModelConfig, *,
         raise ValueError(f"seq {s} not divisible by q_chunk {q_chunk}")
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=h_in.device)
+    h_in = policy.constrain(h_in, ("batch", "seq", None))
     q, k, v = _project_qkv(p, h_in, cfg, positions)
-    out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                          window=window, softcap=cfg.attn_logit_softcap)
+    seq2d = getattr(policy, "seq2d", False)
+    if seq2d and q.is_meta:
+        out = _seq2d(q, k, v, cfg, window, q_chunk, policy)
+    else:
+        if seq2d:
+            policy.constrain(q, ("batch", "seq", None, None))
+        q, k, v = _heads(q, k, v, policy)
+        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              window=window, softcap=cfg.attn_logit_softcap)
+    out = policy.constrain(out, ("batch", "seq", "heads", None))
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(out.dtype))
     if return_kv:
         return out, k, v

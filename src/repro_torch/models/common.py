@@ -5,9 +5,17 @@ Parameters are plain nested dicts of tensors, as in the reference.  Every
 ``init_*`` draws from an explicit ``torch.Generator`` and makes its
 tensors on that generator's device.  The ResNet's activations are NCHW
 (PyTorch's convention); the language models keep the reference's
-``(B, S, ...)`` layouts.  The reference's sharding ``Policy`` has no
-counterpart: the port runs on one card, where ``constrain`` is the
-identity.
+``(B, S, ...)`` layouts.
+
+Sharding is threaded through a :class:`Policy`, as in the reference:
+model code names the logical axes of an activation
+(``policy.constrain(x, ("batch", "seq", None))``) and the policy installed
+by ``launch/sharding.py`` resolves them; :data:`NO_POLICY` (one device) is
+the identity.
+
+An init function given a :class:`ShapeGenerator` (device ``meta``) makes
+``meta`` tensors of its leaves' shapes and dtypes and draws nothing:
+``transformer.abstract_params`` is ``init_params`` through it.
 """
 
 from __future__ import annotations
@@ -19,11 +27,47 @@ import torch
 import torch.nn.functional as F
 
 
+# ---------------------------------------------------------------------------
+# Sharding policy hook
+# ---------------------------------------------------------------------------
+
+class Policy:
+    """No-op default policy (one device).  See ``launch/sharding.py``."""
+
+    def constrain(self, x: torch.Tensor, axes) -> torch.Tensor:
+        return x
+
+
+NO_POLICY = Policy()
+
+
+class ShapeGenerator:
+    """Stands in for a ``torch.Generator`` where only the shapes of a
+    parameter tree are wanted: its device is ``meta``, so the init
+    functions make ``meta`` tensors and draw nothing (no ``meta``
+    generator exists to draw from)."""
+
+    device = torch.device("meta")
+
+
+def _shapes_only(generator) -> bool:
+    return generator.device.type == "meta"
+
+
+def rand(generator, shape) -> torch.Tensor:
+    """Uniform [0, 1) f32 draws on the generator's device."""
+    if _shapes_only(generator):
+        return torch.empty(shape, device="meta")
+    return torch.rand(shape, generator=generator, device=generator.device)
+
+
 def dense_init(generator: torch.Generator, shape, fan_in: Optional[int] = None,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Truncated-normal (+-2 std) fan-in init, the reference's scheme (its
     draws come from JAX keys, so the values differ), drawn in f32 on the
     generator's device and stored in ``dtype``."""
+    if _shapes_only(generator):
+        return torch.empty(shape, dtype=dtype, device="meta")
     if fan_in is None:
         fan_in = shape[0] if len(shape) > 1 else shape[-1]
     out = torch.empty(shape, dtype=torch.float32, device=generator.device)
@@ -34,6 +78,8 @@ def dense_init(generator: torch.Generator, shape, fan_in: Optional[int] = None,
 def embed_init(generator: torch.Generator, shape,
                dtype: torch.dtype) -> torch.Tensor:
     """Normal(0, 0.02) in f32, stored in ``dtype``."""
+    if _shapes_only(generator):
+        return torch.empty(shape, dtype=dtype, device="meta")
     out = torch.randn(shape, generator=generator, dtype=torch.float32,
                       device=generator.device)
     return (out * 0.02).to(dtype)

@@ -7,8 +7,10 @@ group): each group's tokens go into an ``(E, C, D)`` buffer by a gather
 from ``x`` with a zero row appended (the garbage index ``S`` reads it), the
 experts run as one batched product over ``E``, and each token adds its
 experts' gated outputs back.  A (token, choice) pair past its expert's
-capacity ``C`` is dropped, as in Switch/GShard.  The reference's
-``Policy`` sharding constraints have no counterpart on one card.
+capacity ``C`` is dropped, as in Switch/GShard.  The layers take no
+``policy``: the reference's only use of it here is ``constrain``, which a
+data-parallel mesh (the one ``launch/sharding.MeshPolicy`` executes)
+leaves as the identity.
 
 Where a faithful-looking port could part from the reference, this one
 follows it exactly:
@@ -84,6 +86,8 @@ def _init_experts(generator: torch.Generator, shape, fan_in: int,
     ``dtype``: kimi-k2's (384, 7168, 2048) leaf is 5.6 G elements, and one
     f32 draw of it would need 22.5 GB beside its 11.3 GB bf16 copy."""
     out = torch.empty(shape, dtype=dtype, device=generator.device)
+    if out.is_meta:
+        return out
     for i in range(shape[0]):
         out[i] = common.dense_init(generator, shape[1:], fan_in=fan_in,
                                    dtype=dtype)

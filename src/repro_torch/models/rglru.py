@@ -43,8 +43,7 @@ def init_rglru(generator: torch.Generator, cfg: ModelConfig) -> dict:
     dt = cfg.torch_param_dtype()
     dev = generator.device
     # lam such that a^c spans ~(0.9, 0.999), as in the Griffin paper
-    u = 0.9 + (0.999 - 0.9) * torch.rand((dr,), generator=generator,
-                                         device=dev)
+    u = 0.9 + (0.999 - 0.9) * common.rand(generator, (dr,))
     lam = torch.log(torch.expm1(-torch.log(u) / _C))  # softplus^-1(-log u / c)
     return {
         "w_in": common.dense_init(generator, (d, dr), dtype=dt),

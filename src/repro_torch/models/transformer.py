@@ -45,6 +45,14 @@ A config with a frontend (the VLM and audio stubs) takes ``extra_embeds``
 :func:`prefill`: projected by ``frontend_proj`` and prepended to the
 sequence, so the hidden states and logits cover ``N + S`` positions.
 Decode takes no frontend, as the reference's does.
+
+The entry points take the reference's sharding ``policy`` (default
+:data:`common.NO_POLICY`) and constrain the same activations; the blocks
+hand it to attention, whose ``seq2d`` branch runs ``chunk2d_attention``
+(in prefill only on ``meta``; with values prefill keeps K5).
+:func:`abstract_params` and ``init_cache(..., device="meta")`` give the
+trees of :func:`init_params` and :func:`init_cache` as ``meta`` tensors,
+the counterpart of the reference's ``jax.eval_shape`` of them.
 """
 
 from __future__ import annotations
@@ -59,6 +67,7 @@ from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, MLP_DENSE,
                                       MLP_MOE, MLSTM, RGLRU, SLSTM,
                                       LayerSpec, ModelConfig)
 from repro_torch.models import attention, common, mlp, rglru, xlstm
+from repro_torch.models.common import NO_POLICY, Policy
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 Params = Dict[str, Any]
@@ -166,34 +175,39 @@ def _apply_mlp(p: Params, spec: LayerSpec, h: torch.Tensor,
 
 
 def apply_block(p: Params, spec: LayerSpec, h: torch.Tensor,
-                cfg: ModelConfig, *, window_override: Optional[int] = None
+                cfg: ModelConfig, *, window_override: Optional[int] = None,
+                policy: Policy = NO_POLICY
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence training block, differentiable.  Returns ``(h,
     aux)``; ``aux`` holds the MoE losses, zeros for a dense block."""
     x = common.apply_rmsnorm(p["pre_norm"], h, cfg.norm_eps)
     if _is_attention(spec):
         m = attention.apply_attention_train(
-            p["mixer"], x, cfg, window=_window(spec, cfg, window_override))
+            p["mixer"], x, cfg, window=_window(spec, cfg, window_override),
+            policy=policy)
     elif spec.mixer == RGLRU:
         m = rglru.apply_rglru_train(p["mixer"], x, cfg)
     elif spec.mixer == MLSTM:
         m = xlstm.apply_mlstm(p["mixer"], x, cfg)
     else:
         m = xlstm.apply_slstm(p["mixer"], x, cfg)
-    return _apply_mlp(p, spec, h + m, cfg)
+    h, aux = _apply_mlp(p, spec, h + m, cfg)
+    return policy.constrain(h, ("batch", "seq", None)), aux
 
 
 def apply_block_prefill(p: Params, spec: LayerSpec, h: torch.Tensor,
                         cfg: ModelConfig, *,
                         window_override: Optional[int] = None,
-                        cache_len: Optional[int] = None):
+                        cache_len: Optional[int] = None,
+                        policy: Policy = NO_POLICY):
     """Full-sequence block that also builds its decode cache.
     Returns ``(h, cache, aux)``."""
     x = common.apply_rmsnorm(p["pre_norm"], h, cfg.norm_eps)
+    x = policy.constrain(x, ("batch", "seq", None))
     if _is_attention(spec):
         window = _window(spec, cfg, window_override)
         m, k, v = attention.apply_attention(p["mixer"], x, cfg, window=window,
-                                            return_kv=True)
+                                            policy=policy, return_kv=True)
         cache = attention.kv_to_cache(k, v, cfg, window=window,
                                       cache_len=cache_len)
     elif spec.mixer == RGLRU:
@@ -203,7 +217,7 @@ def apply_block_prefill(p: Params, spec: LayerSpec, h: torch.Tensor,
     else:
         m, cache = xlstm.apply_slstm(p["mixer"], x, cfg, return_state=True)
     h, aux = _apply_mlp(p, spec, h + m, cfg)
-    return h, cache, aux
+    return policy.constrain(h, ("batch", "seq", None)), cache, aux
 
 
 def init_block_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
@@ -280,9 +294,17 @@ def init_params(generator: torch.Generator, cfg: ModelConfig) -> Params:
     return params
 
 
+def abstract_params(cfg: ModelConfig) -> Params:
+    """The tree :func:`init_params` makes for ``cfg`` — the same leaves in
+    the same order, shapes and dtypes — as ``meta`` tensors: nothing is
+    allocated and nothing drawn (the init functions see a
+    :class:`common.ShapeGenerator`)."""
+    return init_params(common.ShapeGenerator(), cfg)
+
+
 def embed_inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                 extra_embeds: Optional[torch.Tensor] = None
-                 ) -> torch.Tensor:
+                 extra_embeds: Optional[torch.Tensor] = None,
+                 policy: Policy = NO_POLICY) -> torch.Tensor:
     """tokens: (B, S) or (B, S, n_codebooks) -> (B, [N +] S, D) in the
     compute dtype.
 
@@ -306,11 +328,11 @@ def embed_inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         proj = torch.matmul(extra_embeds.to(cd),
                             params["frontend_proj"]["w"].to(cd))
         h = torch.cat([proj, h], dim=1)
-    return h
+    return policy.constrain(h, ("batch", "seq", None))
 
 
 def logits_from_hidden(params: Params, cfg: ModelConfig, h: torch.Tensor,
-                       head: str) -> torch.Tensor:
+                       head: str, policy: Policy = NO_POLICY) -> torch.Tensor:
     """head: 'final' or 'exit' (FedHeN early-exit head, shared
     unembedding).  (B, S, V), or (B, S, n_codebooks, V) with codebooks."""
     norm = params["final_norm"] if head == "final" else params["exit_norm"]
@@ -325,7 +347,8 @@ def logits_from_hidden(params: Params, cfg: ModelConfig, h: torch.Tensor,
             {"table": params["embed"]["table"].to(h.dtype)}, h)
     else:
         logits = torch.matmul(h, params["unembed"]["w"].to(h.dtype))
-    return common.softcap(logits, cfg.final_logit_softcap)
+    logits = common.softcap(logits, cfg.final_logit_softcap)
+    return policy.constrain(logits, ("batch", "seq", "vocab"))
 
 
 def _merge_aux(a, b):
@@ -333,17 +356,18 @@ def _merge_aux(a, b):
 
 
 def _period(blocks, h, aux, cfg: ModelConfig,
-            window_override: Optional[int]):
+            window_override: Optional[int], policy: Policy = NO_POLICY):
     """One period: the pattern's blocks in order."""
     for p, spec in zip(blocks, cfg.pattern):
-        h, a = apply_block(p, spec, h, cfg, window_override=window_override)
+        h, a = apply_block(p, spec, h, cfg, window_override=window_override,
+                           policy=policy)
         aux = _merge_aux(aux, a)
     return h, aux
 
 
 def _run_periods(periods: List[List[Params]], h, aux, cfg: ModelConfig, *,
                  remat: bool, window_override: Optional[int] = None,
-                 exit_at: Optional[int] = None):
+                 exit_at: Optional[int] = None, policy: Policy = NO_POLICY):
     """Run the periods in order; each under ``torch.utils.checkpoint``
     when ``remat`` (the reference's ``jax.checkpoint`` of its scan body).
     Returns ``(h, aux, exit_h)``: ``exit_h`` is ``h`` after period
@@ -354,9 +378,9 @@ def _run_periods(periods: List[List[Params]], h, aux, cfg: ModelConfig, *,
     for i, blocks in enumerate(periods):
         if remat:
             h, aux = checkpoint(_period, blocks, h, aux, cfg,
-                                window_override, use_reentrant=False)
+                                window_override, policy, use_reentrant=False)
         else:
-            h, aux = _period(blocks, h, aux, cfg, window_override)
+            h, aux = _period(blocks, h, aux, cfg, window_override, policy)
         if exit_at is not None and i == exit_at - 1:
             exit_h = h
     return h, aux, exit_h
@@ -364,53 +388,59 @@ def _run_periods(periods: List[List[Params]], h, aux, cfg: ModelConfig, *,
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             extra_embeds: Optional[torch.Tensor] = None,
-            remat: bool = False, window_override: Optional[int] = None
+            policy: Policy = NO_POLICY, remat: bool = False,
+            window_override: Optional[int] = None
             ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """Training forward: returns ``(exit_hidden, final_hidden, aux)``.
 
     ``exit_hidden`` is the activation after ``exit_period`` periods — the
     FedHeN simple sub-network's output stream, captured in the same pass
     (one forward, two heads)."""
-    h = embed_inputs(params, cfg, tokens, extra_embeds)
+    h = embed_inputs(params, cfg, tokens, extra_embeds, policy)
     h, aux, exit_h = _run_periods(
         _periods(params), h, _zero_aux(h.device), cfg, remat=remat,
-        window_override=window_override, exit_at=cfg.exit_period)
+        window_override=window_override, exit_at=cfg.exit_period,
+        policy=policy)
     for i, p_rem in enumerate(params["rem"]):
         h, a = apply_block(p_rem, cfg.layer_spec(i), h, cfg,
-                           window_override=window_override)
+                           window_override=window_override, policy=policy)
         aux = _merge_aux(aux, a)
     return exit_h, h, aux
 
 
 def forward_simple(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                    *, extra_embeds: Optional[torch.Tensor] = None,
-                   remat: bool = False) -> torch.Tensor:
+                   policy: Policy = NO_POLICY, remat: bool = False
+                   ) -> torch.Tensor:
     """Forward of the *simple* architecture only: the first
     ``exit_period`` periods.  ``params`` may be the complex tree or an
     extracted simple one (``masking.extract_simple``); only the prefix
     stacks are touched, so a stacked leaf's gradient is full-shape with
     zeros past the exit, and ``rem`` / ``final_norm`` get none."""
-    h = embed_inputs(params, cfg, tokens, extra_embeds)
+    h = embed_inputs(params, cfg, tokens, extra_embeds, policy)
     h, _, _ = _run_periods(_periods(params)[:cfg.exit_period], h,
-                           _zero_aux(h.device), cfg, remat=remat)
+                           _zero_aux(h.device), cfg, remat=remat,
+                           policy=policy)
     return h
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             extra_embeds: Optional[torch.Tensor] = None,
+            policy: Policy = NO_POLICY,
             window_override: Optional[int] = None,
             cache_len: Optional[int] = None):
     """Parallel prefill: returns ``(logits, cache)`` — every position's
     logits, as the reference returns them, and the decode cache.
     ``cache_len`` sizes the dense caches (>= prompt length, frontend
     positions included) to leave room for decoded tokens."""
-    h = embed_inputs(params, cfg, tokens, extra_embeds)
+    h = embed_inputs(params, cfg, tokens, extra_embeds, policy)
     per_pos = [[] for _ in cfg.pattern]
     for i in range(cfg.n_periods):
         for pos, spec in enumerate(cfg.pattern):
             h, c, _ = apply_block_prefill(
                 _index(params["periods"][pos], i), spec, h, cfg,
-                window_override=window_override, cache_len=cache_len)
+                window_override=window_override, cache_len=cache_len,
+                policy=policy)
             per_pos[pos].append(c)
     periods = []
     for spec, caches in zip(cfg.pattern, per_pos):
@@ -422,10 +452,10 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     for i, p_rem in enumerate(params["rem"]):
         h, c, _ = apply_block_prefill(p_rem, cfg.layer_spec(i), h, cfg,
                                    window_override=window_override,
-                                   cache_len=cache_len)
+                                   cache_len=cache_len, policy=policy)
         rem.append(c)
     cache = {"periods": tuple(periods), "rem": tuple(rem)}
-    return logits_from_hidden(params, cfg, h, "final"), cache
+    return logits_from_hidden(params, cfg, h, "final", policy), cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
@@ -445,6 +475,7 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
 
 def decode_step(params: Params, cache: Params, cfg: ModelConfig,
                 tokens: torch.Tensor, pos: int, *,
+                policy: Policy = NO_POLICY,
                 window_override: Optional[int] = None,
                 with_exit_head: bool = False):
     """One decode step.  tokens: (B, 1) or (B, 1, n_codebooks); pos: the
@@ -453,7 +484,7 @@ def decode_step(params: Params, cache: Params, cfg: ModelConfig,
     Updates ``cache`` in place and returns ``(logits, cache[,
     exit_logits])``; the exit head reads the activation after
     ``exit_period`` periods."""
-    h = embed_inputs(params, cfg, tokens)
+    h = embed_inputs(params, cfg, tokens, None, policy)
     exit_h = h
     for i in range(cfg.n_periods):
         for pos_i, spec in enumerate(cfg.pattern):
@@ -467,7 +498,8 @@ def decode_step(params: Params, cache: Params, cfg: ModelConfig,
         h, _, _ = apply_block_decode(p_rem, cfg.layer_spec(i), h,
                                   cache["rem"][i], pos, cfg,
                                   window_override=window_override)
-    logits = logits_from_hidden(params, cfg, h, "final")
+    logits = logits_from_hidden(params, cfg, h, "final", policy)
     if with_exit_head:
-        return logits, cache, logits_from_hidden(params, cfg, exit_h, "exit")
+        return logits, cache, logits_from_hidden(params, cfg, exit_h, "exit",
+                                                 policy)
     return logits, cache

@@ -6,7 +6,10 @@ these helpers walk it in ``jax.tree.flatten`` order — dict keys sorted,
 then list index — so leaf ``i`` of either package is the same parameter,
 and a flat layout built by either package has the same offsets.
 
-``None`` is a leaf here (it stands for a missing gradient).
+``None`` is a leaf here (it stands for a missing gradient), and so is a
+tuple whose class sets ``tree_leaf = True`` (``launch.sharding``'s
+``PartitionSpec``, a tuple as JAX's is and a leaf of a spec tree as
+JAX's is).
 """
 
 from __future__ import annotations
@@ -16,10 +19,15 @@ from typing import Any, Callable, Iterator, List, Tuple
 Tree = Any
 
 
+def _is_node(tree: Tree) -> bool:
+    return isinstance(tree, (list, tuple)) and not getattr(
+        tree, "tree_leaf", False)
+
+
 def _children(tree: Tree):
     if isinstance(tree, dict):
         return [tree[k] for k in sorted(tree)]
-    if isinstance(tree, (list, tuple)):
+    if _is_node(tree):
         return list(tree)
     return None
 
@@ -33,6 +41,19 @@ def tree_leaves(tree: Tree) -> List[Any]:
     for k in kids:
         out.extend(tree_leaves(k))
     return out
+
+
+def tree_leaves_with_keys(tree: Tree, keys: Tuple[str, ...] = ()
+                          ) -> List[Tuple[Tuple[str, ...], Any]]:
+    """``(keys, leaf)`` in JAX order: a dict key as ``str(key)``, a list
+    or tuple index ``i`` as ``"#i"`` (the reference's ``_path_keys``)."""
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree)
+                for kv in tree_leaves_with_keys(tree[k], keys + (str(k),))]
+    if _is_node(tree):
+        return [kv for i, t in enumerate(tree)
+                for kv in tree_leaves_with_keys(t, keys + (f"#{i}",))]
+    return [(keys, tree)]
 
 
 def tree_flatten(tree: Tree) -> Tuple[List[Any], Tree]:
@@ -55,7 +76,7 @@ _END = object()
 def _rebuild(treedef: Tree, it: Iterator) -> Tree:
     if isinstance(treedef, dict):
         return {k: _rebuild(treedef[k], it) for k in sorted(treedef)}
-    if isinstance(treedef, (list, tuple)):
+    if _is_node(treedef):
         return type(treedef)(_rebuild(k, it) for k in treedef)
     leaf = next(it, _END)
     if leaf is _END:
@@ -68,7 +89,7 @@ def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in sorted(tree)}
-    if isinstance(tree, (list, tuple)):
+    if _is_node(tree):
         return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
                           for i, t in enumerate(tree))
     return fn(tree, *rest)

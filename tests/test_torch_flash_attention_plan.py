@@ -153,6 +153,19 @@ def test_f32_plan_raises_beyond_the_grid():
         ops.plan_f32(2**24, 2**16, 1, 1, 64, F32)
 
 
+class _OnCard(torch.Tensor):
+    """A ``meta`` tensor that reports itself on the card, so the wrapper
+    takes its kernel branch (a plain ``meta`` tensor takes the wrapper's
+    shape-only ``meta`` path); PyTorch's own functions see a ``meta``
+    tensor."""
+
+    __torch_function__ = torch._C._disabled_torch_function_impl
+
+    @property
+    def device(self):
+        return torch.device("cuda")
+
+
 @pytest.mark.parametrize("dtype,plan", [(torch.float32, "plan_f32"),
                                         (torch.bfloat16, "plan_wgmma")])
 def test_each_dtype_plans_its_own_kernel(monkeypatch, dtype, plan):
@@ -165,8 +178,10 @@ def test_each_dtype_plans_its_own_kernel(monkeypatch, dtype, plan):
         calls.append((plan, args[-1]))
         raise RuntimeError("planned")
     monkeypatch.setattr(ops, plan, stop)
-    q = torch.empty((1, 16, 2, 32), dtype=dtype, device="meta")
-    k = torch.empty((1, 16, 1, 32), dtype=dtype, device="meta")
+    q = torch.empty((1, 16, 2, 32), dtype=dtype,
+                    device="meta").as_subclass(_OnCard)
+    k = torch.empty((1, 16, 1, 32), dtype=dtype,
+                    device="meta").as_subclass(_OnCard)
     monkeypatch.setattr(ops, "_check", lambda *a: None)
     with pytest.raises(RuntimeError, match="planned"):
         ops.flash_attention(q, k, k)

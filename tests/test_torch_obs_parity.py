@@ -5,10 +5,13 @@ clients of 8 points, batch 4, the reference's minibatch order through
 ``ReferenceSchedule`` and, on the compressed wire, its random bits through
 ``ReferenceBits``) goes through both packages with telemetry on: two
 rounds of ``run(eval_every=1)``.  The streams are compared as events:
-the reference's JAX-only events (``trace_lower``, ``compile``, ``roofline``)
+the reference's JAX-only events (``trace_lower``, ``compile``)
 are removed and its ``seq`` renumbered; then every event must have the
 same kind, name, path, round, keys (in order) and attributes, and the same
-spans a ``dur_s`` of ``None``.  Bytes, counters, histograms and the
+spans a ``dur_s`` of ``None``.  The ``roofline`` ledger is compared by
+kind, name, round and keys in order (the reference's ``xla_flops``, XLA's
+own cost analysis, has no counterpart), never by value: the two walks
+count different programs by design.  Bytes, counters, histograms and the
 ``run_config`` ledger are held exactly; loss and eval values at the round
 parity tests' atol 1e-5; the ``log`` line's prefix, key order and
 separators exactly and its ``.4f`` values within one printed unit plus
@@ -47,7 +50,9 @@ from repro_torch.obs import report as obs_report  # noqa: E402
 from repro_torch.obs import telemetry as obslib  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-JAX_ONLY = ("trace_lower", "compile", "roofline")
+JAX_ONLY = ("trace_lower", "compile")
+NO_VALUES = ("roofline",)     # keys compared, values not
+NO_COUNTERPART = ("xla_flops",)
 ATOL = 1e-5
 NUMBER = re.compile(r"(-?\d+\.\d+|nan)")
 # values compared at ATOL: losses and the eval ledger's metrics
@@ -159,7 +164,10 @@ def assert_streams_match(events, ref_events) -> None:
         for k in e:
             if k in ("seq", "t", "dur_s"):
                 continue
-            if k == "values":
+            if k == "values" and e["name"] in NO_VALUES:
+                assert list(e[k]) == [v for v in r[k]
+                                      if v not in NO_COUNTERPART], (e, r)
+            elif k == "values":
                 _assert_values(e["name"], e[k], r[k])
             elif k == "message":
                 assert_log_line(e[k], r[k])
