@@ -273,7 +273,30 @@ which raises on failure:
    telemetry on: its ``roofline`` ledger (flops > 0; the walk's kernel
    counters exactly the round's two K1 folds, calls, flops and bytes, and
    hbm_bytes at least those bytes), the new model bitwise the
-   telemetry-off round's, the walk's added wall.
+   telemetry-off round's, the walk's added wall;
+20. a live model axis (tensor parallelism): phase 18(a)'s unsharded
+   rounds saved to a temporary directory, then two rank processes
+   (``torch.multiprocessing``, one ``FileStore``) share the card over gloo
+   in a (1, 2) mesh (NCCL refuses two ranks on one device; on CUDA
+   tensors gloo's functional all-gather crashes, so every path here issues
+   all-reduces only), each printing its wall, peak, launches and
+   collectives (count and result bytes): (a) phase 18(a)'s round under
+   ``MeshPolicy`` of that mesh (``distribute_cohort`` of the expanded
+   model; K1 4 on the f32 wire, K2 4 on int8, on the rank's local
+   n_flat), each local leaf within 5 % of max|leaf| of the unsharded
+   round's (the leaves over 1/100 counted) and the loss at rtol 1e-2;
+   (b) minitron-8b prefilled at full width (batch 1, prompt 4096; K5 32
+   on 16 of 32 heads) and (c) recurrentgemma-2b (batch 4, prompt 4096;
+   K6's gated entry 18 on 1280 of 2560 channels, K5 8 replicated), each
+   rank's vocab shard of the logits within 5 % of max|logit| of the
+   unsharded prefill of the same weights (run first on the rank, not
+   counted); (d) a narrow f32 round (flat and tree) and prefill on the
+   card's mesh against the CPU's in the same processes at rtol 1e-4 /
+   atol 1e-5 (K1 1, K4 1, K5 f32 2 a rank).  Then, the card to itself:
+   K2 and K1 at a rank's local n_flat (1,491,200,000) bitwise and timed
+   against their byte bounds, K5 at a rank's heads (1, 4096, 16 / 4, 128)
+   and K6's gated entry at a rank's channels (4, 4096, 1280), each against
+   its plain version and timed against its bound.
 
 Phase 8 also serves reduced xlstm-1.3b in f32 on the card against the CPU
 (prefill and 8 teacher-forced decode steps): the sLSTM cell output before
@@ -301,8 +324,10 @@ full-width step rounds, K1, K2 and K4 with theirs on its narrow steps, K2
 with its time at that fold, K1 with its launches on gemma3-4b's rounds
 and the quickstart and its time at gemma3-4b's fold; K1 and K2 with their
 launches on phase 19's sharded step rounds, K1 and K4 with theirs on its
-narrow sharded steps, K1 with its launches on its telemetry-on round);
-the last is
+narrow sharded steps, K1 with its launches on its telemetry-on round;
+K1, K2, K4, both K5 kernels and K6 with their launches over both ranks of
+phase 20, and K1, K2, the tensor-core K5 and K6 with their times at the
+shapes a rank hands them); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1234,7 +1259,7 @@ FLASH_ROUTES = {"bfloat16": ("tensor cores (wgmma)", BF16_PEAK, None),
                 "float32": ("CUDA cores", F32_PEAK, TF32_SPLIT_PEAK)}
 
 
-def check_flash(torch, bw: float) -> dict:
+def check_flash(torch, bw: float, cases=FLASH_CASES) -> dict:
     """Phase 6, K5's two kernels: against the plain version (f32 on the
     CUDA cores at rtol = atol = 1e-5, bf16 on the tensor cores within one
     bf16 rounding: rtol = atol = 2**-7), each call checked to launch its
@@ -1248,7 +1273,7 @@ def check_flash(torch, bw: float) -> dict:
     fa = ops.flash_attention
     worst = {"bfloat16": 0.0, "float32": 0.0}
     timing = []
-    for label, b, s, h, kh, dh, window, cap, dtype, timed in FLASH_CASES:
+    for label, b, s, h, kh, dh, window, cap, dtype, timed in cases:
         g = torch.Generator(device="cuda").manual_seed(s + h)
         dt = getattr(torch, dtype)
         q = (torch.randn((b, s, h, dh), generator=g, device="cuda") * 2
@@ -1460,7 +1485,8 @@ def _equal(torch, label: str, got, want) -> None:
     print(f"  {label}: bitwise equal to the plain version", flush=True)
 
 
-def check_scan(torch, bw: float) -> dict:
+def check_scan(torch, bw: float, scan_cases=SCAN_CASES,
+               gated_cases=GATED_CASES) -> dict:
     """Phase 6, K6's two entries, each against its plain version bitwise
     (``lru_scan`` at ``SCAN_CASES``, ``lru_scan_gated`` at
     ``GATED_CASES``), each call checked to launch its entry of K6 once,
@@ -1483,7 +1509,7 @@ def check_scan(torch, bw: float) -> dict:
         return a, (torch.randn((b, s, d), generator=g, device="cuda") * 0.2
                    ).to(dt)
 
-    for b, s, d, dtype, timed in SCAN_CASES:
+    for b, s, d, dtype, timed in scan_cases:
         dt = getattr(torch, dtype)
         a, bb = scan_inputs(b, s, d, dt)
         plan = ops.scan_plan(b, s, d, dt)
@@ -1532,7 +1558,7 @@ def check_scan(torch, bw: float) -> dict:
               flush=True)
         del a, bb, got
     counted = gate_ops(torch)
-    for b, s, d, dtype, with_y0, timed in GATED_CASES:
+    for b, s, d, dtype, with_y0, timed in gated_cases:
         dt = getattr(torch, dtype)
         x, p, y0 = gate_inputs(torch, b, s, d, dt, seed=s + d,
                                with_y0=with_y0)
@@ -4602,6 +4628,464 @@ def sharded_phase(torch, ops, unsharded=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 20. a live model axis: tensor parallelism, two ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# two processes (torch.multiprocessing, one FileStore) share the one card
+# over gloo in a (1, 2) mesh: NCCL refuses two ranks on one device
+TP_RANKS = 2
+TP_JOIN_S = 900
+# (arch, batch, prompt, launches of one sharded prefill on each rank: K5 on
+#  the tensor cores, K5 on the CUDA cores, K6's gated entry)
+TP_PREFILL_RUNS = (("minitron-8b", 1, 4096, (32, 0, 0)),
+                   ("recurrentgemma-2b", 4, 4096, (8, 0, 18)))
+# the round against phase 18(a)'s: each leaf within 5 % of its max|value|
+# (the bf16 rule of the prefills), the loss at rtol 1e-2.  The int8-vs-f32
+# rule of phase 18(a) (1/100) holds two runs of the same training; here
+# the training itself sums in another order (each rank's row-parallel
+# partial sums rounded to bf16, then all-reduced), and on the CPU a norm
+# scale (its values are one round's update) moved 1.17 % of its max.  The
+# leaves over 1/100 are counted and printed beside the gate.
+TP_LEAF_RULE = 0.05
+TP_LEAF_INT8_RULE = 1e-2
+TP_LOSS_RTOL = 1e-2
+TP_LOGIT_RULE = 0.05    # logits within 5 % of max|logit| of the unsharded
+# the shapes the sharded paths hand the kernels on each rank: minitron's
+# 16 of 32 query heads and 4 of 8 kv heads, recurrentgemma's 1280 of 2560
+# rnn channels (its attention is replicated: phase 6's shape)
+TP_FLASH_CASES = (("minitron-8b, a rank's heads", 1, 4096, 16, 4, 128, 0,
+                   0.0, "bfloat16", True),)
+TP_GATED_CASES = ((4, 4096, 1280, "bfloat16", False, True),)
+
+
+def _local_slice(torch, full, dt):
+    """The part of the full tensor ``full`` that DTensor ``dt``'s local
+    shard holds on this rank."""
+    from repro_torch.launch import sharding
+    mesh = dt.device_mesh
+    for i, pl in enumerate(dt.placements):
+        if pl.is_shard():
+            lo, hi = sharding.shard_rows(full.shape[pl.dim],
+                                         mesh.get_local_rank(i),
+                                         mesh.size(i))
+            full = full.narrow(pl.dim, lo, hi - lo)
+    return full
+
+
+def _tp_kernel_counts(ops, fa, scan) -> tuple:
+    return _counts(ops) + (fa.launches_tc, fa.launches,
+                           scan.lru_scan_gated.launches)
+
+
+def _tp_zero(ops, fa, scan) -> None:
+    _zero_counts(ops)
+    fa.launches_tc = fa.launches = scan.lru_scan_gated.launches = 0
+
+
+def tp_round(torch, rank: int, work: str, mesh) -> dict:
+    """Phase 20(a) on one rank: phase 18(a)'s round (Gemma-2 2B at full
+    width, K = 4 expanded, 2 simple, chunk 1, batch 2, 2 local steps) under
+    a MeshPolicy over the live (1, 2) mesh, on the f32 wire (K1 4 times on
+    the rank's local n_flat) then int8 (K2 4 times); each rank's wall,
+    peak, launches and collectives; the new model's local shards and the
+    loss against phase 18(a)'s unsharded round (saved by the parent)."""
+    from repro_torch import configs
+    from repro_torch.core import aggregate, comm
+    from repro_torch.core.adapters import LMAdapter
+    from repro_torch.kernels.flash_attention.ops import flash_attention as fa
+    from repro_torch.kernels.masked_agg import ops
+    from repro_torch.kernels.rglru_scan import ops as scan
+    from repro_torch.launch import sharding, steps
+    from repro_torch.roofline import torch_walk
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = configs.get_config(STEP_ARCH)
+    policy = sharding.MeshPolicy(mesh, cfg)
+    t = time.perf_counter()
+    full = LMAdapter(cfg).init(torch.Generator("cuda").manual_seed(0),
+                               "cuda")
+    cohort = sharding.distribute_cohort(tree_map(
+        lambda x: x[None].expand((STEP_K,) + x.shape), full), cfg, mesh)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    data = _step_tokens(torch)
+    is_simple = torch.tensor(STEP_SIMPLE, device="cuda")
+    local_params = sum(x.to_local()[0].numel() for x in tree_leaves(cohort))
+    out = {"setup_s": time.perf_counter() - t, "local_params": local_params,
+           "runs": []}
+    for wire, expected in (("float32", (STEP_K, 0, 0, 0)),
+                           ("int8", (0, STEP_K, 0, 0))):
+        step = steps.make_fed_round_step(
+            cfg, policy, local_steps=STEP_L, cohort_chunk=1,
+            engine=aggregate.EngineSpec(wire=comm.WireSpec(wire, QB)))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2**30
+        counter = torch_walk.Collectives()
+        _tp_zero(ops, fa, scan)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with counter:
+            new_c, loss = step(cohort, data, is_simple)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launched = _counts(ops)
+        if launched != expected:
+            raise RuntimeError(f"20(a) rank {rank} ({wire}): launches "
+                               f"K1/K2/K3/K4 {launched}, expected {expected}")
+        want_c, want_loss = torch.load(os.path.join(work, f"{wire}.pt"),
+                                       mmap=True)
+        worst, over = 0.0, 0
+        for got, want in zip(tree_leaves(new_c), tree_leaves(want_c)):
+            local = got.to_local().float()
+            ref_part = _local_slice(torch, want, got).to("cuda").float()
+            amax = float(ref_part.abs().max()) + 1e-12
+            d = float((local - ref_part).abs().max())
+            worst = max(worst, d / amax)
+            over += d > TP_LEAF_INT8_RULE * amax
+            if not math.isfinite(d) or d > TP_LEAF_RULE * amax:
+                raise RuntimeError(
+                    f"20(a) rank {rank} ({wire}): a local leaf "
+                    f"{tuple(local.shape)} of {tuple(got.shape)} is {d:.3e} "
+                    f"from the unsharded round's, above max|leaf| x "
+                    f"{TP_LEAF_RULE:g} = {TP_LEAF_RULE * amax:.3e}")
+            del local, ref_part
+        loss_rel = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+        if not loss_rel <= TP_LOSS_RTOL:
+            raise RuntimeError(f"20(a) rank {rank} ({wire}): loss "
+                               f"{float(loss)} against the unsharded "
+                               f"{float(want_loss)} (rtol {TP_LOSS_RTOL})")
+        row = {"wire": wire, "round_s": wall, "loss": float(loss),
+               "unsharded_loss": float(want_loss), "loss_rel": loss_rel,
+               "worst_leaf_ratio": worst,
+               "leaves_over_1_100": over, "leaves": len(tree_leaves(new_c)),
+               "held_gib": held,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "launches": launched, "collectives": counter.counts,
+               "collective_bytes": counter.bytes}
+        print(f"  (a) rank {rank} " + json.dumps(row), flush=True)
+        out["runs"].append(row)
+        del new_c, loss, want_c
+    del cohort, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_prefills(torch, rank: int, mesh) -> list:
+    """Phase 20(b)-(c) on one rank: minitron-8b (batch 1, prompt 4096; K5
+    on the rank's 16 of 32 heads) and recurrentgemma-2b (batch 4, prompt
+    4096; K6's gated entry on 1280 of 2560 channels, K5 replicated)
+    prefilled at full width under the (1, 2) policy, each rank's vocab
+    shard of the logits within 5 % of max|logit| of the unsharded prefill
+    of the same weights (run first on this rank, its launches not
+    counted)."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention.ops import flash_attention as fa
+    from repro_torch.kernels.masked_agg import ops
+    from repro_torch.kernels.rglru_scan import ops as scan
+    from repro_torch.launch import sharding, steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.roofline import torch_walk
+
+    rows = []
+    for arch, batch, prompt, expected in TP_PREFILL_RUNS:
+        cfg = configs.get_config(arch)
+        full = tfm.init_params(torch.Generator("cuda").manual_seed(0), cfg)
+        tokens = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                               generator=torch.Generator("cuda")
+                               .manual_seed(1), device="cuda")
+        want, cache = steps.make_prefill_step(cfg)(full, {"tokens": tokens})
+        del cache
+        amax = float(want.abs().max().float())
+        # keep this rank's vocab shard of the unsharded logits only (the
+        # sharded logits are placed ("batch", "seq", "vocab"): vocab over
+        # model)
+        lo, hi = sharding.shard_rows(want.shape[-1],
+                                     mesh.get_local_rank("model"),
+                                     mesh.size(1))
+        want = want[..., lo:hi].clone()
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = sharding.distribute_params(full, cfg, mesh)
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+        policy = sharding.MeshPolicy(mesh, cfg)
+        step = steps.make_prefill_step(cfg, policy)
+        torch.cuda.reset_peak_memory_stats()
+        counter = torch_walk.Collectives()
+        _tp_zero(ops, fa, scan)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with counter:
+            logits, cache = step(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launched = (fa.launches_tc, fa.launches, scan.lru_scan_gated.launches)
+        if launched != expected:
+            raise RuntimeError(f"20 {arch} rank {rank}: launches K5 tc / K5 "
+                               f"f32 / K6 gated {launched}, expected "
+                               f"{expected}")
+        local = logits.to_local()
+        if tuple(local.shape) != tuple(want.shape):
+            raise RuntimeError(f"20 {arch} rank {rank}: local logits "
+                               f"{tuple(local.shape)}, the unsharded "
+                               f"shard {tuple(want.shape)}")
+        # a batch row and 1024 positions at a time (f32 copies of the whole
+        # shard would take 8 GB a rank)
+        d = max(float((local[i, j:j + 1024].float()
+                       - want[i, j:j + 1024].float()).abs().max())
+                for i in range(batch) for j in range(0, prompt, 1024))
+        if not d <= TP_LOGIT_RULE * amax:
+            raise RuntimeError(f"20 {arch} rank {rank}: logits {d:.4f} from "
+                               f"the unsharded prefill's, above "
+                               f"{TP_LOGIT_RULE} x max|logit| {amax:.3f}")
+        row = {"arch": arch, "batch": batch, "prompt": prompt,
+               "prefill_s": wall, "max_abs_diff": d, "max_abs_logit": amax,
+               "logits_local": list(local.shape),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "launches": launched, "collectives": counter.counts,
+               "collective_bytes": counter.bytes}
+        print(f"  ({'b' if arch == TP_PREFILL_RUNS[0][0] else 'c'}) rank "
+              f"{rank} " + json.dumps(row), flush=True)
+        rows.append(row)
+        del params, logits, cache, want, local, tokens
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def tp_card_vs_cpu(torch, rank: int, meshes: dict) -> dict:
+    """Phase 20(d) on one rank: a narrow f32 round (gemma2-2b reduced, K =
+    2, one simple, 2 local steps) on the flat engine and the tree engine,
+    and a narrow f32 prefill (minitron-8b reduced, heads sharded), each on
+    the card's (1, 2) mesh and on the CPU's (the same gloo group), this
+    rank's shards and the loss at rtol 1e-4 / atol 1e-5; K1, K4 and K5 (f32)
+    counted on the card's runs."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.core import aggregate
+    from repro_torch.kernels.flash_attention.ops import flash_attention as fa
+    from repro_torch.kernels.masked_agg import ops
+    from repro_torch.kernels.rglru_scan import ops as scan
+    from repro_torch.launch import sharding, steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = configs.get_reduced(STEP_ARCH)
+    pcfg = configs.get_reduced("minitron-8b")
+    params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+    pparams = tfm.init_params(torch.Generator().manual_seed(0), pcfg)
+    rng = np.random.default_rng(5)
+    data = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(
+        2, 2, 2, 17)).astype(np.int32))
+    simple = torch.tensor([True, False])
+    prompt = torch.as_tensor(rng.integers(0, pcfg.vocab_size, size=(
+        2, 32)).astype(np.int32))
+    sides, launched = {}, None
+    for dev in ("cuda", "cpu"):
+        mesh = meshes[dev]
+        _tp_zero(ops, fa, scan)
+        got = {}
+        for engine in ("flat", "tree"):
+            cohort = sharding.distribute_cohort(tree_map(
+                lambda x: x.to(dev)[None].expand((2,) + x.shape), params),
+                cfg, mesh)
+            new_c, loss = steps.make_fed_round_step(
+                cfg, sharding.MeshPolicy(mesh, cfg), local_steps=2,
+                engine=aggregate.EngineSpec(engine=engine))(
+                    cohort, data.to(dev), simple.to(dev))
+            got[engine] = ([x.to_local().cpu() for x in
+                            tree_leaves(new_c)], loss.cpu())
+        logits, _ = steps.make_prefill_step(
+            pcfg, sharding.MeshPolicy(mesh, pcfg))(
+                sharding.distribute_params(tree_map(
+                    lambda x: x.to(dev), pparams), pcfg, mesh),
+                {"tokens": prompt.to(dev)})
+        got["prefill"] = ([logits.to_local().cpu()], torch.zeros(()))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launched = _tp_kernel_counts(ops, fa, scan)
+        sides[dev] = got
+    worst = 0.0
+    for key in ("flat", "tree", "prefill"):
+        (a, la), (b, lb) = sides["cuda"][key], sides["cpu"][key]
+        for x, y in zip(a + [la], b + [lb]):
+            if not torch.allclose(x, y, rtol=1e-4, atol=1e-5):
+                raise RuntimeError(f"20(d) rank {rank} {key}: card against "
+                                   f"CPU max|diff| "
+                                   f"{float((x - y).abs().max()):.3e} "
+                                   f"(rtol 1e-4, atol 1e-5)")
+            worst = max(worst, float((x - y).abs().max()))
+    # K1 (flat), K4 (tree), K5 on the CUDA cores (two f32 layers)
+    want = (1, 0, 0, 1, 0, 2, 0)
+    if launched != want:
+        raise RuntimeError(f"20(d) rank {rank}: launches K1/K2/K3/K4/K5 tc/"
+                           f"K5 f32/K6 {launched}, expected {want}")
+    print(f"  (d) rank {rank}: narrow round (flat, tree) and prefill, card "
+          f"against CPU, worst {worst:.3e}; launches {launched}", flush=True)
+    return {"launches": launched, "worst": worst}
+
+
+def tp_rank(rank: int, world: int, store: str, work: str) -> None:
+    """One rank of phase 20 (spawned by :func:`tp_phase`): gloo over a
+    FileStore, the (1, 2) meshes on the card and on the CPU, then (a)-(d);
+    writes ``rank<r>.pt`` (or the traceback to ``rank<r>.err``, and
+    raises)."""
+    import faulthandler
+    import torch
+    import torch.distributed as dist
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import make_device_mesh
+    faulthandler.enable()       # a crash in a rank prints where it was
+    try:
+        resolve_device("cuda")
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", rank=rank, world_size=world,
+                                store=dist.FileStore(store, world))
+        meshes = {"cuda": make_device_mesh(1, world, "cuda"),
+                  "cpu": make_device_mesh(1, world, "cpu")}
+        out = {"round": tp_round(torch, rank, work, meshes["cuda"])}
+        out["prefill"] = tp_prefills(torch, rank, meshes["cuda"])
+        out["narrow"] = tp_card_vs_cpu(torch, rank, meshes)
+        torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(work, f"rank{rank}.err"), "w") as f:
+            import traceback
+            f.write(traceback.format_exc())
+        raise
+
+
+def _tp_local_layout(torch, cfg):
+    """Rank 0's local layout and flat mask of ``cfg`` at the (1, 2) mesh:
+    each leaf at its shard's shape (``param_specs``; empty CPU tensors,
+    nothing written)."""
+    from repro_torch.core import flatten, masking
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import tree_map
+    mesh = MeshShape((1, TP_RANKS), ("data", "model"))
+    params = tfm.abstract_params(cfg)
+
+    def local(x, spec):
+        shape = list(x.shape)
+        for d, entry in enumerate(spec):
+            if entry == "model":
+                shape[d] = sharding.shard_rows(shape[d], 0, TP_RANKS)[1]
+        return torch.empty(shape, dtype=x.dtype)
+    tree = tree_map(local, params, sharding.param_specs(params, cfg, mesh))
+    layout = flatten.layout_of(tree, total_multiple=2048)
+    return layout, flatten.pack_mask(
+        layout, masking.transformer_subnet_mask(tree, cfg), "cuda")
+
+
+def tp_phase(torch, ops, ref, bw: float, unsharded) -> dict:
+    """Phase 20: the model axis on the card.  Phase 18(a)'s unsharded
+    rounds are saved for the ranks, the card's memory is released, two
+    rank processes run (a)-(d) (:func:`tp_rank`; each raises on a failed
+    check, and a rank's failure fails the phase), then K1 and K2 at the
+    rank's local n_flat, K5 at a rank's heads and K6's gated entry at a
+    rank's channels are held to their plain versions and timed here, the
+    card to themselves."""
+    import torch.multiprocessing as mp
+    from repro_torch import configs
+    from repro_torch.kernels import build
+    t = time.perf_counter()
+    build.build()      # the ranks load the built library, never build it
+    work = tempfile.mkdtemp(prefix="tp_phase_")
+    try:
+        _free_disk_check(work, 12e9)
+        for wire, (tree, loss) in unsharded.items():
+            torch.save((tree, loss), os.path.join(work, f"{wire}.pt"))
+        saved = time.perf_counter() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=tp_rank, args=(
+            r, TP_RANKS, os.path.join(work, "store"), work))
+            for r in range(TP_RANKS)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(TP_JOIN_S)
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join(10)
+        errors = [open(os.path.join(work, f"rank{r}.err")).read()
+                  for r in range(TP_RANKS)
+                  if os.path.exists(os.path.join(work, f"rank{r}.err"))]
+        if hung or errors or any(p.exitcode for p in procs):
+            raise RuntimeError(f"phase 20: {len(hung)} rank(s) hung past "
+                               f"{TP_JOIN_S} s, exit codes "
+                               f"{[p.exitcode for p in procs]}, errors "
+                               f"{errors}")
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"))
+                 for r in range(TP_RANKS)]
+        ranks_s = time.perf_counter() - t - saved
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"ranks": ranks, "saved_s": saved, "ranks_s": ranks_s}
+    launches = [r["round"]["runs"][0]["launches"][0]
+                + r["round"]["runs"][1]["launches"][1] for r in ranks]
+    print(f"  phase 18(a)'s rounds saved in {saved:.1f} s; the two ranks "
+          f"in {ranks_s:.1f} s", flush=True)
+    # the kernels at the shapes a rank hands them, the card to themselves
+    layout, mask = _tp_local_layout(torch, configs.get_config(STEP_ARCH))
+    print(f"  a rank's local layout: n_flat {layout.n_flat:,}, |M| "
+          f"{count_true(mask):,} (ranks: "
+          f"{[r['round']['local_params'] for r in ranks]} params)",
+          flush=True)
+    out["n_flat"] = layout.n_flat
+    out["k2"] = check_deq_lm(torch, ops, ref, bw, mask)
+    out["k1"] = check_folds_lm(torch, ops, ref, bw, layout, mask,
+                               keys=("k1",))["k1"]
+    del mask
+    torch.cuda.empty_cache()
+    out["k5"] = check_flash(torch, bw, TP_FLASH_CASES)
+    out["k6"] = check_scan(torch, bw, (), TP_GATED_CASES)
+    out["launches"] = {
+        "k1": sum(r["round"]["runs"][0]["launches"][0] for r in ranks),
+        "k2": sum(r["round"]["runs"][1]["launches"][1] for r in ranks),
+        "k4": sum(r["narrow"]["launches"][3] for r in ranks),
+        "k5_tc": sum(p["launches"][0] for r in ranks for p in r["prefill"]),
+        "k5_f32": sum(r["narrow"]["launches"][5] for r in ranks),
+        "k6": sum(p["launches"][2] for r in ranks for p in r["prefill"])}
+    print(f"  phase 20 launches over both ranks {out['launches']} "
+          f"({launches} K1 + K2 a rank) in {time.perf_counter() - t:.1f} s",
+          flush=True)
+    return out
+
+
+def tp_phase_alone(torch, ops, ref, bw: float) -> dict:
+    """Phase 20 run alone: phase 18(a)'s two unsharded rounds first (as
+    phase 19 runs them when alone), then :func:`tp_phase`."""
+    from repro_torch import configs
+    from repro_torch.core import flatten, masking
+    from repro_torch.core.adapters import LMAdapter
+    from repro_torch.tree import tree_map
+    cfg = configs.get_config(STEP_ARCH)
+    params = LMAdapter(cfg).init(torch.Generator("cuda").manual_seed(0),
+                                 "cuda")
+    layout = flatten.layout_of(params, total_multiple=2048)
+    flat_mask = flatten.pack_mask(
+        layout, masking.transformer_subnet_mask(params, cfg), "cuda")
+    cohort = tree_map(lambda x: x[None].expand((STEP_K,) + x.shape), params)
+    unsharded = _unsharded_rounds(torch, cfg, cohort, _step_tokens(torch),
+                                  torch.tensor(STEP_SIMPLE, device="cuda"),
+                                  flat_mask)
+    del params, cohort, flat_mask
+    gc.collect()
+    torch.cuda.empty_cache()
+    return tp_phase(torch, ops, ref, bw, unsharded)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4733,6 +5217,13 @@ def main() -> int:
           "gloo, world size 1), chunk2d attention, the roofline ledger",
           flush=True)
     sh = sharded_phase(torch, ops, unsharded)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 20. a live model axis: two ranks share the card over gloo
+    print("[20] a live model axis: Gemma-2 2B's step rounds, minitron-8b "
+          "and recurrentgemma-2b prefills at full width, two ranks sharing "
+          "the card (gloo, a (1, 2) mesh); narrow card vs CPU", flush=True)
+    tp = tp_phase(torch, ops, ref, bw, unsharded)
     del unsharded
 
     src = "src/repro_torch/kernels/masked_agg/csrc/"
@@ -4928,6 +5419,36 @@ def main() -> int:
     for kernel in kernels[-3:-1]:
         kernel["launches_checkpoint_path"] = ("phase 12: serving from "
                                               "save_tree checkpoints")
+    # phase 20: each kernel's launches on both ranks' local shards, and its
+    # time at the shape a rank hands it
+    by_name = {k["name"]: k for k in kernels}
+    tp_path = ("phase 20: two ranks sharing the card over gloo, a (1, 2) "
+               "mesh: ")
+    for name, key, path, row in (
+            ("masked_agg_acc", "k1", "(a) Gemma-2 2B's f32 step round at "
+             "full width", tp["k1"]["timing"][0]),
+            ("masked_agg_acc_deq", "k2", "(a) Gemma-2 2B's int8 step round "
+             "at full width", tp["k2"]["timing"][0]),
+            ("masked_agg", "k4", "(d) the narrow tree round on the card",
+             None),
+            ("flash_attention_wgmma", "k5_tc", "(b) minitron-8b on 16 of 32 "
+             "heads, (c) recurrentgemma-2b replicated",
+             tp["k5"]["timing"][0]),
+            ("flash_attention", "k5_f32", "(d) the narrow f32 prefill on "
+             "the card", None),
+            ("lru_scan", "k6", "(c) recurrentgemma-2b on 1280 of 2560 "
+             "channels", tp["k6"]["timing"][0])):
+        kernel = by_name[name]
+        kernel["launches_tp"] = tp["launches"][key]
+        kernel["launches_tp_path"] = tp_path + path
+        if row is not None:
+            kernel["tp"] = {k: row[k] for k in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "bound_share", "library_ms") if k in row}
+            if key in ("k1", "k2"):
+                kernel["tp"]["shape"] = {"Z": 1, "N": tp["n_flat"],
+                                         "fold": "complex", "mask":
+                                         "gemma2-2b M, a rank's shards"}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name_of_card,

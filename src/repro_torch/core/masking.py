@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models import resnet
+from repro_torch.models import common, resnet
 from repro_torch.tree import Tree, tree_leaves, tree_map
 
 # the decoder's subtrees inside M besides the prefix periods
@@ -102,10 +102,28 @@ def embed_simple(simple: Tree, complex_params: Tree,
 
 def tree_isfinite(tree: Tree) -> torch.Tensor:
     """0-d bool tensor: every floating leaf fully finite (the paper's
-    NaN-device check).  Stays on the tree's device: no host sync."""
-    flags = [torch.isfinite(x).all() for x in tree_leaves(tree)
-             if x.is_floating_point()]
-    return torch.stack(flags).all() if flags else torch.tensor(True)
+    NaN-device check).  Stays on the tree's device: no host sync.
+
+    DTensor leaves are checked on every rank's shard: each rank's count of
+    non-finite local leaves is summed over each dim of their mesh (an
+    all-reduce), so a client is valid only where every shard is finite,
+    and every rank gets the same flag (a plain tensor)."""
+    leaves = [x for x in tree_leaves(tree) if x.is_floating_point()]
+    if not leaves:
+        return torch.tensor(True)
+    local = [x.to_local() if common.is_dtensor(x) else x for x in leaves]
+    ok = torch.stack([torch.isfinite(x).all() for x in local]).all()
+    meshes = {id(x.device_mesh): x.device_mesh for x in leaves
+              if common.is_dtensor(x)}
+    if not meshes:
+        return ok
+    import torch.distributed as dist
+    bad = (~ok).to(torch.float32)
+    for mesh in meshes.values():
+        for i in range(mesh.ndim):
+            if mesh.size(i) > 1:
+                dist.all_reduce(bad, group=mesh.get_group(i))
+    return bad == 0
 
 
 def where_mask(mask: Tree, a: Tree, b: Tree) -> Tree:

@@ -208,6 +208,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     product, as the model's ``_attend`` rounds them), f32 on the CUDA
     cores; the kernel launches on the current stream and does not
     synchronise."""
+    work.refuse_dtensor("flash_attention", q, k, v)
     _check(q, k, v, window, softcap)
     b, s, h, dh = q.shape
     with work.kernel("flash_attention", 4 * dh * causal_pairs(s, window)

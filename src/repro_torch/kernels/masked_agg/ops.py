@@ -142,6 +142,7 @@ def masked_agg_acc_(acc: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
     acc (N,) f32; x (Z, N) f32 or bf16; mask (N,) bool; w_m, w_rest (Z,)
     f32 — all contiguous, on one device.  The kernel launches on the
     current stream of ``acc``'s device and does not synchronise."""
+    work.refuse_dtensor("masked_agg_acc_", acc, x, mask, w_m, w_rest)
     _check(acc, x, mask, w_m, w_rest)
     z, n = x.shape
     with work.kernel("masked_agg_acc", 2 * z * n,
@@ -188,6 +189,8 @@ def masked_agg_acc_deq_(acc: torch.Tensor, q: torch.Tensor,
     bool; w_m, w_rest (Z,) f32 — all contiguous, on one device.  A NaN
     scale row at weight 0 is gated out.  Launches on the current stream
     and does not synchronise."""
+    work.refuse_dtensor("masked_agg_acc_deq_", acc, q, scales, mask, w_m,
+                        w_rest)
     log2_qb = _log2_quant_block(quant_block)
     if q.dtype != torch.int8 or q.dim() != 2 or acc.dim() != 1 \
             or q.shape[1] != acc.shape[0]:
@@ -272,6 +275,8 @@ def masked_scatter_acc_(acc: torch.Tensor, values: torch.Tensor,
     run in each span, then the fold over the spans that have entries) on
     the current stream, with an int32 scratch of ``(2 Z + 2) N / span``;
     does not synchronise."""
+    work.refuse_dtensor("masked_scatter_acc_", acc, values, scales, indices,
+                        mask, w_m, w_rest)
     log2_qb = _log2_quant_block(quant_block)
     if values.dim() != 2 or values.dtype not in _VALUE_KINDS:
         raise ValueError(f"values must be (Z, k) int8, bf16 or f32, got "
@@ -415,6 +420,7 @@ def masked_agg_fold_(acc: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
     (M,) bool with M >= plan.length; x (Z, >= plan.length) f32 (the packed
     chunk buffer); w_m, w_rest (Z,) f32; plan on the same device; all
     contiguous.  One launch on the current stream, no synchronisation."""
+    work.refuse_dtensor("masked_agg_fold_", acc, x, mask, w_m, w_rest)
     if x.dtype != torch.float32 or x.dim() != 2 or \
             x.shape[1] < plan.length:
         raise ValueError(f"x must be f32 (Z, >= {plan.length}), got "
@@ -457,6 +463,7 @@ def masked_agg_(x: torch.Tensor, mask: torch.Tensor, w_m: torch.Tensor,
     chunk buffer).  mask (N,) bool; w_m, w_rest (Z,) f32 — contiguous, on
     x's device.  K4's kernel with a table of this one leaf; launches on
     the current stream and does not synchronise."""
+    work.refuse_dtensor("masked_agg_", x, mask, w_m, w_rest)
     if x.dim() != 2 or x.dtype not in _X_DTYPES:
         raise ValueError(f"x must be float32 or bfloat16 (Z, N), got "
                          f"{x.dtype} {tuple(x.shape)}")

@@ -134,6 +134,7 @@ def lru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a, b (B, S, D), both float32 or both bfloat16, contiguous, on one
     device -> y (B, S, D) in ``a.dtype``.  The kernel launches on the
     current stream and does not synchronise."""
+    work.refuse_dtensor("lru_scan", a, b)
     if a.dim() != 3 or tuple(a.shape) != tuple(b.shape):
         raise ValueError(f"need a, b of one shape (B, S, D), got "
                          f"{tuple(a.shape)} and {tuple(b.shape)}")
@@ -185,6 +186,7 @@ def lru_scan_gated(x: torch.Tensor, w_r: torch.Tensor, b_r: torch.Tensor,
     float32; y0 (B, D) float32 or None; all contiguous, on one device ->
     y (B, S, D) in ``x.dtype`` (``ref.lru_scan_gated_ref``).  The kernel
     launches on the current stream and does not synchronise."""
+    work.refuse_dtensor("lru_scan_gated", x, w_r, b_r, w_i, b_i, c, y0)
     vecs = (w_r, b_r, w_i, b_i, c)
     if x.dim() != 3 or x.dtype not in _DTYPES:
         raise ValueError(f"need x (B, S, D) float32 or bfloat16, got "

@@ -16,6 +16,8 @@ from __future__ import annotations
 import contextlib
 from typing import List
 
+import torch
+
 # the active walks, innermost last; each has kernel_begin(name, flops,
 # nbytes) and kernel_end()
 WALKS: List = []
@@ -46,3 +48,17 @@ def nbytes(*tensors) -> int:
     """Bytes of the given tensors (``None`` counts 0)."""
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
+
+
+def refuse_dtensor(name: str, *tensors) -> None:
+    """Raise ``TypeError`` if any of ``tensors`` is a DTensor: a kernel
+    launches on a local tensor's pointer, so a sharded step hands each
+    rank's shard to the wrapper through
+    ``torch.distributed.tensor.experimental.local_map``."""
+    if not torch.distributed.is_available():
+        return
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{name} takes local tensors, not DTensors: call it "
+                        f"through torch.distributed.tensor.experimental."
+                        f"local_map on each rank's shard")

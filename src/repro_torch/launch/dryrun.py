@@ -13,12 +13,27 @@ every op and every kernel wrapper's reported work), and
 ``roofline/analysis.make_record`` over the result, with the H100's
 constants.  Nothing is allocated and no card is needed.
 
-Three parts differ from the reference's compiled dry-run, and the record
-says so (``notes``): ``flops_per_chip`` is the walk's global count split
-evenly over the chips; ``coll_bytes_per_chip`` is ``None`` (the port
-issues no collective over the model axis yet), so ``bottleneck`` is over
-compute and memory; ``peak_memory_per_chip`` is params + cache + batch
-bytes per chip.  ``t_walk_s`` is the host time of the meta run.
+**Over the model axis.**  A train or prefill step of a config that runs
+over a live model axis (``sharding.out_of_scope`` is ``None``) is walked
+as one rank of the mesh: a fake process group of the mesh's size
+(``torch.testing._internal.distributed.fake_pg``, rank 0; no rank runs
+and no byte moves), a ``DeviceMesh`` over it, the parameters and the
+batch as ``meta`` DTensors (``sharding.distribute_params``,
+``batch_specs``), the step under a ``MeshPolicy`` of that live mesh.  The
+walk then counts rank 0's own work and every collective it takes part in
+(``roofline/torch_walk``), so ``flops_per_chip`` is that rank's and
+``coll_bytes_per_chip`` is the collectives' result bytes on it
+(``analysis.collective_bytes``), and ``bottleneck`` includes the
+collective term.
+
+Other combinations (decode, the configs that raise over a model axis)
+differ from the reference's compiled dry-run in three parts, and the
+record says so (``notes``): ``flops_per_chip`` is the walk's global count
+split evenly over the chips; ``coll_bytes_per_chip`` is ``None`` (the
+port issues no collective there), so ``bottleneck`` is over compute and
+memory; ``peak_memory_per_chip`` is params + cache + batch bytes per chip
+(in both kinds of record).  ``t_walk_s`` is the host time of the meta
+run.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma2-2b \
@@ -32,6 +47,7 @@ combination whose record is already there: remove it to walk it again.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -43,21 +59,68 @@ from typing import Optional
 from repro_torch import configs
 from repro_torch.configs.base import INPUT_SHAPES, InputShape, ModelConfig
 from repro_torch.launch import sharding, steps
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import (MeshShape, make_production_mesh,
+                                     model_axis_size)
 from repro_torch.models import transformer as tfm
 from repro_torch.roofline import analysis, torch_walk
+from repro_torch.tree import tree_map
 
 
-def lower_one(arch: str, shape: InputShape, *, multi_pod: bool,
+@contextlib.contextmanager
+def fake_mesh(mesh: MeshShape):
+    """A live ``DeviceMesh`` of ``mesh``'s shape over a fake process group
+    of its size, this process as rank 0: collectives are issued and
+    counted but move nothing.  Raises if a process group is already
+    initialised; destroys the fake one on exit."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("fake_mesh needs no process group initialised")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=mesh.size)
+    try:
+        sizes = tuple(mesh.shape[a] for a in mesh.axis_names)
+        yield DeviceMesh("cpu", torch.arange(mesh.size).reshape(sizes),
+                         mesh_dim_names=mesh.axis_names)
+    finally:
+        dist.destroy_process_group()
+
+
+def walks_per_chip(cfg: ModelConfig, shape: InputShape, mesh) -> bool:
+    """Whether :func:`lower_one` walks this combination as one rank of a
+    live mesh (module docstring)."""
+    return (shape.kind in ("train", "prefill") and model_axis_size(mesh) > 1
+            and sharding.out_of_scope(cfg) is None)
+
+
+def _walk_per_chip(cfg, shape, mesh, in_specs, window_override):
+    """The step's walk as rank 0 of a fake mesh of ``mesh``'s shape."""
+    with fake_mesh(mesh) as device_mesh:
+        policy = sharding.MeshPolicy(device_mesh, cfg)
+        params = sharding.distribute_params(tfm.abstract_params(cfg), cfg,
+                                            device_mesh)
+        batch = tree_map(lambda x, spec: sharding.distribute_leaf(
+            x, device_mesh, sharding.to_placements(spec, device_mesh)),
+            in_specs, sharding.batch_specs(in_specs, mesh, policy))
+        step = steps.step_for_shape(cfg, shape, policy,
+                                    window_override=window_override)
+        return torch_walk.walk(step, params, batch)[1]
+
+
+def lower_one(arch: str, shape: InputShape, *, multi_pod: bool = False,
+              mesh: Optional[MeshShape] = None,
               cfg_override: Optional[ModelConfig] = None,
               verbose: bool = True) -> dict:
     """Walk one (arch, shape, mesh) combination on ``meta``; return the
-    record (a dict)."""
+    record (a dict).  ``mesh`` replaces the production mesh (a shape such
+    as ``(2, 2)`` for the tests)."""
     cfg = cfg_override or configs.get_config(arch)
     longctx = configs.needs_longctx_variant(cfg, shape)
     window_override = cfg.longctx_window if longctx else None
 
-    mesh = make_production_mesh(multi_pod=multi_pod)
+    mesh = mesh or make_production_mesh(multi_pod=multi_pod)
     chips = mesh.size
     policy = sharding.MeshPolicy(mesh, cfg)
     in_specs = configs.input_specs(cfg, shape)
@@ -70,34 +133,37 @@ def lower_one(arch: str, shape: InputShape, *, multi_pod: bool,
                                 window_override=window_override)
 
     c_bytes = 0
+    per_chip = walks_per_chip(cfg, shape, mesh)
     t0 = time.time()
-    if shape.kind == "train":
-        _, walk = torch_walk.walk(step, params, in_specs)
-    else:
+    if shape.kind != "train":
         cache = tfm.init_cache(cfg, shape.global_batch, shape.seq_len,
                                window_override=window_override,
                                device="meta")
         c_bytes = sharding.bytes_per_chip(
             cache, sharding.cache_specs(cache, cfg, mesh), mesh)
-        if shape.kind == "decode":
-            _, walk = torch_walk.walk(step, params, cache, in_specs,
-                                      shape.seq_len - 1)
-        else:
-            _, walk = torch_walk.walk(step, params, in_specs)
-        del cache
+    if per_chip:
+        walk = _walk_per_chip(cfg, shape, mesh, in_specs, window_override)
+    elif shape.kind == "decode":
+        _, walk = torch_walk.walk(step, params, cache, in_specs,
+                                  shape.seq_len - 1)
+    else:
+        _, walk = torch_walk.walk(step, params, in_specs)
     t_walk = time.time() - t0
+    sizes = [str(mesh.shape[a]) for a in mesh.axis_names]
     rec = analysis.make_record(
-        arch=cfg.name, shape=shape, mesh_name="2x16x16" if multi_pod
-        else "16x16", chips=chips, walk=walk, cfg=cfg,
-        longctx_variant=longctx, param_bytes_chip=p_bytes,
-        cache_bytes_chip=c_bytes, batch_bytes_chip=b_bytes)
+        arch=cfg.name, shape=shape, mesh_name="x".join(sizes), chips=chips,
+        walk=walk, cfg=cfg, longctx_variant=longctx,
+        param_bytes_chip=p_bytes, cache_bytes_chip=c_bytes,
+        batch_bytes_chip=b_bytes, per_chip=per_chip)
     d = rec.to_dict()
     d["t_walk_s"] = round(t_walk, 1)
     if verbose:
+        coll = ("None" if rec.coll_bytes_per_chip is None
+                else f"{rec.coll_bytes_per_chip:.3e}")
         print(f"[dryrun] {cfg.name} x {shape.name} x {d['mesh']}: OK  "
               f"flops/chip={rec.flops_per_chip:.3e}  "
               f"peak={rec.peak_memory_per_chip / 2 ** 30:.2f}GiB  "
-              f"coll=None  bottleneck={rec.bottleneck}  "
+              f"coll={coll}  bottleneck={rec.bottleneck}  "
               f"(walk {t_walk:.1f}s)", flush=True)
     return d
 

@@ -28,14 +28,30 @@ Two pieces replace the reference's JAX-only ones:
   placements over a mesh: ``Shard(d)`` on each mesh dim that tensor dim
   ``d`` names, ``Replicate()`` on the others.  A dim named by ("pod",
   "data") is ``Shard(d)`` on both, pod major, as JAX splits it.
-* :meth:`MeshPolicy.constrain` executes only what a data-parallel mesh
-  needs: it is the identity on a tensor whose resolved spec shards over
-  data or pod axes or axes of size 1 (each rank already holds its share;
-  the cohort-sharded round in ``launch/steps.py`` takes each rank's
-  clients), and on ``meta`` tensors (the dry-runs).  A live mesh with a
-  model axis larger than 1 raises ``NotImplementedError``: tensor
-  parallelism is not ported (ROADMAP.md §1), and a policy that silently
-  replicated would report one chip's numbers under a mesh's name.
+* :meth:`MeshPolicy.constrain` is the reference's
+  ``with_sharding_constraint``: on a DTensor it is a ``redistribute`` to
+  the resolved spec's placements, which is what GSPMD inserts there
+  (a ``Partial`` sum becomes an all-reduce, a replicated tensor is sliced
+  where the spec shards it).  It is the identity on ``meta`` tensors (the
+  dry-runs on a :class:`MeshShape`) and on a plain tensor whose spec
+  shards over data or pod axes or axes of size 1 (each rank already holds
+  its share; the cohort-sharded round in ``launch/steps.py`` takes each
+  rank's clients).  A plain tensor with values whose spec shards over a
+  model axis larger than 1 raises ``TypeError``: it should have been a
+  DTensor, and computing on it would silently give one rank's share.
+
+**A live model axis (tensor parallelism).**  Over a ``DeviceMesh`` whose
+model axis is larger than 1 the steps take parameters as DTensors placed
+by :func:`param_specs` (:func:`distribute_params`, a cohort by
+:func:`cohort_specs` with :func:`distribute_cohort`), and the models run
+on them: plain PyTorch ops under DTensor's sharding propagation, every
+hand-written kernel on each rank's local shards through ``local_map``
+(``models/common.local_apply``).  Configs and paths the port does not run
+under a model axis raise ``NotImplementedError`` naming their queued
+``ROADMAP.md`` item, where the policy is built (:func:`out_of_scope`) or
+where the step is: MoE experts, xLSTM, codebook tables,
+the ``seq2d`` / ``dp2d`` / ``seq2d_fsdp`` variants, the compressed wire,
+SCAFFOLD and the serve step.  None of them replicates silently.
 """
 
 from __future__ import annotations
@@ -47,15 +63,24 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import MeshShape
-from repro_torch.models.common import Policy
+from repro_torch.models.common import Policy, is_dtensor
 from repro_torch.tree import (tree_leaves, tree_leaves_with_keys, tree_map,
                               tree_unflatten)
 
 Tree = Any
 
-MODEL_AXIS_TODO = ("execution over a live model axis larger than 1 (tensor "
-                   "parallelism) is not ported: ROADMAP.md §1, 'Execution "
-                   "over a live model axis'")
+# what the port does not run over a live model axis larger than 1, each
+# with its queued ROADMAP.md item
+TODO_SERVE = ("the serve step over sharded caches (kv_seq context-parallel "
+              "decode included): ROADMAP.md §1 item 10")
+TODO_MOE = "MoE experts over the model axis: ROADMAP.md §1 item 11"
+TODO_XLSTM = ("xLSTM blocks and codebook tables over the model axis: "
+              "ROADMAP.md §1 item 12")
+TODO_TOPK = ("the compressed wire's global top-k over the model axis: "
+             "ROADMAP.md §1 item 13")
+TODO_SCAFFOLD = "SCAFFOLD under a model axis: ROADMAP.md §1 item 14"
+TODO_SEQ2D = ("a live seq2d / dp2d / seq2d_fsdp split over the model axis: "
+              "ROADMAP.md §1 item 15")
 
 
 class PartitionSpec(tuple):
@@ -100,10 +125,23 @@ def _names(entry) -> Tuple[str, ...]:
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
+def out_of_scope(cfg: ModelConfig) -> Optional[str]:
+    """Why ``cfg`` does not run over a live model axis larger than 1, or
+    ``None`` where it does."""
+    if cfg.moe is not None or cfg.shard_experts_2d:
+        return TODO_MOE
+    if cfg.arch_type == "ssm" or cfg.n_codebooks > 1:
+        return TODO_XLSTM
+    if cfg.attn_shard in ("seq2d", "seq2d_fsdp", "dp2d"):
+        return TODO_SEQ2D
+    return None
+
+
 class MeshPolicy(Policy):
     """Activation-constraint resolver for a (pod,) data, model mesh: a
     :class:`MeshShape` (spec math, dry-runs) or a live ``DeviceMesh``
-    (``device_mesh``; the cohort-sharded round)."""
+    (``device_mesh``: the cohort-sharded round, and tensor parallelism
+    where its model axis is larger than 1)."""
 
     def __init__(self, mesh, cfg: ModelConfig):
         self.device_mesh = None if isinstance(mesh, MeshShape) else mesh
@@ -112,9 +150,13 @@ class MeshPolicy(Policy):
         self.cfg = cfg
         data = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
         self.data_axes = data
-        if self.device_mesh is not None and any(
-                n > 1 for a, n in mesh.shape.items() if a not in data):
-            raise NotImplementedError(f"{MODEL_AXIS_TODO}; mesh {mesh}")
+        # a live mesh with a model axis larger than 1: tensor parallelism
+        self.model_live = self.device_mesh is not None and any(
+            n > 1 for a, n in mesh.shape.items() if a not in data)
+        if self.model_live:
+            why = out_of_scope(cfg)
+            if why is not None:
+                raise NotImplementedError(f"{cfg.name} on {mesh}: {why}")
         heads_rule = "model"
         if cfg.attn_shard in ("replicate", "head_dim", "seq2d",
                               "seq2d_fsdp", "dp2d"):
@@ -171,18 +213,31 @@ class MeshPolicy(Policy):
         return P(*out)
 
     def constrain(self, x: torch.Tensor, axes: Sequence[Optional[str]]):
-        """The identity, where it is one (module docstring); raises
-        ``NotImplementedError`` on a tensor with values whose spec shards
-        over a model axis larger than 1."""
+        """``redistribute`` of a DTensor to the resolved spec; the identity
+        on ``meta`` and on a plain tensor sharded only over data axes or
+        axes of size 1; ``TypeError`` on a plain tensor with values whose
+        spec shards over a model axis larger than 1 (module docstring)."""
+        if is_dtensor(x):
+            return x.redistribute(x.device_mesh, to_placements(
+                self.spec(x.shape, axes), self.mesh))
         if x.is_meta:
             return x
         for entry in self.spec(x.shape, axes):
             for a in _names(entry):
                 if a not in self.data_axes and self.mesh.shape.get(a, 1) > 1:
-                    raise NotImplementedError(
-                        f"{MODEL_AXIS_TODO}; {tuple(axes)} resolves to "
-                        f"{self.spec(x.shape, axes)} on {self.mesh}")
+                    raise TypeError(
+                        f"a plain tensor {tuple(x.shape)} where {tuple(axes)}"
+                        f" resolves to {self.spec(x.shape, axes)} on "
+                        f"{self.mesh}: a model-sharded activation must be a "
+                        f"DTensor (distribute_params)")
         return x
+
+    def model_policy(self) -> "MeshPolicy":
+        """The policy of this rank's model group alone (the live mesh's
+        ``model`` sub-mesh, no data axis): what one client's training runs
+        under in the round step, since each data rank trains its own
+        clients."""
+        return MeshPolicy(self.device_mesh["model"], self.cfg)
 
     # -- the live mesh's data group (the cohort-sharded round) ------------
 
@@ -449,3 +504,117 @@ def bytes_per_chip(tree: Tree, specs: Tree, mesh) -> int:
             per *= math.ceil(dim / _axis_size(mesh, axes))
         total += per
     return total
+
+
+# ---------------------------------------------------------------------------
+# DTensor trees over a live mesh
+# ---------------------------------------------------------------------------
+
+def distribute_leaf(x: torch.Tensor, device_mesh, placements):
+    """``x`` (the same full tensor on every rank) as a DTensor: each rank
+    keeps its own shard, with no collective (``src_data_rank=None``).
+    A leaf whose leading axis is an ``expand``-ed view (a cohort in which
+    every client aliases one model) keeps that view: its first row is
+    distributed and the local shard expanded to this rank's rows of the
+    leading axis."""
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
+    if not (x.dim() and x.shape[0] > 1 and x.stride(0) == 0):
+        return distribute_tensor(x, device_mesh, placements,
+                                 src_data_rank=None)
+    rows = x.shape[0]
+    row = []
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard) and p.dim == 0:
+            lo, hi = shard_rows(rows, device_mesh.get_local_rank(i),
+                                device_mesh.size(i))
+            rows = hi - lo
+            row.append(Replicate())
+        else:
+            row.append(Shard(p.dim - 1) if isinstance(p, Shard) else p)
+    local = distribute_tensor(x[0], device_mesh, row,
+                              src_data_rank=None).to_local()
+    return DTensor.from_local(
+        local[None].expand((rows,) + tuple(local.shape)), device_mesh,
+        placements, run_check=False, shape=x.shape,
+        stride=torch.empty(x.shape, device="meta").stride())
+
+
+def _distribute(tree: Tree, specs: Tree, device_mesh) -> Tree:
+    """Replace each leaf of ``tree`` by its DTensor, in place in its dict
+    (every leaf of a parameter or cohort tree sits in a dict), so each full
+    leaf is freed as its shard replaces it; returns ``tree``."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            if isinstance(tree[k], torch.Tensor):
+                tree[k] = distribute_leaf(
+                    tree[k], device_mesh, to_placements(specs[k],
+                                                        device_mesh))
+            else:
+                _distribute(tree[k], specs[k], device_mesh)
+    elif isinstance(tree, (tuple, list)):
+        for t, s in zip(tree, specs):
+            _distribute(t, s, device_mesh)
+    else:
+        raise TypeError(f"a parameter leaf outside a dict: {type(tree)}")
+    return tree
+
+
+def distribute_params(params: Tree, cfg: ModelConfig, device_mesh) -> Tree:
+    """``params`` (the same full tree on every rank) as DTensors over the
+    live ``device_mesh``, each leaf placed by :func:`param_specs`.  **In
+    place**: each full leaf is replaced in its dict by its shard, one leaf
+    at a time, so the peak is the sharded tree plus one full leaf (pass a
+    copy of the dicts, ``tree_map(lambda x: x, params)``, to keep the full
+    tree).  Returns the tree."""
+    return _distribute(params, param_specs(params, cfg, device_mesh),
+                       device_mesh)
+
+
+def distribute_cohort(cohort: Tree, cfg: ModelConfig, device_mesh) -> Tree:
+    """A stacked cohort (leaves ``(K, ...)``, the same on every rank) as
+    DTensors placed by :func:`cohort_specs`, in place as
+    :func:`distribute_params`: the client axis over the data ranks, each
+    client's parameters as :func:`param_specs` lays them out.  An
+    ``expand``-ed cohort stays a view (:func:`distribute_leaf`)."""
+    specs = cohort_specs(tree_map(lambda x: x[0], cohort), cfg, device_mesh)
+    return _distribute(cohort, specs, device_mesh)
+
+
+def local_tree(tree: Tree) -> Tree:
+    """Each DTensor leaf's local shard (``to_local``); other leaves as
+    they are.  A leaf with a ``Partial`` placement raises ``ValueError``:
+    its local tensor is one rank's term of a sum, not its shard."""
+    def local(x):
+        if not is_dtensor(x):
+            return x
+        if any(p.is_partial() for p in x.placements):
+            raise ValueError(f"a Partial DTensor {tuple(x.shape)} "
+                             f"{x.placements} has no local shard")
+        return x.to_local()
+    return tree_map(local, tree)
+
+
+def check_groups(tree: Tree, quant_block: int) -> None:
+    """Raise ``ValueError``, naming the leaf, unless each sharded DTensor
+    leaf of ``tree`` (one client's parameters) holds whole
+    ``quant_block``-element groups of the global flat layout on every
+    rank.  The int8 wire quantizes the flat update in groups, and every
+    leaf starts lane-aligned (``flatten.LANES``), so a leaf sharded on dim
+    ``d`` is held as runs of ``prod(local.shape[d:])`` elements, each
+    starting a multiple of that length into a global row: when that
+    length is a multiple of ``quant_block``, the local flat layout's
+    groups are exactly global groups, and each rank's scales are the
+    unsharded wire's."""
+    for keys, x in tree_leaves_with_keys(tree):
+        if not is_dtensor(x):
+            continue
+        local = x.to_local().shape
+        for pl in x.placements:
+            if pl.is_shard() and math.prod(local[pl.dim:]) % quant_block:
+                raise ValueError(
+                    f"int8 wire over a model axis: leaf {'/'.join(keys)} "
+                    f"{tuple(x.shape)} sharded on dim {pl.dim} holds runs "
+                    f"of {math.prod(local[pl.dim:])} elements a rank, not "
+                    f"whole groups of {quant_block}: its local groups "
+                    f"would straddle the global ones")

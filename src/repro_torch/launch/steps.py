@@ -27,6 +27,26 @@ reduction of that axis is the round's all-reduce.  On one rank it is
 bitwise the unsharded step (the same launches fold the same rows in the
 same order, and a one-rank sum is the identity).
 
+**A live model axis (tensor parallelism).**  Under a ``MeshPolicy`` whose
+live mesh has a model axis larger than 1 the steps take DTensors
+(``sharding.distribute_params``; the round a cohort from
+``sharding.distribute_cohort``) and return DTensors, computing what GSPMD
+computes for the reference under the same policy.  The train and prefill
+steps run the model on DTensors (``implicit_replication``: a plain tensor
+such as a mask or the tokens counts as replicated); prefill's cache is
+constrained to ``sharding.cache_specs``.  In the round step each data rank
+trains its rows of each chunk as above, each client as DTensors over its
+model group (``MeshPolicy.model_policy``); a client is valid only where
+every shard is finite (``masking.tree_isfinite``); the fold runs on each
+rank's local shards (``flatten.layout_of`` over the local shapes, K1/K2 or
+K4 on the local flat vector, no model-axis collective: the fold is
+elementwise), and the new model's local leaves are wrapped back as
+DTensors.  On the int8 wire each sharded leaf's local rows must be whole
+groups of the global layout (``sharding.check_groups``), so that each
+rank quantizes exactly the reference's groups.  The compressed wire,
+SCAFFOLD and the serve step raise ``NotImplementedError`` there, naming
+their queued ``ROADMAP.md`` items.
+
 Where the reference ``vmap``s a chunk's clients and ``scan``s the chunks,
 the round step loops over both in Python, training one client at a time;
 the fold is one engine call a chunk, as in the reference.  Three of the
@@ -49,6 +69,7 @@ reference's behaviours are kept on purpose:
 
 from __future__ import annotations
 
+import contextlib
 import warnings
 from typing import Dict, Optional
 
@@ -69,20 +90,115 @@ Batch = Dict[str, torch.Tensor]
 
 def _value_and_grad(loss_fn, params: Tree, batch: Batch):
     """``(loss, grads)`` of ``loss_fn`` at ``params``; a leaf the loss does
-    not touch gets a ``None`` gradient, which SGD reads as zero."""
+    not touch gets a ``None`` gradient, which SGD reads as zero.  A DTensor
+    gradient is redistributed to its parameter's placements (a ``Partial``
+    gradient of a replicated parameter is all-reduced), as GSPMD lays the
+    gradients out like the parameters."""
     leaves, treedef = tree_flatten(params)
     for leaf in leaves:
         leaf.requires_grad_(True)
     loss = loss_fn(params, batch)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    for leaf in leaves:
+    grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
+    for i, leaf in enumerate(leaves):
         leaf.requires_grad_(False)
-    return loss.detach(), tree_unflatten(treedef, list(grads))
+        if grads[i] is not None and sharding.is_dtensor(grads[i]) and \
+                grads[i].placements != leaf.placements:
+            grads[i] = grads[i].redistribute(leaf.device_mesh,
+                                             leaf.placements)
+    return loss.detach(), tree_unflatten(treedef, grads)
 
 
 def _sgd(params: Tree, grads: Tree, lr: float, clip_norm: float) -> Tree:
     with torch.no_grad():
         return sgd_update(params, grads, lr, clip_norm)
+
+
+def _model_live(policy: Policy) -> bool:
+    return getattr(policy, "model_live", False)
+
+
+def _tp(policy: Policy):
+    """The context a step runs its model in: DTensor's
+    ``implicit_replication`` over a live model axis, else nothing."""
+    if not _model_live(policy):
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
+def _value(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's value as a plain tensor (``full_tensor``: no collective
+    for a replicated one, an all-reduce for a ``Partial`` sum such as a
+    loss over a data-sharded batch)."""
+    return x.full_tensor() if sharding.is_dtensor(x) else x
+
+
+def _contiguous_stride(shape) -> tuple:
+    return torch.empty(shape, device="meta").stride()
+
+
+class _ModelAxisCohort:
+    """A cohort of DTensors (``sharding.distribute_cohort``) as the round
+    step reads it over a live model axis: each client's parameters as
+    DTensors over the model group, the local template the fold lays out,
+    and the new model wrapped back over the whole mesh."""
+
+    def __init__(self, cohort: Tree, policy):
+        from torch.distributed.tensor import Replicate, Shard
+        leaves = tree_flatten(cohort)[0]
+        if not all(sharding.is_dtensor(x) for x in leaves):
+            raise TypeError("over a live model axis the round step takes a "
+                            "DTensor cohort (sharding.distribute_cohort)")
+        self.local = sharding.local_tree(cohort)
+        self.mesh = policy.device_mesh
+        self.model_mesh = self.mesh["model"]
+        names = self.mesh.mesh_dim_names
+        dm, dd = names.index("model"), names.index("data")
+        k = leaves[0].shape[0]
+        # the clients this rank holds: its Shard(0) rows over data
+        self.lo, self.hi = 0, k
+        if leaves[0].placements[dd] == Shard(0):
+            index, parts = policy.data_coordinate()
+            self.lo, self.hi = sharding.shard_rows(k, index, parts)
+
+        def model_place(pl):
+            return Shard(pl.dim - 1) if isinstance(pl, Shard) else Replicate()
+
+        self.client_place = tree_map(
+            lambda x: [model_place(x.placements[dm])], cohort)
+        self.param_place = tree_map(lambda x: [
+            model_place(pl) if i == dm else Replicate()
+            for i, pl in enumerate(x.placements)], cohort)
+        self.shapes = tree_map(lambda x: tuple(x.shape[1:]), cohort)
+        self.template = tree_map(lambda x: x[0], self.local)
+
+    def client(self, z: int) -> Tree:
+        """Client ``z``'s parameters as DTensors over the model group."""
+        if not self.lo <= z < self.hi:
+            raise ValueError(
+                f"client {z} is not among this rank's rows [{self.lo}, "
+                f"{self.hi}) of a cohort sharded over data: fold it in one "
+                f"chunk (cohort_chunk=0)")
+        return tree_map(lambda x, pl, shape: _from_local(
+            x[z - self.lo], self.model_mesh, pl, shape), self.local,
+            self.client_place, self.shapes)
+
+    def template_dtensors(self) -> Tree:
+        """One client's local template as DTensors over the model group."""
+        return tree_map(lambda x, pl, shape: _from_local(
+            x, self.model_mesh, pl, shape), self.template,
+            self.client_place, self.shapes)
+
+    def wrap(self, local: Tree) -> Tree:
+        """The new model's local leaves as DTensors over the whole mesh."""
+        return tree_map(lambda x, pl, shape: _from_local(
+            x, self.mesh, pl, shape), local, self.param_place, self.shapes)
+
+
+def _from_local(x, mesh, placements, shape):
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(x, mesh, placements, run_check=False,
+                              shape=shape, stride=_contiguous_stride(shape))
 
 
 def make_train_step(cfg: ModelConfig, policy: Policy = NO_POLICY, *,
@@ -94,9 +210,11 @@ def make_train_step(cfg: ModelConfig, policy: Policy = NO_POLICY, *,
     loss_fn = adapter.loss_side if side_objective else adapter.loss_complex
 
     def train_step(params: Tree, batch: Batch):
-        p = tree_map(lambda x: x.detach(), params)
-        loss, grads = _value_and_grad(loss_fn, p, batch)
-        return _sgd(p, grads, lr, clip_norm), {"loss": loss}
+        with _tp(policy):
+            p = tree_map(lambda x: x.detach(), params)
+            loss, grads = _value_and_grad(loss_fn, p, batch)
+            return (_sgd(p, grads, lr, clip_norm),
+                    {"loss": _value(loss)})
 
     return train_step
 
@@ -145,11 +263,14 @@ def make_fed_round_step(cfg: ModelConfig, policy: Policy = NO_POLICY, *,
     static configuration and :func:`aggregate.engine_attrs` of its spec.
 
     ``policy``: a ``MeshPolicy`` over a live mesh shards each chunk's
-    clients over its data ranks and all-reduces the fold (module
-    docstring); any other policy runs the whole cohort here.
+    clients over its data ranks and all-reduces the fold, and one whose
+    model axis is larger than 1 also shards each client's parameters over
+    the model ranks (module docstring; the cohort a DTensor tree from
+    ``sharding.distribute_cohort``, the new model a DTensor tree); any
+    other policy runs the whole cohort here.
     """
-    adapter = LMAdapter(cfg, policy=policy, remat=True)
     sharded = getattr(policy, "device_mesh", None) is not None
+    tp = _model_live(policy)
     legacy = {"agg_engine": agg_engine, "agg_block_n": agg_block_n,
               "comm_dtype": comm_dtype, "quant_block": quant_block}
     if any(v is not None for v in legacy.values()):
@@ -171,6 +292,12 @@ def make_fed_round_step(cfg: ModelConfig, policy: Policy = NO_POLICY, *,
         algorithm="fedhen", wire=comm.WireSpec("float32", 128))
     if spec.wire is None:
         spec = spec.bind(wire=comm.WireSpec("float32", 128))
+    if tp and spec.wire.uses_deltas:
+        raise NotImplementedError(sharding.TODO_TOPK)
+    if tp and spec.variance_reduction != "none":
+        raise NotImplementedError(sharding.TODO_SCAFFOLD)
+    adapter = LMAdapter(cfg, policy=policy.model_policy() if tp else policy,
+                        remat=True)
     obs = obslib.coalesce(telemetry)
     if obs.enabled:
         values = {"local_steps": int(local_steps), "lr": lr,
@@ -207,7 +334,18 @@ def make_fed_round_step(cfg: ModelConfig, policy: Policy = NO_POLICY, *,
         if k % chunk:
             raise ValueError(
                 f"cohort_chunk={chunk} does not divide cohort size {k}")
-        template = tree_map(lambda x: x[0], cohort)
+        if tp:
+            # each rank folds its local shards (module docstring)
+            held = _ModelAxisCohort(cohort, policy)
+            template, client_of = held.template, held.client
+            if spec.wire.is_quantized:
+                sharding.check_groups(held.template_dtensors(),
+                                      spec.wire.quant_block)
+        else:
+            template = tree_map(lambda x: x[0], cohort)
+
+            def client_of(z):
+                return tree_map(lambda x: x[z], cohort)
         device = data.device
         mask = masking.transformer_subnet_mask(template, cfg)
         # both engines fold against the flat mask (K1/K2, or K4's)
@@ -252,18 +390,20 @@ def make_fed_round_step(cfg: ModelConfig, policy: Policy = NO_POLICY, *,
         for lo, hi in rows:
             if hi == lo:
                 continue
-            trained = [client_train(tree_map(lambda x: x[z], cohort),
-                                    data[z], simple_host[z])
-                       for z in range(lo, hi)]
+            with _tp(policy):
+                trained = [client_train(client_of(z), data[z],
+                                        simple_host[z])
+                           for z in range(lo, hi)]
             valid = torch.stack([masking.tree_isfinite(p)
                                  for p, _ in trained])
-            losses = torch.stack([loss.to(torch.float32)
+            losses = torch.stack([_value(loss).to(torch.float32)
                                   for _, loss in trained])
+            trained = [sharding.local_tree(p) for p, _ in trained]
             # a chunk of one is a view of its client, not a copy (a
             # full-width LM client is 5 GB)
             stacked = tree_map(
                 lambda *xs: xs[0][None] if len(xs) == 1
-                else torch.stack(xs), *[p for p, _ in trained])
+                else torch.stack(xs), *trained)
             del trained
             sl = slice(lo, hi)
             state = agg_fold(state, stacked, is_simple[sl],
@@ -272,9 +412,11 @@ def make_fed_round_step(cfg: ModelConfig, policy: Policy = NO_POLICY, *,
             if real is not None:
                 losses = torch.where(real_f[sl] > 0, losses, 0.0)
             loss_sum = loss_sum + losses.sum()
-        if sharded:
+        if sharded and not (tp and policy.data_coordinate()[1] == 1):
             aggregate.allreduce_state(state, policy.data_group(), loss_sum)
         new_complex, _ = agg_finalize(state, template=template)
+        if tp:
+            new_complex = held.wrap(new_complex)
         return new_complex, loss_sum / denom
 
     return round_step
@@ -286,12 +428,16 @@ def make_prefill_step(cfg: ModelConfig, policy: Policy = NO_POLICY, *,
     """``prefill_step(params, batch) -> (logits, cache)``; ``batch`` holds
     ``tokens`` and optionally a frontend's ``extra_embeds``."""
     def prefill_step(params: Tree, batch: Batch):
-        with torch.no_grad():
-            return tfm.prefill(params, cfg, batch["tokens"],
-                               extra_embeds=batch.get("extra_embeds"),
-                               policy=policy,
-                               window_override=window_override,
-                               cache_len=cache_len)
+        with torch.no_grad(), _tp(policy):
+            logits, cache = tfm.prefill(
+                params, cfg, batch["tokens"],
+                extra_embeds=batch.get("extra_embeds"), policy=policy,
+                window_override=window_override, cache_len=cache_len)
+            if _model_live(policy):
+                cache = tree_map(lambda c, spec: c.redistribute(
+                    c.device_mesh, sharding.to_placements(spec, policy.mesh)),
+                    cache, sharding.cache_specs(cache, cfg, policy.mesh))
+            return logits, cache
 
     return prefill_step
 
@@ -301,7 +447,11 @@ def make_serve_step(cfg: ModelConfig, policy: Policy = NO_POLICY, *,
                     with_exit_head: bool = False):
     """``serve_step(params, cache, batch, pos) -> (logits, cache[,
     exit_logits])`` for one token; the port's decode updates ``cache`` in
-    place and returns it."""
+    place and returns it.  Over a live model axis larger than 1 it raises
+    ``NotImplementedError`` (sharded caches are not ported)."""
+    if _model_live(policy):
+        raise NotImplementedError(sharding.TODO_SERVE)
+
     def serve_step(params: Tree, cache: Tree, batch: Batch, pos: int):
         with torch.no_grad():
             return tfm.decode_step(params, cache, cfg, batch["tokens"], pos,

@@ -25,8 +25,18 @@ a ``seq2d`` policy (``launch/sharding.MeshPolicy``) training runs
 it in XLA ops: the reference's sequence-parallel form, whose query chunks
 its policy shards over ``model``.  Prefill walks it only on ``meta``
 tensors (the dry-runs); with values it keeps K5, since no live sequence
-split exists yet (``ROADMAP.md`` §1, the model-axis item).  Shapes: hidden (B, S, D); q (B, S, H,
-Dh); k/v (B, S, Kh, Dh).
+split exists yet (``ROADMAP.md`` §1 item 15).
+
+Over a live model axis (DTensor parameters and activations) the attention
+itself runs on each rank's local heads (:func:`_on_local_heads`, through
+``local_map``): K5 in prefill, :func:`chunked_causal_attention` in
+training.  With heads sharded (``attn_shard="auto"``) a rank holds ``H/m``
+query heads and the ``Kh/m`` kv heads they read; with heads replicated
+every rank computes the whole attention; with the head dim sharded
+(llava's ``"head_dim"``) the function does not separate, so q, k and v are
+gathered whole first, as GSPMD gathers around a custom call, and the
+output is constrained back.  Shapes: hidden (B, S, D); q (B, S, H, Dh);
+k/v (B, S, Kh, Dh).
 """
 
 from __future__ import annotations
@@ -250,6 +260,46 @@ def _heads(q, k, v, policy: Policy):
             policy.constrain(v, ("batch", "seq", "kv_heads", "head_dim")))
 
 
+def _on_local_heads(fn, q, k, v):
+    """``fn(q, k, v) -> out`` (a per-head attention, output placed like q)
+    on each rank's local heads.  Plain tensors go straight to ``fn``.  On
+    DTensors the head dim is gathered whole first.  Query head ``h`` reads
+    kv head ``h // G``: with q and k sharded alike each rank's ``H/m``
+    query heads read its own ``Kh/m`` kv heads; with the query heads
+    sharded and the kv heads replicated (``Kh`` does not divide ``m``) each
+    rank reads the kv heads its query heads need, as GSPMD slices a
+    replicated operand, and their gradients are ``Partial`` sums over the
+    ranks; otherwise the heads are gathered whole."""
+    if not common.is_dtensor(q):
+        return fn(q, k, v)
+    from torch.distributed.tensor import Partial
+    q, k, v = (common.unshard(t, 3) for t in (q, k, v))
+    h, kh = q.shape[2], k.shape[2]
+    g = h // kh
+    if list(k.placements) != list(v.placements):
+        k, v = common.unshard(k, 2), common.unshard(v, 2)
+    sharded = [i for i, pl in enumerate(q.placements) if pl.is_shard(2)]
+    if list(q.placements) != list(k.placements) and len(sharded) == 1 and \
+            not any(pl.is_shard(2) for pl in k.placements):
+        i = sharded[0]
+        hl, start = q.to_local().shape[2], common.shard_offset(q, 2)
+        if hl % g == 0 or g % hl == 0:
+            lo, hi = start // g, (start + hl - 1) // g + 1
+            kv_grad = [Partial() if j == i else pl
+                       for j, pl in enumerate(k.placements)]
+            return common.local_apply(
+                lambda q, k, v: fn(q, k[:, :, lo:hi], v[:, :, lo:hi]),
+                list(q.placements), q, k, v,
+                in_grad_placements=(None, kv_grad, kv_grad))
+    if list(q.placements) != list(k.placements):
+        q, k, v = (common.unshard(t, 2) for t in (q, k, v))
+    hl, khl = q.to_local().shape[2], k.to_local().shape[2]
+    if hl * kh != h * khl or hl % max(khl, 1):
+        raise ValueError(f"local heads {hl} of {h} do not read whole kv "
+                         f"groups ({khl} of {kh} kv heads)")
+    return common.local_apply(fn, list(q.placements), q, k, v)
+
+
 def apply_attention_train(p: dict, h_in: torch.Tensor, cfg: ModelConfig, *,
                           window: int = 0, policy: Policy = NO_POLICY,
                           q_chunk: int = 512) -> torch.Tensor:
@@ -265,9 +315,10 @@ def apply_attention_train(p: dict, h_in: torch.Tensor, cfg: ModelConfig, *,
         out = _seq2d(q, k, v, cfg, window, q_chunk, policy)
     else:
         q, k, v = _heads(q, k, v, policy)
-        out = chunked_causal_attention(q, k, v, window=window,
-                                       softcap_val=cfg.attn_logit_softcap,
-                                       q_chunk=q_chunk)
+        out = _on_local_heads(
+            lambda q, k, v: chunked_causal_attention(
+                q, k, v, window=window, softcap_val=cfg.attn_logit_softcap,
+                q_chunk=q_chunk), q, k, v)
     out = policy.constrain(out, ("batch", "seq", "heads", None))
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(out.dtype))
 
@@ -301,8 +352,10 @@ def apply_attention(p: dict, h_in: torch.Tensor, cfg: ModelConfig, *,
         if seq2d:
             policy.constrain(q, ("batch", "seq", None, None))
         q, k, v = _heads(q, k, v, policy)
-        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                              window=window, softcap=cfg.attn_logit_softcap)
+        out = _on_local_heads(
+            lambda q, k, v: flash_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(),
+                window=window, softcap=cfg.attn_logit_softcap), q, k, v)
     out = policy.constrain(out, ("batch", "seq", "heads", None))
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(out.dtype))
     if return_kv:
@@ -317,7 +370,14 @@ def kv_to_cache(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig, *,
     Windowed layers get a ring buffer laid out so that position p sits at
     slot p % size — what :func:`apply_attention_decode` expects when it
     continues from pos = S.  Global layers get a dense cache of
-    ``cache_len`` (>= S) slots."""
+    ``cache_len`` (>= S) slots.  DTensor k and v are arranged on each
+    rank's shards (the cache placed as k is)."""
+    if common.is_dtensor(k):
+        ck, cv = common.local_apply(
+            lambda k, v: tuple(kv_to_cache(k, v, cfg, window=window,
+                                           cache_len=cache_len).values()),
+            (list(k.placements), list(v.placements)), k, v)
+        return {"k": ck, "v": cv}
     b, s, kh, dh = k.shape
     dt = cfg.torch_compute_dtype()
     size = cache_len or s

@@ -11,7 +11,11 @@ Sharding is threaded through a :class:`Policy`, as in the reference:
 model code names the logical axes of an activation
 (``policy.constrain(x, ("batch", "seq", None))``) and the policy installed
 by ``launch/sharding.py`` resolves them; :data:`NO_POLICY` (one device) is
-the identity.
+the identity.  Over a live model axis the parameters and activations are
+DTensors: :func:`local_apply` runs a function of local tensors (a kernel,
+or a computation that separates along the sharded dims) on each rank's
+shards, and :func:`apply_embedding` looks a vocabulary-sharded table up
+that way (the vocab-parallel embedding).
 
 An init function given a :class:`ShapeGenerator` (device ``meta``) makes
 ``meta`` tensors of its leaves' shapes and dtypes and draws nothing:
@@ -39,6 +43,66 @@ class Policy:
 
 
 NO_POLICY = Policy()
+
+
+def is_dtensor(x) -> bool:
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def local_apply(fn, out_placements, *args, in_grad_placements=None):
+    """``fn(*args)`` on each rank's local shards: every DTensor argument is
+    passed as its local tensor (no redistribution) and each output wrapped
+    with ``out_placements`` (one list, or a tuple of lists for several
+    outputs) over the first DTensor argument's mesh, through
+    ``torch.distributed.tensor.experimental.local_map`` (differentiable:
+    each input's gradient keeps its placements, or takes those of
+    ``in_grad_placements``, one entry an argument, ``None`` for the
+    input's own).  With no DTensor among ``args`` it is ``fn(*args)``.
+    The caller guarantees that ``fn`` separates along the sharded dims."""
+    if not any(is_dtensor(a) for a in args):
+        return fn(*args)
+    from torch.distributed.tensor.experimental import local_map
+
+    def local(*xs):
+        return fn(*(_ContiguousGrad.apply(x) if isinstance(
+            x, torch.Tensor) and x.requires_grad else x for x in xs))
+    if in_grad_placements is not None:
+        in_grad_placements = tuple(
+            g if g is not None or not is_dtensor(a) else list(a.placements)
+            for g, a in zip(in_grad_placements, args))
+    return local_map(local, out_placements=out_placements,
+                     in_grad_placements=in_grad_placements)(*args)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient contiguous: a
+    local gradient leaves ``local_map`` as a DTensor's shard, and DTensor's
+    ``view`` (the backward of a later reshape) cannot take a non-contiguous
+    one."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def unshard(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """A DTensor with dim ``dim`` gathered whole on every rank (its other
+    placements kept); a plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    d = dim % x.dim()
+    place = [Replicate() if isinstance(p, Shard) and p.dim == d else p
+             for p in x.placements]
+    return x if place == list(x.placements) else x.redistribute(
+        x.device_mesh, place)
 
 
 class ShapeGenerator:
@@ -145,17 +209,70 @@ def init_embedding(generator: torch.Generator, vocab: int, d_model: int,
     return {"table": embed_init(generator, (vocab, d_model), dtype)}
 
 
+def shard_offset(x, dim: int) -> int:
+    """Where this rank's shard of DTensor ``x``'s dim ``dim`` starts in the
+    global tensor (``Shard(dim)`` over several mesh dims nests in mesh
+    order, as DTensor splits it)."""
+    from repro_torch.launch.sharding import shard_rows
+    start, size = 0, x.shape[dim]
+    for i, pl in enumerate(x.placements):
+        if pl.is_shard(dim):
+            lo, hi = shard_rows(size, x.device_mesh.get_local_rank(i),
+                                x.device_mesh.size(i))
+            start, size = start + lo, hi - lo
+    return start
+
+
+def _scale_rows(h: torch.Tensor, d: int) -> torch.Tensor:
+    return h * torch.tensor(math.sqrt(d), dtype=torch.float32,
+                            device=h.device).to(h.dtype)
+
+
 def apply_embedding(p: dict, tokens: torch.Tensor, *,
                     scale: bool = True) -> torch.Tensor:
     """Rows of the table, times ``sqrt(D)`` rounded to the table's dtype as
     the reference rounds it (f32 first: in bf16 sqrt(2560) = 50.596...
-    becomes 50.5)."""
-    h = p["table"][tokens]
-    if scale:
-        d = p["table"].shape[-1]
-        h = h * torch.tensor(math.sqrt(d), dtype=torch.float32,
-                             device=h.device).to(h.dtype)
-    return h
+    becomes 50.5).
+
+    A table sharded over its rows (a DTensor, the vocab-parallel
+    embedding) is looked up on each rank's rows (:func:`_vocab_lookup`);
+    the result is a ``Partial`` sum, which the caller constrains (an
+    all-reduce)."""
+    table = p["table"]
+    d = table.shape[-1]
+    if is_dtensor(table) and any(pl.is_shard(0) for pl in table.placements):
+        return _vocab_lookup(table, tokens, scale)
+    h = table[tokens]
+    return _scale_rows(h, d) if scale else h
+
+
+def _vocab_lookup(table, tokens: torch.Tensor, scale: bool):
+    """The rows of a row-sharded table, through ``local_map``: each rank
+    looks up the ids in its own rows (the others masked to zero rows), so
+    the output is ``Partial`` over each mesh dim that shards the rows and
+    exactly one rank's term of the sum is nonzero.  Indexing the DTensor
+    itself would give DTensor's ``MaskPartial``, which meets the tied
+    unembedding's gradient (``Partial``) in the backward and cannot be
+    redistributed from it; this way both of the table's gradients are
+    ``Shard(0)``."""
+    from torch.distributed.tensor import Partial
+    start, d = shard_offset(table, 0), table.shape[-1]
+    # the rows' mesh dims reduce (Partial); the ids' own sharding (a batch
+    # over data) carries over to the rows looked up
+    ids_place = tokens.placements if is_dtensor(tokens) else None
+    out = [Partial() if pl.is_shard(0) else
+           ids_place[i] if ids_place is not None else pl
+           for i, pl in enumerate(table.placements)]
+
+    def lookup(local, ids):
+        ids = ids.long() - start
+        inside = (ids >= 0) & (ids < local.shape[0])
+        h = local[torch.where(inside, ids, 0)]
+        if scale:
+            h = _scale_rows(h, d)
+        return torch.where(inside[..., None], h, torch.zeros_like(h))
+
+    return local_apply(lookup, out, table, tokens)
 
 
 def apply_unembedding(p: dict, h: torch.Tensor) -> torch.Tensor:
@@ -198,13 +315,61 @@ def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     widened, the gold logit picked in the logits' dtype.  The reference
     picks it as ``sum(logits * one_hot)``; every other term of that sum is
     an exact zero, so ``gather`` gives the same value and gradient without
-    a ``(..., V)`` one-hot (0.5 GB a head at Gemma-2's vocab)."""
+    a ``(..., V)`` one-hot (0.5 GB a head at Gemma-2's vocab).
+
+    Logits sharded over the vocabulary (a DTensor) take the same formula
+    vocab-parallel: the max and the sum of exponentials are reduced over
+    the ranks (all-reduces of one value a position; the sum in another
+    order than one rank's), the gold logit is picked on the rank that holds
+    it (:func:`_gold_logit`); the logits are never gathered."""
     m = logits.amax(dim=-1, keepdim=True).detach()
+    sharded = is_dtensor(logits) and any(
+        p.is_shard(logits.dim() - 1) for p in logits.placements)
+    if sharded:
+        m = _reduce_partial(m)        # Partial(max) -> an all-reduce
     shifted = (logits - m).float()
-    logz = torch.log(torch.sum(torch.exp(shifted), dim=-1)) \
-        + m[..., 0].float()
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return logz - gold.float()
+    total = torch.sum(torch.exp(shifted), dim=-1)
+    if sharded:
+        total = _reduce_partial(total)    # an all-reduce, never a scatter
+        gold = _gold_logit(logits, labels)
+    else:
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.log(total) + m[..., 0].float() - gold.float()
+
+
+def _gold_logit(logits, labels: torch.Tensor) -> torch.Tensor:
+    """``logits[..., labels]`` of vocab-sharded logits, through
+    ``local_map``: each rank picks the labels in its own vocab range (the
+    others zero), so the result is a ``Partial`` sum with one nonzero
+    term, and its gradient lands in the holding rank's shard."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    last = logits.dim() - 1
+    start = shard_offset(logits, last)
+    out = [Partial() if pl.is_shard(last) else pl for pl in logits.placements]
+    if not is_dtensor(labels):
+        # plain labels are the global batch: take the rows the logits hold
+        # (a batch sharded over data), as the logits' other placements say
+        mesh = logits.device_mesh
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False).redistribute(
+            mesh, [Replicate() if pl.is_shard(last) else pl
+                   for pl in logits.placements])
+
+    def pick(local, lab):
+        ids = lab.long() - start
+        inside = (ids >= 0) & (ids < local.shape[-1])
+        g = torch.gather(local, -1, torch.where(inside, ids, 0)[..., None])
+        return torch.where(inside, g[..., 0], torch.zeros_like(g[..., 0]))
+
+    return _reduce_partial(local_apply(pick, out, logits, labels))
+
+
+def _reduce_partial(x):
+    """A DTensor's ``Partial`` placements reduced (all-reduces), the
+    others kept."""
+    from torch.distributed.tensor import Replicate
+    place = [Replicate() if p.is_partial() else p for p in x.placements]
+    return x.redistribute(x.device_mesh, place)
 
 
 def softmax_cross_entropy_sum(logits: torch.Tensor,

@@ -7,10 +7,11 @@ group): each group's tokens go into an ``(E, C, D)`` buffer by a gather
 from ``x`` with a zero row appended (the garbage index ``S`` reads it), the
 experts run as one batched product over ``E``, and each token adds its
 experts' gated outputs back.  A (token, choice) pair past its expert's
-capacity ``C`` is dropped, as in Switch/GShard.  The layers take no
-``policy``: the reference's only use of it here is ``constrain``, which a
-data-parallel mesh (the one ``launch/sharding.MeshPolicy`` executes)
-leaves as the identity.
+capacity ``C`` is dropped, as in Switch/GShard.  The dense MLP takes the
+reference's ``policy`` and constrains its hidden; MoE takes none, since
+``launch/sharding.MeshPolicy`` refuses MoE configs over a live model axis
+(``ROADMAP.md`` §1 item 11) and its constrains are the identity
+elsewhere.
 
 Where a faithful-looking port could part from the reference, this one
 follows it exactly:
@@ -35,6 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models import common
+from repro_torch.models.common import NO_POLICY, Policy
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -59,13 +61,19 @@ def init_mlp(generator: torch.Generator, cfg: ModelConfig,
     return p
 
 
-def apply_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """x (..., D) -> (..., D) in ``x.dtype``."""
+def apply_mlp(p: dict, x: torch.Tensor,
+              policy: Policy = NO_POLICY) -> torch.Tensor:
+    """x (..., D) -> (..., D) in ``x.dtype``.  The hidden is constrained
+    to ``("batch", "seq", "ffn")`` (the reference's site): over a model
+    axis the up and gate projections are column-parallel and the down
+    projection row-parallel, so the output is a ``Partial`` sum that the
+    caller reduces."""
     u = torch.matmul(x, p["up"].to(x.dtype))
     if "gate" in p:
         h = gelu(torch.matmul(x, p["gate"].to(x.dtype))) * u
     else:
         h = gelu(u)
+    h = policy.constrain(h, ("batch", "seq", "ffn"))
     return torch.matmul(h, p["down"].to(x.dtype))
 
 

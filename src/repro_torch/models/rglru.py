@@ -20,6 +20,14 @@ K6 has no backward, so training (:func:`apply_rglru_train`) runs
 :func:`_gates` and :func:`linear_scan`, plain PyTorch under autograd,
 with the reference's combine.  Decode is the single-step
 recurrence carrying ``(y, conv window)`` state, updated in place.
+
+Over a live model axis the ``rnn`` channels are sharded (``w_in``,
+``w_gate`` column-parallel, ``w_out`` row-parallel, the conv and the gate
+vectors by channel), the reference's constrains mark the input and the
+output, and the conv and the recurrence, which are per channel, run on
+each rank's channels through ``local_map`` (``common.local_apply``): K6's
+gated entry in prefill, the plain scan in training.  No collective is
+needed inside the layer.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rglru_scan import ops
 from repro_torch.models import common
+from repro_torch.models.common import NO_POLICY, Policy
 from repro_torch.models.mlp import gelu
 
 _C = 8.0
@@ -117,17 +126,41 @@ def _causal_conv(p: dict, x: torch.Tensor,
     return out
 
 
+_CHANNEL_KEYS = ("conv", "w_r", "b_r", "w_i", "b_i", "lam")
+
+
+def _per_channel(fn, p: dict, x: torch.Tensor):
+    """``fn(x, p') -> y`` with ``p'`` the conv and gate leaves of ``p``, on
+    each rank's channels when ``x`` is a DTensor (y placed as x)."""
+    def local(x, *vals):
+        return fn(x, dict(zip(_CHANNEL_KEYS, vals)))
+    placements = list(x.placements) if common.is_dtensor(x) else None
+    return common.local_apply(local, placements, x,
+                              *(p[k] for k in _CHANNEL_KEYS))
+
+
+def _prefill_core(x: torch.Tensor, p: dict) -> torch.Tensor:
+    return lru_scan(p, _causal_conv(p, x))
+
+
+def _train_core(x: torch.Tensor, p: dict) -> torch.Tensor:
+    a, b = _gates(p, _causal_conv(p, x))
+    return linear_scan(a, b).to(x.dtype)
+
+
 def apply_rglru(p: dict, h_in: torch.Tensor, cfg: ModelConfig,
-                return_state: bool = False):
+                return_state: bool = False, policy: Policy = NO_POLICY):
     """Prefill path.  h_in: (B, S, D) -> (B, S, D).
 
     ``return_state=True`` also returns the decode cache: the last step's
     ``y`` in f32 (rounded through ``x.dtype`` first, as the reference's
     is) and the last tw - 1 steps of the pre-conv input."""
     x = torch.matmul(h_in, p["w_in"].to(h_in.dtype))
+    x = policy.constrain(x, ("batch", "seq", "rnn"))
     g = torch.matmul(h_in, p["w_gate"].to(h_in.dtype))
-    y = lru_scan(p, _causal_conv(p, x))
-    out = torch.matmul(y * gelu(g), p["w_out"].to(h_in.dtype))
+    y = _per_channel(_prefill_core, p, x)
+    out = policy.constrain(y * gelu(g), ("batch", "seq", "rnn"))
+    out = torch.matmul(out, p["w_out"].to(h_in.dtype))
     if return_state:
         tw = cfg.lru_temporal_width
         state = {"y": y[:, -1].float().clone(),
@@ -137,15 +170,16 @@ def apply_rglru(p: dict, h_in: torch.Tensor, cfg: ModelConfig,
     return out
 
 
-def apply_rglru_train(p: dict, h_in: torch.Tensor,
-                      cfg: ModelConfig) -> torch.Tensor:
+def apply_rglru_train(p: dict, h_in: torch.Tensor, cfg: ModelConfig,
+                      policy: Policy = NO_POLICY) -> torch.Tensor:
     """Training path.  h_in: (B, S, D) -> (B, S, D), differentiable: the
     recurrence through :func:`linear_scan`, never K6."""
     x = torch.matmul(h_in, p["w_in"].to(h_in.dtype))
+    x = policy.constrain(x, ("batch", "seq", "rnn"))
     g = torch.matmul(h_in, p["w_gate"].to(h_in.dtype))
-    a, b = _gates(p, _causal_conv(p, x))
-    y = linear_scan(a, b).to(x.dtype)
-    return torch.matmul(y * gelu(g), p["w_out"].to(h_in.dtype))
+    y = _per_channel(_train_core, p, x)
+    out = policy.constrain(y * gelu(g), ("batch", "seq", "rnn"))
+    return torch.matmul(out, p["w_out"].to(h_in.dtype))
 
 
 # ---------------------------------------------------------------------------

@@ -156,10 +156,13 @@ def _zero_aux(device) -> Dict[str, torch.Tensor]:
 
 
 def _apply_mlp(p: Params, spec: LayerSpec, h: torch.Tensor,
-               cfg: ModelConfig, *, one_group: bool = False):
+               cfg: ModelConfig, *, one_group: bool = False,
+               policy: Policy = NO_POLICY):
     """The block's MLP half: ``(h + mlp(norm(h)), aux)``.  An MoE block
     routes each row of the batch as a group, or with ``one_group`` the
-    whole batch as one (decode)."""
+    whole batch as one (decode).  Over a model axis the dense MLP's output
+    is a ``Partial`` sum (its down projection is row-parallel), reduced by
+    the constrain before the residual add."""
     aux = _zero_aux(h.device)
     if "mlp" not in p:
         return h, aux
@@ -170,8 +173,8 @@ def _apply_mlp(p: Params, spec: LayerSpec, h: torch.Tensor,
                                if one_group else x, cfg)
         y = y.reshape(b, s, d)
     else:
-        y = mlp.apply_mlp(p["mlp"], x)
-    return h + y, aux
+        y = mlp.apply_mlp(p["mlp"], x, policy)
+    return h + policy.constrain(y, ("batch", "seq", None)), aux
 
 
 def apply_block(p: Params, spec: LayerSpec, h: torch.Tensor,
@@ -186,12 +189,13 @@ def apply_block(p: Params, spec: LayerSpec, h: torch.Tensor,
             p["mixer"], x, cfg, window=_window(spec, cfg, window_override),
             policy=policy)
     elif spec.mixer == RGLRU:
-        m = rglru.apply_rglru_train(p["mixer"], x, cfg)
+        m = rglru.apply_rglru_train(p["mixer"], x, cfg, policy)
     elif spec.mixer == MLSTM:
         m = xlstm.apply_mlstm(p["mixer"], x, cfg)
     else:
         m = xlstm.apply_slstm(p["mixer"], x, cfg)
-    h, aux = _apply_mlp(p, spec, h + m, cfg)
+    m = policy.constrain(m, ("batch", "seq", None))
+    h, aux = _apply_mlp(p, spec, h + m, cfg, policy=policy)
     return policy.constrain(h, ("batch", "seq", None)), aux
 
 
@@ -211,12 +215,14 @@ def apply_block_prefill(p: Params, spec: LayerSpec, h: torch.Tensor,
         cache = attention.kv_to_cache(k, v, cfg, window=window,
                                       cache_len=cache_len)
     elif spec.mixer == RGLRU:
-        m, cache = rglru.apply_rglru(p["mixer"], x, cfg, return_state=True)
+        m, cache = rglru.apply_rglru(p["mixer"], x, cfg, return_state=True,
+                                     policy=policy)
     elif spec.mixer == MLSTM:
         m, cache = xlstm.apply_mlstm(p["mixer"], x, cfg, return_state=True)
     else:
         m, cache = xlstm.apply_slstm(p["mixer"], x, cfg, return_state=True)
-    h, aux = _apply_mlp(p, spec, h + m, cfg)
+    m = policy.constrain(m, ("batch", "seq", None))
+    h, aux = _apply_mlp(p, spec, h + m, cfg, policy=policy)
     return policy.constrain(h, ("batch", "seq", None)), cache, aux
 
 
@@ -323,6 +329,8 @@ def embed_inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                              device=h.device).to(h.dtype)
     else:
         h = common.apply_embedding(params["embed"], tokens)
+        # a vocab-parallel lookup's Partial sum, reduced (an all-reduce)
+        h = policy.constrain(h, ("batch", "seq", None))
     h = h.to(cd)
     if extra_embeds is not None:
         proj = torch.matmul(extra_embeds.to(cd),

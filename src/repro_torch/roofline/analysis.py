@@ -17,11 +17,21 @@ something else, and the record says so in ``notes``:
   divided evenly by the chips.  The reference counts the post-SPMD
   per-device module, replication waste included; the port cannot count
   that.
-* ``coll_bytes_per_chip`` is ``None``: the port issues no collective over
-  the model axis yet, so the step has none to count.  ``bottleneck`` and
-  ``roofline_time`` are then taken over compute and memory only.
+* ``coll_bytes_per_chip`` is ``None`` for a walk of the whole step on one
+  process: it issues no collective, so there is none to count, and
+  ``bottleneck`` and ``roofline_time`` are taken over compute and memory
+  only.
 * ``peak_memory_per_chip`` is ``param_bytes + cache_bytes + batch bytes``
   per chip: a ``meta`` run has no allocator to report a peak.
+
+A walk of one rank of a live mesh (``per_chip=True``: the dry-runs of the
+configs that run over a model axis, on ``meta`` DTensors under a fake
+process group of the mesh's size) counts that rank's own work and its
+collectives, so ``flops_per_chip`` and ``bytes_per_chip`` are the walk's
+counts as they are, and ``coll_bytes_per_chip`` is the sum of
+:func:`collective_bytes`: the result bytes a device receives a step, by
+collective type, the reference's convention.  ``bottleneck`` then takes
+the collective term at ``hw.NVLINK_BW``.
 """
 
 from __future__ import annotations
@@ -37,12 +47,32 @@ NOTES = {
                       "waste, which the port cannot count)",
     "bytes_per_chip": "the walk's global HBM bytes / chips (the same even "
                       "split)",
-    "coll_bytes_per_chip": "None: the port issues no collective over the "
-                           "model axis yet; bottleneck over compute and "
-                           "memory only",
+    "coll_bytes_per_chip": "None: a walk of the whole step on one process "
+                           "issues no collective; bottleneck over compute "
+                           "and memory only",
     "peak_memory_per_chip": "param + cache + batch bytes per chip (a meta "
                             "run has no allocator)",
 }
+# a walk of one rank of a live mesh (make_record(per_chip=True))
+NOTES_PER_CHIP = {
+    "flops_per_chip": "the walk of rank 0 of a fake process group of the "
+                      "mesh's size, on meta DTensors: that rank's local "
+                      "ops (its shards; the embedding lookup at the global "
+                      "batch)",
+    "bytes_per_chip": "the same walk's HBM bytes",
+    "coll_bytes_per_chip": "the collectives' result bytes on that rank "
+                           "(analysis.collective_bytes), at NVLINK_BW",
+    "peak_memory_per_chip": NOTES["peak_memory_per_chip"],
+}
+
+
+def collective_bytes(walk: Dict) -> Dict:
+    """Per-collective-type result bytes on one device (the reference's
+    ``collective_bytes`` of its per-device HLO), from a walk's counters,
+    with each type's count under ``_counts``."""
+    out = dict(walk["collective_bytes"])
+    out["_counts"] = dict(walk["collective_counts"])
+    return out
 
 
 @dataclass
@@ -158,18 +188,25 @@ def make_record(*, arch: str, shape, mesh_name: str, chips: int,
                 walk: Dict, cfg, longctx_variant: bool = False,
                 param_bytes_chip: float = 0.0,
                 cache_bytes_chip: float = 0.0,
-                batch_bytes_chip: float = 0.0) -> RooflineRecord:
+                batch_bytes_chip: float = 0.0,
+                per_chip: bool = False) -> RooflineRecord:
     """The record of one step from its walk's counters (module
-    docstring)."""
+    docstring): of the whole step, split evenly over ``chips``, or with
+    ``per_chip`` of one rank of a live mesh."""
     hbm = analytic_hbm(cfg, shape, param_bytes_chip, cache_bytes_chip, chips)
+    split = 1 if per_chip else chips
+    coll = None
+    if per_chip:
+        coll = float(sum(v for k, v in collective_bytes(walk).items()
+                         if k != "_counts"))
     return RooflineRecord(
         param_bytes_per_chip=param_bytes_chip,
         cache_bytes_per_chip=cache_bytes_chip,
         hbm_analytic_per_chip=hbm,
         arch=arch, shape=shape.name, mesh=mesh_name, chips=chips,
-        flops_per_chip=float(walk["flops"]) / chips,
-        bytes_per_chip=float(walk["hbm_bytes"]) / chips,
-        coll_bytes_per_chip=None,
+        flops_per_chip=float(walk["flops"]) / split,
+        bytes_per_chip=float(walk["hbm_bytes"]) / split,
+        coll_bytes_per_chip=coll,
         coll_breakdown={**walk["collective_bytes"],
                         "counts": walk["collective_counts"],
                         "kernels": walk.get("kernels", {})},
@@ -177,4 +214,5 @@ def make_record(*, arch: str, shape, mesh_name: str, chips: int,
                                    + batch_bytes_chip),
         argument_bytes_per_chip=float(param_bytes_chip + batch_bytes_chip),
         model_flops=model_flops(cfg, shape),
-        longctx_variant=longctx_variant, notes=dict(NOTES))
+        longctx_variant=longctx_variant,
+        notes=dict(NOTES_PER_CHIP if per_chip else NOTES))

@@ -14,9 +14,20 @@ checkpoint recomputes included):
   counterpart of ``hlo_walk``'s materialisation boundaries (in eager mode
   every op's result is materialised).  Views, metadata-only ops and
   uninitialised allocations move nothing and are not counted;
-* ``collective_bytes`` — each ``c10d`` collective's tensor bytes, by type
-  under the reference's names (``all-reduce``, ``all-gather``, ...), with
-  ``collective_counts`` and ``total_collective_bytes``.
+* ``collective_bytes`` — each ``c10d`` collective's result bytes on this
+  rank (the reference's ``analysis.collective_bytes`` convention: an
+  all-gather counts what it gathers), by type under the reference's names
+  (``all-reduce``, ``all-gather``, ...), with ``collective_counts`` and
+  ``total_collective_bytes``.
+
+**DTensors.**  An op on DTensor arguments is handed back to DTensor
+(``NotImplemented``), which runs it as the local ops and collectives of
+this rank, and those are what the walk counts (as
+``torch.distributed.tensor.debug.CommDebugMode`` does): under a live mesh
+a walk counts one rank's work and the collectives it takes part in, the
+implicit ones DTensor inserts included.  The ops DTensor runs on fake
+tensors to propagate an op's sharding are not a rank's work and are not
+counted.
 
 **Kernels.**  The port's kernels launch through ctypes and belong to no
 PyTorch op, so no dispatch mode sees them; their wrappers report their
@@ -37,10 +48,16 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.kernels import work
+
+if torch.distributed.is_available():
+    from torch.distributed.tensor import DTensor as _DTENSOR
+else:
+    _DTENSOR = None
 
 COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                "collective-permute", "broadcast")
@@ -87,6 +104,35 @@ def _bytes(x) -> int:
     return sum(t.numel() * t.element_size() for t in _tensors(x))
 
 
+def collective_kind(func):
+    """The reference's collective type of a dispatched op, or ``None``."""
+    if func.namespace in _COLLECTIVE_NAMESPACES:
+        return _COLLECTIVE_OF.get(func._opname)
+    return None
+
+
+class Collectives(TorchDispatchMode):
+    """A mode that counts only the collectives a rank issues and their
+    result bytes, by type (``counts``, ``bytes``), as :class:`Walk` does,
+    for a timed run: the other ops pass through uncounted."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts: Dict[str, int] = {}
+        self.bytes: Dict[str, int] = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _DTENSOR is not None and any(issubclass(t, _DTENSOR)
+                                        for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        kind = collective_kind(func)
+        if kind is not None:
+            self.counts[kind] = self.counts.get(kind, 0) + 1
+            self.bytes[kind] = self.bytes.get(kind, 0) + _bytes(out)
+        return out
+
+
 class Walk(TorchDispatchMode):
     """The counting mode; use :func:`walk`."""
 
@@ -126,17 +172,20 @@ class Walk(TorchDispatchMode):
     # -- the ops -----------------------------------------------------------
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _DTENSOR is not None and any(issubclass(t, _DTENSOR)
+                                        for t in types):
+            return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if any(issubclass(t, FakeTensor) for t in types):
+            return out      # DTensor's sharding propagation, not a rank's op
         if self._in_kernel:
             return out
         name = func._opname
         if func.namespace in _COLLECTIVE_NAMESPACES:
-            kind = _COLLECTIVE_OF.get(name)
+            kind = collective_kind(func)
             if kind is not None:
-                first = next((a for a in args
-                              if next(_tensors(a), None) is not None), ())
-                self.collective_bytes[kind] += _bytes(first)
+                self.collective_bytes[kind] += _bytes(out)
                 self.collective_counts[kind] += 1
             return out
         packet = func._overloadpacket

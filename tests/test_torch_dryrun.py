@@ -5,8 +5,10 @@
   (the MoE router on ``meta``) and recurrentgemma-2b x prefill_32k (K5
   and K6 through their ``meta`` paths) on the single-pod mesh shape; its
   ``param_bytes_per_chip`` and ``cache_bytes_per_chip`` equal the
-  reference's ``bytes_per_chip`` of the same trees on the same specs, and
-  its record is the port's (no collective term, the notes);
+  reference's ``bytes_per_chip`` of the same trees on the same specs;
+  gemma2 and recurrentgemma are walked as one rank of a fake 16 x 16 mesh
+  (their collective bytes and term), qwen2-moe's decode as the whole step
+  (no collective term, the notes);
 * ``fedround_dryrun.make_round_step`` passes ``tests/test_fedround.py``'s
   ``test_round_step_tiny`` assertions, ported; ``fedround_dryrun.run``
   reports the reference's cohort size and one rank's share, and the
@@ -35,6 +37,9 @@ from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 COMBOS = (("gemma2-2b", "train_4k"), ("qwen2-moe-a2.7b", "decode_32k"),
           ("recurrentgemma-2b", "prefill_32k"))
+# the combinations walked as one rank of a live mesh (in scope over a
+# model axis; qwen2-moe's decode is not)
+PER_CHIP = ("gemma2-2b", "recurrentgemma-2b")
 # the kernels each combination's step reaches
 KERNELS = {"train_4k": set(), "decode_32k": set(),
            "prefill_32k": {"flash_attention", "lru_scan_gated"}}
@@ -64,10 +69,19 @@ def test_lower_one_on_meta(combo):
         ref_bytes(arch, ref_configs.INPUT_SHAPES[shape_name])
     assert rec["mesh"] == "16x16" and rec["chips"] == 256
     assert rec["flops_per_chip"] > 0 and rec["bytes_per_chip"] > 0
-    assert rec["coll_bytes_per_chip"] is None and rec["t_collective"] is None
-    assert rec["bottleneck"] in ("compute", "memory")
     assert rec["peak_memory_per_chip"] > rec["param_bytes_per_chip"]
     assert set(rec["coll_breakdown"]["kernels"]) == KERNELS[shape_name]
+    if arch in PER_CHIP:
+        # walked as one rank of a fake 16 x 16 mesh: its collectives'
+        # result bytes, and the collective term in the bottleneck
+        assert rec["coll_bytes_per_chip"] > 0 and rec["t_collective"] > 0
+        assert rec["coll_breakdown"]["counts"]["all-reduce"] > 0
+        assert rec["bottleneck"] in ("compute", "memory", "collective")
+        assert rec["notes"]["coll_bytes_per_chip"].startswith(
+            "the collectives")
+        return
+    assert rec["coll_bytes_per_chip"] is None and rec["t_collective"] is None
+    assert rec["bottleneck"] in ("compute", "memory")
     assert rec["notes"]["coll_bytes_per_chip"].startswith("None")
 
 

@@ -184,7 +184,9 @@ def test_to_placements_and_constrain():
     assert policy.constrain(x, ("batch", None, None)) is x
     meta = torch.empty((32, 4096, 32, 128), device="meta")
     assert policy.constrain(meta, ("batch", "seq", "heads", None)) is meta
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a plain tensor with values on a model-sharded spec: it should have
+    # been a DTensor (a live model axis runs on DTensors)
+    with pytest.raises(TypeError, match="DTensor"):
         policy.constrain(torch.zeros((32, 4, 32, 8)),
                          ("batch", None, "heads", None))
 

@@ -1,0 +1,359 @@
+"""Execution over a live model axis (tensor parallelism): the train, round
+and prefill steps under a ``MeshPolicy`` over a ``DeviceMesh`` whose model
+axis is 2, against the JAX reference's unsharded functions (what GSPMD
+computes for the reference under the same policy).
+
+* One gloo spawn at world size 2 on a (1, 2) mesh and one at world size 4
+  on a (2, 2) mesh, started together (``tests/torch_mesh_cases.
+  tp_rank_main``, a ``FileStore`` each, joined within 60 s), while the
+  reference's unsharded steps run here: the train step on gemma2 narrow
+  (replicated heads, the tied vocab-parallel table; on the (2, 2) mesh its
+  batch split over data too), the round step on
+  gemma2 narrow (flat f32, flat int8, tree; the (2, 2) round on flat
+  f32), prefill on minitron narrow (heads sharded, GQA), recurrentgemma
+  narrow (the rnn channels; K6's plain version) and llava narrow (the
+  head dim, with the frontend), and at world size 4 minitron's prefill
+  on a (1, 4) mesh (its kv heads replicated).  Every rank's
+  ``full_tensor()``s are bitwise equal; params, losses, logits and caches are held at rtol 1e-4
+  / atol 1e-5, the int8 round under ``repro_torch.parity``'s lossy-wire
+  rules (as ``tests/test_torch_steps.py`` holds the unsharded one).  The
+  reference's tree round is its flat f32 round (the same fold).
+* The refusals over a live model axis (MoE, xLSTM, codebooks, seq2d /
+  dp2d / seq2d_fsdp, the compressed wire, SCAFFOLD, the serve step), each
+  ``NotImplementedError`` naming its ``ROADMAP.md`` item, and the int8
+  wire's group check on a leaf whose shards straddle 128-element groups.
+* The vocab-parallel embedding with a tied unembedding and the
+  vocab-parallel CE: loss and the table's gradient against the unsharded
+  run of one f64 table.
+* Every kernel wrapper refuses a DTensor.
+* The dry-run's collective bytes on a fake (2, 2) mesh: gemma2 narrow's
+  train step against a count derived here from the layer shapes.
+"""
+
+import functools
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # the suite runs several worker processes
+
+import torch.distributed as dist  # noqa: E402
+import torch.multiprocessing as mp  # noqa: E402
+
+from repro import configs as ref_configs  # noqa: E402
+from repro.core import aggregate as ref_aggregate  # noqa: E402
+from repro.core import comm as ref_comm  # noqa: E402
+from repro.launch import steps as ref_steps  # noqa: E402
+from repro.models.common import NO_POLICY  # noqa: E402
+
+import torch_mesh_cases as cases  # noqa: E402
+from repro_torch import interop, parity  # noqa: E402
+from repro_torch.configs.base import InputShape  # noqa: E402
+from repro_torch.core import comm, flatten  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.mesh import MeshShape  # noqa: E402
+from repro_torch.models import common  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
+
+RTOL, ATOL = 1e-4, 1e-5
+JOIN_S = 60
+MAX_SHARE = 1e-3
+
+
+def ref_config(arch):
+    return ref_configs.get_reduced(arch).with_overrides(
+        compute_dtype="float32")
+
+
+@functools.lru_cache(maxsize=None)
+def ref_params(arch):
+    return jax.tree.map(jnp.asarray, interop.to_reference(
+        cases.tp_params(arch)))
+
+
+def ref_round(engine: str):
+    spec = {"flat f32": None, "flat int8": ref_aggregate.EngineSpec(
+        wire=ref_comm.WireSpec("int8", 128))}[engine]
+    data, simple = cases.tp_round_inputs()
+    step = ref_steps.make_fed_round_step(
+        ref_config(cases.TP_TRAIN), NO_POLICY, local_steps=cases.TP_STEPS,
+        engine=spec)
+    cohort = jax.tree.map(lambda x: jnp.broadcast_to(
+        x[None], (cases.TP_K,) + x.shape), ref_params(cases.TP_TRAIN))
+    return jax.jit(step)(cohort, jnp.asarray(data), jnp.asarray(simple))
+
+
+def references():
+    """The reference's unsharded results of every case."""
+    out = {}
+    train = ref_steps.make_train_step(ref_config(cases.TP_TRAIN), NO_POLICY)
+    out["train"] = jax.jit(train)(ref_params(cases.TP_TRAIN), {
+        "tokens": jnp.asarray(cases.tp_train_tokens())})
+    for engine in ("flat f32", "flat int8"):
+        out[engine] = ref_round(engine)
+    out["tree"] = out["flat f32"]
+    for arch in cases.TP_PREFILL:
+        step = ref_steps.make_prefill_step(ref_config(arch), NO_POLICY)
+        batch = cases.tp_prefill_batch(arch)
+        out[arch] = jax.jit(step)(ref_params(arch), {
+            k: jnp.asarray(v) for k, v in batch.items()})
+    return out
+
+
+@pytest.fixture(scope="module")
+def tp_runs(tmp_path_factory):
+    """Both spawns' results by world size (a list of ranks each), and the
+    reference's, computed while the ranks run."""
+    d = tmp_path_factory.mktemp("tp")
+    ctx = mp.get_context("spawn")
+    procs = {world: [ctx.Process(target=cases.tp_rank_main, args=(
+        r, world, str(d / f"store{world}"), str(d)))
+        for r in range(world)] for world in (2, 4)}
+    for p in procs[2] + procs[4]:
+        p.start()
+    refs = references()
+    for p in procs[2] + procs[4]:
+        p.join(JOIN_S)
+    hung = [p for p in procs[2] + procs[4] if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join(5)
+    errors = [f.read_text() for f in sorted(d.glob("*.err"))]
+    assert not hung, f"{len(hung)} rank(s) hung past {JOIN_S} s"
+    assert not errors, errors
+    assert all(p.exitcode == 0 for p in procs[2] + procs[4])
+    return {world: [torch.load(str(d / f"tp{world}_rank{r}.pt"))
+                    for r in range(world)] for world in (2, 4)}, refs
+
+
+def assert_close(got, want):
+    np.testing.assert_allclose(got.detach().float().numpy(),
+                               np.asarray(want, np.float32), rtol=RTOL,
+                               atol=ATOL)
+
+
+def assert_leaves(got_tree, want_tree):
+    want = jax.tree.leaves(want_tree)
+    got = tree_leaves(got_tree)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == tuple(w.shape)
+        assert_close(g, w)
+
+
+def assert_ranks_equal(results, key):
+    first = tree_leaves(results[0][key])
+    for other in results[1:]:
+        assert all(torch.equal(a, b) if isinstance(a, torch.Tensor)
+                   else a == b for a, b in
+                   zip(first, tree_leaves(other[key])))
+
+
+CASES_2 = ("train",) + cases.TP_ENGINES + cases.TP_PREFILL + ("vocab",)
+
+
+@pytest.mark.parametrize("key", CASES_2 + ("(2, 2) flat f32",
+                                          "(2, 2) train"))
+def test_ranks_hold_bitwise_equal_full_tensors(tp_runs, key):
+    runs = tp_runs[0]
+    results, key = (runs[4], key[7:]) if key.startswith("(2, 2)") \
+        else (runs[2], key)
+    assert_ranks_equal(results, key)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_train_step_matches_reference(tp_runs, world):
+    """(1, 2): the batch whole on each rank; (2, 2): split over data, the
+    gradients summed over it."""
+    got = tp_runs[0][world][0]["train"]
+    want_p, want_m = tp_runs[1]["train"]
+    assert_close(got["loss"], want_m["loss"])
+    assert_leaves(got["params"], want_p)
+
+
+@pytest.mark.parametrize("world,engine", [(2, e) for e in cases.TP_ENGINES]
+                         + [(4, "flat f32")])
+def test_round_step_matches_reference(tp_runs, world, engine):
+    got = tp_runs[0][world][0][engine]
+    want_c, want_loss = tp_runs[1][engine]
+    assert_close(got["loss"], want_loss)
+    # the new model comes back as DTensors placed like the parameters
+    assert any("Shard" in p for p in got["placements"])
+    if engine != "flat int8":
+        assert_leaves(got["params"], want_c)
+        return
+    # the int8 wire: the lossy-wire rules against the reference's round
+    layout = flatten.build_layout(cases.tp_params(cases.TP_TRAIN),
+                                  total_multiple=2048)
+    spec = comm.WireSpec("int8", 128)
+    a = flatten.pack(layout, got["params"])
+    b = flatten.pack(layout, interop.from_reference(
+        jax.tree.map(np.asarray, want_c)))
+    step = torch.maximum(parity.wire_step(spec, flatten.pack(
+        layout, cases.tp_params(cases.TP_TRAIN))), parity.wire_step(spec, b))
+    res = parity.lossy_compare(a, b, step)
+    assert res["share"] <= MAX_SHARE and res["worst"] <= 1.0, res
+
+
+@pytest.mark.parametrize("arch", cases.TP_PREFILL)
+def test_prefill_step_matches_reference(tp_runs, arch):
+    got = tp_runs[0][2][0][arch]
+    want_logits, want_cache = tp_runs[1][arch]
+    assert tuple(got["logits"].shape) == tuple(want_logits.shape)
+    assert_close(got["logits"], want_logits)
+    assert_leaves(got["cache"], want_cache)
+
+
+def test_prefill_reads_replicated_kv_heads_over_four_ranks(tp_runs):
+    """minitron narrow on a (1, 4) mesh: its 4 query heads sharded, its 2 kv
+    heads replicated (2 does not divide 4), each rank reading the kv head
+    its query head needs; every rank's full tensors equal."""
+    ranks = tp_runs[0][4]
+    assert_ranks_equal(ranks, "minitron-8b (1, 4)")
+    want_logits, want_cache = tp_runs[1]["minitron-8b"]
+    got = ranks[0]["minitron-8b (1, 4)"]
+    assert_close(got["logits"], want_logits)
+    assert_leaves(got["cache"], want_cache)
+
+
+REFUSALS = {"moe": "item 11", "xlstm": "item 12", "codebooks": "item 12",
+            "seq2d": "item 15", "dp2d": "item 15", "seq2d_fsdp": "item 15",
+            "compressed": "item 13", "scaffold": "item 14",
+            "serve": "item 10"}
+
+
+@pytest.mark.parametrize("name", list(REFUSALS))
+def test_out_of_scope_raises_naming_its_roadmap_item(tp_runs, name):
+    msg = tp_runs[0][2][0]["refusals"][name]
+    assert msg.startswith("NotImplementedError"), msg
+    assert f"ROADMAP.md §1 {REFUSALS[name]}" in msg
+
+
+def test_int8_wire_refuses_shards_that_straddle_groups(tp_runs):
+    msg = tp_runs[0][2][0]["refusals"]["int8 groups"]
+    assert msg.startswith("ValueError"), msg
+    assert "periods/#0/mlp/" in msg and "groups of 128" in msg
+
+
+def test_vocab_parallel_embedding_with_tied_unembedding(tp_runs):
+    """Loss and the table's gradient against the unsharded run of the same
+    f64 table; the gradient stays row-sharded (the lookup and the
+    unembedding each give ``Shard(0)``)."""
+    got = tp_runs[0][2][0]["vocab"]
+    table, tokens = cases.vocab_case()
+    table = table.clone().requires_grad_(True)
+    h = common.apply_embedding({"table": table}, tokens)
+    logits = common.apply_unembedding({"table": table}, h)
+    loss = common.softmax_cross_entropy(logits[:, :-1], tokens[:, 1:])
+    (grad,) = torch.autograd.grad(loss, [table])
+    assert got["grad_placements"] == ["R", "S(0)"]
+    # the CE widens to f32 (the reference's formula) and the vocab-parallel
+    # sum of exponentials adds the ranks' partial sums in another order
+    torch.testing.assert_close(got["loss"], loss.detach(), rtol=RTOL,
+                               atol=ATOL)
+    torch.testing.assert_close(got["grad"], grad, rtol=RTOL, atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers and DTensors (one rank, in process)
+# ---------------------------------------------------------------------------
+
+def _wrapper_calls():
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.masked_agg import ops as agg
+    from repro_torch.kernels.rglru_scan import ops as scan
+    z, n = 2, 256
+    f32 = dict(dtype=torch.float32)
+    return {
+        "flash_attention": lambda d: fa.flash_attention(
+            d(torch.zeros(1, 8, 2, 32)), d(torch.zeros(1, 8, 2, 32)),
+            d(torch.zeros(1, 8, 2, 32))),
+        "lru_scan": lambda d: scan.lru_scan(d(torch.zeros(1, 4, 8)),
+                                            d(torch.zeros(1, 4, 8))),
+        "lru_scan_gated": lambda d: scan.lru_scan_gated(
+            d(torch.zeros(1, 4, 8)), *(d(torch.zeros(8)) for _ in range(5))),
+        "masked_agg_acc_": lambda d: agg.masked_agg_acc_(
+            d(torch.zeros(n)), d(torch.zeros(z, n)),
+            d(torch.ones(n, dtype=torch.bool)), d(torch.ones(z, **f32)),
+            d(torch.ones(z, **f32))),
+        "masked_agg_acc_deq_": lambda d: agg.masked_agg_acc_deq_(
+            d(torch.zeros(n)), d(torch.zeros(z, n, dtype=torch.int8)),
+            d(torch.ones(z, n // 128)), d(torch.ones(n, dtype=torch.bool)),
+            d(torch.ones(z)), d(torch.ones(z)), quant_block=128),
+        "masked_agg_": lambda d: agg.masked_agg_(
+            d(torch.zeros(z, n)), d(torch.ones(n, dtype=torch.bool)),
+            d(torch.ones(z)), d(torch.ones(z))),
+    }
+
+
+@pytest.mark.parametrize("name", list(_wrapper_calls()))
+def test_kernel_wrappers_refuse_dtensors(name):
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from repro_torch.launch.mesh import make_device_mesh
+    call = _wrapper_calls()[name]
+    call(lambda x: x)        # local tensors: the plain version runs
+    dist.init_process_group("gloo", rank=0, world_size=1,
+                            store=dist.HashStore())
+    try:
+        mesh = make_device_mesh(1, 1, "cpu")
+        with pytest.raises(TypeError, match="local_map"):
+            call(lambda x: distribute_tensor(x, mesh, [Replicate()] * 2))
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the dry-run's collective bytes on a fake (2, 2) mesh
+# ---------------------------------------------------------------------------
+
+def hand_count(cfg, shape, m: int, d: int) -> int:
+    """Result bytes a chip receives in gemma2 narrow's train step on a
+    (d, m) mesh (f32; heads replicated, the MLP and the tied table sharded
+    over model, the batch over data), derived from the layer shapes:
+
+    * over model: an all-reduce of a (B/d, S, D) activation at the
+      embedding and at each layer's MLP in the forward, again in the
+      checkpointed periods' recompute, and in the backward at each MLP's
+      input and at each head's input to the tied unembedding; for each
+      head's vocab-parallel CE three of a (B/d, S) f32 value (the max, the
+      sum of exponentials, the gold logit); the
+      gradients of the norm scales whose output feeds a column-parallel
+      matmul (each layer's mlp_norm, exit_norm and final_norm); one scalar
+      (the clip's sum of squares over the sharded gradients);
+    * over data: every parameter's local gradient (each rank's shard), and
+      the loss."""
+    b, s, dm, v, f = (shape.global_batch // d, shape.seq_len, cfg.d_model,
+                      cfg.vocab_size, cfg.d_ff)
+    n, heads = cfg.n_layers, 2
+    act = b * s * dm * 4
+    over_model = ((1 + 3 * n + heads) * act + heads * 3 * b * s * 4
+                  + (n + 2) * dm * 4 + 4)
+    h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    local = (v // m * dm                               # the table
+             + n * 3 * dm * f // m                     # gate, up, down
+             + n * (2 * dm * h * dh + 2 * dm * kh * dh)  # wq, wo, wk, wv
+             + n * 2 * dm + 2 * dm)                    # the norms
+    return over_model + local * 4 + 4
+
+
+def test_dryrun_collective_bytes_on_a_fake_mesh_match_the_hand_count():
+    cfg = cases.tp_config(cases.TP_TRAIN)
+    shape = InputShape("train_narrow", 16, 4, "train")
+    assert not dist.is_initialized()
+    rec = dryrun.lower_one(cfg.name, shape, cfg_override=cfg,
+                           mesh=MeshShape((2, 2), ("data", "model")),
+                           verbose=False)
+    assert not dist.is_initialized()
+    assert rec["mesh"] == "2x2" and rec["chips"] == 4
+    assert rec["coll_bytes_per_chip"] == hand_count(cfg, shape, 2, 2)
+    assert rec["t_collective"] > 0
+    counts = rec["coll_breakdown"]["counts"]
+    # the vocab-parallel CE: no logits gathered, all-reduces only
+    assert counts["all-gather"] == 0 and counts["reduce-scatter"] == 0
+    assert rec["notes"]["coll_bytes_per_chip"].startswith("the collectives")
+    assert math.isclose(rec["t_collective"],
+                        rec["coll_bytes_per_chip"] / 450e9)

@@ -17,7 +17,7 @@ import torch
 from repro_torch.configs import base
 from repro_torch.launch import sharding, steps
 from repro_torch.launch.mesh import make_device_mesh
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 TINY = dict(n_layers=2, d_model=32, n_heads=2, n_kv_heads=2, d_ff=64,
             vocab_size=64, exit_layer=1, compute_dtype="float32")
@@ -63,8 +63,9 @@ def rank_main(rank: int, world: int, store_path: str, params_path: str,
               out_dir: str) -> None:
     """One rank: gloo over a FileStore, a (world, 1) mesh; each case's
     sharded round, its rows by ``steps``' split and by
-    ``distribute_tensor``; then whether a (1, world) mesh with a model
-    axis raises.  Writes ``rank<r>.pt`` (or ``rank<r>.err``)."""
+    ``distribute_tensor``; then a (1, world) mesh with a model axis: a
+    live tensor-parallel policy for the dense config, and an MoE config
+    still refused.  Writes ``rank<r>.pt`` (or ``rank<r>.err``)."""
     import torch.distributed as dist
     torch.set_num_threads(1)
     try:
@@ -84,14 +85,226 @@ def rank_main(rank: int, world: int, store_path: str, params_path: str,
                      for lo, hi in [sharding.shard_rows(chunk, index, parts)]]
             out[label] = {"params": new_c, "loss": loss, "split": split,
                           "placed": placement_rows(mesh, params, k, chunk)}
-        try:
-            sharding.MeshPolicy(make_device_mesh(1, world, "cpu"), CFG)
-            out["model_axis"] = "no error"
-        except NotImplementedError as e:
-            out["model_axis"] = f"NotImplementedError: {e}"
+        wide = make_device_mesh(1, world, "cpu")
+        out["model_axis_live"] = sharding.MeshPolicy(wide, CFG).model_live
+        from repro_torch import configs
+        out["model_axis"] = _raises(lambda: sharding.MeshPolicy(
+            wide, configs.get_reduced("qwen2-moe-a2.7b")))
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
         dist.destroy_process_group()
     except BaseException:
         with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+# ---------------------------------------------------------------------------
+# A live model axis (tensor parallelism): tests/test_torch_tp.py
+# ---------------------------------------------------------------------------
+
+# narrow f32 configs: heads replicated and a tied vocab-parallel table
+# (gemma2), heads sharded with GQA (minitron), the RG-LRU's rnn channels
+# (recurrentgemma), the head dim sharded behind a frontend (llava)
+TP_TRAIN = "gemma2-2b"
+TP_PREFILL = ("minitron-8b", "recurrentgemma-2b", "llava-next-34b")
+TP_K, TP_B, TP_STEPS, TP_SEQ, TP_PROMPT = 2, 2, 1, 16, 32
+TP_ENGINES = ("flat f32", "flat int8", "tree")
+
+
+def tp_config(arch: str):
+    from repro_torch import configs
+    return configs.get_reduced(arch).with_overrides(compute_dtype="float32")
+
+
+def tp_params(arch: str):
+    from repro_torch.models import transformer as tfm
+    return tfm.init_params(torch.Generator().manual_seed(0),
+                           tp_config(arch))
+
+
+def tp_engine(name: str):
+    from repro_torch.core import aggregate, comm
+    return {"flat f32": None,
+            "flat int8": aggregate.EngineSpec(wire=comm.WireSpec("int8",
+                                                                 128)),
+            "tree": aggregate.EngineSpec(engine="tree")}[name]
+
+
+def tp_round_inputs(k: int = TP_K):
+    rng = np.random.default_rng(7)
+    data = rng.integers(0, tp_config(TP_TRAIN).vocab_size,
+                        size=(k, TP_B, TP_STEPS, TP_SEQ + 1)).astype(np.int32)
+    return data, np.arange(k) < k // 2
+
+
+def tp_train_tokens() -> np.ndarray:
+    return np.random.default_rng(8).integers(
+        0, tp_config(TP_TRAIN).vocab_size,
+        size=(TP_B, TP_SEQ + 1)).astype(np.int32)
+
+
+def tp_prefill_batch(arch: str) -> dict:
+    cfg = tp_config(arch)
+    rng = np.random.default_rng(9)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, size=(
+        TP_B, TP_PROMPT)).astype(np.int32)}
+    if cfg.frontend is not None:
+        batch["extra_embeds"] = rng.standard_normal(
+            (TP_B, cfg.frontend.n_tokens, cfg.frontend.d_in)
+        ).astype(np.float32)
+    return batch
+
+
+def _full(tree):
+    from repro_torch.launch import sharding
+    return tree_map(lambda x: x.full_tensor() if sharding.is_dtensor(x)
+                    else x, tree)
+
+
+def _raises(fn) -> str:
+    try:
+        fn()
+    except NotImplementedError as e:
+        return f"NotImplementedError: {e}"
+    except Exception as e:  # noqa: BLE001
+        return f"{type(e).__name__}: {e}"
+    return "no error"
+
+
+def vocab_parallel_case(mesh) -> dict:
+    """The trap of a tied table over a vocab-sharded mesh: the lookup and
+    the unembedding of one f64 table, its CE loss and the table's
+    gradient, through ``common.apply_embedding`` (the ``local_map``
+    lookup), the tied ``h @ table.T`` and the vocab-parallel CE."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.models import common
+    table, tokens = vocab_case()
+    placements = [Replicate(), Shard(0)]
+    dt = distribute_tensor(table, mesh, placements,
+                           src_data_rank=None).requires_grad_(True)
+    with implicit_replication():
+        h = common.apply_embedding({"table": dt}, tokens)
+        h = h.redistribute(mesh, [Replicate(), Replicate()])
+        logits = common.apply_unembedding({"table": dt}, h)
+        loss = common.softmax_cross_entropy(logits[:, :-1], tokens[:, 1:])
+        (grad,) = torch.autograd.grad(loss, [dt])
+    return {"loss": loss.full_tensor(), "grad": grad.full_tensor(),
+            "grad_placements": [str(p) for p in grad.placements]}
+
+
+def vocab_case():
+    rng = np.random.default_rng(11)
+    table = torch.as_tensor(rng.standard_normal((64, 16)))      # f64
+    tokens = torch.as_tensor(rng.integers(0, 64, size=(3, 9)))
+    return table, tokens
+
+
+def refusals(mesh) -> dict:
+    """What raises over a live model axis, each with its message."""
+    from repro_torch import configs
+    from repro_torch.core import aggregate, comm
+    from repro_torch.launch import sharding, steps
+    cfg = tp_config(TP_TRAIN)
+    policy = sharding.MeshPolicy(mesh, cfg)
+    out = {name: _raises(lambda a=arch: sharding.MeshPolicy(
+        mesh, configs.get_reduced(a))) for name, arch in (
+            ("moe", "qwen2-moe-a2.7b"), ("xlstm", "xlstm-1.3b"),
+            ("codebooks", "musicgen-large"))}
+    for mode in ("seq2d", "dp2d", "seq2d_fsdp"):
+        out[mode] = _raises(lambda m=mode: sharding.MeshPolicy(
+            mesh, cfg.with_overrides(attn_shard=m)))
+    out["compressed"] = _raises(lambda: steps.make_fed_round_step(
+        cfg, policy, local_steps=1, engine=aggregate.EngineSpec(
+            wire=comm.WireSpec("int8", 128, topk_frac=0.5))))
+    out["scaffold"] = _raises(lambda: steps.make_fed_round_step(
+        cfg, policy, local_steps=1,
+        engine=aggregate.EngineSpec(variance_reduction="scaffold")))
+    out["serve"] = _raises(lambda: steps.make_serve_step(cfg, policy))
+    # an int8 round whose mlp shards hold 64 of a 128-element group
+    narrow = cfg.with_overrides(d_ff=128)
+    params = tfm_init(narrow)
+    cohort = sharding.distribute_cohort(
+        tree_map(lambda x: x[None].expand((2,) + x.shape), params), narrow,
+        mesh)
+    data, simple = tp_round_inputs(2)
+    out["int8 groups"] = _raises(lambda: steps.make_fed_round_step(
+        narrow, sharding.MeshPolicy(mesh, narrow), local_steps=1,
+        engine=tp_engine("flat int8"))(
+            cohort, torch.as_tensor(data), torch.as_tensor(simple)))
+    return out
+
+
+def tfm_init(cfg):
+    from repro_torch.models import transformer as tfm
+    return tfm.init_params(torch.Generator().manual_seed(0), cfg)
+
+
+def tp_rank_main(rank: int, world: int, store_path: str,
+                 out_dir: str) -> None:
+    """One rank of the tensor-parallel cases: gloo over a FileStore; at
+    world size 2 a (1, 2) mesh (train, the three round engines, the
+    prefills, the vocab-parallel trap, the refusals), at 4 a (2, 2) mesh
+    (train on a batch split over data, the flat f32 round: data and model
+    together) and a (1, 4) mesh (minitron's prefill, its kv heads
+    replicated).  Each result is saved
+    whole (``full_tensor``) to ``tp<world>_rank<r>.pt`` (or the traceback
+    to ``tp<world>_rank<r>.err``)."""
+    import torch.distributed as dist
+    from repro_torch.launch import sharding, steps
+    torch.set_num_threads(1)
+    tag = os.path.join(out_dir, f"tp{world}_rank{rank}")
+    try:
+        dist.init_process_group("gloo", rank=rank, world_size=world,
+                                store=dist.FileStore(store_path, world))
+        n_data = world // 2
+        mesh = make_device_mesh(n_data, 2, "cpu")
+        cfg = tp_config(TP_TRAIN)
+        policy = sharding.MeshPolicy(mesh, cfg)
+        data, simple = tp_round_inputs()
+        out = {}
+
+        def prefill_of(arch, on):
+            a_cfg = tp_config(arch)
+            a_params = sharding.distribute_params(tp_params(arch), a_cfg, on)
+            batch = {k: torch.as_tensor(v) for k, v in
+                     tp_prefill_batch(arch).items()}
+            logits, cache = steps.make_prefill_step(
+                a_cfg, sharding.MeshPolicy(on, a_cfg))(a_params, batch)
+            return {"logits": _full(logits), "cache": _full(cache)}
+
+        def round_of(engine):
+            cohort = sharding.distribute_cohort(tree_map(
+                lambda x: x[None].expand((TP_K,) + x.shape),
+                tp_params(TP_TRAIN)), cfg, mesh)
+            new_c, loss = steps.make_fed_round_step(
+                cfg, policy, local_steps=TP_STEPS,
+                engine=tp_engine(engine))(cohort, torch.as_tensor(data),
+                                          torch.as_tensor(simple))
+            placed = [str(x.placements) for x in tree_leaves(new_c)]
+            return {"params": _full(new_c), "loss": loss,
+                    "placements": placed}
+
+        params = sharding.distribute_params(tp_params(TP_TRAIN), cfg, mesh)
+        new, metrics = steps.make_train_step(cfg, policy)(
+            params, {"tokens": torch.as_tensor(tp_train_tokens())})
+        out["train"] = {"params": _full(new), "loss": metrics["loss"]}
+        if world == 2:
+            for engine in TP_ENGINES:
+                out[engine] = round_of(engine)
+            for arch in TP_PREFILL:
+                out[arch] = prefill_of(arch, mesh)
+            out["vocab"] = vocab_parallel_case(mesh)
+            out["refusals"] = refusals(mesh)
+        else:
+            out["flat f32"] = round_of("flat f32")
+            # minitron's 4 query heads over 4 ranks, its 2 kv heads
+            # replicated: each rank reads the kv head its query head needs
+            wide = make_device_mesh(1, world, "cpu")
+            out["minitron-8b (1, 4)"] = prefill_of("minitron-8b", wide)
+        torch.save(out, tag + ".pt")
+        dist.destroy_process_group()
+    except BaseException:
+        with open(tag + ".err", "w") as f:
             f.write(traceback.format_exc())
         raise
