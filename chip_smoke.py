@@ -286,11 +286,20 @@ which raises on failure:
    n_flat), each local leaf within 5 % of max|leaf| of the unsharded
    round's (the leaves over 1/100 counted) and the loss at rtol 1e-2;
    (b) minitron-8b prefilled at full width (batch 1, prompt 4096; K5 32
-   on 16 of 32 heads) and (c) recurrentgemma-2b (batch 4, prompt 4096;
-   K6's gated entry 18 on 1280 of 2560 channels, K5 8 replicated), each
-   rank's vocab shard of the logits within 5 % of max|logit| of the
-   unsharded prefill of the same weights (run first on the rank, not
-   counted); (d) a narrow f32 round (flat and tree) and prefill on the
+   on 16 of 32 heads), (c) recurrentgemma-2b (batch 4, prompt 4096;
+   K6's gated entry 18 on 1280 of 2560 channels, K5 8 replicated) and
+   (e) gemma2-2b (batch 1, prompt 8192; K5 26 replicated), each then
+   served on its sharded cache through ``make_serve_step(...,
+   with_exit_head=True)``: 7, 31 and 7 steps (8, 32 and 8 new tokens) on
+   minitron's heads, recurrentgemma's ring of 2048 over kv_seq and its
+   RG-LRU state over 1280 channels, gemma2's dense global cache of 8200
+   slots and ring of 4096 over kv_seq, fed the unsharded run's greedy
+   tokens; each rank's vocab shard of the prefill logits and of each
+   step's logits and exit logits within 5 % of max|logit| of the
+   unsharded prefill and decode of the same weights (run first on the
+   rank, not counted), with the decode ms a step, the collectives a step
+   and the peak, no kernel launched in decode and no all-gather issued;
+   (d) a narrow f32 round (flat and tree) and prefill on the
    card's mesh against the CPU's in the same processes at rtol 1e-4 /
    atol 1e-5 (K1 1, K4 1, K5 f32 2 a rank).  Then, the card to itself:
    K2 and K1 at a rank's local n_flat (1,491,200,000) bitwise and timed
@@ -4636,10 +4645,16 @@ def sharded_phase(torch, ops, unsharded=None) -> dict:
 # over gloo in a (1, 2) mesh: NCCL refuses two ranks on one device
 TP_RANKS = 2
 TP_JOIN_S = 900
-# (arch, batch, prompt, launches of one sharded prefill on each rank: K5 on
-#  the tensor cores, K5 on the CUDA cores, K6's gated entry)
-TP_PREFILL_RUNS = (("minitron-8b", 1, 4096, (32, 0, 0)),
-                   ("recurrentgemma-2b", 4, 4096, (8, 0, 18)))
+# (arch, batch, prompt, new tokens, launches of one sharded prefill on each
+#  rank: K5 on the tensor cores, K5 on the CUDA cores, K6's gated entry):
+#  each prefilled, then served gen - 1 steps on its sharded cache
+#  (cache_len prompt + gen): minitron's heads, recurrentgemma's ring of
+#  2048 over kv_seq and its RG-LRU state over 1280 of 2560 channels,
+#  gemma2's dense global cache of 8200 slots and its ring of 4096, both
+#  over kv_seq
+TP_SERVE_RUNS = (("minitron-8b", 1, 4096, 8, (32, 0, 0)),
+                 ("recurrentgemma-2b", 4, 4096, 32, (8, 0, 18)),
+                 ("gemma2-2b", 1, 8192, 8, (26, 0, 0)))
 # the round against phase 18(a)'s: each leaf within 5 % of its max|value|
 # (the bf16 rule of the prefills), the loss at rtol 1e-2.  The int8-vs-f32
 # rule of phase 18(a) (1/100) holds two runs of the same training; here
@@ -4775,14 +4790,49 @@ def tp_round(torch, rank: int, work: str, mesh) -> dict:
     return out
 
 
-def tp_prefills(torch, rank: int, mesh) -> list:
-    """Phase 20(b)-(c) on one rank: minitron-8b (batch 1, prompt 4096; K5
-    on the rank's 16 of 32 heads) and recurrentgemma-2b (batch 4, prompt
-    4096; K6's gated entry on 1280 of 2560 channels, K5 replicated)
-    prefilled at full width under the (1, 2) policy, each rank's vocab
-    shard of the logits within 5 % of max|logit| of the unsharded prefill
-    of the same weights (run first on this rank, its launches not
-    counted)."""
+def _greedy_decode(torch, step, params, cache, first, pos: int, n: int,
+                   lo: int, hi: int, feed=None):
+    """``n`` serve steps from token ``first`` (B, 1) at position ``pos``,
+    each next token the greedy pick of the step's full logits, or
+    ``feed[i]`` where a list of tokens is given: the tokens fed, each
+    step's logits and exit logits on vocab rows ``[lo, hi)`` (a DTensor's
+    local shard holds those rows), and the host wall of the loop,
+    synchronised."""
+    from repro_torch.models.common import is_dtensor
+    tokens, logits_rows, exit_rows = [], [], []
+    tok = first
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(n):
+        tokens.append(tok)
+        logits, cache, exit_logits = step(params, cache, {"tokens": tok},
+                                          pos + i)
+        if is_dtensor(logits):
+            logits_rows.append(logits.to_local())
+            exit_rows.append(exit_logits.to_local())
+        else:
+            logits_rows.append(logits[..., lo:hi].clone())
+            exit_rows.append(exit_logits[..., lo:hi].clone())
+        if i + 1 < n:
+            tok = feed[i + 1] if feed is not None else \
+                torch.argmax(logits[:, -1], dim=-1)[:, None]
+        del logits, exit_logits
+    torch.cuda.synchronize()
+    return tokens, logits_rows, exit_rows, time.perf_counter() - t
+
+
+def tp_serving(torch, rank: int, mesh) -> list:
+    """Phase 20(b), (c) and (e) on one rank, each config of
+    ``TP_SERVE_RUNS`` at full width: the unsharded prefill and ``gen - 1``
+    greedy serve steps with the exit head, of the same weights on this
+    rank (run first, its launches not counted); then the sharded prefill
+    under the (1, 2) policy (``cache_len`` prompt + gen) and the sharded
+    serve steps on its cache, fed the unsharded run's tokens (a bf16
+    near-tie must not fork the comparison).  This rank's vocab shard of
+    the prefill logits and of each step's logits and exit logits within
+    5 % of max|logit| of the unsharded; the prefill's K5 / K6 launches as
+    expected and none in decode; no all-gather in either.  Prints the
+    decode ms a step, the collectives a step and the peak."""
     from repro_torch import configs
     from repro_torch.kernels.flash_attention.ops import flash_attention as fa
     from repro_torch.kernels.masked_agg import ops
@@ -4790,24 +4840,47 @@ def tp_prefills(torch, rank: int, mesh) -> list:
     from repro_torch.launch import sharding, steps
     from repro_torch.models import transformer as tfm
     from repro_torch.roofline import torch_walk
+    from repro_torch.tree import tree_leaves
+
+    def kernels():
+        return (fa.launches_tc, fa.launches, scan.lru_scan_gated.launches)
+
+    def check(label, got, want, amax):
+        d = float((got.float() - want.float()).abs().max())
+        if tuple(got.shape) != tuple(want.shape) or \
+                not d <= TP_LOGIT_RULE * amax:
+            raise RuntimeError(f"20 {label} rank {rank}: {tuple(got.shape)} "
+                               f"against the unsharded {tuple(want.shape)}, "
+                               f"{d:.4f} apart, above {TP_LOGIT_RULE} x "
+                               f"max|logit| {amax:.3f}")
+        return d
 
     rows = []
-    for arch, batch, prompt, expected in TP_PREFILL_RUNS:
+    for part, (arch, batch, prompt, gen, expected) in zip(
+            "bce", TP_SERVE_RUNS):
         cfg = configs.get_config(arch)
+        cache_len = prompt + gen
         full = tfm.init_params(torch.Generator("cuda").manual_seed(0), cfg)
         tokens = torch.randint(0, cfg.vocab_size, (batch, prompt),
                                generator=torch.Generator("cuda")
                                .manual_seed(1), device="cuda")
-        want, cache = steps.make_prefill_step(cfg)(full, {"tokens": tokens})
-        del cache
+        lo, hi = sharding.shard_rows(cfg.vocab_size,
+                                     mesh.get_local_rank("model"),
+                                     mesh.size(1))
+        want, cache = steps.make_prefill_step(cfg, cache_len=cache_len)(
+            full, {"tokens": tokens})
         amax = float(want.abs().max().float())
+        first = torch.argmax(want[:, -1], dim=-1)[:, None]
         # keep this rank's vocab shard of the unsharded logits only (the
         # sharded logits are placed ("batch", "seq", "vocab"): vocab over
         # model)
-        lo, hi = sharding.shard_rows(want.shape[-1],
-                                     mesh.get_local_rank("model"),
-                                     mesh.size(1))
         want = want[..., lo:hi].clone()
+        fed, want_steps, want_exit, unsharded_s = _greedy_decode(
+            torch, steps.make_serve_step(cfg, with_exit_head=True), full,
+            cache, first, prompt, gen - 1, lo, hi)
+        amax_step = max(float(x.abs().max().float()) for x in want_steps)
+        amax_exit = max(float(x.abs().max().float()) for x in want_exit)
+        del cache
         gc.collect()
         torch.cuda.empty_cache()
         params = sharding.distribute_params(full, cfg, mesh)
@@ -4815,45 +4888,73 @@ def tp_prefills(torch, rank: int, mesh) -> list:
         gc.collect()
         torch.cuda.empty_cache()
         policy = sharding.MeshPolicy(mesh, cfg)
-        step = steps.make_prefill_step(cfg, policy)
+        prefill = steps.make_prefill_step(cfg, policy, cache_len=cache_len)
         torch.cuda.reset_peak_memory_stats()
         counter = torch_walk.Collectives()
         _tp_zero(ops, fa, scan)
         torch.cuda.synchronize()
         t = time.perf_counter()
         with counter:
-            logits, cache = step(params, {"tokens": tokens})
+            logits, cache = prefill(params, {"tokens": tokens})
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        launched = (fa.launches_tc, fa.launches, scan.lru_scan_gated.launches)
+        launched = kernels()
         if launched != expected:
             raise RuntimeError(f"20 {arch} rank {rank}: launches K5 tc / K5 "
                                f"f32 / K6 gated {launched}, expected "
                                f"{expected}")
         local = logits.to_local()
-        if tuple(local.shape) != tuple(want.shape):
-            raise RuntimeError(f"20 {arch} rank {rank}: local logits "
-                               f"{tuple(local.shape)}, the unsharded "
-                               f"shard {tuple(want.shape)}")
         # a batch row and 1024 positions at a time (f32 copies of the whole
         # shard would take 8 GB a rank)
-        d = max(float((local[i, j:j + 1024].float()
-                       - want[i, j:j + 1024].float()).abs().max())
+        d = max(check(arch, local[i, j:j + 1024], want[i, j:j + 1024], amax)
                 for i in range(batch) for j in range(0, prompt, 1024))
-        if not d <= TP_LOGIT_RULE * amax:
-            raise RuntimeError(f"20 {arch} rank {rank}: logits {d:.4f} from "
-                               f"the unsharded prefill's, above "
-                               f"{TP_LOGIT_RULE} x max|logit| {amax:.3f}")
         row = {"arch": arch, "batch": batch, "prompt": prompt,
                "prefill_s": wall, "max_abs_diff": d, "max_abs_logit": amax,
                "logits_local": list(local.shape),
                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                "launches": launched, "collectives": counter.counts,
                "collective_bytes": counter.bytes}
-        print(f"  ({'b' if arch == TP_PREFILL_RUNS[0][0] else 'c'}) rank "
-              f"{rank} " + json.dumps(row), flush=True)
+        del logits, local, want
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        counter = torch_walk.Collectives()
+        with counter:
+            _, got_steps, got_exit, decode_s = _greedy_decode(
+                torch, steps.make_serve_step(cfg, policy,
+                                             with_exit_head=True),
+                params, cache, fed[0], prompt, gen - 1, lo, hi, feed=fed)
+        if kernels() != launched:
+            raise RuntimeError(f"20 {arch} rank {rank}: K5 / K6 launches "
+                               f"{launched} after prefill, {kernels()} "
+                               f"after decode (expected none in decode)")
+        for c in (row["collectives"], counter.counts):
+            if set(c) - {"all-reduce"}:
+                raise RuntimeError(f"20 {arch} rank {rank}: collectives "
+                                   f"{c}: all-reduces only on the card")
+        steps_n = gen - 1
+        row.update({
+            "gen": gen, "cache_len": cache_len, "decode_steps": steps_n,
+            "decode_ms_per_step": decode_s / steps_n * 1e3,
+            "unsharded_decode_ms_per_step": unsharded_s / steps_n * 1e3,
+            "decode_max_abs_diff": max(check(
+                f"{arch} step {i}", g, w, amax_step) for i, (g, w) in
+                enumerate(zip(got_steps, want_steps))),
+            "decode_max_abs_logit": amax_step,
+            "exit_max_abs_diff": max(check(
+                f"{arch} exit step {i}", g, w, amax_exit) for i, (g, w) in
+                enumerate(zip(got_exit, want_exit))),
+            "exit_max_abs_logit": amax_exit,
+            "decode_peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "decode_collectives_per_step": {
+                k: v / steps_n for k, v in counter.counts.items()},
+            "decode_collective_bytes_per_step": {
+                k: v / steps_n for k, v in counter.bytes.items()},
+            "cache_placements": sorted({str(x.placements) for x in
+                                        tree_leaves(cache)})})
+        print(f"  ({part}) rank {rank} " + json.dumps(row), flush=True)
         rows.append(row)
-        del params, logits, cache, want, local, tokens
+        del params, cache, tokens, got_steps, got_exit, want_steps, want_exit
         gc.collect()
         torch.cuda.empty_cache()
     return rows
@@ -4933,7 +5034,7 @@ def tp_card_vs_cpu(torch, rank: int, meshes: dict) -> dict:
 
 def tp_rank(rank: int, world: int, store: str, work: str) -> None:
     """One rank of phase 20 (spawned by :func:`tp_phase`): gloo over a
-    FileStore, the (1, 2) meshes on the card and on the CPU, then (a)-(d);
+    FileStore, the (1, 2) meshes on the card and on the CPU, then (a)-(e);
     writes ``rank<r>.pt`` (or the traceback to ``rank<r>.err``, and
     raises)."""
     import faulthandler
@@ -4950,7 +5051,7 @@ def tp_rank(rank: int, world: int, store: str, work: str) -> None:
         meshes = {"cuda": make_device_mesh(1, world, "cuda"),
                   "cpu": make_device_mesh(1, world, "cpu")}
         out = {"round": tp_round(torch, rank, work, meshes["cuda"])}
-        out["prefill"] = tp_prefills(torch, rank, meshes["cuda"])
+        out["prefill"] = tp_serving(torch, rank, meshes["cuda"])
         out["narrow"] = tp_card_vs_cpu(torch, rank, meshes)
         torch.save(out, os.path.join(work, f"rank{rank}.pt"))
         dist.destroy_process_group()
@@ -4988,7 +5089,7 @@ def _tp_local_layout(torch, cfg):
 def tp_phase(torch, ops, ref, bw: float, unsharded) -> dict:
     """Phase 20: the model axis on the card.  Phase 18(a)'s unsharded
     rounds are saved for the ranks, the card's memory is released, two
-    rank processes run (a)-(d) (:func:`tp_rank`; each raises on a failed
+    rank processes run (a)-(e) (:func:`tp_rank`; each raises on a failed
     check, and a rank's failure fails the phase), then K1 and K2 at the
     rank's local n_flat, K5 at a rank's heads and K6's gated entry at a
     rank's channels are held to their plain versions and timed here, the
@@ -5220,9 +5321,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     # 20. a live model axis: two ranks share the card over gloo
-    print("[20] a live model axis: Gemma-2 2B's step rounds, minitron-8b "
-          "and recurrentgemma-2b prefills at full width, two ranks sharing "
-          "the card (gloo, a (1, 2) mesh); narrow card vs CPU", flush=True)
+    print("[20] a live model axis: Gemma-2 2B's step rounds, minitron-8b, "
+          "recurrentgemma-2b and gemma2-2b prefilled and served on sharded "
+          "caches at full width, two ranks sharing the card (gloo, a (1, 2) "
+          "mesh); narrow card vs CPU", flush=True)
     tp = tp_phase(torch, ops, ref, bw, unsharded)
     del unsharded
 
@@ -5432,7 +5534,8 @@ def main() -> int:
             ("masked_agg", "k4", "(d) the narrow tree round on the card",
              None),
             ("flash_attention_wgmma", "k5_tc", "(b) minitron-8b on 16 of 32 "
-             "heads, (c) recurrentgemma-2b replicated",
+             "heads, (c) recurrentgemma-2b and (e) gemma2-2b replicated, "
+             "each prefill then served on its sharded cache",
              tp["k5"]["timing"][0]),
             ("flash_attention", "k5_f32", "(d) the narrow f32 prefill on "
              "the card", None),

@@ -4,9 +4,10 @@ constants: the programmatic dry-run API of the PyTorch port.
 
 The counterpart of ``examples/multipod_dryrun.py`` on ``repro_torch``
 (``launch/dryrun.lower_one``).  Nothing is allocated and no card is
-needed.  A train or prefill step of a config that runs over a model axis
-is walked as one rank of a fake process group of the mesh's size, so
-``t_collective`` counts that chip's collectives; elsewhere it is none.
+needed.  A train, prefill or decode step of a config that runs over a
+model axis is walked as one rank of a fake process group of the mesh's
+size, so ``t_collective`` counts that chip's collectives; elsewhere it is
+none.
 
 Run:  PYTHONPATH=src python examples/multipod_dryrun_torch.py \\
           [arch] [shape] [single|multi] [--reduced]

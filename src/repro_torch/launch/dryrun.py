@@ -13,26 +13,29 @@ every op and every kernel wrapper's reported work), and
 ``roofline/analysis.make_record`` over the result, with the H100's
 constants.  Nothing is allocated and no card is needed.
 
-**Over the model axis.**  A train or prefill step of a config that runs
-over a live model axis (``sharding.out_of_scope`` is ``None``) is walked
-as one rank of the mesh: a fake process group of the mesh's size
-(``torch.testing._internal.distributed.fake_pg``, rank 0; no rank runs
-and no byte moves), a ``DeviceMesh`` over it, the parameters and the
-batch as ``meta`` DTensors (``sharding.distribute_params``,
-``batch_specs``), the step under a ``MeshPolicy`` of that live mesh.  The
-walk then counts rank 0's own work and every collective it takes part in
+**Over the model axis.**  A train, prefill or decode step of a config
+that runs over a live model axis (``sharding.out_of_scope`` is ``None``)
+is walked as one rank of the mesh: a fake process group of the mesh's
+size (``torch.testing._internal.distributed.fake_pg``, rank 0; no rank
+runs and no byte moves), a ``DeviceMesh`` over it, the parameters, the
+batch and (decode) the cache as ``meta`` DTensors
+(``sharding.distribute_params``, ``batch_specs``, ``distribute_cache``),
+the step under a ``MeshPolicy`` of that live mesh; a serve step decodes
+position ``seq_len - 1``, as the whole-step walk does.  The walk then
+counts rank 0's own work and every collective it takes part in
 (``roofline/torch_walk``), so ``flops_per_chip`` is that rank's and
 ``coll_bytes_per_chip`` is the collectives' result bytes on it
 (``analysis.collective_bytes``), and ``bottleneck`` includes the
 collective term.
 
-Other combinations (decode, the configs that raise over a model axis)
-differ from the reference's compiled dry-run in three parts, and the
-record says so (``notes``): ``flops_per_chip`` is the walk's global count
-split evenly over the chips; ``coll_bytes_per_chip`` is ``None`` (the
-port issues no collective there), so ``bottleneck`` is over compute and
-memory; ``peak_memory_per_chip`` is params + cache + batch bytes per chip
-(in both kinds of record).  ``t_walk_s`` is the host time of the meta
+Other combinations (the configs that raise over a model axis, a mesh
+whose model axis is 1) differ from the reference's compiled dry-run in
+three parts, and the record says so (``notes``): ``flops_per_chip`` is
+the walk's global count split evenly over the chips;
+``coll_bytes_per_chip`` is ``None`` (the port issues no collective
+there), so ``bottleneck`` is over compute and memory;
+``peak_memory_per_chip`` is params + cache + batch bytes per chip (in both
+kinds of record).  ``t_walk_s`` is the host time of the meta
 run.
 
 Usage:
@@ -91,11 +94,10 @@ def fake_mesh(mesh: MeshShape):
 def walks_per_chip(cfg: ModelConfig, shape: InputShape, mesh) -> bool:
     """Whether :func:`lower_one` walks this combination as one rank of a
     live mesh (module docstring)."""
-    return (shape.kind in ("train", "prefill") and model_axis_size(mesh) > 1
-            and sharding.out_of_scope(cfg) is None)
+    return model_axis_size(mesh) > 1 and sharding.out_of_scope(cfg) is None
 
 
-def _walk_per_chip(cfg, shape, mesh, in_specs, window_override):
+def _walk_per_chip(cfg, shape, mesh, in_specs, cache, window_override):
     """The step's walk as rank 0 of a fake mesh of ``mesh``'s shape."""
     with fake_mesh(mesh) as device_mesh:
         policy = sharding.MeshPolicy(device_mesh, cfg)
@@ -106,7 +108,11 @@ def _walk_per_chip(cfg, shape, mesh, in_specs, window_override):
             in_specs, sharding.batch_specs(in_specs, mesh, policy))
         step = steps.step_for_shape(cfg, shape, policy,
                                     window_override=window_override)
-        return torch_walk.walk(step, params, batch)[1]
+        if shape.kind != "decode":
+            return torch_walk.walk(step, params, batch)[1]
+        cache = sharding.distribute_cache(cache, cfg, device_mesh)
+        return torch_walk.walk(step, params, cache, batch,
+                               shape.seq_len - 1)[1]
 
 
 def lower_one(arch: str, shape: InputShape, *, multi_pod: bool = False,
@@ -132,7 +138,7 @@ def lower_one(arch: str, shape: InputShape, *, multi_pod: bool = False,
     step = steps.step_for_shape(cfg, shape, policy,
                                 window_override=window_override)
 
-    c_bytes = 0
+    c_bytes, cache = 0, None
     per_chip = walks_per_chip(cfg, shape, mesh)
     t0 = time.time()
     if shape.kind != "train":
@@ -142,7 +148,8 @@ def lower_one(arch: str, shape: InputShape, *, multi_pod: bool = False,
         c_bytes = sharding.bytes_per_chip(
             cache, sharding.cache_specs(cache, cfg, mesh), mesh)
     if per_chip:
-        walk = _walk_per_chip(cfg, shape, mesh, in_specs, window_override)
+        walk = _walk_per_chip(cfg, shape, mesh, in_specs, cache,
+                              window_override)
     elif shape.kind == "decode":
         _, walk = torch_walk.walk(step, params, cache, in_specs,
                                   shape.seq_len - 1)

@@ -50,8 +50,10 @@ hand-written kernel on each rank's local shards through ``local_map``
 under a model axis raise ``NotImplementedError`` naming their queued
 ``ROADMAP.md`` item, where the policy is built (:func:`out_of_scope`) or
 where the step is: MoE experts, xLSTM, codebook tables,
-the ``seq2d`` / ``dp2d`` / ``seq2d_fsdp`` variants, the compressed wire,
-SCAFFOLD and the serve step.  None of them replicates silently.
+the ``seq2d`` / ``dp2d`` / ``seq2d_fsdp`` variants, the compressed wire and
+SCAFFOLD.  None of them replicates silently.  The serve step reads the
+cache as :func:`cache_specs` places it, ``kv_seq`` rows included, and
+never replicates a sharded cache.
 """
 
 from __future__ import annotations
@@ -71,8 +73,6 @@ Tree = Any
 
 # what the port does not run over a live model axis larger than 1, each
 # with its queued ROADMAP.md item
-TODO_SERVE = ("the serve step over sharded caches (kv_seq context-parallel "
-              "decode included): ROADMAP.md §1 item 10")
 TODO_MOE = "MoE experts over the model axis: ROADMAP.md §1 item 11"
 TODO_XLSTM = ("xLSTM blocks and codebook tables over the model axis: "
               "ROADMAP.md §1 item 12")
@@ -579,6 +579,15 @@ def distribute_cohort(cohort: Tree, cfg: ModelConfig, device_mesh) -> Tree:
     ``expand``-ed cohort stays a view (:func:`distribute_leaf`)."""
     specs = cohort_specs(tree_map(lambda x: x[0], cohort), cfg, device_mesh)
     return _distribute(cohort, specs, device_mesh)
+
+
+def distribute_cache(cache: Tree, cfg: ModelConfig, device_mesh) -> Tree:
+    """A decode cache (the same full tree on every rank, e.g.
+    ``transformer.init_cache``) as DTensors placed by :func:`cache_specs`,
+    in place as :func:`distribute_params`: what ``make_prefill_step``
+    hands back over a live mesh."""
+    return _distribute(cache, cache_specs(cache, cfg, device_mesh),
+                       device_mesh)
 
 
 def local_tree(tree: Tree) -> Tree:

@@ -34,7 +34,10 @@ live mesh has a model axis larger than 1 the steps take DTensors
 computes for the reference under the same policy.  The train and prefill
 steps run the model on DTensors (``implicit_replication``: a plain tensor
 such as a mask or the tokens counts as replicated); prefill's cache is
-constrained to ``sharding.cache_specs``.  In the round step each data rank
+constrained to ``sharding.cache_specs``, and the serve step decodes
+against that cache on each rank's shards (``models/attention.py``: heads,
+head dim, or ``kv_seq`` rows merged by all-reduces; ``models/rglru.py``:
+the ``rnn`` channels).  In the round step each data rank
 trains its rows of each chunk as above, each client as DTensors over its
 model group (``MeshPolicy.model_policy``); a client is valid only where
 every shard is finite (``masking.tree_isfinite``); the fold runs on each
@@ -43,9 +46,9 @@ K4 on the local flat vector, no model-axis collective: the fold is
 elementwise), and the new model's local leaves are wrapped back as
 DTensors.  On the int8 wire each sharded leaf's local rows must be whole
 groups of the global layout (``sharding.check_groups``), so that each
-rank quantizes exactly the reference's groups.  The compressed wire,
-SCAFFOLD and the serve step raise ``NotImplementedError`` there, naming
-their queued ``ROADMAP.md`` items.
+rank quantizes exactly the reference's groups.  The compressed wire and
+SCAFFOLD raise ``NotImplementedError`` there, naming their queued
+``ROADMAP.md`` items.
 
 Where the reference ``vmap``s a chunk's clients and ``scan``s the chunks,
 the round step loops over both in Python, training one client at a time;
@@ -446,14 +449,18 @@ def make_serve_step(cfg: ModelConfig, policy: Policy = NO_POLICY, *,
                     window_override: Optional[int] = None,
                     with_exit_head: bool = False):
     """``serve_step(params, cache, batch, pos) -> (logits, cache[,
-    exit_logits])`` for one token; the port's decode updates ``cache`` in
-    place and returns it.  Over a live model axis larger than 1 it raises
-    ``NotImplementedError`` (sharded caches are not ported)."""
-    if _model_live(policy):
-        raise NotImplementedError(sharding.TODO_SERVE)
+    exit_logits])`` for one token at position ``pos`` (a Python int); the
+    port's decode updates ``cache`` in place and returns it.
 
+    Over a live model axis larger than 1 it takes the parameters as
+    DTensors (``sharding.distribute_params``) and the cache as
+    ``make_prefill_step`` hands it back, placed by ``sharding.cache_specs``
+    (heads, head dim, ``kv_seq`` rows or ``rnn`` channels); each rank
+    updates its local shards in place, and the logits and the exit logits
+    come back vocab-parallel, as prefill's do.  A config out of scope
+    there raises where its ``MeshPolicy`` is built."""
     def serve_step(params: Tree, cache: Tree, batch: Batch, pos: int):
-        with torch.no_grad():
+        with torch.no_grad(), _tp(policy):
             return tfm.decode_step(params, cache, cfg, batch["tokens"], pos,
                                    policy=policy,
                                    window_override=window_override,

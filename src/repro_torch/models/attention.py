@@ -35,8 +35,12 @@ query heads and the ``Kh/m`` kv heads they read; with heads replicated
 every rank computes the whole attention; with the head dim sharded
 (llava's ``"head_dim"``) the function does not separate, so q, k and v are
 gathered whole first, as GSPMD gathers around a custom call, and the
-output is constrained back.  Shapes: hidden (B, S, D); q (B, S, H, Dh);
-k/v (B, S, Kh, Dh).
+output is constrained back.  Decode reads the cache as
+``sharding.cache_specs`` places it and never gathers it
+(:func:`_attend_sharded`): heads on each rank's heads, the head dim by
+all-reduced partial scores, ``kv_seq`` rows by a softmax merged with
+all-reduces.  Shapes: hidden (B, S, D); q (B, S, H, Dh); k/v (B, S, Kh,
+Dh).
 """
 
 from __future__ import annotations
@@ -407,12 +411,85 @@ def init_kv_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
+def _write_slot(c: torch.Tensor, new: torch.Tensor, slot: int) -> None:
+    """Write ``new[:, 0]`` (B, 1, Kh, Dh) into global row ``slot`` of the
+    cache leaf ``c`` in place.  A DTensor cache is written on its local
+    shard by the rank whose rows hold ``slot`` (``shard_offset``), the new
+    row placed as the cache but whole along the sequence."""
+    if not common.is_dtensor(c):
+        c[:, slot] = new[:, 0].to(c.dtype)
+        return
+    from torch.distributed.tensor import Replicate
+    new = new.redistribute(c.device_mesh, [
+        Replicate() if pl.is_shard(1) else pl for pl in c.placements])
+    local = c.to_local()
+    row = slot - common.shard_offset(c, 1)
+    if 0 <= row < local.shape[1]:
+        local[:, row] = new.to_local()[:, 0].to(local.dtype)
+
+
+def _attend_sharded(q, k, v, valid: torch.Tensor, softcap_val: float):
+    """:func:`_attend` of one query token against DTensor k/v (B, S, Kh,
+    Dh) on each rank's local shards; q (B, 1, H, Dh) is placed as k, whole
+    along the sequence.  Returns the (B, 1, H, Dh) output, placed so.
+
+    * heads sharded: each rank attends its heads (no collective);
+    * head dim sharded: the scores are partial sums, all-reduced before
+      the softmax;
+    * sequence sharded (``kv_seq``): each rank scores its rows, masked by
+      ``valid`` (the global slots' validity) at its offset, and the
+      softmax is merged by all-reduces only: the MAX of the row maxima,
+      the SUM of ``exp(s - max)``, then the SUM of the normalised
+      probabilities (rounded to v's dtype, as ``_attend`` rounds them)
+      times the local v, in f32.  ``NEG_INF`` is finite, so a rank whose
+      rows are all masked scores ``exp(NEG_INF - max) = 0`` against the
+      global max."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = k.device_mesh
+    seq = [i for i, pl in enumerate(k.placements) if pl.is_shard(1)]
+    dh = [i for i, pl in enumerate(k.placements) if pl.is_shard(3)]
+    place = [Replicate() if pl.is_shard(1) else pl for pl in k.placements]
+    q = q.redistribute(mesh, place)
+    ql, kl, vl = q.to_local(), k.to_local(), v.to_local()
+    off = common.shard_offset(k, 1)
+    mask = valid[off:off + kl.shape[1]][None, None, :]
+    qg = _split_gqa(ql, kl.shape[2])
+    if not seq and not dh:
+        out = _attend(qg, kl, vl, mask, softcap_val)
+    else:
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), kl.float())
+        s = common.all_reduce(s, "sum", mesh, dh) * q.shape[-1] ** -0.5
+        s = common.softcap(s, softcap_val)
+        s = torch.where(mask[:, None, None, :, :], s, NEG_INF)
+        m = common.all_reduce(s.amax(dim=-1, keepdim=True), "max", mesh,
+                              seq)
+        e = torch.exp(s - m)
+        probs = e / common.all_reduce(e.sum(dim=-1, keepdim=True), "sum",
+                                      mesh, seq)
+        out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(vl.dtype).float(),
+                           vl.float())
+        out = common.all_reduce(out, "sum", mesh, seq).to(vl.dtype)
+    out = _merge_gqa(out)
+    return DTensor.from_local(out, mesh, place, run_check=False,
+                              shape=q.shape,
+                              stride=torch.empty(q.shape,
+                                                 device="meta").stride())
+
+
 def apply_attention_decode(p: dict, h_in: torch.Tensor, cache: dict,
-                           pos: int, cfg: ModelConfig, *, window: int = 0):
+                           pos: int, cfg: ModelConfig, *, window: int = 0,
+                           policy: Policy = NO_POLICY):
     """One-token decode.  h_in: (B, 1, D); pos: the current index.
 
     Writes the token's K/V into ``cache`` in place and returns
-    ``(out (B, 1, D), cache)``."""
+    ``(out (B, 1, D), cache)``.  The cache is constrained to
+    ``("batch", "kv_seq", "kv_heads", "head_dim")`` before the attention,
+    as the reference's is.  Over a live model axis the cache is DTensors
+    placed by ``sharding.cache_specs``: only the rank holding the new slot
+    writes it (:func:`_write_slot`; a ring's slot moves from rank to rank
+    as ``pos`` advances), and the attention runs on each rank's shards
+    (:func:`_attend_sharded`); the ``wo`` product's ``Partial`` sum is left
+    for the caller's constrain."""
     b = h_in.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=h_in.device)
     q, k_new, v_new = _project_qkv(p, h_in, cfg, positions)
@@ -422,8 +499,11 @@ def apply_attention_decode(p: dict, h_in: torch.Tensor, cache: dict,
     if slot >= size:
         raise ValueError(f"position {pos} beyond the global cache's {size} "
                          f"slots (size the cache by prompt + generated)")
-    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+    _write_slot(cache["k"], k_new, slot)
+    _write_slot(cache["v"], v_new, slot)
+    axes = ("batch", "kv_seq", "kv_heads", "head_dim")
+    k = policy.constrain(cache["k"], axes)
+    v = policy.constrain(cache["v"], axes)
 
     idx = torch.arange(size, device=h_in.device)
     if window:
@@ -433,8 +513,11 @@ def apply_attention_decode(p: dict, h_in: torch.Tensor, cache: dict,
         valid = (logical >= 0) & (logical <= pos) & (pos - logical < window)
     else:
         valid = idx <= pos
-    out = _attend(_split_gqa(q, cfg.n_kv_heads), cache["k"], cache["v"],
-                  valid[None, None, :], cfg.attn_logit_softcap)
-    out = _merge_gqa(out)
+    if common.is_dtensor(k):
+        out = _attend_sharded(q, k, v, valid, cfg.attn_logit_softcap)
+    else:
+        out = _merge_gqa(_attend(_split_gqa(q, cfg.n_kv_heads), k, v,
+                                 valid[None, None, :],
+                                 cfg.attn_logit_softcap))
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(out.dtype))
     return out, cache

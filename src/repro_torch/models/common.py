@@ -15,7 +15,8 @@ the identity.  Over a live model axis the parameters and activations are
 DTensors: :func:`local_apply` runs a function of local tensors (a kernel,
 or a computation that separates along the sharded dims) on each rank's
 shards, and :func:`apply_embedding` looks a vocabulary-sharded table up
-that way (the vocab-parallel embedding).
+that way (the vocab-parallel embedding); :func:`all_reduce` reduces a
+local tensor over mesh dims (decode's merges over a sharded cache).
 
 An init function given a :class:`ShapeGenerator` (device ``meta``) makes
 ``meta`` tensors of its leaves' shapes and dtypes and draws nothing:
@@ -103,6 +104,16 @@ def unshard(x: torch.Tensor, dim: int) -> torch.Tensor:
              for p in x.placements]
     return x if place == list(x.placements) else x.redistribute(
         x.device_mesh, place)
+
+
+def all_reduce(x: torch.Tensor, op: str, mesh, dims) -> torch.Tensor:
+    """A local tensor reduced by ``op`` (``"sum"`` or ``"max"``) over the
+    mesh dims ``dims`` in turn: the functional all-reduce that DTensor's
+    ``Partial -> Replicate`` issues, and never a gather."""
+    from torch.distributed import _functional_collectives as funcol
+    for d in dims:
+        x = funcol.wait_tensor(funcol.all_reduce(x, op, (mesh, d)))
+    return x
 
 
 class ShapeGenerator:

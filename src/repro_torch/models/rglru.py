@@ -26,8 +26,9 @@ Over a live model axis the ``rnn`` channels are sharded (``w_in``,
 vectors by channel), the reference's constrains mark the input and the
 output, and the conv and the recurrence, which are per channel, run on
 each rank's channels through ``local_map`` (``common.local_apply``): K6's
-gated entry in prefill, the plain scan in training.  No collective is
-needed inside the layer.
+gated entry in prefill, the plain scan in training, the one-step
+recurrence in decode (on the cache's local channels, in place).  No
+collective is needed inside the layer.
 """
 
 from __future__ import annotations
@@ -195,18 +196,36 @@ def init_rglru_cache(cfg: ModelConfig, batch: int, device=None) -> dict:
                                 device=device)}
 
 
-def apply_rglru_decode(p: dict, h_in: torch.Tensor, cache: dict,
-                       cfg: ModelConfig) -> Tuple[torch.Tensor, dict]:
-    """One step.  h_in: (B, 1, D) -> ((B, 1, D), cache), the cache updated
-    in place."""
-    x = torch.matmul(h_in, p["w_in"].to(h_in.dtype))
-    g = torch.matmul(h_in, p["w_gate"].to(h_in.dtype))
-    conv = cache["conv"]
+def _decode_core(x: torch.Tensor, conv: torch.Tensor, y0: torch.Tensor,
+                 p: dict) -> torch.Tensor:
+    """One step of the conv and the recurrence, per channel: x (B, 1, Dr)
+    against the window ``conv`` (B, tw-1, Dr) and state ``y0`` (B, Dr),
+    both updated in place; returns y (B, 1, Dr) in f32."""
     xc = _causal_conv(p, x, window=conv)            # (B, 1, Dr)
     a, b = _gates(p, xc[:, 0])
-    y = a * cache["y"] + b                          # (B, Dr) f32
-    out = y[:, None].to(h_in.dtype) * gelu(g)
-    out = torch.matmul(out, p["w_out"].to(out.dtype))
+    y = a * y0 + b                                  # (B, Dr) f32
     conv.copy_(torch.cat([conv, x.to(conv.dtype)], dim=1)[:, 1:])
-    cache["y"].copy_(y)
+    y0.copy_(y)
+    return y[:, None]
+
+
+def apply_rglru_decode(p: dict, h_in: torch.Tensor, cache: dict,
+                       cfg: ModelConfig, policy: Policy = NO_POLICY
+                       ) -> Tuple[torch.Tensor, dict]:
+    """One step.  h_in: (B, 1, D) -> ((B, 1, D), cache), the cache updated
+    in place.  Over a live model axis the cache's ``y`` and ``conv`` hold
+    each rank's ``rnn`` channels (``sharding.cache_specs``) and the step
+    runs on them (:func:`_decode_core` through ``local_map``, writing the
+    local shards); ``w_out``'s ``Partial`` sum is left for the caller's
+    constrain.  The reference's decode constrains nothing here."""
+    x = torch.matmul(h_in, p["w_in"].to(h_in.dtype))
+    g = torch.matmul(h_in, p["w_gate"].to(h_in.dtype))
+
+    def core(x, conv, y0, *vals):
+        return _decode_core(x, conv, y0, dict(zip(_CHANNEL_KEYS, vals)))
+    placements = list(x.placements) if common.is_dtensor(x) else None
+    y = common.local_apply(core, placements, x, cache["conv"], cache["y"],
+                           *(p[k] for k in _CHANNEL_KEYS))
+    out = y.to(h_in.dtype) * gelu(g)
+    out = torch.matmul(out, p["w_out"].to(out.dtype))
     return out, cache

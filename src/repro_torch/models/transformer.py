@@ -244,22 +244,27 @@ def init_block_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
 
 def apply_block_decode(p: Params, spec: LayerSpec, h: torch.Tensor,
                        cache: Params, pos: int, cfg: ModelConfig, *,
-                       window_override: Optional[int] = None):
+                       window_override: Optional[int] = None,
+                       policy: Policy = NO_POLICY):
     """One-token block; updates ``cache`` in place.  Returns
     ``(h, cache, aux)``; an MoE block routes the whole batch as one
-    group."""
+    group.  Over a model axis the mixer's output (a ``Partial`` sum where
+    ``wo`` or ``w_out`` is row-parallel) is reduced by the constrain
+    before the residual add, as in prefill."""
     x = common.apply_rmsnorm(p["pre_norm"], h, cfg.norm_eps)
     if _is_attention(spec):
         m, cache = attention.apply_attention_decode(
             p["mixer"], x, cache, pos, cfg,
-            window=_window(spec, cfg, window_override))
+            window=_window(spec, cfg, window_override), policy=policy)
     elif spec.mixer == RGLRU:
-        m, cache = rglru.apply_rglru_decode(p["mixer"], x, cache, cfg)
+        m, cache = rglru.apply_rglru_decode(p["mixer"], x, cache, cfg,
+                                            policy)
     elif spec.mixer == MLSTM:
         m, cache = xlstm.apply_mlstm_decode(p["mixer"], x, cache, cfg)
     else:
         m, cache = xlstm.apply_slstm_decode(p["mixer"], x, cache, cfg)
-    h, aux = _apply_mlp(p, spec, h + m, cfg, one_group=True)
+    m = policy.constrain(m, ("batch", "seq", None))
+    h, aux = _apply_mlp(p, spec, h + m, cfg, one_group=True, policy=policy)
     return h, cache, aux
 
 
@@ -499,13 +504,14 @@ def decode_step(params: Params, cache: Params, cfg: ModelConfig,
             h, _, _ = apply_block_decode(
                 _index(params["periods"][pos_i], i), spec, h,
                 _index(cache["periods"][pos_i], i), pos, cfg,
-                window_override=window_override)
+                window_override=window_override, policy=policy)
         if i == cfg.exit_period - 1:
             exit_h = h
     for i, p_rem in enumerate(params["rem"]):
         h, _, _ = apply_block_decode(p_rem, cfg.layer_spec(i), h,
-                                  cache["rem"][i], pos, cfg,
-                                  window_override=window_override)
+                                     cache["rem"][i], pos, cfg,
+                                     window_override=window_override,
+                                     policy=policy)
     logits = logits_from_hidden(params, cfg, h, "final", policy)
     if with_exit_head:
         return logits, cache, logits_from_hidden(params, cfg, exit_h, "exit",

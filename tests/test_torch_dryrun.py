@@ -2,8 +2,9 @@
 ``launch/fedround_dryrun.py``).
 
 * ``lower_one`` walks gemma2-2b x train_4k, qwen2-moe-a2.7b x decode_32k
-  (the MoE router on ``meta``) and recurrentgemma-2b x prefill_32k (K5
-  and K6 through their ``meta`` paths) on the single-pod mesh shape; its
+  (the MoE router on ``meta``), recurrentgemma-2b x prefill_32k (K5
+  and K6 through their ``meta`` paths) and gemma2-2b x decode_32k (the
+  serve step on a kv_seq-sharded cache) on the single-pod mesh shape; its
   ``param_bytes_per_chip`` and ``cache_bytes_per_chip`` equal the
   reference's ``bytes_per_chip`` of the same trees on the same specs;
   gemma2 and recurrentgemma are walked as one rank of a fake 16 x 16 mesh
@@ -36,7 +37,7 @@ from repro_torch.models.common import NO_POLICY  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 COMBOS = (("gemma2-2b", "train_4k"), ("qwen2-moe-a2.7b", "decode_32k"),
-          ("recurrentgemma-2b", "prefill_32k"))
+          ("recurrentgemma-2b", "prefill_32k"), ("gemma2-2b", "decode_32k"))
 # the combinations walked as one rank of a live mesh (in scope over a
 # model axis; qwen2-moe's decode is not)
 PER_CHIP = ("gemma2-2b", "recurrentgemma-2b")

@@ -1,7 +1,7 @@
-"""Execution over a live model axis (tensor parallelism): the train, round
-and prefill steps under a ``MeshPolicy`` over a ``DeviceMesh`` whose model
-axis is 2, against the JAX reference's unsharded functions (what GSPMD
-computes for the reference under the same policy).
+"""Execution over a live model axis (tensor parallelism): the train, round,
+prefill and serve steps under a ``MeshPolicy`` over a ``DeviceMesh`` whose
+model axis is 2 or 4, against the JAX reference's unsharded functions (what
+GSPMD computes for the reference under the same policy).
 
 * One gloo spawn at world size 2 on a (1, 2) mesh and one at world size 4
   on a (2, 2) mesh, started together (``tests/torch_mesh_cases.
@@ -18,16 +18,30 @@ computes for the reference under the same policy).
   / atol 1e-5, the int8 round under ``repro_torch.parity``'s lossy-wire
   rules (as ``tests/test_torch_steps.py`` holds the unsharded one).  The
   reference's tree round is its flat f32 round (the same fold).
+* The serve step in the same spawns (``cases.TP_DECODE``): each prefill's
+  cache, placed by ``cache_specs``, decoded 6 teacher-forced steps with
+  the exit head, against the reference's unsharded ``make_serve_step`` from
+  its own prefill's cache on the same tokens: at (1, 2) gemma2 narrow (a
+  ring and a dense global cache over kv_seq, the ring wrapped, the new
+  slot crossing the rank boundary in both), recurrentgemma narrow (the
+  ring and the RG-LRU state over its channels), minitron narrow (heads)
+  and llava narrow (the head dim); at (1, 4) minitron narrow (q heads
+  sharded, the cache over kv_seq); at (2, 2) gemma2 narrow at batch 2
+  (over data) and 1 (the cache's sequence over data).  Logits, exit
+  logits and caches of every step at rtol 1e-4 / atol 1e-5; each slot
+  written by the ranks that hold it and no other rank.
 * The refusals over a live model axis (MoE, xLSTM, codebooks, seq2d /
-  dp2d / seq2d_fsdp, the compressed wire, SCAFFOLD, the serve step), each
-  ``NotImplementedError`` naming its ``ROADMAP.md`` item, and the int8
-  wire's group check on a leaf whose shards straddle 128-element groups.
+  dp2d / seq2d_fsdp, the compressed wire, SCAFFOLD, an xLSTM and an MoE
+  serve step), each ``NotImplementedError`` naming its ``ROADMAP.md``
+  item, and the int8 wire's group check on a leaf whose shards straddle
+  128-element groups.
 * The vocab-parallel embedding with a tied unembedding and the
   vocab-parallel CE: loss and the table's gradient against the unsharded
   run of one f64 table.
 * Every kernel wrapper refuses a DTensor.
 * The dry-run's collective bytes on a fake (2, 2) mesh: gemma2 narrow's
-  train step against a count derived here from the layer shapes.
+  train and serve steps against counts derived here from the layer
+  shapes.
 """
 
 import functools
@@ -62,6 +76,9 @@ from repro_torch.tree import tree_leaves  # noqa: E402
 RTOL, ATOL = 1e-4, 1e-5
 JOIN_S = 60
 MAX_SHARE = 1e-3
+# (world size, mesh, arch, batch, prompt, cache_len) of each decode case
+DECODE_CASES = tuple((world,) + case for world, cs in cases.TP_DECODE.items()
+                     for case in cs)
 
 
 def ref_config(arch):
@@ -87,6 +104,29 @@ def ref_round(engine: str):
     return jax.jit(step)(cohort, jnp.asarray(data), jnp.asarray(simple))
 
 
+def ref_decode(arch, batch, prompt, cache_len):
+    """The reference's unsharded prefill then ``TP_DECODE_STEPS``
+    teacher-forced serve steps with the exit head: each step's logits,
+    exit logits and cache."""
+    cfg = ref_config(arch)
+    prompt_batch, forced = cases.tp_decode_inputs(arch, batch, prompt)
+    _, cache = jax.jit(ref_steps.make_prefill_step(
+        cfg, NO_POLICY, cache_len=cache_len))(ref_params(arch), {
+            k: jnp.asarray(v) for k, v in prompt_batch.items()})
+    serve = jax.jit(ref_steps.make_serve_step(cfg, NO_POLICY,
+                                              with_exit_head=True))
+    pos = cases.first_position(arch, prompt)
+    out = {"logits": [], "exit": [], "cache": []}
+    for i in range(cases.TP_DECODE_STEPS):
+        logits, cache, exit_logits = serve(
+            ref_params(arch), cache, {"tokens": jnp.asarray(forced[i])},
+            jnp.int32(pos + i))
+        out["logits"].append(np.asarray(logits))
+        out["exit"].append(np.asarray(exit_logits))
+        out["cache"].append(jax.tree.map(np.asarray, cache))
+    return out
+
+
 def references():
     """The reference's unsharded results of every case."""
     out = {}
@@ -101,6 +141,8 @@ def references():
         batch = cases.tp_prefill_batch(arch)
         out[arch] = jax.jit(step)(ref_params(arch), {
             k: jnp.asarray(v) for k, v in batch.items()})
+    for case in {c[2:] for c in DECODE_CASES}:
+        out[("decode",) + case] = ref_decode(*case)
     return out
 
 
@@ -154,15 +196,18 @@ def assert_ranks_equal(results, key):
 
 
 CASES_2 = ("train",) + cases.TP_ENGINES + cases.TP_PREFILL + ("vocab",)
+# each case's test id -> (world size, the ranks' result key)
+BITWISE = {key: (2, key) for key in CASES_2}
+BITWISE.update({"(2, 2) flat f32": (4, "flat f32"),
+                "(2, 2) train": (4, "train")})
+BITWISE.update({cases.decode_key(*c[1:4]): (c[0], cases.decode_key(*c[1:4]))
+                for c in DECODE_CASES})
 
 
-@pytest.mark.parametrize("key", CASES_2 + ("(2, 2) flat f32",
-                                          "(2, 2) train"))
+@pytest.mark.parametrize("key", list(BITWISE))
 def test_ranks_hold_bitwise_equal_full_tensors(tp_runs, key):
-    runs = tp_runs[0]
-    results, key = (runs[4], key[7:]) if key.startswith("(2, 2)") \
-        else (runs[2], key)
-    assert_ranks_equal(results, key)
+    world, key = BITWISE[key]
+    assert_ranks_equal(tp_runs[0][world], key)
 
 
 @pytest.mark.parametrize("world", [2, 4])
@@ -220,10 +265,62 @@ def test_prefill_reads_replicated_kv_heads_over_four_ranks(tp_runs):
     assert_leaves(got["cache"], want_cache)
 
 
+def _decode_id(case):
+    return cases.decode_key(*case[1:4])
+
+
+@pytest.mark.parametrize("what", ["logits", "exit", "cache"])
+@pytest.mark.parametrize("case", DECODE_CASES, ids=_decode_id)
+def test_serve_step_matches_reference(tp_runs, case, what):
+    """Each step's logits, exit logits or cache against the reference's
+    unsharded decode; the logits come back vocab-parallel."""
+    got = tp_runs[0][case[0]][0][cases.decode_key(*case[1:4])]
+    want = tp_runs[1][("decode",) + case[2:]]
+    assert len(got[what]) == len(want[what]) == cases.TP_DECODE_STEPS
+    for g, w in zip(got[what], want[what]):
+        if what == "cache":
+            assert_leaves(g, w)
+        else:
+            assert tuple(g.shape) == tuple(w.shape)
+            assert_close(g, w)
+    assert all("Shard(dim=2)" in p for p in got["placements"])
+
+
+@pytest.mark.parametrize("case", DECODE_CASES, ids=_decode_id)
+def test_serve_step_writes_each_slot_on_its_owner_only(tp_runs, case):
+    """At each step every rank changes exactly the new slot of each KV
+    cache leaf where its rows hold it (a ring's slot ``pos % size``, a
+    dense cache's ``pos``) and nothing elsewhere; where the rows are
+    sharded (kv_seq) the owner changes over the steps (the ring's and the
+    dense cache's slots cross the rank boundary)."""
+    world, _, arch, _, prompt, cache_len = case
+    ranks = [r[cases.decode_key(*case[1:4]) + " written"]
+             for r in tp_runs[0][world]]
+    first = cases.first_position(arch, prompt)
+    owners = {}
+    for step in range(cases.TP_DECODE_STEPS):
+        pos = first + step
+        for path in ranks[0][step]:
+            size = ranks[0][step][path][2]
+            slot = pos % size if size < cache_len else pos
+            wrote = []
+            for r, written in enumerate(ranks):
+                start, stop, _, rows = written[step][path]
+                assert rows == ([slot] if start <= slot < stop else []), \
+                    (path, step, r, rows)
+                if rows:
+                    wrote.append(r)
+            if any(w[step][path][:2] != (0, size) for w in ranks):
+                owners.setdefault(path, set()).add(tuple(wrote))
+    assert all(len(o) > 1 for o in owners.values()), owners
+    if arch in ("gemma2-2b", "recurrentgemma-2b") or world == 4:
+        assert owners       # the cases whose caches go over kv_seq
+
+
 REFUSALS = {"moe": "item 11", "xlstm": "item 12", "codebooks": "item 12",
             "seq2d": "item 15", "dp2d": "item 15", "seq2d_fsdp": "item 15",
             "compressed": "item 13", "scaffold": "item 14",
-            "serve": "item 10"}
+            "serve xlstm": "item 12", "serve moe": "item 11"}
 
 
 @pytest.mark.parametrize("name", list(REFUSALS))
@@ -340,13 +437,37 @@ def hand_count(cfg, shape, m: int, d: int) -> int:
     return over_model + local * 4 + 4
 
 
+def hand_count_decode(cfg, shape, d: int) -> tuple:
+    """``(all-reduces, result bytes)`` a chip takes part in during gemma2
+    narrow's serve step on a (d, m) mesh (f32; the batch over data, the
+    caches' rows (kv_seq), the MLP and the tied table over model), derived
+    from the layer shapes: one of the (B/d, 1, D) embedding and one of
+    each layer's (B/d, 1, D) MLP output; for each attention layer three
+    for the merge of its kv_seq-sharded softmax: the MAX of the row maxima
+    and the SUM of the exponentials, each a (B/d, Kh, G, 1, 1) value, and
+    the SUM of the (B/d, 1, Kh, G, Dh) output.  ``wo`` is replicated
+    (``attn_shard="replicate"``), so its product needs no all-reduce; the
+    logits and the exit logits stay vocab-parallel."""
+    b, dm, h = shape.global_batch // d, cfg.d_model, cfg.n_heads
+    act = b * dm * 4
+    merge = 2 * b * h * 4 + b * h * cfg.resolved_head_dim * 4
+    n = cfg.n_layers
+    return 1 + n + 3 * n, act + n * (act + merge)
+
+
 def test_dryrun_collective_bytes_on_a_fake_mesh_match_the_hand_count():
+    """gemma2 narrow's train step and its serve step (batch 4, a ring of
+    16 and a dense cache of 32 rows, each over model) on a fake (2, 2)
+    mesh."""
     cfg = cases.tp_config(cases.TP_TRAIN)
+    mesh = MeshShape((2, 2), ("data", "model"))
     shape = InputShape("train_narrow", 16, 4, "train")
+    decode = InputShape("decode_narrow", 32, 4, "decode")
     assert not dist.is_initialized()
-    rec = dryrun.lower_one(cfg.name, shape, cfg_override=cfg,
-                           mesh=MeshShape((2, 2), ("data", "model")),
+    rec = dryrun.lower_one(cfg.name, shape, cfg_override=cfg, mesh=mesh,
                            verbose=False)
+    serve = dryrun.lower_one(cfg.name, decode, cfg_override=cfg, mesh=mesh,
+                             verbose=False)
     assert not dist.is_initialized()
     assert rec["mesh"] == "2x2" and rec["chips"] == 4
     assert rec["coll_bytes_per_chip"] == hand_count(cfg, shape, 2, 2)
@@ -357,3 +478,11 @@ def test_dryrun_collective_bytes_on_a_fake_mesh_match_the_hand_count():
     assert rec["notes"]["coll_bytes_per_chip"].startswith("the collectives")
     assert math.isclose(rec["t_collective"],
                         rec["coll_bytes_per_chip"] / 450e9)
+    # the serve step: all-reduces only, none of them a gathered cache
+    n_reduce, n_bytes = hand_count_decode(cfg, decode, 2)
+    counts = serve["coll_breakdown"]["counts"]
+    assert counts["all-reduce"] == n_reduce
+    assert sum(counts.values()) == n_reduce
+    assert serve["coll_bytes_per_chip"] == n_bytes
+    assert serve["notes"]["coll_bytes_per_chip"].startswith(
+        "the collectives")

@@ -111,6 +111,31 @@ TP_K, TP_B, TP_STEPS, TP_SEQ, TP_PROMPT = 2, 2, 1, 16, 32
 TP_ENGINES = ("flat f32", "flat int8", "tree")
 
 
+# the serve step over sharded caches, by world size: (arch, batch, prompt
+# tokens, cache_len).  gemma2 narrow (window 16): 20 prompt positions wrap
+# its ring of 16, and positions 20-25 move the new slot across the rank
+# boundary of the ring (slots 4-9; rows 0-7 | 8-15) and of the dense
+# global cache (slots 20-25; rows 0-20 | 21-41).  At world size 2 the
+# (1, 2) mesh: gemma2 and recurrentgemma kv_seq (recurrentgemma's RG-LRU
+# state over its channels too), minitron heads, llava the head dim (8
+# frontend rows + 12 tokens); at world size 4 the (1, 4) mesh (minitron's
+# q heads sharded, its cache kv_seq: 2 kv heads do not divide 4; slots
+# 20-25 cross rows 16-23 | 24-31) and the (2, 2) mesh (gemma2 at batch 2,
+# the batch over data; at batch 1 the cache's sequence over data)
+TP_DECODE_STEPS = 6
+TP_DECODE = {2: (("(1, 2)", "gemma2-2b", 2, 20, 42),
+                 ("(1, 2)", "recurrentgemma-2b", 2, 20, 42),
+                 ("(1, 2)", "minitron-8b", 2, 20, 32),
+                 ("(1, 2)", "llava-next-34b", 2, 12, 32)),
+             4: (("(1, 4)", "minitron-8b", 2, 20, 32),
+                 ("(2, 2)", "gemma2-2b", 2, 20, 42),
+                 ("(2, 2)", "gemma2-2b", 1, 20, 42))}
+
+
+def decode_key(mesh: str, arch: str, batch: int) -> str:
+    return f"decode {arch} b{batch} {mesh}"
+
+
 def tp_config(arch: str):
     from repro_torch import configs
     return configs.get_reduced(arch).with_overrides(compute_dtype="float32")
@@ -153,6 +178,82 @@ def tp_prefill_batch(arch: str) -> dict:
             (TP_B, cfg.frontend.n_tokens, cfg.frontend.d_in)
         ).astype(np.float32)
     return batch
+
+
+def tp_decode_inputs(arch: str, batch: int, prompt: int) -> tuple:
+    """The prompt batch and the teacher-forced tokens
+    ``(TP_DECODE_STEPS, batch, 1)`` of a decode case."""
+    cfg = tp_config(arch)
+    rng = np.random.default_rng(12)
+    prompt_batch = {"tokens": rng.integers(0, cfg.vocab_size, size=(
+        batch, prompt)).astype(np.int32)}
+    if cfg.frontend is not None:
+        prompt_batch["extra_embeds"] = rng.standard_normal(
+            (batch, cfg.frontend.n_tokens, cfg.frontend.d_in)
+        ).astype(np.float32)
+    forced = rng.integers(0, cfg.vocab_size, size=(
+        TP_DECODE_STEPS, batch, 1)).astype(np.int32)
+    return prompt_batch, forced
+
+
+def first_position(arch: str, prompt: int) -> int:
+    """The position decode starts at: the prompt's, frontend rows
+    included."""
+    fe = tp_config(arch).frontend
+    return prompt + (fe.n_tokens if fe is not None else 0)
+
+
+def _written_rows(before, cache) -> dict:
+    """For each KV cache leaf, by path: ``(start, stop, size, rows)``, the
+    global rows ``[start, stop)`` of its ``size`` that this rank holds and
+    those of them its local shard changed since ``before`` (the local
+    shards)."""
+    from repro_torch.models import common
+    from repro_torch.tree import tree_leaves_with_keys
+    out = {}
+    for (keys, x), old in zip(tree_leaves_with_keys(cache), before):
+        if keys[-1] not in ("k", "v"):
+            continue
+        seq = 2 if "periods" in keys else 1
+        local = x.to_local()
+        moved = (local != old).flatten(seq + 1).any(-1)
+        moved = moved.flatten(0, seq - 1).any(0)
+        start = common.shard_offset(x, seq)
+        out["/".join(map(str, keys))] = (
+            start, start + local.shape[seq], x.shape[seq],
+            [start + int(i) for i in torch.nonzero(moved).flatten()])
+    return out
+
+
+def decode_case(on, arch: str, batch: int, prompt: int,
+                cache_len: int) -> dict:
+    """Prefill then ``TP_DECODE_STEPS`` teacher-forced serve steps with the
+    exit head under a ``MeshPolicy`` over ``on``: each step's logits, exit
+    logits and cache whole (``full_tensor``) and the logits' placements;
+    and apart (they differ by rank) the rows this rank wrote at each step
+    (:func:`_written_rows`)."""
+    from repro_torch.launch import sharding, steps
+    from repro_torch.tree import tree_leaves
+    cfg = tp_config(arch)
+    policy = sharding.MeshPolicy(on, cfg)
+    params = sharding.distribute_params(tp_params(arch), cfg, on)
+    prompt_batch, forced = tp_decode_inputs(arch, batch, prompt)
+    _, cache = steps.make_prefill_step(cfg, policy, cache_len=cache_len)(
+        params, {k: torch.as_tensor(v) for k, v in prompt_batch.items()})
+    serve = steps.make_serve_step(cfg, policy, with_exit_head=True)
+    pos = first_position(arch, prompt)
+    out = {"logits": [], "exit": [], "cache": []}
+    written = []
+    for i in range(TP_DECODE_STEPS):
+        before = [x.to_local().clone() for x in tree_leaves(cache)]
+        logits, cache, exit_logits = serve(
+            params, cache, {"tokens": torch.as_tensor(forced[i])}, pos + i)
+        written.append(_written_rows(before, cache))
+        out["logits"].append(logits.full_tensor())
+        out["exit"].append(exit_logits.full_tensor())
+        out["cache"].append(_full(cache))
+    out["placements"] = [str(logits.placements), str(exit_logits.placements)]
+    return out, written
 
 
 def _full(tree):
@@ -220,7 +321,13 @@ def refusals(mesh) -> dict:
     out["scaffold"] = _raises(lambda: steps.make_fed_round_step(
         cfg, policy, local_steps=1,
         engine=aggregate.EngineSpec(variance_reduction="scaffold")))
-    out["serve"] = _raises(lambda: steps.make_serve_step(cfg, policy))
+    # the serve step of a config out of scope raises where its policy is
+    # built, naming its queued item
+    for name, arch in (("serve xlstm", "xlstm-1.3b"),
+                       ("serve moe", "qwen2-moe-a2.7b")):
+        out[name] = _raises(lambda a=arch: steps.make_serve_step(
+            configs.get_reduced(a), sharding.MeshPolicy(
+                mesh, configs.get_reduced(a))))
     # an int8 round whose mlp shards hold 64 of a 128-element group
     narrow = cfg.with_overrides(d_ff=128)
     params = tfm_init(narrow)
@@ -247,7 +354,8 @@ def tp_rank_main(rank: int, world: int, store_path: str,
     prefills, the vocab-parallel trap, the refusals), at 4 a (2, 2) mesh
     (train on a batch split over data, the flat f32 round: data and model
     together) and a (1, 4) mesh (minitron's prefill, its kv heads
-    replicated).  Each result is saved
+    replicated); then the decode cases of ``TP_DECODE`` at each world
+    size.  Each result is saved
     whole (``full_tensor``) to ``tp<world>_rank<r>.pt`` (or the traceback
     to ``tp<world>_rank<r>.err``)."""
     import torch.distributed as dist
@@ -302,6 +410,13 @@ def tp_rank_main(rank: int, world: int, store_path: str,
             # replicated: each rank reads the kv head its query head needs
             wide = make_device_mesh(1, world, "cpu")
             out["minitron-8b (1, 4)"] = prefill_of("minitron-8b", wide)
+        meshes = {"(1, 2)": mesh, "(2, 2)": mesh}
+        if world == 4:
+            meshes["(1, 4)"] = wide
+        for name, arch, batch, prompt, cache_len in TP_DECODE[world]:
+            key = decode_key(name, arch, batch)
+            out[key], out[key + " written"] = decode_case(
+                meshes[name], arch, batch, prompt, cache_len)
         torch.save(out, tag + ".pt")
         dist.destroy_process_group()
     except BaseException:
