@@ -301,11 +301,23 @@ which raises on failure:
    and the peak, no kernel launched in decode and no all-gather issued;
    (d) a narrow f32 round (flat and tree) and prefill on the
    card's mesh against the CPU's in the same processes at rtol 1e-4 /
-   atol 1e-5 (K1 1, K4 1, K5 f32 2 a rank).  Then, the card to itself:
-   K2 and K1 at a rank's local n_flat (1,491,200,000) bitwise and timed
-   against their byte bounds, K5 at a rank's heads (1, 4096, 16 / 4, 128)
-   and K6's gated entry at a rank's channels (4, 4096, 1280), each against
-   its plain version and timed against its bound.
+   atol 1e-5 (K1 1, K4 1, K5 f32 2 a rank).  The MoE configs: (f)
+   qwen2-moe-a2.7b whole (30 of 60 experts and 8 of 16 heads a rank; K5
+   24) and (g) kimi-k2-1t-a32b at published widths cut to 1 layer (192 of
+   384 experts, 32 of 64 heads; K5 1), each batch 1, prompt 4096, then 7
+   serve steps with the exit head: the ranks build the full model in
+   turn, each serves it unsharded first and records every MoE call's
+   router logits, keeps its shards, and the sharded run routes from those
+   logits (its slots equal to the unsharded run's; the pairs its own
+   logits would have moved are printed); the logits, exit logits, peaks
+   and collectives as in (b); (h) reduced qwen2-moe's train step and its
+   f32 and int8 rounds on the card's mesh against the CPU's (K1 1, K2 1 a
+   rank).  Then, the card to itself: K2 and K1 at a rank's local n_flat
+   (1,491,200,000) bitwise and timed against their byte bounds, K5 at a
+   rank's heads (minitron (1, 4096, 16 / 4, 128), qwen2-moe (1, 4096, 8 /
+   8, 128), kimi-k2 (1, 4096, 32 / 4, 112)) and K6's gated entry at a
+   rank's channels (4, 4096, 1280), each against its plain version and
+   timed against its bound.
 
 Phase 8 also serves reduced xlstm-1.3b in f32 on the card against the CPU
 (prefill and 8 teacher-forced decode steps): the sLSTM cell output before
@@ -4670,8 +4682,28 @@ TP_LOGIT_RULE = 0.05    # logits within 5 % of max|logit| of the unsharded
 # 16 of 32 query heads and 4 of 8 kv heads, recurrentgemma's 1280 of 2560
 # rnn channels (its attention is replicated: phase 6's shape)
 TP_FLASH_CASES = (("minitron-8b, a rank's heads", 1, 4096, 16, 4, 128, 0,
-                   0.0, "bfloat16", True),)
+                   0.0, "bfloat16", True),
+                  ("qwen2-moe-a2.7b, a rank's heads", 1, 4096, 8, 8, 128, 0,
+                   0.0, "bfloat16", True),
+                  ("kimi-k2-1t-a32b, a rank's heads", 1, 4096, 32, 4, 112,
+                   0, 0.0, "bfloat16", True))
 TP_GATED_CASES = ((4, 4096, 1280, "bfloat16", False, True),)
+# phase 20(f), (g): the MoE configs over the (1, 2) mesh, each (part, arch,
+#  batch, prompt, new tokens, launches of one sharded prefill on each rank:
+#  K5 on the tensor cores, K5 on the CUDA cores, K6's gated entry; config
+#  overrides): qwen2-moe-a2.7b whole (30 of 60 experts a rank, heads 8 /
+#  16), kimi-k2-1t-a32b at published widths cut 61 -> 1 layer as in phase
+#  15 (192 of 384 experts a rank, heads 32 / 64, kv 4 / 8; its 2-D experts'
+#  data axis is 1).  The ranks build the full model in turn (kimi's layer is
+#  36.5 GB: two at once would not fit), each serves it unsharded first and
+#  records the router logits of every MoE call, then keeps its shards
+TP_MOE_RUNS = (("f", "qwen2-moe-a2.7b", 1, 4096, 8, (24, 0, 0), {}),
+               ("g", "kimi-k2-1t-a32b", 1, 4096, 8, (1, 0, 0),
+                {"n_layers": 1}))
+# phase 20(h): reduced qwen2-moe whose shards hold whole int8 groups on the
+# (1, 2) mesh (heads at Dh 64, d_expert 256; tests/torch_mesh_cases.py's
+# round config)
+TP_MOE_NARROW = {"head_dim": 64, "d_expert": 256}
 
 
 def _local_slice(torch, full, dt):
@@ -4960,6 +4992,310 @@ def tp_serving(torch, rank: int, mesh) -> list:
     return rows
 
 
+def _moe_full_then_shards(torch, rank: int, world: int, mesh, cfg, tokens,
+                          gen: int, lo: int, hi: int) -> dict:
+    """Phase 20(f), (g)'s unsharded half on one rank, the ranks in turn
+    (a barrier between turns): this rank builds the full model from seed
+    0, serves the prompt unsharded (prefill, then ``gen - 1`` greedy
+    serve steps with the exit head) recording every MoE call's router
+    logits (``_routes``), keeps the logits' vocab rows ``[lo, hi)``, then
+    replaces the full model by its shards (``distribute_params``, in
+    place) before the next rank builds."""
+    import torch.distributed as dist
+    from repro_torch.launch import sharding, steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import tree_leaves
+    out = {}
+    prompt = tokens.shape[1]
+    for turn in range(world):
+        dist.barrier()
+        if turn != rank:
+            continue
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        full = tfm.init_params(torch.Generator("cuda").manual_seed(0), cfg)
+        torch.cuda.synchronize()
+        out["init_s"] = time.perf_counter() - t
+        out["params"] = sum(x.numel() for x in tree_leaves(full))
+        with _routes() as prefill_calls:
+            want, cache = steps.make_prefill_step(
+                cfg, cache_len=prompt + gen)(full, {"tokens": tokens})
+        out["amax"] = float(want.abs().max().float())
+        first = torch.argmax(want[:, -1], dim=-1)[:, None]
+        out["want"] = want[..., lo:hi].clone()
+        del want
+        with _routes() as decode_calls:
+            out["fed"], out["steps"], out["exit"], out["unsharded_s"] = \
+                _greedy_decode(torch, steps.make_serve_step(
+                    cfg, with_exit_head=True), full, cache, first, prompt,
+                    gen - 1, lo, hi)
+        out["calls"] = (prefill_calls, decode_calls)
+        out["unsharded_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del cache
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["shards"] = sharding.distribute_params(full, cfg, mesh)
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["held_gib"] = torch.cuda.memory_allocated() / 2**30
+    dist.barrier()
+    return out
+
+
+def _replayed(label: str, calls, want) -> list:
+    """Check that every MoE call of a sharded run was replayed from the
+    unsharded run's router logits (``_routes(replay)``) and routed as it
+    did, slot for slot; return, call by call, the (token, choice) pairs
+    whose expert the sharded run's own logits would have changed (printed,
+    not gated)."""
+    import torch
+    if len(calls) != len(want):
+        raise RuntimeError(f"{label}: {len(calls)} MoE calls sharded, "
+                           f"{len(want)} unsharded")
+    for i, (c, w) in enumerate(zip(calls, want)):
+        if not torch.equal(c["replayed"]["slot_idx"], w["slot_idx"]):
+            raise RuntimeError(f"{label}: call {i} routed to other slots "
+                               f"than the unsharded run's")
+    return [int((c["experts"] != c["replayed"]["experts"]).sum())
+            for c in calls]
+
+
+def tp_moe_serving(torch, rank: int, world: int, mesh) -> list:
+    """Phase 20(f) and (g) on one rank, each config of ``TP_MOE_RUNS`` at
+    full width: its unsharded half (:func:`_moe_full_then_shards`), then
+    the sharded prefill under the (1, 2) policy and the sharded serve
+    steps on its cache, fed the unsharded run's tokens.  bf16 near-ties
+    flip MoE routing, so every MoE call of the sharded run routes from the
+    unsharded run's router logits, and its slots must equal that run's;
+    the pairs its own logits would have routed elsewhere are printed.
+    This rank's vocab shard of the prefill logits, of each step's logits
+    and exit logits within 5 % of max|logit| of the unsharded; the
+    prefill's K5 launches as expected and none in decode; all-reduces
+    only.  Prints prefill s, decode ms a step, the collectives, the
+    peak."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention.ops import flash_attention as fa
+    from repro_torch.kernels.masked_agg import ops
+    from repro_torch.kernels.rglru_scan import ops as scan
+    from repro_torch.launch import sharding, steps
+    from repro_torch.roofline import torch_walk
+    from repro_torch.tree import tree_leaves
+
+    def kernels():
+        return (fa.launches_tc, fa.launches, scan.lru_scan_gated.launches)
+
+    def check(label, got, want, amax):
+        d = float((got.float() - want.float()).abs().max())
+        if tuple(got.shape) != tuple(want.shape) or \
+                not d <= TP_LOGIT_RULE * amax:
+            raise RuntimeError(f"20 {label} rank {rank}: {tuple(got.shape)} "
+                               f"against the unsharded {tuple(want.shape)}, "
+                               f"{d:.4f} apart, above {TP_LOGIT_RULE} x "
+                               f"max|logit| {amax:.3f}")
+        return d
+
+    rows = []
+    for part, arch, batch, prompt, gen, expected, over in TP_MOE_RUNS:
+        cfg = configs.get_config(arch).with_overrides(**over)
+        tokens = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                               generator=torch.Generator("cuda")
+                               .manual_seed(1), device="cuda")
+        lo, hi = sharding.shard_rows(cfg.vocab_size,
+                                     mesh.get_local_rank("model"),
+                                     mesh.size(1))
+        u = _moe_full_then_shards(torch, rank, world, mesh, cfg, tokens,
+                                  gen, lo, hi)
+        params, (pre_calls, dec_calls) = u["shards"], u["calls"]
+        amax_step = max(float(x.abs().max().float()) for x in u["steps"])
+        amax_exit = max(float(x.abs().max().float()) for x in u["exit"])
+        policy = sharding.MeshPolicy(mesh, cfg)
+        prefill = steps.make_prefill_step(cfg, policy,
+                                          cache_len=prompt + gen)
+        torch.cuda.reset_peak_memory_stats()
+        counter = torch_walk.Collectives()
+        _tp_zero(ops, fa, scan)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with counter, _routes(pre_calls) as got_pre:
+            logits, cache = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launched = kernels()
+        if launched != expected:
+            raise RuntimeError(f"20({part}) {arch} rank {rank}: launches K5 "
+                               f"tc / K5 f32 / K6 gated {launched}, "
+                               f"expected {expected}")
+        changed = _replayed(f"20({part}) {arch} prefill rank {rank}",
+                            got_pre, pre_calls)
+        local = logits.to_local()
+        want = u["want"]
+        d = max(check(f"({part}) {arch}", local[i, j:j + 1024],
+                      want[i, j:j + 1024], u["amax"])
+                for i in range(batch) for j in range(0, prompt, 1024))
+        row = {"part": part, "arch": arch, "params": u["params"],
+               "local_params": sum(x.to_local().numel()
+                                   for x in tree_leaves(params)),
+               "batch": batch, "prompt": prompt, "init_s": u["init_s"],
+               "unsharded_peak_gib": u["unsharded_peak_gib"],
+               "held_gib": u["held_gib"], "prefill_s": wall,
+               "max_abs_diff": d, "max_abs_logit": u["amax"],
+               "prefill_pairs_changed_by_own_routing": sum(changed),
+               "prefill_changed_by_layer": changed,
+               "prefill_pairs": sum(c["experts"].numel() for c in got_pre),
+               "logits_local": list(local.shape),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "launches": launched, "collectives": counter.counts,
+               "collective_bytes": counter.bytes}
+        del logits, local, want, u["want"], got_pre, pre_calls
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        counter = torch_walk.Collectives()
+        fed = u["fed"]
+        with counter, _routes(dec_calls) as got_dec:
+            _, got_steps, got_exit, decode_s = _greedy_decode(
+                torch, steps.make_serve_step(cfg, policy,
+                                             with_exit_head=True),
+                params, cache, fed[0], prompt, gen - 1, lo, hi, feed=fed)
+        if kernels() != launched:
+            raise RuntimeError(f"20({part}) {arch} rank {rank}: K5 / K6 "
+                               f"launches {launched} after prefill, "
+                               f"{kernels()} after decode (expected none in "
+                               f"decode)")
+        decode_changed = _replayed(f"20({part}) {arch} decode rank {rank}",
+                                   got_dec, dec_calls)
+        for c in (row["collectives"], counter.counts):
+            if set(c) - {"all-reduce"}:
+                raise RuntimeError(f"20({part}) {arch} rank {rank}: "
+                                   f"collectives {c}: all-reduces only on "
+                                   f"the card")
+        steps_n = gen - 1
+        row.update({
+            "gen": gen, "decode_steps": steps_n,
+            "decode_ms_per_step": decode_s / steps_n * 1e3,
+            "unsharded_decode_ms_per_step": u["unsharded_s"] / steps_n
+            * 1e3,
+            "decode_max_abs_diff": max(check(
+                f"({part}) {arch} step {i}", g, w, amax_step) for i, (g, w)
+                in enumerate(zip(got_steps, u["steps"]))),
+            "decode_max_abs_logit": amax_step,
+            "exit_max_abs_diff": max(check(
+                f"({part}) {arch} exit step {i}", g, w, amax_exit)
+                for i, (g, w) in enumerate(zip(got_exit, u["exit"]))),
+            "exit_max_abs_logit": amax_exit,
+            "decode_pairs_changed_by_own_routing": sum(decode_changed),
+            "decode_pairs": sum(c["experts"].numel() for c in got_dec),
+            "decode_peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "decode_collectives_per_step": {
+                k: v / steps_n for k, v in counter.counts.items()},
+            "decode_collective_bytes_per_step": {
+                k: v / steps_n for k, v in counter.bytes.items()}})
+        print(f"  ({part}) rank {rank} " + json.dumps(row), flush=True)
+        rows.append(row)
+        del params, cache, tokens, got_steps, got_exit, got_dec, dec_calls, u
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def tp_moe_card_vs_cpu(torch, rank: int, meshes: dict) -> dict:
+    """Phase 20(h) on one rank: reduced qwen2-moe (``TP_MOE_NARROW``, f32)
+    over the (1, 2) mesh, its train step (batch 2, 16 tokens) and its
+    round (K = 2, one simple, 2 local steps) on the flat f32 and the flat
+    int8 wires, each on the card's mesh and on the CPU's (the same gloo
+    group): this rank's shards and the loss at rtol 1e-4 / atol 1e-5, the
+    int8 round's shards under ``repro_torch.parity``'s rules as phase
+    18(b) holds its int8 case; K1 and K2 counted on the card's runs."""
+    import dataclasses
+    import numpy as np
+    from repro_torch import configs, parity
+    from repro_torch.core import aggregate, comm, flatten
+    from repro_torch.kernels.flash_attention.ops import flash_attention as fa
+    from repro_torch.kernels.masked_agg import ops
+    from repro_torch.kernels.rglru_scan import ops as scan
+    from repro_torch.launch import sharding, steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import tree_leaves, tree_map
+
+    base = configs.get_reduced("qwen2-moe-a2.7b")
+    cfg = base.with_overrides(
+        head_dim=TP_MOE_NARROW["head_dim"], moe=dataclasses.replace(
+            base.moe, d_expert=TP_MOE_NARROW["d_expert"]))
+    params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(6)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(
+        2, 17)).astype(np.int32))
+    data = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(
+        2, 2, 2, 17)).astype(np.int32))
+    simple = torch.tensor([True, False])
+    int8 = aggregate.EngineSpec(wire=comm.WireSpec("int8", QB))
+    sides, launched = {}, None
+    for dev in ("cuda", "cpu"):
+        mesh = meshes[dev]
+        policy = sharding.MeshPolicy(mesh, cfg)
+        _tp_zero(ops, fa, scan)
+        got = {}
+        new, metrics = steps.make_train_step(cfg, policy)(
+            sharding.distribute_params(tree_map(lambda x: x.to(dev),
+                                                params), cfg, mesh),
+            {"tokens": tokens.to(dev)})
+        got["train"] = ([x.to_local().cpu() for x in tree_leaves(new)],
+                        metrics["loss"].cpu())
+        for wire, engine in (("f32", None), ("int8", int8)):
+            cohort = sharding.distribute_cohort(tree_map(
+                lambda x: x.to(dev)[None].expand((2,) + x.shape), params),
+                cfg, mesh)
+            new_c, loss = steps.make_fed_round_step(
+                cfg, policy, local_steps=2, engine=engine)(
+                    cohort, data.to(dev), simple.to(dev))
+            got[wire] = ([x.to_local().cpu() for x in tree_leaves(new_c)],
+                         loss.cpu())
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launched = _tp_kernel_counts(ops, fa, scan)
+        sides[dev] = got
+    worst = {}
+    for key in ("train", "f32", "int8"):
+        (a, la), (b, lb) = sides["cuda"][key], sides["cpu"][key]
+        if not torch.allclose(la, lb, rtol=1e-4, atol=1e-5):
+            raise RuntimeError(f"20(h) rank {rank} {key}: loss {float(la)} "
+                               f"on the card, {float(lb)} on the CPU")
+        if key == "int8":
+            layout = flatten.build_layout(a, total_multiple=2048)
+            fa_, fb = flatten.pack(layout, a), flatten.pack(layout, b)
+            spec = comm.WireSpec("int8", QB)
+            start = [x.to_local().cpu() for x in tree_leaves(
+                sharding.distribute_params(tree_map(lambda x: x.clone(),
+                                                    params), cfg,
+                                           meshes["cpu"]))]
+            bound = torch.maximum(parity.wire_step(
+                spec, flatten.pack(layout, start)),
+                parity.wire_step(spec, fb))
+            res = parity.lossy_compare(fa_, fb, bound)
+            if res["share"] > 1e-3 or res["worst"] > 1.0:
+                raise RuntimeError(f"20(h) rank {rank} int8: card vs CPU "
+                                   f"{res}")
+            worst[key] = res["max_abs"]
+            continue
+        for x, y in zip(a, b):
+            if not torch.allclose(x, y, rtol=1e-4, atol=1e-5):
+                raise RuntimeError(f"20(h) rank {rank} {key}: card against "
+                                   f"CPU max|diff| "
+                                   f"{float((x - y).abs().max()):.3e} "
+                                   f"(rtol 1e-4, atol 1e-5)")
+        worst[key] = max(float((x - y).abs().max()) for x, y in zip(a, b))
+    # K1 (the f32 round's fold), K2 (the int8 round's); no K5 in training
+    want = (1, 1, 0, 0, 0, 0, 0)
+    if launched != want:
+        raise RuntimeError(f"20(h) rank {rank}: launches K1/K2/K3/K4/K5 tc/"
+                           f"K5 f32/K6 {launched}, expected {want}")
+    print(f"  (h) rank {rank}: reduced qwen2-moe train step and f32 / int8 "
+          f"rounds, card against CPU, worst {worst}; launches {launched}",
+          flush=True)
+    return {"launches": launched, "worst": worst}
+
+
 def tp_card_vs_cpu(torch, rank: int, meshes: dict) -> dict:
     """Phase 20(d) on one rank: a narrow f32 round (gemma2-2b reduced, K =
     2, one simple, 2 local steps) on the flat engine and the tree engine,
@@ -5032,11 +5368,12 @@ def tp_card_vs_cpu(torch, rank: int, meshes: dict) -> dict:
     return {"launches": launched, "worst": worst}
 
 
-def tp_rank(rank: int, world: int, store: str, work: str) -> None:
+def tp_rank(rank: int, world: int, store: str, work: str,
+            parts: tuple = ("dense", "moe")) -> None:
     """One rank of phase 20 (spawned by :func:`tp_phase`): gloo over a
-    FileStore, the (1, 2) meshes on the card and on the CPU, then (a)-(e);
-    writes ``rank<r>.pt`` (or the traceback to ``rank<r>.err``, and
-    raises)."""
+    FileStore, the (1, 2) meshes on the card and on the CPU, then (a)-(e)
+    (``"dense"`` in ``parts``) and (f)-(h) (``"moe"``); writes
+    ``rank<r>.pt`` (or the traceback to ``rank<r>.err``, and raises)."""
     import faulthandler
     import torch
     import torch.distributed as dist
@@ -5050,9 +5387,14 @@ def tp_rank(rank: int, world: int, store: str, work: str) -> None:
                                 store=dist.FileStore(store, world))
         meshes = {"cuda": make_device_mesh(1, world, "cuda"),
                   "cpu": make_device_mesh(1, world, "cpu")}
-        out = {"round": tp_round(torch, rank, work, meshes["cuda"])}
-        out["prefill"] = tp_serving(torch, rank, meshes["cuda"])
-        out["narrow"] = tp_card_vs_cpu(torch, rank, meshes)
+        out = {}
+        if "dense" in parts:
+            out["round"] = tp_round(torch, rank, work, meshes["cuda"])
+            out["prefill"] = tp_serving(torch, rank, meshes["cuda"])
+            out["narrow"] = tp_card_vs_cpu(torch, rank, meshes)
+        if "moe" in parts:
+            out["moe"] = tp_moe_serving(torch, rank, world, meshes["cuda"])
+            out["moe_narrow"] = tp_moe_card_vs_cpu(torch, rank, meshes)
         torch.save(out, os.path.join(work, f"rank{rank}.pt"))
         dist.destroy_process_group()
     except BaseException:
@@ -5086,14 +5428,17 @@ def _tp_local_layout(torch, cfg):
         layout, masking.transformer_subnet_mask(tree, cfg), "cuda")
 
 
-def tp_phase(torch, ops, ref, bw: float, unsharded) -> dict:
+def tp_phase(torch, ops, ref, bw: float, unsharded,
+             parts: tuple = ("dense", "moe")) -> dict:
     """Phase 20: the model axis on the card.  Phase 18(a)'s unsharded
     rounds are saved for the ranks, the card's memory is released, two
-    rank processes run (a)-(e) (:func:`tp_rank`; each raises on a failed
-    check, and a rank's failure fails the phase), then K1 and K2 at the
-    rank's local n_flat, K5 at a rank's heads and K6's gated entry at a
-    rank's channels are held to their plain versions and timed here, the
-    card to themselves."""
+    rank processes run (a)-(e) and the MoE cells (f)-(h) (:func:`tp_rank`;
+    each raises on a failed check, and a rank's failure fails the phase),
+    then K1 and K2 at the rank's local n_flat, K5 at a rank's heads and
+    K6's gated entry at a rank's channels are held to their plain versions
+    and timed here, the card to themselves.  ``parts`` (``"dense"``,
+    ``"moe"``) picks the cells; with the MoE cells alone ``unsharded`` is
+    not read and only K5 is timed."""
     import torch.multiprocessing as mp
     from repro_torch import configs
     from repro_torch.kernels import build
@@ -5102,14 +5447,14 @@ def tp_phase(torch, ops, ref, bw: float, unsharded) -> dict:
     work = tempfile.mkdtemp(prefix="tp_phase_")
     try:
         _free_disk_check(work, 12e9)
-        for wire, (tree, loss) in unsharded.items():
+        for wire, (tree, loss) in (unsharded or {}).items():
             torch.save((tree, loss), os.path.join(work, f"{wire}.pt"))
         saved = time.perf_counter() - t
         gc.collect()
         torch.cuda.empty_cache()
         ctx = mp.get_context("spawn")
         procs = [ctx.Process(target=tp_rank, args=(
-            r, TP_RANKS, os.path.join(work, "store"), work))
+            r, TP_RANKS, os.path.join(work, "store"), work, parts))
             for r in range(TP_RANKS)]
         for p in procs:
             p.start()
@@ -5133,10 +5478,13 @@ def tp_phase(torch, ops, ref, bw: float, unsharded) -> dict:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     out = {"ranks": ranks, "saved_s": saved, "ranks_s": ranks_s}
-    launches = [r["round"]["runs"][0]["launches"][0]
-                + r["round"]["runs"][1]["launches"][1] for r in ranks]
     print(f"  phase 18(a)'s rounds saved in {saved:.1f} s; the two ranks "
           f"in {ranks_s:.1f} s", flush=True)
+    if "dense" not in parts:
+        out["k5"] = check_flash(torch, bw, TP_FLASH_CASES[1:])
+        return out
+    launches = [r["round"]["runs"][0]["launches"][0]
+                + r["round"]["runs"][1]["launches"][1] for r in ranks]
     # the kernels at the shapes a rank hands them, the card to themselves
     layout, mask = _tp_local_layout(torch, configs.get_config(STEP_ARCH))
     print(f"  a rank's local layout: n_flat {layout.n_flat:,}, |M| "
@@ -5151,11 +5499,17 @@ def tp_phase(torch, ops, ref, bw: float, unsharded) -> dict:
     torch.cuda.empty_cache()
     out["k5"] = check_flash(torch, bw, TP_FLASH_CASES)
     out["k6"] = check_scan(torch, bw, (), TP_GATED_CASES)
+    moe = "moe" in parts
     out["launches"] = {
-        "k1": sum(r["round"]["runs"][0]["launches"][0] for r in ranks),
-        "k2": sum(r["round"]["runs"][1]["launches"][1] for r in ranks),
+        "k1": sum(r["round"]["runs"][0]["launches"][0]
+                  + (r["moe_narrow"]["launches"][0] if moe else 0)
+                  for r in ranks),
+        "k2": sum(r["round"]["runs"][1]["launches"][1]
+                  + (r["moe_narrow"]["launches"][1] if moe else 0)
+                  for r in ranks),
         "k4": sum(r["narrow"]["launches"][3] for r in ranks),
-        "k5_tc": sum(p["launches"][0] for r in ranks for p in r["prefill"]),
+        "k5_tc": sum(p["launches"][0] for r in ranks
+                     for p in r["prefill"] + r.get("moe", [])),
         "k5_f32": sum(r["narrow"]["launches"][5] for r in ranks),
         "k6": sum(p["launches"][2] for r in ranks for p in r["prefill"])}
     print(f"  phase 20 launches over both ranks {out['launches']} "
@@ -5164,9 +5518,13 @@ def tp_phase(torch, ops, ref, bw: float, unsharded) -> dict:
     return out
 
 
-def tp_phase_alone(torch, ops, ref, bw: float) -> dict:
+def tp_phase_alone(torch, ops, ref, bw: float,
+                   parts: tuple = ("dense", "moe")) -> dict:
     """Phase 20 run alone: phase 18(a)'s two unsharded rounds first (as
-    phase 19 runs them when alone), then :func:`tp_phase`."""
+    phase 19 runs them when alone), then :func:`tp_phase`; with ``parts``
+    ``("moe",)`` the MoE cells (f)-(h) alone, without those rounds."""
+    if "dense" not in parts:
+        return tp_phase(torch, ops, ref, bw, None, parts)
     from repro_torch import configs
     from repro_torch.core import flatten, masking
     from repro_torch.core.adapters import LMAdapter
@@ -5322,9 +5680,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 20. a live model axis: two ranks share the card over gloo
     print("[20] a live model axis: Gemma-2 2B's step rounds, minitron-8b, "
-          "recurrentgemma-2b and gemma2-2b prefilled and served on sharded "
-          "caches at full width, two ranks sharing the card (gloo, a (1, 2) "
-          "mesh); narrow card vs CPU", flush=True)
+          "recurrentgemma-2b, gemma2-2b, qwen2-moe-a2.7b and kimi-k2 (1 "
+          "layer) prefilled and served on sharded caches at full width, two "
+          "ranks sharing the card (gloo, a (1, 2) mesh); narrow card vs CPU "
+          "(dense, MoE)", flush=True)
     tp = tp_phase(torch, ops, ref, bw, unsharded)
     del unsharded
 
@@ -5528,15 +5887,18 @@ def main() -> int:
                "mesh: ")
     for name, key, path, row in (
             ("masked_agg_acc", "k1", "(a) Gemma-2 2B's f32 step round at "
-             "full width", tp["k1"]["timing"][0]),
+             "full width, (h) reduced qwen2-moe's f32 round",
+             tp["k1"]["timing"][0]),
             ("masked_agg_acc_deq", "k2", "(a) Gemma-2 2B's int8 step round "
-             "at full width", tp["k2"]["timing"][0]),
+             "at full width, (h) reduced qwen2-moe's int8 round",
+             tp["k2"]["timing"][0]),
             ("masked_agg", "k4", "(d) the narrow tree round on the card",
              None),
             ("flash_attention_wgmma", "k5_tc", "(b) minitron-8b on 16 of 32 "
              "heads, (c) recurrentgemma-2b and (e) gemma2-2b replicated, "
-             "each prefill then served on its sharded cache",
-             tp["k5"]["timing"][0]),
+             "(f) qwen2-moe-a2.7b on 8 of 16 heads, (g) kimi-k2-1t-a32b "
+             "(1 layer) on 32 of 64, each prefill then served on its "
+             "sharded cache", tp["k5"]["timing"][0]),
             ("flash_attention", "k5_f32", "(d) the narrow f32 prefill on "
              "the card", None),
             ("lru_scan", "k6", "(c) recurrentgemma-2b on 1280 of 2560 "
@@ -5544,6 +5906,11 @@ def main() -> int:
         kernel = by_name[name]
         kernel["launches_tp"] = tp["launches"][key]
         kernel["launches_tp_path"] = tp_path + path
+        if key == "k5_tc":
+            kernel["tp_cases"] = [{k: r[k] for k in (
+                "case", "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "bound_share", "library_ms") if k in r}
+                for r in tp["k5"]["timing"]]
         if row is not None:
             kernel["tp"] = {k: row[k] for k in (
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by",

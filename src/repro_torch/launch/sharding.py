@@ -17,10 +17,11 @@ Two halves, as in the reference:
 Per-arch quirks are driven by the config (``attn_shard``): ``replicate``
 (heads do not divide the 16-way model axis), ``head_dim`` (llava 56H/8kv:
 shard the head dim), and the reference's perf variants ``seq2d`` /
-``dp2d`` / ``seq2d_fsdp``.  ``shard_experts_2d`` (kimi-k2): expert
-weights sharded over model AND data.  The spec arithmetic is the
-reference's, line for line, so the port's specs equal its specs on every
-config of the zoo at both production mesh shapes.
+``dp2d`` / ``seq2d_fsdp``.  MoE experts go over ``model`` on their experts
+axis where it divides, else on ``expert_ffn``; ``shard_experts_2d``
+(kimi-k2): ``expert_ffn`` over ``data`` as well.  The spec arithmetic is
+the reference's, line for line, so the port's specs equal its specs on
+every config of the zoo at both production mesh shapes.
 
 Two pieces replace the reference's JAX-only ones:
 
@@ -45,13 +46,14 @@ model axis is larger than 1 the steps take parameters as DTensors placed
 by :func:`param_specs` (:func:`distribute_params`, a cohort by
 :func:`cohort_specs` with :func:`distribute_cohort`), and the models run
 on them: plain PyTorch ops under DTensor's sharding propagation, every
-hand-written kernel on each rank's local shards through ``local_map``
+hand-written kernel and the MoE block's routing, dispatch and combine on
+each rank's local shards through ``local_map``
 (``models/common.local_apply``).  Configs and paths the port does not run
 under a model axis raise ``NotImplementedError`` naming their queued
 ``ROADMAP.md`` item, where the policy is built (:func:`out_of_scope`) or
-where the step is: MoE experts, xLSTM, codebook tables,
-the ``seq2d`` / ``dp2d`` / ``seq2d_fsdp`` variants, the compressed wire and
-SCAFFOLD.  None of them replicates silently.  The serve step reads the
+where the step is: xLSTM, codebook tables, the ``seq2d`` / ``dp2d`` /
+``seq2d_fsdp`` variants, the compressed wire and SCAFFOLD.  None of them
+replicates silently.  The serve step reads the
 cache as :func:`cache_specs` places it, ``kv_seq`` rows included, and
 never replicates a sharded cache.
 """
@@ -73,7 +75,6 @@ Tree = Any
 
 # what the port does not run over a live model axis larger than 1, each
 # with its queued ROADMAP.md item
-TODO_MOE = "MoE experts over the model axis: ROADMAP.md §1 item 11"
 TODO_XLSTM = ("xLSTM blocks and codebook tables over the model axis: "
               "ROADMAP.md §1 item 12")
 TODO_TOPK = ("the compressed wire's global top-k over the model axis: "
@@ -128,8 +129,6 @@ def _names(entry) -> Tuple[str, ...]:
 def out_of_scope(cfg: ModelConfig) -> Optional[str]:
     """Why ``cfg`` does not run over a live model axis larger than 1, or
     ``None`` where it does."""
-    if cfg.moe is not None or cfg.shard_experts_2d:
-        return TODO_MOE
     if cfg.arch_type == "ssm" or cfg.n_codebooks > 1:
         return TODO_XLSTM
     if cfg.attn_shard in ("seq2d", "seq2d_fsdp", "dp2d"):

@@ -37,7 +37,10 @@ such as a mask or the tokens counts as replicated); prefill's cache is
 constrained to ``sharding.cache_specs``, and the serve step decodes
 against that cache on each rank's shards (``models/attention.py``: heads,
 head dim, or ``kv_seq`` rows merged by all-reduces; ``models/rglru.py``:
-the ``rnn`` channels).  In the round step each data rank
+the ``rnn`` channels).  An MoE config's experts run on each rank's experts
+or ``expert_ffn`` shard (``models/mlp.py``); the router's gradient
+arrives ``Partial`` over model and, like every gradient, is redistributed
+to its parameter's placements.  In the round step each data rank
 trains its rows of each chunk as above, each client as DTensors over its
 model group (``MeshPolicy.model_policy``); a client is valid only where
 every shard is finite (``masking.tree_isfinite``); the fold runs on each

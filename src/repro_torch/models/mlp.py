@@ -7,11 +7,33 @@ group): each group's tokens go into an ``(E, C, D)`` buffer by a gather
 from ``x`` with a zero row appended (the garbage index ``S`` reads it), the
 experts run as one batched product over ``E``, and each token adds its
 experts' gated outputs back.  A (token, choice) pair past its expert's
-capacity ``C`` is dropped, as in Switch/GShard.  The dense MLP takes the
-reference's ``policy`` and constrains its hidden; MoE takes none, since
-``launch/sharding.MeshPolicy`` refuses MoE configs over a live model axis
-(``ROADMAP.md`` §1 item 11) and its constrains are the identity
-elsewhere.
+capacity ``C`` is dropped, as in Switch/GShard.  Both layers take the
+reference's ``policy`` and constrain at its sites.
+
+**Over a live model axis** (the weights DTensors placed by
+``launch/sharding.param_specs``) the MoE block runs as GSPMD runs the
+reference's.  The f32 router's logits are a DTensor product (``x`` and the
+router replicated over ``model``), so every model rank routes the same
+tokens.  Routing, dispatch, the expert products and the combine then run
+on each rank's local tensors in one ``common.local_apply``
+(:func:`_moe_local`): DTensor has no sharding rule for ``searchsorted``,
+the stable sorts or the indexed gathers, and where it lacks one it
+replicates.  With the experts axis over ``model`` each rank takes its
+experts' rows of the routing buffers, runs its ``(E/m, D, F)`` products and
+combines only the slots it owns (every other choice reads the appended
+zero row); with ``expert_ffn`` over ``model`` (E does not divide the axis)
+the gate and up products are column-parallel and ``down`` row-parallel.
+Either way the combined output is a ``Partial`` sum over ``model``, which
+the reference's ``("batch", "seq", None)`` constrain reduces; across ranks
+the sum takes another order than one rank's combine, so sharded and
+unsharded agree at a tolerance.  kimi-k2's 2-D experts (``expert_ffn``
+also over ``data``) are gathered over ``data`` where the batch is sharded
+there, as GSPMD gathers an FSDP weight; where it is not (decode routes the
+batch as one group) each data rank runs its ``expert_ffn`` slice and the
+output is ``Partial`` over ``data`` too.  The aux losses are computed on
+the DTensor logits:
+``load_balance`` is a product of two batch means, each reduced over a
+data-sharded batch before the product.
 
 Where a faithful-looking port could part from the reference, this one
 follows it exactly:
@@ -191,16 +213,34 @@ def _route(router_logits: torch.Tensor, moe: MoEConfig, capacity: int,
     slot_gate = slot_gate[:, :n_slots].reshape(b, e_out, capacity)
     token_slot = torch.where(within, pos, n_slots).reshape(b, s, k)
 
-    # aux losses (Switch-style); ce counts each token's first choice
-    me = torch.mean(probs, dim=(0, 1))                        # (E,)
+    aux = _aux_losses(logits, probs, _first_choice_share(topk_idx, e), moe)
+    return Routing(slot_idx, slot_gate, topk_idx, token_slot, aux)
+
+
+def _first_choice_share(topk_idx: torch.Tensor, e: int) -> torch.Tensor:
+    """(B, S, K) choices -> (B, E): the share of each group's tokens whose
+    first choice is each expert."""
+    b, s = topk_idx.shape[:2]
+    dev = topk_idx.device
     counts = torch.zeros((b, e), device=dev).scatter_add_(
         1, topk_idx[..., 0], torch.ones((b, s), device=dev))
-    ce = torch.mean(counts / s, dim=0)
+    return counts / s
+
+
+def _aux_losses(logits: torch.Tensor, probs: torch.Tensor,
+                share: torch.Tensor, moe: MoEConfig) -> dict:
+    """The Switch-style aux losses of f32 router logits (B, S, E), their
+    softmax and :func:`_first_choice_share`.  ``load_balance`` is ``E *
+    sum(me * ce)``, a product of two batch means: on DTensors whose batch
+    is sharded over data each mean is a ``Partial`` average, reduced before
+    the product (a mean of per-rank products would be another loss)."""
+    e = logits.shape[-1]
+    me = torch.mean(probs, dim=(0, 1))                        # (E,)
+    ce = torch.mean(share, dim=0)
     load_balance = e * torch.sum(me * ce)
     z_loss = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
-    aux = {"load_balance": load_balance * moe.load_balance_loss,
-           "router_z": z_loss * moe.router_z_loss}
-    return Routing(slot_idx, slot_gate, topk_idx, token_slot, aux)
+    return {"load_balance": load_balance * moe.load_balance_loss,
+            "router_z": z_loss * moe.router_z_loss}
 
 
 def route_topk(router_logits: torch.Tensor, moe: MoEConfig, capacity: int,
@@ -243,29 +283,118 @@ def _combine(y: torch.Tensor, token_slot: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig
-              ) -> Tuple[torch.Tensor, dict]:
-    """x: (B, S, D) -> (out in ``x.dtype``, aux losses); each row of the
-    batch is a routing group."""
-    m = cfg.moe
+def _moe_local(x: torch.Tensor, logits: torch.Tensor, gate: torch.Tensor,
+               up: torch.Tensor, down: torch.Tensor, moe: MoEConfig,
+               e_pad: int, lo: int, policy: Policy = NO_POLICY):
+    """The MoE block's routed half on local tensors: route ``logits`` (B, S,
+    E) f32, dispatch ``x`` (B, S, D) to experts ``[lo, lo + el)`` (the
+    ``el`` experts of ``gate`` / ``up`` (el, D, F) and ``down`` (el, F,
+    D), all of them when ``lo`` is 0 and ``el`` is ``e_pad``), run their
+    products and combine their gated outputs.  Returns ``(out (B, S, D) in
+    x's dtype, the Routing)``; ``out`` holds only these
+    experts' terms, each token's in ascending (expert, slot) order, the
+    choices of other experts and the dropped ones reading the appended zero
+    row.  ``policy`` constrains the dispatch buffer and the hidden (the
+    reference's sites; the identity on local tensors)."""
     b, s, d = x.shape
-    capacity = _capacity(m, s)
-    r = _route(torch.matmul(x.float(), p["router"]), m, capacity,
-               padded_experts(m))
+    capacity = _capacity(moe, s)
+    r = _route(logits, moe, capacity, e_pad)
+    el = gate.shape[0]
+    slot_idx = r.slot_idx[:, lo:lo + el]
+    slot_gate = r.slot_gate[:, lo:lo + el]
 
     # dispatch: gather tokens into (B, E, C, D); garbage index S reads zeros
     xp = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)
     dispatched = xp[torch.arange(b, device=x.device)[:, None, None],
-                    r.slot_idx]
+                    slot_idx]
+    dispatched = policy.constrain(dispatched, ("batch", "experts", None,
+                                               None))
 
+    g = _expert_matmul(dispatched, gate.to(x.dtype))
+    u = _expert_matmul(dispatched, up.to(x.dtype))
+    h = policy.constrain(gelu(g) * u, ("batch", "experts", None,
+                                       "expert_ffn"))
+    y = _expert_matmul(h, down.to(x.dtype))
+
+    # combine, weighted by the gate in y's dtype; a slot of another expert
+    # (or a dropped choice) reads the zero row past this block's slots
+    y = y * slot_gate[..., None].to(y.dtype)
+    token_slot = r.token_slot
+    if el != e_pad:
+        first = lo * capacity
+        mine = (token_slot >= first) & (token_slot < first + el * capacity)
+        token_slot = torch.where(mine, token_slot - first, el * capacity)
+    return _combine(y, token_slot), r
+
+
+def _apply_moe_sharded(p: dict, x: torch.Tensor, logits: torch.Tensor,
+                       moe: MoEConfig, e_pad: int):
+    """The routed half over a live mesh (module docstring): the expert
+    weights gathered over each mesh dim that shards the batch too
+    (kimi-k2's 2-D layout in training and prefill, as GSPMD gathers an
+    FSDP weight; a dim of size 1 needs no gather), then :func:`_moe_local`
+    on each rank's shards through ``common.local_apply``.  Returns ``(out,
+    first-choice share)``: ``out`` is ``Partial`` over each mesh dim that
+    still shards the experts (a 2-D layout's data dim where the batch is
+    whole there, as decode's one routing group is: each data rank runs its
+    expert_ffn slice) and placed like ``x`` elsewhere, the share placed
+    like ``x``.  The gradients of ``x`` and of the logits are ``Partial``
+    over the dims that shard the experts too (each rank's experts add
+    their terms), and a weight's is ``Partial`` over a dim that shards the
+    batch (each rank's tokens add theirs)."""
+    from torch.distributed.tensor import Partial, Replicate
     w = p["experts"]
-    g = _expert_matmul(dispatched, w["gate"].to(x.dtype))
-    u = _expert_matmul(dispatched, w["up"].to(x.dtype))
-    y = _expert_matmul(gelu(g) * u, w["down"].to(x.dtype))
+    mesh = w["gate"].device_mesh
+    x_place = list(x.placements)
+    batch = [i for i, pl in enumerate(x_place)
+             if pl.is_shard() and mesh.size(i) > 1]
+    weights = [wt.redistribute(mesh, [Replicate() if i in batch else pl
+                                      for i, pl in enumerate(wt.placements)])
+               if any(wt.placements[i].is_shard() for i in batch) else wt
+               for wt in (w["gate"], w["up"], w["down"])]
+    out_place = [Partial() if weights[0].placements[i].is_shard() else pl
+                 for i, pl in enumerate(x_place)]
+    w_grads = [[Partial() if x_place[i].is_shard() else pl
+                for i, pl in enumerate(wt.placements)] for wt in weights]
+    lo = common.shard_offset(weights[0], 0)
 
-    # combine, weighted by the gate in y's dtype
-    y = y * r.slot_gate[..., None].to(y.dtype)
-    out = _combine(y, r.token_slot)
-    for shared in p.get("shared", []):
-        out = out + apply_mlp(shared, x)
-    return out, r.aux
+    def routed(xl, ll, gl, ul, dl):
+        out, r = _moe_local(xl, ll, gl, ul, dl, moe, e_pad, lo)
+        return out, _first_choice_share(r.token_expert, ll.shape[-1])
+
+    return common.local_apply(
+        routed, (out_place, x_place), x, logits, *weights,
+        in_grad_placements=(out_place, out_place, *w_grads))
+
+
+def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
+              policy: Policy = NO_POLICY) -> Tuple[torch.Tensor, dict]:
+    """x: (B, S, D) -> (out in ``x.dtype``, aux losses); each row of the
+    batch is a routing group.  ``policy`` constrains the dispatch buffer,
+    the expert hidden and the combined output (the reference's sites); on
+    DTensors the routed half runs on each rank's shards (module
+    docstring)."""
+    m = cfg.moe
+    e_pad = padded_experts(m)
+    w = p["experts"]
+    sharded = common.is_dtensor(w["gate"])
+    logits = torch.matmul(x.float(), p["router"])
+    if sharded:
+        out, share = _apply_moe_sharded(p, x, logits, m, e_pad)
+        aux = _aux_losses(logits, torch.softmax(logits, dim=-1), share, m)
+    else:
+        out, r = _moe_local(x, logits, w["gate"], w["up"], w["down"], m,
+                            e_pad, 0, policy)
+        aux = r.aux
+    out = policy.constrain(out, ("batch", "seq", None))
+    shared = [apply_mlp(sp, x, policy) for sp in p.get("shared", [])]
+    if sharded and shared:
+        # the shared experts' Partial sums added on each rank first, then
+        # reduced once (DTensor would all-reduce each at its add)
+        total = shared[0]
+        for y in shared[1:]:
+            total = total + y
+        shared = [policy.constrain(total, ("batch", "seq", None))]
+    for y in shared:
+        out = out + y
+    return out, aux

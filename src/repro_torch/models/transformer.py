@@ -30,12 +30,12 @@ Parameter tree, the reference's (leaf order and shapes):
 Caches mirror the periods/rem structure; decode updates them in place.
 Ported mixers: attention (global and local), RG-LRU and the xLSTM blocks
 (mLSTM and sLSTM, ``models/xlstm.py``), with the dense MLP,
-Mixture-of-Experts (``mlp.apply_moe``) or none.  Each block returns the MoE
-aux losses (zeros for a dense block); :func:`forward` sums them over the
-stack, the other paths drop them, as the reference's do.  An MoE block
-routes each sequence as its own group, except in decode, which routes the
-whole batch as one group (``x.reshape(1, B * S, D)``), as the reference
-does.
+Mixture-of-Experts (``mlp.apply_moe``, given the policy at the reference's
+call sites) or none.  Each block returns the MoE aux losses (zeros for a
+dense block); :func:`forward` sums them over the stack, the other paths
+drop them, as the reference's do.  An MoE block routes each sequence as
+its own group, except in decode, which routes the whole batch as one group
+(``x.reshape(1, B * S, D)``), as the reference does.
 
 A multi-codebook config (musicgen-large) takes ``(B, S, n_codebooks)``
 tokens: the codebooks' embeddings are summed and the logits are
@@ -160,17 +160,21 @@ def _apply_mlp(p: Params, spec: LayerSpec, h: torch.Tensor,
                policy: Policy = NO_POLICY):
     """The block's MLP half: ``(h + mlp(norm(h)), aux)``.  An MoE block
     routes each row of the batch as a group, or with ``one_group`` the
-    whole batch as one (decode).  Over a model axis the dense MLP's output
-    is a ``Partial`` sum (its down projection is row-parallel), reduced by
-    the constrain before the residual add."""
+    whole batch as one (decode): where the batch is sharded over data that
+    group spans the data ranks, so ``x`` is gathered over data first, as
+    GSPMD gathers it for the reference's reshape.  Over a model axis the
+    MLP's output is a ``Partial`` sum (the dense down projection is
+    row-parallel, the experts' combine adds each rank's experts or ffn
+    shard), reduced by the constrain before the residual add."""
     aux = _zero_aux(h.device)
     if "mlp" not in p:
         return h, aux
     x = common.apply_rmsnorm(p["mlp_norm"], h, cfg.norm_eps)
     if spec.mlp == MLP_MOE:
         b, s, d = x.shape
-        y, aux = mlp.apply_moe(p["mlp"], x.reshape(1, b * s, d)
-                               if one_group else x, cfg)
+        if one_group:
+            x = common.unshard(x, 0).reshape(1, b * s, d)
+        y, aux = mlp.apply_moe(p["mlp"], x, cfg, policy)
         y = y.reshape(b, s, d)
     else:
         y = mlp.apply_mlp(p["mlp"], x, policy)

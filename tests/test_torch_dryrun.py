@@ -7,9 +7,10 @@
   serve step on a kv_seq-sharded cache) on the single-pod mesh shape; its
   ``param_bytes_per_chip`` and ``cache_bytes_per_chip`` equal the
   reference's ``bytes_per_chip`` of the same trees on the same specs;
-  gemma2 and recurrentgemma are walked as one rank of a fake 16 x 16 mesh
-  (their collective bytes and term), qwen2-moe's decode as the whole step
-  (no collective term, the notes);
+  each is walked as one rank of a fake 16 x 16 mesh (its collective bytes
+  and term; qwen2-moe's 60 experts do not divide 16, so its experts are
+  sharded on expert_ffn and its decode gathers the batch over data for
+  its one routing group);
 * ``fedround_dryrun.make_round_step`` passes ``tests/test_fedround.py``'s
   ``test_round_step_tiny`` assertions, ported; ``fedround_dryrun.run``
   reports the reference's cohort size and one rank's share, and the
@@ -39,8 +40,8 @@ from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 COMBOS = (("gemma2-2b", "train_4k"), ("qwen2-moe-a2.7b", "decode_32k"),
           ("recurrentgemma-2b", "prefill_32k"), ("gemma2-2b", "decode_32k"))
 # the combinations walked as one rank of a live mesh (in scope over a
-# model axis; qwen2-moe's decode is not)
-PER_CHIP = ("gemma2-2b", "recurrentgemma-2b")
+# model axis)
+PER_CHIP = ("gemma2-2b", "recurrentgemma-2b", "qwen2-moe-a2.7b")
 # the kernels each combination's step reaches
 KERNELS = {"train_4k": set(), "decode_32k": set(),
            "prefill_32k": {"flash_attention", "lru_scan_gated"}}

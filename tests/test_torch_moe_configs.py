@@ -14,8 +14,9 @@ and seeded numpy tokens, in f32 at rtol 1e-4 / atol 1e-5:
   the batch as one group at capacity 1, so it drops pairs that prefill
   keeps: held to the reference, not to the forward);
 * their bf16 prefill and decode, routed from the reference's router
-  logits, at ``tests/test_torch_serve.py``'s bf16 rule (the test's
-  docstring says why);
+  logits (recorded from its jitted steps by an ordered
+  ``jax.debug.callback``), at ``tests/test_torch_serve.py``'s bf16 rule
+  (the test's docstring says why);
 * kimi-k2 cut to one layer, where the exit layer resolves to the last
   one and both heads read the same hidden state, as it is served at
   published widths on the card;
@@ -128,8 +129,8 @@ def test_reduced_losses_and_grads_match_reference(name, loss):
     ref_cfg, cfg = _reduced(name)
     ref_p, p = _pair(ref_cfg, seed=3)
     tok = _tokens((2, 17), cfg.vocab_size, seed=4)
-    want, want_g = jax.value_and_grad(getattr(RefLMAdapter(ref_cfg), loss))(
-        ref_p, {"tokens": jnp.asarray(tok)})
+    want, want_g = jax.jit(jax.value_and_grad(getattr(
+        RefLMAdapter(ref_cfg), loss)))(ref_p, {"tokens": jnp.asarray(tok)})
     leaves, _ = tree_flatten(p)
     for x in leaves:
         x.requires_grad_(True)
@@ -147,15 +148,16 @@ def _serve_against_reference(ref_cfg, cfg, s=12, t=4, b=2):
     ref_p, p = _pair(ref_cfg)
     tokens = _tokens((b, s + t), cfg.vocab_size, seed=1)
     toks = torch.from_numpy(tokens)
-    want, ref_cache = ref_tfm.prefill(ref_p, ref_cfg,
-                                      jnp.asarray(tokens[:, :s]),
-                                      cache_len=s + t)
+    prefill = jax.jit(lambda p, x: ref_tfm.prefill(p, ref_cfg, x,
+                                                   cache_len=s + t))
+    decode = jax.jit(lambda p, c, x, i: ref_tfm.decode_step(
+        p, c, ref_cfg, x, i, with_exit_head=True))
+    want, ref_cache = prefill(ref_p, jnp.asarray(tokens[:, :s]))
     got, cache = tfm.prefill(p, cfg, toks[:, :s], cache_len=s + t)
     np.testing.assert_allclose(_f32(got), _f32(want), **TOL)
     for i in range(s, s + t):
-        want, ref_cache, want_exit = ref_tfm.decode_step(
-            ref_p, ref_cache, ref_cfg, jnp.asarray(tokens[:, i:i + 1]),
-            jnp.int32(i), with_exit_head=True)
+        want, ref_cache, want_exit = decode(
+            ref_p, ref_cache, jnp.asarray(tokens[:, i:i + 1]), jnp.int32(i))
         got, cache, got_exit = tfm.decode_step(
             p, cache, cfg, toks[:, i:i + 1], i, with_exit_head=True)
         np.testing.assert_allclose(_f32(got), _f32(want), **TOL)
@@ -191,21 +193,32 @@ def test_bf16_prefill_and_decode_match_reference(name, monkeypatch):
         0, cfg.vocab_size, size=(2, s + steps)).astype(np.int32)
     logs, ref_route = [], ref_mlp.route_topk
 
+    def keep(router_logits, slot_idx):
+        logs.append((np.asarray(router_logits), np.asarray(slot_idx)))
+
     def record(router_logits, moe, capacity, e_pad=0):
         out = ref_route(router_logits, moe, capacity, e_pad=e_pad)
-        logs.append((np.asarray(router_logits), np.asarray(out[0])))
+        jax.debug.callback(keep, router_logits, out[0], ordered=True)
         return out
     monkeypatch.setattr(ref_mlp, "route_topk", record)
-    with jax.disable_jit():         # concrete router logits in the scan
-        want, ref_cache = ref_tfm.prefill(ref_p, ref_cfg,
-                                          jnp.asarray(tokens[:, :s]),
-                                          cache_len=s + steps)
+    # the reference stays compiled; its router logits leave the scan
+    # through an ordered callback, so no trace cached without it may serve
+    jax.clear_caches()
+    try:
+        prefill = jax.jit(lambda p, t: ref_tfm.prefill(
+            p, ref_cfg, t, cache_len=s + steps))
+        decode = jax.jit(lambda p, c, t, i: ref_tfm.decode_step(
+            p, c, ref_cfg, t, i, with_exit_head=True))
+        want, ref_cache = prefill(ref_p, jnp.asarray(tokens[:, :s]))
         wants = [want]
         for t in range(s, s + steps):
-            want, ref_cache, want_exit = ref_tfm.decode_step(
-                ref_p, ref_cache, ref_cfg, jnp.asarray(tokens[:, t:t + 1]),
-                jnp.int32(t), with_exit_head=True)
+            want, ref_cache, want_exit = decode(
+                ref_p, ref_cache, jnp.asarray(tokens[:, t:t + 1]),
+                jnp.int32(t))
             wants += [want, want_exit]
+        jax.effects_barrier()
+    finally:
+        jax.clear_caches()
 
     calls, route = iter(logs), mlp._route
 

@@ -30,18 +30,31 @@ GSPMD computes for the reference under the same policy).
   (over data) and 1 (the cache's sequence over data).  Logits, exit
   logits and caches of every step at rtol 1e-4 / atol 1e-5; each slot
   written by the ranks that hold it and no other rank.
-* The refusals over a live model axis (MoE, xLSTM, codebooks, seq2d /
-  dp2d / seq2d_fsdp, the compressed wire, SCAFFOLD, an xLSTM and an MoE
-  serve step), each ``NotImplementedError`` naming its ``ROADMAP.md``
-  item, and the int8 wire's group check on a leaf whose shards straddle
-  128-element groups.
+* The MoE configs in the same spawns (``cases.TP_MOE_TRAIN``,
+  ``cases.TP_DECODE``), against the reference's unsharded jitted steps at
+  rtol 1e-4 / atol 1e-5: reduced qwen2-moe's train step at (1, 2), (1, 4)
+  and (2, 2) (the experts axis over model), its round on the three
+  engines at (1, 2) (a config whose shards hold whole int8 groups), its
+  prefill and serve steps at (1, 2), (1, 4) and (2, 2) at batch 2; the
+  expert_ffn layout (3 experts) and padded experts (3 padded to 4) at
+  (1, 2); reduced kimi-k2's 2-D experts at (2, 2).  The train step's
+  routing equals the unsharded step's, call for call, on every rank; the
+  decode steps' routing is bitwise equal over the ranks; the aux losses
+  at (2, 2) equal the unsharded ones.  Every decode case's prefill logits
+  and cache are held too.
+* The refusals over a live model axis (xLSTM, codebooks, seq2d / dp2d /
+  seq2d_fsdp, the compressed wire, SCAFFOLD, an xLSTM serve step), each
+  ``NotImplementedError`` naming its ``ROADMAP.md`` item; the int8 wire's
+  group check on a leaf whose shards straddle 128-element groups (an mlp
+  leaf and an expert leaf); a cohort of kimi-k2's 2-D experts, whose
+  specs name data twice.
 * The vocab-parallel embedding with a tied unembedding and the
   vocab-parallel CE: loss and the table's gradient against the unsharded
   run of one f64 table.
 * Every kernel wrapper refuses a DTensor.
 * The dry-run's collective bytes on a fake (2, 2) mesh: gemma2 narrow's
-  train and serve steps against counts derived here from the layer
-  shapes.
+  train and serve steps and reduced qwen2-moe's serve step against counts
+  derived here from the layer shapes.
 """
 
 import functools
@@ -62,6 +75,7 @@ from repro import configs as ref_configs  # noqa: E402
 from repro.core import aggregate as ref_aggregate  # noqa: E402
 from repro.core import comm as ref_comm  # noqa: E402
 from repro.launch import steps as ref_steps  # noqa: E402
+from repro.models import transformer as ref_tfm  # noqa: E402
 from repro.models.common import NO_POLICY  # noqa: E402
 
 import torch_mesh_cases as cases  # noqa: E402
@@ -82,8 +96,8 @@ DECODE_CASES = tuple((world,) + case for world, cs in cases.TP_DECODE.items()
 
 
 def ref_config(arch):
-    return ref_configs.get_reduced(arch).with_overrides(
-        compute_dtype="float32")
+    return cases.variant(ref_configs.get_reduced(arch.partition(":")[0]),
+                         arch)
 
 
 @functools.lru_cache(maxsize=None)
@@ -92,16 +106,22 @@ def ref_params(arch):
         cases.tp_params(arch)))
 
 
-def ref_round(engine: str):
+def ref_round(engine: str, arch: str = cases.TP_TRAIN):
     spec = {"flat f32": None, "flat int8": ref_aggregate.EngineSpec(
         wire=ref_comm.WireSpec("int8", 128))}[engine]
-    data, simple = cases.tp_round_inputs()
+    data, simple = cases.tp_round_inputs(arch=arch)
     step = ref_steps.make_fed_round_step(
-        ref_config(cases.TP_TRAIN), NO_POLICY, local_steps=cases.TP_STEPS,
+        ref_config(arch), NO_POLICY, local_steps=cases.TP_STEPS,
         engine=spec)
     cohort = jax.tree.map(lambda x: jnp.broadcast_to(
-        x[None], (cases.TP_K,) + x.shape), ref_params(cases.TP_TRAIN))
+        x[None], (cases.TP_K,) + x.shape), ref_params(arch))
     return jax.jit(step)(cohort, jnp.asarray(data), jnp.asarray(simple))
+
+
+def ref_train(arch: str):
+    train = ref_steps.make_train_step(ref_config(arch), NO_POLICY)
+    return jax.jit(train)(ref_params(arch), {
+        "tokens": jnp.asarray(cases.tp_train_tokens(arch))})
 
 
 def ref_decode(arch, batch, prompt, cache_len):
@@ -110,13 +130,15 @@ def ref_decode(arch, batch, prompt, cache_len):
     exit logits and cache."""
     cfg = ref_config(arch)
     prompt_batch, forced = cases.tp_decode_inputs(arch, batch, prompt)
-    _, cache = jax.jit(ref_steps.make_prefill_step(
+    logits, cache = jax.jit(ref_steps.make_prefill_step(
         cfg, NO_POLICY, cache_len=cache_len))(ref_params(arch), {
             k: jnp.asarray(v) for k, v in prompt_batch.items()})
     serve = jax.jit(ref_steps.make_serve_step(cfg, NO_POLICY,
                                               with_exit_head=True))
     pos = cases.first_position(arch, prompt)
-    out = {"logits": [], "exit": [], "cache": []}
+    out = {"logits": [], "exit": [], "cache": [],
+           "prefill": {"logits": np.asarray(logits),
+                       "cache": jax.tree.map(np.asarray, cache)}}
     for i in range(cases.TP_DECODE_STEPS):
         logits, cache, exit_logits = serve(
             ref_params(arch), cache, {"tokens": jnp.asarray(forced[i])},
@@ -129,13 +151,18 @@ def ref_decode(arch, batch, prompt, cache_len):
 
 def references():
     """The reference's unsharded results of every case."""
-    out = {}
-    train = ref_steps.make_train_step(ref_config(cases.TP_TRAIN), NO_POLICY)
-    out["train"] = jax.jit(train)(ref_params(cases.TP_TRAIN), {
-        "tokens": jnp.asarray(cases.tp_train_tokens())})
+    out = {"train": ref_train(cases.TP_TRAIN)}
+    for arch in {a for cs in cases.TP_MOE_TRAIN.values() for _, _, a in cs}:
+        out[("train", arch)] = ref_train(arch)
     for engine in ("flat f32", "flat int8"):
         out[engine] = ref_round(engine)
+        out["moe " + engine] = ref_round(engine, cases.TP_MOE_ROUND)
     out["tree"] = out["flat f32"]
+    out["moe tree"] = out["moe flat f32"]
+    tokens = cases.tp_train_tokens(cases.TP_MOE)[:, :-1]
+    out["moe aux"] = jax.jit(lambda p, t: ref_tfm.forward(
+        p, ref_config(cases.TP_MOE), t)[2])(ref_params(cases.TP_MOE),
+                                            jnp.asarray(tokens))
     for arch in cases.TP_PREFILL:
         step = ref_steps.make_prefill_step(ref_config(arch), NO_POLICY)
         batch = cases.tp_prefill_batch(arch)
@@ -195,11 +222,17 @@ def assert_ranks_equal(results, key):
                    zip(first, tree_leaves(other[key])))
 
 
-CASES_2 = ("train",) + cases.TP_ENGINES + cases.TP_PREFILL + ("vocab",)
+MOE_ENGINES = tuple("moe " + e for e in cases.TP_ENGINES)
+CASES_2 = (("train",) + cases.TP_ENGINES + cases.TP_PREFILL + ("vocab",)
+           + MOE_ENGINES)
 # each case's test id -> (world size, the ranks' result key)
 BITWISE = {key: (2, key) for key in CASES_2}
 BITWISE.update({"(2, 2) flat f32": (4, "flat f32"),
-                "(2, 2) train": (4, "train")})
+                "(2, 2) train": (4, "train"),
+                "(2, 2) moe aux": (4, "(2, 2) moe aux")})
+MOE_TRAIN = {key: (world, arch) for world, cs in cases.TP_MOE_TRAIN.items()
+             for key, _, arch in cs}
+BITWISE.update({key: (world, key) for key, (world, _) in MOE_TRAIN.items()})
 BITWISE.update({cases.decode_key(*c[1:4]): (c[0], cases.decode_key(*c[1:4]))
                 for c in DECODE_CASES})
 
@@ -220,26 +253,64 @@ def test_train_step_matches_reference(tp_runs, world):
     assert_leaves(got["params"], want_p)
 
 
+@pytest.mark.parametrize("key", list(MOE_TRAIN))
+def test_moe_train_step_matches_reference(tp_runs, key):
+    """The MoE configs' train step over a live model axis: reduced
+    qwen2-moe's experts axis at (1, 2), (1, 4) and (2, 2) (its batch over
+    data), the expert_ffn and padded cases at (1, 2), and reduced kimi-k2's
+    2-D experts at (2, 2); the aux losses are in the loss."""
+    world, arch = MOE_TRAIN[key]
+    got = tp_runs[0][world][0][key]
+    want_p, want_m = tp_runs[1][("train", arch)]
+    assert_close(got["loss"], want_m["loss"])
+    assert_leaves(got["params"], want_p)
+
+
+def test_moe_routing_equals_the_unsharded_step(tp_runs):
+    """Every routing call of reduced qwen2-moe's train step at (1, 2)
+    (forward and remat recompute) gives the unsharded step's slots,
+    bitwise, on every rank."""
+    for rank in tp_runs[0][2]:
+        slots = rank["moe slots"]
+        assert len(slots["sharded"]) == len(slots["unsharded"]) > 0
+        for a, b in zip(slots["sharded"], slots["unsharded"]):
+            assert torch.equal(a, b)
+
+
+def test_moe_aux_losses_equal_unsharded_at_2x2(tp_runs):
+    """Reduced qwen2-moe's forward at (2, 2), the batch over data: both aux
+    losses against the reference's unsharded ones (``load_balance`` is a
+    product of two batch means, reduced over data before the product)."""
+    want = tp_runs[1]["moe aux"]
+    for rank in tp_runs[0][4]:
+        got = rank["(2, 2) moe aux"]
+        assert set(got) == {"load_balance", "router_z"}
+        for name in got:
+            assert_close(got[name], want[name])
+
+
 @pytest.mark.parametrize("world,engine", [(2, e) for e in cases.TP_ENGINES]
-                         + [(4, "flat f32")])
+                         + [(4, "flat f32")] + [(2, e) for e in MOE_ENGINES])
 def test_round_step_matches_reference(tp_runs, world, engine):
     got = tp_runs[0][world][0][engine]
     want_c, want_loss = tp_runs[1][engine]
     assert_close(got["loss"], want_loss)
     # the new model comes back as DTensors placed like the parameters
     assert any("Shard" in p for p in got["placements"])
-    if engine != "flat int8":
+    if not engine.endswith("flat int8"):
         assert_leaves(got["params"], want_c)
         return
     # the int8 wire: the lossy-wire rules against the reference's round
-    layout = flatten.build_layout(cases.tp_params(cases.TP_TRAIN),
+    arch = cases.TP_MOE_ROUND if engine.startswith("moe") \
+        else cases.TP_TRAIN
+    layout = flatten.build_layout(cases.tp_params(arch),
                                   total_multiple=2048)
     spec = comm.WireSpec("int8", 128)
     a = flatten.pack(layout, got["params"])
     b = flatten.pack(layout, interop.from_reference(
         jax.tree.map(np.asarray, want_c)))
     step = torch.maximum(parity.wire_step(spec, flatten.pack(
-        layout, cases.tp_params(cases.TP_TRAIN))), parity.wire_step(spec, b))
+        layout, cases.tp_params(arch))), parity.wire_step(spec, b))
     res = parity.lossy_compare(a, b, step)
     assert res["share"] <= MAX_SHARE and res["worst"] <= 1.0, res
 
@@ -287,6 +358,18 @@ def test_serve_step_matches_reference(tp_runs, case, what):
 
 
 @pytest.mark.parametrize("case", DECODE_CASES, ids=_decode_id)
+def test_prefill_before_decode_matches_reference(tp_runs, case):
+    """Each decode case's sharded prefill: its logits and its cache (as
+    ``cache_specs`` places it) whole, against the reference's unsharded
+    prefill of the same prompt."""
+    got = tp_runs[0][case[0]][0][cases.decode_key(*case[1:4])]["prefill"]
+    want = tp_runs[1][("decode",) + case[2:]]["prefill"]
+    assert tuple(got["logits"].shape) == want["logits"].shape
+    assert_close(got["logits"], want["logits"])
+    assert_leaves(got["cache"], want["cache"])
+
+
+@pytest.mark.parametrize("case", DECODE_CASES, ids=_decode_id)
 def test_serve_step_writes_each_slot_on_its_owner_only(tp_runs, case):
     """At each step every rank changes exactly the new slot of each KV
     cache leaf where its rows hold it (a ring's slot ``pos % size``, a
@@ -313,14 +396,15 @@ def test_serve_step_writes_each_slot_on_its_owner_only(tp_runs, case):
             if any(w[step][path][:2] != (0, size) for w in ranks):
                 owners.setdefault(path, set()).add(tuple(wrote))
     assert all(len(o) > 1 for o in owners.values()), owners
-    if arch in ("gemma2-2b", "recurrentgemma-2b") or world == 4:
+    if arch in ("gemma2-2b", "recurrentgemma-2b") or (
+            arch == "minitron-8b" and world == 4):
         assert owners       # the cases whose caches go over kv_seq
 
 
-REFUSALS = {"moe": "item 11", "xlstm": "item 12", "codebooks": "item 12",
+REFUSALS = {"xlstm": "item 12", "codebooks": "item 12",
             "seq2d": "item 15", "dp2d": "item 15", "seq2d_fsdp": "item 15",
             "compressed": "item 13", "scaffold": "item 14",
-            "serve xlstm": "item 12", "serve moe": "item 11"}
+            "serve xlstm": "item 12"}
 
 
 @pytest.mark.parametrize("name", list(REFUSALS))
@@ -334,6 +418,24 @@ def test_int8_wire_refuses_shards_that_straddle_groups(tp_runs):
     msg = tp_runs[0][2][0]["refusals"]["int8 groups"]
     assert msg.startswith("ValueError"), msg
     assert "periods/#0/mlp/" in msg and "groups of 128" in msg
+
+
+def test_int8_wire_refuses_expert_shards_that_straddle_groups(tp_runs):
+    """3 experts do not divide the model axis of 2, so expert_ffn (128) is
+    split in 64s: an int8 round's expert shards would hold half groups."""
+    msg = tp_runs[0][2][0]["refusals"]["int8 expert groups"]
+    assert msg.startswith("ValueError"), msg
+    assert "/mlp/experts/" in msg and "groups of 128" in msg
+
+
+def test_cohort_of_2d_experts_is_refused_as_the_reference_refuses_it(
+        tp_runs):
+    """kimi-k2's 2-D experts put expert_ffn over data, which a cohort's
+    client axis takes too: ``cohort_specs`` names data twice, and placing
+    it raises, as the reference's ``NamedSharding`` does."""
+    msg = tp_runs[0][2][0]["refusals"]["cohort 2-D experts"]
+    assert msg.startswith("ValueError"), msg
+    assert "'data' to two dims" in msg
 
 
 def test_vocab_parallel_embedding_with_tied_unembedding(tp_runs):
@@ -455,9 +557,28 @@ def hand_count_decode(cfg, shape, d: int) -> tuple:
     return 1 + n + 3 * n, act + n * (act + merge)
 
 
+def hand_count_moe_decode(cfg, shape, d: int) -> dict:
+    """``{collective: (count, result bytes)}`` a chip takes part in during
+    reduced qwen2-moe's serve step on a (d, m) mesh (f32; the batch over
+    data, the heads, the experts and the tied table over model), derived
+    from the layer shapes: an all-reduce of the (B/d, 1, D) embedding;
+    for each layer an all-reduce of the attention's (B/d, 1, D) output
+    (``wo`` is row-parallel), an all-gather of the MoE block's (B, 1, D)
+    input over data (decode routes the whole batch as one group), an
+    all-reduce of the (1, B, D) combine (each rank's experts' terms) and
+    one of the shared experts' (1, B, D) output (their row-parallel
+    ``down``, summed on each rank first).  The router and the routing add
+    none."""
+    b, dm, n = shape.global_batch, cfg.d_model, cfg.n_layers
+    local, whole = b // d * dm * 4, b * dm * 4
+    return {"all-reduce": (1 + 3 * n, local + n * (local + 2 * whole)),
+            "all-gather": (n, n * whole)}
+
+
 def test_dryrun_collective_bytes_on_a_fake_mesh_match_the_hand_count():
     """gemma2 narrow's train step and its serve step (batch 4, a ring of
-    16 and a dense cache of 32 rows, each over model) on a fake (2, 2)
+    16 and a dense cache of 32 rows, each over model), and reduced
+    qwen2-moe's serve step (batch 4, heads over model), on a fake (2, 2)
     mesh."""
     cfg = cases.tp_config(cases.TP_TRAIN)
     mesh = MeshShape((2, 2), ("data", "model"))
@@ -468,6 +589,9 @@ def test_dryrun_collective_bytes_on_a_fake_mesh_match_the_hand_count():
                            verbose=False)
     serve = dryrun.lower_one(cfg.name, decode, cfg_override=cfg, mesh=mesh,
                              verbose=False)
+    moe_cfg = cases.tp_config(cases.TP_MOE)
+    moe = dryrun.lower_one(moe_cfg.name, decode, cfg_override=moe_cfg,
+                           mesh=mesh, verbose=False)
     assert not dist.is_initialized()
     assert rec["mesh"] == "2x2" and rec["chips"] == 4
     assert rec["coll_bytes_per_chip"] == hand_count(cfg, shape, 2, 2)
@@ -486,3 +610,9 @@ def test_dryrun_collective_bytes_on_a_fake_mesh_match_the_hand_count():
     assert serve["coll_bytes_per_chip"] == n_bytes
     assert serve["notes"]["coll_bytes_per_chip"].startswith(
         "the collectives")
+    want = hand_count_moe_decode(moe_cfg, decode, 2)
+    got = moe["coll_breakdown"]
+    assert {k: v for k, v in got["counts"].items() if v} == \
+        {k: n for k, (n, _) in want.items()}
+    assert {k: got[k] for k in want} == {k: b for k, (_, b) in want.items()}
+    assert moe["coll_bytes_per_chip"] == sum(b for _, b in want.values())

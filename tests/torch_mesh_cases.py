@@ -64,7 +64,7 @@ def rank_main(rank: int, world: int, store_path: str, params_path: str,
     """One rank: gloo over a FileStore, a (world, 1) mesh; each case's
     sharded round, its rows by ``steps``' split and by
     ``distribute_tensor``; then a (1, world) mesh with a model axis: a
-    live tensor-parallel policy for the dense config, and an MoE config
+    live tensor-parallel policy for the dense config, and an xLSTM config
     still refused.  Writes ``rank<r>.pt`` (or ``rank<r>.err``)."""
     import torch.distributed as dist
     torch.set_num_threads(1)
@@ -89,7 +89,7 @@ def rank_main(rank: int, world: int, store_path: str, params_path: str,
         out["model_axis_live"] = sharding.MeshPolicy(wide, CFG).model_live
         from repro_torch import configs
         out["model_axis"] = _raises(lambda: sharding.MeshPolicy(
-            wide, configs.get_reduced("qwen2-moe-a2.7b")))
+            wide, configs.get_reduced("xlstm-1.3b")))
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
         dist.destroy_process_group()
     except BaseException:
@@ -110,6 +110,29 @@ TP_PREFILL = ("minitron-8b", "recurrentgemma-2b", "llava-next-34b")
 TP_K, TP_B, TP_STEPS, TP_SEQ, TP_PROMPT = 2, 2, 1, 16, 32
 TP_ENGINES = ("flat f32", "flat int8", "tree")
 
+# the MoE configs over the model axis: reduced qwen2-moe (4 experts: the
+# experts axis over model at 2 and 4), the expert_ffn layout (3 experts do
+# not divide 2: gate / up column-parallel, down row-parallel), padded
+# experts (3 padded to 4: 2 a rank, one of rank 1's never routed to), and
+# reduced kimi-k2 with its 2-D experts (expert_ffn over data too); the
+# rounds' config holds whole 128-element int8 groups on each rank (head
+# dim 64: 2 heads a rank; d_expert 256: the shared expert's 128 a rank)
+TP_MOE = "qwen2-moe-a2.7b"
+TP_MOE_ROUND = "qwen2-moe-a2.7b:groups"
+MOE_VARIANTS = {"qwen2-moe-a2.7b:groups": ({"d_expert": 256},
+                                           {"head_dim": 64}),
+                "qwen2-moe-a2.7b:ffn": ({"n_experts": 3}, {}),
+                "qwen2-moe-a2.7b:pad": ({"n_experts": 3, "pad_to": 4}, {}),
+                "kimi-k2-1t-a32b:2d": ({}, {"shard_experts_2d": True})}
+# the train step of each MoE case by mesh: (result key, mesh, arch)
+TP_MOE_TRAIN = {2: (("moe train", "(1, 2)", TP_MOE),
+                    ("moe ffn train", "(1, 2)", "qwen2-moe-a2.7b:ffn"),
+                    ("moe pad train", "(1, 2)", "qwen2-moe-a2.7b:pad")),
+                4: (("(1, 4) moe train", "(1, 4)", TP_MOE),
+                    ("(2, 2) moe train", "(2, 2)", TP_MOE),
+                    ("(2, 2) kimi 2-D train", "(2, 2)",
+                     "kimi-k2-1t-a32b:2d"))}
+
 
 # the serve step over sharded caches, by world size: (arch, batch, prompt
 # tokens, cache_len).  gemma2 narrow (window 16): 20 prompt positions wrap
@@ -126,19 +149,35 @@ TP_DECODE_STEPS = 6
 TP_DECODE = {2: (("(1, 2)", "gemma2-2b", 2, 20, 42),
                  ("(1, 2)", "recurrentgemma-2b", 2, 20, 42),
                  ("(1, 2)", "minitron-8b", 2, 20, 32),
-                 ("(1, 2)", "llava-next-34b", 2, 12, 32)),
+                 ("(1, 2)", "llava-next-34b", 2, 12, 32),
+                 ("(1, 2)", TP_MOE, 2, 20, 32),
+                 ("(1, 2)", "qwen2-moe-a2.7b:ffn", 2, 20, 32),
+                 ("(1, 2)", "qwen2-moe-a2.7b:pad", 2, 20, 32)),
              4: (("(1, 4)", "minitron-8b", 2, 20, 32),
                  ("(2, 2)", "gemma2-2b", 2, 20, 42),
-                 ("(2, 2)", "gemma2-2b", 1, 20, 42))}
+                 ("(2, 2)", "gemma2-2b", 1, 20, 42),
+                 ("(1, 4)", TP_MOE, 2, 20, 32),
+                 ("(2, 2)", TP_MOE, 2, 20, 32),
+                 ("(2, 2)", "kimi-k2-1t-a32b:2d", 2, 20, 32))}
 
 
 def decode_key(mesh: str, arch: str, batch: int) -> str:
     return f"decode {arch} b{batch} {mesh}"
 
 
+def variant(cfg, arch: str):
+    """``cfg`` (either package's reduced config of ``arch``'s base name)
+    with ``arch``'s ``MOE_VARIANTS`` overrides."""
+    import dataclasses
+    moe, over = MOE_VARIANTS.get(arch, ({}, {}))
+    if moe:
+        cfg = cfg.with_overrides(moe=dataclasses.replace(cfg.moe, **moe))
+    return cfg.with_overrides(compute_dtype="float32", **over)
+
+
 def tp_config(arch: str):
     from repro_torch import configs
-    return configs.get_reduced(arch).with_overrides(compute_dtype="float32")
+    return variant(configs.get_reduced(arch.partition(":")[0]), arch)
 
 
 def tp_params(arch: str):
@@ -155,16 +194,16 @@ def tp_engine(name: str):
             "tree": aggregate.EngineSpec(engine="tree")}[name]
 
 
-def tp_round_inputs(k: int = TP_K):
+def tp_round_inputs(k: int = TP_K, arch: str = TP_TRAIN):
     rng = np.random.default_rng(7)
-    data = rng.integers(0, tp_config(TP_TRAIN).vocab_size,
+    data = rng.integers(0, tp_config(arch).vocab_size,
                         size=(k, TP_B, TP_STEPS, TP_SEQ + 1)).astype(np.int32)
     return data, np.arange(k) < k // 2
 
 
-def tp_train_tokens() -> np.ndarray:
+def tp_train_tokens(arch: str = TP_TRAIN) -> np.ndarray:
     return np.random.default_rng(8).integers(
-        0, tp_config(TP_TRAIN).vocab_size,
+        0, tp_config(arch).vocab_size,
         size=(TP_B, TP_SEQ + 1)).astype(np.int32)
 
 
@@ -228,32 +267,60 @@ def _written_rows(before, cache) -> dict:
 def decode_case(on, arch: str, batch: int, prompt: int,
                 cache_len: int) -> dict:
     """Prefill then ``TP_DECODE_STEPS`` teacher-forced serve steps with the
-    exit head under a ``MeshPolicy`` over ``on``: each step's logits, exit
-    logits and cache whole (``full_tensor``) and the logits' placements;
-    and apart (they differ by rank) the rows this rank wrote at each step
-    (:func:`_written_rows`)."""
+    exit head under a ``MeshPolicy`` over ``on``: the prefill's logits and
+    cache, each step's logits, exit logits and cache whole
+    (``full_tensor``), the logits' placements and the steps' MoE routing
+    (:func:`routed`); and apart (they differ by rank) the rows this rank
+    wrote at each step (:func:`_written_rows`)."""
     from repro_torch.launch import sharding, steps
     from repro_torch.tree import tree_leaves
     cfg = tp_config(arch)
     policy = sharding.MeshPolicy(on, cfg)
     params = sharding.distribute_params(tp_params(arch), cfg, on)
     prompt_batch, forced = tp_decode_inputs(arch, batch, prompt)
-    _, cache = steps.make_prefill_step(cfg, policy, cache_len=cache_len)(
+    logits, cache = steps.make_prefill_step(cfg, policy,
+                                            cache_len=cache_len)(
         params, {k: torch.as_tensor(v) for k, v in prompt_batch.items()})
     serve = steps.make_serve_step(cfg, policy, with_exit_head=True)
     pos = first_position(arch, prompt)
-    out = {"logits": [], "exit": [], "cache": []}
+    out = {"logits": [], "exit": [], "cache": [],
+           "prefill": {"logits": logits.full_tensor(), "cache": _full(cache)}}
     written = []
-    for i in range(TP_DECODE_STEPS):
-        before = [x.to_local().clone() for x in tree_leaves(cache)]
-        logits, cache, exit_logits = serve(
-            params, cache, {"tokens": torch.as_tensor(forced[i])}, pos + i)
-        written.append(_written_rows(before, cache))
-        out["logits"].append(logits.full_tensor())
-        out["exit"].append(exit_logits.full_tensor())
-        out["cache"].append(_full(cache))
-    out["placements"] = [str(logits.placements), str(exit_logits.placements)]
+
+    def decode():
+        nonlocal cache
+        for i in range(TP_DECODE_STEPS):
+            before = [x.to_local().clone() for x in tree_leaves(cache)]
+            logits, cache, exit_logits = serve(
+                params, cache, {"tokens": torch.as_tensor(forced[i])},
+                pos + i)
+            written.append(_written_rows(before, cache))
+            out["logits"].append(logits.full_tensor())
+            out["exit"].append(exit_logits.full_tensor())
+            out["cache"].append(_full(cache))
+        return [str(logits.placements), str(exit_logits.placements)]
+    # an MoE decode step routes the whole batch as one group (gathered over
+    # data), so every rank routes the same tokens: its slots are kept
+    out["placements"], out["slots"] = routed(decode)
     return out, written
+
+
+def routed(fn):
+    """``fn()`` with ``mlp._route`` recording: its result and the
+    ``slot_idx`` of each routing call, in order (none for a dense
+    config)."""
+    from repro_torch.models import mlp
+    route, slots = mlp._route, []
+
+    def record(*args, **kwargs):
+        r = route(*args, **kwargs)
+        slots.append(r.slot_idx.clone())
+        return r
+    mlp._route = record
+    try:
+        return fn(), slots
+    finally:
+        mlp._route = route
 
 
 def _full(tree):
@@ -310,8 +377,7 @@ def refusals(mesh) -> dict:
     policy = sharding.MeshPolicy(mesh, cfg)
     out = {name: _raises(lambda a=arch: sharding.MeshPolicy(
         mesh, configs.get_reduced(a))) for name, arch in (
-            ("moe", "qwen2-moe-a2.7b"), ("xlstm", "xlstm-1.3b"),
-            ("codebooks", "musicgen-large"))}
+            ("xlstm", "xlstm-1.3b"), ("codebooks", "musicgen-large"))}
     for mode in ("seq2d", "dp2d", "seq2d_fsdp"):
         out[mode] = _raises(lambda m=mode: sharding.MeshPolicy(
             mesh, cfg.with_overrides(attn_shard=m)))
@@ -323,23 +389,50 @@ def refusals(mesh) -> dict:
         engine=aggregate.EngineSpec(variance_reduction="scaffold")))
     # the serve step of a config out of scope raises where its policy is
     # built, naming its queued item
-    for name, arch in (("serve xlstm", "xlstm-1.3b"),
-                       ("serve moe", "qwen2-moe-a2.7b")):
-        out[name] = _raises(lambda a=arch: steps.make_serve_step(
-            configs.get_reduced(a), sharding.MeshPolicy(
-                mesh, configs.get_reduced(a))))
-    # an int8 round whose mlp shards hold 64 of a 128-element group
-    narrow = cfg.with_overrides(d_ff=128)
-    params = tfm_init(narrow)
-    cohort = sharding.distribute_cohort(
-        tree_map(lambda x: x[None].expand((2,) + x.shape), params), narrow,
-        mesh)
+    out["serve xlstm"] = _raises(lambda: steps.make_serve_step(
+        configs.get_reduced("xlstm-1.3b"), sharding.MeshPolicy(
+            mesh, configs.get_reduced("xlstm-1.3b"))))
+    # an int8 round whose mlp shards hold 64 of a 128-element group, and
+    # one whose expert_ffn shards do (3 experts: d_expert 128 over 2; its
+    # heads at Dh 64 hold whole groups)
     data, simple = tp_round_inputs(2)
-    out["int8 groups"] = _raises(lambda: steps.make_fed_round_step(
-        narrow, sharding.MeshPolicy(mesh, narrow), local_steps=1,
-        engine=tp_engine("flat int8"))(
-            cohort, torch.as_tensor(data), torch.as_tensor(simple)))
+    for name, narrow in (("int8 groups", cfg.with_overrides(d_ff=128)),
+                         ("int8 expert groups",
+                          tp_config("qwen2-moe-a2.7b:ffn").with_overrides(
+                              head_dim=64))):
+        cohort = sharding.distribute_cohort(tree_map(
+            lambda x: x[None].expand((2,) + x.shape), tfm_init(narrow)),
+            narrow, mesh)
+        out[name] = _raises(lambda n=narrow, c=cohort: steps.
+                            make_fed_round_step(
+                                n, sharding.MeshPolicy(mesh, n),
+                                local_steps=1,
+                                engine=tp_engine("flat int8"))(
+            c, torch.as_tensor(data), torch.as_tensor(simple)))
+    # kimi-k2's 2-D experts name data twice in a cohort's specs (the
+    # client axis and expert_ffn), which the reference's cohort_specs
+    # refuses too
+    kimi = tp_config("kimi-k2-1t-a32b:2d")
+    out["cohort 2-D experts"] = _raises(lambda: sharding.distribute_cohort(
+        tree_map(lambda x: x[None].expand((2,) + x.shape), tfm_init(kimi)),
+        kimi, mesh))
     return out
+
+
+def moe_aux(mesh) -> dict:
+    """The aux losses of reduced qwen2-moe's forward on ``mesh``, its batch
+    over data: ``load_balance`` is a product of two batch means, each
+    reduced over the data ranks before the product."""
+    from repro_torch.launch import sharding
+    from repro_torch.models import transformer as tfm
+    from torch.distributed.tensor.experimental import implicit_replication
+    cfg = tp_config(TP_MOE)
+    params = sharding.distribute_params(tp_params(TP_MOE), cfg, mesh)
+    tokens = torch.as_tensor(tp_train_tokens(TP_MOE))
+    with torch.no_grad(), implicit_replication():
+        _, _, aux = tfm.forward(params, cfg, tokens[:, :-1],
+                                policy=sharding.MeshPolicy(mesh, cfg))
+    return _full(aux)
 
 
 def tfm_init(cfg):
@@ -351,11 +444,13 @@ def tp_rank_main(rank: int, world: int, store_path: str,
                  out_dir: str) -> None:
     """One rank of the tensor-parallel cases: gloo over a FileStore; at
     world size 2 a (1, 2) mesh (train, the three round engines, the
-    prefills, the vocab-parallel trap, the refusals), at 4 a (2, 2) mesh
-    (train on a batch split over data, the flat f32 round: data and model
-    together) and a (1, 4) mesh (minitron's prefill, its kv heads
-    replicated); then the decode cases of ``TP_DECODE`` at each world
-    size.  Each result is saved
+    prefills, the vocab-parallel trap, the refusals; the MoE train step
+    and its routing against the unsharded step's, and its three round
+    engines), at 4 a (2, 2) mesh (train on a batch split over data, the
+    flat f32 round: data and model together; the MoE aux losses) and a
+    (1, 4) mesh (minitron's prefill, its kv heads replicated); the MoE
+    train steps of ``TP_MOE_TRAIN``; then the decode cases of
+    ``TP_DECODE`` at each world size.  Each result is saved
     whole (``full_tensor``) to ``tp<world>_rank<r>.pt`` (or the traceback
     to ``tp<world>_rank<r>.err``)."""
     import torch.distributed as dist
@@ -381,38 +476,57 @@ def tp_rank_main(rank: int, world: int, store_path: str,
                 a_cfg, sharding.MeshPolicy(on, a_cfg))(a_params, batch)
             return {"logits": _full(logits), "cache": _full(cache)}
 
-        def round_of(engine):
+        def round_of(engine, arch=TP_TRAIN):
+            a_cfg = tp_config(arch)
+            a_data, a_simple = tp_round_inputs(arch=arch)
             cohort = sharding.distribute_cohort(tree_map(
                 lambda x: x[None].expand((TP_K,) + x.shape),
-                tp_params(TP_TRAIN)), cfg, mesh)
+                tp_params(arch)), a_cfg, mesh)
             new_c, loss = steps.make_fed_round_step(
-                cfg, policy, local_steps=TP_STEPS,
-                engine=tp_engine(engine))(cohort, torch.as_tensor(data),
-                                          torch.as_tensor(simple))
+                a_cfg, sharding.MeshPolicy(mesh, a_cfg), local_steps=TP_STEPS,
+                engine=tp_engine(engine))(cohort, torch.as_tensor(a_data),
+                                          torch.as_tensor(a_simple))
             placed = [str(x.placements) for x in tree_leaves(new_c)]
             return {"params": _full(new_c), "loss": loss,
                     "placements": placed}
 
-        params = sharding.distribute_params(tp_params(TP_TRAIN), cfg, mesh)
-        new, metrics = steps.make_train_step(cfg, policy)(
-            params, {"tokens": torch.as_tensor(tp_train_tokens())})
-        out["train"] = {"params": _full(new), "loss": metrics["loss"]}
+        def train_of(arch, on):
+            a_cfg = tp_config(arch)
+            params = sharding.distribute_params(tp_params(arch), a_cfg, on)
+            new, metrics = steps.make_train_step(
+                a_cfg, sharding.MeshPolicy(on, a_cfg))(
+                    params, {"tokens": torch.as_tensor(tp_train_tokens(
+                        arch))})
+            return {"params": _full(new), "loss": metrics["loss"]}
+
+        out["train"] = train_of(TP_TRAIN, mesh)
+        meshes = {"(1, 2)": mesh, "(2, 2)": mesh}
         if world == 2:
             for engine in TP_ENGINES:
                 out[engine] = round_of(engine)
+                out["moe " + engine] = round_of(engine, TP_MOE_ROUND)
             for arch in TP_PREFILL:
                 out[arch] = prefill_of(arch, mesh)
             out["vocab"] = vocab_parallel_case(mesh)
             out["refusals"] = refusals(mesh)
+            # the routing of the unsharded MoE train step, here
+            out["moe slots"] = {"unsharded": routed(
+                lambda: steps.make_train_step(tp_config(TP_MOE))(
+                    tp_params(TP_MOE), {"tokens": torch.as_tensor(
+                        tp_train_tokens(TP_MOE))}))[1]}
         else:
             out["flat f32"] = round_of("flat f32")
             # minitron's 4 query heads over 4 ranks, its 2 kv heads
             # replicated: each rank reads the kv head its query head needs
             wide = make_device_mesh(1, world, "cpu")
-            out["minitron-8b (1, 4)"] = prefill_of("minitron-8b", wide)
-        meshes = {"(1, 2)": mesh, "(2, 2)": mesh}
-        if world == 4:
             meshes["(1, 4)"] = wide
+            out["minitron-8b (1, 4)"] = prefill_of("minitron-8b", wide)
+            out["(2, 2) moe aux"] = moe_aux(mesh)
+        for key, name, arch in TP_MOE_TRAIN[world]:
+            out[key], slots = routed(lambda a=arch, n=name: train_of(
+                a, meshes[n]))
+            if key == "moe train":
+                out["moe slots"]["sharded"] = slots
         for name, arch, batch, prompt, cache_len in TP_DECODE[world]:
             key = decode_key(name, arch, batch)
             out[key], out[key + " written"] = decode_case(
