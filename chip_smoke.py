@@ -312,12 +312,24 @@ which raises on failure:
    logits would have moved are printed); the logits, exit logits, peaks
    and collectives as in (b); (h) reduced qwen2-moe's train step and its
    f32 and int8 rounds on the card's mesh against the CPU's (K1 1, K2 1 a
-   rank).  Then, the card to itself: K2 and K1 at a rank's local n_flat
-   (1,491,200,000) bitwise and timed against their byte bounds, K5 at a
-   rank's heads (minitron (1, 4096, 16 / 4, 128), qwen2-moe (1, 4096, 8 /
-   8, 128), kimi-k2 (1, 4096, 32 / 4, 112)) and K6's gated entry at a
-   rank's channels (4, 4096, 1280), each against its plain version and
-   timed against its bound.
+   rank).  The xLSTM and codebook configs: (i) xlstm-1.3b whole (batch 1,
+   prompt 4096; every mixer whole on each rank's rows, no K5 or K6; the
+   cache's C, n and conv split over model) and (j) musicgen-large whole
+   (batch 4, 64 conditioning rows then 1472 frames of 4 codebooks; 16 of
+   32 heads and 1024 of 2048 rows of each codebook table a rank; K5 48),
+   each then 7 serve steps with the exit head, checked and printed as in
+   (b), the logits compared on each rank's share as the reference's
+   constrain places them (xlstm's vocab rows, musicgen's codebooks); (k)
+   reduced xlstm-1.3b and musicgen-large's train step, f32 and int8
+   rounds, prefill and 4 serve steps on the card's mesh against the CPU's
+   (K1 2, K2 2, K5 f32 2 a rank; xlstm's training with its sLSTM output
+   in f32 on both sides, its logits within 5 %).  Then, the card to
+   itself: K2 and K1 at a rank's local n_flat (1,491,200,000) bitwise and
+   timed against their byte bounds, K5 at a rank's heads (minitron (1,
+   4096, 16 / 4, 128), qwen2-moe (1, 4096, 8 / 8, 128), kimi-k2 (1, 4096,
+   32 / 4, 112), musicgen-large (4, 1536, 16 / 16, 64)) and K6's gated
+   entry at a rank's channels (4, 4096, 1280), each against its plain
+   version and timed against its bound.
 
 Phase 8 also serves reduced xlstm-1.3b in f32 on the card against the CPU
 (prefill and 8 teacher-forced decode steps): the sLSTM cell output before
@@ -4686,7 +4698,12 @@ TP_FLASH_CASES = (("minitron-8b, a rank's heads", 1, 4096, 16, 4, 128, 0,
                   ("qwen2-moe-a2.7b, a rank's heads", 1, 4096, 8, 8, 128, 0,
                    0.0, "bfloat16", True),
                   ("kimi-k2-1t-a32b, a rank's heads", 1, 4096, 32, 4, 112,
-                   0, 0.0, "bfloat16", True))
+                   0, 0.0, "bfloat16", True),
+                  ("musicgen-large, a rank's heads", 4, 1536, 16, 16, 64, 0,
+                   0.0, "bfloat16", True))
+# the part of phase 20 whose path hands K5 each of those shapes
+TP_FLASH_PARTS = ("dense", "moe", "moe", "xlstm_codebooks")
+TP_PARTS = ("dense", "moe", "xlstm_codebooks")
 TP_GATED_CASES = ((4, 4096, 1280, "bfloat16", False, True),)
 # phase 20(f), (g): the MoE configs over the (1, 2) mesh, each (part, arch,
 #  batch, prompt, new tokens, launches of one sharded prefill on each rank:
@@ -4704,6 +4721,21 @@ TP_MOE_RUNS = (("f", "qwen2-moe-a2.7b", 1, 4096, 8, (24, 0, 0), {}),
 # (1, 2) mesh (heads at Dh 64, d_expert 256; tests/torch_mesh_cases.py's
 # round config)
 TP_MOE_NARROW = {"head_dim": 64, "d_expert": 256}
+# phase 20(i), (j): xlstm-1.3b and musicgen-large whole over the (1, 2)
+#  mesh, each (part, arch, batch, prompt, new tokens, launches of one
+#  sharded prefill on each rank: K5 on the tensor cores, K5 on the CUDA
+#  cores, K6's gated entry; conditioning rows before the prompt): xlstm at
+#  phase 16's serving shape (four mLSTM chunks of 1024; every mixer whole
+#  on each rank, the cache's C, n and conv split), musicgen at phase 17's
+#  1536 positions at batch 4 (prefill takes a multiple of its 512-position
+#  chunks), its 64 conditioning rows then 1472 frames of its 4 codebooks
+#  (16 of 32 heads, 4096 of 8192 ffn columns and 1024 of 2048 rows of
+#  each codebook table a rank)
+TP_ZOO_RUNS = (("i", "xlstm-1.3b", 1, 4096, 8, (0, 0, 0), 0),
+               ("j", "musicgen-large", 4, 1472, 8, (48, 0, 0), 64))
+# phase 20(k): reduced musicgen-large whose shards hold whole int8 groups
+# on the (1, 2) mesh (tests/torch_mesh_cases.py's round config)
+TP_MUSICGEN_NARROW = {"head_dim": 128, "d_ff": 512}
 
 
 def _local_slice(torch, full, dt):
@@ -5209,8 +5241,8 @@ def tp_moe_card_vs_cpu(torch, rank: int, meshes: dict) -> dict:
     18(b) holds its int8 case; K1 and K2 counted on the card's runs."""
     import dataclasses
     import numpy as np
-    from repro_torch import configs, parity
-    from repro_torch.core import aggregate, comm, flatten
+    from repro_torch import configs
+    from repro_torch.core import aggregate, comm
     from repro_torch.kernels.flash_attention.ops import flash_attention as fa
     from repro_torch.kernels.masked_agg import ops
     from repro_torch.kernels.rglru_scan import ops as scan
@@ -5255,36 +5287,9 @@ def tp_moe_card_vs_cpu(torch, rank: int, meshes: dict) -> dict:
             torch.cuda.synchronize()
             launched = _tp_kernel_counts(ops, fa, scan)
         sides[dev] = got
-    worst = {}
-    for key in ("train", "f32", "int8"):
-        (a, la), (b, lb) = sides["cuda"][key], sides["cpu"][key]
-        if not torch.allclose(la, lb, rtol=1e-4, atol=1e-5):
-            raise RuntimeError(f"20(h) rank {rank} {key}: loss {float(la)} "
-                               f"on the card, {float(lb)} on the CPU")
-        if key == "int8":
-            layout = flatten.build_layout(a, total_multiple=2048)
-            fa_, fb = flatten.pack(layout, a), flatten.pack(layout, b)
-            spec = comm.WireSpec("int8", QB)
-            start = [x.to_local().cpu() for x in tree_leaves(
-                sharding.distribute_params(tree_map(lambda x: x.clone(),
-                                                    params), cfg,
-                                           meshes["cpu"]))]
-            bound = torch.maximum(parity.wire_step(
-                spec, flatten.pack(layout, start)),
-                parity.wire_step(spec, fb))
-            res = parity.lossy_compare(fa_, fb, bound)
-            if res["share"] > 1e-3 or res["worst"] > 1.0:
-                raise RuntimeError(f"20(h) rank {rank} int8: card vs CPU "
-                                   f"{res}")
-            worst[key] = res["max_abs"]
-            continue
-        for x, y in zip(a, b):
-            if not torch.allclose(x, y, rtol=1e-4, atol=1e-5):
-                raise RuntimeError(f"20(h) rank {rank} {key}: card against "
-                                   f"CPU max|diff| "
-                                   f"{float((x - y).abs().max()):.3e} "
-                                   f"(rtol 1e-4, atol 1e-5)")
-        worst[key] = max(float((x - y).abs().max()) for x, y in zip(a, b))
+    worst = {key: _tp_hold_rounds(torch, f"20(h) rank {rank} {key}", key,
+                                  sides, params, cfg, meshes["cpu"])
+             for key in ("train", "f32", "int8")}
     # K1 (the f32 round's fold), K2 (the int8 round's); no K5 in training
     want = (1, 1, 0, 0, 0, 0, 0)
     if launched != want:
@@ -5294,6 +5299,318 @@ def tp_moe_card_vs_cpu(torch, rank: int, meshes: dict) -> dict:
           f"rounds, card against CPU, worst {worst}; launches {launched}",
           flush=True)
     return {"launches": launched, "worst": worst}
+
+
+def tp_zoo_serving(torch, rank: int, mesh) -> list:
+    """Phase 20(i) and (j) on one rank, each config of ``TP_ZOO_RUNS`` whole
+    at its published widths (bf16, weights from seed 0): the unsharded
+    prefill and ``gen - 1`` greedy serve steps with the exit head on this
+    rank (run first, not counted), then the sharded prefill under the
+    (1, 2) policy and the sharded serve steps on its cache, fed the
+    unsharded run's tokens.  This rank's share of the prefill logits and
+    of each step's logits and exit logits (xlstm's vocab rows, musicgen's
+    codebooks: as the reference's constrain places them) within 5 % of
+    max|logit| of the unsharded; the prefill's K5 / K6 launches as
+    expected and none in decode; all-reduces only.  Prints the prefill s,
+    the decode ms a step, the collectives a step, the peak and held GiB
+    and the cache's placements."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention.ops import flash_attention as fa
+    from repro_torch.kernels.masked_agg import ops
+    from repro_torch.kernels.rglru_scan import ops as scan
+    from repro_torch.launch import sharding, steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.roofline import torch_walk
+    from repro_torch.tree import tree_leaves
+
+    def kernels():
+        return (fa.launches_tc, fa.launches, scan.lru_scan_gated.launches)
+
+    def check(label, got, want, amax):
+        d = float((got.float() - want.float()).abs().max())
+        if tuple(got.shape) != tuple(want.shape) or \
+                not d <= TP_LOGIT_RULE * amax:
+            raise RuntimeError(f"20 {label} rank {rank}: {tuple(got.shape)} "
+                               f"against the unsharded {tuple(want.shape)}, "
+                               f"{d:.4f} apart, above {TP_LOGIT_RULE} x "
+                               f"max|logit| {amax:.3f}")
+        return d
+
+    rows = []
+    for part, arch, batch, prompt, gen, expected, n_cond in TP_ZOO_RUNS:
+        cfg = configs.get_config(arch)
+        codebooks = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+        first_pos = n_cond + prompt
+        cache_len = first_pos + gen
+        torch.cuda.reset_peak_memory_stats()
+        full = tfm.init_params(torch.Generator("cuda").manual_seed(0), cfg)
+        inputs = {"tokens": torch.randint(
+            0, cfg.vocab_size, (batch, prompt) + codebooks,
+            generator=torch.Generator("cuda").manual_seed(1),
+            device="cuda")}
+        if n_cond:
+            inputs["extra_embeds"] = torch.randn(
+                (batch, n_cond, cfg.frontend.d_in), device="cuda",
+                generator=torch.Generator("cuda").manual_seed(2)).to(
+                    cfg.torch_compute_dtype())
+        want, cache = steps.make_prefill_step(cfg, cache_len=cache_len)(
+            full, inputs)
+        amax = float(want.abs().max().float())
+        first = torch.argmax(want[:, -1], dim=-1)[:, None]
+        fed, want_steps, want_exit, unsharded_s = _greedy_decode(
+            torch, steps.make_serve_step(cfg, with_exit_head=True), full,
+            cache, first, first_pos, gen - 1, 0, None)
+        unsharded_peak = torch.cuda.max_memory_allocated() / 2**30
+        amax_step = max(float(x.abs().max().float()) for x in want_steps)
+        amax_exit = max(float(x.abs().max().float()) for x in want_exit)
+        del cache
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = sharding.distribute_params(full, cfg, mesh)
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated() / 2**30
+        policy = sharding.MeshPolicy(mesh, cfg)
+        prefill = steps.make_prefill_step(cfg, policy, cache_len=cache_len)
+        torch.cuda.reset_peak_memory_stats()
+        counter = torch_walk.Collectives()
+        _tp_zero(ops, fa, scan)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with counter:
+            logits, cache = prefill(params, inputs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launched = kernels()
+        if launched != expected:
+            raise RuntimeError(f"20({part}) {arch} rank {rank}: launches K5 "
+                               f"tc / K5 f32 / K6 gated {launched}, "
+                               f"expected {expected}")
+        local = logits.to_local()
+        want = _local_slice(torch, want, logits)
+        d = max(check(f"({part}) {arch}", local[i, j:j + 1024],
+                      want[i, j:j + 1024], amax)
+                for i in range(batch) for j in range(0, local.shape[1],
+                                                     1024))
+        row = {"part": part, "arch": arch, "params": sum(
+            x.numel() for x in tree_leaves(params)), "local_params": sum(
+            x.to_local().numel() for x in tree_leaves(params)),
+               "batch": batch, "prompt": prompt, "conditioning": n_cond,
+               "unsharded_peak_gib": unsharded_peak, "held_gib": held,
+               "prefill_s": wall, "max_abs_diff": d, "max_abs_logit": amax,
+               "logits_placements": str(logits.placements),
+               "logits_local": list(local.shape),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "launches": launched, "collectives": counter.counts,
+               "collective_bytes": counter.bytes}
+        template = logits
+        del logits, local, want
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        counter = torch_walk.Collectives()
+        with counter:
+            _, got_steps, got_exit, decode_s = _greedy_decode(
+                torch, steps.make_serve_step(cfg, policy,
+                                             with_exit_head=True),
+                params, cache, fed[0], first_pos, gen - 1, 0, None,
+                feed=fed)
+        if kernels() != launched:
+            raise RuntimeError(f"20({part}) {arch} rank {rank}: K5 / K6 "
+                               f"launches {launched} after prefill, "
+                               f"{kernels()} after decode (expected none in "
+                               f"decode)")
+        for c in (row["collectives"], counter.counts):
+            if set(c) - {"all-reduce"}:
+                raise RuntimeError(f"20({part}) {arch} rank {rank}: "
+                                   f"collectives {c}: all-reduces only on "
+                                   f"the card")
+        steps_n = gen - 1
+        row.update({
+            "gen": gen, "cache_len": cache_len, "decode_steps": steps_n,
+            "decode_ms_per_step": decode_s / steps_n * 1e3,
+            "unsharded_decode_ms_per_step": unsharded_s / steps_n * 1e3,
+            "decode_max_abs_diff": max(check(
+                f"({part}) {arch} step {i}", g, _local_slice(
+                    torch, w, template), amax_step) for i, (g, w) in
+                enumerate(zip(got_steps, want_steps))),
+            "decode_max_abs_logit": amax_step,
+            "exit_max_abs_diff": max(check(
+                f"({part}) {arch} exit step {i}", g, _local_slice(
+                    torch, w, template), amax_exit) for i, (g, w) in
+                enumerate(zip(got_exit, want_exit))),
+            "exit_max_abs_logit": amax_exit,
+            "decode_peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "decode_collectives_per_step": {
+                k: v / steps_n for k, v in counter.counts.items()},
+            "decode_collective_bytes_per_step": {
+                k: v / steps_n for k, v in counter.bytes.items()},
+            "cache_placements": sorted({str(x.placements) for x in
+                                        tree_leaves(cache)})})
+        print(f"  ({part}) rank {rank} " + json.dumps(row), flush=True)
+        rows.append(row)
+        del params, cache, inputs, template, got_steps, got_exit
+        del want_steps, want_exit
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def tp_zoo_card_vs_cpu(torch, rank: int, meshes: dict) -> dict:
+    """Phase 20(k) on one rank: reduced xlstm-1.3b and reduced
+    musicgen-large (``TP_MUSICGEN_NARROW``; f32) over the (1, 2) mesh,
+    each on the card's mesh and on the CPU's (the same gloo group): the
+    train step (batch 2, 16 tokens; musicgen's with 4 conditioning rows),
+    the f32 and int8 flat rounds (K = 2, one simple, 2 local steps), and
+    a prefill of 16 tokens then 4 teacher-forced serve steps with the exit
+    head.  This rank's shards and the losses at rtol 1e-4 / atol 1e-5, the
+    int8 rounds under ``repro_torch.parity``'s rules; xlstm's training
+    runs with its sLSTM output kept in f32 on both sides
+    (``_f32_slstm_out``), and its logits, which follow that output's bf16
+    cast in serving, within 5 % of max|logit| (phase 8's rule), its
+    caches at rtol 1e-4 / atol 1e-5.  K1 and K2 once a config on the
+    card's rounds, K5 f32 on a rank's heads in musicgen's prefill."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.core import aggregate, comm
+    from repro_torch.kernels.flash_attention.ops import flash_attention as fa
+    from repro_torch.kernels.masked_agg import ops
+    from repro_torch.kernels.rglru_scan import ops as scan
+    from repro_torch.launch import sharding, steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import tree_leaves, tree_map
+
+    int8 = aggregate.EngineSpec(wire=comm.WireSpec("int8", QB))
+    launched, worst = None, {}
+    _tp_zero(ops, fa, scan)
+    for arch, over in ((XLSTM, {}), (MUSICGEN, TP_MUSICGEN_NARROW)):
+        cfg = configs.get_reduced(arch).with_overrides(**over)
+        nc = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
+        params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+        rng = np.random.default_rng(6)
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(
+            2, 17) + nc).astype(np.int32))
+        data = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(
+            2, 2, 2, 17) + nc).astype(np.int32))
+        forced = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(
+            4, 2, 1) + nc).astype(np.int32))
+        extra = {} if cfg.frontend is None else {
+            "extra_embeds": torch.as_tensor(rng.standard_normal((
+                2, cfg.frontend.n_tokens, cfg.frontend.d_in)).astype(
+                    np.float32))}
+        first = 16 + (0 if cfg.frontend is None else cfg.frontend.n_tokens)
+        simple = torch.tensor([True, False])
+        sides = {}
+        for dev in ("cuda", "cpu"):
+            mesh = meshes[dev]
+            policy = sharding.MeshPolicy(mesh, cfg)
+            ex = {k: v.to(dev) for k, v in extra.items()}
+            got = {}
+            with (_f32_slstm_out() if arch == XLSTM
+                  else contextlib.nullcontext()):
+                new, metrics = steps.make_train_step(cfg, policy)(
+                    sharding.distribute_params(tree_map(
+                        lambda x: x.to(dev), params), cfg, mesh),
+                    {"tokens": tokens.to(dev), **ex})
+                got["train"] = ([x.to_local().cpu()
+                                 for x in tree_leaves(new)],
+                                metrics["loss"].cpu())
+                for wire, engine in (("f32", None), ("int8", int8)):
+                    cohort = sharding.distribute_cohort(tree_map(
+                        lambda x: x.to(dev)[None].expand((2,) + x.shape),
+                        params), cfg, mesh)
+                    new_c, loss = steps.make_fed_round_step(
+                        cfg, policy, local_steps=2, engine=engine)(
+                            cohort, data.to(dev), simple.to(dev))
+                    got[wire] = ([x.to_local().cpu()
+                                  for x in tree_leaves(new_c)], loss.cpu())
+            placed = sharding.distribute_params(tree_map(
+                lambda x: x.to(dev), params), cfg, mesh)
+            logits, cache = steps.make_prefill_step(
+                cfg, policy, cache_len=first + 4)(
+                    placed, {"tokens": tokens[:, :16].to(dev), **ex})
+            serve = steps.make_serve_step(cfg, policy, with_exit_head=True)
+            heads = [logits.to_local().cpu()]
+            for i in range(4):
+                lg, cache, ex_lg = serve(placed, cache, {
+                    "tokens": forced[i].to(dev)}, first + i)
+                heads += [lg.to_local().cpu(), ex_lg.to_local().cpu()]
+            got["serve"] = (heads, [x.to_local().cpu()
+                                    for x in tree_leaves(cache)])
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launched = _tp_kernel_counts(ops, fa, scan)
+            sides[dev] = got
+        for key in ("train", "f32", "int8"):
+            worst[f"{arch} {key}"] = _tp_hold_rounds(
+                torch, f"20(k) {arch} rank {rank} {key}", key, sides, params,
+                cfg, meshes["cpu"])
+        (heads_a, cache_a), (heads_b, cache_b) = (sides["cuda"]["serve"],
+                                                  sides["cpu"]["serve"])
+        _tp_allclose(torch, f"20(k) {arch} rank {rank} cache", cache_a,
+                     cache_b)
+        for i, (x, y) in enumerate(zip(heads_a, heads_b)):
+            if arch != XLSTM:
+                _tp_allclose(torch, f"20(k) {arch} rank {rank} logits {i}",
+                             [x], [y])
+                continue
+            d = float((x - y).abs().max())
+            if not d <= TP_LOGIT_RULE * float(y.abs().max()):
+                raise RuntimeError(f"20(k) {arch} rank {rank}: logits {i} "
+                                   f"{d:.4f} apart card vs CPU")
+        worst[f"{arch} logits"] = max(float((x - y).abs().max())
+                                      for x, y in zip(heads_a, heads_b))
+    # per config: K1 (the f32 round's fold) and K2 (the int8 round's);
+    # musicgen's prefill: K5 f32 on a rank's 2 of 4 heads, a layer each
+    want = (2, 2, 0, 0, 0, 2, 0)
+    if launched != want:
+        raise RuntimeError(f"20(k) rank {rank}: launches K1/K2/K3/K4/K5 tc/"
+                           f"K5 f32/K6 {launched}, expected {want}")
+    print(f"  (k) rank {rank}: reduced xlstm-1.3b and musicgen-large train "
+          f"step, f32 / int8 rounds, prefill and serve, card against CPU, "
+          f"worst {worst}; launches {launched}", flush=True)
+    return {"launches": launched, "worst": worst}
+
+
+def _tp_allclose(torch, label: str, got: list, want: list) -> None:
+    for x, y in zip(got, want):
+        if not torch.allclose(x, y, rtol=1e-4, atol=1e-5):
+            raise RuntimeError(f"{label}: card against CPU max|diff| "
+                               f"{float((x - y).abs().max()):.3e} (rtol "
+                               f"1e-4, atol 1e-5)")
+
+
+def _tp_hold_rounds(torch, label: str, key: str, sides: dict, params, cfg,
+                    cpu_mesh) -> float:
+    """Phase 20(h) and (k)'s rule for a narrow ``key`` run ("train", "f32"
+    or "int8": ``(local shards, loss)`` on each side): the loss at rtol
+    1e-4 / atol 1e-5; the shards at the same, or for the int8 round under
+    ``repro_torch.parity``'s lossy-wire rules from the start ``params``
+    placed on ``cpu_mesh``.  Returns the largest difference."""
+    from repro_torch import parity
+    from repro_torch.core import comm, flatten
+    from repro_torch.launch import sharding
+    from repro_torch.tree import tree_leaves, tree_map
+    (a, la), (b, lb) = sides["cuda"][key], sides["cpu"][key]
+    if not torch.allclose(la, lb, rtol=1e-4, atol=1e-5):
+        raise RuntimeError(f"{label}: loss {float(la)} on the card, "
+                           f"{float(lb)} on the CPU")
+    if key != "int8":
+        _tp_allclose(torch, label, a, b)
+        return max(float((x - y).abs().max()) for x, y in zip(a, b))
+    layout = flatten.build_layout(a, total_multiple=2048)
+    fa, fb = flatten.pack(layout, a), flatten.pack(layout, b)
+    spec = comm.WireSpec("int8", QB)
+    start = [x.to_local().cpu() for x in tree_leaves(
+        sharding.distribute_params(tree_map(lambda x: x.clone(), params),
+                                   cfg, cpu_mesh))]
+    bound = torch.maximum(parity.wire_step(spec, flatten.pack(layout, start)),
+                          parity.wire_step(spec, fb))
+    res = parity.lossy_compare(fa, fb, bound)
+    if res["share"] > 1e-3 or res["worst"] > 1.0:
+        raise RuntimeError(f"{label}: card vs CPU {res}")
+    return res["max_abs"]
 
 
 def tp_card_vs_cpu(torch, rank: int, meshes: dict) -> dict:
@@ -5369,11 +5686,12 @@ def tp_card_vs_cpu(torch, rank: int, meshes: dict) -> dict:
 
 
 def tp_rank(rank: int, world: int, store: str, work: str,
-            parts: tuple = ("dense", "moe")) -> None:
+            parts: tuple = TP_PARTS) -> None:
     """One rank of phase 20 (spawned by :func:`tp_phase`): gloo over a
     FileStore, the (1, 2) meshes on the card and on the CPU, then (a)-(e)
-    (``"dense"`` in ``parts``) and (f)-(h) (``"moe"``); writes
-    ``rank<r>.pt`` (or the traceback to ``rank<r>.err``, and raises)."""
+    (``"dense"`` in ``parts``), (f)-(h) (``"moe"``) and (i)-(k)
+    (``"xlstm_codebooks"``); writes ``rank<r>.pt`` (or the traceback to
+    ``rank<r>.err``, and raises)."""
     import faulthandler
     import torch
     import torch.distributed as dist
@@ -5395,6 +5713,9 @@ def tp_rank(rank: int, world: int, store: str, work: str,
         if "moe" in parts:
             out["moe"] = tp_moe_serving(torch, rank, world, meshes["cuda"])
             out["moe_narrow"] = tp_moe_card_vs_cpu(torch, rank, meshes)
+        if "xlstm_codebooks" in parts:
+            out["zoo"] = tp_zoo_serving(torch, rank, meshes["cuda"])
+            out["zoo_narrow"] = tp_zoo_card_vs_cpu(torch, rank, meshes)
         torch.save(out, os.path.join(work, f"rank{rank}.pt"))
         dist.destroy_process_group()
     except BaseException:
@@ -5429,16 +5750,17 @@ def _tp_local_layout(torch, cfg):
 
 
 def tp_phase(torch, ops, ref, bw: float, unsharded,
-             parts: tuple = ("dense", "moe")) -> dict:
+             parts: tuple = TP_PARTS) -> dict:
     """Phase 20: the model axis on the card.  Phase 18(a)'s unsharded
     rounds are saved for the ranks, the card's memory is released, two
-    rank processes run (a)-(e) and the MoE cells (f)-(h) (:func:`tp_rank`;
-    each raises on a failed check, and a rank's failure fails the phase),
-    then K1 and K2 at the rank's local n_flat, K5 at a rank's heads and
-    K6's gated entry at a rank's channels are held to their plain versions
-    and timed here, the card to themselves.  ``parts`` (``"dense"``,
-    ``"moe"``) picks the cells; with the MoE cells alone ``unsharded`` is
-    not read and only K5 is timed."""
+    rank processes run (a)-(e), the MoE cells (f)-(h) and the xLSTM and
+    codebook cells (i)-(k) (:func:`tp_rank`; each raises on a failed
+    check, and a rank's failure fails the phase), then K1 and K2 at the
+    rank's local n_flat, K5 at a rank's heads and K6's gated entry at a
+    rank's channels are held to their plain versions and timed here, the
+    card to themselves.  ``parts`` (``TP_PARTS``) picks the cells; without
+    ``"dense"`` ``unsharded`` is not read and only K5 is timed, at the
+    shapes of the parts run."""
     import torch.multiprocessing as mp
     from repro_torch import configs
     from repro_torch.kernels import build
@@ -5480,8 +5802,10 @@ def tp_phase(torch, ops, ref, bw: float, unsharded,
     out = {"ranks": ranks, "saved_s": saved, "ranks_s": ranks_s}
     print(f"  phase 18(a)'s rounds saved in {saved:.1f} s; the two ranks "
           f"in {ranks_s:.1f} s", flush=True)
+    out["k5"] = check_flash(torch, bw, [
+        c for c, part in zip(TP_FLASH_CASES, TP_FLASH_PARTS)
+        if part in parts])
     if "dense" not in parts:
-        out["k5"] = check_flash(torch, bw, TP_FLASH_CASES[1:])
         return out
     launches = [r["round"]["runs"][0]["launches"][0]
                 + r["round"]["runs"][1]["launches"][1] for r in ranks]
@@ -5497,20 +5821,22 @@ def tp_phase(torch, ops, ref, bw: float, unsharded,
                                keys=("k1",))["k1"]
     del mask
     torch.cuda.empty_cache()
-    out["k5"] = check_flash(torch, bw, TP_FLASH_CASES)
     out["k6"] = check_scan(torch, bw, (), TP_GATED_CASES)
-    moe = "moe" in parts
+
+    def narrow(r, i):
+        return sum(r[key]["launches"][i] for key in ("moe_narrow",
+                                                     "zoo_narrow") if key in r)
     out["launches"] = {
-        "k1": sum(r["round"]["runs"][0]["launches"][0]
-                  + (r["moe_narrow"]["launches"][0] if moe else 0)
+        "k1": sum(r["round"]["runs"][0]["launches"][0] + narrow(r, 0)
                   for r in ranks),
-        "k2": sum(r["round"]["runs"][1]["launches"][1]
-                  + (r["moe_narrow"]["launches"][1] if moe else 0)
+        "k2": sum(r["round"]["runs"][1]["launches"][1] + narrow(r, 1)
                   for r in ranks),
         "k4": sum(r["narrow"]["launches"][3] for r in ranks),
         "k5_tc": sum(p["launches"][0] for r in ranks
-                     for p in r["prefill"] + r.get("moe", [])),
-        "k5_f32": sum(r["narrow"]["launches"][5] for r in ranks),
+                     for p in r["prefill"] + r.get("moe", [])
+                     + r.get("zoo", [])),
+        "k5_f32": sum(r["narrow"]["launches"][5] + narrow(r, 5)
+                      for r in ranks),
         "k6": sum(p["launches"][2] for r in ranks for p in r["prefill"])}
     print(f"  phase 20 launches over both ranks {out['launches']} "
           f"({launches} K1 + K2 a rank) in {time.perf_counter() - t:.1f} s",
@@ -5519,10 +5845,12 @@ def tp_phase(torch, ops, ref, bw: float, unsharded,
 
 
 def tp_phase_alone(torch, ops, ref, bw: float,
-                   parts: tuple = ("dense", "moe")) -> dict:
+                   parts: tuple = TP_PARTS) -> dict:
     """Phase 20 run alone: phase 18(a)'s two unsharded rounds first (as
     phase 19 runs them when alone), then :func:`tp_phase`; with ``parts``
-    ``("moe",)`` the MoE cells (f)-(h) alone, without those rounds."""
+    ``("moe",)`` the MoE cells (f)-(h) alone and with
+    ``("xlstm_codebooks",)`` the cells (i)-(k) alone, without those
+    rounds."""
     if "dense" not in parts:
         return tp_phase(torch, ops, ref, bw, None, parts)
     from repro_torch import configs
@@ -5680,10 +6008,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 20. a live model axis: two ranks share the card over gloo
     print("[20] a live model axis: Gemma-2 2B's step rounds, minitron-8b, "
-          "recurrentgemma-2b, gemma2-2b, qwen2-moe-a2.7b and kimi-k2 (1 "
-          "layer) prefilled and served on sharded caches at full width, two "
-          "ranks sharing the card (gloo, a (1, 2) mesh); narrow card vs CPU "
-          "(dense, MoE)", flush=True)
+          "recurrentgemma-2b, gemma2-2b, qwen2-moe-a2.7b, kimi-k2 (1 "
+          "layer), xlstm-1.3b and musicgen-large prefilled and served on "
+          "sharded caches at full width, two ranks sharing the card (gloo, "
+          "a (1, 2) mesh); narrow card vs CPU (dense, MoE, xLSTM and "
+          "codebooks)", flush=True)
     tp = tp_phase(torch, ops, ref, bw, unsharded)
     del unsharded
 
@@ -5887,20 +6216,24 @@ def main() -> int:
                "mesh: ")
     for name, key, path, row in (
             ("masked_agg_acc", "k1", "(a) Gemma-2 2B's f32 step round at "
-             "full width, (h) reduced qwen2-moe's f32 round",
+             "full width, (h) reduced qwen2-moe's f32 round, (k) reduced "
+             "xlstm-1.3b's and musicgen-large's f32 rounds",
              tp["k1"]["timing"][0]),
             ("masked_agg_acc_deq", "k2", "(a) Gemma-2 2B's int8 step round "
-             "at full width, (h) reduced qwen2-moe's int8 round",
+             "at full width, (h) reduced qwen2-moe's int8 round, (k) "
+             "reduced xlstm-1.3b's and musicgen-large's int8 rounds",
              tp["k2"]["timing"][0]),
             ("masked_agg", "k4", "(d) the narrow tree round on the card",
              None),
             ("flash_attention_wgmma", "k5_tc", "(b) minitron-8b on 16 of 32 "
              "heads, (c) recurrentgemma-2b and (e) gemma2-2b replicated, "
              "(f) qwen2-moe-a2.7b on 8 of 16 heads, (g) kimi-k2-1t-a32b "
-             "(1 layer) on 32 of 64, each prefill then served on its "
-             "sharded cache", tp["k5"]["timing"][0]),
+             "(1 layer) on 32 of 64, (j) musicgen-large on 16 of 32, each "
+             "prefill then served on its sharded cache",
+             tp["k5"]["timing"][0]),
             ("flash_attention", "k5_f32", "(d) the narrow f32 prefill on "
-             "the card", None),
+             "the card, (k) reduced musicgen-large's f32 prefill on 2 of 4 "
+             "heads", None),
             ("lru_scan", "k6", "(c) recurrentgemma-2b on 1280 of 2560 "
              "channels", tp["k6"]["timing"][0])):
         kernel = by_name[name]

@@ -43,7 +43,7 @@ def _resnet_ce(logits, labels):
     1.9e-5 off at atol 1e-5, a cv row 1.2e-6 off at atol 1e-6, an int8
     gradient), and under it one client of ``chip_smoke.py``'s narrow
     compressed round trains on the card to deltas 2.1e-3 away from the
-    CPU's (ROADMAP section 3 item 5)."""
+    CPU's (ROADMAP section 3 item 3)."""
     return F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
                            labels.reshape(-1).long())
 
@@ -137,7 +137,10 @@ class LMAdapter:
         """Mean CE between the ``head`` logits of ``h`` and ``labels``,
         over the token positions (the first ``extra.shape[1]`` positions
         of ``h`` are the frontend's); with codebooks, each chunk's sum is
-        the codebooks' CE sums added in order and divided by their count.
+        the codebooks' CE sums added in order and divided by their count
+        (over a live model axis the logits may be sharded over their
+        codebooks, and the sum is reduced before the division:
+        ``common.codebook_cross_entropy_sum``).
 
         A sequence longer than ``2 * chunk`` that ``chunk`` divides is
         summed chunk by chunk, in order, into an f32 scalar, each chunk
@@ -156,12 +159,7 @@ class LMAdapter:
                                             self.policy)
             if nc == 1:
                 return common.softmax_cross_entropy_sum(logits, lab_c)
-            total = common.softmax_cross_entropy_sum(logits[..., 0, :],
-                                                     lab_c[..., 0])
-            for c in range(1, nc):
-                total = total + common.softmax_cross_entropy_sum(
-                    logits[..., c, :], lab_c[..., c])
-            return total / nc
+            return common.codebook_cross_entropy_sum(logits, lab_c) / nc
 
         n_tok = b * s
         if s <= 2 * chunk or s % chunk:

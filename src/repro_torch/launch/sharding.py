@@ -48,10 +48,12 @@ by :func:`param_specs` (:func:`distribute_params`, a cohort by
 on them: plain PyTorch ops under DTensor's sharding propagation, every
 hand-written kernel and the MoE block's routing, dispatch and combine on
 each rank's local shards through ``local_map``
-(``models/common.local_apply``).  Configs and paths the port does not run
-under a model axis raise ``NotImplementedError`` naming their queued
-``ROADMAP.md`` item, where the policy is built (:func:`out_of_scope`) or
-where the step is: xLSTM, codebook tables, the ``seq2d`` / ``dp2d`` /
+(``models/common.local_apply``); the xLSTM blocks, whose weights stay
+replicated, run whole on each rank's rows, and a codebook stack's
+embedding and heads are vocab-parallel.  Configs and paths the port does
+not run under a model axis raise ``NotImplementedError`` naming their
+queued ``ROADMAP.md`` item, where the policy is built
+(:func:`out_of_scope`) or where the step is: the ``seq2d`` / ``dp2d`` /
 ``seq2d_fsdp`` variants, the compressed wire and SCAFFOLD.  None of them
 replicates silently.  The serve step reads the
 cache as :func:`cache_specs` places it, ``kv_seq`` rows included, and
@@ -75,8 +77,6 @@ Tree = Any
 
 # what the port does not run over a live model axis larger than 1, each
 # with its queued ROADMAP.md item
-TODO_XLSTM = ("xLSTM blocks and codebook tables over the model axis: "
-              "ROADMAP.md §1 item 12")
 TODO_TOPK = ("the compressed wire's global top-k over the model axis: "
              "ROADMAP.md §1 item 13")
 TODO_SCAFFOLD = "SCAFFOLD under a model axis: ROADMAP.md §1 item 14"
@@ -129,8 +129,6 @@ def _names(entry) -> Tuple[str, ...]:
 def out_of_scope(cfg: ModelConfig) -> Optional[str]:
     """Why ``cfg`` does not run over a live model axis larger than 1, or
     ``None`` where it does."""
-    if cfg.arch_type == "ssm" or cfg.n_codebooks > 1:
-        return TODO_XLSTM
     if cfg.attn_shard in ("seq2d", "seq2d_fsdp", "dp2d"):
         return TODO_SEQ2D
     return None

@@ -282,7 +282,7 @@ def _on_local_heads(fn, q, k, v):
     g = h // kh
     if list(k.placements) != list(v.placements):
         k, v = common.unshard(k, 2), common.unshard(v, 2)
-    sharded = [i for i, pl in enumerate(q.placements) if pl.is_shard(2)]
+    sharded = common.sharding_dims(q, 2)
     if list(q.placements) != list(k.placements) and len(sharded) == 1 and \
             not any(pl.is_shard(2) for pl in k.placements):
         i = sharded[0]
@@ -446,8 +446,8 @@ def _attend_sharded(q, k, v, valid: torch.Tensor, softcap_val: float):
       global max."""
     from torch.distributed.tensor import DTensor, Replicate
     mesh = k.device_mesh
-    seq = [i for i, pl in enumerate(k.placements) if pl.is_shard(1)]
-    dh = [i for i, pl in enumerate(k.placements) if pl.is_shard(3)]
+    seq = common.sharding_dims(k, 1)
+    dh = common.sharding_dims(k, 3)
     place = [Replicate() if pl.is_shard(1) else pl for pl in k.placements]
     q = q.redistribute(mesh, place)
     ql, kl, vl = q.to_local(), k.to_local(), v.to_local()

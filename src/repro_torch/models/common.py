@@ -16,7 +16,8 @@ DTensors: :func:`local_apply` runs a function of local tensors (a kernel,
 or a computation that separates along the sharded dims) on each rank's
 shards, and :func:`apply_embedding` looks a vocabulary-sharded table up
 that way (the vocab-parallel embedding); :func:`all_reduce` reduces a
-local tensor over mesh dims (decode's merges over a sharded cache).
+local tensor over mesh dims (decode's merges over a sharded cache), and
+:func:`gather_by_sum` gathers a sharded dim by one such all-reduce.
 
 An init function given a :class:`ShapeGenerator` (device ``meta``) makes
 ``meta`` tensors of its leaves' shapes and dtypes and draws nothing:
@@ -114,6 +115,54 @@ def all_reduce(x: torch.Tensor, op: str, mesh, dims) -> torch.Tensor:
     for d in dims:
         x = funcol.wait_tensor(funcol.all_reduce(x, op, (mesh, d)))
     return x
+
+
+def gather_by_sum(x: torch.Tensor, dim: int, start: int, size: int, mesh,
+                  dims) -> torch.Tensor:
+    """A local slice ``x`` (rows ``[start, start + x.shape[dim])`` of a dim
+    of ``size`` rows, split over the mesh dims ``dims``) whole on every
+    rank: the slice written into a zeroed buffer at its offset, then one
+    SUM :func:`all_reduce` over ``dims``.  Exactly the gathered tensor
+    (each row has one nonzero term), except that the sum turns -0.0 into
+    +0.0.  It replaces an all-gather, which gloo's functional collectives
+    cannot run on CUDA tensors (``launch/probe_gloo.py``).  With no
+    ``dims`` it is ``x``."""
+    if not dims:
+        return x
+    shape = list(x.shape)
+    shape[dim] = size
+    buf = x.new_zeros(shape)
+    buf.narrow(dim, start, x.shape[dim]).copy_(x)
+    return all_reduce(buf, "sum", mesh, dims)
+
+
+class GatherBySum(torch.autograd.Function):
+    """:func:`gather_by_sum` over ``dims`` under autograd.  The backward
+    takes the gathered tensor's gradient at this rank's rows, first summed
+    over ``sum_dims`` (one all-reduce each): the mesh dims whose ranks each
+    use another part of the gathered tensor (their terms of the loss
+    differ).  Where every rank uses it whole and alike its gradient is
+    replicated, and ``sum_dims`` is empty."""
+
+    @staticmethod
+    def forward(ctx, x, dim, start, size, mesh, dims, sum_dims):
+        ctx.slot = (dim, start, x.shape[dim], mesh, tuple(sum_dims))
+        return gather_by_sum(x, dim, start, size, mesh, dims)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, start, n, mesh, sum_dims = ctx.slot
+        if sum_dims:
+            g = all_reduce(g.contiguous(), "sum", mesh, sum_dims)
+        return (g.narrow(dim, start, n).contiguous(),) + (None,) * 6
+
+
+def sharding_dims(x, dim: int) -> list:
+    """The mesh dims whose placement of DTensor ``x`` shards its dim
+    ``dim`` (none for a plain tensor)."""
+    if not is_dtensor(x):
+        return []
+    return [i for i, pl in enumerate(x.placements) if pl.is_shard(dim)]
 
 
 class ShapeGenerator:
@@ -286,6 +335,37 @@ def _vocab_lookup(table, tokens: torch.Tensor, scale: bool):
     return local_apply(lookup, out, table, tokens)
 
 
+def codebook_lookup(tables, tokens: torch.Tensor):
+    """Each codebook's rows of ``tokens`` (..., NC) in the (NC, V, D)
+    tables sharded over their vocabulary (a DTensor ``Shard(1)``), stacked
+    (..., NC, D) in the tables' dtype, through ``local_map``: each rank
+    looks up the ids in its own rows, as :func:`_vocab_lookup` does, so the
+    output is ``Partial`` over each mesh dim that shards the vocabulary,
+    with exactly one nonzero term a row.  The caller reduces it (one
+    all-reduce of every codebook's rows at once).  The tables' gradient
+    lands in the holding rank's rows, ``Partial`` over a mesh dim that
+    shards the ids' batch."""
+    from torch.distributed.tensor import Partial
+    start = shard_offset(tables, 1)
+    ids_place = tokens.placements if is_dtensor(tokens) else None
+    out = [Partial() if pl.is_shard(1) else
+           ids_place[i] if ids_place is not None else pl
+           for i, pl in enumerate(tables.placements)]
+    grad = [Partial() if ids_place is not None and ids_place[i].is_shard()
+            else pl for i, pl in enumerate(tables.placements)]
+
+    def lookup(local, ids):
+        ids = ids.long() - start
+        inside = (ids >= 0) & (ids < local.shape[1])
+        safe = torch.where(inside, ids, 0)
+        rows = torch.stack([local[c][safe[..., c]]
+                            for c in range(local.shape[0])], dim=-2)
+        return torch.where(inside[..., None], rows, torch.zeros_like(rows))
+
+    return local_apply(lookup, out, tables, tokens,
+                       in_grad_placements=(grad, None))
+
+
 def apply_unembedding(p: dict, h: torch.Tensor) -> torch.Tensor:
     """Logits against the (tied) table: ``h @ table.T`` in ``h.dtype``."""
     return torch.matmul(h, p["table"].t())
@@ -337,11 +417,11 @@ def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     sharded = is_dtensor(logits) and any(
         p.is_shard(logits.dim() - 1) for p in logits.placements)
     if sharded:
-        m = _reduce_partial(m)        # Partial(max) -> an all-reduce
+        m = reduce_partial(m)        # Partial(max) -> an all-reduce
     shifted = (logits - m).float()
     total = torch.sum(torch.exp(shifted), dim=-1)
     if sharded:
-        total = _reduce_partial(total)    # an all-reduce, never a scatter
+        total = reduce_partial(total)    # an all-reduce, never a scatter
         gold = _gold_logit(logits, labels)
     else:
         gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
@@ -372,10 +452,49 @@ def _gold_logit(logits, labels: torch.Tensor) -> torch.Tensor:
         g = torch.gather(local, -1, torch.where(inside, ids, 0)[..., None])
         return torch.where(inside, g[..., 0], torch.zeros_like(g[..., 0]))
 
-    return _reduce_partial(local_apply(pick, out, logits, labels))
+    return reduce_partial(local_apply(pick, out, logits, labels))
 
 
-def _reduce_partial(x):
+def codebook_cross_entropy_sum(logits: torch.Tensor,
+                               labels: torch.Tensor) -> torch.Tensor:
+    """The codebooks' NLL sums added in order, in f32: logits (..., NC,
+    V), labels (..., NC).
+
+    Logits sharded over their codebook dim (a DTensor) are summed on each
+    rank's codebooks over the whole vocabulary, through ``local_map``: a
+    ``Partial`` sum over the mesh dims that shard the codebooks (and over
+    those that shard the batch), whose codebook dims are reduced here (an
+    all-reduce), so that it holds the sum of every codebook.  The ranks'
+    sums are added in another order than one rank's."""
+    cdim = logits.dim() - 2
+    cdims = sharding_dims(logits, cdim)
+    if not cdims:
+        total = softmax_cross_entropy_sum(logits[..., 0, :], labels[..., 0])
+        for c in range(1, logits.shape[cdim]):
+            total = total + softmax_cross_entropy_sum(logits[..., c, :],
+                                                      labels[..., c])
+        return total
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = logits.device_mesh
+    if not is_dtensor(labels):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    # the labels placed as the logits' leading dims (no collective: the
+    # logits are never sharded on their vocabulary here)
+    labels = labels.redistribute(mesh, [
+        pl if pl.is_shard() else Replicate() for pl in logits.placements])
+    out = [Partial() if pl.is_shard() else pl for pl in logits.placements]
+
+    def nll(local, lab):
+        return codebook_cross_entropy_sum(local, lab)
+
+    total = local_apply(nll, out, logits, labels)
+    return total.redistribute(mesh, [
+        Replicate() if i in cdims else pl
+        for i, pl in enumerate(total.placements)])
+
+
+def reduce_partial(x):
     """A DTensor's ``Partial`` placements reduced (all-reduces), the
     others kept."""
     from torch.distributed.tensor import Replicate

@@ -49,7 +49,8 @@ Decode takes no frontend, as the reference's does.
 The entry points take the reference's sharding ``policy`` (default
 :data:`common.NO_POLICY`) and constrain the same activations; the blocks
 hand it to attention, whose ``seq2d`` branch runs ``chunk2d_attention``
-(in prefill only on ``meta``; with values prefill keeps K5).
+(in prefill only on ``meta``; with values prefill keeps K5), and to the
+xLSTM mixers.
 :func:`abstract_params` and ``init_cache(..., device="meta")`` give the
 trees of :func:`init_params` and :func:`init_cache` as ``meta`` tensors,
 the counterpart of the reference's ``jax.eval_shape`` of them.
@@ -195,9 +196,9 @@ def apply_block(p: Params, spec: LayerSpec, h: torch.Tensor,
     elif spec.mixer == RGLRU:
         m = rglru.apply_rglru_train(p["mixer"], x, cfg, policy)
     elif spec.mixer == MLSTM:
-        m = xlstm.apply_mlstm(p["mixer"], x, cfg)
+        m = xlstm.apply_mlstm(p["mixer"], x, cfg, policy)
     else:
-        m = xlstm.apply_slstm(p["mixer"], x, cfg)
+        m = xlstm.apply_slstm(p["mixer"], x, cfg, policy)
     m = policy.constrain(m, ("batch", "seq", None))
     h, aux = _apply_mlp(p, spec, h + m, cfg, policy=policy)
     return policy.constrain(h, ("batch", "seq", None)), aux
@@ -222,9 +223,11 @@ def apply_block_prefill(p: Params, spec: LayerSpec, h: torch.Tensor,
         m, cache = rglru.apply_rglru(p["mixer"], x, cfg, return_state=True,
                                      policy=policy)
     elif spec.mixer == MLSTM:
-        m, cache = xlstm.apply_mlstm(p["mixer"], x, cfg, return_state=True)
+        m, cache = xlstm.apply_mlstm(p["mixer"], x, cfg, policy,
+                                     return_state=True)
     else:
-        m, cache = xlstm.apply_slstm(p["mixer"], x, cfg, return_state=True)
+        m, cache = xlstm.apply_slstm(p["mixer"], x, cfg, policy,
+                                     return_state=True)
     m = policy.constrain(m, ("batch", "seq", None))
     h, aux = _apply_mlp(p, spec, h + m, cfg, policy=policy)
     return policy.constrain(h, ("batch", "seq", None)), cache, aux
@@ -264,9 +267,11 @@ def apply_block_decode(p: Params, spec: LayerSpec, h: torch.Tensor,
         m, cache = rglru.apply_rglru_decode(p["mixer"], x, cache, cfg,
                                             policy)
     elif spec.mixer == MLSTM:
-        m, cache = xlstm.apply_mlstm_decode(p["mixer"], x, cache, cfg)
+        m, cache = xlstm.apply_mlstm_decode(p["mixer"], x, cache, cfg,
+                                            policy)
     else:
-        m, cache = xlstm.apply_slstm_decode(p["mixer"], x, cache, cfg)
+        m, cache = xlstm.apply_slstm_decode(p["mixer"], x, cache, cfg,
+                                            policy)
     m = policy.constrain(m, ("batch", "seq", None))
     h, aux = _apply_mlp(p, spec, h + m, cfg, one_group=True, policy=policy)
     return h, cache, aux
@@ -325,15 +330,28 @@ def embed_inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
     Codebooks: the tables' rows summed in the tables' dtype, codebook 0
     first, one rounding an add (the reference's ``sum(parts)``), times
-    ``sqrt(d_model)`` rounded to that dtype.  ``extra_embeds`` (B, N,
+    ``sqrt(d_model)`` rounded to that dtype; tables sharded over their
+    vocabulary are looked up on each rank's rows
+    (``common.codebook_lookup``) and reduced once before the adds.  ``extra_embeds`` (B, N,
     d_in): projected by ``frontend_proj`` in the compute dtype and
     prepended along the sequence."""
     cd = cfg.torch_compute_dtype()
     if cfg.n_codebooks > 1:
-        tables = torch.unbind(params["embed"]["tables"], 0)
-        h = tables[0][tokens[..., 0]]
-        for c in range(1, cfg.n_codebooks):
-            h = h + tables[c][tokens[..., c]]
+        tables = params["embed"]["tables"]
+        if common.sharding_dims(tables, 1):
+            # each (token, codebook) row is held by one rank: one
+            # all-reduce of every codebook's rows is exact, and the adds
+            # below are then the unsharded ones, bitwise
+            rows = common.reduce_partial(common.codebook_lookup(tables,
+                                                                tokens))
+            parts = [rows[..., c, :] for c in range(cfg.n_codebooks)]
+        else:
+            tabs = torch.unbind(tables, 0)
+            parts = [tabs[c][tokens[..., c]]
+                     for c in range(cfg.n_codebooks)]
+        h = parts[0]
+        for part in parts[1:]:
+            h = h + part
         h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32,
                              device=h.device).to(h.dtype)
     else:
@@ -357,8 +375,11 @@ def logits_from_hidden(params: Params, cfg: ModelConfig, h: torch.Tensor,
     if cfg.n_codebooks > 1:
         tables = params["embed"]["tables"].to(h.dtype)      # (NC, V, D)
         nc, v, d = tables.shape
-        logits = torch.matmul(h, tables.reshape(nc * v, d).t()).unflatten(
-            -1, (nc, v))
+        if common.sharding_dims(tables, 1):
+            logits = _codebook_logits_sharded(h, tables, policy)
+        else:
+            logits = torch.matmul(h, tables.reshape(nc * v, d).t()
+                                  ).unflatten(-1, (nc, v))
     elif cfg.tie_embeddings:
         logits = common.apply_unembedding(
             {"table": params["embed"]["table"].to(h.dtype)}, h)
@@ -366,6 +387,51 @@ def logits_from_hidden(params: Params, cfg: ModelConfig, h: torch.Tensor,
         logits = torch.matmul(h, params["unembed"]["w"].to(h.dtype))
     logits = common.softcap(logits, cfg.final_logit_softcap)
     return policy.constrain(logits, ("batch", "seq", "vocab"))
+
+
+def _codebook_logits_sharded(h, tables, policy: Policy):
+    """The codebook heads' (B, S, NC, V) logits from the vocab-sharded
+    tables, placed as the reference's ``("batch", "seq", "vocab")``
+    constrain resolves on them: the vocab rule lands on the codebook dim,
+    so they are sharded over the codebooks where NC divides the model
+    axis, and whole otherwise.  Redistributing vocab-parallel logits there
+    would take an all-to-all or an all-gather; so each rank computes its
+    vocabulary's logits of every codebook, the vocabulary is gathered by
+    one all-reduce (``common.GatherBySum``) and the rank keeps its
+    codebooks.  In the backward the codebooks' gradients are summed over
+    the ranks that split them (an all-reduce), and ``h``'s gradient is
+    ``Partial`` over the vocabulary's ranks."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from repro_torch.launch.sharding import shard_rows, to_placements
+    mesh = tables.device_mesh
+    nc, v, d = tables.shape
+    vdims = common.sharding_dims(tables, 1)
+    cdim = h.dim() - 1
+    target = to_placements(policy.spec(tuple(h.shape[:-1]) + (nc, v), (
+        "batch", "seq", "vocab")), policy.mesh)
+    cdims = [i for i, pl in enumerate(target) if pl.is_shard(cdim)]
+    c0, c1 = 0, nc
+    for i in cdims:
+        lo, hi = shard_rows(c1 - c0, mesh.get_local_rank(i), mesh.size(i))
+        c0, c1 = c0 + lo, c0 + hi
+    out = [Shard(cdim) if i in cdims else Replicate() if i in vdims else pl
+           for i, pl in enumerate(h.placements)]
+    h_grad = [Partial() if i in vdims else pl
+              for i, pl in enumerate(h.placements)]
+    t_grad = [Partial() if h.placements[i].is_shard() else pl
+              for i, pl in enumerate(tables.placements)]
+    v0 = common.shard_offset(tables, 1)
+
+    def heads(hl, tl):
+        vl = tl.shape[1]
+        lv = torch.matmul(hl, tl.reshape(nc * vl, d).t()).unflatten(
+            -1, (nc, vl))
+        full = common.GatherBySum.apply(lv, cdim + 1, v0, v, mesh, vdims,
+                                        cdims)
+        return full.narrow(cdim, c0, c1 - c0)
+
+    return common.local_apply(heads, out, h, tables,
+                              in_grad_placements=(h_grad, t_grad))
 
 
 def _merge_aux(a, b):

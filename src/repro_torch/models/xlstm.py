@@ -32,6 +32,15 @@ Traps the port follows: ``log_sigmoid(x)`` is ``-logaddexp(-x, 0)``;
 rounded to k's dtype; m starts at -1e30 for the mLSTM and at 0 for the
 sLSTM (n at 1e-6); ``_slstm_out`` casts the cell output to bf16 even in
 an f32 config.
+
+Over a live model axis the blocks take the reference's ``policy``: its
+specs keep every mixer weight replicated, so training and prefill run
+each block whole on each rank's rows (:func:`_on_rows`), while the decode
+cache is split (the mLSTM's ``C`` over its value index, ``n`` over its
+key index, ``conv`` over its channels, and the sLSTM's ``n``), so each
+decode step computes on each rank's slices and gathers what a whole head
+needs by all-reduces (:func:`_mlstm_decode_sharded`); the sLSTM gathers
+its ``n`` and runs whole (:func:`_slstm_decode_sharded`).
 """
 
 from __future__ import annotations
@@ -44,9 +53,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common
+from repro_torch.models.common import NO_POLICY, Policy
 from repro_torch.models.mlp import gelu
+from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 _M0 = -1e30          # the mLSTM's initial running max
+_SLSTM_STATE = ("c", "n", "h", "m")
 
 
 def swish(x: torch.Tensor) -> torch.Tensor:
@@ -109,15 +121,11 @@ def _causal_conv(w: torch.Tensor, x: torch.Tensor,
     return out
 
 
-def _mlstm_qkv_gates(p: dict, h_in: torch.Tensor, cfg: ModelConfig,
-                     conv_window: Optional[torch.Tensor] = None):
-    """Shared pre-computation.  h_in (B, S, D) -> (x, z, q, k, v, i_raw,
-    log_f): the conv'd, swished activation feeds q, k and the gates; v
-    takes the raw up-projection."""
+def _mlstm_heads(p: dict, x: torch.Tensor, xc: torch.Tensor,
+                 cfg: ModelConfig):
+    """(q, k, v, i_raw, log_f) from x and xc (B, S, Di): xc feeds q, k and
+    the gates; v takes the raw up-projection."""
     di, nh, dh = _mlstm_dims(cfg)
-    x = torch.matmul(h_in, p["w_up"].to(h_in.dtype))
-    z = torch.matmul(h_in, p["w_gate"].to(h_in.dtype))
-    xc = swish(_causal_conv(p["conv"].to(x.dtype), x, conv_window))
     b, s, _ = x.shape
     xch = xc.reshape(b, s, nh, dh)
     xh = x.reshape(b, s, nh, dh)
@@ -130,7 +138,17 @@ def _mlstm_qkv_gates(p: dict, h_in: torch.Tensor, cfg: ModelConfig,
                          device=k.device).to(k.dtype)
     gates = torch.matmul(xc.float(), p["w_if"]) + p["b_if"]
     i_raw, f_raw = gates[..., :nh], gates[..., nh:]          # (B, S, NH)
-    return x, z, q, k, v, i_raw, log_sigmoid(f_raw)
+    return q, k, v, i_raw, log_sigmoid(f_raw)
+
+
+def _mlstm_qkv_gates(p: dict, h_in: torch.Tensor, cfg: ModelConfig,
+                     conv_window: Optional[torch.Tensor] = None):
+    """Shared pre-computation.  h_in (B, S, D) -> (x, z, q, k, v, i_raw,
+    log_f)."""
+    x = torch.matmul(h_in, p["w_up"].to(h_in.dtype))
+    z = torch.matmul(h_in, p["w_gate"].to(h_in.dtype))
+    xc = swish(_causal_conv(p["conv"].to(x.dtype), x, conv_window))
+    return (x, z) + _mlstm_heads(p, x, xc, cfg)
 
 
 def _mlstm_out(p: dict, h_cell: torch.Tensor, z: torch.Tensor,
@@ -262,19 +280,35 @@ def mlstm_chunked(q, k, v, i_raw, log_f, chunk: int = 64,
     return h, {"C": C, "n": n, "m": m}
 
 
-def apply_mlstm(p: dict, h_in: torch.Tensor, cfg: ModelConfig,
-                return_state: bool = False):
-    """Training and prefill.  (B, S, D) -> (B, S, D); ``return_state``
-    also returns the decode cache: the chunked form's final state and the
-    last three steps of the PRE-conv x in the compute dtype."""
+def _apply_mlstm(p: dict, h_in: torch.Tensor, cfg: ModelConfig,
+                policy: Policy, return_state: bool):
     x, z, q, k, v, i_raw, log_f = _mlstm_qkv_gates(p, h_in, cfg)
+    q = policy.constrain(q, ("batch", "seq", None, "mlstm_dh"))
+    k = policy.constrain(k, ("batch", "seq", None, "mlstm_dh"))
+    v = policy.constrain(v, ("batch", "seq", None, "mlstm_dh"))
     h, state = mlstm_chunked(q, k, v, i_raw, log_f, chunk=cfg.mlstm_chunk)
     out = _mlstm_out(p, h.to(h_in.dtype), z, cfg)
-    if return_state:
-        state = dict(state)
-        state["conv"] = x[:, -3:].to(cfg.torch_compute_dtype()).clone()
-        return out, state
-    return out
+    if not return_state:
+        return out
+    conv = x[:, -3:].to(cfg.torch_compute_dtype()).clone()
+    return out, state["C"], state["n"], state["m"], conv
+
+
+def apply_mlstm(p: dict, h_in: torch.Tensor, cfg: ModelConfig,
+                policy: Policy = NO_POLICY, return_state: bool = False):
+    """Training and prefill.  (B, S, D) -> (B, S, D); ``return_state``
+    also returns the decode cache: the chunked form's final state and the
+    last three steps of the PRE-conv x in the compute dtype.  q, k and v
+    are constrained as the reference's are (``mlstm_dh`` resolves to no
+    split).  Over a live model axis the block runs whole on each rank's
+    rows (:func:`_on_rows`)."""
+    def run(p_, x_):
+        return _apply_mlstm(p_, x_, cfg, policy, return_state)
+    out = _on_rows(run, p, h_in, 5 if return_state else 1)
+    if not return_state:
+        return out
+    out, C, n, m, conv = out
+    return out, {"C": C, "n": n, "m": m, "conv": conv}
 
 
 def init_mlstm_cache(cfg: ModelConfig, batch: int, device=None) -> dict:
@@ -286,9 +320,14 @@ def init_mlstm_cache(cfg: ModelConfig, batch: int, device=None) -> dict:
 
 
 def apply_mlstm_decode(p: dict, h_in: torch.Tensor, cache: dict,
-                       cfg: ModelConfig) -> Tuple[torch.Tensor, dict]:
+                       cfg: ModelConfig, policy: Policy = NO_POLICY
+                       ) -> Tuple[torch.Tensor, dict]:
     """One step.  h_in: (B, 1, D) -> ((B, 1, D), cache), the cache updated
-    in place."""
+    in place.  Over a live model axis the cache is as
+    ``sharding.cache_specs`` places it, and the step runs on each rank's
+    shards (:func:`_mlstm_decode_sharded`)."""
+    if common.is_dtensor(h_in):
+        return _mlstm_decode_sharded(p, h_in, cache, cfg), cache
     conv = cache["conv"]
     x, z, q, k, v, i_raw, log_f = _mlstm_qkv_gates(p, h_in, cfg,
                                                    conv_window=conv)
@@ -300,6 +339,116 @@ def apply_mlstm_decode(p: dict, h_in: torch.Tensor, cache: dict,
     for key in ("C", "n", "m"):
         cache[key].copy_(state[key])
     return out, cache
+
+
+def _mlstm_decode_sharded(p: dict, h_in, cache: dict, cfg: ModelConfig):
+    """:func:`apply_mlstm_decode` on DTensors: ``h_in`` replicated over
+    model, the weights replicated, and the cache's ``conv`` over its
+    channels, ``C`` over its value index and ``n`` over its key index
+    (``cache_specs``; any of them may be whole).  Each rank convolves its
+    channels, and the whole ``xc`` is gathered (an all-reduce) for q, k
+    and the gates; it updates its value rows of ``C`` and its key slice of
+    ``n``, so its ``C @ q`` is its slice of the numerator and its
+    ``n . q`` a partial sum (an all-reduce); its slice of h is gathered
+    (an all-reduce) for the head-wise norm.  ``m`` updates alike on every
+    rank.  Each rank writes only its own shards, through their
+    ``to_local()`` views.  Returns the (B, 1, D) output, placed as
+    ``h_in``."""
+    from torch.distributed.tensor import DTensor
+    mesh = h_in.device_mesh
+    di, _, dh = _mlstm_dims(cfg)
+    w = _replicated(p)
+    hl = h_in.to_local()
+    conv, C, n = cache["conv"], cache["C"], cache["n"]
+    conv_l, C_l, n_l, m_l = (_local(cache[key])
+                             for key in ("conv", "C", "n", "m"))
+    c0, v0, k0 = _offset(conv, 2), _offset(C, 2), _offset(n, 2)
+    c1, v1, k1 = (c0 + conv_l.shape[2], v0 + C_l.shape[2],
+                  k0 + n_l.shape[2])
+    x = torch.matmul(hl, w["w_up"].to(hl.dtype))
+    z = torch.matmul(hl, w["w_gate"].to(hl.dtype))
+    xc = swish(_causal_conv(w["conv"][:, c0:c1].to(x.dtype),
+                            x[..., c0:c1], conv_l))
+    xc = common.gather_by_sum(xc, 2, c0, di, mesh,
+                              common.sharding_dims(conv, 2))
+    q, k, v, i_raw, log_f = _mlstm_heads(w, x, xc, cfg)
+    # mlstm_cell_step on this rank's slices of C (value rows) and n (keys)
+    qf, kf, vf = q[:, 0].float(), k[:, 0].float(), v[:, 0].float()
+    m_new = torch.maximum(log_f[:, 0] + m_l, i_raw[:, 0])
+    f_p = torch.exp(log_f[:, 0] + m_l - m_new)[..., None]
+    i_p = torch.exp(i_raw[:, 0] - m_new)[..., None]
+    C_new = f_p[..., None] * C_l + i_p[..., None] * (
+        vf[..., v0:v1, None] * kf[..., None, :])
+    n_new = f_p * n_l + i_p * kf[..., k0:k1]
+    num = torch.matmul(C_new, qf[..., None])[..., 0]
+    dot = common.all_reduce(torch.sum(n_new * qf[..., k0:k1], dim=-1),
+                            "sum", mesh, common.sharding_dims(n, 2))
+    den = torch.maximum(torch.abs(dot), torch.exp(-m_new))[..., None]
+    h = common.gather_by_sum(num / den, 2, v0, dh, mesh,
+                             common.sharding_dims(C, 2))
+    out = _mlstm_out(w, h[:, None].to(hl.dtype), z, cfg)
+    conv_l.copy_(torch.cat([conv_l, x[..., c0:c1].to(conv_l.dtype)],
+                           dim=1)[:, 1:])
+    C_l.copy_(C_new)
+    n_l.copy_(n_new)
+    m_l.copy_(m_new)
+    return DTensor.from_local(out, mesh, h_in.placements, run_check=False,
+                              shape=h_in.shape, stride=h_in.stride())
+
+
+# -- a live model axis ---------------------------------------------------------
+
+def _local(x: torch.Tensor) -> torch.Tensor:
+    return x.to_local() if common.is_dtensor(x) else x
+
+
+def _offset(x: torch.Tensor, dim: int) -> int:
+    return common.shard_offset(x, dim) if common.is_dtensor(x) else 0
+
+
+def _replicated(p: dict) -> dict:
+    """The local tensors of a mixer's weights, which ``param_specs``
+    replicates (the reference's SSM mixers stay replicated); another
+    placement raises ``TypeError``."""
+    def local(x):
+        if common.is_dtensor(x) and not all(pl.is_replicate()
+                                            for pl in x.placements):
+            raise TypeError(f"an xLSTM weight {tuple(x.shape)} placed "
+                            f"{x.placements}: the mixers' weights are "
+                            f"replicated (param_specs)")
+        return _local(x)
+    return tree_map(local, p)
+
+
+def _on_rows(fn, p: dict, x: torch.Tensor, n_out: int):
+    """``fn(p, x)`` (``n_out`` outputs, each batch-major) on DTensors:
+    the whole block on each rank's rows of ``x``, through one
+    ``common.local_apply`` on local tensors.  The weights are replicated
+    and ``x`` is replicated over model (sharded over data only on its
+    batch), which is what GSPMD computes for the reference's replicated
+    SSM mixers; the sLSTM's step loop stays on plain tensors.  The
+    outputs are placed as ``x``.  A weight's gradient is computed whole on
+    every model rank, so it leaves replicated there, and ``Partial`` over
+    a mesh dim that shards the batch (each rank's rows add theirs).  On
+    plain tensors it is ``fn(p, x)``."""
+    if not common.is_dtensor(x):
+        return fn(p, x)
+    from torch.distributed.tensor import Partial, Replicate
+    place = list(x.placements)
+    if any(not (pl.is_replicate() or pl.is_shard(0)) for pl in place):
+        raise TypeError(f"an xLSTM block's input placed {x.placements}: "
+                        f"replicated over model, its batch over data")
+    leaves, treedef = tree_flatten(p)
+    _replicated(p)
+    grad = [Partial() if pl.is_shard() else Replicate() for pl in place]
+
+    def local(xl, *ws):
+        out = fn(tree_unflatten(treedef, list(ws)), xl)
+        # DTensor.from_local reads a local tensor's strides as given
+        return tuple(o.contiguous() for o in out) if n_out > 1 else out
+    return common.local_apply(
+        local, place if n_out == 1 else tuple([place] * n_out), x, *leaves,
+        in_grad_placements=(None,) + (grad,) * len(leaves))
 
 
 # ===========================================================================
@@ -407,14 +556,21 @@ def _slstm_out(p: dict, hs: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def apply_slstm(p: dict, h_in: torch.Tensor, cfg: ModelConfig,
-                return_state: bool = False):
+                policy: Policy = NO_POLICY, return_state: bool = False):
     """Training and prefill.  (B, S, D) -> (B, S, D) in h_in's dtype;
-    ``return_state`` also returns the final state (the decode cache)."""
-    state = init_slstm_state(cfg, h_in.shape[0], h_in.device)
-    hs, state = _slstm_core(p, h_in, cfg, state)
-    out = _slstm_out(p, hs, cfg).to(h_in.dtype)
+    ``return_state`` also returns the final state (the decode cache).
+    Over a live model axis the block runs whole on each rank's rows
+    (:func:`_on_rows`)."""
+    def run(p_, x_):
+        state = init_slstm_state(cfg, x_.shape[0], x_.device)
+        hs, state = _slstm_core(p_, x_, cfg, state)
+        out = _slstm_out(p_, hs, cfg).to(x_.dtype)
+        if not return_state:
+            return out
+        return (out,) + tuple(state[key] for key in _SLSTM_STATE)
+    out = _on_rows(run, p, h_in, 5 if return_state else 1)
     if return_state:
-        return out, state
+        return out[0], dict(zip(_SLSTM_STATE, out[1:]))
     return out
 
 
@@ -423,11 +579,47 @@ def init_slstm_cache(cfg: ModelConfig, batch: int, device=None) -> dict:
 
 
 def apply_slstm_decode(p: dict, h_in: torch.Tensor, cache: dict,
-                       cfg: ModelConfig) -> Tuple[torch.Tensor, dict]:
+                       cfg: ModelConfig, policy: Policy = NO_POLICY
+                       ) -> Tuple[torch.Tensor, dict]:
     """One step (or several).  h_in: (B, T, D) -> ((B, T, D), cache), the
-    cache updated in place."""
+    cache updated in place.  Over a live model axis the cache's ``n`` is
+    split over its last dim (``cache_specs``) and the steps run on it
+    (:func:`_slstm_decode_sharded`)."""
+    if common.is_dtensor(h_in):
+        return _slstm_decode_sharded(p, h_in, cache, cfg), cache
     hs, state = _slstm_core(p, h_in, cfg, dict(cache))
     out = _slstm_out(p, hs, cfg).to(h_in.dtype)
-    for key in ("c", "n", "h", "m"):
+    for key in _SLSTM_STATE:
         cache[key].copy_(state[key])
     return out, cache
+
+
+def _slstm_decode_sharded(p: dict, h_in, cache: dict, cfg: ModelConfig):
+    """:func:`apply_slstm_decode` on DTensors: ``h_in`` replicated over
+    model, the weights replicated, ``c``, ``h`` and ``m`` whole on every
+    rank and ``n`` split over its last dim where ``cache_specs`` splits it
+    (the reference's name rule for the mLSTM's ``n`` catches the sLSTM's).
+    ``n`` is gathered once (an all-reduce), then every rank runs the
+    unsharded steps alike and writes back ``c``, ``h``, ``m`` and its own
+    slice of ``n``, through their ``to_local()`` views.  Returns the
+    (B, T, D) output, placed as ``h_in``."""
+    from torch.distributed.tensor import DTensor
+    mesh = h_in.device_mesh
+    w = _replicated(p)
+    hl = h_in.to_local()
+    for key in ("c", "h", "m"):
+        if common.sharding_dims(cache[key], 2):
+            raise TypeError(f"the sLSTM's {key} placed "
+                            f"{cache[key].placements}: only n is split")
+    local = {key: _local(cache[key]) for key in _SLSTM_STATE}
+    k0 = _offset(cache["n"], 2)
+    k1 = k0 + local["n"].shape[2]
+    n = common.gather_by_sum(local["n"], 2, k0, cfg.d_model // cfg.n_heads,
+                             mesh, common.sharding_dims(cache["n"], 2))
+    hs, st = _slstm_core(w, hl, cfg, dict(local, n=n))
+    out = _slstm_out(w, hs, cfg).to(hl.dtype)
+    st["n"] = st["n"][..., k0:k1]
+    for key in _SLSTM_STATE:
+        local[key].copy_(st[key])
+    return DTensor.from_local(out, mesh, h_in.placements, run_check=False,
+                              shape=h_in.shape, stride=h_in.stride())

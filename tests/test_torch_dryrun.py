@@ -3,8 +3,10 @@
 
 * ``lower_one`` walks gemma2-2b x train_4k, qwen2-moe-a2.7b x decode_32k
   (the MoE router on ``meta``), recurrentgemma-2b x prefill_32k (K5
-  and K6 through their ``meta`` paths) and gemma2-2b x decode_32k (the
-  serve step on a kv_seq-sharded cache) on the single-pod mesh shape; its
+  and K6 through their ``meta`` paths), gemma2-2b x decode_32k (the
+  serve step on a kv_seq-sharded cache), xlstm-1.3b x decode_32k (its
+  cache's C, n and conv split over model) and musicgen-large x decode_32k
+  (its codebook tables over model) on the single-pod mesh shape; its
   ``param_bytes_per_chip`` and ``cache_bytes_per_chip`` equal the
   reference's ``bytes_per_chip`` of the same trees on the same specs;
   each is walked as one rank of a fake 16 x 16 mesh (its collective bytes
@@ -38,10 +40,12 @@ from repro_torch.models.common import NO_POLICY  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 COMBOS = (("gemma2-2b", "train_4k"), ("qwen2-moe-a2.7b", "decode_32k"),
-          ("recurrentgemma-2b", "prefill_32k"), ("gemma2-2b", "decode_32k"))
+          ("recurrentgemma-2b", "prefill_32k"), ("gemma2-2b", "decode_32k"),
+          ("xlstm-1.3b", "decode_32k"), ("musicgen-large", "decode_32k"))
 # the combinations walked as one rank of a live mesh (in scope over a
 # model axis)
-PER_CHIP = ("gemma2-2b", "recurrentgemma-2b", "qwen2-moe-a2.7b")
+PER_CHIP = ("gemma2-2b", "recurrentgemma-2b", "qwen2-moe-a2.7b",
+            "xlstm-1.3b", "musicgen-large")
 # the kernels each combination's step reaches
 KERNELS = {"train_4k": set(), "decode_32k": set(),
            "prefill_32k": {"flash_attention", "lru_scan_gated"}}

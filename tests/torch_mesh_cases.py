@@ -8,6 +8,7 @@ the port's ``init_params`` from a seeded generator (saved by the test,
 which hands the reference a ``repro_torch.interop`` copy).
 """
 
+import contextlib
 import os
 import traceback
 
@@ -64,8 +65,8 @@ def rank_main(rank: int, world: int, store_path: str, params_path: str,
     """One rank: gloo over a FileStore, a (world, 1) mesh; each case's
     sharded round, its rows by ``steps``' split and by
     ``distribute_tensor``; then a (1, world) mesh with a model axis: a
-    live tensor-parallel policy for the dense config, and an xLSTM config
-    still refused.  Writes ``rank<r>.pt`` (or ``rank<r>.err``)."""
+    live tensor-parallel policy for the dense config, and its ``seq2d``
+    variant still refused.  Writes ``rank<r>.pt`` (or ``rank<r>.err``)."""
     import torch.distributed as dist
     torch.set_num_threads(1)
     try:
@@ -87,9 +88,8 @@ def rank_main(rank: int, world: int, store_path: str, params_path: str,
                           "placed": placement_rows(mesh, params, k, chunk)}
         wide = make_device_mesh(1, world, "cpu")
         out["model_axis_live"] = sharding.MeshPolicy(wide, CFG).model_live
-        from repro_torch import configs
         out["model_axis"] = _raises(lambda: sharding.MeshPolicy(
-            wide, configs.get_reduced("xlstm-1.3b")))
+            wide, CFG.with_overrides(attn_shard="seq2d")))
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
         dist.destroy_process_group()
     except BaseException:
@@ -110,6 +110,33 @@ TP_PREFILL = ("minitron-8b", "recurrentgemma-2b", "llava-next-34b")
 TP_K, TP_B, TP_STEPS, TP_SEQ, TP_PROMPT = 2, 2, 1, 16, 32
 TP_ENGINES = ("flat f32", "flat int8", "tree")
 
+# xLSTM blocks and codebook tables over the model axis: reduced xlstm-1.3b
+# (its mixers replicated, its tied table over model; the cache's C, n and
+# conv split) and reduced musicgen-large (its two codebook tables over
+# model, heads and ffn sharded, a frontend).  Their train steps and rounds
+# run at (1, 2), (1, 4) and (2, 2); the rounds' musicgen config holds whole
+# 128-element int8 groups on each rank at model 2 and 4 (head_dim 128: one
+# or two heads a rank; d_ff 512: 128 or 256 columns a rank).  xlstm's
+# train steps and rounds run with its sLSTM output kept in f32
+# (f32_slstm_out), as tests/test_torch_xlstm_model.py holds its round, and
+# its train step once more with the bf16 cast ("train bf16"), held
+# against the port's unsharded step on the same rank
+TP_XLSTM, TP_MUSICGEN = "xlstm-1.3b", "musicgen-large"
+TP_MUSICGEN_ROUND = "musicgen-large:groups"
+TP_ZOO = (TP_XLSTM, TP_MUSICGEN)
+TP_ZOO_MESHES = {2: ("(1, 2)",), 4: ("(1, 4)", "(2, 2)")}
+
+
+def zoo_key(kind: str, mesh: str, arch: str) -> str:
+    """The result key of an xLSTM or codebook case: ``kind`` "train" or a
+    round engine."""
+    return f"{kind} {arch} {mesh}"
+
+
+def zoo_round_arch(arch: str) -> str:
+    return TP_MUSICGEN_ROUND if arch == TP_MUSICGEN else arch
+
+
 # the MoE configs over the model axis: reduced qwen2-moe (4 experts: the
 # experts axis over model at 2 and 4), the expert_ffn layout (3 experts do
 # not divide 2: gate / up column-parallel, down row-parallel), padded
@@ -123,7 +150,8 @@ MOE_VARIANTS = {"qwen2-moe-a2.7b:groups": ({"d_expert": 256},
                                            {"head_dim": 64}),
                 "qwen2-moe-a2.7b:ffn": ({"n_experts": 3}, {}),
                 "qwen2-moe-a2.7b:pad": ({"n_experts": 3, "pad_to": 4}, {}),
-                "kimi-k2-1t-a32b:2d": ({}, {"shard_experts_2d": True})}
+                "kimi-k2-1t-a32b:2d": ({}, {"shard_experts_2d": True}),
+                TP_MUSICGEN_ROUND: ({}, {"head_dim": 128, "d_ff": 512})}
 # the train step of each MoE case by mesh: (result key, mesh, arch)
 TP_MOE_TRAIN = {2: (("moe train", "(1, 2)", TP_MOE),
                     ("moe ffn train", "(1, 2)", "qwen2-moe-a2.7b:ffn"),
@@ -144,7 +172,9 @@ TP_MOE_TRAIN = {2: (("moe train", "(1, 2)", TP_MOE),
 # frontend rows + 12 tokens); at world size 4 the (1, 4) mesh (minitron's
 # q heads sharded, its cache kv_seq: 2 kv heads do not divide 4; slots
 # 20-25 cross rows 16-23 | 24-31) and the (2, 2) mesh (gemma2 at batch 2,
-# the batch over data; at batch 1 the cache's sequence over data)
+# the batch over data; at batch 1 the cache's sequence over data); reduced
+# xlstm-1.3b (16 prompt tokens: two mLSTM chunks) and musicgen-large (4
+# frontend rows + 12 frames of 2 codebooks) at all three meshes
 TP_DECODE_STEPS = 6
 TP_DECODE = {2: (("(1, 2)", "gemma2-2b", 2, 20, 42),
                  ("(1, 2)", "recurrentgemma-2b", 2, 20, 42),
@@ -152,13 +182,19 @@ TP_DECODE = {2: (("(1, 2)", "gemma2-2b", 2, 20, 42),
                  ("(1, 2)", "llava-next-34b", 2, 12, 32),
                  ("(1, 2)", TP_MOE, 2, 20, 32),
                  ("(1, 2)", "qwen2-moe-a2.7b:ffn", 2, 20, 32),
-                 ("(1, 2)", "qwen2-moe-a2.7b:pad", 2, 20, 32)),
+                 ("(1, 2)", "qwen2-moe-a2.7b:pad", 2, 20, 32),
+                 ("(1, 2)", TP_XLSTM, 2, 16, 32),
+                 ("(1, 2)", TP_MUSICGEN, 2, 12, 32)),
              4: (("(1, 4)", "minitron-8b", 2, 20, 32),
                  ("(2, 2)", "gemma2-2b", 2, 20, 42),
                  ("(2, 2)", "gemma2-2b", 1, 20, 42),
                  ("(1, 4)", TP_MOE, 2, 20, 32),
                  ("(2, 2)", TP_MOE, 2, 20, 32),
-                 ("(2, 2)", "kimi-k2-1t-a32b:2d", 2, 20, 32))}
+                 ("(2, 2)", "kimi-k2-1t-a32b:2d", 2, 20, 32),
+                 ("(1, 4)", TP_XLSTM, 2, 16, 32),
+                 ("(2, 2)", TP_XLSTM, 2, 16, 32),
+                 ("(1, 4)", TP_MUSICGEN, 2, 12, 32),
+                 ("(2, 2)", TP_MUSICGEN, 2, 12, 32))}
 
 
 def decode_key(mesh: str, arch: str, batch: int) -> str:
@@ -194,17 +230,34 @@ def tp_engine(name: str):
             "tree": aggregate.EngineSpec(engine="tree")}[name]
 
 
+def _codebooks(arch: str) -> tuple:
+    """The trailing codebook dim of ``arch``'s tokens, if it has one."""
+    nc = tp_config(arch).n_codebooks
+    return (nc,) if nc > 1 else ()
+
+
 def tp_round_inputs(k: int = TP_K, arch: str = TP_TRAIN):
     rng = np.random.default_rng(7)
-    data = rng.integers(0, tp_config(arch).vocab_size,
-                        size=(k, TP_B, TP_STEPS, TP_SEQ + 1)).astype(np.int32)
+    data = rng.integers(0, tp_config(arch).vocab_size, size=(
+        k, TP_B, TP_STEPS, TP_SEQ + 1) + _codebooks(arch)).astype(np.int32)
     return data, np.arange(k) < k // 2
 
 
 def tp_train_tokens(arch: str = TP_TRAIN) -> np.ndarray:
     return np.random.default_rng(8).integers(
         0, tp_config(arch).vocab_size,
-        size=(TP_B, TP_SEQ + 1)).astype(np.int32)
+        size=(TP_B, TP_SEQ + 1) + _codebooks(arch)).astype(np.int32)
+
+
+def tp_train_batch(arch: str) -> dict:
+    """The train step's batch: :func:`tp_train_tokens`, and a frontend's
+    ``extra_embeds``."""
+    batch = {"tokens": tp_train_tokens(arch)}
+    fe = tp_config(arch).frontend
+    if fe is not None:
+        batch["extra_embeds"] = np.random.default_rng(10).standard_normal(
+            (TP_B, fe.n_tokens, fe.d_in)).astype(np.float32)
+    return batch
 
 
 def tp_prefill_batch(arch: str) -> dict:
@@ -225,13 +278,13 @@ def tp_decode_inputs(arch: str, batch: int, prompt: int) -> tuple:
     cfg = tp_config(arch)
     rng = np.random.default_rng(12)
     prompt_batch = {"tokens": rng.integers(0, cfg.vocab_size, size=(
-        batch, prompt)).astype(np.int32)}
+        batch, prompt) + _codebooks(arch)).astype(np.int32)}
     if cfg.frontend is not None:
         prompt_batch["extra_embeds"] = rng.standard_normal(
             (batch, cfg.frontend.n_tokens, cfg.frontend.d_in)
         ).astype(np.float32)
     forced = rng.integers(0, cfg.vocab_size, size=(
-        TP_DECODE_STEPS, batch, 1)).astype(np.int32)
+        TP_DECODE_STEPS, batch, 1) + _codebooks(arch)).astype(np.int32)
     return prompt_batch, forced
 
 
@@ -264,14 +317,35 @@ def _written_rows(before, cache) -> dict:
     return out
 
 
+def _state_slices(before, cache) -> dict:
+    """For each xLSTM state leaf (the mLSTM's C, n, m and conv, the
+    sLSTM's c, n, h and m), by path: ``(offsets, placements, local,
+    changed)``, where this rank's local shard starts in the global leaf on
+    each dim, the leaf's placements, the shard, and whether the step
+    changed it (``before``: the local shards)."""
+    from repro_torch.models import common
+    from repro_torch.tree import tree_leaves_with_keys
+    out = {}
+    for (keys, x), old in zip(tree_leaves_with_keys(cache), before):
+        if keys[-1] in ("k", "v"):
+            continue
+        local = x.to_local()
+        out["/".join(map(str, keys))] = (
+            tuple(common.shard_offset(x, d) for d in range(x.dim())),
+            str(x.placements), local.clone(), not torch.equal(local, old))
+    return out
+
+
 def decode_case(on, arch: str, batch: int, prompt: int,
                 cache_len: int) -> dict:
     """Prefill then ``TP_DECODE_STEPS`` teacher-forced serve steps with the
     exit head under a ``MeshPolicy`` over ``on``: the prefill's logits and
     cache, each step's logits, exit logits and cache whole
     (``full_tensor``), the logits' placements and the steps' MoE routing
-    (:func:`routed`); and apart (they differ by rank) the rows this rank
-    wrote at each step (:func:`_written_rows`)."""
+    (:func:`routed`) and the placements the reference's constrain gives
+    the logits; and apart (they differ by rank) the rows this rank wrote
+    at each step (:func:`_written_rows`) and its shards of the recurrent
+    states (:func:`_state_slices`)."""
     from repro_torch.launch import sharding, steps
     from repro_torch.tree import tree_leaves
     cfg = tp_config(arch)
@@ -285,7 +359,7 @@ def decode_case(on, arch: str, batch: int, prompt: int,
     pos = first_position(arch, prompt)
     out = {"logits": [], "exit": [], "cache": [],
            "prefill": {"logits": logits.full_tensor(), "cache": _full(cache)}}
-    written = []
+    written, states = [], []
 
     def decode():
         nonlocal cache
@@ -295,14 +369,19 @@ def decode_case(on, arch: str, batch: int, prompt: int,
                 params, cache, {"tokens": torch.as_tensor(forced[i])},
                 pos + i)
             written.append(_written_rows(before, cache))
+            states.append(_state_slices(before, cache))
             out["logits"].append(logits.full_tensor())
             out["exit"].append(exit_logits.full_tensor())
             out["cache"].append(_full(cache))
         return [str(logits.placements), str(exit_logits.placements)]
+    # the placements the reference's ("batch", "seq", "vocab") constrain
+    # resolves to on the logits
+    out["want_placements"] = str(tuple(sharding.to_placements(policy.spec(
+        logits.shape, ("batch", "seq", "vocab")), on)))
     # an MoE decode step routes the whole batch as one group (gathered over
     # data), so every rank routes the same tokens: its slots are kept
     out["placements"], out["slots"] = routed(decode)
-    return out, written
+    return out, {"rows": written, "states": states}
 
 
 def routed(fn):
@@ -323,10 +402,36 @@ def routed(fn):
         mlp._route = route
 
 
+@contextlib.contextmanager
+def f32_slstm_out():
+    """The port's ``_slstm_out`` without its bf16 cast, the norm and the
+    FFN in the cell output's own dtype (f32 in the reduced config): the
+    port half of ``tests/test_torch_xlstm_model.f32_slstm_out``, which the
+    reference's xlstm steps run under in ``tests/test_torch_tp.py``."""
+    from repro_torch.models import common, xlstm
+    from repro_torch.models.mlp import gelu
+
+    def port_out(p, hs, cfg):
+        b, s, nh, dh = hs.shape
+        h = common.apply_rmsnorm(p["norm"], hs, cfg.norm_eps).reshape(
+            b, s, nh * dh)
+        g = torch.matmul(h, p["ff_gate"].to(h.dtype))
+        return torch.matmul(gelu(g), p["ff_down"].to(h.dtype))
+
+    saved = xlstm._slstm_out
+    xlstm._slstm_out = port_out
+    try:
+        yield
+    finally:
+        xlstm._slstm_out = saved
+
+
 def _full(tree):
+    """Each leaf whole, a copy: a replicated DTensor's ``full_tensor()`` is
+    its local tensor, which a later serve step updates in place."""
     from repro_torch.launch import sharding
-    return tree_map(lambda x: x.full_tensor() if sharding.is_dtensor(x)
-                    else x, tree)
+    return tree_map(lambda x: x.full_tensor().clone()
+                    if sharding.is_dtensor(x) else x, tree)
 
 
 def _raises(fn) -> str:
@@ -370,14 +475,11 @@ def vocab_case():
 
 def refusals(mesh) -> dict:
     """What raises over a live model axis, each with its message."""
-    from repro_torch import configs
     from repro_torch.core import aggregate, comm
     from repro_torch.launch import sharding, steps
     cfg = tp_config(TP_TRAIN)
     policy = sharding.MeshPolicy(mesh, cfg)
-    out = {name: _raises(lambda a=arch: sharding.MeshPolicy(
-        mesh, configs.get_reduced(a))) for name, arch in (
-            ("xlstm", "xlstm-1.3b"), ("codebooks", "musicgen-large"))}
+    out = {}
     for mode in ("seq2d", "dp2d", "seq2d_fsdp"):
         out[mode] = _raises(lambda m=mode: sharding.MeshPolicy(
             mesh, cfg.with_overrides(attn_shard=m)))
@@ -389,9 +491,9 @@ def refusals(mesh) -> dict:
         engine=aggregate.EngineSpec(variance_reduction="scaffold")))
     # the serve step of a config out of scope raises where its policy is
     # built, naming its queued item
-    out["serve xlstm"] = _raises(lambda: steps.make_serve_step(
-        configs.get_reduced("xlstm-1.3b"), sharding.MeshPolicy(
-            mesh, configs.get_reduced("xlstm-1.3b"))))
+    seq2d = cfg.with_overrides(attn_shard="seq2d")
+    out["serve seq2d"] = _raises(lambda: steps.make_serve_step(
+        seq2d, sharding.MeshPolicy(mesh, seq2d)))
     # an int8 round whose mlp shards hold 64 of a 128-element group, and
     # one whose expert_ffn shards do (3 experts: d_expert 128 over 2; its
     # heads at Dh 64 hold whole groups)
@@ -440,6 +542,43 @@ def tfm_init(cfg):
     return tfm.init_params(torch.Generator().manual_seed(0), cfg)
 
 
+def gather_case(mesh) -> dict:
+    """``common.gather_by_sum`` against the functional all-gather over the
+    model dim, on a tensor whose slices differ by rank and hold -0.0: the
+    gathered dim second of three, each rank's slice (3, 2, 5)."""
+    from torch.distributed import _functional_collectives as funcol
+    from repro_torch.models import common
+    rank = mesh.get_local_rank(1)
+    n = mesh.size(1)
+    x = torch.as_tensor(np.random.default_rng(20 + rank).standard_normal(
+        (3, 2, 5)).astype(np.float32))
+    x[0, 0, :2] = -0.0
+    want = funcol.wait_tensor(funcol.all_gather_tensor(
+        x.movedim(1, 0).contiguous(), 0, (mesh, 1))).movedim(0, 1)
+    got = common.gather_by_sum(x, 1, 2 * rank, 2 * n, mesh, [1])
+    return {"got": got, "want": want}
+
+
+def codebook_embed_case(mesh) -> dict:
+    """Reduced musicgen-large's codebook embedding with bf16 tables (their
+    adds round), vocab-sharded over ``mesh``, and unsharded on the same
+    tables and tokens: ``embed_inputs`` whole."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.launch import sharding
+    from repro_torch.models import transformer as tfm
+    cfg = tp_config(TP_MUSICGEN).with_overrides(param_dtype="bfloat16")
+    params = tfm_init(cfg)
+    tokens = torch.as_tensor(tp_train_tokens(TP_MUSICGEN))
+    want = tfm.embed_inputs(params, cfg, tokens)
+    placed = sharding.distribute_params(tree_map(lambda x: x, params), cfg,
+                                        mesh)
+    with torch.no_grad(), implicit_replication():
+        got = tfm.embed_inputs(placed, cfg, tokens,
+                               policy=sharding.MeshPolicy(mesh, cfg))
+    return {"got": got.full_tensor(), "want": want,
+            "tables": str(placed["embed"]["tables"].placements)}
+
+
 def tp_rank_main(rank: int, world: int, store_path: str,
                  out_dir: str) -> None:
     """One rank of the tensor-parallel cases: gloo over a FileStore; at
@@ -449,7 +588,9 @@ def tp_rank_main(rank: int, world: int, store_path: str,
     engines), at 4 a (2, 2) mesh (train on a batch split over data, the
     flat f32 round: data and model together; the MoE aux losses) and a
     (1, 4) mesh (minitron's prefill, its kv heads replicated); the MoE
-    train steps of ``TP_MOE_TRAIN``; then the decode cases of
+    train steps of ``TP_MOE_TRAIN``; at each of ``TP_ZOO_MESHES`` the
+    xLSTM and codebook configs' train steps and three rounds, the
+    gather check and the codebook embedding; then the decode cases of
     ``TP_DECODE`` at each world size.  Each result is saved
     whole (``full_tensor``) to ``tp<world>_rank<r>.pt`` (or the traceback
     to ``tp<world>_rank<r>.err``)."""
@@ -476,14 +617,14 @@ def tp_rank_main(rank: int, world: int, store_path: str,
                 a_cfg, sharding.MeshPolicy(on, a_cfg))(a_params, batch)
             return {"logits": _full(logits), "cache": _full(cache)}
 
-        def round_of(engine, arch=TP_TRAIN):
+        def round_of(engine, arch=TP_TRAIN, on=mesh):
             a_cfg = tp_config(arch)
             a_data, a_simple = tp_round_inputs(arch=arch)
             cohort = sharding.distribute_cohort(tree_map(
                 lambda x: x[None].expand((TP_K,) + x.shape),
-                tp_params(arch)), a_cfg, mesh)
+                tp_params(arch)), a_cfg, on)
             new_c, loss = steps.make_fed_round_step(
-                a_cfg, sharding.MeshPolicy(mesh, a_cfg), local_steps=TP_STEPS,
+                a_cfg, sharding.MeshPolicy(on, a_cfg), local_steps=TP_STEPS,
                 engine=tp_engine(engine))(cohort, torch.as_tensor(a_data),
                                           torch.as_tensor(a_simple))
             placed = [str(x.placements) for x in tree_leaves(new_c)]
@@ -495,8 +636,8 @@ def tp_rank_main(rank: int, world: int, store_path: str,
             params = sharding.distribute_params(tp_params(arch), a_cfg, on)
             new, metrics = steps.make_train_step(
                 a_cfg, sharding.MeshPolicy(on, a_cfg))(
-                    params, {"tokens": torch.as_tensor(tp_train_tokens(
-                        arch))})
+                    params, {k: torch.as_tensor(v) for k, v in
+                             tp_train_batch(arch).items()})
             return {"params": _full(new), "loss": metrics["loss"]}
 
         out["train"] = train_of(TP_TRAIN, mesh)
@@ -527,6 +668,26 @@ def tp_rank_main(rank: int, world: int, store_path: str,
                 a, meshes[n]))
             if key == "moe train":
                 out["moe slots"]["sharded"] = slots
+        # xLSTM and codebooks: train and the three rounds at each mesh
+        for name in TP_ZOO_MESHES[world]:
+            for arch in TP_ZOO:
+                with (f32_slstm_out() if arch == TP_XLSTM
+                      else contextlib.nullcontext()):
+                    out[zoo_key("train", name, arch)] = train_of(
+                        arch, meshes[name])
+                    for engine in TP_ENGINES:
+                        out[zoo_key(engine, name, arch)] = round_of(
+                            engine, zoo_round_arch(arch), meshes[name])
+            # and xlstm's train step with its sLSTM output's bf16 cast
+            out[zoo_key("train bf16", name, TP_XLSTM)] = train_of(
+                TP_XLSTM, meshes[name])
+            out["gather " + name] = gather_case(meshes[name])
+            out["codebook embed " + name] = codebook_embed_case(meshes[name])
+        # ... held against the port's unsharded train step on this rank
+        out["train bf16 unsharded"] = steps.make_train_step(
+            tp_config(TP_XLSTM))(tp_params(TP_XLSTM), {
+                k: torch.as_tensor(v) for k, v in
+                tp_train_batch(TP_XLSTM).items()})[0]
         for name, arch, batch, prompt, cache_len in TP_DECODE[world]:
             key = decode_key(name, arch, batch)
             out[key], out[key + " written"] = decode_case(
