@@ -4703,7 +4703,7 @@ TP_FLASH_CASES = (("minitron-8b, a rank's heads", 1, 4096, 16, 4, 128, 0,
                    0.0, "bfloat16", True))
 # the part of phase 20 whose path hands K5 each of those shapes
 TP_FLASH_PARTS = ("dense", "moe", "moe", "xlstm_codebooks")
-TP_PARTS = ("dense", "moe", "xlstm_codebooks")
+TP_PARTS = ("dense", "moe", "xlstm_codebooks", "seq2d")
 TP_GATED_CASES = ((4, 4096, 1280, "bfloat16", False, True),)
 # phase 20(f), (g): the MoE configs over the (1, 2) mesh, each (part, arch,
 #  batch, prompt, new tokens, launches of one sharded prefill on each rank:
@@ -4760,6 +4760,7 @@ def _tp_kernel_counts(ops, fa, scan) -> tuple:
 def _tp_zero(ops, fa, scan) -> None:
     _zero_counts(ops)
     fa.launches_tc = fa.launches = scan.lru_scan_gated.launches = 0
+    fa.launches_tc_rows = fa.launches_rows = 0
 
 
 def tp_round(torch, rank: int, work: str, mesh) -> dict:
@@ -5685,13 +5686,464 @@ def tp_card_vs_cpu(torch, rank: int, meshes: dict) -> dict:
     return {"launches": launched, "worst": worst}
 
 
+# phase 20(l), (m): gemma2-2b at published widths (arXiv:2408.00118) under
+#  the token splits over the (1, 2) mesh, each (part, mode, batch, prompt,
+#  new tokens): phase 7's serving cell (batch 1, prompt 8192) under seq2d,
+#  each rank prefilling its 4096 query rows (K5 at q_offset 0 and 4096
+#  against the key prefix it can see), then 7 serve steps with the exit
+#  head on the heads-split cache; under dp2d at batch 2, one sequence a
+#  rank (K5 at phase 7's shape).  Weights replicated (5.23 GB a rank)
+TP_SPLIT_RUNS = (("l", "seq2d", 1, 8192, 8), ("m", "dp2d", 2, 8192, 8))
+# phase 20(n): reduced gemma2-2b under seq2d and dp2d and reduced
+#  llava-next-34b under seq2d_fsdp, card against CPU: the train step, the
+#  rounds (the token splits; a seq2d_fsdp cohort is refused), a prefill of
+#  TP_SPLIT_PROMPT positions (llava's 8 frontend rows included) and 6
+#  serve steps
+TP_SPLIT_NARROW = (("gemma2-2b", "seq2d"), ("gemma2-2b", "dp2d"),
+                   ("llava-next-34b", "seq2d_fsdp"))
+TP_SPLIT_PROMPT = 4096
+TP_SPLIT_ENGINES = ("f32", "int8", "tree", "int8 topk", "scaffold")
+# K5 on a rank's query rows (the kernels' q_offset), held to the plain
+# version and timed: (label, B, Sq, q_offset, H, Kh, Dh, window, softcap,
+# dtype); the keys are the q_offset + Sq a rank's rows can see.  (l)'s
+# shapes, global and at gemma2's window, and (n)'s f32 rank-1 prefill
+TP_ROWS_CASES = (
+    ("gemma2-2b global, rank 0's rows", 1, 4096, 0, 8, 4, 256, 0, 0.0,
+     "bfloat16"),
+    ("gemma2-2b global, rank 1's rows", 1, 4096, 4096, 8, 4, 256, 0, 0.0,
+     "bfloat16"),
+    ("gemma2-2b window 4096, rank 0's rows", 1, 4096, 0, 8, 4, 256, 4096,
+     0.0, "bfloat16"),
+    ("gemma2-2b window 4096, rank 1's rows", 1, 4096, 4096, 8, 4, 256, 4096,
+     0.0, "bfloat16"),
+    ("reduced gemma2-2b in f32, rank 1's rows", 2, 2048, 2048, 4, 2, 32, 0,
+     0.0, "float32"))
+
+
+def check_flash_rows(torch, bw: float, cases=TP_ROWS_CASES) -> dict:
+    """K5's kernels on a rank's query rows: each case's call against the
+    plain version on the same inputs (``_close`` at check_flash's rules)
+    and checked to launch its dtype's kernel once (the rows counter past
+    q_offset 0), then timed (``time_ms``, a CUDA graph) beside the plain
+    version and SDPA with the same boolean mask.  The bound counts the kept
+    pairs (``ops.causal_pairs`` with the offset) at the route's peak and
+    q, the key prefix, v and out once at the HBM rate."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    fa = ops.flash_attention
+    worst = {"bfloat16": 0.0, "float32": 0.0}
+    timing = []
+    for label, b, sq, off, h, kh, dh, window, cap, dtype in cases:
+        sk = off + sq
+        g = torch.Generator(device="cuda").manual_seed(sk + h + off)
+        dt = getattr(torch, dtype)
+        q = (torch.randn((b, sq, h, dh), generator=g, device="cuda") * 2
+             ).to(dt)
+        k = (torch.randn((b, sk, kh, dh), generator=g, device="cuda") * 2
+             ).to(dt)
+        v = torch.randn((b, sk, kh, dh), generator=g, device="cuda").to(dt)
+        tol = 1e-5 if dtype == "float32" else 2.0 ** -7
+        route, peak, _ = FLASH_ROUTES[dtype]
+        counter = ("launches_tc" if dtype == "bfloat16" else "launches") + (
+            "_rows" if off else "")
+        before = getattr(fa, counter)
+
+        def call():
+            return fa(q, k, v, window=window, softcap=cap, q_offset=off)
+        got = call()
+        if getattr(fa, counter) != before + 1:
+            raise RuntimeError(f"flash_attention {label}: {dtype} did not "
+                               f"launch the {route} kernel once "
+                               f"({counter})")
+        want = ref.flash_attention_ref(q, k, v, window=window, softcap=cap,
+                                       q_offset=off)
+        worst[dtype] = max(worst[dtype], _close(
+            torch, f"flash_attention rows [{route}] {label} "
+            f"{(b, sq, h, kh, dh)} q_offset {off} of {sk} keys, window "
+            f"{window}", got, want, tol, tol))
+        del got, want
+        pairs = ops.causal_pairs(sq, window, off)
+        flops = 4 * dh * pairs * b * h
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        ops_ms, bytes_ms = flops / peak * 1e3, nbytes / bw * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        ms = time_ms(torch, call, iters=10, warmup=2)
+        plain_ms = time_ms(torch, lambda: ref.flash_attention_ref(
+            q, k, v, window=window, softcap=cap, q_offset=off), iters=3,
+            warmup=1)
+        qpos = off + torch.arange(sq, device="cuda")
+        kpos = torch.arange(sk, device="cuda")
+        mask = qpos[:, None] >= kpos[None, :]
+        if window:
+            mask &= (qpos[:, None] - kpos[None, :]) < window
+        qt = q.transpose(1, 2)
+        kt = k.repeat_interleave(h // kh, dim=2).transpose(1, 2)
+        vt = v.repeat_interleave(h // kh, dim=2).transpose(1, 2)
+
+        def lib():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        library_ms = time_ms(torch, lib, iters=5, warmup=2)
+        row = {"case": label, "route": route,
+               "shape": {"B": b, "Sq": sq, "q_offset": off, "Sk": sk,
+                         "H": h, "Kh": kh, "Dh": dh, "window": window,
+                         "softcap": cap, "dtype": dtype},
+               "ms": ms, "plain_ms": plain_ms, "pairs": pairs,
+               "flops": flops, "bytes_needed": nbytes, "peak_flops": peak,
+               "bound_ms": bound_ms, "bound_share": bound_ms / ms,
+               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+               "tflops": flops / ms / 1e9, "library_ms": library_ms,
+               "library_max_abs_diff": float((lib().transpose(1, 2).float()
+                                              - call().float()).abs().max())}
+        print(f"  flash_attention rows [{route}] {label}: kernel {ms:.4f} ms "
+              f"({row['tflops']:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
+              f"bound {bound_ms:.4f} ms ({row['bound_by']}; {pairs:,} pairs "
+              f"x {b * h} heads), bound share {bound_ms / ms:.4f}, SDPA "
+              f"{library_ms:.4f} ms", flush=True)
+        timing.append(row)
+        del q, k, v, qt, kt, vt, mask
+    return {"max_abs_err": worst, "timing": timing}
+
+
+def _local_part(full, placements, mesh):
+    """The part of the full tensor ``full`` that a DTensor placed by
+    ``placements`` over ``mesh`` holds on this rank (shards nested in mesh
+    order, as DTensor splits them)."""
+    from repro_torch.launch import sharding
+    for i, pl in enumerate(placements):
+        if pl.is_shard():
+            lo, hi = sharding.shard_rows(full.shape[pl.dim],
+                                         mesh.get_local_rank(i),
+                                         mesh.size(i))
+            full = full.narrow(pl.dim, lo, hi - lo)
+    return full
+
+
+def _split_rows(fa) -> tuple:
+    """K5's launches on a rank's query rows: tensor cores, CUDA cores."""
+    return fa.launches_tc_rows, fa.launches_rows
+
+
+def tp_split_serving(torch, rank: int, mesh) -> list:
+    """Phase 20(l) and (m) on one rank, each run of ``TP_SPLIT_RUNS``:
+    gemma2-2b at published widths under the mode, first unsharded on this
+    rank (the ranks in turn, a barrier between: (m)'s batch-2 logits are
+    8.4 GB a rank), prefilled and served ``gen - 1`` greedy steps with the
+    exit head, keeping the part of each logits tensor that the sharded run
+    places on this rank; then the sharded prefill (``cache_len`` prompt +
+    gen) and serve steps on its cache, fed the unsharded run's tokens.
+    Logits and exit logits within 5 % of max|logit| of the unsharded; the
+    prefill's K5 launches (on this rank's query rows under seq2d: the rows
+    counter on rank 1) and none in decode; all-reduces only.  Prints
+    prefill s, decode ms a step, the all-reduces and their bytes (prefill,
+    a decode step) and the peak and held GiB."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention.ops import flash_attention as fa
+    from repro_torch.kernels.masked_agg import ops
+    from repro_torch.kernels.rglru_scan import ops as scan
+    from repro_torch.launch import sharding, steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.roofline import torch_walk
+    from repro_torch.tree import tree_leaves
+
+    def check(label, got, want, amax):
+        d = float((got.float() - want.float()).abs().max())
+        if tuple(got.shape) != tuple(want.shape) or \
+                not d <= TP_LOGIT_RULE * amax:
+            raise RuntimeError(f"20 {label} rank {rank}: {tuple(got.shape)} "
+                               f"against the unsharded {tuple(want.shape)}, "
+                               f"{d:.4f} apart, above {TP_LOGIT_RULE} x "
+                               f"max|logit| {amax:.3f}")
+        return d
+
+    def placed(x, policy):
+        return sharding.to_placements(policy.spec(tuple(x.shape), (
+            "batch", "seq", "vocab")), mesh)
+
+    rows = []
+    for part, mode, batch, prompt, gen in TP_SPLIT_RUNS:
+        cfg = configs.get_config(STEP_ARCH).with_overrides(attn_shard=mode)
+        policy = sharding.MeshPolicy(mesh, cfg)
+        cache_len = prompt + gen
+        full = tokens = None
+        for turn in range(mesh.size(1)):
+            if turn == rank:
+                full = tfm.init_params(torch.Generator("cuda").manual_seed(
+                    0), cfg)
+                tokens = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                                       generator=torch.Generator("cuda")
+                                       .manual_seed(1), device="cuda")
+                want, cache = steps.make_prefill_step(
+                    cfg, cache_len=cache_len)(full, {"tokens": tokens})
+                amax = float(want.abs().max().float())
+                tok = torch.argmax(want[:, -1], dim=-1)[:, None]
+                place = placed(want, policy)
+                want = _local_part(want, place, mesh).clone()
+                serve0 = steps.make_serve_step(cfg, with_exit_head=True)
+                fed, want_steps, want_exit = [], [], []
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for i in range(gen - 1):
+                    fed.append(tok)
+                    lg, cache, ex = serve0(full, cache, {"tokens": tok},
+                                           prompt + i)
+                    want_steps.append(_local_part(lg, placed(lg, policy),
+                                                  mesh).clone())
+                    want_exit.append(_local_part(ex, placed(ex, policy),
+                                                 mesh).clone())
+                    tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+                torch.cuda.synchronize()
+                unsharded_s = time.perf_counter() - t
+                del cache, lg, ex
+                gc.collect()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        amax_step = max(float(x.abs().max().float()) for x in want_steps)
+        amax_exit = max(float(x.abs().max().float()) for x in want_exit)
+        params = sharding.distribute_params(full, cfg, mesh)
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+        prefill = steps.make_prefill_step(cfg, policy, cache_len=cache_len)
+        torch.cuda.reset_peak_memory_stats()
+        counter = torch_walk.Collectives()
+        _tp_zero(ops, fa, scan)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with counter:
+            logits, cache = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launched = (fa.launches_tc, fa.launches, scan.lru_scan_gated.launches)
+        rows_launched = _split_rows(fa)
+        # one K5 launch a layer: under seq2d rank 1's rows start at 4096
+        n_layers = cfg.n_layers
+        want_rows = n_layers if mode == "seq2d" and rank else 0
+        if launched != (n_layers - want_rows, 0, 0) or \
+                rows_launched != (want_rows, 0):
+            raise RuntimeError(f"20({part}) rank {rank}: K5 tc / f32 / K6 "
+                               f"{launched}, on query rows {rows_launched}")
+        if [str(p) for p in logits.placements] != [str(p) for p in place]:
+            raise RuntimeError(f"20({part}) rank {rank}: logits placed "
+                               f"{logits.placements}, not {place}")
+        local = logits.to_local()
+        d = max(check(f"({part}) prefill", local[i, j:j + 1024],
+                      want[i, j:j + 1024], amax)
+                for i in range(local.shape[0])
+                for j in range(0, prompt, 1024))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        row = {"part": part, "arch": STEP_ARCH, "mode": mode,
+               "batch": batch, "prompt": prompt, "prefill_s": wall,
+               "max_abs_diff": d, "max_abs_logit": amax,
+               "logits_local": list(local.shape), "peak_gib": peak,
+               "launches": launched, "launches_rows": rows_launched,
+               "collectives": counter.counts,
+               "collective_bytes": counter.bytes}
+        del logits, local, want
+        gc.collect()
+        torch.cuda.empty_cache()
+        row["held_gib"] = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        counter = torch_walk.Collectives()
+        serve = steps.make_serve_step(cfg, policy, with_exit_head=True)
+        got_steps, got_exit = [], []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with counter:
+            for i in range(gen - 1):
+                lg, cache, ex = serve(params, cache, {"tokens": fed[i]},
+                                      prompt + i)
+                got_steps.append(lg.to_local().clone())
+                got_exit.append(ex.to_local().clone())
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t
+        if (fa.launches_tc, fa.launches) + _split_rows(fa) != \
+                launched[:2] + rows_launched:
+            raise RuntimeError(f"20({part}) rank {rank}: K5 launched in "
+                               f"decode")
+        for c in (row["collectives"], counter.counts):
+            if set(c) - {"all-reduce"}:
+                raise RuntimeError(f"20({part}) rank {rank}: collectives "
+                                   f"{c}: all-reduces only on the card")
+        steps_n = gen - 1
+        row.update({
+            "gen": gen, "cache_len": cache_len, "decode_steps": steps_n,
+            "decode_ms_per_step": decode_s / steps_n * 1e3,
+            "unsharded_decode_ms_per_step": unsharded_s / steps_n * 1e3,
+            "decode_max_abs_diff": max(check(
+                f"({part}) step {i}", g, w, amax_step) for i, (g, w) in
+                enumerate(zip(got_steps, want_steps))),
+            "decode_max_abs_logit": amax_step,
+            "exit_max_abs_diff": max(check(
+                f"({part}) exit step {i}", g, w, amax_exit) for i, (g, w) in
+                enumerate(zip(got_exit, want_exit))),
+            "exit_max_abs_logit": amax_exit,
+            "decode_peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "decode_collectives_per_step": {
+                k: v / steps_n for k, v in counter.counts.items()},
+            "decode_collective_bytes_per_step": {
+                k: v / steps_n for k, v in counter.bytes.items()},
+            "cache_placements": sorted({str(x.placements) for x in
+                                        tree_leaves(cache)})})
+        print(f"  ({part}) rank {rank} " + json.dumps(row), flush=True)
+        rows.append(row)
+        del params, cache, tokens, got_steps, got_exit, want_steps, want_exit
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def tp_split_card_vs_cpu(torch, rank: int, meshes: dict) -> dict:
+    """Phase 20(n) on one rank: each config and mode of
+    ``TP_SPLIT_NARROW`` (f32) on the card's (1, 2) mesh and on the CPU's
+    (the same gloo group): the train step (batch 2, 16 tokens; llava's 8
+    frontend rows too); under seq2d and dp2d the rounds of
+    ``TP_SPLIT_ENGINES`` (K = 2, one simple, 2 local steps), and on the
+    card the int8 top-k round bitwise the int8 round and the SCAFFOLD
+    round bitwise the f32 one; under seq2d_fsdp the cohort's refusal
+    (its specs name data twice); a prefill of ``TP_SPLIT_PROMPT``
+    positions then 6 teacher-forced serve steps with the exit head.  This
+    rank's shards, losses, logits and caches at rtol 1e-4 / atol 1e-5, the
+    int8 rounds under ``repro_torch.parity``'s rules.  K1, K2, K4 and K5
+    f32 (whole sequences and a rank's query rows) counted per config on
+    the card's runs."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.core import aggregate, comm
+    from repro_torch.kernels.flash_attention.ops import flash_attention as fa
+    from repro_torch.kernels.masked_agg import ops
+    from repro_torch.kernels.rglru_scan import ops as scan
+    from repro_torch.launch import sharding, steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import tree_leaves, tree_map
+
+    engines = {"f32": None,
+               "int8": aggregate.EngineSpec(wire=comm.WireSpec("int8", QB)),
+               "tree": aggregate.EngineSpec(engine="tree"),
+               "int8 topk": aggregate.EngineSpec(wire=comm.WireSpec(
+                   "int8", QB, topk_frac=0.5)),
+               "scaffold": aggregate.EngineSpec(
+                   variance_reduction="scaffold")}
+    launched, worst, refused = {}, {}, None
+    for arch, mode in TP_SPLIT_NARROW:
+        cfg = configs.get_reduced(arch).with_overrides(attn_shard=mode)
+        params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+        rng = np.random.default_rng(7)
+        n_extra = 0 if cfg.frontend is None else cfg.frontend.n_tokens
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(
+            2, 17)).astype(np.int32))
+        data = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(
+            2, 2, 2, 17)).astype(np.int32))
+        prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(
+            2, TP_SPLIT_PROMPT - n_extra)).astype(np.int32))
+        forced = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(
+            6, 2, 1)).astype(np.int32))
+        extra = {} if cfg.frontend is None else {
+            "extra_embeds": torch.as_tensor(rng.standard_normal((
+                2, n_extra, cfg.frontend.d_in)).astype(np.float32))}
+        simple = torch.tensor([True, False])
+        sides = {}
+        for dev in ("cuda", "cpu"):
+            mesh = meshes[dev]
+            policy = sharding.MeshPolicy(mesh, cfg)
+            ex = {k: v.to(dev) for k, v in extra.items()}
+            _tp_zero(ops, fa, scan)
+            fa.launches_tc_rows = fa.launches_rows = 0
+            got = {}
+            new, metrics = steps.make_train_step(cfg, policy)(
+                sharding.distribute_params(tree_map(
+                    lambda x: x.to(dev), params), cfg, mesh),
+                {"tokens": tokens.to(dev), **ex})
+            got["train"] = ([x.to_local().cpu() for x in tree_leaves(new)],
+                            metrics["loss"].cpu())
+            for name in TP_SPLIT_ENGINES:
+                stacked = tree_map(lambda x: x.to(dev)[None].expand(
+                    (2,) + x.shape), params)
+                try:
+                    cohort = sharding.distribute_cohort(stacked, cfg, mesh)
+                except ValueError as e:
+                    if mode != "seq2d_fsdp":
+                        raise
+                    refused = str(e)
+                    break
+                new_c, loss = steps.make_fed_round_step(
+                    cfg, policy, local_steps=2, engine=engines[name])(
+                        cohort, data.to(dev), simple.to(dev))
+                got[name] = ([x.to_local().cpu() for x in
+                              tree_leaves(new_c)], loss.cpu())
+            placed = sharding.distribute_params(tree_map(
+                lambda x: x.to(dev), params), cfg, mesh)
+            logits, cache = steps.make_prefill_step(
+                cfg, policy, cache_len=TP_SPLIT_PROMPT + 6)(
+                    placed, {"tokens": prompt.to(dev), **ex})
+            serve = steps.make_serve_step(cfg, policy, with_exit_head=True)
+            heads = [logits.to_local().cpu()]
+            for i in range(6):
+                lg, cache, ex_lg = serve(placed, cache, {
+                    "tokens": forced[i].to(dev)}, TP_SPLIT_PROMPT + i)
+                heads += [lg.to_local().cpu(), ex_lg.to_local().cpu()]
+            got["serve"] = (heads, [x.to_local().cpu()
+                                    for x in tree_leaves(cache)])
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launched[mode] = (_tp_kernel_counts(ops, fa, scan),
+                                  _split_rows(fa))
+            sides[dev] = got
+        label = f"20(n) {arch} {mode} rank {rank}"
+        keys = ["train"] + [k for k in TP_SPLIT_ENGINES if k in sides["cpu"]]
+        for key in keys:
+            wire = "int8" if key.startswith("int8") else "f32"
+            view = {dev: {wire if key != "train" else key: sides[dev][key]}
+                    for dev in sides}
+            worst[f"{mode} {key}"] = _tp_hold_rounds(
+                torch, f"{label} {key}", wire if key != "train" else key,
+                view, params, cfg, meshes["cpu"])
+        # the reference's round step folds no sparse chunk and no control
+        # variates: the extra options change nothing, bitwise
+        for key, base in (("int8 topk", "int8"), ("scaffold", "f32")):
+            if key not in sides["cuda"]:
+                continue
+            (a, la), (b, lb) = sides["cuda"][key], sides["cuda"][base]
+            if not (torch.equal(la, lb) and all(
+                    torch.equal(x, y) for x, y in zip(a, b))):
+                raise RuntimeError(f"{label}: the {key} round is not the "
+                                   f"{base} round bitwise on the card")
+        (heads_a, cache_a), (heads_b, cache_b) = (sides["cuda"]["serve"],
+                                                  sides["cpu"]["serve"])
+        _tp_allclose(torch, f"{label} cache", cache_a, cache_b)
+        _tp_allclose(torch, f"{label} logits", heads_a, heads_b)
+        worst[f"{mode} serve"] = max(float((x - y).abs().max()) for x, y in
+                                     zip(heads_a + cache_a,
+                                         heads_b + cache_b))
+        # K5 f32 a layer in prefill: under seq2d and seq2d_fsdp rank 1's
+        # rows start past 0; the rounds' folds under seq2d and dp2d
+        rounds = mode != "seq2d_fsdp"
+        n_layers = cfg.n_layers
+        on_rows = n_layers if mode != "dp2d" and rank else 0
+        want = ((2, 2, 0, 1, 0, n_layers - on_rows, 0) if rounds else
+                (0, 0, 0, 0, 0, n_layers - on_rows, 0), (0, on_rows))
+        if launched[mode] != want:
+            raise RuntimeError(f"{label}: launches K1/K2/K3/K4/K5 tc/K5 "
+                               f"f32/K6, K5 on query rows {launched[mode]}, "
+                               f"expected {want}")
+    if refused is None or "'data' to two dims" not in refused:
+        raise RuntimeError(f"20(n) rank {rank}: the seq2d_fsdp cohort was "
+                           f"not refused ({refused})")
+    print(f"  (n) rank {rank}: reduced gemma2-2b under seq2d and dp2d, "
+          f"reduced llava-next-34b under seq2d_fsdp: train step, rounds "
+          f"{TP_SPLIT_ENGINES}, prefill and serve, card against CPU, worst "
+          f"{worst}; launches {launched}; the seq2d_fsdp round refused: "
+          f"{refused}", flush=True)
+    return {"launches": launched, "worst": worst, "refused": refused}
+
+
 def tp_rank(rank: int, world: int, store: str, work: str,
             parts: tuple = TP_PARTS) -> None:
     """One rank of phase 20 (spawned by :func:`tp_phase`): gloo over a
     FileStore, the (1, 2) meshes on the card and on the CPU, then (a)-(e)
-    (``"dense"`` in ``parts``), (f)-(h) (``"moe"``) and (i)-(k)
-    (``"xlstm_codebooks"``); writes ``rank<r>.pt`` (or the traceback to
-    ``rank<r>.err``, and raises)."""
+    (``"dense"`` in ``parts``), (f)-(h) (``"moe"``), (i)-(k)
+    (``"xlstm_codebooks"``) and (l)-(n) (``"seq2d"``); writes
+    ``rank<r>.pt`` (or the traceback to ``rank<r>.err``, and raises)."""
     import faulthandler
     import torch
     import torch.distributed as dist
@@ -5716,6 +6168,9 @@ def tp_rank(rank: int, world: int, store: str, work: str,
         if "xlstm_codebooks" in parts:
             out["zoo"] = tp_zoo_serving(torch, rank, meshes["cuda"])
             out["zoo_narrow"] = tp_zoo_card_vs_cpu(torch, rank, meshes)
+        if "seq2d" in parts:
+            out["split"] = tp_split_serving(torch, rank, meshes["cuda"])
+            out["split_narrow"] = tp_split_card_vs_cpu(torch, rank, meshes)
         torch.save(out, os.path.join(work, f"rank{rank}.pt"))
         dist.destroy_process_group()
     except BaseException:
@@ -5753,11 +6208,12 @@ def tp_phase(torch, ops, ref, bw: float, unsharded,
              parts: tuple = TP_PARTS) -> dict:
     """Phase 20: the model axis on the card.  Phase 18(a)'s unsharded
     rounds are saved for the ranks, the card's memory is released, two
-    rank processes run (a)-(e), the MoE cells (f)-(h) and the xLSTM and
-    codebook cells (i)-(k) (:func:`tp_rank`; each raises on a failed
-    check, and a rank's failure fails the phase), then K1 and K2 at the
-    rank's local n_flat, K5 at a rank's heads and K6's gated entry at a
-    rank's channels are held to their plain versions and timed here, the
+    rank processes run (a)-(e), the MoE cells (f)-(h), the xLSTM and
+    codebook cells (i)-(k) and the token splits (l)-(n) (:func:`tp_rank`;
+    each raises on a failed check, and a rank's failure fails the phase),
+    then K1 and K2 at the rank's local n_flat, K5 at a rank's heads and on
+    a rank's query rows (:func:`check_flash_rows`) and K6's gated entry at
+    a rank's channels are held to their plain versions and timed here, the
     card to themselves.  ``parts`` (``TP_PARTS``) picks the cells; without
     ``"dense"`` ``unsharded`` is not read and only K5 is timed, at the
     shapes of the parts run."""
@@ -5805,6 +6261,8 @@ def tp_phase(torch, ops, ref, bw: float, unsharded,
     out["k5"] = check_flash(torch, bw, [
         c for c, part in zip(TP_FLASH_CASES, TP_FLASH_PARTS)
         if part in parts])
+    if "seq2d" in parts:
+        out["k5_rows"] = check_flash_rows(torch, bw)
     if "dense" not in parts:
         return out
     launches = [r["round"]["runs"][0]["launches"][0]
@@ -5825,18 +6283,27 @@ def tp_phase(torch, ops, ref, bw: float, unsharded,
 
     def narrow(r, i):
         return sum(r[key]["launches"][i] for key in ("moe_narrow",
-                                                     "zoo_narrow") if key in r)
+                                                     "zoo_narrow") if key in r
+                   ) + sum(c[0][i] for c in r.get("split_narrow", {}).get(
+                       "launches", {}).values())
+
+    def rows(r, i):
+        return sum(p["launches_rows"][i] for p in r.get("split", [])) + sum(
+            c[1][i] for c in r.get("split_narrow", {}).get(
+                "launches", {}).values())
     out["launches"] = {
         "k1": sum(r["round"]["runs"][0]["launches"][0] + narrow(r, 0)
                   for r in ranks),
         "k2": sum(r["round"]["runs"][1]["launches"][1] + narrow(r, 1)
                   for r in ranks),
-        "k4": sum(r["narrow"]["launches"][3] for r in ranks),
+        "k4": sum(r["narrow"]["launches"][3] + narrow(r, 3) for r in ranks),
         "k5_tc": sum(p["launches"][0] for r in ranks
                      for p in r["prefill"] + r.get("moe", [])
-                     + r.get("zoo", [])),
+                     + r.get("zoo", []) + r.get("split", [])),
         "k5_f32": sum(r["narrow"]["launches"][5] + narrow(r, 5)
                       for r in ranks),
+        "k5_tc_rows": sum(rows(r, 0) for r in ranks),
+        "k5_f32_rows": sum(rows(r, 1) for r in ranks),
         "k6": sum(p["launches"][2] for r in ranks for p in r["prefill"])}
     print(f"  phase 20 launches over both ranks {out['launches']} "
           f"({launches} K1 + K2 a rank) in {time.perf_counter() - t:.1f} s",
@@ -5848,9 +6315,10 @@ def tp_phase_alone(torch, ops, ref, bw: float,
                    parts: tuple = TP_PARTS) -> dict:
     """Phase 20 run alone: phase 18(a)'s two unsharded rounds first (as
     phase 19 runs them when alone), then :func:`tp_phase`; with ``parts``
-    ``("moe",)`` the MoE cells (f)-(h) alone and with
-    ``("xlstm_codebooks",)`` the cells (i)-(k) alone, without those
-    rounds."""
+    ``("moe",)`` the MoE cells (f)-(h) alone, with
+    ``("xlstm_codebooks",)`` the cells (i)-(k) alone and with
+    ``("seq2d",)`` the token splits (l)-(n) and K5 on a rank's query rows
+    alone, without those rounds."""
     if "dense" not in parts:
         return tp_phase(torch, ops, ref, bw, None, parts)
     from repro_torch import configs
@@ -6010,9 +6478,10 @@ def main() -> int:
     print("[20] a live model axis: Gemma-2 2B's step rounds, minitron-8b, "
           "recurrentgemma-2b, gemma2-2b, qwen2-moe-a2.7b, kimi-k2 (1 "
           "layer), xlstm-1.3b and musicgen-large prefilled and served on "
-          "sharded caches at full width, two ranks sharing the card (gloo, "
-          "a (1, 2) mesh); narrow card vs CPU (dense, MoE, xLSTM and "
-          "codebooks)", flush=True)
+          "sharded caches at full width, gemma2-2b under seq2d and dp2d, "
+          "two ranks sharing the card (gloo, a (1, 2) mesh); narrow card vs "
+          "CPU (dense, MoE, xLSTM and codebooks, the token splits)",
+          flush=True)
     tp = tp_phase(torch, ops, ref, bw, unsharded)
     del unsharded
 
@@ -6217,23 +6686,28 @@ def main() -> int:
     for name, key, path, row in (
             ("masked_agg_acc", "k1", "(a) Gemma-2 2B's f32 step round at "
              "full width, (h) reduced qwen2-moe's f32 round, (k) reduced "
-             "xlstm-1.3b's and musicgen-large's f32 rounds",
+             "xlstm-1.3b's and musicgen-large's f32 rounds, (n) reduced "
+             "gemma2-2b's f32 and SCAFFOLD rounds under seq2d and dp2d",
              tp["k1"]["timing"][0]),
             ("masked_agg_acc_deq", "k2", "(a) Gemma-2 2B's int8 step round "
              "at full width, (h) reduced qwen2-moe's int8 round, (k) "
-             "reduced xlstm-1.3b's and musicgen-large's int8 rounds",
+             "reduced xlstm-1.3b's and musicgen-large's int8 rounds, (n) "
+             "reduced gemma2-2b's int8 and int8 top-k rounds under seq2d "
+             "and dp2d",
              tp["k2"]["timing"][0]),
-            ("masked_agg", "k4", "(d) the narrow tree round on the card",
-             None),
+            ("masked_agg", "k4", "(d) the narrow tree round on the card, "
+             "(n) the token splits' narrow tree rounds", None),
             ("flash_attention_wgmma", "k5_tc", "(b) minitron-8b on 16 of 32 "
              "heads, (c) recurrentgemma-2b and (e) gemma2-2b replicated, "
              "(f) qwen2-moe-a2.7b on 8 of 16 heads, (g) kimi-k2-1t-a32b "
              "(1 layer) on 32 of 64, (j) musicgen-large on 16 of 32, each "
-             "prefill then served on its sharded cache",
-             tp["k5"]["timing"][0]),
+             "prefill then served on its sharded cache; (l) gemma2-2b under "
+             "seq2d on rank 0's query rows, (m) under dp2d on a rank's "
+             "sequence", tp["k5"]["timing"][0]),
             ("flash_attention", "k5_f32", "(d) the narrow f32 prefill on "
              "the card, (k) reduced musicgen-large's f32 prefill on 2 of 4 "
-             "heads", None),
+             "heads, (n) the token splits' narrow prefills (rank 0's rows, "
+             "dp2d's sequences)", None),
             ("lru_scan", "k6", "(c) recurrentgemma-2b on 1280 of 2560 "
              "channels", tp["k6"]["timing"][0])):
         kernel = by_name[name]
@@ -6252,6 +6726,31 @@ def main() -> int:
                 kernel["tp"]["shape"] = {"Z": 1, "N": tp["n_flat"],
                                          "fold": "complex", "mask":
                                          "gemma2-2b M, a rank's shards"}
+    # K5's query-offset entry: the same kernels on a rank's query rows past
+    # the first (q_offset > 0), counted apart; timed at (l)'s rank-1 shape
+    # and (n)'s f32 one
+    for name, source, dtype, key, path in (
+            ("flash_attention_wgmma (query-offset entry)",
+             "flash_attention_wgmma.cu", "bfloat16", "k5_tc_rows",
+             "(l) gemma2-2b under seq2d: rank 1's 4096 query rows at "
+             "q_offset 4096 against 8192 keys, a layer each"),
+            ("flash_attention (query-offset entry)", "flash_attention.cu",
+             "float32", "k5_f32_rows", "(n) reduced gemma2-2b under seq2d "
+             "and llava-next-34b under seq2d_fsdp: rank 1's query rows, "
+             "card against CPU")):
+        rows = [r for r in tp["k5_rows"]["timing"]
+                if r["shape"]["dtype"] == dtype]
+        head = next(r for r in rows if r["shape"]["q_offset"])
+        kernels.append({
+            "name": name, "route": "cuda", "source": k5_src + source,
+            "replaces": k5_replaces, "entry": "q_offset > 0",
+            "launches": tp["launches"][key], "launches_path": tp_path + path,
+            "max_abs_err": tp["k5_rows"]["max_abs_err"][dtype],
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "shape": head["shape"],
+            "bound_share": head["bound_share"], "tflops": head["tflops"],
+            "cases": rows})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name_of_card,

@@ -11,7 +11,13 @@
 // over the keys j with j <= i and, when window > 0, i - j < window.
 // q (B, S, H, Dh), k and v (B, S, Kh, Dh), f32, contiguous, 16-byte
 // aligned; G = H / Kh, so query head h reads kv head h / G.  cap(x) =
-// tanh(x / softcap) * softcap when softcap > 0.  Scores, the online softmax
+// tanh(x / softcap) * softcap when softcap > 0.  The _rows entry takes a
+// query offset: q (B, Sq, H, Dh) holds the rows at positions q_off .. q_off
+// + Sq - 1 of a sequence whose keys k, v are (B, Sk, Kh, Dh), q_off + Sq <=
+// Sk (a rank's rows of a sequence split over ranks); i above is the
+// position, and the masks, the first key tile and the heaviest-first order
+// use positions, the rows of q and out their local index.  q_off = 0 with
+// Sq = Sk is the plain entry, the same arithmetic.  Scores, the online softmax
 // (m, l, acc) and the probabilities are f32, every product an f32 FMA in
 // increasing Dh (then key) order; out is acc / max(l, 1e-30).  Dh is 32,
 // 64, 112, 128 or 256.  Dh 112 runs as 128 in shared memory (DP below):
@@ -145,8 +151,9 @@ __global__ void __launch_bounds__(Cfg<DH>::THREADS, Cfg<DH>::DP == 256 ? 1
                                                                       : 2)
 flash_fwd(float* __restrict__ out, const float* __restrict__ q,
           const float* __restrict__ k, const float* __restrict__ v,
-          int s_len, int n_heads, int n_kv, int n_bk, int g_blk, int bq,
-          int n_qblk, int n_grp, int window, float softcap, float scale) {
+          int s_len, int s_kv, int q_off, int n_heads, int n_kv, int n_bk,
+          int g_blk, int bq, int n_qblk, int n_grp, int window,
+          float softcap, float scale) {
   using C = Cfg<DH>;
   constexpr int NT = C::THREADS, KG = C::KG, BK = C::BK, SLOT = C::SLOT,
                 QLD = C::QLD, PLD = C::PLD, VC = C::VC, NK = C::NK,
@@ -173,9 +180,9 @@ flash_fwd(float* __restrict__ out, const float* __restrict__ q,
   const int kg = tid % KG;      // keys kg + KG j of a tile
   const int64_t tok = static_cast<int64_t>(n_heads) * DH;   // q/out stride
   const int64_t ktok = static_cast<int64_t>(n_kv) * DH;     // k/v stride
-  const float* kb = k + static_cast<int64_t>(b) * s_len * ktok +
+  const float* kb = k + static_cast<int64_t>(b) * s_kv * ktok +
                     static_cast<int64_t>(kvh) * DH;
-  const float* vb = v + static_cast<int64_t>(b) * s_len * ktok +
+  const float* vb = v + static_cast<int64_t>(b) * s_kv * ktok +
                     static_cast<int64_t>(kvh) * DH;
 
   // Q rows of the block (dead rows and padding columns are 0), with the
@@ -194,8 +201,10 @@ flash_fwd(float* __restrict__ out, const float* __restrict__ q,
     }
   }
 
-  const int q_last = min(q0 + bq, s_len) - 1;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  // positions: the block's first and last query, its first visible key
+  const int p0 = q_off + q0;
+  const int q_last = q_off + min(q0 + bq, s_len) - 1;
+  const int k_begin = window > 0 ? max(0, p0 - window + 1) : 0;
   const int n_tiles = (q_last - k_begin) / BK + 1;
   const int n_chunks = n_tiles * 2 * NK;
 
@@ -211,13 +220,13 @@ flash_fwd(float* __restrict__ out, const float* __restrict__ q,
       const int p = tid + NT * u;
       if (c < NK) {
         const int key = p >> 3, c4 = p & 7, kp = k0 + key;
-        const bool ok = kp < s_len && kDC * c + 4 * c4 < DH;
+        const bool ok = kp < s_kv && kDC * c + 4 * c4 < DH;
         cp_async16(dst + 4 * (key * kKld + 4 * c4),
                    ok ? kb + kp * ktok + kDC * c + 4 * c4 : kb, ok);
       } else {
         const int key = p / (DP / 4), c4 = p % (DP / 4);
         const int kp = k0 + (c - NK) * VC + key;
-        const bool ok = kp < s_len && 4 * c4 < DH;
+        const bool ok = kp < s_kv && 4 * c4 < DH;
         cp_async16(dst + 4 * (key * (DP + kPad) + 4 * c4),
                    ok ? vb + kp * ktok + 4 * c4 : vb, ok);
       }
@@ -225,14 +234,15 @@ flash_fwd(float* __restrict__ out, const float* __restrict__ q,
     cp_async_commit();
   };
 
-  // this thread's 8 rows: (query position, liveness)
-  int qpos[8];
+  // this thread's 8 rows: (row of q, query position, liveness)
+  int qrow[8], qpos[8];
   bool live[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int r = 8 * rg + i, qi = r / g_blk, gi = r % g_blk;
-    qpos[i] = q0 + qi;
-    live[i] = qi < bq && g0 + gi < g && qpos[i] < s_len;
+    qrow[i] = q0 + qi;
+    qpos[i] = q_off + qrow[i];
+    live[i] = qi < bq && g0 + gi < g && qrow[i] < s_len;
   }
   const bool capped = softcap > 0.f;
 
@@ -287,7 +297,7 @@ flash_fwd(float* __restrict__ out, const float* __restrict__ q,
     }
     // online softmax per row, over the KG lanes that share it
     const bool need_mask =
-        k0 + BK - 1 > q0 || (window > 0 && k0 < q_last - window + 1);
+        k0 + BK - 1 > p0 || (window > 0 && k0 < q_last - window + 1);
     float alpha[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -368,7 +378,7 @@ flash_fwd(float* __restrict__ out, const float* __restrict__ q,
     if (!live[i]) continue;
     const float den = fmaxf(l[i], 1e-30f);
     const int r = 8 * rg + i;
-    float* orow = out + (static_cast<int64_t>(b) * s_len + qpos[i]) * tok +
+    float* orow = out + (static_cast<int64_t>(b) * s_len + qrow[i]) * tok +
                   static_cast<int64_t>(kvh * g + g0 + r % g_blk) * DH;
 #pragma unroll
     for (int mm = 0; mm < NVW; ++mm) {
@@ -388,10 +398,12 @@ flash_fwd(float* __restrict__ out, const float* __restrict__ q,
 
 template <int DH>
 cudaError_t launch(void* out, const void* q, const void* k, const void* v,
-                   int b, int s, int h, int kh, int window, float softcap,
-                   float scale, cudaStream_t stream) {
+                   int b, int s, int sk, int q_off, int h, int kh, int window,
+                   float softcap, float scale, cudaStream_t stream) {
   constexpr int smem = Cfg<DH>::SMEM;
   const int g = h / kh;
+  if (q_off < 0 || static_cast<long long>(q_off) + s > sk)
+    return cudaErrorInvalidValue;
   const int g_blk = g < kRows ? g : kRows;
   const int bq = kRows / g_blk;
   const int n_qblk = (s + bq - 1) / bq, n_grp = (g + g_blk - 1) / g_blk;
@@ -403,33 +415,42 @@ cudaError_t launch(void* out, const void* q, const void* k, const void* v,
   flash_fwd<DH><<<static_cast<unsigned>(blocks), Cfg<DH>::THREADS, smem,
                   stream>>>(
       static_cast<float*>(out), static_cast<const float*>(q),
-      static_cast<const float*>(k), static_cast<const float*>(v), s, h, kh,
-      b * kh, g_blk, bq, n_qblk, n_grp, window, softcap, scale);
+      static_cast<const float*>(k), static_cast<const float*>(v), s, sk,
+      q_off, h, kh, b * kh, g_blk, bq, n_qblk, n_grp, window, softcap, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// query rows q_off .. q_off + s - 1 of a sequence of sk keys
+extern "C" int flash_attention_fwd_rows(void* out, const void* q,
+                                        const void* k, const void* v, int b,
+                                        int s, int sk, int q_off, int h,
+                                        int kh, int dh, int window,
+                                        float softcap, float scale,
+                                        void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (dh) {
+#define CASE(D)                                                             \
+  case D:                                                                   \
+    err = launch<D>(out, q, k, v, b, s, sk, q_off, h, kh, window, softcap,  \
+                    scale, st);                                             \
+    break;
+    CASE(32) CASE(64) CASE(112) CASE(128) CASE(256)
+#undef CASE
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// a whole sequence: q_off = 0, sk = s
 extern "C" int flash_attention_fwd(void* out, const void* q, const void* k,
                                    const void* v, int b, int s, int h,
                                    int kh, int dh, int window, float softcap,
                                    float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (dh) {
-    case 32: err = launch<32>(out, q, k, v, b, s, h, kh, window, softcap,
-                              scale, st); break;
-    case 64: err = launch<64>(out, q, k, v, b, s, h, kh, window, softcap,
-                              scale, st); break;
-    case 112: err = launch<112>(out, q, k, v, b, s, h, kh, window, softcap,
-                                scale, st); break;
-    case 128: err = launch<128>(out, q, k, v, b, s, h, kh, window, softcap,
-                                scale, st); break;
-    case 256: err = launch<256>(out, q, k, v, b, s, h, kh, window, softcap,
-                                scale, st); break;
-    default: err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return flash_attention_fwd_rows(out, q, k, v, b, s, s, 0, h, kh, dh,
+                                  window, softcap, scale, stream);
 }
 
 // the shared memory the launch above asks for at head dim dh (0: none),

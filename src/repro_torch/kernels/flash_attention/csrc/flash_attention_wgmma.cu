@@ -11,6 +11,13 @@
 // over the keys j with j <= i and, when window > 0, i - j < window.
 // q (B, S, H, Dh), k and v (B, S, Kh, Dh), bf16, contiguous, 16-byte
 // aligned; G = H / Kh; cap(x) = tanh(x / softcap) * softcap when softcap > 0.
+// The _rows entry takes a query offset: q (B, Sq, H, Dh) holds the rows at
+// positions q_off .. q_off + Sq - 1 of a sequence whose keys k, v are (B,
+// Sk, Kh, Dh), q_off + Sq <= Sk (a rank's rows of a sequence split over
+// ranks, against the key prefix it can see); i above is the position.  The
+// masks, the first key block and the heaviest-first order use positions,
+// the rows of q and out their local index.  q_off = 0 with Sq = Sk is the
+// plain entry, the same arithmetic.
 // Scores, the online softmax (m, l) and the output accumulator are f32; the
 // probabilities enter the PV product rounded to bf16, as the model's
 // _attend rounds them (probs.astype(v.dtype)), and l sums those same
@@ -225,9 +232,10 @@ template <int DH>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma(uint16_t* __restrict__ out, const uint16_t* __restrict__ q,
                 const uint16_t* __restrict__ k,
-                const uint16_t* __restrict__ v, int s_len, int n_heads,
-                int n_kv, int n_bk, int g_blk, int bq, int n_qblk, int n_grp,
-                int window, float softcap, float scale) {
+                const uint16_t* __restrict__ v, int s_len, int s_kv,
+                int q_off, int n_heads, int n_kv, int n_bk, int g_blk, int bq,
+                int n_qblk, int n_grp, int window, float softcap,
+                float scale) {
   using T = Tile<DH>;
   constexpr int NB = T::NB, KSTEPS = T::DP / 16;
   extern __shared__ uint8_t smem_raw[];
@@ -250,9 +258,9 @@ flash_fwd_wgmma(uint16_t* __restrict__ out, const uint16_t* __restrict__ q,
   const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int64_t tok = static_cast<int64_t>(n_heads) * DH;   // q/out stride
   const int64_t ktok = static_cast<int64_t>(n_kv) * DH;     // k/v stride
-  const uint16_t* kb = k + static_cast<int64_t>(b) * s_len * ktok +
+  const uint16_t* kb = k + static_cast<int64_t>(b) * s_kv * ktok +
                        static_cast<int64_t>(kvh) * DH;
-  const uint16_t* vb = v + static_cast<int64_t>(b) * s_len * ktok +
+  const uint16_t* vb = v + static_cast<int64_t>(b) * s_kv * ktok +
                        static_cast<int64_t>(kvh) * DH;
 
   // Q rows of the block (dead rows and padding columns are 0)
@@ -270,26 +278,29 @@ flash_fwd_wgmma(uint16_t* __restrict__ out, const uint16_t* __restrict__ q,
     }
   }
 
-  const int q_last = min(q0 + bq, s_len) - 1;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  // positions: the block's last query and its first visible key
+  const int q_last = q_off + min(q0 + bq, s_len) - 1;
+  const int k_begin = window > 0 ? max(0, q_off + q0 - window + 1) : 0;
   const int n_tiles = (q_last - k_begin) / kBK + 1;
-  load_kv<DH>(kv0, kv0 + T::KV_BYTES, kb, vb, ktok, k_begin, s_len, tid);
+  load_kv<DH>(kv0, kv0 + T::KV_BYTES, kb, vb, ktok, k_begin, s_kv, tid);
   cp_async_commit();
 
   // this thread's two rows (accumulator rows lane/4 and lane/4 + 8 of its
-  // warp's 16): query position and liveness
-  int qpos[2];
+  // warp's 16): query row of q, its position, and liveness
+  int qrow[2], qpos[2];
   bool live[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = wg * 64 + warp * 16 + (lane >> 2) + 8 * i;
     const int qi = r / g_blk, gi = r % g_blk;
-    qpos[i] = q0 + qi;
-    live[i] = qi < bq && g0 + gi < g && qpos[i] < s_len;
+    qrow[i] = q0 + qi;
+    qpos[i] = q_off + qrow[i];
+    live[i] = qi < bq && g0 + gi < g && qrow[i] < s_len;
   }
-  // the warpgroup's live queries, for the per-tile mask decision
-  const int wq_lo = q0 + (wg * 64) / g_blk;
-  const int wq_hi = min(q0 + min((wg * 64 + 63) / g_blk, bq - 1), s_len - 1);
+  // the warpgroup's live queries' positions, for the per-tile mask decision
+  const int wq_lo = q_off + q0 + (wg * 64) / g_blk;
+  const int wq_hi =
+      q_off + min(q0 + min((wg * 64 + 63) / g_blk, bq - 1), s_len - 1);
   const bool wg_dead = wq_lo > wq_hi;
 
   const bool capped = softcap > 0.f;
@@ -313,7 +324,7 @@ flash_fwd_wgmma(uint16_t* __restrict__ out, const uint16_t* __restrict__ q,
     __syncthreads();            // ... for every thread; tile j-1 is done
     if (j + 1 < n_tiles) {
       const uint32_t kn = kv0 + (st ^ 1) * 2 * T::KV_BYTES;
-      load_kv<DH>(kn, kn + T::KV_BYTES, kb, vb, ktok, k0 + kBK, s_len, tid);
+      load_kv<DH>(kn, kn + T::KV_BYTES, kb, vb, ktok, k0 + kBK, s_kv, tid);
     }
     cp_async_commit();
 
@@ -401,7 +412,7 @@ flash_fwd_wgmma(uint16_t* __restrict__ out, const uint16_t* __restrict__ q,
     if (!live[i]) continue;
     const float inv = 1.f / den;
     const int r = wg * 64 + warp * 16 + (lane >> 2) + 8 * i;
-    uint16_t* orow = out + (static_cast<int64_t>(b) * s_len + qpos[i]) * tok +
+    uint16_t* orow = out + (static_cast<int64_t>(b) * s_len + qrow[i]) * tok +
                      static_cast<int64_t>(kvh * g + g0 + r % g_blk) * DH;
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb)
@@ -418,10 +429,12 @@ flash_fwd_wgmma(uint16_t* __restrict__ out, const uint16_t* __restrict__ q,
 
 template <int DH>
 cudaError_t launch(void* out, const void* q, const void* k, const void* v,
-                   int b, int s, int h, int kh, int g_blk, int bq, int window,
-                   float softcap, float scale, int smem, cudaStream_t stream) {
+                   int b, int s, int sk, int q_off, int h, int kh, int g_blk,
+                   int bq, int window, float softcap, float scale, int smem,
+                   cudaStream_t stream) {
   const int g = h / kh;
-  if (smem < Tile<DH>::SMEM || g_blk < 1 || bq < 1 || g_blk * bq > kRows)
+  if (smem < Tile<DH>::SMEM || g_blk < 1 || bq < 1 || g_blk * bq > kRows ||
+      q_off < 0 || static_cast<long long>(q_off) + s > sk)
     return cudaErrorInvalidValue;
   const int n_qblk = (s + bq - 1) / bq, n_grp = (g + g_blk - 1) / g_blk;
   const long long blocks = static_cast<long long>(n_qblk) * n_grp * b * kh;
@@ -433,33 +446,44 @@ cudaError_t launch(void* out, const void* q, const void* k, const void* v,
   flash_fwd_wgmma<DH><<<static_cast<unsigned>(blocks), kThreads, smem,
                         stream>>>(
       static_cast<uint16_t*>(out), static_cast<const uint16_t*>(q),
-      static_cast<const uint16_t*>(k), static_cast<const uint16_t*>(v), s, h,
-      kh, b * kh, g_blk, bq, n_qblk, n_grp, window, softcap, scale);
+      static_cast<const uint16_t*>(k), static_cast<const uint16_t*>(v), s, sk,
+      q_off, h, kh, b * kh, g_blk, bq, n_qblk, n_grp, window, softcap, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// query rows q_off .. q_off + s - 1 of a sequence of sk keys
+extern "C" int flash_attention_wgmma_fwd_rows(void* out, const void* q,
+                                              const void* k, const void* v,
+                                              int b, int s, int sk, int q_off,
+                                              int h, int kh, int dh,
+                                              int g_blk, int bq, int window,
+                                              float softcap, float scale,
+                                              int smem, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (dh) {
+#define CASE(D)                                                              \
+  case D:                                                                    \
+    err = launch<D>(out, q, k, v, b, s, sk, q_off, h, kh, g_blk, bq, window, \
+                    softcap, scale, smem, st);                               \
+    break;
+    CASE(32) CASE(64) CASE(112) CASE(128) CASE(256)
+#undef CASE
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// a whole sequence: q_off = 0, sk = s
 extern "C" int flash_attention_wgmma_fwd(void* out, const void* q,
                                          const void* k, const void* v, int b,
                                          int s, int h, int kh, int dh,
                                          int g_blk, int bq, int window,
                                          float softcap, float scale,
                                          int smem, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (dh) {
-    case 32: err = launch<32>(out, q, k, v, b, s, h, kh, g_blk, bq, window,
-                              softcap, scale, smem, st); break;
-    case 64: err = launch<64>(out, q, k, v, b, s, h, kh, g_blk, bq, window,
-                              softcap, scale, smem, st); break;
-    case 112: err = launch<112>(out, q, k, v, b, s, h, kh, g_blk, bq, window,
-                                softcap, scale, smem, st); break;
-    case 128: err = launch<128>(out, q, k, v, b, s, h, kh, g_blk, bq, window,
-                                softcap, scale, smem, st); break;
-    case 256: err = launch<256>(out, q, k, v, b, s, h, kh, g_blk, bq, window,
-                                softcap, scale, smem, st); break;
-    default: err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return flash_attention_wgmma_fwd_rows(out, q, k, v, b, s, s, 0, h, kh, dh,
+                                        g_blk, bq, window, softcap, scale,
+                                        smem, stream);
 }

@@ -16,8 +16,10 @@ device it reports its work to an active roofline walk
 (``kernels/work.py``): 4 Dh flops a kept (query, key) pair and head, the
 bytes of q, k, v and the output.  ``flash_attention.launches_tc`` and
 ``flash_attention.launches`` count the tensor-core and the CUDA-core
-kernel's launches (never plain-version calls), so a run can show which
-kernel its prefill went through.
+kernel's launches on whole sequences (never plain-version calls), so a run
+can show which kernel its prefill went through; ``launches_tc_rows`` and
+``launches_rows`` count their launches on a rank's query rows (a
+``q_offset`` past 0, or more keys than queries).
 """
 
 from __future__ import annotations
@@ -148,13 +150,16 @@ def _lib() -> ctypes.CDLL:
     lib = build.load()
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     f32 = ctypes.c_float
-    lib.flash_attention_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
-                                        i32, i32, i32, f32, f32, ptr]
-    lib.flash_attention_fwd.restype = ctypes.c_int
-    lib.flash_attention_wgmma_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32,
-                                              i32, i32, i32, i32, i32, i32,
-                                              f32, f32, i32, ptr]
-    lib.flash_attention_wgmma_fwd.restype = ctypes.c_int
+    # the kernels on query rows q_offset .. q_offset + Sq - 1 of Sk keys:
+    # (..., b, s_q, s_k, q_offset, h, ...)
+    lib.flash_attention_fwd_rows.argtypes = [ptr, ptr, ptr, ptr, i32, i32,
+                                             i32, i32, i32, i32, i32, i32,
+                                             f32, f32, ptr]
+    lib.flash_attention_fwd_rows.restype = ctypes.c_int
+    lib.flash_attention_wgmma_fwd_rows.argtypes = [
+        ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, i32,
+        i32, f32, f32, i32, ptr]
+    lib.flash_attention_wgmma_fwd_rows.restype = ctypes.c_int
     lib.flash_attention_f32_smem.argtypes = [i32]
     lib.flash_attention_f32_smem.restype = i32
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
@@ -162,16 +167,20 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(q, k, v, window: int, softcap: float) -> None:
+def _check(q, k, v, window: int, softcap: float, q_offset: int = 0) -> None:
     if q.dim() != 4 or k.dim() != 4 or tuple(k.shape) != tuple(v.shape):
-        raise ValueError(f"need q (B, S, H, Dh) and k, v (B, S, Kh, Dh), got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+        raise ValueError(f"need q (B, Sq, H, Dh) and k, v (B, Sk, Kh, Dh), "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     b, s, h, dh = q.shape
-    if k.shape[0] != b or k.shape[1] != s or k.shape[3] != dh \
-            or k.shape[2] == 0 or h % k.shape[2]:
+    if k.shape[0] != b or k.shape[3] != dh or k.shape[2] == 0 \
+            or h % k.shape[2]:
         raise ValueError(f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}"
-                         f" (same B, S, Dh; H a multiple of Kh)")
+                         f" (same B, Dh; H a multiple of Kh)")
+    if q_offset < 0 or q_offset + s > k.shape[1]:
+        raise ValueError(f"queries at positions {q_offset}..{q_offset + s - 1}"
+                         f" need q_offset >= 0 and q_offset + Sq <= Sk = "
+                         f"{k.shape[1]} keys")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must all be float32 or all bfloat16, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -187,18 +196,26 @@ def _check(q, k, v, window: int, softcap: float) -> None:
                          f"{softcap}")
 
 
-def causal_pairs(s: int, window: int) -> int:
-    """(query, key) pairs a causal window keeps: key j <= query i and,
-    when windowed, i - j < window."""
+def causal_pairs(s: int, window: int, q_offset: int = 0) -> int:
+    """(query, key) pairs a causal window keeps for the ``s`` queries at
+    positions ``q_offset .. q_offset + s - 1``: key j <= query i and, when
+    windowed, i - j < window."""
+    if q_offset:
+        return (causal_pairs(q_offset + s, window)
+                - causal_pairs(q_offset, window))
     if not window or window >= s:
         return s * (s + 1) // 2
     return window * (window + 1) // 2 + (s - window) * window
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window: int = 0, softcap: float = 0.0) -> torch.Tensor:
-    """q (B, S, H, Dh), k and v (B, S, Kh, Dh) -> (B, S, H, Dh) in
-    ``q.dtype``.  Causal; ``window > 0`` also drops keys ``window`` or more
+                    window: int = 0, softcap: float = 0.0,
+                    q_offset: int = 0) -> torch.Tensor:
+    """q (B, Sq, H, Dh), k and v (B, Sk, Kh, Dh) -> (B, Sq, H, Dh) in
+    ``q.dtype``.  Query row ``i`` sits at position ``q_offset + i``
+    (``q_offset + Sq <= Sk``; 0 with ``Sq = Sk`` is a whole sequence, and
+    a rank of a sequence split passes its first row and the key prefix it
+    can see).  Causal; ``window > 0`` also drops keys ``window`` or more
     positions behind the query; ``softcap > 0`` caps the scaled scores
     with ``tanh(x / softcap) * softcap``.  Query head ``h`` reads kv head
     ``h // (H // Kh)``.
@@ -209,20 +226,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     cores; the kernel launches on the current stream and does not
     synchronise."""
     work.refuse_dtensor("flash_attention", q, k, v)
-    _check(q, k, v, window, softcap)
+    _check(q, k, v, window, softcap, q_offset)
     b, s, h, dh = q.shape
-    with work.kernel("flash_attention", 4 * dh * causal_pairs(s, window)
-                     * b * h, 2 * work.nbytes(q) + work.nbytes(k, v)):
-        return _flash_attention(q, k, v, window, softcap)
+    with work.kernel("flash_attention", 4 * dh * causal_pairs(
+            s, window, q_offset) * b * h,
+            2 * work.nbytes(q) + work.nbytes(k, v)):
+        return _flash_attention(q, k, v, window, softcap, q_offset)
 
 
-def _flash_attention(q, k, v, window: int, softcap: float) -> torch.Tensor:
+def _flash_attention(q, k, v, window: int, softcap: float,
+                     q_offset: int) -> torch.Tensor:
     if q.device.type == "meta":
         return torch.empty_like(q)
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, window=window, softcap=softcap)
+        return flash_attention_ref(q, k, v, window=window, softcap=softcap,
+                                   q_offset=q_offset)
     b, s, h, dh = q.shape
-    kh = k.shape[2]
+    kh, sk = k.shape[2], k.shape[1]
     if dh not in HEAD_DIMS:
         raise ValueError(f"head_dim {dh} not supported by the kernel "
                          f"(expected one of {HEAD_DIMS})")
@@ -230,8 +250,8 @@ def _flash_attention(q, k, v, window: int, softcap: float) -> torch.Tensor:
         raise ValueError("q, k and v must be contiguous")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must be 16-byte aligned")
-    if s >= 2**31:
-        raise ValueError(f"S = {s} is beyond the kernels' indexing")
+    if sk >= 2**31:
+        raise ValueError(f"S = {sk} is beyond the kernels' indexing")
     if q.numel() == 0:
         return torch.empty_like(q)
     tc = q.dtype == torch.bfloat16
@@ -242,21 +262,25 @@ def _flash_attention(q, k, v, window: int, softcap: float) -> torch.Tensor:
         stream = torch.cuda.current_stream(q.device).cuda_stream
         ptrs = (out.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr())
         if tc:
-            err = lib.flash_attention_wgmma_fwd(
-                *ptrs, b, s, h, kh, dh, plan.g_blk, plan.bq, window, softcap,
-                dh ** -0.5, plan.smem_bytes, stream)
+            err = lib.flash_attention_wgmma_fwd_rows(
+                *ptrs, b, s, sk, q_offset, h, kh, dh, plan.g_blk, plan.bq,
+                window, softcap, dh ** -0.5, plan.smem_bytes, stream)
         else:
-            err = lib.flash_attention_fwd(*ptrs, b, s, h, kh, dh, window,
-                                          softcap, dh ** -0.5, stream)
+            err = lib.flash_attention_fwd_rows(
+                *ptrs, b, s, sk, q_offset, h, kh, dh, window, softcap,
+                dh ** -0.5, stream)
     if err:
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention launch failed: {msg} ({err})")
-    if tc:
-        flash_attention.launches_tc += 1
-    else:
-        flash_attention.launches += 1
+    rows = "_rows" if q_offset or sk != s else ""
+    name = ("launches_tc" if tc else "launches") + rows
+    setattr(flash_attention, name, getattr(flash_attention, name) + 1)
     return out
 
 
 flash_attention.launches = 0        # the CUDA-core kernel (f32)
 flash_attention.launches_tc = 0     # the tensor-core kernel (bf16)
+# the same kernels on query rows past the first or against more keys than
+# queries (a rank's rows of a sequence split): counted apart
+flash_attention.launches_rows = 0
+flash_attention.launches_tc_rows = 0

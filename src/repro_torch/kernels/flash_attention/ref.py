@@ -12,23 +12,28 @@ import torch
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, window: int = 0,
-                        softcap: float = 0.0) -> torch.Tensor:
-    """q: (B, S, H, Dh); k, v: (B, S, Kh, Dh); causal (+ window) -> like q.
+                        *, window: int = 0, softcap: float = 0.0,
+                        q_offset: int = 0) -> torch.Tensor:
+    """q: (B, Sq, H, Dh); k, v: (B, Sk, Kh, Dh); causal (+ window) -> like
+    q.
 
-    Query head ``h`` reads kv head ``h // (H // Kh)``.  q, k and v are
-    widened to f32, the scale is ``Dh ** -0.5``, probabilities stay f32,
-    and the output is rounded to ``q.dtype`` once."""
+    Query row ``i`` sits at position ``q_offset + i`` and keeps key ``j``
+    where ``j <= q_offset + i`` and, when windowed, ``q_offset + i - j <
+    window`` (``q_offset + Sq <= Sk``; 0 with ``Sq = Sk`` is the whole
+    sequence).  Query head ``h`` reads kv head ``h // (H // Kh)``.  q, k and
+    v are widened to f32, the scale is ``Dh ** -0.5``, probabilities stay
+    f32, and the output is rounded to ``q.dtype`` once."""
     b, s, h, dh = q.shape
     kh = k.shape[2]
     qg = q.reshape(b, s, kh, h // kh, dh).float()
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * dh ** -0.5
     if softcap:
         logits = torch.tanh(logits / softcap) * softcap
-    pos = torch.arange(s, device=q.device)
-    mask = pos[:, None] >= pos[None, :]
+    qpos = q_offset + torch.arange(s, device=q.device)
+    kpos = torch.arange(k.shape[1], device=q.device)
+    mask = qpos[:, None] >= kpos[None, :]
     if window:
-        mask &= (pos[:, None] - pos[None, :]) < window
+        mask &= (qpos[:, None] - kpos[None, :]) < window
     logits = torch.where(mask, logits, -1e30)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.float())

@@ -50,12 +50,21 @@ hand-written kernel and the MoE block's routing, dispatch and combine on
 each rank's local shards through ``local_map``
 (``models/common.local_apply``); the xLSTM blocks, whose weights stay
 replicated, run whole on each rank's rows, and a codebook stack's
-embedding and heads are vocab-parallel.  Configs and paths the port does
-not run under a model axis raise ``NotImplementedError`` naming their
-queued ``ROADMAP.md`` item, where the policy is built
-(:func:`out_of_scope`) or where the step is: the ``seq2d`` / ``dp2d`` /
-``seq2d_fsdp`` variants, the compressed wire and SCAFFOLD.  None of them
-replicates silently.  The serve step reads the
+embedding and heads are vocab-parallel.
+
+**Token splits** (``seq2d``, ``dp2d``, ``seq2d_fsdp``; arch types ``dense``
+and ``vlm``).  The hidden state is a DTensor split over the sequence
+(``seq``) or the batch (``dp2d``'s ``("data", "model")``), and each block
+runs whole on each rank's tokens in one ``local_map``
+(``models/transformer._split_block``, :class:`common.TokenSplit`): k and v
+gathered along the sequence, K5 (prefill) or ``chunk2d_attention``
+(training) on the rank's query rows at their positions; ``seq2d_fsdp``'s
+data-sharded weights gathered at their use (:meth:`MeshPolicy.
+gather_weights`).  Every redistribution of a token split goes through
+``common.redistribute_by_sum`` (all-reduces only, forward and backward).
+The other arch types raise there (:func:`out_of_scope`, ``ROADMAP.md`` §1
+item 18), as does a live pod axis (item 16): nothing replicates
+silently.  The serve step reads the
 cache as :func:`cache_specs` places it, ``kv_seq`` rows included, and
 never replicates a sharded cache.
 """
@@ -69,19 +78,22 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import MeshShape
-from repro_torch.models.common import Policy, is_dtensor
+from repro_torch.models.common import (Policy, TokenSplit, is_dtensor,
+                                       redistribute_by_sum, shard_offset,
+                                       sharding_dims)
 from repro_torch.tree import (tree_leaves, tree_leaves_with_keys, tree_map,
                               tree_unflatten)
 
 Tree = Any
 
-# what the port does not run over a live model axis larger than 1, each
-# with its queued ROADMAP.md item
-TODO_TOPK = ("the compressed wire's global top-k over the model axis: "
-             "ROADMAP.md §1 item 13")
-TODO_SCAFFOLD = "SCAFFOLD under a model axis: ROADMAP.md §1 item 14"
-TODO_SEQ2D = ("a live seq2d / dp2d / seq2d_fsdp split over the model axis: "
-              "ROADMAP.md §1 item 15")
+# what the port does not run over a live model axis larger than 1, with
+# its queued ROADMAP.md item
+TODO_TOKEN_SPLIT = ("a live seq2d / dp2d / seq2d_fsdp split for a mixer "
+                    "other than attention (the RG-LRU scan, the xLSTM "
+                    "blocks, MoE routing over a split sequence): ROADMAP.md "
+                    "§1 item 18")
+TOKEN_SPLITS = ("seq2d", "dp2d", "seq2d_fsdp")
+TODO_POD = "a live mesh with a pod axis: ROADMAP.md §1 item 16"
 
 
 class PartitionSpec(tuple):
@@ -128,9 +140,11 @@ def _names(entry) -> Tuple[str, ...]:
 
 def out_of_scope(cfg: ModelConfig) -> Optional[str]:
     """Why ``cfg`` does not run over a live model axis larger than 1, or
-    ``None`` where it does."""
-    if cfg.attn_shard in ("seq2d", "seq2d_fsdp", "dp2d"):
-        return TODO_SEQ2D
+    ``None`` where it does: the token splits run for the configs whose
+    mixers are attention (arch types ``dense`` and ``vlm``)."""
+    if cfg.attn_shard in TOKEN_SPLITS and cfg.arch_type not in ("dense",
+                                                                "vlm"):
+        return TODO_TOKEN_SPLIT
     return None
 
 
@@ -160,6 +174,9 @@ class MeshPolicy(Policy):
             heads_rule = None
         self.seq2d = cfg.attn_shard in ("seq2d", "seq2d_fsdp")
         self.dp2d = cfg.attn_shard == "dp2d"
+        # a live token split: the blocks run on each rank's tokens and
+        # every redistribution is by all-reduces (module docstring)
+        self.token_split = self.model_live and cfg.attn_shard in TOKEN_SPLITS
         self.rules = {
             "batch": data + ("model",) if self.dp2d else data,
             "seq": "model" if self.seq2d else None,
@@ -215,8 +232,7 @@ class MeshPolicy(Policy):
         axes of size 1; ``TypeError`` on a plain tensor with values whose
         spec shards over a model axis larger than 1 (module docstring)."""
         if is_dtensor(x):
-            return x.redistribute(x.device_mesh, to_placements(
-                self.spec(x.shape, axes), self.mesh))
+            return self.place(x, self.spec(x.shape, axes))
         if x.is_meta:
             return x
         for entry in self.spec(x.shape, axes):
@@ -228,6 +244,41 @@ class MeshPolicy(Policy):
                         f"{self.mesh}: a model-sharded activation must be a "
                         f"DTensor (distribute_params)")
         return x
+
+    def place(self, x, spec: PartitionSpec):
+        """DTensor ``x`` placed by ``spec``: DTensor's ``redistribute``, or
+        under a live token split ``common.redistribute_by_sum`` (all-reduces
+        only, forward and backward)."""
+        placements = to_placements(spec, self.mesh)
+        if self.token_split:
+            return redistribute_by_sum(x, placements)
+        return x.redistribute(x.device_mesh, placements)
+
+    def gather_weights(self, tree: Tree) -> Tree:
+        """``tree``'s DTensor leaves gathered over the data axes where
+        ``seq2d_fsdp`` shards them (ZeRO-3, at their use: one all-reduce a
+        leaf, whose backward sums the gradient over data and keeps this
+        rank's slice, as a reduce-scatter would); the tree as it is
+        otherwise."""
+        if not (self.token_split and self.cfg.attn_shard == "seq2d_fsdp"):
+            return tree
+        from torch.distributed.tensor import Replicate
+        names = self.mesh.axis_names
+
+        def gather(x):
+            if not is_dtensor(x):
+                return x
+            return redistribute_by_sum(x, [
+                Replicate() if pl.is_shard() and names[i] in self.data_axes
+                else pl for i, pl in enumerate(x.placements)])
+        return tree_map(gather, tree)
+
+    def local_split(self, h) -> TokenSplit:
+        """The :class:`common.TokenSplit` of the hidden state ``h`` (B, S,
+        D), a DTensor: the mesh dims that split its sequence and this
+        rank's first position."""
+        return TokenSplit(h.device_mesh, sharding_dims(h, 1),
+                          shard_offset(h, 1), h.shape[1], self.seq2d)
 
     def model_policy(self) -> "MeshPolicy":
         """The policy of this rank's model group alone (the live mesh's
@@ -242,7 +293,7 @@ class MeshPolicy(Policy):
         """The process group of this rank's data axis (the round's
         all-reduce)."""
         if "pod" in self.mesh.axis_names:
-            raise NotImplementedError("a live mesh with a pod axis")
+            raise NotImplementedError(TODO_POD)
         return self.device_mesh.get_group("data")
 
     def data_coordinate(self) -> Tuple[int, int]:

@@ -49,9 +49,25 @@ K4 on the local flat vector, no model-axis collective: the fold is
 elementwise), and the new model's local leaves are wrapped back as
 DTensors.  On the int8 wire each sharded leaf's local rows must be whole
 groups of the global layout (``sharding.check_groups``), so that each
-rank quantizes exactly the reference's groups.  The compressed wire and
-SCAFFOLD raise ``NotImplementedError`` there, naming their queued
-``ROADMAP.md`` items.
+rank quantizes exactly the reference's groups.
+
+**Compressed-wire and SCAFFOLD specs** run as the reference's round step
+runs them, on one device or over a mesh: it hands its fold no sparse chunk
+and no control-variate chunk, so a delta-mode spec (top-k, stochastic,
+error feedback) folds the dense uploads at its payload dtype (an int8 spec
+through the dequantizing K2, an f32 one as the f32 wire: bitwise the spec
+without its delta options), and a SCAFFOLD spec folds what the spec
+without it folds; its zero control-variate accumulator is not allocated.
+
+**Token splits** (``attn_shard`` ``seq2d`` / ``dp2d`` / ``seq2d_fsdp``,
+the dense and VLM configs): the model runs its blocks on each rank's
+tokens (``models/transformer.py``), the train, prefill and serve steps as
+above, and the round step under ``seq2d`` and ``dp2d`` with each client
+under ``MeshPolicy.model_policy``.  A ``seq2d_fsdp`` cohort's specs name
+``data`` twice (the client axis and the weights' ZeRO-3 dim), so placing
+one raises ``ValueError`` as the reference's ``NamedSharding`` refuses
+it.  Prefill hands the cache back placed by ``sharding.cache_specs``,
+reached from the sequence- or batch-split k/v by all-reduces.
 
 Where the reference ``vmap``s a chunk's clients and ``scan``s the chunks,
 the round step loops over both in Python, training one client at a time;
@@ -298,10 +314,6 @@ def make_fed_round_step(cfg: ModelConfig, policy: Policy = NO_POLICY, *,
         algorithm="fedhen", wire=comm.WireSpec("float32", 128))
     if spec.wire is None:
         spec = spec.bind(wire=comm.WireSpec("float32", 128))
-    if tp and spec.wire.uses_deltas:
-        raise NotImplementedError(sharding.TODO_TOPK)
-    if tp and spec.variance_reduction != "none":
-        raise NotImplementedError(sharding.TODO_SCAFFOLD)
     adapter = LMAdapter(cfg, policy=policy.model_policy() if tp else policy,
                         remat=True)
     obs = obslib.coalesce(telemetry)
@@ -313,6 +325,11 @@ def make_fed_round_step(cfg: ModelConfig, policy: Policy = NO_POLICY, *,
                   "staleness_decay": staleness_decay}
         values.update(aggregate.engine_attrs(spec))
         obs.ledger("round_step_build", values)
+    # the step folds no control variates (the reference's round step
+    # passes no cv_chunk, and its finalize never reads cv_acc): the
+    # engine's state leaves SCAFFOLD's zero accumulator out, which no
+    # fold, result or all-reduce then carries
+    spec = spec.bind(variance_reduction="none")
 
     def client_train(client: Tree, data: torch.Tensor, is_simple: bool):
         """One client's ``local_steps`` SGD steps on its ``(B,
@@ -440,9 +457,8 @@ def make_prefill_step(cfg: ModelConfig, policy: Policy = NO_POLICY, *,
                 extra_embeds=batch.get("extra_embeds"), policy=policy,
                 window_override=window_override, cache_len=cache_len)
             if _model_live(policy):
-                cache = tree_map(lambda c, spec: c.redistribute(
-                    c.device_mesh, sharding.to_placements(spec, policy.mesh)),
-                    cache, sharding.cache_specs(cache, cfg, policy.mesh))
+                cache = tree_map(policy.place, cache, sharding.cache_specs(
+                    cache, cfg, policy.mesh))
             return logits, cache
 
     return prefill_step

@@ -15,8 +15,13 @@ time has its TFLOP/s and its share of the bound at the f32 CUDA-core peak
 ``--probe`` instead prints, for every build, max|diff| with the operands
 as drawn and made exact in TF32 (``variants/flash_attention_tf32.cu``,
 the split-TF32 kernel this one's design was measured against, is the
-build that probe is for).  Needs a card and nvcc; run from the root of a
-checkout:
+build that probe is for).  A baseline that is a ``csrc`` directory builds
+both K5 kernels (``flash_attention_wgmma.cu`` too), and every shape
+``chip_smoke.py`` checks (``FLASH_CASES``, ``TP_FLASH_CASES``) is added
+untimed; each row records, for each baseline, whether the built library's
+call (``ops.flash_attention``: whole sequences, q_offset 0) is bitwise
+that build's (``{name}_bitwise``).  Needs a card and nvcc; run from the
+root of a checkout:
 
     python -m repro_torch.launch.tune_flash [--baseline PATH ...] [--probe]
         [--out FILE]
@@ -37,16 +42,21 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ops, ref
 
-# (label, B, S, H, Kh, Dh, window, softcap, timed)
+# (label, B, S, H, Kh, Dh, window, softcap, dtype, timed): chip_smoke's
+# layout
 CASES = (("recurrentgemma-2b shape in f32", 4, 4096, 10, 1, 256, 2048, 0.0,
+          "float32", True),
+         ("gemma2-2b global in f32", 1, 8192, 8, 4, 256, 0, 50.0, "float32",
           True),
-         ("gemma2-2b global in f32", 1, 8192, 8, 4, 256, 0, 50.0, True),
-         ("G 3, ragged S", 2, 1000, 6, 2, 64, 0, 0.0, False),
-         ("G 130", 1, 70, 130, 1, 256, 0, 0.0, False),
-         ("window under a tile, softcap", 2, 700, 8, 4, 256, 9, 30.0, False),
-         ("Dh 32", 2, 190, 4, 1, 32, 0, 0.0, False),
-         ("Dh 128, softcap and window", 2, 517, 4, 2, 128, 200, 30.0, False))
-TOL = 1e-5
+         ("G 3, ragged S", 2, 1000, 6, 2, 64, 0, 0.0, "float32", False),
+         ("G 130", 1, 70, 130, 1, 256, 0, 0.0, "float32", False),
+         ("window under a tile, softcap", 2, 700, 8, 4, 256, 9, 30.0,
+          "float32", False),
+         ("Dh 32", 2, 190, 4, 1, 32, 0, 0.0, "float32", False),
+         ("Dh 128, softcap and window", 2, 517, 4, 2, 128, 200, 30.0,
+          "float32", False))
+# rtol = atol against the plain version, by dtype (check_flash's rules)
+TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 # (label, B, S, H, Kh, Dh, window, softcap): shapes at which --probe holds
 # the kernel to the plain version with operands made exact in TF32
 PROBES = (("window 9, softcap 30", 2, 700, 8, 4, 256, 9, 30.0),
@@ -90,37 +100,59 @@ def probe(case, baselines) -> dict:
 
 
 def compile_baseline(path: Path, work: Path) -> ctypes.CDLL:
-    """``path`` (a ``.cu`` file, or a ``csrc`` directory's
-    ``flash_attention.cu``), alone, as a library with the f32 kernel's C
-    entry."""
-    src = path if path.suffix == ".cu" else path / "flash_attention.cu"
+    """``path`` as a library with K5's whole-sequence C entries: a ``.cu``
+    file alone (the f32 entry), or a ``csrc`` directory's
+    ``flash_attention.cu`` and ``flash_attention_wgmma.cu`` (both)."""
+    srcs = [path] if path.suffix == ".cu" else [
+        path / "flash_attention.cu", path / "flash_attention_wgmma.cu"]
     nvcc = build._nvcc()
-    obj, lib = work / f"{src.stem}.o", work / f"lib{src.stem}.so"
-    res = subprocess.run([nvcc, *build.COMPILE_FLAGS, "-o", str(obj),
-                          str(src)], check=True, capture_output=True,
-                         text=True)
-    for ln in res.stdout.splitlines() + res.stderr.splitlines():
-        if "registers" in ln or "spill" in ln:
-            print(f"  {src.name}: {ln.strip()}", flush=True)
-    subprocess.run([nvcc, *build.LINK_FLAGS, "-o", str(lib), str(obj)],
+    objs = []
+    for src in srcs:
+        obj = work / f"{src.stem}.o"
+        res = subprocess.run([nvcc, *build.COMPILE_FLAGS, "-o", str(obj),
+                              str(src)], check=True, capture_output=True,
+                             text=True)
+        for ln in res.stdout.splitlines() + res.stderr.splitlines():
+            if "registers" in ln or "spill" in ln:
+                print(f"  {src.name}: {ln.strip()}", flush=True)
+        objs.append(str(obj))
+    lib_path = work / f"lib{srcs[0].stem}.so"
+    subprocess.run([nvcc, *build.LINK_FLAGS, "-o", str(lib_path), *objs],
                    check=True, capture_output=True)
-    lib = ctypes.CDLL(str(lib))
+    lib = ctypes.CDLL(str(lib_path))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_attention_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
                                         i32, i32, i32, f32, f32, ptr]
     lib.flash_attention_fwd.restype = i32
+    if len(srcs) > 1:
+        lib.flash_attention_wgmma_fwd.argtypes = [
+            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, f32,
+            f32, i32, ptr]
+        lib.flash_attention_wgmma_fwd.restype = i32
     return lib
 
 
+def has_bf16(lib) -> bool:
+    return hasattr(lib, "flash_attention_wgmma_fwd")
+
+
 def baseline_call(lib, q, k, v, window: int, softcap: float):
-    """The baseline's f32 kernel on the current stream (the wrapper's
-    checks are the caller's: contiguous f32 on the card)."""
+    """The baseline's kernel of q's dtype (bf16: the wgmma kernel at the
+    built library's plan) on the current stream (the wrapper's checks are
+    the caller's: contiguous on the card)."""
     b, s, h, dh = q.shape
+    kh = k.shape[2]
     out = torch.empty_like(q)
-    err = lib.flash_attention_fwd(
-        out.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), b, s, h,
-        k.shape[2], dh, window, softcap, dh ** -0.5,
-        torch.cuda.current_stream().cuda_stream)
+    ptrs = (out.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+    if q.dtype == torch.bfloat16:
+        plan = ops.plan_wgmma(b, s, h, kh, dh, q.dtype)
+        err = lib.flash_attention_wgmma_fwd(
+            *ptrs, b, s, h, kh, dh, plan.g_blk, plan.bq, window, softcap,
+            dh ** -0.5, plan.smem_bytes, stream)
+    else:
+        err = lib.flash_attention_fwd(*ptrs, b, s, h, kh, dh, window,
+                                      softcap, dh ** -0.5, stream)
     if err:
         raise RuntimeError(f"baseline launch failed ({err})")
     return out
@@ -144,32 +176,38 @@ def sdpa(q, k, v, window: int):
 
 
 def run_case(case, baselines) -> dict:
-    from chip_smoke import F32_PEAK, TF32_SPLIT_PEAK, _pairs, time_ms
-    label, b, s, h, kh, dh, window, cap, timed = case
+    from chip_smoke import F32_PEAK, TF32_SPLIT_PEAK, time_ms
+    label, b, s, h, kh, dh, window, cap, dtype, timed = case
+    dt, tol = getattr(torch, dtype), TOL[dtype]
     g = torch.Generator(device="cuda").manual_seed(s + h)
-    q = torch.randn((b, s, h, dh), generator=g, device="cuda") * 2
-    k = torch.randn((b, s, kh, dh), generator=g, device="cuda") * 2
-    v = torch.randn((b, s, kh, dh), generator=g, device="cuda")
-    want = ref.flash_attention_ref(q, k, v, window=window, softcap=cap)
+    q = (torch.randn((b, s, h, dh), generator=g, device="cuda") * 2).to(dt)
+    k = (torch.randn((b, s, kh, dh), generator=g, device="cuda") * 2).to(dt)
+    v = torch.randn((b, s, kh, dh), generator=g, device="cuda").to(dt)
+    want = ref.flash_attention_ref(q, k, v, window=window,
+                                   softcap=cap).float()
     calls = {"built": lambda: ops.flash_attention(q, k, v, window=window,
                                                   softcap=cap)}
     for bname, lib in baselines.items():
-        calls[bname] = (lambda lib=lib: baseline_call(lib, q, k, v, window,
-                                                      cap))
+        if dt == torch.float32 or has_bf16(lib):
+            calls[bname] = (lambda lib=lib: baseline_call(lib, q, k, v,
+                                                          window, cap))
     row = {"case": label, "shape": {"B": b, "S": s, "H": h, "Kh": kh,
                                     "Dh": dh, "window": window,
-                                    "softcap": cap}}
+                                    "softcap": cap, "dtype": dtype}}
+    outs = {}
     for name, fn in calls.items():
-        got = fn()
+        got = outs[name] = fn()
         torch.cuda.synchronize()
-        diff = (got - want).abs()
+        diff = (got.float() - want).abs()
         row[f"{name}_max_abs_diff"] = float(diff.max())
         row[f"{name}_within_tol"] = bool(
-            (diff <= TOL + TOL * want.abs()).all()
+            (diff <= tol + tol * want.abs()).all()
             and torch.isfinite(got).all())
-    del want
+        if name != "built":
+            row[f"{name}_bitwise"] = bool(torch.equal(got, outs["built"]))
+    del want, outs
     if timed:
-        flops = 4 * dh * _pairs(s, window) * b * h
+        flops = 4 * dh * ops.causal_pairs(s, window) * b * h
         others = [n for n in calls if n != "built"]
         for name in ["built"] + others + others + ["built"]:
             row.setdefault(f"{name}_ms", []).append(
@@ -222,7 +260,17 @@ def main(argv=None) -> int:
         if args.probe:
             rows = [probe(case, baselines) for case in PROBES]
         else:
-            rows = [run_case(case, baselines) for case in CASES]
+            cases = CASES
+            if any(has_bf16(lib) for lib in baselines.values()):
+                from chip_smoke import FLASH_CASES, TP_FLASH_CASES
+                cases += tuple(c[:-1] + (False,)
+                               for c in FLASH_CASES + TP_FLASH_CASES)
+            rows = [run_case(case, baselines) for case in cases]
+            for name in baselines:
+                held = [r[f"{name}_bitwise"] for r in rows
+                        if f"{name}_bitwise" in r]
+                print(f"  {name}: bitwise on {sum(held)} of {len(held)} "
+                      f"shapes", flush=True)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"card": smi, "rows": rows}))

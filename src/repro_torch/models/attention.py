@@ -23,9 +23,14 @@ Both full-sequence paths take the reference's sharding ``policy``.  Under
 a ``seq2d`` policy (``launch/sharding.MeshPolicy``) training runs
 :func:`chunk2d_attention` instead, plain PyTorch as the reference computes
 it in XLA ops: the reference's sequence-parallel form, whose query chunks
-its policy shards over ``model``.  Prefill walks it only on ``meta``
-tensors (the dry-runs); with values it keeps K5, since no live sequence
-split exists yet (``ROADMAP.md`` §1 item 15).
+its policy shards over ``model``.  Prefill walks it on ``meta`` tensors
+(the dry-runs); with values it keeps K5.  Under a live token split each
+block runs on one rank's tokens (``common.TokenSplit``): q, k and v of its
+rows at their positions, k and v gathered whole along the sequence by
+all-reduces, then in training :func:`chunk2d_attention` (``seq2d``; its
+fallbacks where the chunks do not divide S) or the chunked causal path
+(``dp2d``) on its query rows, in prefill K5 on them with ``q_offset`` at
+its first row.
 
 Over a live model axis (DTensor parameters and activations) the attention
 itself runs on each rank's local heads (:func:`_on_local_heads`, through
@@ -118,42 +123,47 @@ def _attend_remat(q, k, v, mask, softcap_val: float):
 
 def chunked_causal_attention(q, k, v, *, window: int = 0,
                              softcap_val: float = 0.0,
-                             q_chunk: int = 512) -> torch.Tensor:
+                             q_chunk: int = 512,
+                             q_offset: int = 0) -> torch.Tensor:
     """Causal (optionally sliding-window) attention without an S^2 buffer.
 
-    q: (B, S, H, Dh); k, v: (B, S, Kh, Dh).  ``window`` == 0 means global
-    causal.  A query at position i sees keys j with j <= i and, when
-    windowed, i - j < window.  A sequence longer than ``q_chunk`` runs
-    chunk by chunk, each chunk under ``torch.utils.checkpoint`` (the
-    reference's ``jax.checkpoint`` of its chunk bodies)."""
-    b, s, h, dh = q.shape
-    kh = k.shape[2]
+    q: (B, Sq, H, Dh), the rows at positions ``q_offset .. q_offset + Sq -
+    1`` of a sequence (all of it by default; a rank's rows of a sequence
+    split otherwise); k, v: (B, S, Kh, Dh), its keys from position 0.
+    ``window`` == 0 means global causal.  A query at position i sees keys
+    j with j <= i and, when windowed, i - j < window.  A sequence longer
+    than ``q_chunk`` runs chunk by chunk of ``q_chunk`` query rows, each
+    chunk under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint`` of its chunk bodies)."""
+    sq = q.shape[1]
+    s, kh = k.shape[1], k.shape[2]
     qg = _split_gqa(q, kh)
     dev = q.device
 
     if s <= q_chunk:
-        pos = torch.arange(s, device=dev)
-        mask = pos[None, :, None] >= pos[None, None, :]
+        q_pos = q_offset + torch.arange(sq, device=dev)
+        k_pos = torch.arange(s, device=dev)
+        mask = q_pos[None, :, None] >= k_pos[None, None, :]
         if window:
-            mask &= (pos[None, :, None] - pos[None, None, :]) < window
+            mask &= (q_pos[None, :, None] - k_pos[None, None, :]) < window
         return _merge_gqa(_attend(qg, k, v, mask, softcap_val))
 
     if s % q_chunk:
         raise ValueError(f"seq {s} not divisible by q_chunk {q_chunk}")
-    n_chunks = s // q_chunk
+    chunks = [(lo, min(lo + q_chunk, sq)) for lo in range(0, sq, q_chunk)]
     outs = []
     if window and window + q_chunk < s:
         # Local: each chunk sees a static slice of window + chunk keys.
-        span, pad = window + q_chunk, window
+        pad = window
         kp = F.pad(k, (0, 0, 0, 0, pad, 0))
         vp = F.pad(v, (0, 0, 0, 0, pad, 0))
-        for c in range(n_chunks):
-            start = c * q_chunk                      # in padded coords
-            q_pos = start + pad + torch.arange(q_chunk, device=dev)
+        for lo, hi in chunks:
+            start, span = q_offset + lo, window + hi - lo  # padded coords
+            q_pos = start + pad + torch.arange(hi - lo, device=dev)
             k_pos = start + torch.arange(span, device=dev)
             delta = q_pos[:, None] - k_pos[None, :]
             mask = (delta >= 0) & (delta < window) & (k_pos[None, :] >= pad)
-            outs.append(_attend_remat(qg[:, start:start + q_chunk],
+            outs.append(_attend_remat(qg[:, lo:hi],
                                kp[:, start:start + span],
                                vp[:, start:start + span], mask[None],
                                softcap_val))
@@ -161,19 +171,20 @@ def chunked_causal_attention(q, k, v, *, window: int = 0,
 
     # Global causal: chunked queries against all keys.
     k_pos = torch.arange(s, device=dev)
-    for c in range(n_chunks):
-        q_pos = c * q_chunk + torch.arange(q_chunk, device=dev)
+    for lo, hi in chunks:
+        q_pos = q_offset + lo + torch.arange(hi - lo, device=dev)
         mask = q_pos[:, None] >= k_pos[None, :]
         if window:
             mask &= (q_pos[:, None] - k_pos[None, :]) < window
-        outs.append(_attend_remat(qg[:, c * q_chunk:(c + 1) * q_chunk], k, v,
-                           mask[None], softcap_val))
+        outs.append(_attend_remat(qg[:, lo:hi], k, v, mask[None],
+                                  softcap_val))
     return _merge_gqa(torch.cat(outs, dim=1))
 
 
 def chunk2d_attention(q, k, v, *, window: int = 0, softcap_val: float = 0.0,
                       q_chunk: int = 512, k_chunk: int = 2048,
-                      policy: Policy = NO_POLICY) -> torch.Tensor:
+                      policy: Policy = NO_POLICY,
+                      q_offset: int = 0) -> torch.Tensor:
     """Sequence-parallel flash attention in plain PyTorch (the reference's
     XLA-level form).
 
@@ -183,23 +194,33 @@ def chunk2d_attention(q, k, v, *, window: int = 0, softcap_val: float = 0.0,
     score tile: scores in f32, the running max and sum in f32, ``p`` cast
     to v's dtype before the PV product, which accumulates in f32.  When
     ``q_chunk`` or ``k_chunk`` does not divide S it falls back to
-    :func:`chunked_causal_attention`, as the reference does."""
-    b, s, h, dh = q.shape
+    :func:`chunked_causal_attention`, as the reference does.
+
+    ``q_offset``: q (B, Sq, H, Dh) holds the rows at positions ``q_offset
+    .. q_offset + Sq - 1`` of the sequence whose keys are k, v (B, S, Kh,
+    Dh) -- a rank's query chunks under a live ``seq2d`` split, each row
+    computed as the whole sequence's loop computes it (the same key
+    blocks in the same order; its chunks whole ``q_chunk`` rows where Sq
+    holds whole ones, else one chunk of Sq rows)."""
+    b, sq, h, dh = q.shape
+    s = k.shape[1]
     kh = k.shape[2]
     g = h // kh
     if s % q_chunk or s % k_chunk:
         return chunked_causal_attention(q, k, v, window=window,
                                         softcap_val=softcap_val,
-                                        q_chunk=min(q_chunk, s))
-    nc = s // q_chunk
+                                        q_chunk=min(q_chunk, s),
+                                        q_offset=q_offset)
+    lq = q_chunk if sq % q_chunk == 0 else sq
+    nc = sq // lq
     dev = q.device
-    qc = q.reshape(b, nc, q_chunk, kh, g, dh)
+    qc = q.reshape(b, nc, lq, kh, g, dh)
     qc = policy.constrain(qc, ("batch", "seq_chunks", None, None, None,
                                None)).float()
     scale = dh ** -0.5
-    q_pos = (torch.arange(nc, device=dev)[:, None] * q_chunk
-             + torch.arange(q_chunk, device=dev)[None, :])      # (NC, Lq)
-    shape5 = (b, nc, q_chunk, kh, g)
+    q_pos = (q_offset + torch.arange(nc, device=dev)[:, None] * lq
+             + torch.arange(lq, device=dev)[None, :])           # (NC, Lq)
+    shape5 = (b, nc, lq, kh, g)
     m = torch.full(shape5, NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros(shape5, dtype=torch.float32, device=dev)
     acc = torch.zeros(shape5 + (dh,), dtype=torch.float32, device=dev)
@@ -223,7 +244,7 @@ def chunk2d_attention(q, k, v, *, window: int = 0, softcap_val: float = 0.0,
             "bnqkgs,bskd->bnqkgd", p.to(vb.dtype).float(), vb.float())
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return _merge_gqa(out.to(q.dtype).reshape(b, s, kh, g, dh))
+    return _merge_gqa(out.to(q.dtype).reshape(b, sq, kh, g, dh))
 
 
 # ---------------------------------------------------------------------------
@@ -304,13 +325,56 @@ def _on_local_heads(fn, q, k, v):
     return common.local_apply(fn, list(q.placements), q, k, v)
 
 
+def _gather_kv(k, v, split: common.TokenSplit, grad: bool):
+    """k and v (B, n, Kh, Dh) of this rank's rows whole along the sequence
+    (one all-reduce each, :func:`common.gather_by_sum`); in training by
+    :class:`common.GatherBySum`, whose backward sums their gradient over
+    the ranks (each rank's query rows use them differently) and keeps this
+    rank's rows."""
+    if not split.dims:
+        return k, v
+    args = (1, split.start, split.size, split.mesh, split.dims)
+    if grad:
+        return (common.GatherBySum.apply(k, *args, split.dims),
+                common.GatherBySum.apply(v, *args, split.dims))
+    return common.gather_by_sum(k, *args), common.gather_by_sum(v, *args)
+
+
+def _split_positions(h_in, split: common.TokenSplit) -> torch.Tensor:
+    """This rank's absolute positions (RoPE's and the masks')."""
+    return split.start + torch.arange(h_in.shape[1], dtype=torch.int32,
+                                      device=h_in.device)
+
+
+def _train_split(p, h_in, cfg: ModelConfig, window: int, q_chunk: int,
+                 split: common.TokenSplit) -> torch.Tensor:
+    """:func:`apply_attention_train` on one rank's tokens of a live token
+    split: q, k and v of its rows, k and v gathered whole, then the
+    reference's attention of those rows -- under ``seq2d``
+    :func:`chunk2d_attention` of its query chunks at their positions (the
+    reference's fallbacks where the chunks do not divide S), under ``dp2d``
+    the chunked causal path of its whole sequences."""
+    q, k, v = _project_qkv(p, h_in, cfg, _split_positions(h_in, split))
+    k, v = _gather_kv(k, v, split, grad=True)
+    kw = dict(window=window, softcap_val=cfg.attn_logit_softcap)
+    if split.seq2d:
+        out = chunk2d_attention(q, k, v, q_chunk=q_chunk,
+                                q_offset=split.start, **kw)
+    else:
+        out = chunked_causal_attention(q, k, v, q_chunk=q_chunk, **kw)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(out.dtype))
+
+
 def apply_attention_train(p: dict, h_in: torch.Tensor, cfg: ModelConfig, *,
                           window: int = 0, policy: Policy = NO_POLICY,
                           q_chunk: int = 512) -> torch.Tensor:
     """Training path.  h_in: (B, S, D) -> (B, S, D), differentiable:
     :func:`chunked_causal_attention` in plain PyTorch, as the reference
     trains (it never reaches K5), or :func:`chunk2d_attention` under a
-    ``seq2d`` policy."""
+    ``seq2d`` policy; on one rank's tokens of a live token split
+    (:class:`common.TokenSplit`) :func:`_train_split`."""
+    if isinstance(policy, common.TokenSplit):
+        return _train_split(p, h_in, cfg, window, q_chunk, policy)
     s = h_in.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=h_in.device)
     h_in = policy.constrain(h_in, ("batch", "seq", None))
@@ -335,16 +399,22 @@ def apply_attention(p: dict, h_in: torch.Tensor, cfg: ModelConfig, *,
     ``flash_attention`` (K5 on the card).  Under a ``seq2d`` policy on
     ``meta`` tensors (the dry-runs) it walks :func:`chunk2d_attention`,
     the program the reference lowers.  On tensors with values a ``seq2d``
-    policy's constrains are the identity only where the sequence split is
-    over axes of size 1 (and raise where it is not, ``MeshPolicy``), so the
-    function is K5's and K5 computes it.
+    policy over plain tensors is the identity only where the sequence
+    split is over axes of size 1 (and raises where it is not,
+    ``MeshPolicy``), so the function is K5's and K5 computes it; on one
+    rank's tokens of a live token split (:class:`common.TokenSplit`) it is
+    :func:`_prefill_split`, K5 on the rank's query rows.
 
     ``return_kv=True`` also returns the (RoPE'd) K/V tensors so the caller
     can build a decode cache.  Like the reference's chunked path, a
     sequence longer than ``q_chunk`` must be a multiple of it."""
     b, s, _ = h_in.shape
-    if s > q_chunk and s % q_chunk:
-        raise ValueError(f"seq {s} not divisible by q_chunk {q_chunk}")
+    split = policy if isinstance(policy, common.TokenSplit) else None
+    size = s if split is None else split.size
+    if size > q_chunk and size % q_chunk:
+        raise ValueError(f"seq {size} not divisible by q_chunk {q_chunk}")
+    if split is not None:
+        return _prefill_split(p, h_in, cfg, window, split, return_kv)
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=h_in.device)
     h_in = policy.constrain(h_in, ("batch", "seq", None))
@@ -361,6 +431,34 @@ def apply_attention(p: dict, h_in: torch.Tensor, cfg: ModelConfig, *,
                 q.contiguous(), k.contiguous(), v.contiguous(),
                 window=window, softcap=cfg.attn_logit_softcap), q, k, v)
     out = policy.constrain(out, ("batch", "seq", "heads", None))
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(out.dtype))
+    if return_kv:
+        return out, k, v
+    return out
+
+
+def _prefill_split(p, h_in, cfg: ModelConfig, window: int,
+                   split: common.TokenSplit, return_kv: bool):
+    """:func:`apply_attention` on one rank's tokens of a live token split:
+    q, k and v of its rows, k and v gathered whole (one all-reduce each),
+    then K5 on its query rows with ``q_offset`` at its first row against
+    the key prefix those rows can see (on ``meta`` under ``seq2d``, the
+    dry-runs, :func:`chunk2d_attention` of those rows: the program the
+    reference lowers).  The k and v it returns are whole (the cache is
+    built from them)."""
+    q, k, v = _project_qkv(p, h_in, cfg, _split_positions(h_in, split))
+    k, v = _gather_kv(k, v, split, grad=False)
+    end = split.start + h_in.shape[1]
+    if split.seq2d and q.is_meta:
+        # the dry-runs walk the program the reference lowers
+        out = chunk2d_attention(q, k, v, window=window,
+                                softcap_val=cfg.attn_logit_softcap,
+                                q_offset=split.start)
+    else:
+        out = flash_attention(q.contiguous(), k[:, :end].contiguous(),
+                              v[:, :end].contiguous(), window=window,
+                              softcap=cfg.attn_logit_softcap,
+                              q_offset=split.start)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(out.dtype))
     if return_kv:
         return out, k, v
@@ -484,13 +582,24 @@ def apply_attention_decode(p: dict, h_in: torch.Tensor, cache: dict,
     Writes the token's K/V into ``cache`` in place and returns
     ``(out (B, 1, D), cache)``.  The cache is constrained to
     ``("batch", "kv_seq", "kv_heads", "head_dim")`` before the attention,
-    as the reference's is.  Over a live model axis the cache is DTensors
+    as the reference's is -- except under a live token split, whose rules
+    leave ``kv_heads`` unsharded where ``cache_specs`` shards the heads:
+    there the attention runs on the cache as placed (each rank's kv heads,
+    or its ``kv_seq`` rows), the batch gathered to the cache's split
+    (``dp2d``) and the heads' output gathered after, never the cache.  Over a live model axis the cache is DTensors
     placed by ``sharding.cache_specs``: only the rank holding the new slot
     writes it (:func:`_write_slot`; a ring's slot moves from rank to rank
     as ``pos`` advances), and the attention runs on each rank's shards
     (:func:`_attend_sharded`); the ``wo`` product's ``Partial`` sum is left
     for the caller's constrain."""
     b = h_in.shape[0]
+    if policy.token_split and common.is_dtensor(h_in):
+        # dp2d splits the batch over model where the cache does not:
+        # gathered (an all-reduce) to the cache's batch split
+        from torch.distributed.tensor import Replicate
+        h_in = common.redistribute_by_sum(h_in, [
+            Replicate() if pl.is_shard(0) and not c.is_shard(0) else pl
+            for pl, c in zip(h_in.placements, cache["k"].placements)])
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=h_in.device)
     q, k_new, v_new = _project_qkv(p, h_in, cfg, positions)
 
@@ -502,8 +611,9 @@ def apply_attention_decode(p: dict, h_in: torch.Tensor, cache: dict,
     _write_slot(cache["k"], k_new, slot)
     _write_slot(cache["v"], v_new, slot)
     axes = ("batch", "kv_seq", "kv_heads", "head_dim")
-    k = policy.constrain(cache["k"], axes)
-    v = policy.constrain(cache["v"], axes)
+    k, v = cache["k"], cache["v"]
+    if not policy.token_split:
+        k, v = policy.constrain(k, axes), policy.constrain(v, axes)
 
     idx = torch.arange(size, device=h_in.device)
     if window:
@@ -515,6 +625,15 @@ def apply_attention_decode(p: dict, h_in: torch.Tensor, cache: dict,
         valid = idx <= pos
     if common.is_dtensor(k):
         out = _attend_sharded(q, k, v, valid, cfg.attn_logit_softcap)
+        if common.sharding_dims(out, 2) and not common.sharding_dims(
+                p["wo"], 0):
+            # heads split by the cache, wo whole (a token split's
+            # replicated weights): the heads' output gathered by an
+            # all-reduce, then the unsharded product
+            from torch.distributed.tensor import Replicate
+            out = common.redistribute_by_sum(out, [
+                Replicate() if pl.is_shard(2) else pl
+                for pl in out.placements])
     else:
         out = _merge_gqa(_attend(_split_gqa(q, cfg.n_kv_heads), k, v,
                                  valid[None, None, :],

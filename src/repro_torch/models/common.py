@@ -38,10 +38,20 @@ import torch.nn.functional as F
 # ---------------------------------------------------------------------------
 
 class Policy:
-    """No-op default policy (one device).  See ``launch/sharding.py``."""
+    """No-op default policy (one device).  See ``launch/sharding.py``.
+
+    ``token_split``: whether the blocks run on each rank's tokens (a live
+    ``seq2d`` / ``dp2d`` / ``seq2d_fsdp`` mesh, ``MeshPolicy``)."""
+
+    token_split = False
 
     def constrain(self, x: torch.Tensor, axes) -> torch.Tensor:
         return x
+
+    def gather_weights(self, tree):
+        """``tree`` as a block uses it (``MeshPolicy`` gathers
+        ``seq2d_fsdp``'s data-sharded weights)."""
+        return tree
 
 
 NO_POLICY = Policy()
@@ -157,6 +167,120 @@ class GatherBySum(torch.autograd.Function):
         return (g.narrow(dim, start, n).contiguous(),) + (None,) * 6
 
 
+class SliceRows(torch.autograd.Function):
+    """Rows ``[start, start + n)`` of a tensor's dim ``dim`` (``size``
+    rows, whole on every rank of the mesh dims ``dims``): this rank's share
+    where a replicated tensor becomes sharded.  The backward gathers the
+    shares' gradients whole by :func:`gather_by_sum` (one all-reduce), so
+    neither direction issues an all-gather."""
+
+    @staticmethod
+    def forward(ctx, x, dim, start, n, mesh, dims):
+        ctx.slot = (dim, start, x.shape[dim], mesh, tuple(dims))
+        return x.narrow(dim, start, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, start, size, mesh, dims = ctx.slot
+        return (gather_by_sum(g.contiguous(), dim, start, size, mesh, dims),
+                ) + (None,) * 5
+
+
+def _held(size: int, mesh, mesh_dims) -> tuple:
+    """``(start, stop)`` of the rows of a ``size``-row dim that this rank
+    holds when the mesh dims ``mesh_dims`` shard it, nested in mesh order
+    as DTensor splits it."""
+    from repro_torch.launch.sharding import shard_rows
+    start, stop = 0, size
+    for i in mesh_dims:
+        lo, hi = shard_rows(stop - start, mesh.get_local_rank(i),
+                            mesh.size(i))
+        start, stop = start + lo, start + hi
+    return start, stop
+
+
+def _gather_mesh_dim(x, i: int):
+    """DTensor ``x`` with mesh dim ``i``'s shards of their tensor dim
+    gathered (one all-reduce), ``Replicate`` there: the innermost mesh dim
+    that shards that tensor dim."""
+    from torch.distributed.tensor import Replicate
+    d, mesh = x.placements[i].dim, x.device_mesh
+    outer = [j for j in range(i) if x.placements[j].is_shard(d)]
+    if any(x.placements[j].is_shard(d) for j in range(i + 1, mesh.ndim)):
+        raise ValueError(f"gathering mesh dim {i} of {x.placements} would "
+                         f"leave a split of dim {d} nested inside it")
+    lo, hi = _held(x.shape[d], mesh, outer)
+    start = _held(hi - lo, mesh, [i])[0]
+    place = list(x.placements)
+    place[i] = Replicate()
+    if mesh.size(i) == 1:
+        return local_apply(lambda t: t.view_as(t), place, x)
+    return local_apply(lambda t: GatherBySum.apply(
+        t, d, start, hi - lo, mesh, [i], []), place, x)
+
+
+def _slice_mesh_dim(x, i: int, d: int):
+    """DTensor ``x``, replicated over mesh dim ``i``, as ``Shard(d)``
+    there: each rank keeps its rows (:class:`SliceRows`)."""
+    from torch.distributed.tensor import Shard
+    mesh = x.device_mesh
+    if any(x.placements[j].is_shard(d) for j in range(i + 1, mesh.ndim)):
+        raise ValueError(f"splitting dim {d} over mesh dim {i} of "
+                         f"{x.placements} would nest it outside a split")
+    rows = x.to_local().shape[d]
+    start, stop = _held(rows, mesh, [i])
+    place = list(x.placements)
+    place[i] = Shard(d)
+    if mesh.size(i) == 1:
+        return local_apply(lambda t: t.view_as(t), place, x)
+    return local_apply(lambda t: SliceRows.apply(
+        t, d, start, stop - start, mesh, [i]), place, x)
+
+
+def redistribute_by_sum(x, placements):
+    """DTensor ``x`` placed by ``placements`` through all-reduces only, in
+    both directions of autograd: each ``Partial`` the target does not keep
+    is reduced (an all-reduce), each shard the target does not keep is
+    gathered innermost first (:class:`GatherBySum`, one all-reduce), then
+    each new split keeps this rank's rows (:class:`SliceRows`, whose
+    backward is one all-reduce); over a mesh dim of one rank either is a
+    relabelling.  What DTensor's ``redistribute`` would do
+    with a reduce-scatter, an all-gather or an all-to-all, which gloo
+    cannot run on CUDA tensors (``launch/probe_gloo.py``)."""
+    from torch.distributed.tensor import Replicate
+    target = list(placements)
+    cur = list(x.placements)
+    if cur == target:
+        return x
+    reduced = [Replicate() if p.is_partial() and not t.is_partial() else p
+               for p, t in zip(cur, target)]
+    if reduced != cur:
+        x = x.redistribute(x.device_mesh, reduced)
+    for i in reversed(range(len(target))):
+        if x.placements[i].is_shard() and x.placements[i] != target[i]:
+            x = _gather_mesh_dim(x, i)
+    for i, t in enumerate(target):
+        if t.is_shard() and x.placements[i] != t:
+            x = _slice_mesh_dim(x, i, t.dim)
+    if list(x.placements) != target:
+        raise ValueError(f"no all-reduce route from {cur} to {target}")
+    return x
+
+
+class TokenSplit(Policy):
+    """The policy of a block run on one rank's tokens (``transformer``'s
+    token-split blocks): every constrain is the identity on its local
+    tensors, and attention reads the sequence's split from it.  ``mesh``
+    and ``dims``: the mesh dims that split the sequence (none where it is
+    whole on the rank); ``start``: this rank's first position; ``size``:
+    the sequence's length; ``seq2d``: the reference's ``seq2d`` attention
+    (``chunk2d_attention``) rather than the chunked causal path."""
+
+    def __init__(self, mesh, dims, start: int, size: int, seq2d: bool):
+        self.mesh, self.dims = mesh, list(dims)
+        self.start, self.size, self.seq2d = start, size, seq2d
+
+
 def sharding_dims(x, dim: int) -> list:
     """The mesh dims whose placement of DTensor ``x`` shards its dim
     ``dim`` (none for a plain tensor)."""
@@ -238,10 +362,14 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 
 def rope_frequencies(head_dim: int, theta: float,
                      device=None) -> torch.Tensor:
-    """``1 / theta ** (2i / head_dim)`` in f32, (head_dim // 2,)."""
+    """``1 / theta ** (2i / head_dim)`` in f32, (head_dim // 2,): the
+    exponent in f32, the power and its reciprocal in f64, rounded once --
+    the values the reference's jitted programs fold on the host.  An f32
+    ``pow`` kernel is off by up to an ulp, which a position in the
+    thousands turns into an angle off by ~1e-5."""
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
                             device=device) / head_dim
-    return 1.0 / (theta ** exponent)
+    return (1.0 / theta ** exponent.double()).float()
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

@@ -50,7 +50,11 @@ The entry points take the reference's sharding ``policy`` (default
 :data:`common.NO_POLICY`) and constrain the same activations; the blocks
 hand it to attention, whose ``seq2d`` branch runs ``chunk2d_attention``
 (in prefill only on ``meta``; with values prefill keeps K5), and to the
-xLSTM mixers.
+xLSTM mixers.  Under a live token split (``MeshPolicy.token_split``: the
+``seq2d`` / ``dp2d`` / ``seq2d_fsdp`` configs over a model axis) each
+block runs on each rank's tokens in one ``local_map``
+(:func:`_split_block`), the embedding's ``Partial`` is reduced then split,
+and the heads gather the sequence first (:func:`_whole_sequence`).
 :func:`abstract_params` and ``init_cache(..., device="meta")`` give the
 trees of :func:`init_params` and :func:`init_cache` as ``meta`` tensors,
 the counterpart of the reference's ``jax.eval_shape`` of them.
@@ -182,12 +186,61 @@ def _apply_mlp(p: Params, spec: LayerSpec, h: torch.Tensor,
     return h + policy.constrain(y, ("batch", "seq", None)), aux
 
 
+def _token_split(policy: Policy, h) -> bool:
+    return policy.token_split and common.is_dtensor(h)
+
+
+def _whole_sequence(h, policy: Policy):
+    """A token split's hidden state gathered along the sequence (one
+    all-reduce) for the heads: their constrain puts vocab before seq (the
+    reference's priority), and a loss slices the sequence.  ``h`` as it is
+    under any other policy."""
+    if not _token_split(policy, h):
+        return h
+    return policy.constrain(h, ("batch", None, None))
+
+
+def _split_block(run, p: Params, h, policy: Policy, n_extra: int = 0):
+    """``run(p, h, split)`` -- a block's plain code, ``split`` its
+    :class:`common.TokenSplit` -- on each rank's tokens of a live token
+    split, in one ``local_map``: the hidden state (B, S, D) split over the
+    sequence (``seq2d``) or the batch (``dp2d``), the block's weights whole
+    (replicated, or gathered over data under ``seq2d_fsdp``).  Returns the
+    block's new hidden state, placed as ``h``, and ``run``'s ``n_extra``
+    further outputs (prefill's cache), whole along the sequence and placed
+    as ``h``'s batch.  A weight's local gradient is this rank's tokens'
+    term: ``Partial`` over each mesh dim that splits the tokens, whole
+    where every rank of a dim holds the same tokens."""
+    from torch.distributed.tensor import Partial, Replicate
+    p = policy.gather_weights(p)
+    leaves, treedef = tree_flatten(p)
+    split = policy.local_split(h)
+    tokens = [i for i, pl in enumerate(h.placements) if pl.is_shard()]
+    grads = [[Partial() if i in tokens else pl
+              for i, pl in enumerate(x.placements)]
+             if common.is_dtensor(x) else None for x in leaves]
+    batch = [pl if pl.is_shard(0) else Replicate() for pl in h.placements]
+
+    def local(hl, *ws):
+        return run(tree_unflatten(treedef, list(ws)), hl, split)
+    out = list(h.placements) if not n_extra else (
+        (list(h.placements),) + (batch,) * n_extra)
+    return common.local_apply(local, out, h, *leaves,
+                              in_grad_placements=(None, *grads))
+
+
 def apply_block(p: Params, spec: LayerSpec, h: torch.Tensor,
                 cfg: ModelConfig, *, window_override: Optional[int] = None,
                 policy: Policy = NO_POLICY
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence training block, differentiable.  Returns ``(h,
-    aux)``; ``aux`` holds the MoE losses, zeros for a dense block."""
+    aux)``; ``aux`` holds the MoE losses, zeros for a dense block.  Under
+    a live token split it runs on each rank's tokens
+    (:func:`_split_block`)."""
+    if _token_split(policy, h):
+        return _split_block(lambda pl, hl, split: apply_block(
+            pl, spec, hl, cfg, window_override=window_override,
+            policy=split)[0], p, h, policy), _zero_aux(h.device)
     x = common.apply_rmsnorm(p["pre_norm"], h, cfg.norm_eps)
     if _is_attention(spec):
         m = attention.apply_attention_train(
@@ -210,7 +263,17 @@ def apply_block_prefill(p: Params, spec: LayerSpec, h: torch.Tensor,
                         cache_len: Optional[int] = None,
                         policy: Policy = NO_POLICY):
     """Full-sequence block that also builds its decode cache.
-    Returns ``(h, cache, aux)``."""
+    Returns ``(h, cache, aux)``.  Under a live token split it runs on each
+    rank's tokens (:func:`_split_block`); the cache comes back whole
+    along the sequence, placed as the batch."""
+    if _token_split(policy, h):
+        def run(pl, hl, split):
+            out, cache, _ = apply_block_prefill(
+                pl, spec, hl, cfg, window_override=window_override,
+                cache_len=cache_len, policy=split)
+            return out, cache["k"], cache["v"]
+        h, ck, cv = _split_block(run, p, h, policy, n_extra=2)
+        return h, {"k": ck, "v": cv}, _zero_aux(h.device)
     x = common.apply_rmsnorm(p["pre_norm"], h, cfg.norm_eps)
     x = policy.constrain(x, ("batch", "seq", None))
     if _is_attention(spec):
@@ -257,7 +320,9 @@ def apply_block_decode(p: Params, spec: LayerSpec, h: torch.Tensor,
     ``(h, cache, aux)``; an MoE block routes the whole batch as one
     group.  Over a model axis the mixer's output (a ``Partial`` sum where
     ``wo`` or ``w_out`` is row-parallel) is reduced by the constrain
-    before the residual add, as in prefill."""
+    before the residual add, as in prefill.  Under ``seq2d_fsdp`` the
+    block's weights are gathered over data first."""
+    p = policy.gather_weights(p)
     x = common.apply_rmsnorm(p["pre_norm"], h, cfg.norm_eps)
     if _is_attention(spec):
         m, cache = attention.apply_attention_decode(
@@ -356,12 +421,16 @@ def embed_inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                              device=h.device).to(h.dtype)
     else:
         h = common.apply_embedding(params["embed"], tokens)
-        # a vocab-parallel lookup's Partial sum, reduced (an all-reduce)
-        h = policy.constrain(h, ("batch", "seq", None))
+        # a vocab-parallel lookup's Partial sum, reduced (an all-reduce);
+        # a token split splits the sequence after the frontend's rows
+        h = policy.constrain(h, ("batch", None if extra_embeds is not None
+                                 else "seq", None))
     h = h.to(cd)
     if extra_embeds is not None:
-        proj = torch.matmul(extra_embeds.to(cd),
-                            params["frontend_proj"]["w"].to(cd))
+        proj = torch.matmul(extra_embeds.to(cd), policy.gather_weights(
+            params["frontend_proj"])["w"].to(cd))
+        if _token_split(policy, h):
+            proj = policy.constrain(proj, ("batch", None, None))
         h = torch.cat([proj, h], dim=1)
     return policy.constrain(h, ("batch", "seq", None))
 
@@ -371,7 +440,8 @@ def logits_from_hidden(params: Params, cfg: ModelConfig, h: torch.Tensor,
     """head: 'final' or 'exit' (FedHeN early-exit head, shared
     unembedding).  (B, S, V), or (B, S, n_codebooks, V) with codebooks."""
     norm = params["final_norm"] if head == "final" else params["exit_norm"]
-    h = common.apply_rmsnorm(norm, h, cfg.norm_eps)
+    h = _whole_sequence(h, policy)
+    h = common.apply_rmsnorm(policy.gather_weights(norm), h, cfg.norm_eps)
     if cfg.n_codebooks > 1:
         tables = params["embed"]["tables"].to(h.dtype)      # (NC, V, D)
         nc, v, d = tables.shape
@@ -384,7 +454,8 @@ def logits_from_hidden(params: Params, cfg: ModelConfig, h: torch.Tensor,
         logits = common.apply_unembedding(
             {"table": params["embed"]["table"].to(h.dtype)}, h)
     else:
-        logits = torch.matmul(h, params["unembed"]["w"].to(h.dtype))
+        logits = torch.matmul(h, policy.gather_weights(params["unembed"])[
+            "w"].to(h.dtype))
     logits = common.softcap(logits, cfg.final_logit_softcap)
     return policy.constrain(logits, ("batch", "seq", "vocab"))
 
@@ -488,7 +559,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         h, a = apply_block(p_rem, cfg.layer_spec(i), h, cfg,
                            window_override=window_override, policy=policy)
         aux = _merge_aux(aux, a)
-    return exit_h, h, aux
+    return (_whole_sequence(exit_h, policy), _whole_sequence(h, policy),
+            aux)
 
 
 def forward_simple(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -504,7 +576,7 @@ def forward_simple(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     h, _, _ = _run_periods(_periods(params)[:cfg.exit_period], h,
                            _zero_aux(h.device), cfg, remat=remat,
                            policy=policy)
-    return h
+    return _whole_sequence(h, policy)
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,

@@ -130,3 +130,75 @@ def test_wrapper_rejects_bad_inputs():
         ops.flash_attention(q, k.double(), v)
     with pytest.raises(ValueError):
         ops.flash_attention(q, k, v, window=-1)
+
+
+# a rank's query rows of a sequence split over ranks: (S, H, Kh, Dh, window,
+# softcap, q_offset, rows) -- GQA with a window and softcap, MQA, Dh 112,
+# the offset's rows crossing the window's edge, a ragged last rank
+OFFSET_CASES = [
+    (64, 4, 2, 32, 16, 50.0, 32, 32),
+    (64, 4, 4, 64, 0, 0.0, 16, 16),
+    (100, 10, 1, 32, 30, 0.0, 50, 50),
+    (96, 8, 2, 112, 24, 30.0, 40, 33),
+    (128, 8, 4, 32, 0, 50.0, 0, 64),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,h,kh,dh,window,cap,o,n", OFFSET_CASES)
+def test_plain_flash_query_offset_matches_reference(s, h, kh, dh, window,
+                                                    cap, o, n, dtype):
+    """K5's plain version on query rows ``o .. o + n - 1`` against the key
+    prefix ``k[:, :o + n]`` equals the reference's oracle on the whole
+    sequence at those rows; so does the wrapper on CPU tensors, bitwise
+    the plain version."""
+    jx, tx = _inputs(s, h, kh, dh, dtype, seed=s + o + n + dh)
+    q, k, v = tx
+    rows = (q[:, o:o + n], k[:, :o + n], v[:, :o + n])
+    got = flash_attention_ref(*rows, window=window, softcap=cap, q_offset=o)
+    assert got.shape == rows[0].shape and got.dtype == q.dtype
+    want = ref_flash(*jx, window=window, softcap=cap)[:, o:o + n]
+    np.testing.assert_allclose(_f32(got), _f32(want),
+                               **(F32 if dtype == "float32" else BF16))
+    wrapped = ops.flash_attention(*(x.contiguous() for x in rows),
+                                  window=window, softcap=cap, q_offset=o)
+    assert torch.equal(wrapped, got)
+    assert ops.flash_attention.launches == 0
+
+
+def test_query_offset_zero_is_the_whole_sequence_bitwise():
+    _, tx = _inputs(48, 4, 2, 32, "float32", seed=5)
+    assert torch.equal(flash_attention_ref(*tx, window=8, softcap=20.0),
+                       flash_attention_ref(*tx, window=8, softcap=20.0,
+                                           q_offset=0))
+
+
+@pytest.mark.parametrize("window", [0, 1, 7, 40, 200])
+def test_causal_pairs_with_an_offset_counts_the_kept_pairs(window):
+    """``ops.causal_pairs(n, window, o)`` (the work K5 reports, and the
+    bound's pairs) against a count of the mask the plain version keeps."""
+    for o, n in ((0, 64), (20, 30), (63, 1), (100, 28)):
+        qpos = o + np.arange(n)[:, None]
+        kpos = np.arange(o + n)[None, :]
+        keep = kpos <= qpos
+        if window:
+            keep &= qpos - kpos < window
+        assert ops.causal_pairs(n, window, o) == int(keep.sum())
+    # the smoke's offset rows: 4096 queries after 4096, global and window
+    # 4096
+    assert ops.causal_pairs(4096, 0, 4096) == 25_167_872
+    assert ops.causal_pairs(4096, 4096, 4096) == 16_777_216
+    assert ops.causal_pairs(4096, 0) == ops.causal_pairs(4096, 4096) == \
+        8_390_656
+
+
+def test_wrapper_rejects_rows_past_the_keys():
+    _, (q, k, v) = _inputs(16, 4, 2, 32, "float32", seed=2)
+    with pytest.raises(ValueError, match="q_offset"):
+        ops.flash_attention(q[:, 8:], k[:, :12], v[:, :12], q_offset=8)
+    with pytest.raises(ValueError, match="q_offset"):
+        ops.flash_attention(q, k, v, q_offset=-1)
+    # rows 8..15 against all 16 keys is the contract
+    got = ops.flash_attention(q[:, 8:].contiguous(), k, v, q_offset=8)
+    np.testing.assert_array_equal(
+        got.numpy(), ops.flash_attention(q, k, v)[:, 8:].numpy())

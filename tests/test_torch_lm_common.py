@@ -114,7 +114,10 @@ def test_rope_matches_reference_up_to_8192(dh, dtype):
     pos = np.sort(rng.integers(0, 8193, size=64)).astype(np.int32)
     pos[-1] = 8192
     xj = jnp.asarray(x).astype(dtype)
-    want = ref_common.apply_rope(xj, jnp.asarray(pos), 10000.0)
+    # jitted, as every step of the reference runs it (its frequencies
+    # folded on the host)
+    want = jax.jit(ref_common.apply_rope, static_argnums=2)(
+        xj, jnp.asarray(pos), 10000.0)
     got = common.apply_rope(interop.from_reference(np.asarray(xj)),
                             torch.from_numpy(pos), 10000.0)
     np.testing.assert_allclose(got.float().numpy(), _np(want),
@@ -123,6 +126,15 @@ def test_rope_matches_reference_up_to_8192(dh, dtype):
     got2 = common.apply_rope(interop.from_reference(np.asarray(xj)),
                              torch.from_numpy(np.stack([pos, pos])), 10000.0)
     assert torch.equal(got, got2)
+
+
+@pytest.mark.parametrize("theta", [10000.0, 500000.0, 1e6])
+@pytest.mark.parametrize("dh", [32, 64, 112, 128, 256])
+def test_rope_frequencies_are_the_jitted_reference_bitwise(dh, theta):
+    want = np.asarray(jax.jit(lambda: ref_common.rope_frequencies(
+        dh, theta))())
+    got = common.rope_frequencies(dh, theta).numpy()
+    assert np.array_equal(got, want)
 
 
 def test_rope_frequencies_within_one_ulp():

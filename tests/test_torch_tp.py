@@ -153,9 +153,34 @@ class _FlatCodebooks(ref_adapters.LMAdapter):
         return super().loss_simple(params, self._unfold(batch))
 
 
+class RefSplit(NO_POLICY.__class__):
+    """The reference's policy with a token split's flags and every
+    constrain the identity (its ``Policy``'s): under ``seq2d`` its
+    attention is ``chunk2d_attention``, under ``dp2d`` its CE one piece --
+    the program GSPMD partitions for the mesh, here on one device."""
+
+    def __init__(self, mode: str):
+        self.seq2d = mode in ("seq2d", "seq2d_fsdp")
+        self.dp2d = mode == "dp2d"
+
+
+def ref_policy(arch: str):
+    """``RefSplit`` of ``arch``'s token split (``cases.TP_SPLIT``,
+    ``cases.TP_FSDP``), else the reference's no-op policy."""
+    mode = arch.partition(":")[2]
+    return RefSplit(mode) if mode in ("seq2d", "dp2d", "seq2d_fsdp") \
+        else NO_POLICY
+
+
 def ref_round(engine: str, arch: str = cases.TP_TRAIN):
     spec = {"flat f32": None, "flat int8": ref_aggregate.EngineSpec(
-        wire=ref_comm.WireSpec("int8", 128))}[engine]
+        wire=ref_comm.WireSpec("int8", 128)),
+        "int8 topk": ref_aggregate.EngineSpec(wire=ref_comm.WireSpec(
+            "int8", 128, topk_frac=0.5)),
+        "f32 topk": ref_aggregate.EngineSpec(wire=ref_comm.WireSpec(
+            "float32", 128, topk_frac=0.25)),
+        "scaffold": ref_aggregate.EngineSpec(
+            variance_reduction="scaffold")}[engine]
     cfg = ref_config(arch)
     data, simple = cases.tp_round_inputs(arch=arch)
     saved = ref_steps.LMAdapter
@@ -164,7 +189,7 @@ def ref_round(engine: str, arch: str = cases.TP_TRAIN):
         data = data.reshape(data.shape[:3] + (-1,))
     try:
         step = ref_steps.make_fed_round_step(
-            cfg, NO_POLICY, local_steps=cases.TP_STEPS, engine=spec)
+            cfg, ref_policy(arch), local_steps=cases.TP_STEPS, engine=spec)
     finally:
         ref_steps.LMAdapter = saved
     cohort = jax.tree.map(lambda x: jnp.broadcast_to(
@@ -172,10 +197,11 @@ def ref_round(engine: str, arch: str = cases.TP_TRAIN):
     return jax.jit(step)(cohort, jnp.asarray(data), jnp.asarray(simple))
 
 
-def ref_train(arch: str):
-    train = ref_steps.make_train_step(ref_config(arch), NO_POLICY)
+def ref_train(arch: str, batch=None):
+    train = ref_steps.make_train_step(ref_config(arch), ref_policy(arch))
     return jax.jit(train)(ref_params(arch), {
-        k: jnp.asarray(v) for k, v in cases.tp_train_batch(arch).items()})
+        k: jnp.asarray(v) for k, v in (
+            batch or cases.tp_train_batch(arch)).items()})
 
 
 def ref_decode(arch, batch, prompt, cache_len):
@@ -185,9 +211,9 @@ def ref_decode(arch, batch, prompt, cache_len):
     cfg = ref_config(arch)
     prompt_batch, forced = cases.tp_decode_inputs(arch, batch, prompt)
     logits, cache = jax.jit(ref_steps.make_prefill_step(
-        cfg, NO_POLICY, cache_len=cache_len))(ref_params(arch), {
+        cfg, ref_policy(arch), cache_len=cache_len))(ref_params(arch), {
             k: jnp.asarray(v) for k, v in prompt_batch.items()})
-    serve = jax.jit(ref_steps.make_serve_step(cfg, NO_POLICY,
+    serve = jax.jit(ref_steps.make_serve_step(cfg, ref_policy(arch),
                                               with_exit_head=True))
     pos = cases.first_position(arch, prompt)
     out = {"logits": [], "exit": [], "cache": [],
@@ -236,6 +262,31 @@ def references():
             k: jnp.asarray(v) for k, v in batch.items()})
     for case in {c[2:] for c in DECODE_CASES}:
         out[("decode",) + case] = ref_decode(*case)
+    # the compressed and SCAFFOLD specs; the token splits under their
+    # flags (RefSplit), each step compiled once and held against every
+    # mesh's run
+    for spec in cases.TP_SPECS:
+        out[("spec", spec)] = ref_round(spec, cases.TP_SPEC_ARCH)
+    for arch in cases.TP_SPLIT:
+        out[("train", arch)] = ref_train(arch)
+        for engine in ("flat f32", "flat int8"):
+            out[(engine, arch)] = ref_round(engine, arch)
+        out[("tree", arch)] = out[("flat f32", arch)]
+        out[("decode", arch)] = ref_decode(arch, *cases.TP_SPLIT_DECODE[1:])
+    out[("train", cases.TP_FSDP)] = ref_train(cases.TP_FSDP)
+    out[("decode", cases.TP_FSDP)] = ref_decode(cases.TP_FSDP,
+                                                *cases.TP_FSDP_DECODE[1:])
+    long_arch = cases.TP_SPLIT[0]
+    out["long train"] = ref_train(long_arch, cases.tp_long_batch(
+        long_arch, prefill=False))
+    long_batch = {k: jnp.asarray(v) for k, v in
+                  cases.tp_long_batch(long_arch, prefill=True).items()}
+    out["long prefill"] = jax.jit(ref_steps.make_prefill_step(
+        ref_config(long_arch), ref_policy(long_arch)))(
+        ref_params(long_arch), long_batch)
+    # whole-row softmax: the function K5 computes
+    out["long prefill whole"] = jax.jit(ref_steps.make_prefill_step(
+        ref_config(long_arch), NO_POLICY))(ref_params(long_arch), long_batch)
     return out
 
 
@@ -311,6 +362,19 @@ XLSTM_BF16 = {cases.zoo_key("train bf16", mesh, cases.TP_XLSTM): world
               for world, meshes in cases.TP_ZOO_MESHES.items()
               for mesh in meshes}
 BITWISE.update({key: (world, key) for key, (world, *_) in ZOO.items()})
+# the compressed and SCAFFOLD specs and the token splits: (world size,
+# mesh, arch, kind)
+SPLITS = {cases.split_key(kind, mesh, arch): (world, mesh, arch, kind)
+         for world, meshes in cases.TP_MESHES.items() for mesh in meshes
+         for arch, kinds in ((cases.TP_SPEC_ARCH, cases.TP_SPECS),) + tuple(
+             (a, ("train",) + cases.TP_ENGINES + ("decode",))
+             for a in cases.TP_SPLIT) for kind in kinds}
+SPLITS.update({cases.split_key(kind, "(2, 2)", cases.TP_FSDP):
+              (4, "(2, 2)", cases.TP_FSDP, kind)
+              for kind in ("train", "decode")})
+BITWISE.update({key: (world, key) for key, (world, *_) in SPLITS.items()})
+BITWISE.update({"long train": (2, "long train"),
+                "long prefill": (2, "long prefill")})
 BITWISE.update({key: (world, key) for key, world in XLSTM_BF16.items()})
 
 
@@ -562,9 +626,12 @@ def test_serve_step_writes_each_slot_on_its_owner_only(tp_runs, case):
         assert owners       # the cases whose caches go over kv_seq
 
 
-REFUSALS = {"seq2d": "item 15", "dp2d": "item 15", "seq2d_fsdp": "item 15",
-            "compressed": "item 13", "scaffold": "item 14",
-            "serve seq2d": "item 15"}
+# the token splits of the configs whose mixers are not attention, and a
+# live pod axis
+REFUSALS = {"seq2d recurrentgemma-2b": "item 18",
+            "seq2d qwen2-moe-a2.7b": "item 18",
+            "seq2d xlstm-1.3b": "item 18", "seq2d musicgen-large": "item 18",
+            "pod axis": "item 16"}
 
 
 @pytest.mark.parametrize("name", list(REFUSALS))
@@ -572,6 +639,153 @@ def test_out_of_scope_raises_naming_its_roadmap_item(tp_runs, name):
     msg = tp_runs[0][2][0]["refusals"][name]
     assert msg.startswith("NotImplementedError"), msg
     assert f"ROADMAP.md §1 {REFUSALS[name]}" in msg
+
+
+def test_seq2d_fsdp_cohort_is_refused_as_the_reference_refuses_it(
+        tp_runs):
+    """A seq2d_fsdp cohort's specs name data twice, even at data size 1
+    (the client axis and each weight's ZeRO-3 dim): placing it raises, as
+    the reference's ``NamedSharding`` does, so its round step does not
+    run."""
+    msg = tp_runs[0][2][0]["refusals"]["seq2d_fsdp cohort"]
+    assert msg.startswith("ValueError"), msg
+    assert "'data' to two dims" in msg
+
+
+@pytest.mark.parametrize("key", [k for k, v in SPLITS.items()
+                                 if v[3] in cases.TP_SPECS])
+def test_spec_round_matches_reference_and_its_base_bitwise(tp_runs, key):
+    """The compressed-wire (int8 and f32 top-k) and SCAFFOLD specs over a
+    live model axis at (1, 2), (1, 4) and (2, 2): against the reference's
+    unsharded round step with the same spec (int8 under the lossy-wire
+    rules), and bitwise the port's round without the extra options at the
+    same mesh -- the reference's round step folds the dense uploads at the
+    payload dtype and no control variates."""
+    world, mesh, arch, spec = SPLITS[key]
+    got = tp_runs[0][world][0][key]
+    want_c, want_loss = tp_runs[1][("spec", spec)]
+    assert_close(got["loss"], want_loss)
+    if spec == "int8 topk":
+        _int8_round_close(got, want_c, arch)
+    else:
+        assert_leaves(got["params"], want_c)
+    base = tp_runs[0][world][0][cases.split_key(cases.TP_SPEC_BASE[spec],
+                                                mesh, arch)]
+    assert torch.equal(got["loss"], base["loss"])
+    got_p, base_p = tree_leaves(got["params"]), tree_leaves(base["params"])
+    assert len(got_p) == len(base_p)
+    assert all(torch.equal(a, b) for a, b in zip(got_p, base_p))
+
+
+@pytest.mark.parametrize("key", [k for k, v in SPLITS.items()
+                                 if v[3] == "train"])
+def test_token_split_train_step_matches_reference(tp_runs, key):
+    """gemma2 narrow's train step under seq2d and dp2d at (1, 2), (1, 4)
+    and (2, 2), llava narrow's under seq2d_fsdp at (2, 2) (its weights
+    gathered over data at their use, its frontend rows): loss and
+    parameters against the reference's train step under the mode's flags
+    (``RefSplit``)."""
+    world, _, arch, _ = SPLITS[key]
+    got = tp_runs[0][world][0][key]
+    want_p, want_m = tp_runs[1][("train", arch)]
+    assert_close(got["loss"], want_m["loss"])
+    assert_leaves(got["params"], want_p)
+
+
+@pytest.mark.parametrize("key", [k for k, v in SPLITS.items()
+                                 if v[3] in cases.TP_ENGINES])
+def test_token_split_round_step_matches_reference(tp_runs, key):
+    """gemma2 narrow's round (K = 2, one simple) under seq2d and dp2d on
+    the flat f32, flat int8 and tree engines at (1, 2), (1, 4) and (2, 2),
+    each client under the model group's policy: against the reference's
+    round under the mode's flags (its flat f32 round for the tree engine),
+    the int8 round under the lossy-wire rules."""
+    world, _, arch, engine = SPLITS[key]
+    got = tp_runs[0][world][0][key]
+    want_c, want_loss = tp_runs[1][(engine, arch)]
+    assert_close(got["loss"], want_loss)
+    if engine == "flat int8":
+        _int8_round_close(got, want_c, arch)
+    else:
+        assert_leaves(got["params"], want_c)
+
+
+@pytest.mark.parametrize("what", ["prefill", "logits", "exit", "cache"])
+@pytest.mark.parametrize("key", [k for k, v in SPLITS.items()
+                                 if v[3] == "decode"])
+def test_token_split_prefill_and_serve_match_reference(tp_runs, key, what):
+    """Prefill on each rank's query rows (seq2d, seq2d_fsdp) or batch rows
+    (dp2d), its cache placed by ``cache_specs``, then 6 teacher-forced
+    serve steps with the exit head on the heads- or kv_seq-split cache:
+    the prefill's logits and cache, each step's logits, exit logits and
+    cache against the reference's under the mode's flags; the logits
+    placed as the reference's ``("batch", "seq", "vocab")`` resolves."""
+    world, _, arch, _ = SPLITS[key]
+    got = tp_runs[0][world][0][key]
+    want = tp_runs[1][("decode", arch)]
+    if what == "prefill":
+        assert_logits(got["prefill"]["logits"], want["prefill"]["logits"],
+                      arch, "prefill")
+        assert_leaves(got["prefill"]["cache"], want["prefill"]["cache"])
+        return
+    assert len(got[what]) == len(want[what]) == cases.TP_DECODE_STEPS
+    for g, w in zip(got[what], want[what]):
+        if what == "cache":
+            assert_leaves(g, w)
+        else:
+            assert_logits(g, w, arch, "decode")
+    assert got["placements"] == [got["want_placements"]] * 2
+
+
+COLLECTIVES = {cases.split_key(f"{kind} collectives", mesh, arch): world
+               for world, meshes in cases.TP_MESHES.items()
+               for mesh in meshes for arch in cases.TP_SPLIT
+               for kind in ("train", "decode")}
+COLLECTIVES[cases.split_key("decode collectives", "(2, 2)",
+                            cases.TP_FSDP)] = 4
+
+
+@pytest.mark.parametrize("key", list(COLLECTIVES))
+def test_token_split_steps_issue_all_reduces_only(tp_runs, key):
+    """Every collective of a token split's train step (forward and
+    backward) and of its prefill and serve steps is an all-reduce (the
+    card's gloo cannot run an all-gather, a reduce-scatter or an
+    all-to-all on CUDA tensors)."""
+    for rank in tp_runs[0][COLLECTIVES[key]]:
+        assert set(rank[key]) <= {"all_reduce"}, rank[key]
+
+
+def test_token_split_chunk2d_route_train_matches_reference(tp_runs):
+    """gemma2 narrow's train step under seq2d at (1, 2) on a sequence of
+    2048 (chunk2d on each rank's two whole 512-row chunks against the
+    gathered keys): against the reference's under seq2d's flags."""
+    got = tp_runs[0][2][0]["long train"]
+    want_p, want_m = tp_runs[1]["long train"]
+    assert_close(got["loss"], want_m["loss"])
+    assert_leaves(got["params"], want_p)
+
+
+def test_token_split_chunk2d_route_prefill_matches_reference(tp_runs):
+    """gemma2 narrow's prefill under seq2d at (1, 2) on 2048 positions: K5
+    (its plain version) on each rank's 1024 query rows at ``q_offset``
+    0 and 1024 against the key prefix, the cache reached by all-reduces.
+    The logits and the cache against the reference's chunk2d prefill and
+    against its prefill without the seq2d flags (its softmax over whole
+    rows, the function K5 computes); both also against the port's
+    unsharded prefill on the same rank."""
+    got = tp_runs[0][2][0]["long prefill"]
+    for key in ("long prefill", "long prefill whole"):
+        want_logits, want_cache = tp_runs[1][key]
+        assert_logits(got["logits"], want_logits, cases.TP_SPLIT[0],
+                      "prefill")
+        assert_leaves(got["cache"], want_cache)
+    unsharded = got["unsharded"]
+    assert_close(got["logits"], unsharded["logits"])
+    got_c, want_c = tree_leaves(got["cache"]), tree_leaves(unsharded["cache"])
+    assert len(got_c) == len(want_c)
+    for a, b in zip(got_c, want_c):
+        assert_close(a, b.numpy())
+    assert set(got["collectives"]) == {"all_reduce"}
 
 
 XLSTM_DECODE = [c for c in DECODE_CASES if c[2] == cases.TP_XLSTM]

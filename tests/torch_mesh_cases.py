@@ -65,8 +65,8 @@ def rank_main(rank: int, world: int, store_path: str, params_path: str,
     """One rank: gloo over a FileStore, a (world, 1) mesh; each case's
     sharded round, its rows by ``steps``' split and by
     ``distribute_tensor``; then a (1, world) mesh with a model axis: a
-    live tensor-parallel policy for the dense config, and its ``seq2d``
-    variant still refused.  Writes ``rank<r>.pt`` (or ``rank<r>.err``)."""
+    live tensor-parallel policy for the dense config, and a ``seq2d``
+    split of a hybrid config still refused.  Writes ``rank<r>.pt`` (or ``rank<r>.err``)."""
     import torch.distributed as dist
     torch.set_num_threads(1)
     try:
@@ -89,7 +89,7 @@ def rank_main(rank: int, world: int, store_path: str, params_path: str,
         wide = make_device_mesh(1, world, "cpu")
         out["model_axis_live"] = sharding.MeshPolicy(wide, CFG).model_live
         out["model_axis"] = _raises(lambda: sharding.MeshPolicy(
-            wide, CFG.with_overrides(attn_shard="seq2d")))
+            wide, CFG.with_overrides(attn_shard="seq2d", arch_type="hybrid")))
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
         dist.destroy_process_group()
     except BaseException:
@@ -151,7 +151,14 @@ MOE_VARIANTS = {"qwen2-moe-a2.7b:groups": ({"d_expert": 256},
                 "qwen2-moe-a2.7b:ffn": ({"n_experts": 3}, {}),
                 "qwen2-moe-a2.7b:pad": ({"n_experts": 3, "pad_to": 4}, {}),
                 "kimi-k2-1t-a32b:2d": ({}, {"shard_experts_2d": True}),
-                TP_MUSICGEN_ROUND: ({}, {"head_dim": 128, "d_ff": 512})}
+                TP_MUSICGEN_ROUND: ({}, {"head_dim": 128, "d_ff": 512}),
+                # the specs' and the token splits' configs (no MoE
+                # override): see TP_SPECS and TP_SPLIT below
+                "gemma2-2b:groups": ({}, {"d_ff": 512}),
+                "gemma2-2b:seq2d": ({}, {"attn_shard": "seq2d"}),
+                "gemma2-2b:dp2d": ({}, {"attn_shard": "dp2d"}),
+                "llava-next-34b:seq2d_fsdp": ({}, {"attn_shard":
+                                                   "seq2d_fsdp"})}
 # the train step of each MoE case by mesh: (result key, mesh, arch)
 TP_MOE_TRAIN = {2: (("moe train", "(1, 2)", TP_MOE),
                     ("moe ffn train", "(1, 2)", "qwen2-moe-a2.7b:ffn"),
@@ -197,6 +204,58 @@ TP_DECODE = {2: (("(1, 2)", "gemma2-2b", 2, 20, 42),
                  ("(2, 2)", TP_MUSICGEN, 2, 12, 32))}
 
 
+# the round step's compressed-wire and SCAFFOLD specs over the model axis
+# on gemma2 narrow with d_ff 512 (its mlp shards hold whole 128-element
+# int8 groups at model 2 and 4), each held bitwise to the port's round
+# without the extra options at the same mesh (TP_SPEC_BASE)
+TP_SPEC_ARCH = "gemma2-2b:groups"
+TP_SPECS = ("int8 topk", "f32 topk", "scaffold")
+TP_SPEC_BASE = {"int8 topk": "flat int8", "f32 topk": "flat f32",
+                "scaffold": "flat f32"}
+TP_MESHES = {2: ("(1, 2)",), 4: ("(1, 4)", "(2, 2)")}
+
+# the token splits: gemma2 narrow under seq2d and dp2d at each mesh (train,
+# the three rounds, prefill then the serve steps of the (1, 2) gemma2
+# decode case: batch 2, 20 prompt tokens, cache 42), llava narrow under
+# seq2d_fsdp at (2, 2) (train, prefill then serve with its 8 frontend
+# rows; its rounds are refused: a cohort's specs name data twice); and at
+# (1, 2) seq2d's chunk2d route, S = TP_LONG (a multiple of q_chunk 512 and
+# k_chunk 2048: each rank's 1024 rows are two whole chunks): one train
+# step and one prefill at batch 1.  The short sequences take the
+# reference's fallback route (chunked causal attention)
+TP_SPLIT = ("gemma2-2b:seq2d", "gemma2-2b:dp2d")
+TP_FSDP = "llava-next-34b:seq2d_fsdp"
+TP_SPLIT_DECODE = ("gemma2-2b", 2, 20, 42)
+TP_FSDP_DECODE = ("llava-next-34b", 2, 12, 32)
+TP_LONG = 2048
+
+
+def split_key(kind: str, mesh: str, arch: str) -> str:
+    """The result key of a token-split or spec case: ``kind`` "train",
+    "decode", a round engine or a spec of ``TP_SPECS``."""
+    return f"{kind} {arch} {mesh}"
+
+
+def tp_long_batch(arch: str, prefill: bool) -> dict:
+    """Batch 1 of ``TP_LONG`` positions: a train step's ``TP_LONG + 1``
+    tokens, or a prompt of ``TP_LONG``."""
+    tokens = np.random.default_rng(13).integers(
+        0, tp_config(arch).vocab_size,
+        size=(1, TP_LONG + (0 if prefill else 1))).astype(np.int32)
+    return {"tokens": tokens}
+
+
+def collective_kinds(fn):
+    """``fn()`` under DTensor's ``CommDebugMode``: its result and the
+    functional collectives it issued, by name (forward and backward)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    mode = CommDebugMode()
+    with mode:
+        out = fn()
+    return out, sorted(str(k).rsplit(".", 1)[-1]
+                       for k in mode.get_comm_counts())
+
+
 def decode_key(mesh: str, arch: str, batch: int) -> str:
     return f"decode {arch} b{batch} {mesh}"
 
@@ -227,7 +286,13 @@ def tp_engine(name: str):
     return {"flat f32": None,
             "flat int8": aggregate.EngineSpec(wire=comm.WireSpec("int8",
                                                                  128)),
-            "tree": aggregate.EngineSpec(engine="tree")}[name]
+            "tree": aggregate.EngineSpec(engine="tree"),
+            "int8 topk": aggregate.EngineSpec(wire=comm.WireSpec(
+                "int8", 128, topk_frac=0.5)),
+            "f32 topk": aggregate.EngineSpec(wire=comm.WireSpec(
+                "float32", 128, topk_frac=0.25)),
+            "scaffold": aggregate.EngineSpec(
+                variance_reduction="scaffold")}[name]
 
 
 def _codebooks(arch: str) -> tuple:
@@ -337,7 +402,7 @@ def _state_slices(before, cache) -> dict:
 
 
 def decode_case(on, arch: str, batch: int, prompt: int,
-                cache_len: int) -> dict:
+                cache_len: int, collectives: list = None) -> dict:
     """Prefill then ``TP_DECODE_STEPS`` teacher-forced serve steps with the
     exit head under a ``MeshPolicy`` over ``on``: the prefill's logits and
     cache, each step's logits, exit logits and cache whole
@@ -345,16 +410,22 @@ def decode_case(on, arch: str, batch: int, prompt: int,
     (:func:`routed`) and the placements the reference's constrain gives
     the logits; and apart (they differ by rank) the rows this rank wrote
     at each step (:func:`_written_rows`) and its shards of the recurrent
-    states (:func:`_state_slices`)."""
+    states (:func:`_state_slices`).  Given a list ``collectives``, the
+    names of the collectives the prefill and the serve steps issue (not
+    the reads of their results) are added to it."""
     from repro_torch.launch import sharding, steps
     from repro_torch.tree import tree_leaves
     cfg = tp_config(arch)
     policy = sharding.MeshPolicy(on, cfg)
     params = sharding.distribute_params(tp_params(arch), cfg, on)
     prompt_batch, forced = tp_decode_inputs(arch, batch, prompt)
-    logits, cache = steps.make_prefill_step(cfg, policy,
-                                            cache_len=cache_len)(
-        params, {k: torch.as_tensor(v) for k, v in prompt_batch.items()})
+    record = collectives.extend if collectives is not None else (
+        lambda kinds: None)
+    (logits, cache), kinds = collective_kinds(
+        lambda: steps.make_prefill_step(cfg, policy, cache_len=cache_len)(
+            params, {k: torch.as_tensor(v)
+                     for k, v in prompt_batch.items()}))
+    record(kinds)
     serve = steps.make_serve_step(cfg, policy, with_exit_head=True)
     pos = first_position(arch, prompt)
     out = {"logits": [], "exit": [], "cache": [],
@@ -365,9 +436,10 @@ def decode_case(on, arch: str, batch: int, prompt: int,
         nonlocal cache
         for i in range(TP_DECODE_STEPS):
             before = [x.to_local().clone() for x in tree_leaves(cache)]
-            logits, cache, exit_logits = serve(
-                params, cache, {"tokens": torch.as_tensor(forced[i])},
-                pos + i)
+            (logits, cache, exit_logits), kinds = collective_kinds(
+                lambda: serve(params, cache, {"tokens": torch.as_tensor(
+                    forced[i])}, pos + i))
+            record(kinds)
             written.append(_written_rows(before, cache))
             states.append(_state_slices(before, cache))
             out["logits"].append(logits.full_tensor())
@@ -475,25 +547,28 @@ def vocab_case():
 
 def refusals(mesh) -> dict:
     """What raises over a live model axis, each with its message."""
-    from repro_torch.core import aggregate, comm
     from repro_torch.launch import sharding, steps
     cfg = tp_config(TP_TRAIN)
-    policy = sharding.MeshPolicy(mesh, cfg)
     out = {}
-    for mode in ("seq2d", "dp2d", "seq2d_fsdp"):
-        out[mode] = _raises(lambda m=mode: sharding.MeshPolicy(
-            mesh, cfg.with_overrides(attn_shard=m)))
-    out["compressed"] = _raises(lambda: steps.make_fed_round_step(
-        cfg, policy, local_steps=1, engine=aggregate.EngineSpec(
-            wire=comm.WireSpec("int8", 128, topk_frac=0.5))))
-    out["scaffold"] = _raises(lambda: steps.make_fed_round_step(
-        cfg, policy, local_steps=1,
-        engine=aggregate.EngineSpec(variance_reduction="scaffold")))
-    # the serve step of a config out of scope raises where its policy is
-    # built, naming its queued item
-    seq2d = cfg.with_overrides(attn_shard="seq2d")
-    out["serve seq2d"] = _raises(lambda: steps.make_serve_step(
-        seq2d, sharding.MeshPolicy(mesh, seq2d)))
+    # the token splits of the configs whose mixers are not attention
+    for arch in ("recurrentgemma-2b", "qwen2-moe-a2.7b", "xlstm-1.3b",
+                 "musicgen-large"):
+        seq2d = tp_config(arch).with_overrides(attn_shard="seq2d")
+        out["seq2d " + arch] = _raises(lambda c=seq2d: sharding.MeshPolicy(
+            mesh, c))
+    # a seq2d_fsdp cohort names data twice (the client axis and the
+    # weights' ZeRO-3 dim), which the reference's NamedSharding refuses
+    fsdp = tp_config(TP_FSDP)
+    out["seq2d_fsdp cohort"] = _raises(lambda: sharding.distribute_cohort(
+        tree_map(lambda x: x[None].expand((2,) + x.shape), tfm_init(fsdp)),
+        fsdp, mesh))
+    # a live pod axis: the round's data group over pod and data
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    pod = DeviceMesh("cpu", torch.arange(dist.get_world_size()).reshape(
+        1, 1, -1), mesh_dim_names=("pod", "data", "model"))
+    out["pod axis"] = _raises(lambda: sharding.MeshPolicy(
+        pod, cfg).data_group())
     # an int8 round whose mlp shards hold 64 of a 128-element group, and
     # one whose expert_ffn shards do (3 experts: d_expert 128 over 2; its
     # heads at Dh 64 hold whole groups)
@@ -631,13 +706,16 @@ def tp_rank_main(rank: int, world: int, store_path: str,
             return {"params": _full(new_c), "loss": loss,
                     "placements": placed}
 
-        def train_of(arch, on):
+        def train_of(arch, on, batch=None, collectives=None):
             a_cfg = tp_config(arch)
             params = sharding.distribute_params(tp_params(arch), a_cfg, on)
-            new, metrics = steps.make_train_step(
-                a_cfg, sharding.MeshPolicy(on, a_cfg))(
-                    params, {k: torch.as_tensor(v) for k, v in
-                             tp_train_batch(arch).items()})
+            step = steps.make_train_step(a_cfg, sharding.MeshPolicy(on,
+                                                                    a_cfg))
+            (new, metrics), kinds = collective_kinds(lambda: step(
+                params, {k: torch.as_tensor(v) for k, v in (
+                    batch or tp_train_batch(arch)).items()}))
+            if collectives is not None:
+                collectives.extend(kinds)
             return {"params": _full(new), "loss": metrics["loss"]}
 
         out["train"] = train_of(TP_TRAIN, mesh)
@@ -692,6 +770,52 @@ def tp_rank_main(rank: int, world: int, store_path: str,
             key = decode_key(name, arch, batch)
             out[key], out[key + " written"] = decode_case(
                 meshes[name], arch, batch, prompt, cache_len)
+        # the compressed and SCAFFOLD specs, and their base rounds where
+        # the cases above did not run them at this mesh; the token splits
+        for name in TP_MESHES[world]:
+            for engine in TP_SPECS + ("flat f32", "flat int8"):
+                out[split_key(engine, name, TP_SPEC_ARCH)] = round_of(
+                    engine, TP_SPEC_ARCH, meshes[name])
+            for arch in TP_SPLIT:
+                # the steps' collectives: all-reduces only
+                kinds = out[split_key("train collectives", name, arch)] = []
+                out[split_key("train", name, arch)] = train_of(
+                    arch, meshes[name], collectives=kinds)
+                for engine in TP_ENGINES:
+                    out[split_key(engine, name, arch)] = round_of(
+                        engine, arch, meshes[name])
+                kinds = out[split_key("decode collectives", name, arch)] = []
+                out[split_key("decode", name, arch)] = decode_case(
+                    meshes[name], arch, *TP_SPLIT_DECODE[1:],
+                    collectives=kinds)[0]
+        if world == 2:
+            long_arch = TP_SPLIT[0]
+            out["long train"] = train_of(long_arch, mesh, tp_long_batch(
+                long_arch, prefill=False))
+            l_cfg = tp_config(long_arch)
+            l_batch = {k: torch.as_tensor(v) for k, v in tp_long_batch(
+                long_arch, prefill=True).items()}
+            placed = sharding.distribute_params(tp_params(long_arch), l_cfg,
+                                                mesh)
+            (logits, cache), kinds = collective_kinds(
+                lambda: steps.make_prefill_step(
+                    l_cfg, sharding.MeshPolicy(mesh, l_cfg))(placed,
+                                                             l_batch))
+            # and the port's unsharded prefill here
+            logits0, cache0 = steps.make_prefill_step(l_cfg)(
+                tp_params(long_arch), l_batch)
+            out["long prefill"] = {"logits": _full(logits),
+                                   "cache": _full(cache),
+                                   "collectives": kinds,
+                                   "unsharded": {"logits": logits0,
+                                                 "cache": cache0}}
+        else:
+            out[split_key("train", "(2, 2)", TP_FSDP)] = train_of(
+                TP_FSDP, mesh)
+            kinds = out[split_key("decode collectives", "(2, 2)",
+                                  TP_FSDP)] = []
+            out[split_key("decode", "(2, 2)", TP_FSDP)] = decode_case(
+                mesh, TP_FSDP, *TP_FSDP_DECODE[1:], collectives=kinds)[0]
         torch.save(out, tag + ".pt")
         dist.destroy_process_group()
     except BaseException:
