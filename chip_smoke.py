@@ -285,12 +285,13 @@ which raises on failure:
    model; K1 4 on the f32 wire, K2 4 on int8, on the rank's local
    n_flat), each local leaf within 5 % of max|leaf| of the unsharded
    round's (the leaves over 1/100 counted) and the loss at rtol 1e-2;
-   (b) minitron-8b prefilled at full width (batch 1, prompt 4096; K5 32
-   on 16 of 32 heads), (c) recurrentgemma-2b (batch 4, prompt 4096;
+   (b) minitron-8b prefilled at published widths, 8 of its 32 layers
+   (batch 1, prompt 4096; K5 8 on 16 of 32 heads), (c) recurrentgemma-2b
+   whole (batch 4, prompt 4096;
    K6's gated entry 18 on 1280 of 2560 channels, K5 8 replicated) and
    (e) gemma2-2b (batch 1, prompt 8192; K5 26 replicated), each then
    served on its sharded cache through ``make_serve_step(...,
-   with_exit_head=True)``: 7, 31 and 7 steps (8, 32 and 8 new tokens) on
+   with_exit_head=True)``: 7 steps (8 new tokens) each on
    minitron's heads, recurrentgemma's ring of 2048 over kv_seq and its
    RG-LRU state over 1280 channels, gemma2's dense global cache of 8200
    slots and ring of 4096 over kv_seq, fed the unsharded run's greedy
@@ -302,8 +303,9 @@ which raises on failure:
    (d) a narrow f32 round (flat and tree) and prefill on the
    card's mesh against the CPU's in the same processes at rtol 1e-4 /
    atol 1e-5 (K1 1, K4 1, K5 f32 2 a rank).  The MoE configs: (f)
-   qwen2-moe-a2.7b whole (30 of 60 experts and 8 of 16 heads a rank; K5
-   24) and (g) kimi-k2-1t-a32b at published widths cut to 1 layer (192 of
+   qwen2-moe-a2.7b at published widths, 6 of its 24 layers (30 of 60
+   experts and 8 of 16 heads a rank; K5 6) and (g) kimi-k2-1t-a32b at
+   published widths cut to 1 layer (192 of
    384 experts, 32 of 64 heads; K5 1), each batch 1, prompt 4096, then 7
    serve steps with the exit head: the ranks build the full model in
    turn, each serves it unsharded first and records every MoE call's
@@ -312,24 +314,47 @@ which raises on failure:
    logits would have moved are printed); the logits, exit logits, peaks
    and collectives as in (b); (h) reduced qwen2-moe's train step and its
    f32 and int8 rounds on the card's mesh against the CPU's (K1 1, K2 1 a
-   rank).  The xLSTM and codebook configs: (i) xlstm-1.3b whole (batch 1,
-   prompt 4096; every mixer whole on each rank's rows, no K5 or K6; the
-   cache's C, n and conv split over model) and (j) musicgen-large whole
-   (batch 4, 64 conditioning rows then 1472 frames of 4 codebooks; 16 of
-   32 heads and 1024 of 2048 rows of each codebook table a rank; K5 48),
+   rank).  The xLSTM and codebook configs at published widths: (i)
+   xlstm-1.3b, one period of its six (7 mLSTM and 1 sLSTM layers; batch
+   1, prompt 4096; every mixer whole on each rank's rows, no K5 or K6; the
+   cache's C, n and conv split over model) and (j) musicgen-large, 12 of
+   its 48 layers (batch 4, 64 conditioning rows then 1472 frames of 4
+   codebooks; 16 of 32 heads and 1024 of 2048 rows of each codebook table
+   a rank; K5 12),
    each then 7 serve steps with the exit head, checked and printed as in
    (b), the logits compared on each rank's share as the reference's
    constrain places them (xlstm's vocab rows, musicgen's codebooks); (k)
    reduced xlstm-1.3b and musicgen-large's train step, f32 and int8
    rounds, prefill and 4 serve steps on the card's mesh against the CPU's
    (K1 2, K2 2, K5 f32 2 a rank; xlstm's training with its sLSTM output
-   in f32 on both sides, its logits within 5 %).  Then, the card to
-   itself: K2 and K1 at a rank's local n_flat (1,491,200,000) bitwise and
-   timed against their byte bounds, K5 at a rank's heads (minitron (1,
-   4096, 16 / 4, 128), qwen2-moe (1, 4096, 8 / 8, 128), kimi-k2 (1, 4096,
-   32 / 4, 112), musicgen-large (4, 1536, 16 / 16, 64)) and K6's gated
-   entry at a rank's channels (4, 4096, 1280), each against its plain
-   version and timed against its bound.
+   in f32 on both sides, its logits within 5 %).  The token splits: (l)
+   gemma2-2b under seq2d (batch 1, prompt 8192, each rank's 4096 query
+   rows, K5's query-offset entry on rank 1) and (m) under dp2d (batch 2,
+   a sequence a rank), each then 7 serve steps, checked as (b); (n)
+   reduced gemma2-2b under seq2d and dp2d and reduced llava-next-34b
+   under seq2d_fsdp, train, rounds, prefill and serve, card against CPU;
+   (o) recurrentgemma-2b under seq2d (batch 4, prompt 4096, each rank's
+   2048 rows: the RG-LRU layers' conv halo gathered and K6's carried
+   entry on each rank, rank 1 from rank 0's f32 ``y_last``, 18 a rank;
+   the local attention on K5's query-offset entry on rank 1) then 7
+   serve steps on the kv_seq ring and the channel-split RG-LRU state,
+   checked as (b); (p) reduced recurrentgemma-2b and musicgen-large
+   under seq2d and dp2d, train, f32 / int8 / tree rounds, a 256-position
+   prefill and 6 serve steps, card against CPU; (q) (n)'s narrow f32 /
+   int8 / tree rounds over the two ranks as a (2, 1, 1) ("pod", "data",
+   "model") mesh, bitwise the same over a (2, 1) ("data", "model") mesh
+   and held to the CPU's pod mesh.  Then, the card to itself: K2 and K1
+   at a rank's local n_flat (1,491,200,000) bitwise and timed against
+   their byte bounds, K5 at a rank's heads (minitron (1, 4096, 16 / 4,
+   128), qwen2-moe (1, 4096, 8 / 8, 128), kimi-k2 (1, 4096, 32 / 4, 112),
+   musicgen-large (4, 1536, 16 / 16, 64)) and on a rank's query rows
+   (gemma2-2b's, recurrentgemma-2b's (4, 2048 at 2048, 10 / 1, 256,
+   window 2048)), K6's gated entry at a rank's channels (4, 4096, 1280),
+   each against its plain version and timed against its bound; and K6's
+   carried entry: at (4, 4096, 2560) bf16 the launch cut at row 2048, the
+   second half run from the first's ``y_last``, bitwise the whole launch
+   (rows and ``y_last``), then timed at a rank's rows (4, 2048, 2560)
+   against its bound and the unfused composition.
 
 Phase 8 also serves reduced xlstm-1.3b in f32 on the card against the CPU
 (prefill and 8 teacher-forced decode steps): the sLSTM cell output before
@@ -360,7 +385,9 @@ launches on phase 19's sharded step rounds, K1 and K4 with theirs on its
 narrow sharded steps, K1 with its launches on its telemetry-on round;
 K1, K2, K4, both K5 kernels and K6 with their launches over both ranks of
 phase 20, and K1, K2, the tensor-core K5 and K6 with their times at the
-shapes a rank hands them); the last is
+shapes a rank hands them; K5's query-offset entry and K6's carried entry
+with their launches on phase 20's token splits and their times at a
+rank's rows); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1645,6 +1672,128 @@ def check_scan(torch, bw: float, scan_cases=SCAN_CASES,
               f"({library_ms / ms:.2f}x the kernel)", flush=True)
         del x, p, y0, c, args, got
     return {"max_abs_err": 0.0, "timing": timing}
+
+
+# K6's carried entry (y0 in, y_last out) on a rank's rows of phase 20(o):
+# recurrentgemma-2b's prefill shape cut at row 2048, the second rank's
+# half run from the first's f32 state
+K6_RANK = (4, 2048, 2560)
+
+
+def carried_composition(p: dict, x, y0):
+    """What the carried gated entry replaces, unfused: ``rglru._gates``,
+    y0 folded into the first step, K6's plain entry, the cast to x's
+    dtype and the f32 last row."""
+    from repro_torch.kernels.rglru_scan import ops
+    from repro_torch.models import rglru
+    a, b = rglru._gates(p, x)
+    b[:, 0] = b[:, 0] + a[:, 0] * y0
+    y = ops.lru_scan(a, b)
+    return y.to(x.dtype), y[:, -1]
+
+
+def check_scan_carry(torch, bw: float) -> dict:
+    """K6's gated entry with its carry, on the card.  At the path's shape
+    ``K6_PATH`` in bf16: the whole launch with ``y_last`` bitwise the
+    launch without it and the plain version (y and y_last); the launch cut
+    at row 2048, the second half run from the first half's ``y_last``,
+    bitwise rows 2048-4095 of the whole launch, and its ``y_last`` the
+    whole launch's; the second half run from the first half's last bf16
+    row instead (not the state) is not.  Each call checked to launch the
+    gated entry once (``launches_carry`` where it gives out y_last).  Then
+    timed at a rank's rows ``K6_RANK`` (y0 in, y_last out) beside its
+    bound (x read and y written in bf16, the vectors, y0 and y_last, at
+    the HBM rate; the gate math's FP32 and MUFU instructions from the
+    SASS at the issue rates) and the unfused composition
+    (:func:`carried_composition`)."""
+    from repro_torch.kernels.rglru_scan import ops, ref
+    b, s, d = K6_PATH
+    cut = K6_RANK[1]
+    x, p, _ = gate_inputs(torch, b, s, d, torch.bfloat16, seed=23)
+    c = -8.0 * torch.logaddexp(p["lam"], torch.zeros_like(p["lam"]))
+    vecs = (p["w_r"], p["b_r"], p["w_i"], p["b_i"], c)
+
+    def state():
+        return torch.empty((b, d), dtype=torch.float32, device="cuda")
+
+    def launch(xx, y0=None, y_last=None):
+        fn = ops.lru_scan_gated
+        before = (fn.launches, fn.launches_carry)
+        y = fn(xx, *vecs, y0, y_last)
+        if (fn.launches, fn.launches_carry) != (
+                before[0] + 1, before[1] + int(y_last is not None)):
+            raise RuntimeError("lru_scan_gated: the carried entry not "
+                               "launched once")
+        return y
+    last = state()
+    whole = launch(x, None, last)
+    _equal(torch, f"lru_scan_gated {K6_PATH} bf16 x with y_last: y against "
+           f"the launch without it", whole, launch(x))
+    want_last = state()
+    _equal(torch, f"lru_scan_gated {K6_PATH} bf16 x with y_last: y", whole,
+           ref.lru_scan_gated_ref(x, *vecs, None, want_last))
+    _equal(torch, f"lru_scan_gated {K6_PATH} bf16 x: y_last", last,
+           want_last)
+    first_last, second_last = state(), state()
+    first = launch(x[:, :cut].contiguous(), None, first_last)
+    second = launch(x[:, cut:].contiguous(), first_last, second_last)
+    _equal(torch, f"rows 0-{cut - 1} against the whole launch's", first,
+           whole[:, :cut])
+    _equal(torch, f"rows {cut}-{s - 1} from rows 0-{cut - 1}'s y_last "
+           f"against the whole launch's", second, whole[:, cut:])
+    _equal(torch, f"y_last after rows {cut}-{s - 1} against the whole "
+           f"launch's", second_last, last)
+    from_row = launch(x[:, cut:].contiguous(),
+                      first[:, -1].float().contiguous())
+    torch.cuda.synchronize()
+    row_differs = not torch.equal(from_row, whole[:, cut:])
+    if not row_differs:
+        raise RuntimeError("K6 from the last bf16 row equals the run from "
+                           "the f32 state: the check cannot tell them "
+                           "apart")
+    print(f"  the second half from rows 0-{cut - 1}'s last bf16 row instead "
+          f"of y_last: {int((from_row != whole[:, cut:]).sum()):,} of "
+          f"{from_row.numel():,} outputs differ", flush=True)
+    del whole, first, second, from_row, want_last
+    xr = x[:, cut:].contiguous()
+    y0, y_last = first_last, state()
+    args = (xr, *vecs, y0, y_last)
+    counted = gate_ops(torch)
+    n = xr.numel()
+    nbytes = 2 * n * xr.element_size() + 5 * d * 4 + 2 * b * d * 4
+    bytes_ms = nbytes / bw * 1e3
+    f32_ms = n * counted["fp32_per_element"] / F32_ISSUE * 1e3
+    mufu_ms = n * counted["mufu_per_element"] / MUFU_RATE * 1e3
+    bound_ms = max(bytes_ms, f32_ms, mufu_ms)
+    ms = time_ms(torch, lambda: ops.lru_scan_gated(*args), iters=20,
+                 warmup=3)
+    plain_ms = time_ms(torch, lambda: ref.lru_scan_gated_ref(*args),
+                       iters=2, warmup=1)
+    library_ms = time_ms(torch, lambda: carried_composition(p, xr, y0),
+                         iters=10, warmup=2)
+    got, got_last = ops.lru_scan_gated(*args), y_last.clone()
+    want, want_last = carried_composition(p, xr, y0)
+    _equal(torch, f"lru_scan_gated {K6_RANK} bf16 x, y0 and y_last, "
+           f"against the unfused composition", got, want)
+    _equal(torch, f"lru_scan_gated {K6_RANK}: y_last against the "
+           f"composition's", got_last, want_last)
+    row = {"entry": "lru_scan_gated (carried)",
+           "shape": {"B": b, "S": cut, "D": d, "dtype": "bfloat16",
+                     "y0": True, "y_last": True},
+           "ms": ms, "plain_ms": plain_ms, "bytes_needed": nbytes,
+           "bytes_ms": bytes_ms, "fp32_ms": f32_ms, "mufu_ms": mufu_ms,
+           "bound_ms": bound_ms, "bound_share": bound_ms / ms,
+           "bound_by": "bytes" if bytes_ms >= max(f32_ms, mufu_ms)
+           else "operations", "library_ms": library_ms,
+           "speedup_over_library": library_ms / ms,
+           "row_carry_differs": row_differs, **counted}
+    print(f"  lru_scan_gated carried {K6_RANK} bf16 x: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms (bytes "
+          f"{bytes_ms:.4f}, FP32 issue {f32_ms:.4f}, MUFU {mufu_ms:.4f}), "
+          f"bound share {bound_ms / ms:.3f}; the unfused composition "
+          f"{library_ms:.4f} ms ({library_ms / ms:.2f}x the kernel)",
+          flush=True)
+    return {"max_abs_err": 0.0, "timing": [row]}
 
 
 # (arch, batch, prompt, new tokens, launches of one prefill: K5 on the
@@ -4676,9 +4825,23 @@ TP_JOIN_S = 900
 #  2048 over kv_seq and its RG-LRU state over 1280 of 2560 channels,
 #  gemma2's dense global cache of 8200 slots and its ring of 4096, both
 #  over kv_seq
-TP_SERVE_RUNS = (("minitron-8b", 1, 4096, 8, (32, 0, 0)),
-                 ("recurrentgemma-2b", 4, 4096, 32, (8, 0, 18)),
+TP_SERVE_RUNS = (("minitron-8b", 1, 4096, 8, (8, 0, 0)),
+                 ("recurrentgemma-2b", 4, 4096, 8, (8, 0, 18)),
                  ("gemma2-2b", 1, 8192, 8, (26, 0, 0)))
+# the depth phase 20 runs these configs at, their published widths kept:
+# cut so that the smoke, cells (o)-(q) added, stays well inside its
+# time limit (minitron-8b 32 -> 8 layers, qwen2-moe-a2.7b 24 -> 6,
+# xlstm-1.3b 48 -> 8: one period of 7 mLSTM and 1 sLSTM, musicgen-large
+# 48 -> 12); phases 14-17 serve them whole
+TP_DEPTH = {"minitron-8b": 8, "qwen2-moe-a2.7b": 6, "xlstm-1.3b": 8,
+            "musicgen-large": 12}
+
+
+def _tp_config(arch: str, **over):
+    """``arch``'s published config at phase 20's depth (``TP_DEPTH``)."""
+    from repro_torch import configs
+    depth = {"n_layers": TP_DEPTH[arch]} if arch in TP_DEPTH else {}
+    return configs.get_config(arch).with_overrides(**{**depth, **over})
 # the round against phase 18(a)'s: each leaf within 5 % of its max|value|
 # (the bf16 rule of the prefills), the loss at rtol 1e-2.  The int8-vs-f32
 # rule of phase 18(a) (1/100) holds two runs of the same training; here
@@ -4703,7 +4866,7 @@ TP_FLASH_CASES = (("minitron-8b, a rank's heads", 1, 4096, 16, 4, 128, 0,
                    0.0, "bfloat16", True))
 # the part of phase 20 whose path hands K5 each of those shapes
 TP_FLASH_PARTS = ("dense", "moe", "moe", "xlstm_codebooks")
-TP_PARTS = ("dense", "moe", "xlstm_codebooks", "seq2d")
+TP_PARTS = ("dense", "moe", "xlstm_codebooks", "seq2d", "hybrid_audio")
 TP_GATED_CASES = ((4, 4096, 1280, "bfloat16", False, True),)
 # phase 20(f), (g): the MoE configs over the (1, 2) mesh, each (part, arch,
 #  batch, prompt, new tokens, launches of one sharded prefill on each rank:
@@ -4714,7 +4877,7 @@ TP_GATED_CASES = ((4, 4096, 1280, "bfloat16", False, True),)
 #  data axis is 1).  The ranks build the full model in turn (kimi's layer is
 #  36.5 GB: two at once would not fit), each serves it unsharded first and
 #  records the router logits of every MoE call, then keeps its shards
-TP_MOE_RUNS = (("f", "qwen2-moe-a2.7b", 1, 4096, 8, (24, 0, 0), {}),
+TP_MOE_RUNS = (("f", "qwen2-moe-a2.7b", 1, 4096, 8, (6, 0, 0), {}),
                ("g", "kimi-k2-1t-a32b", 1, 4096, 8, (1, 0, 0),
                 {"n_layers": 1}))
 # phase 20(h): reduced qwen2-moe whose shards hold whole int8 groups on the
@@ -4732,7 +4895,7 @@ TP_MOE_NARROW = {"head_dim": 64, "d_expert": 256}
 #  (16 of 32 heads, 4096 of 8192 ffn columns and 1024 of 2048 rows of
 #  each codebook table a rank)
 TP_ZOO_RUNS = (("i", "xlstm-1.3b", 1, 4096, 8, (0, 0, 0), 0),
-               ("j", "musicgen-large", 4, 1472, 8, (48, 0, 0), 64))
+               ("j", "musicgen-large", 4, 1472, 8, (12, 0, 0), 64))
 # phase 20(k): reduced musicgen-large whose shards hold whole int8 groups
 # on the (1, 2) mesh (tests/torch_mesh_cases.py's round config)
 TP_MUSICGEN_NARROW = {"head_dim": 128, "d_ff": 512}
@@ -4761,6 +4924,15 @@ def _tp_zero(ops, fa, scan) -> None:
     _zero_counts(ops)
     fa.launches_tc = fa.launches = scan.lru_scan_gated.launches = 0
     fa.launches_tc_rows = fa.launches_rows = 0
+    scan.lru_scan_gated.launches_carry = 0
+
+
+def _mixer_counts(cfg) -> tuple:
+    """(attention layers, RG-LRU layers) of ``cfg``: K5's and K6's
+    launches in one prefill."""
+    mixers = [cfg.layer_spec(i).mixer for i in range(cfg.n_layers)]
+    return (sum(m in ("attn", "local_attn") for m in mixers),
+            mixers.count("rglru"))
 
 
 def tp_round(torch, rank: int, work: str, mesh) -> dict:
@@ -4898,7 +5070,6 @@ def tp_serving(torch, rank: int, mesh) -> list:
     5 % of max|logit| of the unsharded; the prefill's K5 / K6 launches as
     expected and none in decode; no all-gather in either.  Prints the
     decode ms a step, the collectives a step and the peak."""
-    from repro_torch import configs
     from repro_torch.kernels.flash_attention.ops import flash_attention as fa
     from repro_torch.kernels.masked_agg import ops
     from repro_torch.kernels.rglru_scan import ops as scan
@@ -4923,7 +5094,7 @@ def tp_serving(torch, rank: int, mesh) -> list:
     rows = []
     for part, (arch, batch, prompt, gen, expected) in zip(
             "bce", TP_SERVE_RUNS):
-        cfg = configs.get_config(arch)
+        cfg = _tp_config(arch)
         cache_len = prompt + gen
         full = tfm.init_params(torch.Generator("cuda").manual_seed(0), cfg)
         tokens = torch.randint(0, cfg.vocab_size, (batch, prompt),
@@ -5107,7 +5278,6 @@ def tp_moe_serving(torch, rank: int, world: int, mesh) -> list:
     prefill's K5 launches as expected and none in decode; all-reduces
     only.  Prints prefill s, decode ms a step, the collectives, the
     peak."""
-    from repro_torch import configs
     from repro_torch.kernels.flash_attention.ops import flash_attention as fa
     from repro_torch.kernels.masked_agg import ops
     from repro_torch.kernels.rglru_scan import ops as scan
@@ -5130,7 +5300,7 @@ def tp_moe_serving(torch, rank: int, world: int, mesh) -> list:
 
     rows = []
     for part, arch, batch, prompt, gen, expected, over in TP_MOE_RUNS:
-        cfg = configs.get_config(arch).with_overrides(**over)
+        cfg = _tp_config(arch, **over)
         tokens = torch.randint(0, cfg.vocab_size, (batch, prompt),
                                generator=torch.Generator("cuda")
                                .manual_seed(1), device="cuda")
@@ -5315,7 +5485,6 @@ def tp_zoo_serving(torch, rank: int, mesh) -> list:
     expected and none in decode; all-reduces only.  Prints the prefill s,
     the decode ms a step, the collectives a step, the peak and held GiB
     and the cache's placements."""
-    from repro_torch import configs
     from repro_torch.kernels.flash_attention.ops import flash_attention as fa
     from repro_torch.kernels.masked_agg import ops
     from repro_torch.kernels.rglru_scan import ops as scan
@@ -5339,7 +5508,7 @@ def tp_zoo_serving(torch, rank: int, mesh) -> list:
 
     rows = []
     for part, arch, batch, prompt, gen, expected, n_cond in TP_ZOO_RUNS:
-        cfg = configs.get_config(arch)
+        cfg = _tp_config(arch)
         codebooks = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
         first_pos = n_cond + prompt
         cache_len = first_pos + gen
@@ -5693,20 +5862,44 @@ def tp_card_vs_cpu(torch, rank: int, meshes: dict) -> dict:
 #  against the key prefix it can see), then 7 serve steps with the exit
 #  head on the heads-split cache; under dp2d at batch 2, one sequence a
 #  rank (K5 at phase 7's shape).  Weights replicated (5.23 GB a rank)
-TP_SPLIT_RUNS = (("l", "seq2d", 1, 8192, 8), ("m", "dp2d", 2, 8192, 8))
+TP_SPLIT_RUNS = (("l", STEP_ARCH, "seq2d", 1, 8192, 8),
+                 ("m", STEP_ARCH, "dp2d", 2, 8192, 8))
+# phase 20(o): recurrentgemma-2b at published widths under seq2d on phase
+#  7's cell (batch 4, prompt 4096): each rank prefills its 2048 rows, the
+#  RG-LRU layers' conv halo and K6's carry from rank 0 (K6's carried
+#  entry on both ranks, rank 1 from rank 0's y_last), the local attention
+#  (window 2048, one kv head) on K5's query-offset entry on rank 1; then
+#  7 serve steps with the exit head on the kv_seq ring and the RG-LRU
+#  state over 1280 of 2560 channels
+TP_HYBRID_RUNS = (("o", "recurrentgemma-2b", "seq2d", 4, 4096, 8),)
 # phase 20(n): reduced gemma2-2b under seq2d and dp2d and reduced
 #  llava-next-34b under seq2d_fsdp, card against CPU: the train step, the
 #  rounds (the token splits; a seq2d_fsdp cohort is refused), a prefill of
-#  TP_SPLIT_PROMPT positions (llava's 8 frontend rows included) and 6
-#  serve steps
-TP_SPLIT_NARROW = (("gemma2-2b", "seq2d"), ("gemma2-2b", "dp2d"),
-                   ("llava-next-34b", "seq2d_fsdp"))
-TP_SPLIT_PROMPT = 4096
+#  TP_SPLIT_PROMPT positions (llava's 8 frontend rows included; cut from
+#  4096 for the smoke's time) and 6 serve steps
+TP_SPLIT_PROMPT = 2048
 TP_SPLIT_ENGINES = ("f32", "int8", "tree", "int8 topk", "scaffold")
+# each (arch, mode, round engines, prompt positions)
+TP_SPLIT_NARROW = (("gemma2-2b", "seq2d", TP_SPLIT_ENGINES, TP_SPLIT_PROMPT),
+                   ("gemma2-2b", "dp2d", TP_SPLIT_ENGINES, TP_SPLIT_PROMPT),
+                   ("llava-next-34b", "seq2d_fsdp", TP_SPLIT_ENGINES,
+                    TP_SPLIT_PROMPT))
+# phase 20(p): reduced recurrentgemma-2b and musicgen-large (f32) under
+#  seq2d and dp2d, card against CPU as (n): the train step, the f32, int8
+#  and tree rounds, a prefill of 256 positions (musicgen's 4 conditioning
+#  rows included: 128 rows a rank under seq2d) and 6 serve steps.  The
+#  RG-LRU's state carries each device's rounding along the sequence: at
+#  1024 positions the unsharded narrow prefill itself leaves rtol 1e-4 /
+#  atol 1e-5 card against CPU, at 256 it holds
+TP_HYBRID_ENGINES = ("f32", "int8", "tree")
+TP_HYBRID_NARROW = tuple((arch, mode, TP_HYBRID_ENGINES, 256)
+                         for arch in ("recurrentgemma-2b", "musicgen-large")
+                         for mode in ("seq2d", "dp2d"))
 # K5 on a rank's query rows (the kernels' q_offset), held to the plain
 # version and timed: (label, B, Sq, q_offset, H, Kh, Dh, window, softcap,
 # dtype); the keys are the q_offset + Sq a rank's rows can see.  (l)'s
-# shapes, global and at gemma2's window, and (n)'s f32 rank-1 prefill
+# shapes, global and at gemma2's window, a reduced gemma2-2b f32 rank-1
+# prefill of 4096 positions, and (o)'s rank 1
 TP_ROWS_CASES = (
     ("gemma2-2b global, rank 0's rows", 1, 4096, 0, 8, 4, 256, 0, 0.0,
      "bfloat16"),
@@ -5717,7 +5910,9 @@ TP_ROWS_CASES = (
     ("gemma2-2b window 4096, rank 1's rows", 1, 4096, 4096, 8, 4, 256, 4096,
      0.0, "bfloat16"),
     ("reduced gemma2-2b in f32, rank 1's rows", 2, 2048, 2048, 4, 2, 32, 0,
-     0.0, "float32"))
+     0.0, "float32"),
+    ("recurrentgemma-2b window 2048, rank 1's rows", 4, 2048, 2048, 10, 1,
+     256, 2048, 0.0, "bfloat16"))
 
 
 def check_flash_rows(torch, bw: float, cases=TP_ROWS_CASES) -> dict:
@@ -5823,17 +6018,21 @@ def _split_rows(fa) -> tuple:
     return fa.launches_tc_rows, fa.launches_rows
 
 
-def tp_split_serving(torch, rank: int, mesh) -> list:
-    """Phase 20(l) and (m) on one rank, each run of ``TP_SPLIT_RUNS``:
-    gemma2-2b at published widths under the mode, first unsharded on this
+def tp_split_serving(torch, rank: int, mesh,
+                     runs=TP_SPLIT_RUNS) -> list:
+    """Phase 20(l) and (m) on one rank, each run of ``TP_SPLIT_RUNS``
+    (and (o), ``TP_HYBRID_RUNS``): the config at published widths under
+    the mode, first unsharded on this
     rank (the ranks in turn, a barrier between: (m)'s batch-2 logits are
     8.4 GB a rank), prefilled and served ``gen - 1`` greedy steps with the
     exit head, keeping the part of each logits tensor that the sharded run
     places on this rank; then the sharded prefill (``cache_len`` prompt +
     gen) and serve steps on its cache, fed the unsharded run's tokens.
     Logits and exit logits within 5 % of max|logit| of the unsharded; the
-    prefill's K5 launches (on this rank's query rows under seq2d: the rows
-    counter on rank 1) and none in decode; all-reduces only.  Prints
+    prefill's K5 launches, one an attention layer (on this rank's query
+    rows under seq2d: the rows counter on rank 1), and K6's, one an RG-LRU
+    layer (its carried entry under seq2d), and none of either in decode;
+    all-reduces only.  Prints
     prefill s, decode ms a step, the all-reduces and their bytes (prefill,
     a decode step) and the peak and held GiB."""
     import torch.distributed as dist
@@ -5861,8 +6060,8 @@ def tp_split_serving(torch, rank: int, mesh) -> list:
             "batch", "seq", "vocab")), mesh)
 
     rows = []
-    for part, mode, batch, prompt, gen in TP_SPLIT_RUNS:
-        cfg = configs.get_config(STEP_ARCH).with_overrides(attn_shard=mode)
+    for part, arch, mode, batch, prompt, gen in runs:
+        cfg = configs.get_config(arch).with_overrides(attn_shard=mode)
         policy = sharding.MeshPolicy(mesh, cfg)
         cache_len = prompt + gen
         full = tokens = None
@@ -5916,13 +6115,17 @@ def tp_split_serving(torch, rank: int, mesh) -> list:
         wall = time.perf_counter() - t
         launched = (fa.launches_tc, fa.launches, scan.lru_scan_gated.launches)
         rows_launched = _split_rows(fa)
-        # one K5 launch a layer: under seq2d rank 1's rows start at 4096
-        n_layers = cfg.n_layers
-        want_rows = n_layers if mode == "seq2d" and rank else 0
-        if launched != (n_layers - want_rows, 0, 0) or \
-                rows_launched != (want_rows, 0):
+        carried = scan.lru_scan_gated.launches_carry
+        # one K5 launch an attention layer, one K6 launch an RG-LRU layer:
+        # under seq2d rank 1's rows start past 0, and K6 carries its state
+        n_attn, n_rglru = _mixer_counts(cfg)
+        want_rows = n_attn if mode == "seq2d" and rank else 0
+        want_carry = n_rglru if mode == "seq2d" else 0
+        if launched != (n_attn - want_rows, 0, n_rglru) or \
+                rows_launched != (want_rows, 0) or carried != want_carry:
             raise RuntimeError(f"20({part}) rank {rank}: K5 tc / f32 / K6 "
-                               f"{launched}, on query rows {rows_launched}")
+                               f"{launched}, on query rows {rows_launched}, "
+                               f"K6 carried {carried}")
         if [str(p) for p in logits.placements] != [str(p) for p in place]:
             raise RuntimeError(f"20({part}) rank {rank}: logits placed "
                                f"{logits.placements}, not {place}")
@@ -5932,11 +6135,12 @@ def tp_split_serving(torch, rank: int, mesh) -> list:
                 for i in range(local.shape[0])
                 for j in range(0, prompt, 1024))
         peak = torch.cuda.max_memory_allocated() / 2**30
-        row = {"part": part, "arch": STEP_ARCH, "mode": mode,
+        row = {"part": part, "arch": arch, "mode": mode,
                "batch": batch, "prompt": prompt, "prefill_s": wall,
                "max_abs_diff": d, "max_abs_logit": amax,
                "logits_local": list(local.shape), "peak_gib": peak,
                "launches": launched, "launches_rows": rows_launched,
+               "launches_carry": carried,
                "collectives": counter.counts,
                "collective_bytes": counter.bytes}
         del logits, local, want
@@ -5957,10 +6161,10 @@ def tp_split_serving(torch, rank: int, mesh) -> list:
                 got_exit.append(ex.to_local().clone())
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t
-        if (fa.launches_tc, fa.launches) + _split_rows(fa) != \
-                launched[:2] + rows_launched:
-            raise RuntimeError(f"20({part}) rank {rank}: K5 launched in "
-                               f"decode")
+        if (fa.launches_tc, fa.launches, scan.lru_scan_gated.launches) + \
+                _split_rows(fa) != launched + rows_launched:
+            raise RuntimeError(f"20({part}) rank {rank}: K5 or K6 launched "
+                               f"in decode")
         for c in (row["collectives"], counter.counts):
             if set(c) - {"all-reduce"}:
                 raise RuntimeError(f"20({part}) rank {rank}: collectives "
@@ -5993,20 +6197,21 @@ def tp_split_serving(torch, rank: int, mesh) -> list:
     return rows
 
 
-def tp_split_card_vs_cpu(torch, rank: int, meshes: dict) -> dict:
-    """Phase 20(n) on one rank: each config and mode of
-    ``TP_SPLIT_NARROW`` (f32) on the card's (1, 2) mesh and on the CPU's
-    (the same gloo group): the train step (batch 2, 16 tokens; llava's 8
-    frontend rows too); under seq2d and dp2d the rounds of
-    ``TP_SPLIT_ENGINES`` (K = 2, one simple, 2 local steps), and on the
-    card the int8 top-k round bitwise the int8 round and the SCAFFOLD
-    round bitwise the f32 one; under seq2d_fsdp the cohort's refusal
-    (its specs name data twice); a prefill of ``TP_SPLIT_PROMPT``
-    positions then 6 teacher-forced serve steps with the exit head.  This
-    rank's shards, losses, logits and caches at rtol 1e-4 / atol 1e-5, the
-    int8 rounds under ``repro_torch.parity``'s rules.  K1, K2, K4 and K5
-    f32 (whole sequences and a rank's query rows) counted per config on
-    the card's runs."""
+def tp_split_card_vs_cpu(torch, rank: int, meshes: dict,
+                         narrow=TP_SPLIT_NARROW, part: str = "n") -> dict:
+    """Phase 20(n) on one rank (and (p), ``TP_HYBRID_NARROW``): each
+    config and mode of ``narrow`` (f32) on the card's (1, 2) mesh and on
+    the CPU's (the same gloo group): the train step (batch 2, 16 tokens;
+    a frontend's rows too, each codebook's tokens); under seq2d and dp2d
+    the rounds of its engines (K = 2, one simple, 2 local steps), and on
+    the card the int8 top-k round bitwise the int8 round and the SCAFFOLD
+    round bitwise the f32 one where both run; under seq2d_fsdp the
+    cohort's refusal (its specs name data twice); a prefill of its
+    prompt positions then 6 teacher-forced serve steps with the exit
+    head.  This rank's shards, losses, logits and caches at rtol 1e-4 /
+    atol 1e-5, the int8 rounds under ``repro_torch.parity``'s rules.  K1,
+    K2, K4, K5 f32 (whole sequences and a rank's query rows) and K6 (its
+    carried entry under seq2d) counted per config on the card's runs."""
     import numpy as np
     from repro_torch import configs
     from repro_torch.core import aggregate, comm
@@ -6025,19 +6230,20 @@ def tp_split_card_vs_cpu(torch, rank: int, meshes: dict) -> dict:
                "scaffold": aggregate.EngineSpec(
                    variance_reduction="scaffold")}
     launched, worst, refused = {}, {}, None
-    for arch, mode in TP_SPLIT_NARROW:
+    for arch, mode, run_engines, positions in narrow:
         cfg = configs.get_reduced(arch).with_overrides(attn_shard=mode)
         params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
         rng = np.random.default_rng(7)
         n_extra = 0 if cfg.frontend is None else cfg.frontend.n_tokens
+        nc = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
         tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(
-            2, 17)).astype(np.int32))
+            2, 17) + nc).astype(np.int32))
         data = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(
-            2, 2, 2, 17)).astype(np.int32))
+            2, 2, 2, 17) + nc).astype(np.int32))
         prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(
-            2, TP_SPLIT_PROMPT - n_extra)).astype(np.int32))
+            2, positions - n_extra) + nc).astype(np.int32))
         forced = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(
-            6, 2, 1)).astype(np.int32))
+            6, 2, 1) + nc).astype(np.int32))
         extra = {} if cfg.frontend is None else {
             "extra_embeds": torch.as_tensor(rng.standard_normal((
                 2, n_extra, cfg.frontend.d_in)).astype(np.float32))}
@@ -6056,7 +6262,7 @@ def tp_split_card_vs_cpu(torch, rank: int, meshes: dict) -> dict:
                 {"tokens": tokens.to(dev), **ex})
             got["train"] = ([x.to_local().cpu() for x in tree_leaves(new)],
                             metrics["loss"].cpu())
-            for name in TP_SPLIT_ENGINES:
+            for name in run_engines:
                 stacked = tree_map(lambda x: x.to(dev)[None].expand(
                     (2,) + x.shape), params)
                 try:
@@ -6074,34 +6280,35 @@ def tp_split_card_vs_cpu(torch, rank: int, meshes: dict) -> dict:
             placed = sharding.distribute_params(tree_map(
                 lambda x: x.to(dev), params), cfg, mesh)
             logits, cache = steps.make_prefill_step(
-                cfg, policy, cache_len=TP_SPLIT_PROMPT + 6)(
+                cfg, policy, cache_len=positions + 6)(
                     placed, {"tokens": prompt.to(dev), **ex})
             serve = steps.make_serve_step(cfg, policy, with_exit_head=True)
             heads = [logits.to_local().cpu()]
             for i in range(6):
                 lg, cache, ex_lg = serve(placed, cache, {
-                    "tokens": forced[i].to(dev)}, TP_SPLIT_PROMPT + i)
+                    "tokens": forced[i].to(dev)}, positions + i)
                 heads += [lg.to_local().cpu(), ex_lg.to_local().cpu()]
             got["serve"] = (heads, [x.to_local().cpu()
                                     for x in tree_leaves(cache)])
             if dev == "cuda":
                 torch.cuda.synchronize()
-                launched[mode] = (_tp_kernel_counts(ops, fa, scan),
-                                  _split_rows(fa))
+                launched[f"{arch} {mode}"] = (
+                    _tp_kernel_counts(ops, fa, scan), _split_rows(fa),
+                    scan.lru_scan_gated.launches_carry)
             sides[dev] = got
-        label = f"20(n) {arch} {mode} rank {rank}"
-        keys = ["train"] + [k for k in TP_SPLIT_ENGINES if k in sides["cpu"]]
+        label = f"20({part}) {arch} {mode} rank {rank}"
+        keys = ["train"] + [k for k in run_engines if k in sides["cpu"]]
         for key in keys:
             wire = "int8" if key.startswith("int8") else "f32"
             view = {dev: {wire if key != "train" else key: sides[dev][key]}
                     for dev in sides}
-            worst[f"{mode} {key}"] = _tp_hold_rounds(
+            worst[f"{arch} {mode} {key}"] = _tp_hold_rounds(
                 torch, f"{label} {key}", wire if key != "train" else key,
                 view, params, cfg, meshes["cpu"])
         # the reference's round step folds no sparse chunk and no control
         # variates: the extra options change nothing, bitwise
         for key, base in (("int8 topk", "int8"), ("scaffold", "f32")):
-            if key not in sides["cuda"]:
+            if key not in sides["cuda"] or base not in sides["cuda"]:
                 continue
             (a, la), (b, lb) = sides["cuda"][key], sides["cuda"][base]
             if not (torch.equal(la, lb) and all(
@@ -6112,29 +6319,114 @@ def tp_split_card_vs_cpu(torch, rank: int, meshes: dict) -> dict:
                                                   sides["cpu"]["serve"])
         _tp_allclose(torch, f"{label} cache", cache_a, cache_b)
         _tp_allclose(torch, f"{label} logits", heads_a, heads_b)
-        worst[f"{mode} serve"] = max(float((x - y).abs().max()) for x, y in
-                                     zip(heads_a + cache_a,
-                                         heads_b + cache_b))
-        # K5 f32 a layer in prefill: under seq2d and seq2d_fsdp rank 1's
-        # rows start past 0; the rounds' folds under seq2d and dp2d
+        worst[f"{arch} {mode} serve"] = max(
+            float((x - y).abs().max()) for x, y in zip(heads_a + cache_a,
+                                                      heads_b + cache_b))
+        # K5 f32 an attention layer in prefill (under seq2d and seq2d_fsdp
+        # rank 1's rows start past 0), K6 an RG-LRU layer (carried under
+        # seq2d); the rounds' folds under seq2d and dp2d
         rounds = mode != "seq2d_fsdp"
-        n_layers = cfg.n_layers
-        on_rows = n_layers if mode != "dp2d" and rank else 0
-        want = ((2, 2, 0, 1, 0, n_layers - on_rows, 0) if rounds else
-                (0, 0, 0, 0, 0, n_layers - on_rows, 0), (0, on_rows))
-        if launched[mode] != want:
+        n_attn, n_rglru = _mixer_counts(cfg)
+        on_rows = n_attn if mode != "dp2d" and rank else 0
+        folds = tuple(sum(e in names for e in run_engines) if rounds else 0
+                      for names in (("f32", "scaffold"),
+                                    ("int8", "int8 topk"), (), ("tree",)))
+        want = (folds + (0, n_attn - on_rows, n_rglru), (0, on_rows),
+                n_rglru if mode != "dp2d" else 0)
+        if launched[f"{arch} {mode}"] != want:
             raise RuntimeError(f"{label}: launches K1/K2/K3/K4/K5 tc/K5 "
-                               f"f32/K6, K5 on query rows {launched[mode]}, "
-                               f"expected {want}")
-    if refused is None or "'data' to two dims" not in refused:
-        raise RuntimeError(f"20(n) rank {rank}: the seq2d_fsdp cohort was "
-                           f"not refused ({refused})")
-    print(f"  (n) rank {rank}: reduced gemma2-2b under seq2d and dp2d, "
-          f"reduced llava-next-34b under seq2d_fsdp: train step, rounds "
-          f"{TP_SPLIT_ENGINES}, prefill and serve, card against CPU, worst "
-          f"{worst}; launches {launched}; the seq2d_fsdp round refused: "
-          f"{refused}", flush=True)
+                               f"f32/K6, K5 on query rows, K6 carried "
+                               f"{launched[f'{arch} {mode}']}, expected "
+                               f"{want}")
+    fsdp = any(mode == "seq2d_fsdp" for _, mode, _, _ in narrow)
+    if fsdp and (refused is None or "'data' to two dims" not in refused):
+        raise RuntimeError(f"20({part}) rank {rank}: the seq2d_fsdp cohort "
+                           f"was not refused ({refused})")
+    print(f"  ({part}) rank {rank}: "
+          f"{sorted({(a, m) for a, m, _, _ in narrow})}: train step, "
+          f"rounds, prefill and serve, card against CPU, worst {worst}; "
+          f"launches {launched}; the seq2d_fsdp round refused: {refused}",
+          flush=True)
     return {"launches": launched, "worst": worst, "refused": refused}
+
+
+# phase 20(q): the two ranks as a (2, 1, 1) ("pod", "data", "model") mesh
+#  running (n)'s narrow rounds (reduced gemma2-2b, f32, K = 2, one simple,
+#  2 local steps): each pod rank folds its client, the fold all-reduced
+#  over the pod x data group
+TP_POD_ENGINES = ("f32", "int8", "tree")
+
+
+def tp_pod_rounds(torch, rank: int) -> dict:
+    """Phase 20(q) on one rank: the rounds of ``TP_POD_ENGINES`` over the
+    card's (2, 1, 1) pod mesh, bitwise the same rounds over the card's
+    (2, 1) ("data", "model") mesh (a pod of 2 over data of 1 is a
+    relabelling) and held to the CPU's (2, 1, 1) mesh at rtol 1e-4 / atol
+    1e-5 (the int8 round under ``repro_torch.parity``'s rules).  K1, K2
+    and K4 counted on the card's pod runs: one fold of this rank's client
+    a round."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.core import aggregate, comm
+    from repro_torch.kernels.flash_attention.ops import flash_attention as fa
+    from repro_torch.kernels.masked_agg import ops
+    from repro_torch.kernels.rglru_scan import ops as scan
+    from repro_torch.launch import sharding, steps
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import tree_leaves, tree_map
+    engines = {"f32": None,
+               "int8": aggregate.EngineSpec(wire=comm.WireSpec("int8", QB)),
+               "tree": aggregate.EngineSpec(engine="tree")}
+    meshes = {"pod cuda": make_device_mesh(1, 1, "cuda", n_pod=TP_RANKS),
+              "data cuda": make_device_mesh(TP_RANKS, 1, "cuda"),
+              "pod cpu": make_device_mesh(1, 1, "cpu", n_pod=TP_RANKS)}
+    cfg = configs.get_reduced(STEP_ARCH)
+    params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(7)
+    data = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(
+        2, 2, 2, 17)).astype(np.int32))
+    simple = torch.tensor([True, False])
+    sides = {}
+    for name, mesh in meshes.items():
+        dev = name.split()[-1]
+        policy = sharding.MeshPolicy(mesh, cfg)
+        _tp_zero(ops, fa, scan)
+        got = {}
+        for e in TP_POD_ENGINES:
+            cohort = tree_map(lambda x: x.to(dev)[None].expand(
+                (2,) + x.shape), params)
+            new_c, loss = steps.make_fed_round_step(
+                cfg, policy, local_steps=2, engine=engines[e])(
+                    cohort, data.to(dev), simple.to(dev))
+            got[e] = ([x.cpu() for x in tree_leaves(new_c)], loss.cpu())
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            got["launches"] = _tp_kernel_counts(ops, fa, scan)
+        sides[name] = got
+    want = (1, 1, 0, 1, 0, 0, 0)
+    if sides["pod cuda"]["launches"] != want:
+        raise RuntimeError(f"20(q) rank {rank}: launches K1/K2/K3/K4/K5 "
+                           f"tc/K5 f32/K6 {sides['pod cuda']['launches']}, "
+                           f"expected {want}")
+    worst = {}
+    for e in TP_POD_ENGINES:
+        (a, la), (b, lb) = sides["pod cuda"][e], sides["data cuda"][e]
+        if not (torch.equal(la, lb) and all(
+                torch.equal(x, y) for x, y in zip(a, b))):
+            raise RuntimeError(f"20(q) rank {rank}: the {e} round over the "
+                               f"pod mesh is not the data mesh's bitwise")
+        wire = "int8" if e == "int8" else "f32"
+        worst[e] = _tp_hold_rounds(
+            torch, f"20(q) {e} rank {rank}", wire,
+            {"cuda": {wire: sides["pod cuda"][e]},
+             "cpu": {wire: sides["pod cpu"][e]}}, params, cfg,
+            meshes["pod cpu"])
+    print(f"  (q) rank {rank}: reduced gemma2-2b's rounds {TP_POD_ENGINES} "
+          f"over a (2, 1, 1) pod mesh bitwise the (2, 1) data mesh's, card "
+          f"against CPU worst {worst}; launches "
+          f"{sides['pod cuda']['launches']}", flush=True)
+    return {"launches": sides["pod cuda"]["launches"], "worst": worst}
 
 
 def tp_rank(rank: int, world: int, store: str, work: str,
@@ -6142,7 +6434,8 @@ def tp_rank(rank: int, world: int, store: str, work: str,
     """One rank of phase 20 (spawned by :func:`tp_phase`): gloo over a
     FileStore, the (1, 2) meshes on the card and on the CPU, then (a)-(e)
     (``"dense"`` in ``parts``), (f)-(h) (``"moe"``), (i)-(k)
-    (``"xlstm_codebooks"``) and (l)-(n) (``"seq2d"``); writes
+    (``"xlstm_codebooks"``), (l)-(n) (``"seq2d"``) and (o)-(q)
+    (``"hybrid_audio"``); writes
     ``rank<r>.pt`` (or the traceback to ``rank<r>.err``, and raises)."""
     import faulthandler
     import torch
@@ -6157,20 +6450,34 @@ def tp_rank(rank: int, world: int, store: str, work: str,
                                 store=dist.FileStore(store, world))
         meshes = {"cuda": make_device_mesh(1, world, "cuda"),
                   "cpu": make_device_mesh(1, world, "cpu")}
-        out = {}
+        out = {"seconds": {}}
+
+        def cell(key, fn, *args):
+            t = time.perf_counter()
+            out[key] = fn(torch, rank, *args)
+            out["seconds"][key] = time.perf_counter() - t
+        cuda = meshes["cuda"]
         if "dense" in parts:
-            out["round"] = tp_round(torch, rank, work, meshes["cuda"])
-            out["prefill"] = tp_serving(torch, rank, meshes["cuda"])
-            out["narrow"] = tp_card_vs_cpu(torch, rank, meshes)
+            cell("round", tp_round, work, cuda)
+            cell("prefill", tp_serving, cuda)
+            cell("narrow", tp_card_vs_cpu, meshes)
         if "moe" in parts:
-            out["moe"] = tp_moe_serving(torch, rank, world, meshes["cuda"])
-            out["moe_narrow"] = tp_moe_card_vs_cpu(torch, rank, meshes)
+            cell("moe", tp_moe_serving, world, cuda)
+            cell("moe_narrow", tp_moe_card_vs_cpu, meshes)
         if "xlstm_codebooks" in parts:
-            out["zoo"] = tp_zoo_serving(torch, rank, meshes["cuda"])
-            out["zoo_narrow"] = tp_zoo_card_vs_cpu(torch, rank, meshes)
+            cell("zoo", tp_zoo_serving, cuda)
+            cell("zoo_narrow", tp_zoo_card_vs_cpu, meshes)
         if "seq2d" in parts:
-            out["split"] = tp_split_serving(torch, rank, meshes["cuda"])
-            out["split_narrow"] = tp_split_card_vs_cpu(torch, rank, meshes)
+            cell("split", tp_split_serving, cuda)
+            cell("split_narrow", tp_split_card_vs_cpu, meshes)
+        if "hybrid_audio" in parts:
+            cell("hybrid", tp_split_serving, cuda, TP_HYBRID_RUNS)
+            cell("hybrid_narrow", tp_split_card_vs_cpu, meshes,
+                 TP_HYBRID_NARROW, "p")
+            cell("pod", tp_pod_rounds)
+        print(f"  phase 20 rank {rank}: each cell's seconds "
+              f"{ {k: round(v, 1) for k, v in out['seconds'].items()} }",
+              flush=True)
         torch.save(out, os.path.join(work, f"rank{rank}.pt"))
         dist.destroy_process_group()
     except BaseException:
@@ -6261,8 +6568,10 @@ def tp_phase(torch, ops, ref, bw: float, unsharded,
     out["k5"] = check_flash(torch, bw, [
         c for c, part in zip(TP_FLASH_CASES, TP_FLASH_PARTS)
         if part in parts])
-    if "seq2d" in parts:
+    if "seq2d" in parts or "hybrid_audio" in parts:
         out["k5_rows"] = check_flash_rows(torch, bw)
+    if "hybrid_audio" in parts:
+        out["k6_carry"] = check_scan_carry(torch, bw)
     if "dense" not in parts:
         return out
     launches = [r["round"]["runs"][0]["launches"][0]
@@ -6281,16 +6590,21 @@ def tp_phase(torch, ops, ref, bw: float, unsharded,
     torch.cuda.empty_cache()
     out["k6"] = check_scan(torch, bw, (), TP_GATED_CASES)
 
+    def split_narrow(r):
+        return [c for key in ("split_narrow", "hybrid_narrow")
+                for c in r.get(key, {}).get("launches", {}).values()]
+
     def narrow(r, i):
         return sum(r[key]["launches"][i] for key in ("moe_narrow",
-                                                     "zoo_narrow") if key in r
-                   ) + sum(c[0][i] for c in r.get("split_narrow", {}).get(
-                       "launches", {}).values())
+                                                     "zoo_narrow", "pod")
+                   if key in r) + sum(c[0][i] for c in split_narrow(r))
+
+    def split(r):
+        return r.get("split", []) + r.get("hybrid", [])
 
     def rows(r, i):
-        return sum(p["launches_rows"][i] for p in r.get("split", [])) + sum(
-            c[1][i] for c in r.get("split_narrow", {}).get(
-                "launches", {}).values())
+        return sum(p["launches_rows"][i] for p in split(r)) + sum(
+            c[1][i] for c in split_narrow(r))
     out["launches"] = {
         "k1": sum(r["round"]["runs"][0]["launches"][0] + narrow(r, 0)
                   for r in ranks),
@@ -6299,12 +6613,17 @@ def tp_phase(torch, ops, ref, bw: float, unsharded,
         "k4": sum(r["narrow"]["launches"][3] + narrow(r, 3) for r in ranks),
         "k5_tc": sum(p["launches"][0] for r in ranks
                      for p in r["prefill"] + r.get("moe", [])
-                     + r.get("zoo", []) + r.get("split", [])),
+                     + r.get("zoo", []) + split(r)),
         "k5_f32": sum(r["narrow"]["launches"][5] + narrow(r, 5)
                       for r in ranks),
         "k5_tc_rows": sum(rows(r, 0) for r in ranks),
         "k5_f32_rows": sum(rows(r, 1) for r in ranks),
-        "k6": sum(p["launches"][2] for r in ranks for p in r["prefill"])}
+        "k6": sum(p["launches"][2] for r in ranks
+                  for p in r["prefill"] + split(r)) + sum(
+                      narrow(r, 6) for r in ranks),
+        "k6_carry": sum(p["launches_carry"] for r in ranks
+                        for p in split(r)) + sum(
+                            c[2] for r in ranks for c in split_narrow(r))}
     print(f"  phase 20 launches over both ranks {out['launches']} "
           f"({launches} K1 + K2 a rank) in {time.perf_counter() - t:.1f} s",
           flush=True)
@@ -6479,8 +6798,10 @@ def main() -> int:
           "recurrentgemma-2b, gemma2-2b, qwen2-moe-a2.7b, kimi-k2 (1 "
           "layer), xlstm-1.3b and musicgen-large prefilled and served on "
           "sharded caches at full width, gemma2-2b under seq2d and dp2d, "
-          "two ranks sharing the card (gloo, a (1, 2) mesh); narrow card vs "
-          "CPU (dense, MoE, xLSTM and codebooks, the token splits)",
+          "recurrentgemma-2b under seq2d, two ranks sharing the card (gloo, "
+          "a (1, 2) mesh); narrow card vs CPU (dense, MoE, xLSTM and "
+          "codebooks, the token splits of the dense, VLM, hybrid and audio "
+          "configs); the narrow rounds over a (2, 1, 1) pod mesh",
           flush=True)
     tp = tp_phase(torch, ops, ref, bw, unsharded)
     del unsharded
@@ -6751,6 +7072,26 @@ def main() -> int:
             "library_ms": head["library_ms"], "shape": head["shape"],
             "bound_share": head["bound_share"], "tflops": head["tflops"],
             "cases": rows})
+    # K6's carried entry (y0 in, y_last out): a rank's rows of a split
+    # sequence, timed at (o)'s rank shape
+    carry = tp["k6_carry"]["timing"][0]
+    kernels.append({
+        "name": "lru_scan (carried entry)", "route": "cuda",
+        "source": "src/repro_torch/kernels/rglru_scan/csrc/lru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan/kernel.py:52",
+        "entry": "lru_scan_gated with y0 and y_last",
+        "launches": tp["launches"]["k6_carry"],
+        "launches_path": tp_path + "(o) recurrentgemma-2b under seq2d, 18 "
+        "RG-LRU layers on each rank's 2048 rows (rank 1 from rank 0's "
+        "y_last), (p) reduced recurrentgemma-2b under seq2d, card against "
+        "CPU", "max_abs_err": tp["k6_carry"]["max_abs_err"],
+        "ms": carry["ms"], "plain_ms": carry["plain_ms"],
+        "bound_ms": carry["bound_ms"], "bound_by": carry["bound_by"],
+        "library_ms": carry["library_ms"],
+        "library_note": "the unfused composition the carried entry "
+        "replaces: rglru._gates, y0 folded in, K6's plain entry, the cast "
+        "and the f32 last row", "shape": carry["shape"],
+        "bound_share": carry["bound_share"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name_of_card,

@@ -532,10 +532,15 @@ def allreduce_bytes(state, *extra: torch.Tensor) -> int:
 def allreduce_state(state, group, *extra: torch.Tensor):
     """Sum :func:`state_tensors` of ``state`` and the ``extra`` tensors
     (the round's loss sum) across ``group``'s ranks, in place, as one
-    coalesced ``all_reduce(SUM)``; returns ``state``.  On one rank the
-    sum is the identity, bit for bit."""
+    coalesced ``all_reduce(SUM)`` (one a tensor where gloo reduces CUDA
+    tensors: it cannot coalesce them); returns ``state``.  On one rank
+    the sum is the identity, bit for bit."""
     import torch.distributed as dist
     tensors = state_tensors(state) + list(extra)
+    if tensors[0].is_cuda and "nccl" not in str(dist.get_backend(group)):
+        for t in tensors:
+            dist.all_reduce(t, group=group)
+        return state
     with dist._coalescing_manager(group=group):
         for t in tensors:
             dist.all_reduce(t, group=group)

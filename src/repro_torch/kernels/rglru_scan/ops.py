@@ -18,7 +18,9 @@ an element for the recurrence's multiply-add (the gated entry 6: the two
 gates' affine maps too; its transcendentals are not counted as flops).
 ``lru_scan.launches`` and
 ``lru_scan_gated.launches`` count each entry's launches of K6 (never
-plain-version calls).  The model's prefill runs K6 through the gated entry
+plain-version calls); ``lru_scan_gated.launches_carry`` counts those of
+the gated entry that give out their carry (``y_last``: a rank's rows of
+a split sequence).  The model's prefill runs K6 through the gated entry
 only; the plain one is the TPU kernel's own contract, which the tests and
 ``chip_smoke.py``'s yardstick of the unfused gates call.
 """
@@ -105,7 +107,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.lru_scan.argtypes = [ptr, ptr, ptr, i64, i64, i64, i32, i32, i32,
                              i32, i32, ptr]
     lib.lru_scan.restype = i32
-    lib.lru_scan_gated.argtypes = [ptr] * 8 + [i64, i64, i64, i32, i32,
+    lib.lru_scan_gated.argtypes = [ptr] * 9 + [i64, i64, i64, i32, i32,
                                                i32, i32, i32, ptr]
     lib.lru_scan_gated.restype = i32
     lib.lru_scan_layout.argtypes = [i32, i32, ctypes.POINTER(i32)]
@@ -180,13 +182,18 @@ def _lru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def lru_scan_gated(x: torch.Tensor, w_r: torch.Tensor, b_r: torch.Tensor,
                    w_i: torch.Tensor, b_i: torch.Tensor, c: torch.Tensor,
-                   y0: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   y0: Optional[torch.Tensor] = None,
+                   y_last: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The RG-LRU layer's recurrence from its input: x (B, S, D) float32
     or bfloat16; w_r, b_r, w_i, b_i and ``c = -8 softplus(lam)`` (D,)
     float32; y0 (B, D) float32 or None; all contiguous, on one device ->
-    y (B, S, D) in ``x.dtype`` (``ref.lru_scan_gated_ref``).  The kernel
-    launches on the current stream and does not synchronise."""
-    work.refuse_dtensor("lru_scan_gated", x, w_r, b_r, w_i, b_i, c, y0)
+    y (B, S, D) in ``x.dtype`` (``ref.lru_scan_gated_ref``).  ``y_last``
+    (B, D) float32, if given, is written with the scan's f32 state after
+    the last step (the carry of a run on the next rows: a run from it is
+    bitwise the run of the rows together).  The kernel launches on the
+    current stream and does not synchronise."""
+    work.refuse_dtensor("lru_scan_gated", x, w_r, b_r, w_i, b_i, c, y0,
+                        y_last)
     vecs = (w_r, b_r, w_i, b_i, c)
     if x.dim() != 3 or x.dtype not in _DTYPES:
         raise ValueError(f"need x (B, S, D) float32 or bfloat16, got "
@@ -195,35 +202,40 @@ def lru_scan_gated(x: torch.Tensor, w_r: torch.Tensor, b_r: torch.Tensor,
     if any(v.shape != (d,) or v.dtype != torch.float32 for v in vecs):
         raise ValueError(f"w_r, b_r, w_i, b_i and c must be ({d},) float32, "
                          f"got {[(tuple(v.shape), v.dtype) for v in vecs]}")
-    if y0 is not None and (y0.shape != (bsz, d)
-                           or y0.dtype != torch.float32):
-        raise ValueError(f"y0 must be ({bsz}, {d}) float32, got "
-                         f"{tuple(y0.shape)} {y0.dtype}")
-    ts = (x, *vecs) + (() if y0 is None else (y0,))
+    states = {"y0": y0, "y_last": y_last}
+    for name, t in states.items():
+        if t is not None and (t.shape != (bsz, d)
+                              or t.dtype != torch.float32):
+            raise ValueError(f"{name} must be ({bsz}, {d}) float32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    ts = (x, *vecs) + tuple(t for t in states.values() if t is not None)
     if any(t.device != x.device for t in ts) or x.device.type not in (
             "cpu", "cuda", "meta"):
-        raise ValueError(f"x, the gate vectors and y0 must share a cpu or "
-                         f"cuda device, got {[str(t.device) for t in ts]}")
+        raise ValueError(f"x, the gate vectors, y0 and y_last must share a "
+                         f"cpu or cuda device, got "
+                         f"{[str(t.device) for t in ts]}")
     if any(t.requires_grad for t in ts):
         raise ValueError("lru_scan_gated is forward only, as the TPU kernel "
                          "is: inputs must not require grad")
     if not all(t.is_contiguous() for t in ts):
-        raise ValueError("x, the gate vectors and y0 must be contiguous")
+        raise ValueError("x, the gate vectors, y0 and y_last must be "
+                         "contiguous")
     with work.kernel("lru_scan_gated", 6 * x.numel(),
-                     2 * work.nbytes(x) + work.nbytes(*vecs, y0)):
-        return _lru_scan_gated(x, w_r, b_r, w_i, b_i, c, y0)
+                     2 * work.nbytes(x) + work.nbytes(*vecs, y0, y_last)):
+        return _lru_scan_gated(x, w_r, b_r, w_i, b_i, c, y0, y_last)
 
 
 lru_scan_gated.launches = 0
+lru_scan_gated.launches_carry = 0
 
 
-def _lru_scan_gated(x, w_r, b_r, w_i, b_i, c, y0) -> torch.Tensor:
+def _lru_scan_gated(x, w_r, b_r, w_i, b_i, c, y0, y_last) -> torch.Tensor:
     vecs = (w_r, b_r, w_i, b_i, c)
     bsz, s, d = x.shape
     if x.device.type == "meta":
         return torch.empty_like(x)
     if x.device.type == "cpu":
-        return lru_scan_gated_ref(x, w_r, b_r, w_i, b_i, c, y0)
+        return lru_scan_gated_ref(x, w_r, b_r, w_i, b_i, c, y0, y_last)
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
@@ -233,11 +245,14 @@ def _lru_scan_gated(x, w_r, b_r, w_i, b_i, c, y0) -> torch.Tensor:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.lru_scan_gated(
             y.data_ptr(), x.data_ptr(), *(v.data_ptr() for v in vecs),
-            None if y0 is None else y0.data_ptr(), bsz, s, d,
+            None if y0 is None else y0.data_ptr(),
+            None if y_last is None else y_last.data_ptr(), bsz, s, d,
             int(x.dtype == torch.bfloat16), plan.stripes, plan.tiles,
             plan.smem_bytes, int(plan.tma), stream)
     _raise_on(lib, err, "lru_scan_gated")
     lru_scan_gated.launches += 1
+    if y_last is not None:
+        lru_scan_gated.launches_carry += 1
     return y
 
 

@@ -35,11 +35,15 @@ def lru_scan_ref(a: torch.Tensor, b: torch.Tensor,
 def lru_scan_gated_ref(x: torch.Tensor, w_r: torch.Tensor,
                        b_r: torch.Tensor, w_i: torch.Tensor,
                        b_i: torch.Tensor, c: torch.Tensor,
-                       y0: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       y0: Optional[torch.Tensor] = None,
+                       y_last: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """x (B, S, D); w_r, b_r, w_i, b_i, c (D,) f32; y0 (B, D) or None ->
     y (B, S, D) in ``x.dtype``: the gates in f32, y0 folded into the first
     step (``b_1 += a_1 y0``), the scan from 0, one rounding to x's
-    dtype."""
+    dtype.  ``y_last`` (B, D) f32, if given, receives the f32 scan's last
+    row before that rounding: the state a run on the next rows starts
+    from."""
     xf = x.float()
     r = torch.sigmoid(w_r * xf + b_r)
     i = torch.sigmoid(w_i * xf + b_i)
@@ -49,4 +53,7 @@ def lru_scan_gated_ref(x: torch.Tensor, w_r: torch.Tensor,
         * (i * xf)
     if y0 is not None:
         b[:, 0] = b[:, 0] + a[:, 0] * y0.float()
-    return lru_scan_ref(a, b).to(x.dtype)
+    y = lru_scan_ref(a, b)
+    if y_last is not None:
+        y_last.copy_(y[:, -1])
+    return y.to(x.dtype)

@@ -13,12 +13,14 @@ Two kinds, both with named axes ``("pod",) "data", "model"``:
 * :func:`make_device_mesh` — a live
   ``torch.distributed.device_mesh.DeviceMesh`` over a process group the
   caller has initialised (``init_process_group`` with its own address,
-  world size and rank).  Nothing here initialises a group.
+  world size and rank), with or without a ``pod`` axis.  Nothing here
+  initialises a group.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -66,23 +68,29 @@ def make_debug_mesh(n_data: int = 2, n_model: int = 2) -> MeshShape:
     return MeshShape((n_data, n_model), ("data", "model"))
 
 
-def make_device_mesh(n_data: int, n_model: int, device: str):
+def make_device_mesh(n_data: int, n_model: int, device: str, *,
+                     n_pod: Optional[int] = None):
     """A live (``n_data``, ``n_model``) ``DeviceMesh`` named ("data",
-    "model") over the initialised default process group, ranks in
-    row-major order, on ``device`` ("cuda" or "cpu").  Raises if no group
-    is initialised or if ``n_data * n_model`` is not its world size."""
+    "model") over the initialised default process group, or with
+    ``n_pod`` a (``n_pod``, ``n_data``, ``n_model``) one named ("pod",
+    "data", "model"), ranks in row-major order, on ``device`` ("cuda" or
+    "cpu").  Raises if no group is initialised or if the axes' product is
+    not its world size."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError("make_device_mesh needs an initialised process "
                            "group (torch.distributed.init_process_group)")
+    sizes, names = (n_data, n_model), ("data", "model")
+    if n_pod is not None:
+        sizes, names = (n_pod,) + sizes, ("pod",) + names
     world = dist.get_world_size()
-    if n_data * n_model != world:
-        raise ValueError(f"a ({n_data}, {n_model}) mesh needs "
-                         f"{n_data * n_model} ranks, the group has {world}")
-    ranks = torch.arange(world).reshape(n_data, n_model)
+    if math.prod(sizes) != world:
+        raise ValueError(f"a {sizes} mesh needs {math.prod(sizes)} ranks, "
+                         f"the group has {world}")
+    ranks = torch.arange(world).reshape(sizes)
     return DeviceMesh(torch.device(device).type, ranks,
-                      mesh_dim_names=("data", "model"))
+                      mesh_dim_names=names)
 
 
 def data_axes(mesh) -> Tuple[str, ...]:

@@ -52,21 +52,30 @@ each rank's local shards through ``local_map``
 replicated, run whole on each rank's rows, and a codebook stack's
 embedding and heads are vocab-parallel.
 
-**Token splits** (``seq2d``, ``dp2d``, ``seq2d_fsdp``; arch types ``dense``
-and ``vlm``).  The hidden state is a DTensor split over the sequence
-(``seq``) or the batch (``dp2d``'s ``("data", "model")``), and each block
-runs whole on each rank's tokens in one ``local_map``
-(``models/transformer._split_block``, :class:`common.TokenSplit`): k and v
-gathered along the sequence, K5 (prefill) or ``chunk2d_attention``
-(training) on the rank's query rows at their positions; ``seq2d_fsdp``'s
-data-sharded weights gathered at their use (:meth:`MeshPolicy.
-gather_weights`).  Every redistribution of a token split goes through
-``common.redistribute_by_sum`` (all-reduces only, forward and backward).
-The other arch types raise there (:func:`out_of_scope`, ``ROADMAP.md`` §1
-item 18), as does a live pod axis (item 16): nothing replicates
-silently.  The serve step reads the
-cache as :func:`cache_specs` places it, ``kv_seq`` rows included, and
-never replicates a sharded cache.
+**A live pod axis.**  A ``("pod", "data", "model")`` mesh
+(``mesh.make_device_mesh(..., n_pod=...)``) shards what the reference
+shards over ``("pod", "data")`` over both, pod major: the batch, the
+cohort's client axis and the caches' batch; the round's all-reduce runs
+over the pod x data group (:meth:`MeshPolicy.data_group`).  Where the
+reference names ``data`` alone (``seq2d_fsdp``'s ZeRO dim, kimi-k2's 2-D
+experts) the port does too.
+
+**Token splits** (``seq2d``, ``dp2d``, ``seq2d_fsdp``; arch types
+``dense``, ``vlm``, ``hybrid`` and ``audio``).  The hidden state is a
+DTensor split over the sequence (``seq``) or the batch (``dp2d``'s
+``("data", "model")``), and each block runs whole on each rank's tokens in
+one ``local_map`` (``models/transformer._split_block``,
+:class:`common.TokenSplit`): k and v gathered along the sequence, K5
+(prefill) or ``chunk2d_attention`` (training) on the rank's query rows at
+their positions; the RG-LRU's conv halo and its scan's f32 carry from the
+ranks before (``models/rglru.py``); ``seq2d_fsdp``'s data-sharded weights
+gathered at their use (:meth:`MeshPolicy.gather_weights`).  Every
+redistribution of a token split goes through ``common.redistribute_by_sum``
+(all-reduces only, forward and backward).  The ``moe`` and ``ssm`` arch
+types raise there (:func:`out_of_scope`, ``ROADMAP.md`` §1 item 18):
+nothing replicates silently.  The serve step reads the cache as
+:func:`cache_specs` places it, ``kv_seq`` rows and ``rnn`` channels
+included, and never replicates a sharded cache.
 """
 
 from __future__ import annotations
@@ -88,12 +97,13 @@ Tree = Any
 
 # what the port does not run over a live model axis larger than 1, with
 # its queued ROADMAP.md item
-TODO_TOKEN_SPLIT = ("a live seq2d / dp2d / seq2d_fsdp split for a mixer "
-                    "other than attention (the RG-LRU scan, the xLSTM "
-                    "blocks, MoE routing over a split sequence): ROADMAP.md "
-                    "§1 item 18")
+TODO_TOKEN_SPLIT = ("a live seq2d / dp2d / seq2d_fsdp split of the MoE "
+                    "blocks (capacity positions counted across ranks) or "
+                    "the xLSTM blocks (their states carried across ranks): "
+                    "ROADMAP.md §1 item 18")
 TOKEN_SPLITS = ("seq2d", "dp2d", "seq2d_fsdp")
-TODO_POD = "a live mesh with a pod axis: ROADMAP.md §1 item 16"
+# the arch types whose blocks run on each rank's tokens of a token split
+SPLIT_ARCH_TYPES = ("dense", "vlm", "hybrid", "audio")
 
 
 class PartitionSpec(tuple):
@@ -141,9 +151,10 @@ def _names(entry) -> Tuple[str, ...]:
 def out_of_scope(cfg: ModelConfig) -> Optional[str]:
     """Why ``cfg`` does not run over a live model axis larger than 1, or
     ``None`` where it does: the token splits run for the configs whose
-    mixers are attention (arch types ``dense`` and ``vlm``)."""
-    if cfg.attn_shard in TOKEN_SPLITS and cfg.arch_type not in ("dense",
-                                                                "vlm"):
+    mixers are attention or the RG-LRU (arch types ``dense``, ``vlm``,
+    ``hybrid`` and ``audio``), not for ``moe`` or ``ssm``."""
+    if cfg.attn_shard in TOKEN_SPLITS and \
+            cfg.arch_type not in SPLIT_ARCH_TYPES:
         return TODO_TOKEN_SPLIT
     return None
 
@@ -290,16 +301,59 @@ class MeshPolicy(Policy):
     # -- the live mesh's data group (the cohort-sharded round) ------------
 
     def data_group(self):
-        """The process group of this rank's data axis (the round's
-        all-reduce)."""
-        if "pod" in self.mesh.axis_names:
-            raise NotImplementedError(TODO_POD)
-        return self.device_mesh.get_group("data")
+        """The process group of the ranks that share this rank's model
+        coordinate across the data axes (``pod`` x ``data``: the round's
+        all-reduce).  Over a pod axis every rank creates every such group,
+        in one order (``dist.new_group`` is collective), once a mesh."""
+        if self.data_axes == ("data",):
+            return self.device_mesh.get_group("data")
+        return _data_groups(self.device_mesh)
 
     def data_coordinate(self) -> Tuple[int, int]:
-        """``(this rank's index along data, the data axis's size)``."""
-        return (self.device_mesh.get_local_rank("data"),
-                self.mesh.shape["data"])
+        """``(this rank's index along the data axes, their size)``: pod
+        major, as JAX flattens ``("pod", "data")``."""
+        index, size = 0, 1
+        for a in self.data_axes:
+            index = index * self.mesh.shape[a] + \
+                self.device_mesh.get_local_rank(a)
+            size *= self.mesh.shape[a]
+        return index, size
+
+    def data_rows(self, n: int) -> Tuple[int, int]:
+        """Rows ``[start, stop)`` of an ``n``-row client axis that this
+        rank holds where the data axes shard it: ``Shard(0)`` on each, in
+        mesh order, which DTensor nests (pod's share first, then data's
+        share of it), as :func:`distribute_cohort` places a cohort.  Over
+        a pod axis an uneven ``n`` is not split as its flattened
+        coordinate would split it: 6 rows over (2, 2) are 2, 1, 2, 1."""
+        start, stop = 0, n
+        for a in self.data_axes:
+            lo, hi = shard_rows(stop - start,
+                                self.device_mesh.get_local_rank(a),
+                                self.mesh.shape[a])
+            start, stop = start + lo, start + hi
+        return start, stop
+
+
+def _data_groups(device_mesh):
+    """This rank's group of the ranks of ``device_mesh`` (named "pod",
+    "data", "model") that share its model coordinate, pod-major; every
+    rank creates every model coordinate's group, in order, at the first
+    call on a mesh, and the mesh keeps them."""
+    groups = getattr(device_mesh, "_pod_data_groups", None)
+    if groups is None:
+        import torch.distributed as dist
+        ranks = device_mesh.mesh
+        names = device_mesh.mesh_dim_names
+        ranks = ranks.permute(names.index("model"), names.index("pod"),
+                              names.index("data")).flatten(1)
+        groups = {}
+        for row in ranks.tolist():
+            group = dist.new_group(row)
+            for r in row:
+                groups[r] = group
+        device_mesh._pod_data_groups = groups
+    return groups[device_mesh.get_rank()]
 
 
 def shard_rows(n: int, index: int, parts: int) -> Tuple[int, int]:

@@ -16,11 +16,13 @@ the model.  A step runs on the device of the tensors it is given.
 **The cohort-sharded round.**  Given a ``sharding.MeshPolicy`` over a live
 ``DeviceMesh`` (``mesh.make_device_mesh``), ``make_fed_round_step`` splits
 each chunk's client axis over the data ranks as DTensor's ``Shard(0)``
-splits it (contiguous; uneven, or empty, where the chunk does not divide):
+splits it (contiguous; uneven, or empty, where the chunk does not divide;
+over a pod axis nested, pod's share first, ``MeshPolicy.data_rows``):
 each rank reads its clients' rows of the cohort, ``data``, ``is_simple``,
 ``staleness`` and ``real``, trains them and folds them into its own engine
 state.  After the last chunk one ``all_reduce(SUM)`` over the data group
-(``aggregate.allreduce_state``) sums the states and the loss sum, and every
+(``aggregate.allreduce_state``; over pod x data with a pod axis) sums the
+states and the loss sum, and every
 rank finalizes the same new model.  This is the reference's communication
 pattern: its ``cohort`` rule shards the chunk over data, and the fold's
 reduction of that axis is the round's all-reduce.  On one rank it is
@@ -60,8 +62,10 @@ without its delta options), and a SCAFFOLD spec folds what the spec
 without it folds; its zero control-variate accumulator is not allocated.
 
 **Token splits** (``attn_shard`` ``seq2d`` / ``dp2d`` / ``seq2d_fsdp``,
-the dense and VLM configs): the model runs its blocks on each rank's
-tokens (``models/transformer.py``), the train, prefill and serve steps as
+the dense, VLM, hybrid and audio configs): the model runs its blocks on
+each rank's tokens (``models/transformer.py``; the RG-LRU with its conv
+halo and f32 carry, ``models/rglru.py``), the train, prefill and serve
+steps as
 above, and the round step under ``seq2d`` and ``dp2d`` with each client
 under ``MeshPolicy.model_policy``.  A ``seq2d_fsdp`` cohort's specs name
 ``data`` twice (the client axis and the weights' ZeRO-3 dim), so placing
@@ -102,6 +106,7 @@ from repro_torch.core import aggregate, async_rounds, comm, flatten, masking
 from repro_torch.core.adapters import LMAdapter
 from repro_torch.launch import sharding
 from repro_torch.models import transformer as tfm
+from repro_torch.models import common
 from repro_torch.models.common import NO_POLICY, Policy
 from repro_torch.obs import telemetry as obslib
 from repro_torch.optim.sgd import sgd_update
@@ -174,14 +179,11 @@ class _ModelAxisCohort:
         self.local = sharding.local_tree(cohort)
         self.mesh = policy.device_mesh
         self.model_mesh = self.mesh["model"]
-        names = self.mesh.mesh_dim_names
-        dm, dd = names.index("model"), names.index("data")
-        k = leaves[0].shape[0]
-        # the clients this rank holds: its Shard(0) rows over data
-        self.lo, self.hi = 0, k
-        if leaves[0].placements[dd] == Shard(0):
-            index, parts = policy.data_coordinate()
-            self.lo, self.hi = sharding.shard_rows(k, index, parts)
+        dm = self.mesh.mesh_dim_names.index("model")
+        # the clients this rank holds: its Shard(0) rows over the data
+        # axes, nested in mesh order as DTensor places them
+        self.lo, self.hi = common.held_rows(
+            leaves[0].shape[0], self.mesh, common.sharding_dims(leaves[0], 0))
 
         def model_place(pl):
             return Shard(pl.dim - 1) if isinstance(pl, Shard) else Replicate()
@@ -397,12 +399,11 @@ def make_fed_round_step(cfg: ModelConfig, policy: Policy = NO_POLICY, *,
         flags = is_simple
         is_simple = is_simple.to(device)
         # the rows of each chunk this rank trains: all of them, or its
-        # Shard(0) share of the chunk's client axis
+        # Shard(0) share of the chunk's client axis over the data axes
         rows = [(start, start + chunk) for start in range(0, k, chunk)]
         if sharded:
-            index, parts = policy.data_coordinate()
-            rows = [tuple(start + r for r in sharding.shard_rows(
-                chunk, index, parts)) for start, _ in rows]
+            rows = [tuple(start + r for r in policy.data_rows(chunk))
+                    for start, _ in rows]
             mine = [z for lo, hi in rows for z in range(lo, hi)]
             simple_host = dict(zip(mine, flags[mine].tolist()))
         else:

@@ -186,7 +186,7 @@ class SliceRows(torch.autograd.Function):
                 ) + (None,) * 5
 
 
-def _held(size: int, mesh, mesh_dims) -> tuple:
+def held_rows(size: int, mesh, mesh_dims) -> tuple:
     """``(start, stop)`` of the rows of a ``size``-row dim that this rank
     holds when the mesh dims ``mesh_dims`` shard it, nested in mesh order
     as DTensor splits it."""
@@ -209,8 +209,8 @@ def _gather_mesh_dim(x, i: int):
     if any(x.placements[j].is_shard(d) for j in range(i + 1, mesh.ndim)):
         raise ValueError(f"gathering mesh dim {i} of {x.placements} would "
                          f"leave a split of dim {d} nested inside it")
-    lo, hi = _held(x.shape[d], mesh, outer)
-    start = _held(hi - lo, mesh, [i])[0]
+    lo, hi = held_rows(x.shape[d], mesh, outer)
+    start = held_rows(hi - lo, mesh, [i])[0]
     place = list(x.placements)
     place[i] = Replicate()
     if mesh.size(i) == 1:
@@ -228,7 +228,7 @@ def _slice_mesh_dim(x, i: int, d: int):
         raise ValueError(f"splitting dim {d} over mesh dim {i} of "
                          f"{x.placements} would nest it outside a split")
     rows = x.to_local().shape[d]
-    start, stop = _held(rows, mesh, [i])
+    start, stop = held_rows(rows, mesh, [i])
     place = list(x.placements)
     place[i] = Shard(d)
     if mesh.size(i) == 1:

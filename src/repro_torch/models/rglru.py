@@ -29,6 +29,35 @@ each rank's channels through ``local_map`` (``common.local_apply``): K6's
 gated entry in prefill, the plain scan in training, the one-step
 recurrence in decode (on the cache's local channels, in place).  No
 collective is needed inside the layer.
+
+**On a rank's rows** (a ``seq2d`` / ``seq2d_fsdp`` token split,
+``common.TokenSplit`` with ``dims``: the block runs on this rank's
+positions, its weights whole) the layer computes the unsplit function
+with two exchanges, all-reduces only (:func:`common.gather_by_sum`):
+
+* the conv's halo, the tw - 1 pre-conv rows before the rank's first row:
+  every rank's last tw - 1 rows gathered by one all-reduce
+  (:func:`_tails`; ``common.GatherBySum`` in training, so the gradient
+  flows back to the rows' owner), the first rank's halo zeros;
+* the recurrence's carry, a (B, Dr) f32 state.  In prefill
+  (:func:`_chain_scan`) rank q runs K6's gated entry on its rows from
+  ``y0`` = rank q - 1's ``y_last`` (the kernel's f32 state after its last
+  row: a bf16 y's last row is not the state), one all-reduce a hop, and
+  the last hop hands every rank the last rank's state for the cache: the
+  scan is serialised over the ranks, and the chained run is bitwise the
+  whole-sequence run.  In training (:func:`_train_split`) each rank scans
+  its rows from 0 (:func:`linear_scan`, which also gives the cumulative
+  ``a``), every rank's ``(A_last, L_last)`` is gathered by one
+  all-reduce, and rank q composes its incoming state from the ranks
+  before it, ``y = L + A y_in``, differentiably.
+
+The cache a rank's rows give back is whole (the last rank's state and
+conv rows), for the serve step to place by ``cache_specs``.  Under
+``dp2d`` (``TokenSplit`` without ``dims``) a rank holds whole sequences
+and the layer runs as on one device.  The serve step's cache holds each
+rank's ``rnn`` channels even where a token split replicates the weights:
+the step takes its weights' and input's slices of those channels
+(:func:`_cache_channels`), no collective.
 """
 
 from __future__ import annotations
@@ -81,33 +110,37 @@ def _gates(p: dict, x: torch.Tensor):
 
 
 def lru_scan(p: dict, x: torch.Tensor,
-             y0: Optional[torch.Tensor] = None) -> torch.Tensor:
+             y0: Optional[torch.Tensor] = None,
+             y_last: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The recurrence over (B, S, Dr) with its gates, through
     ``ops.lru_scan_gated`` (K6's gated entry on the card; on the CPU
     :func:`_gates`' arithmetic, then the sequential scan); y0 is folded
     into the first step, ``y_1 = a_1 y_0 + b_1``.  Returned in
-    ``x.dtype``."""
+    ``x.dtype``; ``y_last`` (B, Dr) f32, if given, receives the scan's f32
+    state after the last step."""
     lam = p["lam"]
     c = -_C * torch.logaddexp(lam, torch.zeros_like(lam))
     return ops.lru_scan_gated(x, p["w_r"], p["b_r"], p["w_i"], p["b_i"], c,
-                              None if y0 is None else y0.float())
+                              None if y0 is None else y0.float(), y_last)
 
 
-def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def linear_scan(a: torch.Tensor, b: torch.Tensor, with_a: bool = False):
     """``y_t = a_t * y_{t-1} + b_t`` along axis 1 from ``y_0 = 0``,
     differentiable: the reference's ``associative_scan`` combine
     ``(a1, b1), (a2, b2) -> (a1 a2, a2 b1 + b2)`` in a log-depth doubling
     scan.  ceil(log2 S) steps of whole-tensor ops keep autograd's graph
     and the card's launches at 2 log2 S per layer, where the sequential
     loop would take S of each; the sums group differently from XLA's
-    scan, so the two agree to f32 rounding, not bitwise."""
+    scan, so the two agree to f32 rounding, not bitwise.  ``with_a``:
+    ``(y, A)``, ``A_t = a_1 ... a_t`` the cumulative product the scan
+    builds (the state from ``y_0`` is then ``y + A y_0``)."""
     s = a.shape[1]
     d = 1
     while d < s:
         b = torch.cat([b[:, :d], a[:, d:] * b[:, :-d] + b[:, d:]], dim=1)
         a = torch.cat([a[:, :d], a[:, :-d] * a[:, d:]], dim=1)
         d *= 2
-    return b
+    return (b, a) if with_a else b
 
 
 def _causal_conv(p: dict, x: torch.Tensor,
@@ -149,24 +182,147 @@ def _train_core(x: torch.Tensor, p: dict) -> torch.Tensor:
     return linear_scan(a, b).to(x.dtype)
 
 
+# ---------------------------------------------------------------------------
+# On a rank's rows (a token split of the sequence; module docstring)
+# ---------------------------------------------------------------------------
+
+def _seq_split(policy: Policy) -> Optional[common.TokenSplit]:
+    """The token split of this rank's rows where it splits the
+    sequence, else ``None``."""
+    if isinstance(policy, common.TokenSplit) and policy.dims:
+        return policy
+    return None
+
+
+def _rank_of(split: common.TokenSplit, n: int) -> Tuple[int, int]:
+    """``(q, r)``: this rank's place among the ``r`` ranks that split the
+    sequence into runs of ``n`` rows (the policy splits only where the
+    ranks divide it)."""
+    r = 1
+    for i in split.dims:
+        r *= split.mesh.size(i)
+    return split.start // n, r
+
+
+def _tails(x: torch.Tensor, split: common.TokenSplit, tw: int,
+           grad: bool) -> torch.Tensor:
+    """Every rank's last tw - 1 pre-conv rows, rank q's at rows
+    ``[q (tw - 1), (q + 1) (tw - 1))`` of a (B, r (tw - 1), Dr) tensor,
+    whole on every rank: one all-reduce (``common.GatherBySum`` under
+    autograd, whose backward sums the rows' gradient over the ranks and
+    keeps this rank's)."""
+    n = x.shape[1]
+    if n < tw - 1:
+        raise ValueError(f"a rank's {n} rows hold no whole conv halo of "
+                         f"{tw - 1} rows: split the sequence over fewer "
+                         f"ranks")
+    q, r = _rank_of(split, n)
+    tail = x[:, n - (tw - 1):].contiguous()
+    args = (1, q * (tw - 1), r * (tw - 1), split.mesh, split.dims)
+    if grad:
+        return common.GatherBySum.apply(tail, *args, split.dims)
+    return common.gather_by_sum(tail, *args)
+
+
+def _halo(tails: torch.Tensor, q: int, tw: int) -> Optional[torch.Tensor]:
+    """Rank q's conv window: rank q - 1's tail, or ``None`` (zeros) on the
+    first rank."""
+    return None if q == 0 else tails[:, (q - 1) * (tw - 1):q * (tw - 1)]
+
+
+def _chain_scan(p: dict, xc: torch.Tensor, split: common.TokenSplit):
+    """K6's gated entry on this rank's conv output ``xc`` from the state
+    rank q - 1 hands on, then this rank's state handed on: hop j is one
+    all-reduce of rank j's f32 ``y_last`` (zeros elsewhere), which rank
+    j + 1 takes as its ``y0``; the last hop gives every rank the last
+    rank's state.  Returns ``(y, state)``: this rank's rows in ``xc``'s
+    dtype, the last rank's (B, Dr) f32 state."""
+    q, r = _rank_of(split, xc.shape[1])
+    b, _, dr = xc.shape
+    last = torch.zeros((b, dr), dtype=torch.float32, device=xc.device)
+    carry, y, state = None, None, None
+    for j in range(r):
+        if j == q:
+            y = lru_scan(p, xc, carry, y_last=last)
+        state = common.all_reduce(last if j == q else torch.zeros_like(last),
+                                  "sum", split.mesh, split.dims)
+        if j + 1 == q:
+            carry = state
+    return y, state
+
+
+def _train_split(p: dict, x: torch.Tensor, split: common.TokenSplit,
+                 tw: int) -> torch.Tensor:
+    """The training recurrence on this rank's rows (module docstring):
+    the halo'd conv, the scan from 0 with its cumulative ``a``, every
+    rank's ``(A_last, L_last)`` gathered, and the incoming state composed
+    from the ranks before this one."""
+    q, r = _rank_of(split, x.shape[1])
+    tails = _tails(x, split, tw, grad=True)
+    a, b = _gates(p, _causal_conv(p, x, window=_halo(tails, q, tw)))
+    y, cum = linear_scan(a, b, with_a=True)
+    ends = torch.stack([cum[:, -1], y[:, -1]], dim=1)       # (B, 2, Dr)
+    ends = common.GatherBySum.apply(ends, 1, 2 * q, 2 * r, split.mesh,
+                                    split.dims, split.dims)
+    if q:
+        y_in = ends[:, 1]
+        for j in range(1, q):
+            y_in = ends[:, 2 * j + 1] + ends[:, 2 * j] * y_in
+        y = y + cum * y_in[:, None]
+    return _Keep.apply(y, tails, ends).to(x.dtype)
+
+
+class _Keep(torch.autograd.Function):
+    """``y`` itself, whose backward also hands zero gradients to the
+    gathered tensors ``used``: the first rank reads neither the halo nor
+    the carry, yet the other ranks' backward all-reduces through them
+    (``common.GatherBySum``) need every rank's, in one order on every
+    rank."""
+
+    @staticmethod
+    def forward(ctx, y, *used):
+        ctx.like = [(u.shape, u.dtype, u.device) for u in used]
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g,) + tuple(torch.zeros(shape, dtype=dtype, device=device)
+                            for shape, dtype, device in ctx.like)
+
+
 def apply_rglru(p: dict, h_in: torch.Tensor, cfg: ModelConfig,
                 return_state: bool = False, policy: Policy = NO_POLICY):
     """Prefill path.  h_in: (B, S, D) -> (B, S, D).
 
     ``return_state=True`` also returns the decode cache: the last step's
     ``y`` in f32 (rounded through ``x.dtype`` first, as the reference's
-    is) and the last tw - 1 steps of the pre-conv input."""
+    is) and the last tw - 1 steps of the pre-conv input.  On a rank's
+    rows of a split sequence the conv takes its halo and the scan its
+    carry from the ranks before (module docstring), and the cache is the
+    whole sequence's."""
     x = torch.matmul(h_in, p["w_in"].to(h_in.dtype))
     x = policy.constrain(x, ("batch", "seq", "rnn"))
     g = torch.matmul(h_in, p["w_gate"].to(h_in.dtype))
-    y = _per_channel(_prefill_core, p, x)
+    tw = cfg.lru_temporal_width
+    split = _seq_split(policy)
+    if split is not None:
+        q, r = _rank_of(split, x.shape[1])
+        tails = _tails(x, split, tw, grad=False)
+        y, last = _chain_scan(p, _causal_conv(p, x, window=_halo(
+            tails, q, tw)), split)
+        state = {"y": last.to(x.dtype).float(),
+                 "conv": tails[:, (r - 1) * (tw - 1):].to(
+                     cfg.torch_compute_dtype())}
+    else:
+        y = _per_channel(_prefill_core, p, x)
+        state = None
     out = policy.constrain(y * gelu(g), ("batch", "seq", "rnn"))
     out = torch.matmul(out, p["w_out"].to(h_in.dtype))
     if return_state:
-        tw = cfg.lru_temporal_width
-        state = {"y": y[:, -1].float().clone(),
-                 "conv": x[:, -(tw - 1):].to(cfg.torch_compute_dtype()
-                                             ).clone()}
+        if state is None:
+            state = {"y": y[:, -1].float().clone(),
+                     "conv": x[:, -(tw - 1):].to(cfg.torch_compute_dtype()
+                                                 ).clone()}
         return out, state
     return out
 
@@ -174,11 +330,17 @@ def apply_rglru(p: dict, h_in: torch.Tensor, cfg: ModelConfig,
 def apply_rglru_train(p: dict, h_in: torch.Tensor, cfg: ModelConfig,
                       policy: Policy = NO_POLICY) -> torch.Tensor:
     """Training path.  h_in: (B, S, D) -> (B, S, D), differentiable: the
-    recurrence through :func:`linear_scan`, never K6."""
+    recurrence through :func:`linear_scan`, never K6; on a rank's rows of
+    a split sequence with the halo and the composed carry
+    (:func:`_train_split`)."""
     x = torch.matmul(h_in, p["w_in"].to(h_in.dtype))
     x = policy.constrain(x, ("batch", "seq", "rnn"))
     g = torch.matmul(h_in, p["w_gate"].to(h_in.dtype))
-    y = _per_channel(_train_core, p, x)
+    split = _seq_split(policy)
+    if split is not None:
+        y = _train_split(p, x, split, cfg.lru_temporal_width)
+    else:
+        y = _per_channel(_train_core, p, x)
     out = policy.constrain(y * gelu(g), ("batch", "seq", "rnn"))
     return torch.matmul(out, p["w_out"].to(h_in.dtype))
 
@@ -209,6 +371,32 @@ def _decode_core(x: torch.Tensor, conv: torch.Tensor, y0: torch.Tensor,
     return y[:, None]
 
 
+def _cache_channels(h_in, p: dict, y) -> Tuple[torch.Tensor, dict]:
+    """A token split's decode input and weights cut to the cache's
+    placement (``cache_specs``: its ``rnn`` channels over model, its
+    batch over the data axes), where a token split holds them whole: the
+    input's batch gathered where ``dp2d`` splits it over model and the
+    cache does not (an all-reduce), and each channel-dim weight's slice of
+    the channels the cache's ``y`` holds on this rank (no collective), so
+    the step runs on each rank's channels as over a tensor-parallel
+    layout."""
+    from torch.distributed.tensor import Replicate, Shard
+    h_in = common.redistribute_by_sum(h_in, [
+        Replicate() if pl.is_shard(0) and not c.is_shard(0) else pl
+        for pl, c in zip(h_in.placements, y.placements)])
+    cdims = common.sharding_dims(y, 1)
+
+    def cut(w, dim):
+        if not common.is_dtensor(w) or common.sharding_dims(w, dim):
+            return w
+        return common.redistribute_by_sum(w, [
+            Shard(dim) if i in cdims else pl
+            for i, pl in enumerate(w.placements)])
+    dims = {"w_in": 1, "w_gate": 1, "w_out": 0, "conv": 1,
+            **{k: 0 for k in _CHANNEL_KEYS if k != "conv"}}
+    return h_in, dict(p, **{k: cut(p[k], d) for k, d in dims.items()})
+
+
 def apply_rglru_decode(p: dict, h_in: torch.Tensor, cache: dict,
                        cfg: ModelConfig, policy: Policy = NO_POLICY
                        ) -> Tuple[torch.Tensor, dict]:
@@ -217,7 +405,11 @@ def apply_rglru_decode(p: dict, h_in: torch.Tensor, cache: dict,
     each rank's ``rnn`` channels (``sharding.cache_specs``) and the step
     runs on them (:func:`_decode_core` through ``local_map``, writing the
     local shards); ``w_out``'s ``Partial`` sum is left for the caller's
-    constrain.  The reference's decode constrains nothing here."""
+    constrain.  The reference's decode constrains nothing here.  Under a
+    live token split the step takes the slices of the cache's channels
+    (:func:`_cache_channels`)."""
+    if policy.token_split and common.is_dtensor(h_in):
+        h_in, p = _cache_channels(h_in, p, cache["y"])
     x = torch.matmul(h_in, p["w_in"].to(h_in.dtype))
     g = torch.matmul(h_in, p["w_gate"].to(h_in.dtype))
 

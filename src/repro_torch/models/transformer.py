@@ -264,16 +264,21 @@ def apply_block_prefill(p: Params, spec: LayerSpec, h: torch.Tensor,
                         policy: Policy = NO_POLICY):
     """Full-sequence block that also builds its decode cache.
     Returns ``(h, cache, aux)``.  Under a live token split it runs on each
-    rank's tokens (:func:`_split_block`); the cache comes back whole
-    along the sequence, placed as the batch."""
+    rank's tokens (:func:`_split_block`); the cache -- any mixer's tree,
+    attention's k and v or the RG-LRU's state and conv rows -- comes back
+    whole along the sequence, placed as the batch."""
     if _token_split(policy, h):
+        shapes, treedef = tree_flatten(init_block_cache(
+            spec, cfg, 1, 1, window_override=window_override,
+            device="meta"))
+
         def run(pl, hl, split):
             out, cache, _ = apply_block_prefill(
                 pl, spec, hl, cfg, window_override=window_override,
                 cache_len=cache_len, policy=split)
-            return out, cache["k"], cache["v"]
-        h, ck, cv = _split_block(run, p, h, policy, n_extra=2)
-        return h, {"k": ck, "v": cv}, _zero_aux(h.device)
+            return (out, *tree_flatten(cache)[0])
+        h, *leaves = _split_block(run, p, h, policy, n_extra=len(shapes))
+        return h, tree_unflatten(treedef, leaves), _zero_aux(h.device)
     x = common.apply_rmsnorm(p["pre_norm"], h, cfg.norm_eps)
     x = policy.constrain(x, ("batch", "seq", None))
     if _is_attention(spec):
@@ -421,6 +426,7 @@ def embed_inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                              device=h.device).to(h.dtype)
     else:
         h = common.apply_embedding(params["embed"], tokens)
+    if cfg.n_codebooks == 1 or _token_split(policy, h):
         # a vocab-parallel lookup's Partial sum, reduced (an all-reduce);
         # a token split splits the sequence after the frontend's rows
         h = policy.constrain(h, ("batch", None if extra_embeds is not None

@@ -14,7 +14,7 @@
   clients the rows ``distribute_tensor`` gives it under
   ``to_placements(cohort_specs(...))``; a live mesh with a model axis of
   2 is a tensor-parallel policy for the dense config and raises
-  ``NotImplementedError`` for a ``seq2d`` split of a hybrid config.
+  ``NotImplementedError`` for a ``seq2d`` split of an ``ssm`` config.
 * ``make_device_mesh`` refuses without a process group and at a world
   size that does not fit.
 """
@@ -189,8 +189,8 @@ def test_world2_clients_are_the_dtensor_shards(world2, case):
 def test_world2_model_axis_raises(world2):
     """A (1, 2) mesh is a live model axis for the dense config (tensor
     parallelism, ``tests/test_torch_tp.py``); a ``seq2d`` split of a
-    config whose mixers are not all attention (arch type ``hybrid``) still
-    raises, naming its ROADMAP.md item."""
+    config whose blocks do not run on a rank's rows (arch type ``ssm``,
+    the xLSTM states) still raises, naming its ROADMAP.md item."""
     for rank in world2[0]:
         assert rank["model_axis_live"] is True
         assert rank["model_axis"].startswith("NotImplementedError")

@@ -626,12 +626,16 @@ def test_serve_step_writes_each_slot_on_its_owner_only(tp_runs, case):
         assert owners       # the cases whose caches go over kv_seq
 
 
-# the token splits of the configs whose mixers are not attention, and a
-# live pod axis
-REFUSALS = {"seq2d recurrentgemma-2b": "item 18",
-            "seq2d qwen2-moe-a2.7b": "item 18",
-            "seq2d xlstm-1.3b": "item 18", "seq2d musicgen-large": "item 18",
-            "pod axis": "item 16"}
+# the token splits of the configs whose blocks do not run on a rank's rows
+# (MoE: capacity positions across ranks; xLSTM: its states across ranks)
+REFUSALS = {"seq2d qwen2-moe-a2.7b": "item 18",
+            "seq2d xlstm-1.3b": "item 18"}
+# what ran out of scope before the hybrid and audio slice and now runs: a
+# seq2d split of the hybrid and audio configs is a live token split, and
+# the round's data group over a pod axis is the pod x data group (here
+# one pod of one data rank: world size 1)
+LIFTED = {"seq2d recurrentgemma-2b": "True", "seq2d musicgen-large": "True",
+          "pod axis": "1"}
 
 
 @pytest.mark.parametrize("name", list(REFUSALS))
@@ -639,6 +643,11 @@ def test_out_of_scope_raises_naming_its_roadmap_item(tp_runs, name):
     msg = tp_runs[0][2][0]["refusals"][name]
     assert msg.startswith("NotImplementedError"), msg
     assert f"ROADMAP.md §1 {REFUSALS[name]}" in msg
+
+
+@pytest.mark.parametrize("name", list(LIFTED))
+def test_lifted_refusals_now_run(tp_runs, name):
+    assert tp_runs[0][2][0]["refusals"][name] == LIFTED[name]
 
 
 def test_seq2d_fsdp_cohort_is_refused_as_the_reference_refuses_it(

@@ -66,7 +66,7 @@ def rank_main(rank: int, world: int, store_path: str, params_path: str,
     sharded round, its rows by ``steps``' split and by
     ``distribute_tensor``; then a (1, world) mesh with a model axis: a
     live tensor-parallel policy for the dense config, and a ``seq2d``
-    split of a hybrid config still refused.  Writes ``rank<r>.pt`` (or ``rank<r>.err``)."""
+    split of an ``ssm`` config still refused.  Writes ``rank<r>.pt`` (or ``rank<r>.err``)."""
     import torch.distributed as dist
     torch.set_num_threads(1)
     try:
@@ -89,7 +89,7 @@ def rank_main(rank: int, world: int, store_path: str, params_path: str,
         wide = make_device_mesh(1, world, "cpu")
         out["model_axis_live"] = sharding.MeshPolicy(wide, CFG).model_live
         out["model_axis"] = _raises(lambda: sharding.MeshPolicy(
-            wide, CFG.with_overrides(attn_shard="seq2d", arch_type="hybrid")))
+            wide, CFG.with_overrides(attn_shard="seq2d", arch_type="ssm")))
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
         dist.destroy_process_group()
     except BaseException:
@@ -158,7 +158,12 @@ MOE_VARIANTS = {"qwen2-moe-a2.7b:groups": ({"d_expert": 256},
                 "gemma2-2b:seq2d": ({}, {"attn_shard": "seq2d"}),
                 "gemma2-2b:dp2d": ({}, {"attn_shard": "dp2d"}),
                 "llava-next-34b:seq2d_fsdp": ({}, {"attn_shard":
-                                                   "seq2d_fsdp"})}
+                                                   "seq2d_fsdp"}),
+                # the hybrid and audio token splits
+                # (tests/torch_split_cases.py)
+                **{f"{arch}:{mode}": ({}, {"attn_shard": mode})
+                   for arch in ("recurrentgemma-2b", "musicgen-large")
+                   for mode in ("seq2d", "dp2d", "seq2d_fsdp")}}
 # the train step of each MoE case by mesh: (result key, mesh, arch)
 TP_MOE_TRAIN = {2: (("moe train", "(1, 2)", TP_MOE),
                     ("moe ffn train", "(1, 2)", "qwen2-moe-a2.7b:ffn"),
@@ -445,14 +450,15 @@ def decode_case(on, arch: str, batch: int, prompt: int,
             out["logits"].append(logits.full_tensor())
             out["exit"].append(exit_logits.full_tensor())
             out["cache"].append(_full(cache))
-        return [str(logits.placements), str(exit_logits.placements)]
-    # the placements the reference's ("batch", "seq", "vocab") constrain
-    # resolves to on the logits
-    out["want_placements"] = str(tuple(sharding.to_placements(policy.spec(
-        logits.shape, ("batch", "seq", "vocab")), on)))
+        return ([str(logits.placements), str(exit_logits.placements)],
+                tuple(logits.shape))
     # an MoE decode step routes the whole batch as one group (gathered over
     # data), so every rank routes the same tokens: its slots are kept
-    out["placements"], out["slots"] = routed(decode)
+    (out["placements"], shape), out["slots"] = routed(decode)
+    # the placements the reference's ("batch", "seq", "vocab") constrain
+    # resolves to on a serve step's logits
+    out["want_placements"] = str(tuple(sharding.to_placements(policy.spec(
+        shape, ("batch", "seq", "vocab")), on)))
     return out, {"rows": written, "states": states}
 
 
@@ -507,13 +513,14 @@ def _full(tree):
 
 
 def _raises(fn) -> str:
+    """What ``fn()`` raised, or ``str`` of what it returned."""
     try:
-        fn()
+        value = fn()
     except NotImplementedError as e:
         return f"NotImplementedError: {e}"
     except Exception as e:  # noqa: BLE001
         return f"{type(e).__name__}: {e}"
-    return "no error"
+    return str(value)
 
 
 def vocab_parallel_case(mesh) -> dict:
@@ -546,16 +553,19 @@ def vocab_case():
 
 
 def refusals(mesh) -> dict:
-    """What raises over a live model axis, each with its message."""
+    """What raises over a live model axis, each with its message; and the
+    token splits and the pod axis that no longer do."""
     from repro_torch.launch import sharding, steps
     cfg = tp_config(TP_TRAIN)
     out = {}
-    # the token splits of the configs whose mixers are not attention
+    # the token splits of the configs whose blocks do not run on a rank's
+    # rows (MoE, xLSTM), and of those that do since the hybrid and audio
+    # slice (RG-LRU, codebooks)
     for arch in ("recurrentgemma-2b", "qwen2-moe-a2.7b", "xlstm-1.3b",
                  "musicgen-large"):
         seq2d = tp_config(arch).with_overrides(attn_shard="seq2d")
         out["seq2d " + arch] = _raises(lambda c=seq2d: sharding.MeshPolicy(
-            mesh, c))
+            mesh, c).token_split)
     # a seq2d_fsdp cohort names data twice (the client axis and the
     # weights' ZeRO-3 dim), which the reference's NamedSharding refuses
     fsdp = tp_config(TP_FSDP)
@@ -567,8 +577,8 @@ def refusals(mesh) -> dict:
     from torch.distributed.device_mesh import DeviceMesh
     pod = DeviceMesh("cpu", torch.arange(dist.get_world_size()).reshape(
         1, 1, -1), mesh_dim_names=("pod", "data", "model"))
-    out["pod axis"] = _raises(lambda: sharding.MeshPolicy(
-        pod, cfg).data_group())
+    out["pod axis"] = _raises(lambda: dist.get_world_size(
+        sharding.MeshPolicy(pod, cfg).data_group()))
     # an int8 round whose mlp shards hold 64 of a 128-element group, and
     # one whose expert_ffn shards do (3 experts: d_expert 128 over 2; its
     # heads at Dh 64 hold whole groups)
