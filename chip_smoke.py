@@ -343,13 +343,32 @@ which raises on failure:
    prefill and 6 serve steps, card against CPU; (q) (n)'s narrow f32 /
    int8 / tree rounds over the two ranks as a (2, 1, 1) ("pod", "data",
    "model") mesh, bitwise the same over a (2, 1) ("data", "model") mesh
-   and held to the CPU's pod mesh.  Then, the card to itself: K2 and K1
+   and held to the CPU's pod mesh.  The MoE token splits: (r)
+   qwen2-moe-a2.7b at published widths, 6 of its 24 layers, under seq2d
+   (batch 1, prompt 4096, each rank's 2048 rows: each MoE layer's routing
+   groups split over the ranks, the whole sequence's capacity, rank 1's
+   queue places after rank 0's pairs; K5's query-offset entry on rank 1)
+   then 7 serve steps, the ranks building in turn and each rank's MoE
+   calls replaying the unsharded run's router logits sliced to its rows,
+   its slots the unsharded run's for its tokens less the offsets, the
+   pairs it drops only because of rank 0's counts printed, checked as
+   (b); (s) reduced qwen2-moe (capacity factor 1.0, the pairs rank 1
+   drops that its own routing would keep printed) and kimi-k2 under
+   seq2d, dp2d and seq2d_fsdp, train (aux losses in the loss), qwen2-moe's
+   f32 / int8 / tree rounds, a 256-position prefill and 6 serve steps,
+   card against CPU; (t) the two ranks as a (2, 1) mesh: reduced
+   qwen2-moe's prefill and 6 serve steps (decode's routing group split
+   over data, routed with queue offsets), reduced kimi-k2's 2-D experts
+   (gathered over data by all-reduces) in its train step, prefill and
+   serve steps, card against CPU, all-reduces only.  Then, the card to
+   itself: K2 and K1
    at a rank's local n_flat (1,491,200,000) bitwise and timed against
    their byte bounds, K5 at a rank's heads (minitron (1, 4096, 16 / 4,
    128), qwen2-moe (1, 4096, 8 / 8, 128), kimi-k2 (1, 4096, 32 / 4, 112),
    musicgen-large (4, 1536, 16 / 16, 64)) and on a rank's query rows
    (gemma2-2b's, recurrentgemma-2b's (4, 2048 at 2048, 10 / 1, 256,
-   window 2048)), K6's gated entry at a rank's channels (4, 4096, 1280),
+   window 2048), qwen2-moe-a2.7b's (1, 2048 at 2048, 16 / 16, 128)),
+   K6's gated entry at a rank's channels (4, 4096, 1280),
    each against its plain version and timed against its bound; and K6's
    carried entry: at (4, 4096, 2560) bf16 the launch cut at row 2048, the
    second half run from the first's ``y_last``, bitwise the whole launch
@@ -387,7 +406,8 @@ K1, K2, K4, both K5 kernels and K6 with their launches over both ranks of
 phase 20, and K1, K2, the tensor-core K5 and K6 with their times at the
 shapes a rank hands them; K5's query-offset entry and K6's carried entry
 with their launches on phase 20's token splits and their times at a
-rank's rows); the last is
+rank's rows, K5's also at qwen2-moe-a2.7b's rank-1 rows with its launches
+in (r)); the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1966,27 +1986,34 @@ def _moe_configs(dtype: str):
 @contextlib.contextmanager
 def _routes(replay=None):
     """Wrap ``mlp._route`` (every MoE layer's routing) for one run: yields
-    the list of its calls, each {logits, slot_idx, experts, slot, top_k},
-    kept where the run made them (no copy, no sync).  With ``replay`` (an
-    earlier run's calls) each call routes from that run's router logits
-    instead of its own, records that routing as ``replayed``, and still
-    records the routing its own logits give."""
+    the list of its calls, each {logits, slot_idx, experts, slot, top_k,
+    start}, kept where the run made them (no copy, no sync).  With
+    ``replay`` (an earlier run's calls) each call routes from that run's
+    router logits instead of its own, records that routing as
+    ``replayed``, and still records the routing its own logits give.  A
+    call on a rank's part of a routing group split over ranks (a token
+    split's rows) replays the rows of that group it holds: ``start``, its
+    first token, is its place among the ranks times its token count (the
+    ranks' parts are equal here)."""
     from repro_torch.models import mlp
     route, calls = mlp._route, []
 
-    def record(r, logits):
+    def record(r, logits, start):
         return {"logits": logits, "slot_idx": r.slot_idx,
                 "experts": r.token_expert, "slot": r.token_slot,
-                "top_k": r.token_expert.shape[-1]}
+                "top_k": r.token_expert.shape[-1], "start": start}
 
-    def wrapped(logits, moe, capacity, e_pad=0):
-        own = route(logits, moe, capacity, e_pad)
-        calls.append(record(own, logits))
+    def wrapped(logits, moe, capacity, e_pad=0, group=None):
+        own = route(logits, moe, capacity, e_pad, group)
+        s = logits.shape[1]
+        start = group.place() * s if group is not None and group.dims else 0
+        calls.append(record(own, logits, start))
         if replay is None:
             return own
-        theirs_logits = replay[len(calls) - 1]["logits"].to(logits.device)
-        theirs = route(theirs_logits, moe, capacity, e_pad)
-        calls[-1]["replayed"] = record(theirs, theirs_logits)
+        theirs_logits = replay[len(calls) - 1]["logits"][
+            :, start:start + s].to(logits.device)
+        theirs = route(theirs_logits, moe, capacity, e_pad, group)
+        calls[-1]["replayed"] = record(theirs, theirs_logits, start)
         return theirs
     mlp._route = wrapped
     try:
@@ -4866,7 +4893,8 @@ TP_FLASH_CASES = (("minitron-8b, a rank's heads", 1, 4096, 16, 4, 128, 0,
                    0.0, "bfloat16", True))
 # the part of phase 20 whose path hands K5 each of those shapes
 TP_FLASH_PARTS = ("dense", "moe", "moe", "xlstm_codebooks")
-TP_PARTS = ("dense", "moe", "xlstm_codebooks", "seq2d", "hybrid_audio")
+TP_PARTS = ("dense", "moe", "xlstm_codebooks", "seq2d", "hybrid_audio",
+            "moe_split")
 TP_GATED_CASES = ((4, 4096, 1280, "bfloat16", False, True),)
 # phase 20(f), (g): the MoE configs over the (1, 2) mesh, each (part, arch,
 #  batch, prompt, new tokens, launches of one sharded prefill on each rank:
@@ -4884,6 +4912,37 @@ TP_MOE_RUNS = (("f", "qwen2-moe-a2.7b", 1, 4096, 8, (6, 0, 0), {}),
 # (1, 2) mesh (heads at Dh 64, d_expert 256; tests/torch_mesh_cases.py's
 # round config)
 TP_MOE_NARROW = {"head_dim": 64, "d_expert": 256}
+# phase 20(r): qwen2-moe-a2.7b (hf:Qwen/Qwen1.5-MoE-A2.7B) at published
+#  widths and (f)'s depth (6 of 24 layers) under seq2d, weights replicated:
+#  batch 1, prompt 4096, each rank prefilling its 2048 rows (each MoE
+#  layer's routing groups split over the ranks: the whole sequence's
+#  capacity, rank 1's queue places after rank 0's pairs), rank 1's
+#  attention on K5's query-offset entry, then 7 serve steps with the exit
+#  head; the ranks build in turn and replay the unsharded run's router
+#  logits, each its rows
+TP_MOE_SPLIT_RUNS = (("r", "qwen2-moe-a2.7b", 1, 4096, 8, (6, 0, 0),
+                      {"attn_shard": "seq2d"}),)
+# phase 20(s): reduced qwen2-moe-a2.7b and kimi-k2-1t-a32b (f32) under
+#  seq2d, dp2d and seq2d_fsdp, card against CPU: each (arch, mode, round
+#  engines, prompt positions, MoE overrides); qwen2-moe at capacity factor
+#  1.0, where rank 1 of a seq2d split drops pairs a routing of its own rows
+#  would keep (counted on the card's train step and printed); its f32, int8
+#  and tree rounds under seq2d and dp2d, its seq2d_fsdp cohort refused
+TP_MOE_SPLIT_ENGINES = ("f32", "int8", "tree")
+TP_MOE_SPLIT_NARROW = tuple(
+    (arch, mode, (TP_MOE_SPLIT_ENGINES if mode != "seq2d_fsdp" else ("f32",))
+     if arch == "qwen2-moe-a2.7b" else (), 256,
+     {"capacity_factor": 1.0} if arch == "qwen2-moe-a2.7b" else {})
+    for arch in ("qwen2-moe-a2.7b", "kimi-k2-1t-a32b")
+    for mode in ("seq2d", "dp2d", "seq2d_fsdp"))
+# phase 20(t): decode's routing group and kimi-k2's 2-D experts over the
+#  data axis, the two ranks as a (2, 1) mesh, card against CPU: reduced
+#  qwen2-moe's prefill (batch 2, 64 positions) and 6 serve steps (its
+#  batch over data, each rank routing its row with the offsets of the rank
+#  before), reduced kimi-k2 with 2-D experts (expert_ffn over data,
+#  gathered by all-reduces): its train step (batch 2, 16 tokens), prefill
+#  and 6 serve steps
+TP_GROUP_PROMPT = 64
 # phase 20(i), (j): xlstm-1.3b and musicgen-large whole over the (1, 2)
 #  mesh, each (part, arch, batch, prompt, new tokens, launches of one
 #  sharded prefill on each rank: K5 on the tensor cores, K5 on the CUDA
@@ -5265,19 +5324,69 @@ def _replayed(label: str, calls, want) -> list:
             for c in calls]
 
 
-def tp_moe_serving(torch, rank: int, world: int, mesh) -> list:
+def _rank_slots(label: str, calls, want) -> tuple:
+    """Check that every MoE call on a rank's rows of a split routing group
+    (a seq2d prefill), replayed from the unsharded run's router logits
+    sliced to those rows (``_routes``), routed them as the unsharded run
+    did: the same experts, a pair kept where that run kept it, in the slot
+    that run gave it less the group's offset (the pairs of the rows before
+    this rank that chose that expert).  Returns, call by call, the pairs
+    dropped only because of the rows before (the local queue place under
+    the capacity, the global one at or over it) and the pairs whose expert
+    the rank's own logits would have changed (printed, not gated)."""
+    import torch
+    if len(calls) != len(want):
+        raise RuntimeError(f"{label}: {len(calls)} MoE calls sharded, "
+                           f"{len(want)} unsharded")
+    boundary, moved = [], []
+    for i, (c, w) in enumerate(zip(calls, want)):
+        r, start = c["replayed"], c["start"]
+        b, s, k = r["experts"].shape
+        e_pad, cap = w["slot_idx"].shape[1:]
+        slots = r["slot_idx"].shape[-1]
+        experts = w["experts"][:, start:start + s]
+        slot = w["slot"][:, start:start + s]
+        kept = slot < e_pad * cap
+        before = torch.zeros((b, e_pad), dtype=torch.long,
+                             device=experts.device).scatter_add_(
+            1, w["experts"][:, :start].reshape(b, -1),
+            torch.ones((b, start * k), dtype=torch.long,
+                       device=experts.device))
+        offset = torch.gather(before, 1, experts.reshape(b, -1)).reshape(
+            b, s, k)
+        if not (torch.equal(r["experts"], experts)
+                and torch.equal(r["slot"] < e_pad * slots, kept)
+                and torch.equal((r["slot"] % slots + offset)[kept],
+                                (slot % cap)[kept])):
+            raise RuntimeError(f"{label}: call {i} routed the rank's rows "
+                               f"[{start}, {start + s}) to other slots "
+                               f"than the unsharded run's")
+        hot = torch.nn.functional.one_hot(experts.reshape(b, -1), e_pad)
+        place = ((hot.cumsum(1) - hot) * hot).sum(-1).reshape(b, s, k)
+        boundary.append(int(((place < cap) & (offset + place >= cap))
+                            .sum()))
+        moved.append(int((c["experts"] != r["experts"]).sum()))
+    return boundary, moved
+
+
+def tp_moe_serving(torch, rank: int, world: int, mesh,
+                   runs=TP_MOE_RUNS) -> list:
     """Phase 20(f) and (g) on one rank, each config of ``TP_MOE_RUNS`` at
-    full width: its unsharded half (:func:`_moe_full_then_shards`), then
-    the sharded prefill under the (1, 2) policy and the sharded serve
-    steps on its cache, fed the unsharded run's tokens.  bf16 near-ties
-    flip MoE routing, so every MoE call of the sharded run routes from the
-    unsharded run's router logits, and its slots must equal that run's;
-    the pairs its own logits would have routed elsewhere are printed.
-    This rank's vocab shard of the prefill logits, of each step's logits
-    and exit logits within 5 % of max|logit| of the unsharded; the
-    prefill's K5 launches as expected and none in decode; all-reduces
-    only.  Prints prefill s, decode ms a step, the collectives, the
-    peak."""
+    full width (and (r), ``TP_MOE_SPLIT_RUNS``: under seq2d): its
+    unsharded half (:func:`_moe_full_then_shards`), then the sharded
+    prefill under the (1, 2) policy and the sharded serve steps on its
+    cache, fed the unsharded run's tokens.  bf16 near-ties flip MoE
+    routing, so every MoE call of the sharded run routes from the
+    unsharded run's router logits, and its slots must equal that run's
+    (under seq2d, each rank's rows with the queue offsets of the rows
+    before it, :func:`_rank_slots`, whose pairs dropped only because of
+    rank 0's counts are printed); the pairs its own logits would have
+    routed elsewhere are printed.  This rank's vocab shard of the prefill
+    logits, of each step's logits and exit logits within 5 % of
+    max|logit| of the unsharded; the prefill's K5 launches as expected
+    (under seq2d rank 1's on its query rows) and none in decode;
+    all-reduces only.  Prints prefill s, decode ms a step, the
+    collectives, the peak."""
     from repro_torch.kernels.flash_attention.ops import flash_attention as fa
     from repro_torch.kernels.masked_agg import ops
     from repro_torch.kernels.rglru_scan import ops as scan
@@ -5299,8 +5408,14 @@ def tp_moe_serving(torch, rank: int, world: int, mesh) -> list:
         return d
 
     rows = []
-    for part, arch, batch, prompt, gen, expected, over in TP_MOE_RUNS:
+    for part, arch, batch, prompt, gen, expected, over in runs:
         cfg = _tp_config(arch, **over)
+        # under seq2d each rank prefills its rows: rank 1's on K5's
+        # query-offset entry
+        split = cfg.attn_shard == "seq2d"
+        expected_rows = (expected[0], 0) if split and rank else (0, 0)
+        if split and rank:
+            expected = (0,) + tuple(expected[1:])
         tokens = torch.randint(0, cfg.vocab_size, (batch, prompt),
                                generator=torch.Generator("cuda")
                                .manual_seed(1), device="cuda")
@@ -5325,12 +5440,18 @@ def tp_moe_serving(torch, rank: int, world: int, mesh) -> list:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         launched = kernels()
-        if launched != expected:
+        rows_launched = _split_rows(fa)
+        if launched != expected or rows_launched != expected_rows:
             raise RuntimeError(f"20({part}) {arch} rank {rank}: launches K5 "
-                               f"tc / K5 f32 / K6 gated {launched}, "
-                               f"expected {expected}")
-        changed = _replayed(f"20({part}) {arch} prefill rank {rank}",
-                            got_pre, pre_calls)
+                               f"tc / K5 f32 / K6 gated {launched}, on query "
+                               f"rows {rows_launched}, expected {expected}, "
+                               f"{expected_rows}")
+        label = f"20({part}) {arch} prefill rank {rank}"
+        boundary = None
+        if split:
+            boundary, changed = _rank_slots(label, got_pre, pre_calls)
+        else:
+            changed = _replayed(label, got_pre, pre_calls)
         local = logits.to_local()
         want = u["want"]
         d = max(check(f"({part}) {arch}", local[i, j:j + 1024],
@@ -5345,10 +5466,12 @@ def tp_moe_serving(torch, rank: int, world: int, mesh) -> list:
                "max_abs_diff": d, "max_abs_logit": u["amax"],
                "prefill_pairs_changed_by_own_routing": sum(changed),
                "prefill_changed_by_layer": changed,
+               "prefill_pairs_dropped_by_rows_before": boundary,
                "prefill_pairs": sum(c["experts"].numel() for c in got_pre),
                "logits_local": list(local.shape),
                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-               "launches": launched, "collectives": counter.counts,
+               "launches": launched, "launches_rows": rows_launched,
+               "launches_carry": 0, "collectives": counter.counts,
                "collective_bytes": counter.bytes}
         del logits, local, want, u["want"], got_pre, pre_calls
         gc.collect()
@@ -5361,7 +5484,7 @@ def tp_moe_serving(torch, rank: int, world: int, mesh) -> list:
                 torch, steps.make_serve_step(cfg, policy,
                                              with_exit_head=True),
                 params, cache, fed[0], prompt, gen - 1, lo, hi, feed=fed)
-        if kernels() != launched:
+        if kernels() != launched or _split_rows(fa) != rows_launched:
             raise RuntimeError(f"20({part}) {arch} rank {rank}: K5 / K6 "
                                f"launches {launched} after prefill, "
                                f"{kernels()} after decode (expected none in "
@@ -5912,7 +6035,9 @@ TP_ROWS_CASES = (
     ("reduced gemma2-2b in f32, rank 1's rows", 2, 2048, 2048, 4, 2, 32, 0,
      0.0, "float32"),
     ("recurrentgemma-2b window 2048, rank 1's rows", 4, 2048, 2048, 10, 1,
-     256, 2048, 0.0, "bfloat16"))
+     256, 2048, 0.0, "bfloat16"),
+    ("qwen2-moe-a2.7b, rank 1's rows", 1, 2048, 2048, 16, 16, 128, 0, 0.0,
+     "bfloat16"))
 
 
 def check_flash_rows(torch, bw: float, cases=TP_ROWS_CASES) -> dict:
@@ -6199,10 +6324,14 @@ def tp_split_serving(torch, rank: int, mesh,
 
 def tp_split_card_vs_cpu(torch, rank: int, meshes: dict,
                          narrow=TP_SPLIT_NARROW, part: str = "n") -> dict:
-    """Phase 20(n) on one rank (and (p), ``TP_HYBRID_NARROW``): each
-    config and mode of ``narrow`` (f32) on the card's (1, 2) mesh and on
-    the CPU's (the same gloo group): the train step (batch 2, 16 tokens;
-    a frontend's rows too, each codebook's tokens); under seq2d and dp2d
+    """Phase 20(n) on one rank (and (p), ``TP_HYBRID_NARROW``, and (s),
+    ``TP_MOE_SPLIT_NARROW``): each config and mode of ``narrow`` (f32,
+    with its MoE overrides) on the card's (1, 2) mesh and on the CPU's
+    (the same gloo group): the train step (batch 2, 16 tokens; a
+    frontend's rows too, each codebook's tokens; an MoE config's aux
+    losses in its loss, and on the card the pairs each rank's split
+    routing groups drop that a routing of its own rows would keep,
+    printed); under seq2d and dp2d
     the rounds of its engines (K = 2, one simple, 2 local steps), and on
     the card the int8 top-k round bitwise the int8 round and the SCAFFOLD
     round bitwise the f32 one where both run; under seq2d_fsdp the
@@ -6212,6 +6341,7 @@ def tp_split_card_vs_cpu(torch, rank: int, meshes: dict,
     atol 1e-5, the int8 rounds under ``repro_torch.parity``'s rules.  K1,
     K2, K4, K5 f32 (whole sequences and a rank's query rows) and K6 (its
     carried entry under seq2d) counted per config on the card's runs."""
+    import dataclasses
     import numpy as np
     from repro_torch import configs
     from repro_torch.core import aggregate, comm
@@ -6229,9 +6359,12 @@ def tp_split_card_vs_cpu(torch, rank: int, meshes: dict,
                    "int8", QB, topk_frac=0.5)),
                "scaffold": aggregate.EngineSpec(
                    variance_reduction="scaffold")}
-    launched, worst, refused = {}, {}, None
-    for arch, mode, run_engines, positions in narrow:
+    launched, worst, refused, drops = {}, {}, None, {}
+    for arch, mode, run_engines, positions, *moe_over in narrow:
         cfg = configs.get_reduced(arch).with_overrides(attn_shard=mode)
+        if moe_over and moe_over[0]:
+            cfg = cfg.with_overrides(moe=dataclasses.replace(
+                cfg.moe, **moe_over[0]))
         params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
         rng = np.random.default_rng(7)
         n_extra = 0 if cfg.frontend is None else cfg.frontend.n_tokens
@@ -6256,10 +6389,13 @@ def tp_split_card_vs_cpu(torch, rank: int, meshes: dict,
             _tp_zero(ops, fa, scan)
             fa.launches_tc_rows = fa.launches_rows = 0
             got = {}
-            new, metrics = steps.make_train_step(cfg, policy)(
-                sharding.distribute_params(tree_map(
-                    lambda x: x.to(dev), params), cfg, mesh),
-                {"tokens": tokens.to(dev), **ex})
+            with _boundary_drops() as dropped:
+                new, metrics = steps.make_train_step(cfg, policy)(
+                    sharding.distribute_params(tree_map(
+                        lambda x: x.to(dev), params), cfg, mesh),
+                    {"tokens": tokens.to(dev), **ex})
+            if dev == "cuda" and dropped:
+                drops[f"{arch} {mode}"] = dropped
             got["train"] = ([x.to_local().cpu() for x in tree_leaves(new)],
                             metrics["loss"].cpu())
             for name in run_engines:
@@ -6338,16 +6474,162 @@ def tp_split_card_vs_cpu(torch, rank: int, meshes: dict,
                                f"f32/K6, K5 on query rows, K6 carried "
                                f"{launched[f'{arch} {mode}']}, expected "
                                f"{want}")
-    fsdp = any(mode == "seq2d_fsdp" for _, mode, _, _ in narrow)
+    fsdp = any(c[1] == "seq2d_fsdp" and c[2] for c in narrow)
     if fsdp and (refused is None or "'data' to two dims" not in refused):
         raise RuntimeError(f"20({part}) rank {rank}: the seq2d_fsdp cohort "
                            f"was not refused ({refused})")
     print(f"  ({part}) rank {rank}: "
-          f"{sorted({(a, m) for a, m, _, _ in narrow})}: train step, "
+          f"{sorted({(c[0], c[1]) for c in narrow})}: train step, "
           f"rounds, prefill and serve, card against CPU, worst {worst}; "
-          f"launches {launched}; the seq2d_fsdp round refused: {refused}",
-          flush=True)
-    return {"launches": launched, "worst": worst, "refused": refused}
+          f"launches {launched}; the seq2d_fsdp round refused: {refused}"
+          + (f"; the card's train step's MoE layers, the pairs this rank "
+             f"dropped that a routing of its own rows would keep, and "
+             f"those it kept that that routing drops, by layer: {drops}"
+             if drops else ""), flush=True)
+    return {"launches": launched, "worst": worst, "refused": refused,
+            "boundary_drops": drops}
+
+
+@contextlib.contextmanager
+def _boundary_drops():
+    """Wrap ``mlp._route`` for one run: yields a list that gets, for each
+    call on a rank's part of a routing group split over ranks, ``(pairs
+    the group's routing dropped that a routing of this rank's tokens alone
+    (their own capacity, no offsets) keeps, pairs it kept that that
+    routing drops)``."""
+    from repro_torch.models import mlp
+    route, calls = mlp._route, []
+
+    def wrapped(logits, moe, capacity, e_pad=0, group=None):
+        r = route(logits, moe, capacity, e_pad, group)
+        if group is not None and group.dims:
+            alone = route(logits.detach(), moe,
+                          mlp._capacity(moe, logits.shape[1]), e_pad)
+            kept = r.token_slot < r.slot_idx.shape[1] * r.slot_idx.shape[2]
+            kept_alone = alone.token_slot < (alone.slot_idx.shape[1]
+                                             * alone.slot_idx.shape[2])
+            calls.append((int((kept_alone & ~kept).sum()),
+                          int((kept & ~kept_alone).sum())))
+        return r
+    mlp._route = wrapped
+    try:
+        yield calls
+    finally:
+        mlp._route = route
+
+
+def tp_moe_group_card_vs_cpu(torch, rank: int) -> dict:
+    """Phase 20(t) on one rank: the two ranks as a (2, 1) mesh on the card
+    and on the CPU (the same gloo group), each config f32: reduced
+    qwen2-moe's prefill (batch 2, ``TP_GROUP_PROMPT`` positions) and 6
+    teacher-forced serve steps with the exit head, decode's one routing
+    group split over data (this rank's row routed with the queue offsets
+    of the rank before it); reduced kimi-k2 with 2-D experts (expert_ffn
+    over data, gathered there by ``common.redistribute_by_sum``): its
+    train step (batch 2, 16 tokens), prefill and 6 serve steps.  This
+    rank's shards, losses, logits and caches at rtol 1e-4 / atol 1e-5; the
+    steps' collectives (``torch_walk.Collectives``) all-reduces only, none
+    an all-gather; K5 f32 once an attention layer a prefill on the card."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention.ops import flash_attention as fa
+    from repro_torch.kernels.masked_agg import ops
+    from repro_torch.kernels.rglru_scan import ops as scan
+    from repro_torch.launch import sharding, steps
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.roofline import torch_walk
+    from repro_torch.tree import tree_leaves, tree_map
+
+    meshes = {dev: make_device_mesh(2, 1, dev) for dev in ("cuda", "cpu")}
+    cfgs = {"qwen2-moe-a2.7b": configs.get_reduced("qwen2-moe-a2.7b"),
+            "kimi-k2-1t-a32b 2-D": configs.get_reduced(
+                "kimi-k2-1t-a32b").with_overrides(shard_experts_2d=True)}
+    rng = np.random.default_rng(8)
+    sides, collectives, placements = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        mesh = meshes[dev]
+        _tp_zero(ops, fa, scan)
+        got = {}
+        for name, cfg in cfgs.items():
+            params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+            seeds = np.random.default_rng(9)
+            tokens = torch.as_tensor(seeds.integers(
+                0, cfg.vocab_size, size=(2, 17)).astype(np.int32))
+            prompt = torch.as_tensor(seeds.integers(
+                0, cfg.vocab_size, size=(2, TP_GROUP_PROMPT)).astype(
+                    np.int32))
+            forced = torch.as_tensor(seeds.integers(
+                0, cfg.vocab_size, size=(6, 2, 1)).astype(np.int32))
+            policy = sharding.MeshPolicy(mesh, cfg)
+            counter = torch_walk.Collectives()
+            if name.startswith("kimi"):
+                placed = sharding.distribute_params(tree_map(
+                    lambda x: x.to(dev), params), cfg, mesh)
+                placements[name] = str(placed["periods"][0]["mlp"][
+                    "experts"]["gate"].placements)
+                with counter:
+                    new, metrics = steps.make_train_step(cfg, policy)(
+                        placed, {"tokens": tokens.to(dev)})
+                got[name + " train"] = (
+                    [x.to_local().cpu() for x in tree_leaves(new)],
+                    metrics["loss"].cpu())
+            placed = sharding.distribute_params(tree_map(
+                lambda x: x.to(dev), params), cfg, mesh)
+            with counter:
+                logits, cache = steps.make_prefill_step(
+                    cfg, policy, cache_len=TP_GROUP_PROMPT + 6)(
+                        placed, {"tokens": prompt.to(dev)})
+                serve = steps.make_serve_step(cfg, policy,
+                                              with_exit_head=True)
+                heads = [logits.to_local().cpu()]
+                for i in range(6):
+                    lg, cache, ex = serve(placed, cache, {
+                        "tokens": forced[i].to(dev)}, TP_GROUP_PROMPT + i)
+                    heads += [lg.to_local().cpu(), ex.to_local().cpu()]
+            got[name + " serve"] = (heads, [x.to_local().cpu()
+                                            for x in tree_leaves(cache)])
+            if dev == "cuda":
+                collectives[name] = (counter.counts, counter.bytes)
+                if set(counter.counts) != {"all-reduce"}:
+                    raise RuntimeError(f"20(t) {name} rank {rank}: "
+                                       f"collectives {counter.counts}: "
+                                       f"all-reduces only on the card")
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launched = _tp_kernel_counts(ops, fa, scan)
+        sides[dev] = got
+    worst = {}
+    for key in sides["cuda"]:
+        name = key.rsplit(" ", 1)[0]
+        if key.endswith("train"):
+            view = {dev: {"train": sides[dev][key]} for dev in sides}
+            worst[key] = _tp_hold_rounds(
+                torch, f"20(t) {key} rank {rank}", "train", view,
+                tfm.init_params(torch.Generator().manual_seed(0),
+                                cfgs[name]), cfgs[name], meshes["cpu"])
+            continue
+        (heads_a, cache_a), (heads_b, cache_b) = (sides["cuda"][key],
+                                                  sides["cpu"][key])
+        _tp_allclose(torch, f"20(t) {key} rank {rank} cache", cache_a,
+                     cache_b)
+        _tp_allclose(torch, f"20(t) {key} rank {rank} logits", heads_a,
+                     heads_b)
+        worst[key] = max(float((x - y).abs().max()) for x, y in zip(
+            heads_a + cache_a, heads_b + cache_b))
+    # K5 f32 once an attention layer of each prefill (whole sequences)
+    want = (0, 0, 0, 0, 0, sum(_mixer_counts(c)[0] for c in cfgs.values()),
+            0)
+    if launched != want:
+        raise RuntimeError(f"20(t) rank {rank}: launches K1/K2/K3/K4/K5 tc/"
+                           f"K5 f32/K6 {launched}, expected {want}")
+    print(f"  (t) rank {rank}: the (2, 1) mesh, card against CPU: reduced "
+          f"qwen2-moe's prefill and serve steps (decode's group over data) "
+          f"and reduced kimi-k2's train step, prefill and serve steps (its "
+          f"2-D experts {placements}), worst {worst}; collectives (counts, "
+          f"bytes) {collectives}; launches {launched}", flush=True)
+    return {"launches": launched, "worst": worst,
+            "collectives": collectives, "placements": placements}
 
 
 # phase 20(q): the two ranks as a (2, 1, 1) ("pod", "data", "model") mesh
@@ -6434,8 +6716,8 @@ def tp_rank(rank: int, world: int, store: str, work: str,
     """One rank of phase 20 (spawned by :func:`tp_phase`): gloo over a
     FileStore, the (1, 2) meshes on the card and on the CPU, then (a)-(e)
     (``"dense"`` in ``parts``), (f)-(h) (``"moe"``), (i)-(k)
-    (``"xlstm_codebooks"``), (l)-(n) (``"seq2d"``) and (o)-(q)
-    (``"hybrid_audio"``); writes
+    (``"xlstm_codebooks"``), (l)-(n) (``"seq2d"``), (o)-(q)
+    (``"hybrid_audio"``) and (r)-(t) (``"moe_split"``); writes
     ``rank<r>.pt`` (or the traceback to ``rank<r>.err``, and raises)."""
     import faulthandler
     import torch
@@ -6475,6 +6757,11 @@ def tp_rank(rank: int, world: int, store: str, work: str,
             cell("hybrid_narrow", tp_split_card_vs_cpu, meshes,
                  TP_HYBRID_NARROW, "p")
             cell("pod", tp_pod_rounds)
+        if "moe_split" in parts:
+            cell("moe_split", tp_moe_serving, world, cuda, TP_MOE_SPLIT_RUNS)
+            cell("moe_split_narrow", tp_split_card_vs_cpu, meshes,
+                 TP_MOE_SPLIT_NARROW, "s")
+            cell("moe_group", tp_moe_group_card_vs_cpu)
         print(f"  phase 20 rank {rank}: each cell's seconds "
               f"{ {k: round(v, 1) for k, v in out['seconds'].items()} }",
               flush=True)
@@ -6516,7 +6803,8 @@ def tp_phase(torch, ops, ref, bw: float, unsharded,
     """Phase 20: the model axis on the card.  Phase 18(a)'s unsharded
     rounds are saved for the ranks, the card's memory is released, two
     rank processes run (a)-(e), the MoE cells (f)-(h), the xLSTM and
-    codebook cells (i)-(k) and the token splits (l)-(n) (:func:`tp_rank`;
+    codebook cells (i)-(k), the token splits (l)-(q) and the MoE token
+    splits (r)-(t) (:func:`tp_rank`;
     each raises on a failed check, and a rank's failure fails the phase),
     then K1 and K2 at the rank's local n_flat, K5 at a rank's heads and on
     a rank's query rows (:func:`check_flash_rows`) and K6's gated entry at
@@ -6568,7 +6856,7 @@ def tp_phase(torch, ops, ref, bw: float, unsharded,
     out["k5"] = check_flash(torch, bw, [
         c for c, part in zip(TP_FLASH_CASES, TP_FLASH_PARTS)
         if part in parts])
-    if "seq2d" in parts or "hybrid_audio" in parts:
+    if {"seq2d", "hybrid_audio", "moe_split"} & set(parts):
         out["k5_rows"] = check_flash_rows(torch, bw)
     if "hybrid_audio" in parts:
         out["k6_carry"] = check_scan_carry(torch, bw)
@@ -6591,20 +6879,25 @@ def tp_phase(torch, ops, ref, bw: float, unsharded,
     out["k6"] = check_scan(torch, bw, (), TP_GATED_CASES)
 
     def split_narrow(r):
-        return [c for key in ("split_narrow", "hybrid_narrow")
+        return [c for key in ("split_narrow", "hybrid_narrow",
+                              "moe_split_narrow")
                 for c in r.get(key, {}).get("launches", {}).values()]
 
     def narrow(r, i):
-        return sum(r[key]["launches"][i] for key in ("moe_narrow",
-                                                     "zoo_narrow", "pod")
-                   if key in r) + sum(c[0][i] for c in split_narrow(r))
+        return sum(r[key]["launches"][i] for key in (
+            "moe_narrow", "zoo_narrow", "pod", "moe_group")
+            if key in r) + sum(c[0][i] for c in split_narrow(r))
 
     def split(r):
-        return r.get("split", []) + r.get("hybrid", [])
+        return r.get("split", []) + r.get("hybrid", []) + r.get(
+            "moe_split", [])
 
     def rows(r, i):
         return sum(p["launches_rows"][i] for p in split(r)) + sum(
             c[1][i] for c in split_narrow(r))
+
+    def moe_rows(r):
+        return sum(p["launches_rows"][0] for p in r.get("moe_split", []))
     out["launches"] = {
         "k1": sum(r["round"]["runs"][0]["launches"][0] + narrow(r, 0)
                   for r in ranks),
@@ -6616,7 +6909,9 @@ def tp_phase(torch, ops, ref, bw: float, unsharded,
                      + r.get("zoo", []) + split(r)),
         "k5_f32": sum(r["narrow"]["launches"][5] + narrow(r, 5)
                       for r in ranks),
-        "k5_tc_rows": sum(rows(r, 0) for r in ranks),
+        # (r)'s rank-1 rows have a row of their own, at their shape
+        "k5_tc_rows": sum(rows(r, 0) - moe_rows(r) for r in ranks),
+        "k5_tc_rows_moe": sum(moe_rows(r) for r in ranks),
         "k5_f32_rows": sum(rows(r, 1) for r in ranks),
         "k6": sum(p["launches"][2] for r in ranks
                   for p in r["prefill"] + split(r)) + sum(
@@ -6635,9 +6930,10 @@ def tp_phase_alone(torch, ops, ref, bw: float,
     """Phase 20 run alone: phase 18(a)'s two unsharded rounds first (as
     phase 19 runs them when alone), then :func:`tp_phase`; with ``parts``
     ``("moe",)`` the MoE cells (f)-(h) alone, with
-    ``("xlstm_codebooks",)`` the cells (i)-(k) alone and with
-    ``("seq2d",)`` the token splits (l)-(n) and K5 on a rank's query rows
-    alone, without those rounds."""
+    ``("xlstm_codebooks",)`` the cells (i)-(k) alone, with ``("seq2d",)``
+    the token splits (l)-(n) and K5 on a rank's query rows alone, and with
+    ``("moe_split",)`` the MoE token splits (r)-(t) and K5 on a rank's
+    query rows alone, without those rounds."""
     if "dense" not in parts:
         return tp_phase(torch, ops, ref, bw, None, parts)
     from repro_torch import configs
@@ -7050,18 +7346,26 @@ def main() -> int:
     # K5's query-offset entry: the same kernels on a rank's query rows past
     # the first (q_offset > 0), counted apart; timed at (l)'s rank-1 shape
     # and (n)'s f32 one
-    for name, source, dtype, key, path in (
+    for name, source, dtype, key, path, case in (
             ("flash_attention_wgmma (query-offset entry)",
              "flash_attention_wgmma.cu", "bfloat16", "k5_tc_rows",
              "(l) gemma2-2b under seq2d: rank 1's 4096 query rows at "
-             "q_offset 4096 against 8192 keys, a layer each"),
+             "q_offset 4096 against 8192 keys, a layer each; (o) "
+             "recurrentgemma-2b's rank-1 rows",
+             "gemma2-2b global, rank 1's rows"),
+            ("flash_attention_wgmma (query-offset entry, qwen2-moe-a2.7b's "
+             "rows)", "flash_attention_wgmma.cu", "bfloat16",
+             "k5_tc_rows_moe", "(r) qwen2-moe-a2.7b under seq2d: rank 1's "
+             "2048 query rows at q_offset 2048 against 4096 keys, a layer "
+             "each", "qwen2-moe-a2.7b, rank 1's rows"),
             ("flash_attention (query-offset entry)", "flash_attention.cu",
              "float32", "k5_f32_rows", "(n) reduced gemma2-2b under seq2d "
-             "and llava-next-34b under seq2d_fsdp: rank 1's query rows, "
-             "card against CPU")):
+             "and llava-next-34b under seq2d_fsdp, (p) and (s): rank 1's "
+             "query rows, card against CPU",
+             "reduced gemma2-2b in f32, rank 1's rows")):
         rows = [r for r in tp["k5_rows"]["timing"]
                 if r["shape"]["dtype"] == dtype]
-        head = next(r for r in rows if r["shape"]["q_offset"])
+        head = next(r for r in rows if r["case"] == case)
         kernels.append({
             "name": name, "route": "cuda", "source": k5_src + source,
             "replaces": k5_replaces, "entry": "q_offset > 0",

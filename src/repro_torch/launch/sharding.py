@@ -61,7 +61,7 @@ reference names ``data`` alone (``seq2d_fsdp``'s ZeRO dim, kimi-k2's 2-D
 experts) the port does too.
 
 **Token splits** (``seq2d``, ``dp2d``, ``seq2d_fsdp``; arch types
-``dense``, ``vlm``, ``hybrid`` and ``audio``).  The hidden state is a
+``dense``, ``vlm``, ``hybrid``, ``audio`` and ``moe``).  The hidden state is a
 DTensor split over the sequence (``seq``) or the batch (``dp2d``'s
 ``("data", "model")``), and each block runs whole on each rank's tokens in
 one ``local_map`` (``models/transformer._split_block``,
@@ -71,9 +71,11 @@ their positions; the RG-LRU's conv halo and its scan's f32 carry from the
 ranks before (``models/rglru.py``); ``seq2d_fsdp``'s data-sharded weights
 gathered at their use (:meth:`MeshPolicy.gather_weights`).  Every
 redistribution of a token split goes through ``common.redistribute_by_sum``
-(all-reduces only, forward and backward).  The ``moe`` and ``ssm`` arch
-types raise there (:func:`out_of_scope`, ``ROADMAP.md`` §1 item 18):
-nothing replicates silently.  The serve step reads the cache as
+(all-reduces only, forward and backward).  An MoE block routes each
+rank's part of a sequence with the queue offsets of the ranks before it
+and the whole sequence's capacity (``models/mlp.RoutingGroup``).  The
+``ssm`` arch type raises there (:func:`out_of_scope`, ``ROADMAP.md`` §1
+item 18): nothing replicates silently.  The serve step reads the cache as
 :func:`cache_specs` places it, ``kv_seq`` rows and ``rnn`` channels
 included, and never replicates a sharded cache.
 """
@@ -97,13 +99,12 @@ Tree = Any
 
 # what the port does not run over a live model axis larger than 1, with
 # its queued ROADMAP.md item
-TODO_TOKEN_SPLIT = ("a live seq2d / dp2d / seq2d_fsdp split of the MoE "
-                    "blocks (capacity positions counted across ranks) or "
-                    "the xLSTM blocks (their states carried across ranks): "
+TODO_TOKEN_SPLIT = ("a live seq2d / dp2d / seq2d_fsdp split of the xLSTM "
+                    "blocks (their states carried across ranks): "
                     "ROADMAP.md §1 item 18")
 TOKEN_SPLITS = ("seq2d", "dp2d", "seq2d_fsdp")
 # the arch types whose blocks run on each rank's tokens of a token split
-SPLIT_ARCH_TYPES = ("dense", "vlm", "hybrid", "audio")
+SPLIT_ARCH_TYPES = ("dense", "vlm", "hybrid", "audio", "moe")
 
 
 class PartitionSpec(tuple):
@@ -150,9 +151,9 @@ def _names(entry) -> Tuple[str, ...]:
 
 def out_of_scope(cfg: ModelConfig) -> Optional[str]:
     """Why ``cfg`` does not run over a live model axis larger than 1, or
-    ``None`` where it does: the token splits run for the configs whose
-    mixers are attention or the RG-LRU (arch types ``dense``, ``vlm``,
-    ``hybrid`` and ``audio``), not for ``moe`` or ``ssm``."""
+    ``None`` where it does: the token splits run for every arch type but
+    ``ssm`` (the xLSTM blocks' states are not carried across ranks:
+    ``ROADMAP.md`` §1 item 18)."""
     if cfg.attn_shard in TOKEN_SPLITS and \
             cfg.arch_type not in SPLIT_ARCH_TYPES:
         return TODO_TOKEN_SPLIT
@@ -186,8 +187,11 @@ class MeshPolicy(Policy):
         self.seq2d = cfg.attn_shard in ("seq2d", "seq2d_fsdp")
         self.dp2d = cfg.attn_shard == "dp2d"
         # a live token split: the blocks run on each rank's tokens and
-        # every redistribution is by all-reduces (module docstring)
+        # every redistribution is by all-reduces (module docstring); so is
+        # a data-only live mesh's (the batch split, its gradients summed)
         self.token_split = self.model_live and cfg.attn_shard in TOKEN_SPLITS
+        self.by_sum = self.token_split or (self.device_mesh is not None
+                                           and not self.model_live)
         self.rules = {
             "batch": data + ("model",) if self.dp2d else data,
             "seq": "model" if self.seq2d else None,
@@ -258,10 +262,11 @@ class MeshPolicy(Policy):
 
     def place(self, x, spec: PartitionSpec):
         """DTensor ``x`` placed by ``spec``: DTensor's ``redistribute``, or
-        under a live token split ``common.redistribute_by_sum`` (all-reduces
-        only, forward and backward)."""
+        under a live token split or over a data-only live mesh
+        ``common.redistribute_by_sum`` (all-reduces only, forward and
+        backward)."""
         placements = to_placements(spec, self.mesh)
-        if self.token_split:
+        if self.by_sum:
             return redistribute_by_sum(x, placements)
         return x.redistribute(x.device_mesh, placements)
 
@@ -287,9 +292,10 @@ class MeshPolicy(Policy):
     def local_split(self, h) -> TokenSplit:
         """The :class:`common.TokenSplit` of the hidden state ``h`` (B, S,
         D), a DTensor: the mesh dims that split its sequence and this
-        rank's first position."""
+        rank's first position, and those that split its batch."""
         return TokenSplit(h.device_mesh, sharding_dims(h, 1),
-                          shard_offset(h, 1), h.shape[1], self.seq2d)
+                          shard_offset(h, 1), h.shape[1], self.seq2d,
+                          sharding_dims(h, 0), h.shape[0])
 
     def model_policy(self) -> "MeshPolicy":
         """The policy of this rank's model group alone (the live mesh's

@@ -146,8 +146,10 @@ def _model_live(policy: Policy) -> bool:
 
 def _tp(policy: Policy):
     """The context a step runs its model in: DTensor's
-    ``implicit_replication`` over a live model axis, else nothing."""
-    if not _model_live(policy):
+    ``implicit_replication`` over a live mesh (the parameters DTensors
+    over a model axis, or over a data-only mesh such as (2, 1), where
+    kimi-k2's 2-D experts are sharded over data), else nothing."""
+    if getattr(policy, "device_mesh", None) is None:
         return contextlib.nullcontext()
     from torch.distributed.tensor.experimental import implicit_replication
     return implicit_replication()
@@ -457,7 +459,7 @@ def make_prefill_step(cfg: ModelConfig, policy: Policy = NO_POLICY, *,
                 params, cfg, batch["tokens"],
                 extra_embeds=batch.get("extra_embeds"), policy=policy,
                 window_override=window_override, cache_len=cache_len)
-            if _model_live(policy):
+            if sharding.is_dtensor(logits):
                 cache = tree_map(policy.place, cache, sharding.cache_specs(
                     cache, cfg, policy.mesh))
             return logits, cache

@@ -274,11 +274,16 @@ class TokenSplit(Policy):
     and ``dims``: the mesh dims that split the sequence (none where it is
     whole on the rank); ``start``: this rank's first position; ``size``:
     the sequence's length; ``seq2d``: the reference's ``seq2d`` attention
-    (``chunk2d_attention``) rather than the chunked causal path."""
+    (``chunk2d_attention``) rather than the chunked causal path;
+    ``batch_dims`` and ``batch``: the mesh dims that split the batch and
+    its whole row count (an MoE block's aux losses are the whole
+    batch's)."""
 
-    def __init__(self, mesh, dims, start: int, size: int, seq2d: bool):
+    def __init__(self, mesh, dims, start: int, size: int, seq2d: bool,
+                 batch_dims, batch: int):
         self.mesh, self.dims = mesh, list(dims)
         self.start, self.size, self.seq2d = start, size, seq2d
+        self.batch_dims, self.batch = list(batch_dims), batch
 
 
 def sharding_dims(x, dim: int) -> list:

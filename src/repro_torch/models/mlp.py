@@ -28,12 +28,30 @@ the reference's ``("batch", "seq", None)`` constrain reduces; across ranks
 the sum takes another order than one rank's combine, so sharded and
 unsharded agree at a tolerance.  kimi-k2's 2-D experts (``expert_ffn``
 also over ``data``) are gathered over ``data`` where the batch is sharded
-there, as GSPMD gathers an FSDP weight; where it is not (decode routes the
-batch as one group) each data rank runs its ``expert_ffn`` slice and the
-output is ``Partial`` over ``data`` too.  The aux losses are computed on
-the DTensor logits:
-``load_balance`` is a product of two batch means, each reduced over a
-data-sharded batch before the product.
+there, as GSPMD gathers an FSDP weight (one all-reduce each way,
+``common.redistribute_by_sum``); where it is not (a batch of one row, or
+decode, whose few rows are gathered instead: one all-reduce) each data
+rank runs its ``expert_ffn`` slice and the slices' sum is reduced over
+``data``.  The aux losses are computed on each rank's rows of the router
+logits, their sums reduced over a sharded batch in one all-reduce:
+``load_balance`` is a product of two batch means, each reduced before the
+product.
+
+**A routing group split across ranks** (a token split's sequence, or
+decode's one group over a batch sharded over data or data x model) routes
+as the reference's one global computation does: the capacity comes from
+the group's whole token count, and a pair's place in its expert's queue is
+the count of the pairs before it in the whole group -- this rank's running
+count plus the group's offset, the pairs of the ranks before it that chose
+that expert (:class:`RoutingGroup`: one all-reduce of every rank's counts,
+then an exclusive prefix in the ranks' order).  Each rank dispatches only
+its own pairs, into ``min(C, S_local)`` slots an expert (a pair's slot is
+its local queue place, kept while the global one is under ``C``), and
+combines them in the same ascending (expert, slot) order; no rank gathers
+another's tokens (but decode's, where the experts are split over a dim
+that splits the batch: above).  The aux losses are the whole batch's means:
+each rank's sums reduced over the mesh dims that split the tokens (one
+all-reduce) before the means and the product.
 
 Where a faithful-looking port could part from the reference, this one
 follows it exactly:
@@ -51,7 +69,7 @@ follows it exactly:
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -163,21 +181,59 @@ def _topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 class Routing(NamedTuple):
+    # C slots an expert, min(C, S) on a rank's part of a split group
     slot_idx: torch.Tensor      # (B, E_pad, C) token a slot takes; S = none
     slot_gate: torch.Tensor     # (B, E_pad, C) f32 combine weight; 0 = none
     token_expert: torch.Tensor  # (B, S, K) the experts a token chose
     token_slot: torch.Tensor    # (B, S, K) e * C + slot, E_pad * C if dropped
-    aux: dict
+    probs: torch.Tensor         # (B, S, E) f32 softmax of the router logits
+
+
+class RoutingGroup(NamedTuple):
+    """Where a layer's routing groups lie across ranks (module docstring):
+    ``dims``, the mesh dims that split each group's tokens, nested in mesh
+    order as DTensor splits them, and ``tokens``, a group's whole token
+    count."""
+    mesh: Any
+    dims: tuple
+    tokens: int
+
+    def place(self) -> int:
+        """This rank's place among the group's ranks: its local ranks
+        along ``dims``, outermost first (however the ranks' rows are
+        sized)."""
+        index = 0
+        for i in self.dims:
+            index = index * self.mesh.size(i) + self.mesh.get_local_rank(i)
+        return index
+
+
+def _queue_offsets(counts: torch.Tensor, group: RoutingGroup
+                   ) -> torch.Tensor:
+    """(B, E) f32 counts of this rank's pairs by expert -> (B, E) int64:
+    the pairs of the ranks before this one in the group that chose each
+    expert.  Every rank's counts are gathered by one sum
+    (``common.gather_by_sum``; integers below 2^24 are exact in f32) and
+    the ranks before this one (:meth:`RoutingGroup.place`) added."""
+    n, index = 1, group.place()
+    for i in group.dims:
+        n *= group.mesh.size(i)
+    every = common.gather_by_sum(counts[None], 0, index, n, group.mesh,
+                                 group.dims)
+    return every[:index].sum(0).long()
 
 
 def _route(router_logits: torch.Tensor, moe: MoEConfig, capacity: int,
-           e_pad: int = 0) -> Routing:
+           e_pad: int = 0, group: Optional[RoutingGroup] = None) -> Routing:
+    """:func:`route_topk`'s routing; with ``group`` the tokens are this
+    rank's part of each group (module docstring): a pair is kept where its
+    place in the whole group's queue is under ``capacity``, and goes to
+    its local place among ``min(capacity, S)`` slots of its expert."""
     b, s, e = router_logits.shape
     k = moe.top_k
     e_out = max(e_pad, e)
     dev = router_logits.device
-    logits = router_logits.float()
-    probs = torch.softmax(logits, dim=-1)
+    probs = torch.softmax(router_logits.float(), dim=-1)
 
     topk_prob, topk_idx = _topk(probs, k)                     # (B, S, K)
     # normalize the combine weights over the selected experts
@@ -195,13 +251,23 @@ def _route(router_logits: torch.Tensor, moe: MoEConfig, capacity: int,
     first = torch.searchsorted(grouped, grouped)              # run starts
     rank = torch.empty_like(flat_e).scatter_(
         1, order, torch.arange(s * k, device=dev) - first)
-    within = rank < capacity                                  # (B, S * K)
+    slots = capacity
+    if group is not None and group.dims:
+        # the place in the whole group's queue: the ranks before this one
+        # first
+        counts = torch.zeros((b, e), device=dev).scatter_add_(
+            1, flat_e, torch.ones(flat_e.shape, device=dev))
+        offset = torch.gather(_queue_offsets(counts, group), 1, flat_e)
+        within = offset + rank < capacity                     # (B, S * K)
+        slots = min(capacity, s)
+    else:
+        within = rank < capacity
 
     # scatter token indices and gates into (B, E_pad, C) slots; a dropped
     # pair goes to a spare slot of its own past the buffer, sliced off
-    n_slots = e_out * capacity
+    n_slots = e_out * slots
     spare = n_slots + torch.arange(s * k, device=dev)
-    pos = torch.where(within, flat_e * capacity + rank, spare)
+    pos = torch.where(within, flat_e * slots + rank, spare)
     tok = torch.arange(s, device=dev).repeat_interleave(k).expand(b, -1)
     slot_idx = torch.full((b, n_slots + s * k), s, dtype=torch.long,
                           device=dev).scatter_(1, pos, tok)
@@ -209,38 +275,64 @@ def _route(router_logits: torch.Tensor, moe: MoEConfig, capacity: int,
                         torch.zeros((), device=dev))
     slot_gate = torch.zeros((b, n_slots + s * k), device=dev).scatter(
         1, pos, gates)
-    slot_idx = slot_idx[:, :n_slots].reshape(b, e_out, capacity)
-    slot_gate = slot_gate[:, :n_slots].reshape(b, e_out, capacity)
+    slot_idx = slot_idx[:, :n_slots].reshape(b, e_out, slots)
+    slot_gate = slot_gate[:, :n_slots].reshape(b, e_out, slots)
     token_slot = torch.where(within, pos, n_slots).reshape(b, s, k)
-
-    aux = _aux_losses(logits, probs, _first_choice_share(topk_idx, e), moe)
-    return Routing(slot_idx, slot_gate, topk_idx, token_slot, aux)
-
-
-def _first_choice_share(topk_idx: torch.Tensor, e: int) -> torch.Tensor:
-    """(B, S, K) choices -> (B, E): the share of each group's tokens whose
-    first choice is each expert."""
-    b, s = topk_idx.shape[:2]
-    dev = topk_idx.device
-    counts = torch.zeros((b, e), device=dev).scatter_add_(
-        1, topk_idx[..., 0], torch.ones((b, s), device=dev))
-    return counts / s
+    return Routing(slot_idx, slot_gate, topk_idx, token_slot, probs)
 
 
 def _aux_losses(logits: torch.Tensor, probs: torch.Tensor,
-                share: torch.Tensor, moe: MoEConfig) -> dict:
-    """The Switch-style aux losses of f32 router logits (B, S, E), their
-    softmax and :func:`_first_choice_share`.  ``load_balance`` is ``E *
-    sum(me * ce)``, a product of two batch means: on DTensors whose batch
-    is sharded over data each mean is a ``Partial`` average, reduced before
-    the product (a mean of per-rank products would be another loss)."""
+                first: torch.Tensor, moe: MoEConfig, mesh=None, dims=(),
+                total: Optional[int] = None) -> dict:
+    """The Switch-style aux losses of the whole batch from this rank's
+    tokens (``logits`` and their softmax ``probs`` (B, S, E) f32, ``first``
+    (B, S) each token's first choice): the sums of the probabilities, of
+    the first choices and of the squared log-sum-exps, reduced over the
+    mesh dims ``dims`` that split the tokens in one all-reduce
+    (``common.GatherBySum``, whose backward is the identity: every rank
+    uses the sums alike), each divided by ``total``, the whole token count
+    (this rank's where nothing splits them).  ``load_balance`` is ``E *
+    sum(me * ce)``, the product of the two whole-batch means: a mean of
+    per-rank products would be another loss.  The same value on every
+    rank.  Routing groups do not enter: each token's choices are its
+    own."""
     e = logits.shape[-1]
-    me = torch.mean(probs, dim=(0, 1))                        # (E,)
-    ce = torch.mean(share, dim=0)
-    load_balance = e * torch.sum(me * ce)
-    z_loss = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
+    dev = logits.device
+    counts = torch.zeros(e, device=dev).scatter_add_(
+        0, first.reshape(-1), torch.ones(first.numel(), device=dev))
+    lse = torch.sum(torch.square(torch.logsumexp(logits.float(), dim=-1)))
+    sums = torch.cat([torch.sum(probs, dim=(0, 1)), counts, lse[None]])
+    if dims:
+        sums = common.GatherBySum.apply(sums, 0, 0, 2 * e + 1, mesh, dims,
+                                        [])
+    sums = sums / (first.numel() if total is None else total)
+    load_balance = e * torch.sum(sums[:e] * sums[e:2 * e])
     return {"load_balance": load_balance * moe.load_balance_loss,
-            "router_z": z_loss * moe.router_z_loss}
+            "router_z": sums[2 * e] * moe.router_z_loss}
+
+
+def _sharded_aux_losses(logits, first, moe: MoEConfig) -> dict:
+    """The aux losses of DTensor router logits (B, S, E), the experts axis
+    whole on each rank, and the routing's first choices ``first`` (B, S),
+    placed like them: :func:`_aux_losses` on each rank's tokens through
+    ``common.local_apply`` (one all-reduce where the batch is sharded),
+    replicated.  It takes its own softmax of the logits: the routing's
+    gradient reaches them ``Partial`` over the dims that shard the experts
+    (each rank's experts add their terms), the aux's placed like them
+    (ranks that hold the same rows take the same terms)."""
+    from torch.distributed.tensor import Replicate
+    mesh = logits.device_mesh
+    dims = tuple(i for i, pl in enumerate(logits.placements)
+                 if pl.is_shard() and mesh.size(i) > 1)
+    total = logits.shape[0] * logits.shape[1]
+
+    def aux(ll, fl):
+        a = _aux_losses(ll, torch.softmax(ll, dim=-1), fl, moe, mesh, dims,
+                        total)
+        return a["load_balance"], a["router_z"]
+    whole = [Replicate()] * mesh.ndim
+    lb, z = common.local_apply(aux, (whole, whole), logits, first)
+    return {"load_balance": lb, "router_z": z}
 
 
 def route_topk(router_logits: torch.Tensor, moe: MoEConfig, capacity: int,
@@ -254,7 +346,8 @@ def route_topk(router_logits: torch.Tensor, moe: MoEConfig, capacity: int,
       aux: router z-loss and load-balance loss terms.
     Indices are int64, torch's index dtype (the reference's are int32)."""
     r = _route(router_logits, moe, capacity, e_pad)
-    return r.slot_idx, r.slot_gate, r.token_expert, r.aux
+    return r.slot_idx, r.slot_gate, r.token_expert, _aux_losses(
+        router_logits, r.probs, r.token_expert[..., 0], moe)
 
 
 def _expert_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -285,7 +378,8 @@ def _combine(y: torch.Tensor, token_slot: torch.Tensor) -> torch.Tensor:
 
 def _moe_local(x: torch.Tensor, logits: torch.Tensor, gate: torch.Tensor,
                up: torch.Tensor, down: torch.Tensor, moe: MoEConfig,
-               e_pad: int, lo: int, policy: Policy = NO_POLICY):
+               e_pad: int, lo: int, policy: Policy = NO_POLICY,
+               group: Optional[RoutingGroup] = None):
     """The MoE block's routed half on local tensors: route ``logits`` (B, S,
     E) f32, dispatch ``x`` (B, S, D) to experts ``[lo, lo + el)`` (the
     ``el`` experts of ``gate`` / ``up`` (el, D, F) and ``down`` (el, F,
@@ -295,11 +389,14 @@ def _moe_local(x: torch.Tensor, logits: torch.Tensor, gate: torch.Tensor,
     experts' terms, each token's in ascending (expert, slot) order, the
     choices of other experts and the dropped ones reading the appended zero
     row.  ``policy`` constrains the dispatch buffer and the hidden (the
-    reference's sites; the identity on local tensors)."""
+    reference's sites; the identity on local tensors).  With ``group`` the
+    tokens are this rank's part of each routing group (module docstring),
+    and the capacity is the whole group's."""
     b, s, d = x.shape
-    capacity = _capacity(moe, s)
-    r = _route(logits, moe, capacity, e_pad)
+    capacity = _capacity(moe, s if group is None else group.tokens)
+    r = _route(logits, moe, capacity, e_pad, group)
     el = gate.shape[0]
+    slots = r.slot_idx.shape[-1]
     slot_idx = r.slot_idx[:, lo:lo + el]
     slot_gate = r.slot_gate[:, lo:lo + el]
 
@@ -321,46 +418,98 @@ def _moe_local(x: torch.Tensor, logits: torch.Tensor, gate: torch.Tensor,
     y = y * slot_gate[..., None].to(y.dtype)
     token_slot = r.token_slot
     if el != e_pad:
-        first = lo * capacity
-        mine = (token_slot >= first) & (token_slot < first + el * capacity)
-        token_slot = torch.where(mine, token_slot - first, el * capacity)
+        first = lo * slots
+        mine = (token_slot >= first) & (token_slot < first + el * slots)
+        token_slot = torch.where(mine, token_slot - first, el * slots)
     return _combine(y, token_slot), r
 
 
+def _split_group(policy: Policy) -> Optional[RoutingGroup]:
+    """The :class:`RoutingGroup` of a token split's block (``policy`` a
+    ``common.TokenSplit``): each sequence a group, split over the dims
+    that split the sequence.  ``None`` where the sequence is whole on the
+    rank."""
+    if not isinstance(policy, common.TokenSplit) or not policy.dims:
+        return None
+    return RoutingGroup(policy.mesh, tuple(policy.dims), policy.size)
+
+
+def _split_aux(policy: Policy, x: torch.Tensor) -> tuple:
+    """``(mesh, dims, total)`` of :func:`_aux_losses` on this rank's tokens
+    ``x`` (B, S, D): in a token split's block the mesh dims that split the
+    batch or the sequence and the whole token count; else none, and this
+    rank's count."""
+    if isinstance(policy, common.TokenSplit):
+        return (policy.mesh, tuple(sorted(policy.batch_dims + policy.dims)),
+                policy.batch * policy.size)
+    return None, (), x.shape[0] * x.shape[1]
+
+
 def _apply_moe_sharded(p: dict, x: torch.Tensor, logits: torch.Tensor,
-                       moe: MoEConfig, e_pad: int):
-    """The routed half over a live mesh (module docstring): the expert
-    weights gathered over each mesh dim that shards the batch too
-    (kimi-k2's 2-D layout in training and prefill, as GSPMD gathers an
-    FSDP weight; a dim of size 1 needs no gather), then :func:`_moe_local`
-    on each rank's shards through ``common.local_apply``.  Returns ``(out,
-    first-choice share)``: ``out`` is ``Partial`` over each mesh dim that
-    still shards the experts (a 2-D layout's data dim where the batch is
-    whole there, as decode's one routing group is: each data rank runs its
-    expert_ffn slice) and placed like ``x`` elsewhere, the share placed
-    like ``x``.  The gradients of ``x`` and of the logits are ``Partial``
-    over the dims that shard the experts too (each rank's experts add
-    their terms), and a weight's is ``Partial`` over a dim that shards the
-    batch (each rank's tokens add theirs)."""
+                       moe: MoEConfig, e_pad: int, one_group: bool = False):
+    """The routed half over a live mesh (module docstring), on each rank's
+    shards through ``common.local_apply``: :func:`_moe_local` with each
+    rank's experts.  Returns ``(out, first)``: ``out`` is ``Partial`` over
+    each mesh dim that shards the experts but not the batch, and placed
+    like ``x`` elsewhere; ``first``, each token's first choice, placed like
+    ``x`` (:func:`_sharded_aux_losses`).
+
+    Where a mesh dim shards both the batch and the experts (kimi-k2's 2-D
+    experts, ``expert_ffn`` over ``data``) the experts are gathered over it,
+    as GSPMD gathers an FSDP weight (one all-reduce each way, ``common.
+    redistribute_by_sum``), and a weight's gradient is ``Partial`` there
+    (each rank's tokens add theirs).  ``one_group``: the whole batch is one
+    routing group (decode).  Where the batch is sharded each rank routes
+    its rows with the queue offsets of the ranks before it; but where a dim
+    that shards the batch shards the experts too, the batch's rows are
+    gathered instead (one all-reduce each of ``x`` and the logits, the
+    reference's reshape), the whole group routed on every rank, each data
+    rank's ``expert_ffn`` slice run as where the batch is whole, and the
+    slices' sum reduced over those dims (one all-reduce) before each rank
+    keeps its rows: a decode step's rows are far smaller than the experts.
+    The gradients of ``x`` and of the logits are ``Partial`` over the dims
+    that shard the experts (each rank's experts add their terms); decode
+    takes none."""
     from torch.distributed.tensor import Partial, Replicate
     w = p["experts"]
-    mesh = w["gate"].device_mesh
+    experts = (w["gate"], w["up"], w["down"])
+    mesh = experts[0].device_mesh
     x_place = list(x.placements)
     batch = [i for i, pl in enumerate(x_place)
              if pl.is_shard() and mesh.size(i) > 1]
-    weights = [wt.redistribute(mesh, [Replicate() if i in batch else pl
-                                      for i, pl in enumerate(wt.placements)])
-               if any(wt.placements[i].is_shard() for i in batch) else wt
-               for wt in (w["gate"], w["up"], w["down"])]
-    out_place = [Partial() if weights[0].placements[i].is_shard() else pl
-                 for i, pl in enumerate(x_place)]
+    both = [i for i in batch
+            if any(wt.placements[i].is_shard() for wt in experts)]
+    gather_rows = one_group and bool(both)
+    weights = list(experts) if gather_rows else [
+        common.redistribute_by_sum(wt, [
+            Replicate() if i in batch else pl
+            for i, pl in enumerate(wt.placements)]) for wt in experts]
+    out_place = [Partial() if weights[0].placements[i].is_shard()
+                 and i not in batch else pl for i, pl in enumerate(x_place)]
     w_grads = [[Partial() if x_place[i].is_shard() else pl
                 for i, pl in enumerate(wt.placements)] for wt in weights]
     lo = common.shard_offset(weights[0], 0)
+    group = None
+    if one_group and batch and not gather_rows:
+        group = RoutingGroup(mesh, tuple(batch), x.shape[0] * x.shape[1])
+    rows = common.held_rows(x.shape[0], mesh, batch)
 
     def routed(xl, ll, gl, ul, dl):
-        out, r = _moe_local(xl, ll, gl, ul, dl, moe, e_pad, lo)
-        return out, _first_choice_share(r.token_expert, ll.shape[-1])
+        b, s, d = xl.shape
+        if gather_rows:
+            args = (0, rows[0], x.shape[0], mesh, batch)
+            xl = common.gather_by_sum(xl, *args)
+            ll = common.gather_by_sum(ll, *args)
+        if one_group:
+            xl = xl.reshape(1, -1, d)
+            ll = ll.reshape(1, xl.shape[1], -1)
+        out, r = _moe_local(xl, ll, gl, ul, dl, moe, e_pad, lo, group=group)
+        out = out.reshape(-1, s, d)
+        first = r.token_expert[..., 0].reshape(-1, s)
+        if gather_rows:
+            out = common.all_reduce(out, "sum", mesh, both)
+            out, first = out[rows[0]:rows[1]], first[rows[0]:rows[1]]
+        return out, first
 
     return common.local_apply(
         routed, (out_place, x_place), x, logits, *weights,
@@ -368,24 +517,32 @@ def _apply_moe_sharded(p: dict, x: torch.Tensor, logits: torch.Tensor,
 
 
 def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig,
-              policy: Policy = NO_POLICY) -> Tuple[torch.Tensor, dict]:
+              policy: Policy = NO_POLICY, *, one_group: bool = False
+              ) -> Tuple[torch.Tensor, dict]:
     """x: (B, S, D) -> (out in ``x.dtype``, aux losses); each row of the
-    batch is a routing group.  ``policy`` constrains the dispatch buffer,
-    the expert hidden and the combined output (the reference's sites); on
-    DTensors the routed half runs on each rank's shards (module
-    docstring)."""
+    batch is a routing group, or with ``one_group`` the whole batch is one
+    (decode: the reference's ``x.reshape(1, B * S, D)``).  ``policy``
+    constrains the dispatch buffer, the expert hidden and the combined
+    output (the reference's sites); on DTensors the routed half runs on
+    each rank's shards, and in a token split's block on this rank's
+    tokens of each group (module docstring)."""
     m = cfg.moe
     e_pad = padded_experts(m)
     w = p["experts"]
     sharded = common.is_dtensor(w["gate"])
+    if one_group and not sharded:
+        b, s, d = x.shape
+        y, aux = apply_moe(p, x.reshape(1, b * s, d), cfg, policy)
+        return y.reshape(b, s, d), aux
     logits = torch.matmul(x.float(), p["router"])
     if sharded:
-        out, share = _apply_moe_sharded(p, x, logits, m, e_pad)
-        aux = _aux_losses(logits, torch.softmax(logits, dim=-1), share, m)
+        out, first = _apply_moe_sharded(p, x, logits, m, e_pad, one_group)
+        aux = _sharded_aux_losses(logits, first, m)
     else:
         out, r = _moe_local(x, logits, w["gate"], w["up"], w["down"], m,
-                            e_pad, 0, policy)
-        aux = r.aux
+                            e_pad, 0, policy, _split_group(policy))
+        aux = _aux_losses(logits, r.probs, r.token_expert[..., 0], m,
+                          *_split_aux(policy, x))
     out = policy.constrain(out, ("batch", "seq", None))
     shared = [apply_mlp(sp, x, policy) for sp in p.get("shared", [])]
     if sharded and shared:

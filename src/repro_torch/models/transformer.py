@@ -165,22 +165,20 @@ def _apply_mlp(p: Params, spec: LayerSpec, h: torch.Tensor,
                policy: Policy = NO_POLICY):
     """The block's MLP half: ``(h + mlp(norm(h)), aux)``.  An MoE block
     routes each row of the batch as a group, or with ``one_group`` the
-    whole batch as one (decode): where the batch is sharded over data that
-    group spans the data ranks, so ``x`` is gathered over data first, as
-    GSPMD gathers it for the reference's reshape.  Over a model axis the
-    MLP's output is a ``Partial`` sum (the dense down projection is
-    row-parallel, the experts' combine adds each rank's experts or ffn
-    shard), reduced by the constrain before the residual add."""
+    whole batch as one (decode): where the batch is sharded that group
+    spans the ranks, and each rank routes its rows with the queue offsets
+    of the ranks before it, or the rows are gathered where the experts are
+    split over the batch's dims too (``mlp.apply_moe``).  Over
+    a model axis the MLP's output is a ``Partial`` sum (the dense down
+    projection is row-parallel, the experts' combine adds each rank's
+    experts or ffn shard), reduced by the constrain before the residual
+    add."""
     aux = _zero_aux(h.device)
     if "mlp" not in p:
         return h, aux
     x = common.apply_rmsnorm(p["mlp_norm"], h, cfg.norm_eps)
     if spec.mlp == MLP_MOE:
-        b, s, d = x.shape
-        if one_group:
-            x = common.unshard(x, 0).reshape(1, b * s, d)
-        y, aux = mlp.apply_moe(p["mlp"], x, cfg, policy)
-        y = y.reshape(b, s, d)
+        y, aux = mlp.apply_moe(p["mlp"], x, cfg, policy, one_group=one_group)
     else:
         y = mlp.apply_mlp(p["mlp"], x, policy)
     return h + policy.constrain(y, ("batch", "seq", None)), aux
@@ -205,12 +203,15 @@ def _split_block(run, p: Params, h, policy: Policy, n_extra: int = 0):
     :class:`common.TokenSplit` -- on each rank's tokens of a live token
     split, in one ``local_map``: the hidden state (B, S, D) split over the
     sequence (``seq2d``) or the batch (``dp2d``), the block's weights whole
-    (replicated, or gathered over data under ``seq2d_fsdp``).  Returns the
-    block's new hidden state, placed as ``h``, and ``run``'s ``n_extra``
-    further outputs (prefill's cache), whole along the sequence and placed
-    as ``h``'s batch.  A weight's local gradient is this rank's tokens'
-    term: ``Partial`` over each mesh dim that splits the tokens, whole
-    where every rank of a dim holds the same tokens."""
+    (replicated, or gathered over data under ``seq2d_fsdp``).  ``run``
+    returns the block's new hidden state, its aux losses (an MoE block's
+    are the whole batch's on every rank, ``mlp.apply_moe``) and
+    ``n_extra`` further outputs (prefill's cache).  Returns the hidden
+    state placed as ``h``, the aux replicated, and the further outputs
+    whole along the sequence and placed as ``h``'s batch.  A weight's
+    local gradient is this rank's tokens' term: ``Partial`` over each mesh
+    dim that splits the tokens, whole where every rank of a dim holds the
+    same tokens."""
     from torch.distributed.tensor import Partial, Replicate
     p = policy.gather_weights(p)
     leaves, treedef = tree_flatten(p)
@@ -220,13 +221,15 @@ def _split_block(run, p: Params, h, policy: Policy, n_extra: int = 0):
               for i, pl in enumerate(x.placements)]
              if common.is_dtensor(x) else None for x in leaves]
     batch = [pl if pl.is_shard(0) else Replicate() for pl in h.placements]
+    whole = [Replicate()] * len(h.placements)
 
     def local(hl, *ws):
-        return run(tree_unflatten(treedef, list(ws)), hl, split)
-    out = list(h.placements) if not n_extra else (
-        (list(h.placements),) + (batch,) * n_extra)
-    return common.local_apply(local, out, h, *leaves,
-                              in_grad_placements=(None, *grads))
+        out, aux, *extra = run(tree_unflatten(treedef, list(ws)), hl, split)
+        return (out, aux["load_balance"], aux["router_z"], *extra)
+    out, lb, z, *extra = common.local_apply(
+        local, (list(h.placements), whole, whole) + (batch,) * n_extra, h,
+        *leaves, in_grad_placements=(None, *grads))
+    return (out, {"load_balance": lb, "router_z": z}, *extra)
 
 
 def apply_block(p: Params, spec: LayerSpec, h: torch.Tensor,
@@ -240,7 +243,7 @@ def apply_block(p: Params, spec: LayerSpec, h: torch.Tensor,
     if _token_split(policy, h):
         return _split_block(lambda pl, hl, split: apply_block(
             pl, spec, hl, cfg, window_override=window_override,
-            policy=split)[0], p, h, policy), _zero_aux(h.device)
+            policy=split), p, h, policy)
     x = common.apply_rmsnorm(p["pre_norm"], h, cfg.norm_eps)
     if _is_attention(spec):
         m = attention.apply_attention_train(
@@ -266,19 +269,21 @@ def apply_block_prefill(p: Params, spec: LayerSpec, h: torch.Tensor,
     Returns ``(h, cache, aux)``.  Under a live token split it runs on each
     rank's tokens (:func:`_split_block`); the cache -- any mixer's tree,
     attention's k and v or the RG-LRU's state and conv rows -- comes back
-    whole along the sequence, placed as the batch."""
+    whole along the sequence, placed as the batch, and the aux
+    replicated."""
     if _token_split(policy, h):
         shapes, treedef = tree_flatten(init_block_cache(
             spec, cfg, 1, 1, window_override=window_override,
             device="meta"))
 
         def run(pl, hl, split):
-            out, cache, _ = apply_block_prefill(
+            out, cache, aux = apply_block_prefill(
                 pl, spec, hl, cfg, window_override=window_override,
                 cache_len=cache_len, policy=split)
-            return (out, *tree_flatten(cache)[0])
-        h, *leaves = _split_block(run, p, h, policy, n_extra=len(shapes))
-        return h, tree_unflatten(treedef, leaves), _zero_aux(h.device)
+            return (out, aux, *tree_flatten(cache)[0])
+        h, aux, *leaves = _split_block(run, p, h, policy,
+                                       n_extra=len(shapes))
+        return h, tree_unflatten(treedef, leaves), aux
     x = common.apply_rmsnorm(p["pre_norm"], h, cfg.norm_eps)
     x = policy.constrain(x, ("batch", "seq", None))
     if _is_attention(spec):

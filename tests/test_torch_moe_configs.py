@@ -222,10 +222,10 @@ def test_bf16_prefill_and_decode_match_reference(name, monkeypatch):
 
     calls, route = iter(logs), mlp._route
 
-    def replay(router_logits, moe, capacity, e_pad=0):
+    def replay(router_logits, moe, capacity, e_pad=0, group=None):
         ref_logits, ref_slots = next(calls)
         assert tuple(router_logits.shape) == ref_logits.shape
-        r = route(torch.tensor(ref_logits), moe, capacity, e_pad)
+        r = route(torch.tensor(ref_logits), moe, capacity, e_pad, group)
         np.testing.assert_array_equal(r.slot_idx.numpy(), ref_slots)
         return r
     monkeypatch.setattr(mlp, "_route", replay)

@@ -16,8 +16,9 @@ unsharded steps (``NO_POLICY``, each jitted once a config).
   flat int8 and tree rounds (K = 2, one simple).  Every rank's
   ``full_tensor()``s bitwise equal; params, losses, logits and caches at
   rtol 1e-4 / atol 1e-5, the int8 rounds under ``repro_torch.parity``'s
-  lossy-wire rules.  The steps issue all-reduces only.  The MoE and xLSTM
-  configs' token splits still raise, naming ROADMAP.md §1 item 18.
+  lossy-wire rules.  The steps issue all-reduces only.  The xLSTM
+  configs' token splits still raise, naming ROADMAP.md §1 item 18 (the
+  MoE configs' run, ``tests/test_torch_split_moe.py``).
 * K6's carry on the CPU: the gated entry's plain version run in two
   halves, the second from the first's ``y_last``, is bitwise the whole
   run in bf16 and f32 (and from the first half's last bf16 row it is
@@ -229,7 +230,13 @@ def test_steps_issue_all_reduces_only(split_runs, key):
                                                "xlstm-1.3b")
                                   for mode in split.SPLIT_MODES])
 def test_moe_and_ssm_token_splits_still_raise(split_runs, name):
+    """The xLSTM configs' token splits raise, naming ROADMAP.md §1 item
+    18; the MoE configs' no longer do: their policy splits the tokens
+    (``tests/test_torch_split_moe.py`` runs them)."""
     msg = split_runs[0][2][0]["refusals"][name]
+    if "qwen2-moe" in name:
+        assert msg == "True", msg
+        return
     assert msg.startswith("NotImplementedError"), msg
     assert "ROADMAP.md §1 item 18" in msg
 

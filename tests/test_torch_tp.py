@@ -39,9 +39,12 @@ GSPMD computes for the reference under the same policy).
   expert_ffn layout (3 experts) and padded experts (3 padded to 4) at
   (1, 2); reduced kimi-k2's 2-D experts at (2, 2).  The train step's
   routing equals the unsharded step's, call for call, on every rank; the
-  decode steps' routing is bitwise equal over the ranks; the aux losses
-  at (2, 2) equal the unsharded ones.  Every decode case's prefill logits
-  and cache are held too.
+  decode steps route the whole batch as one group, at (2, 2) each data
+  rank its own rows with the queue offsets of the rank before it (kimi-
+  k2's 2-D experts: the batch's rows gathered), each rank's routing the
+  port's unsharded run's for its rows; the aux losses at (2, 2) equal the
+  unsharded ones.  Every decode case's prefill
+  logits and cache are held too.
 * The xLSTM and codebook configs in the same spawns (``cases.TP_ZOO`` at
   ``cases.TP_ZOO_MESHES``): reduced xlstm-1.3b's and musicgen-large's
   train steps and their flat f32, flat int8 and tree rounds at (1, 2),
@@ -594,6 +597,50 @@ def test_prefill_before_decode_matches_reference(tp_runs, case):
     assert_leaves(got["cache"], want["cache"])
 
 
+def assert_rank_routing(calls, whole):
+    """Each routing call of a rank's serve steps (``torch_mesh_cases.
+    rank_routing``) against the unsharded run's: the rank's tokens (from
+    ``start`` in the group) chose the unsharded run's experts, kept the
+    same pairs, and each kept pair's local slot plus the queue offset (the
+    unsharded run's pairs before ``start`` that chose its expert) is its
+    slot in the whole group."""
+    assert len(calls) == len(whole) > 0
+    for got, want in zip(calls, whole):
+        b, s, k = got["experts"].shape
+        start, (e, c) = got["start"], got["buffer"]
+        c_whole = want["buffer"][1]
+        experts = want["experts"][:, start:start + s]
+        assert torch.equal(got["experts"], experts)
+        w_slot = want["slot"][:, start:start + s]
+        kept = w_slot < e * c_whole
+        assert torch.equal(got["slot"] < e * c, kept)
+        before = want["experts"][:, :start].reshape(b, -1)
+        offset = torch.zeros((b, e), dtype=torch.long).scatter_add_(
+            1, before, torch.ones_like(before))
+        offset = torch.gather(offset, 1, experts.reshape(b, -1)).reshape(
+            experts.shape)
+        assert torch.equal((got["slot"] % c + offset)[kept],
+                           (w_slot % c_whole)[kept])
+
+
+MOE_DECODE_CASES = tuple(c for c in DECODE_CASES
+                         if cases.tp_config(c[2]).moe is not None)
+
+
+@pytest.mark.parametrize("case", MOE_DECODE_CASES, ids=_decode_id)
+def test_moe_decode_routing_is_the_unsharded_routing_of_each_ranks_rows(
+        tp_runs, case):
+    """Every MoE serve step's routing on each rank: its rows of the
+    unsharded run's one group (the whole batch), routed with the queue
+    offsets of the ranks before it where the batch is sharded over data,
+    or the whole group where it is not (kimi-k2's 2-D experts gather the
+    batch's rows)."""
+    key = cases.decode_key(*case[1:4]) + " written"
+    for rank in tp_runs[0][case[0]]:
+        assert_rank_routing(rank[key]["routing"],
+                            rank[key]["unsharded routing"])
+
+
 @pytest.mark.parametrize("case", DECODE_CASES, ids=_decode_id)
 def test_serve_step_writes_each_slot_on_its_owner_only(tp_runs, case):
     """At each step every rank changes exactly the new slot of each KV
@@ -627,15 +674,15 @@ def test_serve_step_writes_each_slot_on_its_owner_only(tp_runs, case):
 
 
 # the token splits of the configs whose blocks do not run on a rank's rows
-# (MoE: capacity positions across ranks; xLSTM: its states across ranks)
-REFUSALS = {"seq2d qwen2-moe-a2.7b": "item 18",
-            "seq2d xlstm-1.3b": "item 18"}
-# what ran out of scope before the hybrid and audio slice and now runs: a
-# seq2d split of the hybrid and audio configs is a live token split, and
-# the round's data group over a pod axis is the pod x data group (here
-# one pod of one data rank: world size 1)
+# (xLSTM: its states across ranks)
+REFUSALS = {"seq2d xlstm-1.3b": "item 18"}
+# what ran out of scope before and now runs: a seq2d split of the hybrid
+# and audio configs, and of the MoE configs (their queue positions counted
+# across ranks), is a live token split, and the round's data group over a
+# pod axis is the pod x data group (here one pod of one data rank: world
+# size 1)
 LIFTED = {"seq2d recurrentgemma-2b": "True", "seq2d musicgen-large": "True",
-          "pod axis": "1"}
+          "seq2d qwen2-moe-a2.7b": "True", "pod axis": "1"}
 
 
 @pytest.mark.parametrize("name", list(REFUSALS))
@@ -1046,16 +1093,18 @@ def hand_count_moe_decode(cfg, shape, d: int) -> dict:
     data, the heads, the experts and the tied table over model), derived
     from the layer shapes: an all-reduce of the (B/d, 1, D) embedding;
     for each layer an all-reduce of the attention's (B/d, 1, D) output
-    (``wo`` is row-parallel), an all-gather of the MoE block's (B, 1, D)
-    input over data (decode routes the whole batch as one group), an
-    all-reduce of the (1, B, D) combine (each rank's experts' terms) and
-    one of the shared experts' (1, B, D) output (their row-parallel
-    ``down``, summed on each rank first).  The router and the routing add
-    none."""
-    b, dm, n = shape.global_batch, cfg.d_model, cfg.n_layers
-    local, whole = b // d * dm * 4, b * dm * 4
-    return {"all-reduce": (1 + 3 * n, local + n * (local + 2 * whole)),
-            "all-gather": (n, n * whole)}
+    (``wo`` is row-parallel); decode routes the whole batch as one group,
+    each rank its own rows, so the MoE block gathers nothing: an
+    all-reduce of every data rank's (1, E) f32 expert counts, one (d, 1,
+    E) (the queue offsets), one of the aux losses' 2E + 1 sums over data,
+    one of the (B/d, 1, D) combine (each rank's experts' terms) and one of
+    the shared experts' (B/d, 1, D) output (their row-parallel ``down``,
+    summed on each rank first)."""
+    b, dm, n, e = shape.global_batch, cfg.d_model, cfg.n_layers, \
+        cfg.moe.n_experts
+    local = b // d * dm * 4
+    moe = d * e * 4 + (2 * e + 1) * 4 + 2 * local
+    return {"all-reduce": (1 + 5 * n, local + n * (local + moe))}
 
 
 def hand_count_xlstm_decode(cfg, shape, d: int) -> tuple:

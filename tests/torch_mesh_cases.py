@@ -159,11 +159,18 @@ MOE_VARIANTS = {"qwen2-moe-a2.7b:groups": ({"d_expert": 256},
                 "gemma2-2b:dp2d": ({}, {"attn_shard": "dp2d"}),
                 "llava-next-34b:seq2d_fsdp": ({}, {"attn_shard":
                                                    "seq2d_fsdp"}),
-                # the hybrid and audio token splits
-                # (tests/torch_split_cases.py)
+                # the hybrid, audio and MoE token splits
+                # (tests/torch_split_cases.py, torch_split_moe_cases.py)
                 **{f"{arch}:{mode}": ({}, {"attn_shard": mode})
-                   for arch in ("recurrentgemma-2b", "musicgen-large")
-                   for mode in ("seq2d", "dp2d", "seq2d_fsdp")}}
+                   for arch in ("recurrentgemma-2b", "musicgen-large",
+                                "qwen2-moe-a2.7b", "kimi-k2-1t-a32b")
+                   for mode in ("seq2d", "dp2d", "seq2d_fsdp")},
+                # a capacity factor at which rank 1 of a seq2d split drops
+                # pairs that a routing of its own rows would keep
+                # (torch_split_moe_cases.DROP)
+                "qwen2-moe-a2.7b:drop": ({"capacity_factor": 1.0}, {}),
+                "qwen2-moe-a2.7b:drop-seq2d": ({"capacity_factor": 1.0},
+                                               {"attn_shard": "seq2d"})}
 # the train step of each MoE case by mesh: (result key, mesh, arch)
 TP_MOE_TRAIN = {2: (("moe train", "(1, 2)", TP_MOE),
                     ("moe ffn train", "(1, 2)", "qwen2-moe-a2.7b:ffn"),
@@ -411,11 +418,11 @@ def decode_case(on, arch: str, batch: int, prompt: int,
     """Prefill then ``TP_DECODE_STEPS`` teacher-forced serve steps with the
     exit head under a ``MeshPolicy`` over ``on``: the prefill's logits and
     cache, each step's logits, exit logits and cache whole
-    (``full_tensor``), the logits' placements and the steps' MoE routing
-    (:func:`routed`) and the placements the reference's constrain gives
-    the logits; and apart (they differ by rank) the rows this rank wrote
-    at each step (:func:`_written_rows`) and its shards of the recurrent
-    states (:func:`_state_slices`).  Given a list ``collectives``, the
+    (``full_tensor``), the logits' placements and the placements the
+    reference's constrain gives the logits; and apart (they differ by
+    rank) the rows this rank wrote at each step (:func:`_written_rows`),
+    its shards of the recurrent states (:func:`_state_slices`) and the
+    steps' MoE routing (:func:`routed`).  Given a list ``collectives``, the
     names of the collectives the prefill and the serve steps issue (not
     the reads of their results) are added to it."""
     from repro_torch.launch import sharding, steps
@@ -452,14 +459,72 @@ def decode_case(on, arch: str, batch: int, prompt: int,
             out["cache"].append(_full(cache))
         return ([str(logits.placements), str(exit_logits.placements)],
                 tuple(logits.shape))
-    # an MoE decode step routes the whole batch as one group (gathered over
-    # data), so every rank routes the same tokens: its slots are kept
-    (out["placements"], shape), out["slots"] = routed(decode)
+    # an MoE decode step routes the whole batch as one group; where the
+    # batch is sharded each rank routes its own rows (with the queue
+    # offsets of the ranks before it), so the routings are kept apart,
+    # beside the unsharded run's (:func:`rank_routing`)
+    (out["placements"], shape), routing = rank_routing(decode)
     # the placements the reference's ("batch", "seq", "vocab") constrain
     # resolves to on a serve step's logits
     out["want_placements"] = str(tuple(sharding.to_placements(policy.spec(
         shape, ("batch", "seq", "vocab")), on)))
-    return out, {"rows": written, "states": states}
+    apart = {"rows": written, "states": states, "routing": routing}
+    if routing:
+        apart["unsharded routing"] = unsharded_decode_routing(
+            arch, batch, prompt, cache_len)
+    return out, apart
+
+
+def rank_routing(fn):
+    """``fn()`` with ``mlp._route`` recording, for each routing call, the
+    experts each of this rank's tokens chose, their slots (``e * C +
+    slot``, ``E_pad * C`` if dropped), ``(E_pad, C)`` and ``start``, the rank's
+    first token in its group (its place among the group's ranks times its
+    token count: the ranks' parts are equal here; 0 where it routes the
+    whole group).  Returns ``(fn(), calls)``."""
+    from repro_torch.models import mlp
+    route, calls = mlp._route, []
+
+    def record(logits, moe, capacity, e_pad=0, group=None):
+        r = route(logits, moe, capacity, e_pad, group)
+        start = group.place() * logits.shape[1] if group is not None \
+            and group.dims else 0
+        calls.append({"experts": r.token_expert.clone(),
+                      "slot": r.token_slot.clone(),
+                      "buffer": tuple(r.slot_idx.shape[1:]),
+                      "start": start})
+        return r
+    mlp._route = record
+    try:
+        return fn(), calls
+    finally:
+        mlp._route = route
+
+
+_UNSHARDED_ROUTING = {}
+
+
+def unsharded_decode_routing(arch: str, batch: int, prompt: int,
+                             cache_len: int) -> list:
+    """:func:`rank_routing` of the serve steps of :func:`decode_case` run
+    unsharded (no policy, plain tensors), once a case in a process."""
+    case = (arch, batch, prompt, cache_len)
+    if case not in _UNSHARDED_ROUTING:
+        cfg = tp_config(arch)
+        params = tp_params(arch)
+        prompt_batch, forced = tp_decode_inputs(arch, batch, prompt)
+        _, cache = steps.make_prefill_step(cfg, cache_len=cache_len)(
+            params, {k: torch.as_tensor(v) for k, v in prompt_batch.items()})
+        serve = steps.make_serve_step(cfg, with_exit_head=True)
+        pos = first_position(arch, prompt)
+
+        def decode():
+            c = cache
+            for i in range(TP_DECODE_STEPS):
+                _, c, _ = serve(params, c, {"tokens": torch.as_tensor(
+                    forced[i])}, pos + i)
+        _UNSHARDED_ROUTING[case] = rank_routing(decode)[1]
+    return _UNSHARDED_ROUTING[case]
 
 
 def routed(fn):
@@ -559,8 +624,8 @@ def refusals(mesh) -> dict:
     cfg = tp_config(TP_TRAIN)
     out = {}
     # the token splits of the configs whose blocks do not run on a rank's
-    # rows (MoE, xLSTM), and of those that do since the hybrid and audio
-    # slice (RG-LRU, codebooks)
+    # rows (xLSTM), and of those that do since the hybrid and audio slice
+    # (RG-LRU, codebooks) and the MoE slice (queue positions across ranks)
     for arch in ("recurrentgemma-2b", "qwen2-moe-a2.7b", "xlstm-1.3b",
                  "musicgen-large"):
         seq2d = tp_config(arch).with_overrides(attn_shard="seq2d")

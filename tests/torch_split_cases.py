@@ -125,15 +125,17 @@ def _meshes(world: int) -> dict:
 
 
 def split_refusals(mesh) -> dict:
-    """The token splits still out of scope (arch types ``moe`` and
-    ``ssm``: ROADMAP.md §1 item 18), each with its message."""
+    """The token splits of the ``moe`` and ``ssm`` arch types: whether
+    the policy splits the tokens (the MoE configs', lifted), or what it
+    raises (the xLSTM configs', still out of scope: ROADMAP.md §1 item
+    18)."""
     from repro_torch.launch import sharding
     out = {}
     for arch in ("qwen2-moe-a2.7b", "xlstm-1.3b"):
         for mode in SPLIT_MODES:
             cfg = cases.tp_config(arch).with_overrides(attn_shard=mode)
             out[f"{mode} {arch}"] = cases._raises(
-                lambda c=cfg: sharding.MeshPolicy(mesh, c))
+                lambda c=cfg: sharding.MeshPolicy(mesh, c).token_split)
     return out
 
 
