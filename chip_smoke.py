@@ -4894,7 +4894,7 @@ TP_FLASH_CASES = (("minitron-8b, a rank's heads", 1, 4096, 16, 4, 128, 0,
 # the part of phase 20 whose path hands K5 each of those shapes
 TP_FLASH_PARTS = ("dense", "moe", "moe", "xlstm_codebooks")
 TP_PARTS = ("dense", "moe", "xlstm_codebooks", "seq2d", "hybrid_audio",
-            "moe_split")
+            "moe_split", "ssm_split")
 TP_GATED_CASES = ((4, 4096, 1280, "bfloat16", False, True),)
 # phase 20(f), (g): the MoE configs over the (1, 2) mesh, each (part, arch,
 #  batch, prompt, new tokens, launches of one sharded prefill on each rank:
@@ -4935,6 +4935,21 @@ TP_MOE_SPLIT_NARROW = tuple(
      {"capacity_factor": 1.0} if arch == "qwen2-moe-a2.7b" else {})
     for arch in ("qwen2-moe-a2.7b", "kimi-k2-1t-a32b")
     for mode in ("seq2d", "dp2d", "seq2d_fsdp"))
+# phase 20(u): xlstm-1.3b at published widths, depth TP_DEPTH (one period
+#  of 7 mLSTM and 1 sLSTM), under seq2d over the (1, 2) mesh: batch 1,
+#  prompt 4096, each rank prefilling its 2048 rows (two mLSTM chunks of
+#  1024), the mLSTM's conv halo and (C, n, m) state and the sLSTM's
+#  (c, n, h, m) state chained from rank 0 to rank 1; then 7 serve steps
+#  with the exit head on the cache cache_specs splits
+TP_SSM_RUNS = (("u", "xlstm-1.3b", "seq2d", 1, 4096, 8),)
+# phase 20(v): reduced xlstm-1.3b (f32, mlstm_chunk 8: a rank's rows are
+#  whole chunks) under seq2d, dp2d and seq2d_fsdp, card against CPU as
+#  (p), its sLSTM output kept in f32 (_f32_slstm_out): the train step,
+#  under seq2d and dp2d the f32, int8 and tree rounds, a prefill of 64
+#  positions (32 rows a rank under seq2d) and 6 serve steps
+TP_SSM_NARROW = tuple(("xlstm-1.3b", mode, ("f32", "int8", "tree")
+                       if mode != "seq2d_fsdp" else (), 64)
+                      for mode in ("seq2d", "dp2d", "seq2d_fsdp"))
 # phase 20(t): decode's routing group and kimi-k2's 2-D experts over the
 #  data axis, the two ranks as a (2, 1) mesh, card against CPU: reduced
 #  qwen2-moe's prefill (batch 2, 64 positions) and 6 serve steps (its
@@ -4984,6 +4999,53 @@ def _tp_zero(ops, fa, scan) -> None:
     fa.launches_tc = fa.launches = scan.lru_scan_gated.launches = 0
     fa.launches_tc_rows = fa.launches_rows = 0
     scan.lru_scan_gated.launches_carry = 0
+
+
+def _xlstm_layers(cfg) -> int:
+    mixers = [cfg.layer_spec(i).mixer for i in range(cfg.n_layers)]
+    return mixers.count("mlstm") + mixers.count("slstm")
+
+
+@contextlib.contextmanager
+def _chain_clock(torch):
+    """Time the xLSTM mixers of a token split's run on this rank: each
+    mixer call on a rank's rows (``xlstm._mlstm_split`` /
+    ``_slstm_split``: the halo, the chain's hops and the waits for the
+    ranks before and after) and the rank's own scan in it
+    (``mlstm_chunked`` / ``slstm_block``), the card synchronised around
+    each.  Yields ``{kind: {"layer_ms", "own_scan_ms", "layers"}}``, the
+    means over the run's calls, filled when the block ends."""
+    from repro_torch.models import xlstm
+    names = {"mlstm": ("_mlstm_split", "mlstm_chunked"),
+             "slstm": ("_slstm_split", "slstm_block")}
+    saved = {n: getattr(xlstm, n) for pair in names.values() for n in pair}
+    times = {n: [] for n in saved}
+
+    def timed(name):
+        fn = saved[name]
+
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t)
+            return out
+        return run
+    out = {}
+    for name in saved:
+        setattr(xlstm, name, timed(name))
+    try:
+        yield out
+    finally:
+        for name, fn in saved.items():
+            setattr(xlstm, name, fn)
+    for kind, (layer, scan) in names.items():
+        if times[layer]:
+            out[kind] = {
+                "layer_ms": sum(times[layer]) / len(times[layer]) * 1e3,
+                "own_scan_ms": sum(times[scan]) / len(times[layer]) * 1e3,
+                "layers": len(times[layer])}
 
 
 def _mixer_counts(cfg) -> tuple:
@@ -6186,7 +6248,7 @@ def tp_split_serving(torch, rank: int, mesh,
 
     rows = []
     for part, arch, mode, batch, prompt, gen in runs:
-        cfg = configs.get_config(arch).with_overrides(attn_shard=mode)
+        cfg = _tp_config(arch, attn_shard=mode)
         policy = sharding.MeshPolicy(mesh, cfg)
         cache_len = prompt + gen
         full = tokens = None
@@ -6261,6 +6323,7 @@ def tp_split_serving(torch, rank: int, mesh,
                 for j in range(0, prompt, 1024))
         peak = torch.cuda.max_memory_allocated() / 2**30
         row = {"part": part, "arch": arch, "mode": mode,
+               "n_layers": cfg.n_layers,
                "batch": batch, "prompt": prompt, "prefill_s": wall,
                "max_abs_diff": d, "max_abs_logit": amax,
                "logits_local": list(local.shape), "peak_gib": peak,
@@ -6271,6 +6334,16 @@ def tp_split_serving(torch, rank: int, mesh,
         del logits, local, want
         gc.collect()
         torch.cuda.empty_cache()
+        if mode == "seq2d" and _xlstm_layers(cfg):
+            # once more, each xLSTM layer and its own scan timed
+            with _chain_clock(torch) as clock:
+                prefill(params, {"tokens": tokens})
+            row["chain_ms_per_layer"] = clock
+            print(f"  ({part}) rank {rank}: the chain a layer, ms (mixer "
+                  f"on this rank's rows, waits included; this rank's own "
+                  f"scan): {json.dumps(clock)}", flush=True)
+            gc.collect()
+            torch.cuda.empty_cache()
         row["held_gib"] = torch.cuda.memory_allocated() / 2**30
         torch.cuda.reset_peak_memory_stats()
         counter = torch_walk.Collectives()
@@ -6382,50 +6455,54 @@ def tp_split_card_vs_cpu(torch, rank: int, meshes: dict,
                 2, n_extra, cfg.frontend.d_in)).astype(np.float32))}
         simple = torch.tensor([True, False])
         sides = {}
+        # xlstm's sLSTM output kept in f32 (every step held at f32 rules)
+        f32_out = _f32_slstm_out if cfg.arch_type == "ssm" else \
+            contextlib.nullcontext
         for dev in ("cuda", "cpu"):
             mesh = meshes[dev]
             policy = sharding.MeshPolicy(mesh, cfg)
             ex = {k: v.to(dev) for k, v in extra.items()}
-            _tp_zero(ops, fa, scan)
-            fa.launches_tc_rows = fa.launches_rows = 0
-            got = {}
-            with _boundary_drops() as dropped:
-                new, metrics = steps.make_train_step(cfg, policy)(
-                    sharding.distribute_params(tree_map(
-                        lambda x: x.to(dev), params), cfg, mesh),
-                    {"tokens": tokens.to(dev), **ex})
-            if dev == "cuda" and dropped:
-                drops[f"{arch} {mode}"] = dropped
-            got["train"] = ([x.to_local().cpu() for x in tree_leaves(new)],
-                            metrics["loss"].cpu())
-            for name in run_engines:
-                stacked = tree_map(lambda x: x.to(dev)[None].expand(
-                    (2,) + x.shape), params)
-                try:
-                    cohort = sharding.distribute_cohort(stacked, cfg, mesh)
-                except ValueError as e:
-                    if mode != "seq2d_fsdp":
-                        raise
-                    refused = str(e)
-                    break
-                new_c, loss = steps.make_fed_round_step(
-                    cfg, policy, local_steps=2, engine=engines[name])(
-                        cohort, data.to(dev), simple.to(dev))
-                got[name] = ([x.to_local().cpu() for x in
-                              tree_leaves(new_c)], loss.cpu())
-            placed = sharding.distribute_params(tree_map(
-                lambda x: x.to(dev), params), cfg, mesh)
-            logits, cache = steps.make_prefill_step(
-                cfg, policy, cache_len=positions + 6)(
-                    placed, {"tokens": prompt.to(dev), **ex})
-            serve = steps.make_serve_step(cfg, policy, with_exit_head=True)
-            heads = [logits.to_local().cpu()]
-            for i in range(6):
-                lg, cache, ex_lg = serve(placed, cache, {
-                    "tokens": forced[i].to(dev)}, positions + i)
-                heads += [lg.to_local().cpu(), ex_lg.to_local().cpu()]
-            got["serve"] = (heads, [x.to_local().cpu()
-                                    for x in tree_leaves(cache)])
+            with f32_out():
+                _tp_zero(ops, fa, scan)
+                fa.launches_tc_rows = fa.launches_rows = 0
+                got = {}
+                with _boundary_drops() as dropped:
+                    new, metrics = steps.make_train_step(cfg, policy)(
+                        sharding.distribute_params(tree_map(
+                            lambda x: x.to(dev), params), cfg, mesh),
+                        {"tokens": tokens.to(dev), **ex})
+                if dev == "cuda" and dropped:
+                    drops[f"{arch} {mode}"] = dropped
+                got["train"] = ([x.to_local().cpu() for x in tree_leaves(new)],
+                                metrics["loss"].cpu())
+                for name in run_engines:
+                    stacked = tree_map(lambda x: x.to(dev)[None].expand(
+                        (2,) + x.shape), params)
+                    try:
+                        cohort = sharding.distribute_cohort(stacked, cfg, mesh)
+                    except ValueError as e:
+                        if mode != "seq2d_fsdp":
+                            raise
+                        refused = str(e)
+                        break
+                    new_c, loss = steps.make_fed_round_step(
+                        cfg, policy, local_steps=2, engine=engines[name])(
+                            cohort, data.to(dev), simple.to(dev))
+                    got[name] = ([x.to_local().cpu() for x in
+                                  tree_leaves(new_c)], loss.cpu())
+                placed = sharding.distribute_params(tree_map(
+                    lambda x: x.to(dev), params), cfg, mesh)
+                logits, cache = steps.make_prefill_step(
+                    cfg, policy, cache_len=positions + 6)(
+                        placed, {"tokens": prompt.to(dev), **ex})
+                serve = steps.make_serve_step(cfg, policy, with_exit_head=True)
+                heads = [logits.to_local().cpu()]
+                for i in range(6):
+                    lg, cache, ex_lg = serve(placed, cache, {
+                        "tokens": forced[i].to(dev)}, positions + i)
+                    heads += [lg.to_local().cpu(), ex_lg.to_local().cpu()]
+                got["serve"] = (heads, [x.to_local().cpu()
+                                        for x in tree_leaves(cache)])
             if dev == "cuda":
                 torch.cuda.synchronize()
                 launched[f"{arch} {mode}"] = (
@@ -6717,7 +6794,8 @@ def tp_rank(rank: int, world: int, store: str, work: str,
     FileStore, the (1, 2) meshes on the card and on the CPU, then (a)-(e)
     (``"dense"`` in ``parts``), (f)-(h) (``"moe"``), (i)-(k)
     (``"xlstm_codebooks"``), (l)-(n) (``"seq2d"``), (o)-(q)
-    (``"hybrid_audio"``) and (r)-(t) (``"moe_split"``); writes
+    (``"hybrid_audio"``), (r)-(t) (``"moe_split"``) and (u)-(v)
+    (``"ssm_split"``); writes
     ``rank<r>.pt`` (or the traceback to ``rank<r>.err``, and raises)."""
     import faulthandler
     import torch
@@ -6762,6 +6840,10 @@ def tp_rank(rank: int, world: int, store: str, work: str,
             cell("moe_split_narrow", tp_split_card_vs_cpu, meshes,
                  TP_MOE_SPLIT_NARROW, "s")
             cell("moe_group", tp_moe_group_card_vs_cpu)
+        if "ssm_split" in parts:
+            cell("ssm", tp_split_serving, cuda, TP_SSM_RUNS)
+            cell("ssm_narrow", tp_split_card_vs_cpu, meshes, TP_SSM_NARROW,
+                 "v")
         print(f"  phase 20 rank {rank}: each cell's seconds "
               f"{ {k: round(v, 1) for k, v in out['seconds'].items()} }",
               flush=True)
@@ -6803,8 +6885,8 @@ def tp_phase(torch, ops, ref, bw: float, unsharded,
     """Phase 20: the model axis on the card.  Phase 18(a)'s unsharded
     rounds are saved for the ranks, the card's memory is released, two
     rank processes run (a)-(e), the MoE cells (f)-(h), the xLSTM and
-    codebook cells (i)-(k), the token splits (l)-(q) and the MoE token
-    splits (r)-(t) (:func:`tp_rank`;
+    codebook cells (i)-(k), the token splits (l)-(q), the MoE token
+    splits (r)-(t) and the xLSTM token splits (u)-(v) (:func:`tp_rank`;
     each raises on a failed check, and a rank's failure fails the phase),
     then K1 and K2 at the rank's local n_flat, K5 at a rank's heads and on
     a rank's query rows (:func:`check_flash_rows`) and K6's gated entry at
@@ -6880,7 +6962,7 @@ def tp_phase(torch, ops, ref, bw: float, unsharded,
 
     def split_narrow(r):
         return [c for key in ("split_narrow", "hybrid_narrow",
-                              "moe_split_narrow")
+                              "moe_split_narrow", "ssm_narrow")
                 for c in r.get(key, {}).get("launches", {}).values()]
 
     def narrow(r, i):
@@ -6890,7 +6972,7 @@ def tp_phase(torch, ops, ref, bw: float, unsharded,
 
     def split(r):
         return r.get("split", []) + r.get("hybrid", []) + r.get(
-            "moe_split", [])
+            "moe_split", []) + r.get("ssm", [])
 
     def rows(r, i):
         return sum(p["launches_rows"][i] for p in split(r)) + sum(
@@ -6931,9 +7013,10 @@ def tp_phase_alone(torch, ops, ref, bw: float,
     phase 19 runs them when alone), then :func:`tp_phase`; with ``parts``
     ``("moe",)`` the MoE cells (f)-(h) alone, with
     ``("xlstm_codebooks",)`` the cells (i)-(k) alone, with ``("seq2d",)``
-    the token splits (l)-(n) and K5 on a rank's query rows alone, and with
+    the token splits (l)-(n) and K5 on a rank's query rows alone, with
     ``("moe_split",)`` the MoE token splits (r)-(t) and K5 on a rank's
-    query rows alone, without those rounds."""
+    query rows alone, and with ``("ssm_split",)`` the xLSTM token splits
+    (u)-(v) alone, without those rounds."""
     if "dense" not in parts:
         return tp_phase(torch, ops, ref, bw, None, parts)
     from repro_torch import configs
@@ -6956,6 +7039,30 @@ def tp_phase_alone(torch, ops, ref, bw: float,
     return tp_phase(torch, ops, ref, bw, unsharded)
 
 
+class PhaseClock:
+    """The smoke's phase headers with their times: :meth:`start` prints a
+    phase's ``[N] title`` header with the smoke's seconds so far, after
+    the line that closes the phase before (its seconds); ``seconds``
+    keeps each phase's, so a run that stretches shows which phase did."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.current, self.seconds = None, {}
+
+    def stop(self) -> None:
+        if self.current is not None:
+            n, t = self.current
+            self.seconds[n] = round(time.perf_counter() - t, 1)
+            print(f"  [{n}] {self.seconds[n]:.1f} s", flush=True)
+            self.current = None
+
+    def start(self, header: str) -> None:
+        self.stop()
+        now = time.perf_counter()
+        print(f"{header} (at {now - self.t0:.1f} s)", flush=True)
+        self.current = (header[1:header.index("]")], now)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6967,6 +7074,7 @@ def main() -> int:
     from repro_torch.kernels.masked_agg import ops, ref
 
     resolve_device("cuda")          # TF32 off, as on every entry point
+    clock = PhaseClock()
     # 1. card report
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6974,13 +7082,13 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     name_of_card = torch.cuda.get_device_name(0)
     bw, part = memory_rate(name_of_card)
-    print("[1] card", flush=True)
+    clock.start("[1] card")
     print(smi, flush=True)
     print(f"  torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{name_of_card}; bounds at {part} HBM {bw / 1e12:.2f} TB/s",
           flush=True)
     # 2. build
-    print("[2] build", flush=True)
+    clock.start("[2] build")
     t = time.perf_counter()
     res = build.build()
     print(f"  {res.path.name} in {res.seconds:.1f} s", flush=True)
@@ -6989,43 +7097,42 @@ def main() -> int:
             print("  " + ln.strip(), flush=True)
     print(f"  build total {time.perf_counter() - t:.1f} s", flush=True)
     # 3. the kernels against their plain versions
-    print("[3] kernels vs plain PyTorch on the card", flush=True)
+    clock.start("[3] kernels vs plain PyTorch on the card")
     k1 = check_masked_agg(torch, ops, ref, bw)
     mask = main_path_layout(torch)[1]
     k2 = check_deq(torch, ops, ref, bw, mask)
     k3 = check_scatter(torch, ops, ref, bw, mask)
     k4 = check_tree_fold(torch, ops, ref, bw)
     # 4. main path
-    print("[4] main path: full-width PreActResNet18-GN rounds", flush=True)
+    clock.start("[4] main path: full-width PreActResNet18-GN rounds")
     path = main_path(torch, ops)
     # 5. card vs CPU
-    print("[5] card vs CPU", flush=True)
+    clock.start("[5] card vs CPU")
     card_vs_cpu(torch)
     # 6. the serving kernels
-    print("[6] serving kernels vs plain PyTorch on the card", flush=True)
+    clock.start("[6] serving kernels vs plain PyTorch on the card")
     k5 = check_flash(torch, bw)
     k6 = check_scan(torch, bw)
     # 7. full-width serving
-    print("[7] full-width serving: recurrentgemma-2b and gemma2-2b",
-          flush=True)
+    clock.start("[7] full-width serving: recurrentgemma-2b and gemma2-2b")
     serve_path = serving(torch)
     # 8. narrow serving, card vs CPU, decode vs prefill
-    print("[8] narrow serving: card vs CPU, decode vs prefill", flush=True)
+    clock.start("[8] narrow serving: card vs CPU, decode vs prefill")
     narrow = serving_card_vs_cpu(torch)
     xlstm_serving_card_vs_cpu(torch)
     torch.cuda.empty_cache()
     # 9. the full-width LM round cell
-    print("[9] LM round cell: Gemma-2 2B federated training at full width",
-          flush=True)
+    clock.start("[9] LM round cell: Gemma-2 2B federated training at full "
+                "width")
     lm = lm_cell(torch, ops, ref, bw)
     # 10. narrow LM rounds, card vs CPU
-    print("[10] narrow LM rounds: card vs CPU", flush=True)
+    clock.start("[10] narrow LM rounds: card vs CPU")
     lm_card_vs_cpu(torch)
     xlstm_round_card_vs_cpu(torch)
     torch.cuda.empty_cache()
     # 11. async rounds
-    print("[11] async rounds: the ResNet and LM cells, narrow card vs CPU",
-          flush=True)
+    clock.start("[11] async rounds: the ResNet and LM cells, narrow card vs "
+                "CPU")
     async_launches, resnet_tr, resnet_shards = async_resnet(torch, ops)
     lm_k1, lm_tr, _ = async_lm(torch, ops)
     async_launches = (async_launches[0] + lm_k1,) + async_launches[1:]
@@ -7034,8 +7141,8 @@ def main() -> int:
                            f"{async_launches}: a kernel never ran")
     async_card_vs_cpu(torch)
     # 12. checkpoints
-    print("[12] checkpoints: the LM and ResNet cells, narrow resume, "
-          "serving from a checkpoint", flush=True)
+    clock.start("[12] checkpoints: the LM and ResNet cells, narrow resume, "
+                "serving from a checkpoint")
     checkpoint_lm(torch, lm_tr)
     del lm_tr
     torch.cuda.empty_cache()
@@ -7045,60 +7152,60 @@ def main() -> int:
     serve_launches = serve_checkpoint(torch)
     torch.cuda.empty_cache()
     # 13. telemetry
-    print("[13] telemetry: determinism, null sink, run logs, Gemma-2 2B "
-          "trained and served, overhead", flush=True)
+    clock.start("[13] telemetry: determinism, null sink, run logs, Gemma-2 "
+                "2B trained and served, overhead")
     tel_launches, tel_k5, _ = telemetry_phase(torch, ops)
     gc.collect()
     torch.cuda.empty_cache()
     # 14. full-width serving of the dense configs
-    print("[14] full-width serving: gemma3-4b, minitron-8b, starcoder2-15b",
-          flush=True)
+    clock.start("[14] full-width serving: gemma3-4b, minitron-8b, "
+                "starcoder2-15b")
     dense_path = serving(torch, DENSE_SERVE_RUNS)
     torch.cuda.empty_cache()
     # 15. full-width serving of the MoE configs
-    print("[15] full-width serving: qwen2-moe-a2.7b, kimi-k2-1t-a32b at "
-          "published widths (depth 1)", flush=True)
+    clock.start("[15] full-width serving: qwen2-moe-a2.7b, kimi-k2-1t-a32b "
+                "at published widths (depth 1)")
     moe_path = serving(torch, MOE_SERVE_RUNS)
     del moe_path["runs"]
     gc.collect()
     torch.cuda.empty_cache()
     # 16. xLSTM at full width
-    print("[16] xlstm-1.3b at full width: served whole, one fedhen round",
-          flush=True)
+    clock.start("[16] xlstm-1.3b at full width: served whole, one fedhen "
+                "round")
     xl = xlstm_phase(torch, ops, ref, bw)
     gc.collect()
     torch.cuda.empty_cache()
     # 17. llava-next-34b and musicgen-large
-    print("[17] llava-next-34b and musicgen-large at full width: served "
-          "whole, musicgen-large trained; narrow card vs CPU", flush=True)
+    clock.start("[17] llava-next-34b and musicgen-large at full width: "
+                "served whole, musicgen-large trained; narrow card vs CPU")
     zoo = zoo_phase(torch, ops, ref, bw)
     gc.collect()
     torch.cuda.empty_cache()
     # 18. the launch-side step functions, gemma3-4b trained, the quickstart
-    print("[18] launch-side steps: Gemma-2 2B step rounds at full width, "
-          "narrow steps card vs CPU, make_engine, gemma3-4b trained at full "
-          "width, the quickstart", flush=True)
+    clock.start("[18] launch-side steps: Gemma-2 2B step rounds at full "
+                "width, narrow steps card vs CPU, make_engine, gemma3-4b "
+                "trained at full width, the quickstart")
     st = steps_phase(torch, ops, ref, bw)
     unsharded = st["round"].pop("results")
     gc.collect()
     torch.cuda.empty_cache()
     # 19. the cohort-sharded round, chunk2d attention, the roofline ledger
-    print("[19] cohort-sharded step rounds over torch.distributed (NCCL and "
-          "gloo, world size 1), chunk2d attention, the roofline ledger",
-          flush=True)
+    clock.start("[19] cohort-sharded step rounds over torch.distributed "
+                "(NCCL and gloo, world size 1), chunk2d attention, the "
+                "roofline ledger")
     sh = sharded_phase(torch, ops, unsharded)
     gc.collect()
     torch.cuda.empty_cache()
     # 20. a live model axis: two ranks share the card over gloo
-    print("[20] a live model axis: Gemma-2 2B's step rounds, minitron-8b, "
-          "recurrentgemma-2b, gemma2-2b, qwen2-moe-a2.7b, kimi-k2 (1 "
-          "layer), xlstm-1.3b and musicgen-large prefilled and served on "
-          "sharded caches at full width, gemma2-2b under seq2d and dp2d, "
-          "recurrentgemma-2b under seq2d, two ranks sharing the card (gloo, "
-          "a (1, 2) mesh); narrow card vs CPU (dense, MoE, xLSTM and "
-          "codebooks, the token splits of the dense, VLM, hybrid and audio "
-          "configs); the narrow rounds over a (2, 1, 1) pod mesh",
-          flush=True)
+    clock.start("[20] a live model axis: Gemma-2 2B's step rounds, "
+                "minitron-8b, recurrentgemma-2b, gemma2-2b, qwen2-moe-a2.7b, "
+                "kimi-k2 (1 layer), xlstm-1.3b and musicgen-large prefilled "
+                "and served on sharded caches at full width, gemma2-2b under "
+                "seq2d and dp2d, recurrentgemma-2b, qwen2-moe-a2.7b and "
+                "xlstm-1.3b under seq2d, two ranks sharing the card (gloo, a "
+                "(1, 2) mesh); narrow card vs CPU (dense, MoE, xLSTM and "
+                "codebooks, the token splits of every arch type); the narrow "
+                "rounds over a (2, 1, 1) pod mesh")
     tp = tp_phase(torch, ops, ref, bw, unsharded)
     del unsharded
 
@@ -7396,6 +7503,8 @@ def main() -> int:
         "replaces: rglru._gates, y0 folded in, K6's plain entry, the cast "
         "and the f32 last row", "shape": carry["shape"],
         "bound_share": carry["bound_share"]})
+    clock.stop()
+    print(f"phase seconds {json.dumps(clock.seconds)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name_of_card,

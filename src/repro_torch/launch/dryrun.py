@@ -13,12 +13,12 @@ every op and every kernel wrapper's reported work), and
 ``roofline/analysis.make_record`` over the result, with the H100's
 constants.  Nothing is allocated and no card is needed.
 
-**Over the model axis.**  A train, prefill or decode step of a config
-that runs over a live model axis (``sharding.out_of_scope`` is ``None``)
-is walked as one rank of the mesh: a fake process group of the mesh's
-size (``torch.testing._internal.distributed.fake_pg``, rank 0; no rank
-runs and no byte moves), a ``DeviceMesh`` over it, the parameters, the
-batch and (decode) the cache as ``meta`` DTensors
+**Over the model axis.**  A train, prefill or decode step on a mesh whose
+model axis is larger than 1 (every config runs there) is walked as one
+rank of the mesh: a fake process group of the mesh's size
+(``torch.testing._internal.distributed.fake_pg``, rank 0; no rank runs
+and no byte moves), a ``DeviceMesh`` over it, the parameters, the batch
+and (decode) the cache as ``meta`` DTensors
 (``sharding.distribute_params``, ``batch_specs``, ``distribute_cache``),
 the step under a ``MeshPolicy`` of that live mesh; a serve step decodes
 position ``seq_len - 1``, as the whole-step walk does.  The walk then
@@ -28,15 +28,13 @@ counts rank 0's own work and every collective it takes part in
 (``analysis.collective_bytes``), and ``bottleneck`` includes the
 collective term.
 
-Other combinations (the configs that raise over a model axis, a mesh
-whose model axis is 1) differ from the reference's compiled dry-run in
-three parts, and the record says so (``notes``): ``flops_per_chip`` is
-the walk's global count split evenly over the chips;
-``coll_bytes_per_chip`` is ``None`` (the port issues no collective
-there), so ``bottleneck`` is over compute and memory;
-``peak_memory_per_chip`` is params + cache + batch bytes per chip (in both
-kinds of record).  ``t_walk_s`` is the host time of the meta
-run.
+Other combinations (a mesh whose model axis is 1) differ from the
+reference's compiled dry-run in three parts, and the record says so
+(``notes``): ``flops_per_chip`` is the walk's global count split evenly
+over the chips; ``coll_bytes_per_chip`` is ``None`` (the port issues no
+collective there), so ``bottleneck`` is over compute and memory;
+``peak_memory_per_chip`` is params + cache + batch bytes per chip (in
+both kinds of record).  ``t_walk_s`` is the host time of the meta run.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma2-2b \
@@ -94,7 +92,7 @@ def fake_mesh(mesh: MeshShape):
 def walks_per_chip(cfg: ModelConfig, shape: InputShape, mesh) -> bool:
     """Whether :func:`lower_one` walks this combination as one rank of a
     live mesh (module docstring)."""
-    return model_axis_size(mesh) > 1 and sharding.out_of_scope(cfg) is None
+    return model_axis_size(mesh) > 1
 
 
 def _walk_per_chip(cfg, shape, mesh, in_specs, cache, window_override):

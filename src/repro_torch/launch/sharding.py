@@ -49,8 +49,9 @@ on them: plain PyTorch ops under DTensor's sharding propagation, every
 hand-written kernel and the MoE block's routing, dispatch and combine on
 each rank's local shards through ``local_map``
 (``models/common.local_apply``); the xLSTM blocks, whose weights stay
-replicated, run whole on each rank's rows, and a codebook stack's
-embedding and heads are vocab-parallel.
+replicated, run whole on each rank's rows of the batch (on each rank's
+positions under a token split: below), and a codebook stack's embedding
+and heads are vocab-parallel.
 
 **A live pod axis.**  A ``("pod", "data", "model")`` mesh
 (``mesh.make_device_mesh(..., n_pod=...)``) shards what the reference
@@ -60,24 +61,25 @@ over the pod x data group (:meth:`MeshPolicy.data_group`).  Where the
 reference names ``data`` alone (``seq2d_fsdp``'s ZeRO dim, kimi-k2's 2-D
 experts) the port does too.
 
-**Token splits** (``seq2d``, ``dp2d``, ``seq2d_fsdp``; arch types
-``dense``, ``vlm``, ``hybrid``, ``audio`` and ``moe``).  The hidden state is a
-DTensor split over the sequence (``seq``) or the batch (``dp2d``'s
-``("data", "model")``), and each block runs whole on each rank's tokens in
-one ``local_map`` (``models/transformer._split_block``,
-:class:`common.TokenSplit`): k and v gathered along the sequence, K5
-(prefill) or ``chunk2d_attention`` (training) on the rank's query rows at
-their positions; the RG-LRU's conv halo and its scan's f32 carry from the
-ranks before (``models/rglru.py``); ``seq2d_fsdp``'s data-sharded weights
-gathered at their use (:meth:`MeshPolicy.gather_weights`).  Every
-redistribution of a token split goes through ``common.redistribute_by_sum``
-(all-reduces only, forward and backward).  An MoE block routes each
-rank's part of a sequence with the queue offsets of the ranks before it
-and the whole sequence's capacity (``models/mlp.RoutingGroup``).  The
-``ssm`` arch type raises there (:func:`out_of_scope`, ``ROADMAP.md`` §1
-item 18): nothing replicates silently.  The serve step reads the cache as
-:func:`cache_specs` places it, ``kv_seq`` rows and ``rnn`` channels
-included, and never replicates a sharded cache.
+**Token splits** (``seq2d``, ``dp2d``, ``seq2d_fsdp``; every arch type).
+The hidden state is a DTensor split over the sequence (``seq``) or the
+batch (``dp2d``'s ``("data", "model")``), and each block runs whole on
+each rank's tokens in one ``local_map`` (``models/transformer.
+_split_block``, :class:`common.TokenSplit`): k and v gathered along the
+sequence, K5 (prefill) or ``chunk2d_attention`` (training) on the rank's
+query rows at their positions; the RG-LRU's conv halo and its scan's f32
+carry from the ranks before (``models/rglru.py``); the mLSTM's conv halo
+and its (C, n, m) state, and the sLSTM's (c, n, h, m) state, chained from
+rank to rank (``models/xlstm.py``, ``common.split_chain``);
+``seq2d_fsdp``'s data-sharded weights gathered at their use
+(:meth:`MeshPolicy.gather_weights`).  Every redistribution of a token
+split goes through ``common.redistribute_by_sum`` (all-reduces only,
+forward and backward).  An MoE block routes each rank's part of a
+sequence with the queue offsets of the ranks before it and the whole
+sequence's capacity (``models/mlp.RoutingGroup``).  The serve step reads
+the cache as :func:`cache_specs` places it, ``kv_seq`` rows, ``rnn``
+channels and the xLSTM states' splits included, and never replicates a
+sharded cache.
 """
 
 from __future__ import annotations
@@ -97,14 +99,7 @@ from repro_torch.tree import (tree_leaves, tree_leaves_with_keys, tree_map,
 
 Tree = Any
 
-# what the port does not run over a live model axis larger than 1, with
-# its queued ROADMAP.md item
-TODO_TOKEN_SPLIT = ("a live seq2d / dp2d / seq2d_fsdp split of the xLSTM "
-                    "blocks (their states carried across ranks): "
-                    "ROADMAP.md §1 item 18")
 TOKEN_SPLITS = ("seq2d", "dp2d", "seq2d_fsdp")
-# the arch types whose blocks run on each rank's tokens of a token split
-SPLIT_ARCH_TYPES = ("dense", "vlm", "hybrid", "audio", "moe")
 
 
 class PartitionSpec(tuple):
@@ -149,17 +144,6 @@ def _names(entry) -> Tuple[str, ...]:
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
-def out_of_scope(cfg: ModelConfig) -> Optional[str]:
-    """Why ``cfg`` does not run over a live model axis larger than 1, or
-    ``None`` where it does: the token splits run for every arch type but
-    ``ssm`` (the xLSTM blocks' states are not carried across ranks:
-    ``ROADMAP.md`` §1 item 18)."""
-    if cfg.attn_shard in TOKEN_SPLITS and \
-            cfg.arch_type not in SPLIT_ARCH_TYPES:
-        return TODO_TOKEN_SPLIT
-    return None
-
-
 class MeshPolicy(Policy):
     """Activation-constraint resolver for a (pod,) data, model mesh: a
     :class:`MeshShape` (spec math, dry-runs) or a live ``DeviceMesh``
@@ -176,10 +160,6 @@ class MeshPolicy(Policy):
         # a live mesh with a model axis larger than 1: tensor parallelism
         self.model_live = self.device_mesh is not None and any(
             n > 1 for a, n in mesh.shape.items() if a not in data)
-        if self.model_live:
-            why = out_of_scope(cfg)
-            if why is not None:
-                raise NotImplementedError(f"{cfg.name} on {mesh}: {why}")
         heads_rule = "model"
         if cfg.attn_shard in ("replicate", "head_dim", "seq2d",
                               "seq2d_fsdp", "dp2d"):

@@ -529,7 +529,10 @@ def _write_slot(c: torch.Tensor, new: torch.Tensor, slot: int) -> None:
 def _attend_sharded(q, k, v, valid: torch.Tensor, softcap_val: float):
     """:func:`_attend` of one query token against DTensor k/v (B, S, Kh,
     Dh) on each rank's local shards; q (B, 1, H, Dh) is placed as k, whole
-    along the sequence.  Returns the (B, 1, H, Dh) output, placed so.
+    along the sequence and over a mesh dim of one rank (a relabelling:
+    DTensor's einsum of the output with ``wo`` views a dim split over one
+    rank, which it refuses, e.g. a batch of 1 over data of size 1).
+    Returns the (B, 1, H, Dh) output, placed so.
 
     * heads sharded: each rank attends its heads (no collective);
     * head dim sharded: the scores are partial sums, all-reduced before
@@ -546,7 +549,8 @@ def _attend_sharded(q, k, v, valid: torch.Tensor, softcap_val: float):
     mesh = k.device_mesh
     seq = common.sharding_dims(k, 1)
     dh = common.sharding_dims(k, 3)
-    place = [Replicate() if pl.is_shard(1) else pl for pl in k.placements]
+    place = [Replicate() if pl.is_shard(1) or mesh.size(i) == 1 else pl
+             for i, pl in enumerate(k.placements)]
     q = q.redistribute(mesh, place)
     ql, kl, vl = q.to_local(), k.to_local(), v.to_local()
     off = common.shard_offset(k, 1)
@@ -596,10 +600,7 @@ def apply_attention_decode(p: dict, h_in: torch.Tensor, cache: dict,
     if policy.token_split and common.is_dtensor(h_in):
         # dp2d splits the batch over model where the cache does not:
         # gathered (an all-reduce) to the cache's batch split
-        from torch.distributed.tensor import Replicate
-        h_in = common.redistribute_by_sum(h_in, [
-            Replicate() if pl.is_shard(0) and not c.is_shard(0) else pl
-            for pl, c in zip(h_in.placements, cache["k"].placements)])
+        h_in = common.batch_as(h_in, cache["k"])
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=h_in.device)
     q, k_new, v_new = _project_qkv(p, h_in, cfg, positions)
 

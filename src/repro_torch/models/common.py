@@ -27,7 +27,7 @@ An init function given a :class:`ShapeGenerator` (device ``meta``) makes
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -267,6 +267,17 @@ def redistribute_by_sum(x, placements):
     return x
 
 
+def batch_as(x, like):
+    """DTensor ``x`` with its batch (dim 0) gathered over each mesh dim
+    that splits it and not ``like``'s dim 0 (:func:`redistribute_by_sum`,
+    an all-reduce a dim): a ``dp2d`` decode input, its batch over data and
+    model, to a cache's batch split over data."""
+    from torch.distributed.tensor import Replicate
+    return redistribute_by_sum(x, [
+        Replicate() if pl.is_shard(0) and not c.is_shard(0) else pl
+        for pl, c in zip(x.placements, like.placements)])
+
+
 class TokenSplit(Policy):
     """The policy of a block run on one rank's tokens (``transformer``'s
     token-split blocks): every constrain is the identity on its local
@@ -292,6 +303,108 @@ def sharding_dims(x, dim: int) -> list:
     if not is_dtensor(x):
         return []
     return [i for i, pl in enumerate(x.placements) if pl.is_shard(dim)]
+
+
+# ---------------------------------------------------------------------------
+# On a rank's rows of a split sequence (the recurrent mixers: ``rglru``,
+# ``xlstm``)
+# ---------------------------------------------------------------------------
+
+def seq_split(policy: Policy) -> Optional[TokenSplit]:
+    """The token split of this rank's rows where it splits the
+    sequence, else ``None``."""
+    if isinstance(policy, TokenSplit) and policy.dims:
+        return policy
+    return None
+
+
+def split_rank(split: TokenSplit, n: int) -> Tuple[int, int]:
+    """``(q, r)``: this rank's place among the ``r`` ranks that split the
+    sequence into runs of ``n`` rows (the policy splits only where the
+    ranks divide it)."""
+    r = 1
+    for i in split.dims:
+        r *= split.mesh.size(i)
+    return split.start // n, r
+
+
+def split_tails(x: torch.Tensor, split: TokenSplit, tw: int,
+                grad: bool) -> torch.Tensor:
+    """Every rank's last tw - 1 pre-conv rows, rank q's at rows
+    ``[q (tw - 1), (q + 1) (tw - 1))`` of a (B, r (tw - 1), C) tensor,
+    whole on every rank: one all-reduce (:class:`GatherBySum` under
+    autograd, whose backward sums the rows' gradient over the ranks and
+    keeps this rank's)."""
+    n = x.shape[1]
+    if n < tw - 1:
+        raise ValueError(f"a rank's {n} rows hold no whole conv halo of "
+                         f"{tw - 1} rows: split the sequence over fewer "
+                         f"ranks")
+    q, r = split_rank(split, n)
+    tail = x[:, n - (tw - 1):].contiguous()
+    args = (1, q * (tw - 1), r * (tw - 1), split.mesh, split.dims)
+    if grad:
+        return GatherBySum.apply(tail, *args, split.dims)
+    return gather_by_sum(tail, *args)
+
+
+def split_halo(tails: torch.Tensor, q: int,
+               tw: int) -> Optional[torch.Tensor]:
+    """Rank q's conv window: rank q - 1's tail, or ``None`` (zeros) on the
+    first rank."""
+    return None if q == 0 else tails[:, (q - 1) * (tw - 1):q * (tw - 1)]
+
+
+def split_chain(run, split: TokenSplit, n: int, zeros: torch.Tensor,
+                grad: bool = False, after: Optional[torch.Tensor] = None):
+    """A recurrence over the ranks' runs of ``n`` rows, one rank after
+    another: ``run(carry)`` -- this rank's rows from the state ``carry``
+    that rank q - 1 hands on (``None`` on the first rank) -- returns ``(y,
+    state)``, ``state`` a tensor like ``zeros`` (f32, contiguous).  Hop j
+    is one SUM all-reduce of rank j's state (zeros on every other rank);
+    rank j + 1 takes it as its carry, and the last hop gives every rank
+    the last rank's state.  Returns ``(y, last)``.
+
+    Under autograd (``grad``) each hop is a :class:`GatherBySum`, whose
+    backward all-reduces the carry's gradient back to its owner, and each
+    hop's input depends on the hop before it (on the other ranks through
+    :class:`Keep`'s zeros; the first hop's on ``after``, a tensor of the
+    block's that requires grad), so every rank's graph holds the hops as
+    one chain and issues their backward all-reduces in one order, hop r -
+    1 down to hop 0.  The caller ties ``last`` to its output with
+    :class:`Keep`: autograd calls no backward of an unused output."""
+    q, r = split_rank(split, n)
+    y = carry = hop = None
+    for j in range(r):
+        if j == q:
+            y, state = run(carry)
+        else:
+            state = Keep.apply(zeros, hop if j else after) if grad else zeros
+        if grad:
+            hop = GatherBySum.apply(state, 0, 0, state.shape[0], split.mesh,
+                                    split.dims, split.dims)
+        else:
+            hop = all_reduce(state, "sum", split.mesh, split.dims)
+        if j + 1 == q:
+            carry = hop
+    return y, hop
+
+
+class Keep(torch.autograd.Function):
+    """``y`` itself, whose backward also hands zero gradients to the
+    tensors ``used``: gathered tensors a rank does not read (the first
+    rank reads no halo and no carry), whose backward all-reduces the
+    other ranks' need from every rank, in one order on every rank."""
+
+    @staticmethod
+    def forward(ctx, y, *used):
+        ctx.like = [(u.shape, u.dtype, u.device) for u in used]
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g,) + tuple(torch.zeros(shape, dtype=dtype, device=device)
+                            for shape, dtype, device in ctx.like)
 
 
 class ShapeGenerator:

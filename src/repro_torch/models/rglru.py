@@ -37,7 +37,7 @@ with two exchanges, all-reduces only (:func:`common.gather_by_sum`):
 
 * the conv's halo, the tw - 1 pre-conv rows before the rank's first row:
   every rank's last tw - 1 rows gathered by one all-reduce
-  (:func:`_tails`; ``common.GatherBySum`` in training, so the gradient
+  (``common.split_tails``; ``common.GatherBySum`` in training, so the gradient
   flows back to the rows' owner), the first rank's halo zeros;
 * the recurrence's carry, a (B, Dr) f32 state.  In prefill
   (:func:`_chain_scan`) rank q runs K6's gated entry on its rows from
@@ -186,69 +186,19 @@ def _train_core(x: torch.Tensor, p: dict) -> torch.Tensor:
 # On a rank's rows (a token split of the sequence; module docstring)
 # ---------------------------------------------------------------------------
 
-def _seq_split(policy: Policy) -> Optional[common.TokenSplit]:
-    """The token split of this rank's rows where it splits the
-    sequence, else ``None``."""
-    if isinstance(policy, common.TokenSplit) and policy.dims:
-        return policy
-    return None
-
-
-def _rank_of(split: common.TokenSplit, n: int) -> Tuple[int, int]:
-    """``(q, r)``: this rank's place among the ``r`` ranks that split the
-    sequence into runs of ``n`` rows (the policy splits only where the
-    ranks divide it)."""
-    r = 1
-    for i in split.dims:
-        r *= split.mesh.size(i)
-    return split.start // n, r
-
-
-def _tails(x: torch.Tensor, split: common.TokenSplit, tw: int,
-           grad: bool) -> torch.Tensor:
-    """Every rank's last tw - 1 pre-conv rows, rank q's at rows
-    ``[q (tw - 1), (q + 1) (tw - 1))`` of a (B, r (tw - 1), Dr) tensor,
-    whole on every rank: one all-reduce (``common.GatherBySum`` under
-    autograd, whose backward sums the rows' gradient over the ranks and
-    keeps this rank's)."""
-    n = x.shape[1]
-    if n < tw - 1:
-        raise ValueError(f"a rank's {n} rows hold no whole conv halo of "
-                         f"{tw - 1} rows: split the sequence over fewer "
-                         f"ranks")
-    q, r = _rank_of(split, n)
-    tail = x[:, n - (tw - 1):].contiguous()
-    args = (1, q * (tw - 1), r * (tw - 1), split.mesh, split.dims)
-    if grad:
-        return common.GatherBySum.apply(tail, *args, split.dims)
-    return common.gather_by_sum(tail, *args)
-
-
-def _halo(tails: torch.Tensor, q: int, tw: int) -> Optional[torch.Tensor]:
-    """Rank q's conv window: rank q - 1's tail, or ``None`` (zeros) on the
-    first rank."""
-    return None if q == 0 else tails[:, (q - 1) * (tw - 1):q * (tw - 1)]
-
-
 def _chain_scan(p: dict, xc: torch.Tensor, split: common.TokenSplit):
     """K6's gated entry on this rank's conv output ``xc`` from the state
-    rank q - 1 hands on, then this rank's state handed on: hop j is one
-    all-reduce of rank j's f32 ``y_last`` (zeros elsewhere), which rank
-    j + 1 takes as its ``y0``; the last hop gives every rank the last
-    rank's state.  Returns ``(y, state)``: this rank's rows in ``xc``'s
-    dtype, the last rank's (B, Dr) f32 state."""
-    q, r = _rank_of(split, xc.shape[1])
-    b, _, dr = xc.shape
+    rank q - 1 hands on, then this rank's state handed on
+    (``common.split_chain``: hop j is one all-reduce of rank j's f32
+    ``y_last``, which rank j + 1 takes as its ``y0``; the last hop gives
+    every rank the last rank's state).  Returns ``(y, state)``: this
+    rank's rows in ``xc``'s dtype, the last rank's (B, Dr) f32 state."""
+    b, n, dr = xc.shape
     last = torch.zeros((b, dr), dtype=torch.float32, device=xc.device)
-    carry, y, state = None, None, None
-    for j in range(r):
-        if j == q:
-            y = lru_scan(p, xc, carry, y_last=last)
-        state = common.all_reduce(last if j == q else torch.zeros_like(last),
-                                  "sum", split.mesh, split.dims)
-        if j + 1 == q:
-            carry = state
-    return y, state
+
+    def run(carry):
+        return lru_scan(p, xc, carry, y_last=last), last
+    return common.split_chain(run, split, n, torch.zeros_like(last))
 
 
 def _train_split(p: dict, x: torch.Tensor, split: common.TokenSplit,
@@ -257,9 +207,10 @@ def _train_split(p: dict, x: torch.Tensor, split: common.TokenSplit,
     the halo'd conv, the scan from 0 with its cumulative ``a``, every
     rank's ``(A_last, L_last)`` gathered, and the incoming state composed
     from the ranks before this one."""
-    q, r = _rank_of(split, x.shape[1])
-    tails = _tails(x, split, tw, grad=True)
-    a, b = _gates(p, _causal_conv(p, x, window=_halo(tails, q, tw)))
+    q, r = common.split_rank(split, x.shape[1])
+    tails = common.split_tails(x, split, tw, grad=True)
+    a, b = _gates(p, _causal_conv(p, x,
+                                  window=common.split_halo(tails, q, tw)))
     y, cum = linear_scan(a, b, with_a=True)
     ends = torch.stack([cum[:, -1], y[:, -1]], dim=1)       # (B, 2, Dr)
     ends = common.GatherBySum.apply(ends, 1, 2 * q, 2 * r, split.mesh,
@@ -269,25 +220,7 @@ def _train_split(p: dict, x: torch.Tensor, split: common.TokenSplit,
         for j in range(1, q):
             y_in = ends[:, 2 * j + 1] + ends[:, 2 * j] * y_in
         y = y + cum * y_in[:, None]
-    return _Keep.apply(y, tails, ends).to(x.dtype)
-
-
-class _Keep(torch.autograd.Function):
-    """``y`` itself, whose backward also hands zero gradients to the
-    gathered tensors ``used``: the first rank reads neither the halo nor
-    the carry, yet the other ranks' backward all-reduces through them
-    (``common.GatherBySum``) need every rank's, in one order on every
-    rank."""
-
-    @staticmethod
-    def forward(ctx, y, *used):
-        ctx.like = [(u.shape, u.dtype, u.device) for u in used]
-        return y.view_as(y)
-
-    @staticmethod
-    def backward(ctx, g):
-        return (g,) + tuple(torch.zeros(shape, dtype=dtype, device=device)
-                            for shape, dtype, device in ctx.like)
+    return common.Keep.apply(y, tails, ends).to(x.dtype)
 
 
 def apply_rglru(p: dict, h_in: torch.Tensor, cfg: ModelConfig,
@@ -304,11 +237,11 @@ def apply_rglru(p: dict, h_in: torch.Tensor, cfg: ModelConfig,
     x = policy.constrain(x, ("batch", "seq", "rnn"))
     g = torch.matmul(h_in, p["w_gate"].to(h_in.dtype))
     tw = cfg.lru_temporal_width
-    split = _seq_split(policy)
+    split = common.seq_split(policy)
     if split is not None:
-        q, r = _rank_of(split, x.shape[1])
-        tails = _tails(x, split, tw, grad=False)
-        y, last = _chain_scan(p, _causal_conv(p, x, window=_halo(
+        q, r = common.split_rank(split, x.shape[1])
+        tails = common.split_tails(x, split, tw, grad=False)
+        y, last = _chain_scan(p, _causal_conv(p, x, window=common.split_halo(
             tails, q, tw)), split)
         state = {"y": last.to(x.dtype).float(),
                  "conv": tails[:, (r - 1) * (tw - 1):].to(
@@ -336,7 +269,7 @@ def apply_rglru_train(p: dict, h_in: torch.Tensor, cfg: ModelConfig,
     x = torch.matmul(h_in, p["w_in"].to(h_in.dtype))
     x = policy.constrain(x, ("batch", "seq", "rnn"))
     g = torch.matmul(h_in, p["w_gate"].to(h_in.dtype))
-    split = _seq_split(policy)
+    split = common.seq_split(policy)
     if split is not None:
         y = _train_split(p, x, split, cfg.lru_temporal_width)
     else:
@@ -380,10 +313,8 @@ def _cache_channels(h_in, p: dict, y) -> Tuple[torch.Tensor, dict]:
     the channels the cache's ``y`` holds on this rank (no collective), so
     the step runs on each rank's channels as over a tensor-parallel
     layout."""
-    from torch.distributed.tensor import Replicate, Shard
-    h_in = common.redistribute_by_sum(h_in, [
-        Replicate() if pl.is_shard(0) and not c.is_shard(0) else pl
-        for pl, c in zip(h_in.placements, y.placements)])
+    from torch.distributed.tensor import Shard
+    h_in = common.batch_as(h_in, y)
     cdims = common.sharding_dims(y, 1)
 
     def cut(w, dim):

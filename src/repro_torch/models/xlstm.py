@@ -35,12 +35,35 @@ an f32 config.
 
 Over a live model axis the blocks take the reference's ``policy``: its
 specs keep every mixer weight replicated, so training and prefill run
-each block whole on each rank's rows (:func:`_on_rows`), while the decode
-cache is split (the mLSTM's ``C`` over its value index, ``n`` over its
-key index, ``conv`` over its channels, and the sLSTM's ``n``), so each
-decode step computes on each rank's slices and gathers what a whole head
-needs by all-reduces (:func:`_mlstm_decode_sharded`); the sLSTM gathers
-its ``n`` and runs whole (:func:`_slstm_decode_sharded`).
+each block whole on each rank's rows of the batch (:func:`_on_rows`),
+while the decode cache is split (the mLSTM's ``C`` over its value index,
+``n`` over its key index, ``conv`` over its channels, and the sLSTM's
+``n``), so each decode step computes on each rank's slices and gathers
+what a whole head needs by all-reduces (:func:`_mlstm_decode_sharded`);
+the sLSTM gathers its ``n`` and runs whole (:func:`_slstm_decode_sharded`).
+Under ``dp2d`` the serve step first gathers the input's batch to the
+cache's batch split (``common.batch_as``).
+
+**On a rank's rows** (a ``seq2d`` / ``seq2d_fsdp`` token split,
+``common.TokenSplit`` with ``dims``: the block runs on this rank's
+positions) each block computes the unsplit function, the ranks one after
+another, all-reduces only:
+
+* the mLSTM (:func:`_mlstm_split`): the conv's halo, rank q - 1's last 3
+  pre-conv rows (``common.split_tails``, one all-reduce), then the chunked
+  scan from the (C, n, m) f32 state rank q - 1 hands on
+  (``common.split_chain``: one all-reduce a hop), in chunks of the
+  largest size that divides both a rank's rows and ``mlstm_chunk`` (where
+  the rows are whole chunks, the unsplit run's arithmetic);
+* the sLSTM (:func:`_slstm_split`): the step loop from the (c, n, h, m)
+  f32 state rank q - 1 hands on, one all-reduce a hop.
+
+The last hop gives every rank the last rank's state, which with the last
+rank's conv rows is the decode cache, alike on every rank.  Under autograd
+each hop's backward all-reduces the carry's gradient back to its owner, in
+one order on every rank (``common.split_chain``).  Under ``dp2d``
+(``TokenSplit`` without ``dims``) a rank holds whole sequences and the
+blocks run as on one device.
 """
 
 from __future__ import annotations
@@ -301,7 +324,12 @@ def apply_mlstm(p: dict, h_in: torch.Tensor, cfg: ModelConfig,
     last three steps of the PRE-conv x in the compute dtype.  q, k and v
     are constrained as the reference's are (``mlstm_dh`` resolves to no
     split).  Over a live model axis the block runs whole on each rank's
-    rows (:func:`_on_rows`)."""
+    rows of the batch (:func:`_on_rows`), and on a rank's rows of a split
+    sequence from the ranks before it (:func:`_mlstm_split`)."""
+    split = common.seq_split(policy)
+    if split is not None:
+        return _mlstm_split(p, h_in, cfg, split, return_state)
+
     def run(p_, x_):
         return _apply_mlstm(p_, x_, cfg, policy, return_state)
     out = _on_rows(run, p, h_in, 5 if return_state else 1)
@@ -309,6 +337,65 @@ def apply_mlstm(p: dict, h_in: torch.Tensor, cfg: ModelConfig,
         return out
     out, C, n, m, conv = out
     return out, {"C": C, "n": n, "m": m, "conv": conv}
+
+
+def _mlstm_split(p: dict, h_in: torch.Tensor, cfg: ModelConfig,
+                 split: common.TokenSplit, return_state: bool):
+    """:func:`apply_mlstm` on this rank's rows of a split sequence (module
+    docstring): the conv's halo from rank q - 1's last pre-conv rows, the
+    chunked scan from the (C, n, m) state rank q - 1 hands on
+    (``common.split_chain``, each hop one all-reduce), and the cache the
+    last rank's state and conv rows, alike on every rank.  The scan's
+    chunk is the largest that divides both a rank's rows and
+    ``mlstm_chunk``: where the rows are whole ``mlstm_chunk`` chunks the
+    chunks are the unsplit run's, and the chained run is its arithmetic;
+    else it is the same function in shorter chunks, equal to f32
+    rounding."""
+    b, n, _ = h_in.shape
+    chunk = math.gcd(n, cfg.mlstm_chunk)
+    grad = _needs_grad(p, h_in)
+    x = torch.matmul(h_in, p["w_up"].to(h_in.dtype))
+    z = torch.matmul(h_in, p["w_gate"].to(h_in.dtype))
+    tw = p["conv"].shape[0]
+    q, r = common.split_rank(split, n)
+    tails = common.split_tails(x, split, tw, grad)
+    xc = swish(_causal_conv(p["conv"].to(x.dtype), x,
+                            common.split_halo(tails, q, tw)))
+    qh, kh, vh, i_raw, log_f = _mlstm_heads(p, x, xc, cfg)
+    _, nh, dh = _mlstm_dims(cfg)
+
+    def run(carry):
+        h, st = mlstm_chunked(qh, kh, vh, i_raw, log_f, chunk=chunk,
+                              state=None if carry is None
+                              else _mlstm_unpack(carry, nh, dh))
+        return h, torch.cat([st[key].reshape(b, -1)
+                             for key in ("C", "n", "m")], dim=1)
+    zeros = torch.zeros((b, nh * (dh * dh + dh + 1)), device=x.device)
+    h, last = common.split_chain(run, split, n, zeros, grad, after=tails)
+    out = _mlstm_out(p, h.to(h_in.dtype), z, cfg)
+    if grad:
+        out = common.Keep.apply(out, tails, last)
+    if not return_state:
+        return out
+    cache = _mlstm_unpack(last, nh, dh)
+    cache["conv"] = tails[:, (r - 1) * (tw - 1):].to(
+        cfg.torch_compute_dtype())
+    return out, {key: v.contiguous() for key, v in cache.items()}
+
+
+def _mlstm_unpack(state: torch.Tensor, nh: int, dh: int) -> dict:
+    """The (B, NH (DH DH + DH + 1)) f32 state a hop carries as C, n, m."""
+    b = state.shape[0]
+    C, n, m = torch.split(state, [nh * dh * dh, nh * dh, nh], dim=1)
+    return {"C": C.reshape(b, nh, dh, dh), "n": n.reshape(b, nh, dh),
+            "m": m.reshape(b, nh)}
+
+
+def _needs_grad(p: dict, x: torch.Tensor) -> bool:
+    """Whether autograd records a block's work on ``x`` with weights
+    ``p`` (every rank alike)."""
+    return torch.is_grad_enabled() and (x.requires_grad or any(
+        w.requires_grad for w in tree_flatten(p)[0]))
 
 
 def init_mlstm_cache(cfg: ModelConfig, batch: int, device=None) -> dict:
@@ -327,7 +414,8 @@ def apply_mlstm_decode(p: dict, h_in: torch.Tensor, cache: dict,
     ``sharding.cache_specs`` places it, and the step runs on each rank's
     shards (:func:`_mlstm_decode_sharded`)."""
     if common.is_dtensor(h_in):
-        return _mlstm_decode_sharded(p, h_in, cache, cfg), cache
+        return _mlstm_decode_sharded(p, common.batch_as(h_in, cache["m"]),
+                                     cache, cfg), cache
     conv = cache["conv"]
     x, z, q, k, v, i_raw, log_f = _mlstm_qkv_gates(p, h_in, cfg,
                                                    conv_window=conv)
@@ -422,7 +510,7 @@ def _replicated(p: dict) -> dict:
 
 def _on_rows(fn, p: dict, x: torch.Tensor, n_out: int):
     """``fn(p, x)`` (``n_out`` outputs, each batch-major) on DTensors:
-    the whole block on each rank's rows of ``x``, through one
+    the whole block on each rank's rows of the batch of ``x``, through one
     ``common.local_apply`` on local tensors.  The weights are replicated
     and ``x`` is replicated over model (sharded over data only on its
     batch), which is what GSPMD computes for the reference's replicated
@@ -430,7 +518,9 @@ def _on_rows(fn, p: dict, x: torch.Tensor, n_out: int):
     outputs are placed as ``x``.  A weight's gradient is computed whole on
     every model rank, so it leaves replicated there, and ``Partial`` over
     a mesh dim that shards the batch (each rank's rows add theirs).  On
-    plain tensors it is ``fn(p, x)``."""
+    plain tensors it is ``fn(p, x)``: a token split's block (whole
+    sequences under ``dp2d``; a split sequence takes :func:`_mlstm_split`
+    or :func:`_slstm_split` instead)."""
     if not common.is_dtensor(x):
         return fn(p, x)
     from torch.distributed.tensor import Partial, Replicate
@@ -535,13 +625,18 @@ def _slstm_core(p: dict, h_in: torch.Tensor, cfg: ModelConfig,
     """Sequential sLSTM over time: the input projection in f32 for every
     step at once, then :func:`slstm_block` over the whole sequence (the
     reference's blocks of 128 steps compute the same steps)."""
+    return slstm_block(_slstm_inputs(p, h_in, cfg), p["r"], state)
+
+
+def _slstm_inputs(p: dict, h_in: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """The (B, S, 4, NH, DH) f32 preactivations of every step, bias
+    included."""
     b, s, d = h_in.shape
     nh = cfg.n_heads
-    dh = d // nh
     xg = torch.matmul(h_in.float(), p["w_x"].float())
-    xg = (xg.reshape(b, s, 4, d) + p["b"][None, None]).reshape(
-        b, s, 4, nh, dh)
-    return slstm_block(xg, p["r"], state)                # (B, S, NH, DH)
+    return (xg.reshape(b, s, 4, d) + p["b"][None, None]).reshape(
+        b, s, 4, nh, d // nh)
 
 
 def _slstm_out(p: dict, hs: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -559,8 +654,13 @@ def apply_slstm(p: dict, h_in: torch.Tensor, cfg: ModelConfig,
                 policy: Policy = NO_POLICY, return_state: bool = False):
     """Training and prefill.  (B, S, D) -> (B, S, D) in h_in's dtype;
     ``return_state`` also returns the final state (the decode cache).
-    Over a live model axis the block runs whole on each rank's rows
-    (:func:`_on_rows`)."""
+    Over a live model axis the block runs whole on each rank's rows of the
+    batch (:func:`_on_rows`), and on a rank's rows of a split sequence
+    from the ranks before it (:func:`_slstm_split`)."""
+    split = common.seq_split(policy)
+    if split is not None:
+        return _slstm_split(p, h_in, cfg, split, return_state)
+
     def run(p_, x_):
         state = init_slstm_state(cfg, x_.shape[0], x_.device)
         hs, state = _slstm_core(p_, x_, cfg, state)
@@ -572,6 +672,41 @@ def apply_slstm(p: dict, h_in: torch.Tensor, cfg: ModelConfig,
     if return_state:
         return out[0], dict(zip(_SLSTM_STATE, out[1:]))
     return out
+
+
+def _slstm_split(p: dict, h_in: torch.Tensor, cfg: ModelConfig,
+                 split: common.TokenSplit, return_state: bool):
+    """:func:`apply_slstm` on this rank's rows of a split sequence: the
+    step loop from the (c, n, h, m) state rank q - 1 hands on
+    (``common.split_chain``, each hop one all-reduce of the stacked f32
+    state), so the ranks' loops run one after another; the cache the last
+    rank's state, alike on every rank."""
+    b, n, d = h_in.shape
+    nh = cfg.n_heads
+    grad = _needs_grad(p, h_in)
+    xg = _slstm_inputs(p, h_in, cfg)
+
+    def run(carry):
+        state = init_slstm_state(cfg, b, h_in.device) if carry is None \
+            else _slstm_unpack(carry, nh)
+        hs, st = slstm_block(xg, p["r"], state)
+        return hs, torch.stack([st[key] for key in _SLSTM_STATE],
+                               dim=1).reshape(b, -1)
+    zeros = torch.zeros((b, 4 * d), device=h_in.device)
+    hs, last = common.split_chain(run, split, n, zeros, grad, after=xg)
+    out = _slstm_out(p, hs, cfg).to(h_in.dtype)
+    if grad:
+        out = common.Keep.apply(out, last)
+    if not return_state:
+        return out
+    return out, {key: v.contiguous()
+                 for key, v in _slstm_unpack(last, nh).items()}
+
+
+def _slstm_unpack(state: torch.Tensor, nh: int) -> dict:
+    """The (B, 4 D) f32 state a hop carries as c, n, h, m."""
+    b = state.shape[0]
+    return dict(zip(_SLSTM_STATE, state.reshape(b, 4, nh, -1).unbind(1)))
 
 
 def init_slstm_cache(cfg: ModelConfig, batch: int, device=None) -> dict:
@@ -586,7 +721,8 @@ def apply_slstm_decode(p: dict, h_in: torch.Tensor, cache: dict,
     split over its last dim (``cache_specs``) and the steps run on it
     (:func:`_slstm_decode_sharded`)."""
     if common.is_dtensor(h_in):
-        return _slstm_decode_sharded(p, h_in, cache, cfg), cache
+        return _slstm_decode_sharded(p, common.batch_as(h_in, cache["c"]),
+                                     cache, cfg), cache
     hs, state = _slstm_core(p, h_in, cfg, dict(cache))
     out = _slstm_out(p, hs, cfg).to(h_in.dtype)
     for key in _SLSTM_STATE:

@@ -13,8 +13,8 @@
   ``tests/test_torch_steps.py``'s rtol 1e-4 / atol 1e-5; each rank's
   clients the rows ``distribute_tensor`` gives it under
   ``to_placements(cohort_specs(...))``; a live mesh with a model axis of
-  2 is a tensor-parallel policy for the dense config and raises
-  ``NotImplementedError`` for a ``seq2d`` split of an ``ssm`` config.
+  2 is a tensor-parallel policy for the dense config and a live token
+  split for a ``seq2d`` split of an ``ssm`` config.
 * ``make_device_mesh`` refuses without a process group and at a world
   size that does not fit.
 """
@@ -188,10 +188,9 @@ def test_world2_clients_are_the_dtensor_shards(world2, case):
 
 def test_world2_model_axis_raises(world2):
     """A (1, 2) mesh is a live model axis for the dense config (tensor
-    parallelism, ``tests/test_torch_tp.py``); a ``seq2d`` split of a
-    config whose blocks do not run on a rank's rows (arch type ``ssm``,
-    the xLSTM states) still raises, naming its ROADMAP.md item."""
+    parallelism, ``tests/test_torch_tp.py``), and a ``seq2d`` split of an
+    ``ssm``-typed config, which once raised, is a live token split (the
+    xLSTM states chained across ranks)."""
     for rank in world2[0]:
         assert rank["model_axis_live"] is True
-        assert rank["model_axis"].startswith("NotImplementedError")
-        assert "ROADMAP.md §1 item 18" in rank["model_axis"]
+        assert rank["model_axis"] == "True", rank["model_axis"]

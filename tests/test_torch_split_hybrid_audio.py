@@ -1,8 +1,10 @@
-"""The token splits of the hybrid and audio configs over a live model axis,
-and K6's carry: reduced recurrentgemma-2b (RG-LRU and local attention)
-and reduced musicgen-large (codebooks and conditioning rows) under
-``seq2d``, ``dp2d`` and ``seq2d_fsdp``, against the JAX reference's
-unsharded steps (``NO_POLICY``, each jitted once a config).
+"""The token splits of the hybrid, audio and ssm configs over a live model
+axis, and K6's carry: reduced recurrentgemma-2b (RG-LRU and local
+attention), reduced musicgen-large (codebooks and conditioning rows) and
+reduced xlstm-1.3b (an mLSTM and an sLSTM layer, ``mlstm_chunk`` 4 on both
+sides, the sLSTM output kept in f32 on both sides) under ``seq2d``,
+``dp2d`` and ``seq2d_fsdp``, against the JAX reference's unsharded steps
+(``NO_POLICY``, each jitted once a config).
 
 * One gloo spawn at world size 2 on a (1, 2) mesh and one at world size 4
   on (1, 4) and (2, 2) meshes, started together
@@ -16,19 +18,32 @@ unsharded steps (``NO_POLICY``, each jitted once a config).
   flat int8 and tree rounds (K = 2, one simple).  Every rank's
   ``full_tensor()``s bitwise equal; params, losses, logits and caches at
   rtol 1e-4 / atol 1e-5, the int8 rounds under ``repro_torch.parity``'s
-  lossy-wire rules.  The steps issue all-reduces only.  The xLSTM
-  configs' token splits still raise, naming ROADMAP.md §1 item 18 (the
-  MoE configs' run, ``tests/test_torch_split_moe.py``).
+  lossy-wire rules.  The steps issue all-reduces only.  The MoE and
+  xLSTM configs' policies split the tokens (the MoE configs' run in
+  ``tests/test_torch_split_moe.py``).
 * K6's carry on the CPU: the gated entry's plain version run in two
   halves, the second from the first's ``y_last``, is bitwise the whole
   run in bf16 and f32 (and from the first half's last bf16 row it is
   not); ``rglru.linear_scan`` over 2 and 4 row blocks composed from each
   block's ``(A_last, L_last)`` against the whole scan, values and
   gradients; the wrapper's ``y_last`` validation.
-* The dry-run per chip of a ``seq2d`` recurrentgemma prefill on a fake
-  (16, 16) and (2, 16, 16) mesh against a hand count of its all-reduces:
-  the halo's and the carry's in each RG-LRU layer among them.
+* The xLSTM chains on the CPU: ``xlstm.apply_mlstm`` and
+  ``apply_slstm`` on 2 and 4 row blocks of a split sequence, the ranks run
+  one after another with the all-reduces summed in turn
+  (:class:`_RanksInTurn`), against the whole run: values bitwise (the
+  shapes' pieces hold whole CPU vectors), the last block's cache the
+  whole run's, and under training the gradients of every block's rows and
+  of the weights; a split that cuts an ``mlstm_chunk`` chunk runs in
+  shorter chunks, at rtol 1e-4 / atol 1e-5; rows too few for the conv's
+  halo raise.
+* The dry-run per chip of a ``seq2d`` recurrentgemma and xlstm prefill on
+  a fake (16, 16) and (2, 16, 16) mesh against a hand count of its
+  all-reduces: the halo's and the carry's in each RG-LRU layer, the
+  halo's and the (C, n, m) hops in each mLSTM layer, the (c, n, h, m)
+  hops in each sLSTM layer among them.
 """
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -51,15 +66,17 @@ import torch_split_cases as split  # noqa: E402
 from test_torch_tp import (_FlatCodebooks, _int8_round_close,  # noqa: E402
                            assert_close, assert_leaves, assert_ranks_equal,
                            ref_config, ref_decode, ref_params)
+from test_torch_xlstm_model import f32_slstm_out  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.configs.base import InputShape  # noqa: E402
 from repro_torch.kernels.rglru_scan import ops as scan_ops  # noqa: E402
 from repro_torch.kernels.rglru_scan import ref as scan_ref  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import MeshShape  # noqa: E402
-from repro_torch.models import common, rglru  # noqa: E402
+from repro_torch.models import common, rglru, xlstm  # noqa: E402
 
 JOIN_S = 120
+RTOL, ATOL = 1e-4, 1e-5
 # (world size, mesh) of each spawn's meshes
 MESHES = tuple((world, mesh) for world, names in split.SPLIT_MESHES.items()
                for mesh in names)
@@ -97,12 +114,17 @@ def references():
     and held against every mode and mesh."""
     out = {}
     for arch in split.SPLIT_ARCHS:
-        out[("train", arch)] = _ref_train(arch)
-        for wire in ("flat f32", "flat int8"):
-            out[(wire, arch)] = _ref_round(arch, wire)
+        # xlstm's sLSTM output in f32 on both sides (the ranks run under
+        # cases.f32_slstm_out), its mlstm_chunk the splits' 4
+        ref = split.REF_ARCH.get(arch, arch)
+        with (f32_slstm_out() if arch == "xlstm-1.3b"
+              else contextlib.nullcontext()):
+            out[("train", arch)] = _ref_train(ref)
+            for wire in ("flat f32", "flat int8"):
+                out[(wire, arch)] = _ref_round(ref, wire)
+            out[("decode", arch)] = ref_decode(ref, split.B, split.PROMPT,
+                                               split.CACHE_LEN)
         out[("tree", arch)] = out[("flat f32", arch)]
-        out[("decode", arch)] = ref_decode(arch, split.B, split.PROMPT,
-                                           split.CACHE_LEN)
     return out
 
 
@@ -229,16 +251,12 @@ def test_steps_issue_all_reduces_only(split_runs, key):
                                   for arch in ("qwen2-moe-a2.7b",
                                                "xlstm-1.3b")
                                   for mode in split.SPLIT_MODES])
-def test_moe_and_ssm_token_splits_still_raise(split_runs, name):
-    """The xLSTM configs' token splits raise, naming ROADMAP.md §1 item
-    18; the MoE configs' no longer do: their policy splits the tokens
-    (``tests/test_torch_split_moe.py`` runs them)."""
+def test_moe_and_ssm_token_splits_are_live(split_runs, name):
+    """The MoE and xLSTM configs' token splits, which once raised, are
+    live: their policy splits the tokens (``tests/test_torch_split_moe.
+    py`` runs the MoE configs', the cases above the xLSTM configs')."""
     msg = split_runs[0][2][0]["refusals"][name]
-    if "qwen2-moe" in name:
-        assert msg == "True", msg
-        return
-    assert msg.startswith("NotImplementedError"), msg
-    assert "ROADMAP.md §1 item 18" in msg
+    assert msg == "True", msg
 
 
 # ---------------------------------------------------------------------------
@@ -359,9 +377,182 @@ def test_tails_and_halo_of_a_rank():
     first rank's halo is zeros (``None``), rank q's rank q - 1's tail."""
     x = torch.arange(2 * 8 * 3, dtype=torch.float32).reshape(2, 8, 3)
     tails = torch.cat([x[:, 5:], x[:, 5:] + 100.0], dim=1)
-    assert rglru._halo(tails, 0, 4) is None
-    assert torch.equal(rglru._halo(tails, 1, 4), x[:, 5:])
-    assert torch.equal(rglru._halo(tails, 2, 4), x[:, 5:] + 100.0)
+    assert common.split_halo(tails, 0, 4) is None
+    assert torch.equal(common.split_halo(tails, 1, 4), x[:, 5:])
+    assert torch.equal(common.split_halo(tails, 2, 4), x[:, 5:] + 100.0)
+
+
+# ---------------------------------------------------------------------------
+# the xLSTM chains on the CPU
+# ---------------------------------------------------------------------------
+
+class _RanksInTurn:
+    """``common.all_reduce`` for ranks run one after another in one
+    process: the k-th call of a rank adds its tensor to the k-th sum and
+    returns the sum so far.  Every rank issues the same calls in one
+    order, and the split's sums hold one nonzero term an element (a hop's
+    owner, a tail's rank), so a rank reads exactly what the ranks before it
+    handed on: run the forwards in rank order, then the backwards in
+    reverse (a carry's gradient comes from the rank after its owner)."""
+
+    class Mesh:
+        def __init__(self, r):
+            self.r = r
+
+        def size(self, i):
+            return self.r
+
+    def __init__(self, r):
+        self.mesh, self.sums, self.k = self.Mesh(r), [], 0
+
+    def phase(self):
+        """A new round of calls: the backward's, after the forward's."""
+        self.sums = []
+
+    def rank(self):
+        self.k = 0
+
+    def __call__(self, x, op, mesh, dims):
+        assert op == "sum" and list(dims) == [0]
+        if self.k == len(self.sums):
+            self.sums.append(torch.zeros_like(x))
+        self.sums[self.k] = self.sums[self.k] + x
+        self.k += 1
+        return self.sums[self.k - 1].clone()
+
+
+# 4 heads, d_model 128 (the mLSTM's Dh 64, the sLSTM's 32), batch 4,
+# mlstm_chunk 4, 16 positions: every piece of a 2- or 4-row-block split
+# holds whole CPU vectors (the gates' (B, n, NH) 64 or more elements)
+CHAIN_B, CHAIN_S = 4, 16
+
+
+def _chain_config():
+    return configs.get_reduced("xlstm-1.3b").with_overrides(
+        d_model=128, n_heads=4, n_kv_heads=4, mlstm_chunk=4)
+
+
+def _chain_case(block: str, seed: int = 3):
+    cfg = _chain_config()
+    init = xlstm.init_mlstm if block == "mlstm" else xlstm.init_slstm
+    p = init(torch.Generator().manual_seed(seed), cfg)
+    rng = np.random.default_rng(seed)
+    h = torch.as_tensor(rng.standard_normal(
+        (CHAIN_B, CHAIN_S, cfg.d_model)).astype(np.float32))
+    w = torch.as_tensor(rng.standard_normal(
+        (CHAIN_B, CHAIN_S, cfg.d_model)).astype(np.float32))
+    apply = xlstm.apply_mlstm if block == "mlstm" else xlstm.apply_slstm
+    return cfg, p, h, w, apply
+
+
+def _in_blocks(monkeypatch, apply, p, h, cfg, blocks, grad):
+    """``apply`` on each of ``blocks`` row blocks of ``h`` as rank q of a
+    seq2d split, the ranks in turn (:class:`_RanksInTurn` in place of
+    ``common.all_reduce``): each block's output, the last block's cache,
+    each block's input (a leaf that requires grad under ``grad``) and the
+    simulated collectives, for the backwards to run in reverse."""
+    sim = _RanksInTurn(blocks)
+    monkeypatch.setattr(common, "all_reduce", sim)
+    n = h.shape[1] // blocks
+    outs, caches, ins = [], [], []
+    for q in range(blocks):
+        sim.rank()
+        hq = h[:, q * n:(q + 1) * n].clone().requires_grad_(grad)
+        split_q = common.TokenSplit(sim.mesh, [0], q * n, h.shape[1], True,
+                                    [], h.shape[0])
+        with torch.set_grad_enabled(grad):
+            out, cache = apply(p, hq, cfg, split_q, return_state=True)
+        outs.append(out)
+        caches.append(cache)
+        ins.append(hq)
+    return outs, caches[-1], ins, sim
+
+
+@pytest.mark.parametrize("blocks", [2, 4])
+@pytest.mark.parametrize("block", ["mlstm", "slstm"])
+def test_xlstm_chain_over_row_blocks_is_the_whole_run(monkeypatch, block,
+                                                      blocks):
+    """Each block's rows from the halo (mLSTM) and the state the block
+    before hands on, bitwise the whole run's rows; the last block's cache
+    (the state, the mLSTM's conv rows) bitwise the whole run's."""
+    cfg, p, h, _, apply = _chain_case(block)
+    with torch.no_grad():
+        want, want_cache = apply(p, h, cfg, return_state=True)
+    outs, cache, _, _ = _in_blocks(monkeypatch, apply, p, h, cfg, blocks,
+                                   grad=False)
+    assert torch.equal(torch.cat(outs, dim=1), want)
+    assert set(cache) == set(want_cache)
+    for key in want_cache:
+        assert torch.equal(cache[key], want_cache[key]), key
+
+
+@pytest.mark.parametrize("blocks", [2, 4])
+@pytest.mark.parametrize("block", ["mlstm", "slstm"])
+def test_xlstm_chain_gradients_are_the_whole_runs(monkeypatch, block,
+                                                  blocks):
+    """Under training each hop's backward all-reduces the carry's
+    gradient back to its owner, the ranks' backwards run in reverse:
+    every block's input gradient and the weights' (summed over the
+    blocks) against the whole run's at rtol 1e-4 / atol 1e-5 (the weights'
+    sums over the blocks group differently: within 8e-6 of gradients up to
+    24 here); the outputs bitwise; the sLSTM output kept in f32."""
+    cfg, p, h, w, apply = _chain_case(block)
+    leaves = [x.requires_grad_(True) for x in jax.tree.leaves(
+        p, is_leaf=lambda x: isinstance(x, torch.Tensor))]
+    with cases.f32_slstm_out():
+        h0 = h.clone().requires_grad_(True)
+        whole, _ = apply(p, h0, cfg, return_state=True)
+        want = torch.autograd.grad((whole * w).sum(), [h0] + leaves)
+        outs, _, ins, sim = _in_blocks(monkeypatch, apply, p, h, cfg, blocks,
+                                       grad=True)
+    n = CHAIN_S // blocks
+    sim.phase()
+    got_h, got_w = [None] * blocks, [torch.zeros_like(x) for x in leaves]
+    for q in reversed(range(blocks)):
+        sim.rank()
+        g = torch.autograd.grad((outs[q] * w[:, q * n:(q + 1) * n]).sum(),
+                                [ins[q]] + leaves)
+        got_h[q] = g[0]
+        got_w = [a + b for a, b in zip(got_w, g[1:])]
+    torch.testing.assert_close(torch.cat(outs, dim=1), whole.detach(),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(torch.cat(got_h, dim=1), want[0],
+                               rtol=RTOL, atol=ATOL)
+    for a, b in zip(got_w, want[1:]):
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("blocks,chunk", [(4, 8), (2, 16)])
+def test_xlstm_split_that_cuts_a_chunk_runs_in_shorter_chunks(
+        monkeypatch, blocks, chunk):
+    """A rank's rows of a split sequence that are not whole ``mlstm_chunk``
+    chunks (4 rows against 8, 8 against 16) run the scan in chunks of the
+    largest size dividing both: the same function as the whole run in
+    chunks of ``mlstm_chunk``, values and the last block's cache at rtol
+    1e-4 / atol 1e-5 (the chunks group the sums differently)."""
+    cfg = _chain_config().with_overrides(mlstm_chunk=chunk)
+    _, p, h, _, apply = _chain_case("mlstm")
+    with torch.no_grad():
+        want, want_cache = apply(p, h, cfg, return_state=True)
+    outs, cache, _, _ = _in_blocks(monkeypatch, apply, p, h, cfg, blocks,
+                                   grad=False)
+    torch.testing.assert_close(torch.cat(outs, dim=1), want, rtol=RTOL,
+                               atol=ATOL)
+    assert set(cache) == set(want_cache)
+    for key in want_cache:
+        torch.testing.assert_close(cache[key], want_cache[key], rtol=RTOL,
+                                   atol=ATOL)
+
+
+def test_xlstm_split_whose_rows_hold_no_halo_raises():
+    """A rank's 2 rows of a split sequence hold no whole conv halo of 3
+    rows: ``ValueError`` naming the fix, before any collective."""
+    cfg = _chain_config()
+    p = xlstm.init_mlstm(torch.Generator().manual_seed(0), cfg)
+    split_q = common.TokenSplit(_RanksInTurn.Mesh(8), [0], 2, 16, True, [],
+                                2)
+    with pytest.raises(ValueError, match="fewer ranks"):
+        xlstm.apply_mlstm(p, torch.zeros((2, 2, cfg.d_model)), cfg, split_q)
 
 
 # ---------------------------------------------------------------------------
@@ -420,6 +611,65 @@ def test_dryrun_seq2d_prefill_all_reduces_match_the_hand_count(mesh):
     assert not dist.is_initialized()
     counts = rec["coll_breakdown"]["counts"]
     n, nbytes = hand_count_rg_seq2d_prefill(cfg, prefill, shape)
+    assert sum(counts.values()) == counts["all-reduce"] == n
+    assert rec["coll_bytes_per_chip"] == nbytes
+
+
+def hand_count_xlstm_seq2d_prefill(cfg, shape, mesh: MeshShape) -> tuple:
+    """``(all-reduces, result bytes)`` a chip takes part in during reduced
+    xlstm-1.3b's prefill under seq2d (f32, the mixers' weights
+    replicated, the tied table over model, the batch over the data axes,
+    the sequence over model), derived from the layer shapes, with b = B /
+    data, s = S, r the model axis, Di = the mLSTM's inner width, NH heads
+    of DH (mLSTM) or D / NH (sLSTM):
+
+    * one of the vocab-parallel embedding's (b, s, D) rows;
+    * each mLSTM layer: the conv's halo, one of every rank's last 3
+      pre-conv rows (b, 3 r, Di); the chain's r hops, each the (C, n, m)
+      f32 state (b, NH (DH^2 + DH + 1)), the last handing every rank the
+      last rank's state for the cache;
+    * each sLSTM layer: the chain's r hops, each the (c, n, h, m) f32
+      state (b, 4 D);
+    * the final head: the sequence gathered, one of (b, s, D), whose
+      logits stay vocab-parallel.
+
+    The cache is placed by ``cache_specs`` from whole rows by slicing
+    alone."""
+    data = 1
+    for a in ("pod", "data"):
+        data *= mesh.shape.get(a, 1)
+    r = mesh.shape["model"]
+    b, s, d = shape.global_batch // data, shape.seq_len, cfg.d_model
+    di = int(d * cfg.mlstm_proj_factor)
+    nh = cfg.n_heads
+    dh = di // nh
+    mixers = [cfg.layer_spec(i).mixer for i in range(cfg.n_layers)]
+    n_m, n_s = mixers.count("mlstm"), mixers.count("slstm")
+    count = 1 + n_m * (1 + r) + n_s * r + 1
+    nbytes = 4 * (b * s * d + n_m * (b * 3 * r * di
+                                     + r * b * nh * (dh * dh + dh + 1))
+                  + n_s * r * b * 4 * d + b * s * d)
+    return count, nbytes
+
+
+@pytest.mark.parametrize("mesh", [(16, 16), (2, 16, 16)])
+def test_dryrun_xlstm_seq2d_prefill_all_reduces_match_the_hand_count(mesh):
+    """Reduced xlstm-1.3b under seq2d (``mlstm_chunk`` 4), prefill of 64
+    positions (4 rows a chip: one whole chunk, one conv halo of 3), on a
+    fake (16, 16) mesh and a fake (2, 16, 16) one: rank 0's walk,
+    all-reduces only, counted and sized by hand."""
+    names = ("data", "model") if len(mesh) == 2 else ("pod", "data",
+                                                      "model")
+    shape = MeshShape(mesh, names)
+    cfg = configs.get_reduced("xlstm-1.3b").with_overrides(
+        attn_shard="seq2d", compute_dtype="float32", mlstm_chunk=4)
+    prefill = InputShape("prefill_seq2d", 64, shape.size // 16, "prefill")
+    assert dryrun.walks_per_chip(cfg, prefill, shape)
+    rec = dryrun.lower_one(cfg.name, prefill, cfg_override=cfg, mesh=shape,
+                           verbose=False)
+    assert not dist.is_initialized()
+    counts = rec["coll_breakdown"]["counts"]
+    n, nbytes = hand_count_xlstm_seq2d_prefill(cfg, prefill, shape)
     assert sum(counts.values()) == counts["all-reduce"] == n
     assert rec["coll_bytes_per_chip"] == nbytes
 

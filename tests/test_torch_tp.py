@@ -59,10 +59,9 @@ GSPMD computes for the reference under the same policy).
   against the reference's cache; the codebook embedding bitwise the
   unsharded sum; ``common.gather_by_sum`` against gloo's functional
   all-gather; both configs' specs against the reference's.
-* The refusals over a live model axis (seq2d / dp2d / seq2d_fsdp, the
-  compressed wire, SCAFFOLD, a seq2d serve step), each
-  ``NotImplementedError`` naming its ``ROADMAP.md`` item; the int8 wire's
-  group check on a leaf whose shards straddle 128-element groups (an mlp
+* What once raised over a live model axis and now runs (a seq2d split of
+  the hybrid, audio, MoE and xLSTM configs, a live pod axis); the int8
+  wire's group check on a leaf whose shards straddle 128-element groups (an mlp
   leaf and an expert leaf); a cohort of kimi-k2's 2-D experts, whose
   specs name data twice.
 * The vocab-parallel embedding with a tied unembedding and the
@@ -276,6 +275,9 @@ def references():
             out[(engine, arch)] = ref_round(engine, arch)
         out[("tree", arch)] = out[("flat f32", arch)]
         out[("decode", arch)] = ref_decode(arch, *cases.TP_SPLIT_DECODE[1:])
+    for arch, prompt, cache_len in {c[1:] for cs in cases.TP_SPLIT_B1.values()
+                                    for c in cs}:
+        out[("decode b1", arch)] = ref_decode(arch, 1, prompt, cache_len)
     out[("train", cases.TP_FSDP)] = ref_train(cases.TP_FSDP)
     out[("decode", cases.TP_FSDP)] = ref_decode(cases.TP_FSDP,
                                                 *cases.TP_FSDP_DECODE[1:])
@@ -376,6 +378,11 @@ SPLITS.update({cases.split_key(kind, "(2, 2)", cases.TP_FSDP):
               (4, "(2, 2)", cases.TP_FSDP, kind)
               for kind in ("train", "decode")})
 BITWISE.update({key: (world, key) for key, (world, *_) in SPLITS.items()})
+# the seq2d serve steps at batch 1: (world size, mesh, arch)
+SPLIT_B1 = {cases.split_key("decode b1", mesh, arch): (world, mesh, arch)
+            for world, cs in cases.TP_SPLIT_B1.items()
+            for mesh, arch, _, _ in cs}
+BITWISE.update({key: (world, key) for key, (world, *_) in SPLIT_B1.items()})
 BITWISE.update({"long train": (2, "long train"),
                 "long prefill": (2, "long prefill")})
 BITWISE.update({key: (world, key) for key, world in XLSTM_BF16.items()})
@@ -673,23 +680,14 @@ def test_serve_step_writes_each_slot_on_its_owner_only(tp_runs, case):
         assert owners       # the cases whose caches go over kv_seq
 
 
-# the token splits of the configs whose blocks do not run on a rank's rows
-# (xLSTM: its states across ranks)
-REFUSALS = {"seq2d xlstm-1.3b": "item 18"}
 # what ran out of scope before and now runs: a seq2d split of the hybrid
-# and audio configs, and of the MoE configs (their queue positions counted
-# across ranks), is a live token split, and the round's data group over a
-# pod axis is the pod x data group (here one pod of one data rank: world
-# size 1)
+# and audio configs, of the MoE configs (their queue positions counted
+# across ranks) and of the xLSTM configs (their states chained across
+# ranks) is a live token split, and the round's data group over a pod axis
+# is the pod x data group (here one pod of one data rank: world size 1)
 LIFTED = {"seq2d recurrentgemma-2b": "True", "seq2d musicgen-large": "True",
-          "seq2d qwen2-moe-a2.7b": "True", "pod axis": "1"}
-
-
-@pytest.mark.parametrize("name", list(REFUSALS))
-def test_out_of_scope_raises_naming_its_roadmap_item(tp_runs, name):
-    msg = tp_runs[0][2][0]["refusals"][name]
-    assert msg.startswith("NotImplementedError"), msg
-    assert f"ROADMAP.md §1 {REFUSALS[name]}" in msg
+          "seq2d qwen2-moe-a2.7b": "True", "seq2d xlstm-1.3b": "True",
+          "pod axis": "1"}
 
 
 @pytest.mark.parametrize("name", list(LIFTED))
@@ -797,8 +795,33 @@ COLLECTIVES = {cases.split_key(f"{kind} collectives", mesh, arch): world
                for world, meshes in cases.TP_MESHES.items()
                for mesh in meshes for arch in cases.TP_SPLIT
                for kind in ("train", "decode")}
+COLLECTIVES.update({cases.split_key("decode b1 collectives", mesh, arch):
+                    world for world, mesh, arch in SPLIT_B1.values()})
 COLLECTIVES[cases.split_key("decode collectives", "(2, 2)",
                             cases.TP_FSDP)] = 4
+
+
+@pytest.mark.parametrize("what", ["prefill", "logits", "exit", "cache"])
+@pytest.mark.parametrize("key", list(SPLIT_B1))
+def test_seq2d_serve_step_at_batch_1_matches_reference(tp_runs, key, what):
+    """A seq2d prefill and 6 serve steps at batch 1, the batch split over a
+    data dim of one rank (decode's attention output placed whole over
+    it, ``attention._attend_sharded``): reduced gemma2-2b and qwen2-moe at
+    (1, 2) and (1, 4) against the reference's under seq2d's flags."""
+    world, _, arch = SPLIT_B1[key]
+    got = tp_runs[0][world][0][key]
+    want = tp_runs[1][("decode b1", arch)]
+    if what == "prefill":
+        assert_close(got["prefill"]["logits"], want["prefill"]["logits"])
+        assert_leaves(got["prefill"]["cache"], want["prefill"]["cache"])
+        return
+    assert len(got[what]) == len(want[what]) == cases.TP_DECODE_STEPS
+    for g, w in zip(got[what], want[what]):
+        if what == "cache":
+            assert_leaves(g, w)
+        else:
+            assert_close(g, w)
+    assert got["placements"] == [got["want_placements"]] * 2
 
 
 @pytest.mark.parametrize("key", list(COLLECTIVES))

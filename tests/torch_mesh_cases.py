@@ -65,8 +65,9 @@ def rank_main(rank: int, world: int, store_path: str, params_path: str,
     """One rank: gloo over a FileStore, a (world, 1) mesh; each case's
     sharded round, its rows by ``steps``' split and by
     ``distribute_tensor``; then a (1, world) mesh with a model axis: a
-    live tensor-parallel policy for the dense config, and a ``seq2d``
-    split of an ``ssm`` config still refused.  Writes ``rank<r>.pt`` (or ``rank<r>.err``)."""
+    live tensor-parallel policy for the dense config, and whether a
+    ``seq2d`` split of an ``ssm`` config is a live token split.  Writes
+    ``rank<r>.pt`` (or ``rank<r>.err``)."""
     import torch.distributed as dist
     torch.set_num_threads(1)
     try:
@@ -89,7 +90,8 @@ def rank_main(rank: int, world: int, store_path: str, params_path: str,
         wide = make_device_mesh(1, world, "cpu")
         out["model_axis_live"] = sharding.MeshPolicy(wide, CFG).model_live
         out["model_axis"] = _raises(lambda: sharding.MeshPolicy(
-            wide, CFG.with_overrides(attn_shard="seq2d", arch_type="ssm")))
+            wide, CFG.with_overrides(attn_shard="seq2d",
+                                     arch_type="ssm")).token_split)
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
         dist.destroy_process_group()
     except BaseException:
@@ -165,6 +167,12 @@ MOE_VARIANTS = {"qwen2-moe-a2.7b:groups": ({"d_expert": 256},
                    for arch in ("recurrentgemma-2b", "musicgen-large",
                                 "qwen2-moe-a2.7b", "kimi-k2-1t-a32b")
                    for mode in ("seq2d", "dp2d", "seq2d_fsdp")},
+                # the xLSTM token splits: mlstm_chunk 4, so that a rank's
+                # rows at (1, 4) (16 tokens: 4 a rank) are one whole chunk
+                **{f"xlstm-1.3b:{mode}": ({}, {"attn_shard": mode,
+                                               "mlstm_chunk": 4})
+                   for mode in ("seq2d", "dp2d", "seq2d_fsdp")},
+                "xlstm-1.3b:chunk4": ({}, {"mlstm_chunk": 4}),
                 # a capacity factor at which rank 1 of a seq2d split drops
                 # pairs that a routing of its own rows would keep
                 # (torch_split_moe_cases.DROP)
@@ -239,6 +247,12 @@ TP_SPLIT = ("gemma2-2b:seq2d", "gemma2-2b:dp2d")
 TP_FSDP = "llava-next-34b:seq2d_fsdp"
 TP_SPLIT_DECODE = ("gemma2-2b", 2, 20, 42)
 TP_FSDP_DECODE = ("llava-next-34b", 2, 12, 32)
+# a seq2d serve step at batch 1 (its batch split over a data dim of one
+# rank), by world size: (mesh, arch, prompt tokens, cache_len)
+TP_SPLIT_B1 = {2: (("(1, 2)", "gemma2-2b:seq2d", 20, 42),
+                   ("(1, 2)", "qwen2-moe-a2.7b:seq2d", 20, 32)),
+               4: (("(1, 4)", "gemma2-2b:seq2d", 20, 42),
+                   ("(1, 4)", "qwen2-moe-a2.7b:seq2d", 20, 32))}
 TP_LONG = 2048
 
 
@@ -623,9 +637,9 @@ def refusals(mesh) -> dict:
     from repro_torch.launch import sharding, steps
     cfg = tp_config(TP_TRAIN)
     out = {}
-    # the token splits of the configs whose blocks do not run on a rank's
-    # rows (xLSTM), and of those that do since the hybrid and audio slice
-    # (RG-LRU, codebooks) and the MoE slice (queue positions across ranks)
+    # the token splits of the configs whose blocks once did not run on a
+    # rank's rows: RG-LRU, codebooks, MoE (queue positions across ranks)
+    # and xLSTM (their states chained across ranks)
     for arch in ("recurrentgemma-2b", "qwen2-moe-a2.7b", "xlstm-1.3b",
                  "musicgen-large"):
         seq2d = tp_config(arch).with_overrides(attn_shard="seq2d")
@@ -741,7 +755,8 @@ def tp_rank_main(rank: int, world: int, store_path: str,
     train steps of ``TP_MOE_TRAIN``; at each of ``TP_ZOO_MESHES`` the
     xLSTM and codebook configs' train steps and three rounds, the
     gather check and the codebook embedding; then the decode cases of
-    ``TP_DECODE`` at each world size.  Each result is saved
+    ``TP_DECODE`` at each world size, the specs and the token splits, and
+    the seq2d serve steps at batch 1 of ``TP_SPLIT_B1``.  Each result is saved
     whole (``full_tensor``) to ``tp<world>_rank<r>.pt`` (or the traceback
     to ``tp<world>_rank<r>.err``)."""
     import torch.distributed as dist
@@ -863,6 +878,11 @@ def tp_rank_main(rank: int, world: int, store_path: str,
                 out[split_key("decode", name, arch)] = decode_case(
                     meshes[name], arch, *TP_SPLIT_DECODE[1:],
                     collectives=kinds)[0]
+        for name, arch, prompt, cache_len in TP_SPLIT_B1[world]:
+            kinds = out[split_key("decode b1 collectives", name, arch)] = []
+            out[split_key("decode b1", name, arch)] = decode_case(
+                meshes[name], arch, 1, prompt, cache_len,
+                collectives=kinds)[0]
         if world == 2:
             long_arch = TP_SPLIT[0]
             out["long train"] = train_of(long_arch, mesh, tp_long_batch(

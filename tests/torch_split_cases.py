@@ -22,11 +22,16 @@ from repro_torch.launch.mesh import make_device_mesh
 from repro_torch.tree import tree_map
 
 # reduced recurrentgemma-2b (two RG-LRU layers and a local attention layer
-# of window 16, one kv head) and reduced musicgen-large (2 codebooks, 4
-# conditioning rows), f32, under each token split at each mesh; the round
-# step under seq2d and dp2d (a seq2d_fsdp cohort is refused)
-SPLIT_ARCHS = ("recurrentgemma-2b", "musicgen-large")
+# of window 16, one kv head), reduced musicgen-large (2 codebooks, 4
+# conditioning rows) and reduced xlstm-1.3b (an mLSTM and an sLSTM layer,
+# mlstm_chunk 4, its sLSTM output kept in f32: cases.f32_slstm_out), f32,
+# under each token split at each mesh; the round step under seq2d and dp2d
+# (a seq2d_fsdp cohort is refused)
+SPLIT_ARCHS = ("recurrentgemma-2b", "musicgen-large", "xlstm-1.3b")
 SPLIT_MODES = ("seq2d", "dp2d", "seq2d_fsdp")
+# the config of each arch's unsharded reference steps (xlstm's at the
+# splits' mlstm_chunk 4)
+REF_ARCH = {"xlstm-1.3b": "xlstm-1.3b:chunk4"}
 ROUND_MODES = ("seq2d", "dp2d")
 SPLIT_MESHES = {2: ("(1, 2)",), 4: ("(1, 4)", "(2, 2)")}
 ENGINES = cases.TP_ENGINES
@@ -125,10 +130,8 @@ def _meshes(world: int) -> dict:
 
 
 def split_refusals(mesh) -> dict:
-    """The token splits of the ``moe`` and ``ssm`` arch types: whether
-    the policy splits the tokens (the MoE configs', lifted), or what it
-    raises (the xLSTM configs', still out of scope: ROADMAP.md §1 item
-    18)."""
+    """The token splits of the ``moe`` and ``ssm`` arch types, which once
+    raised: whether the policy splits the tokens, or what it raises."""
     from repro_torch.launch import sharding
     out = {}
     for arch in ("qwen2-moe-a2.7b", "xlstm-1.3b"):
@@ -136,6 +139,32 @@ def split_refusals(mesh) -> dict:
             cfg = cases.tp_config(arch).with_overrides(attn_shard=mode)
             out[f"{mode} {arch}"] = cases._raises(
                 lambda c=cfg: sharding.MeshPolicy(mesh, c).token_split)
+    return out
+
+
+def slstm_out(arch: str):
+    """xlstm's sLSTM output kept in f32 (``cases.f32_slstm_out``), as the
+    reference's steps run it here; nothing for another arch."""
+    import contextlib
+    return cases.f32_slstm_out() if arch.startswith("xlstm") \
+        else contextlib.nullcontext()
+
+
+def mode_cases(arch: str, mode: str, name: str, mesh) -> dict:
+    """``arch`` under ``mode`` on ``mesh`` (named ``name``): the train
+    step and its collectives, the prefill and serve steps
+    (:func:`decode_case`) and their collectives, and under seq2d and dp2d
+    the three round engines."""
+    a = split_arch(arch, mode)
+    out = {}
+    kinds = out[split_key("train collectives", name, arch, mode)] = []
+    out[split_key("train", name, arch, mode)] = train_case(a, mesh, kinds)
+    kinds = out[split_key("decode collectives", name, arch, mode)] = []
+    out[split_key("decode", name, arch, mode)] = decode_case(a, mesh, kinds)
+    if mode in ROUND_MODES:
+        for engine in ENGINES:
+            out[split_key(engine, name, arch, mode)] = round_case(
+                a, engine, mesh)
     return out
 
 
@@ -172,21 +201,9 @@ def split_rank_main(rank: int, world: int, store_path: str,
         meshes = _meshes(world)
         for name, mesh in meshes.items():
             for arch in SPLIT_ARCHS:
-                for mode in SPLIT_MODES:
-                    a = split_arch(arch, mode)
-                    kinds = out[split_key("train collectives", name, arch,
-                                          mode)] = []
-                    out[split_key("train", name, arch, mode)] = train_case(
-                        a, mesh, kinds)
-                    kinds = out[split_key("decode collectives", name, arch,
-                                          mode)] = []
-                    out[split_key("decode", name, arch, mode)] = \
-                        decode_case(a, mesh, kinds)
-                    if mode not in ROUND_MODES:
-                        continue
-                    for engine in ENGINES:
-                        out[split_key(engine, name, arch, mode)] = \
-                            round_case(a, engine, mesh)
+                with slstm_out(arch):
+                    for mode in SPLIT_MODES:
+                        out.update(mode_cases(arch, mode, name, mesh))
         if world == 2:
             out["refusals"] = split_refusals(meshes["(1, 2)"])
         return out
